@@ -1,0 +1,78 @@
+"""Carry a base graph across packages as numpy arrays.
+
+:func:`graph_to_numpy` flattens the port's graph into the reference's global
+stacked layout (shard blocks along dim 0) and :func:`graph_from_numpy` reads
+that layout back, so a graph built by the JAX package, read out with
+``np.asarray`` field by field, can be queried by the port, which tests the
+read path apart from the build.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.hashgraph import HashGraph
+from repro_torch.core.multi_hashgraph import DistributedHashGraph
+
+
+def graph_from_numpy(
+    *,
+    offsets,
+    keys,
+    values,
+    hash_splits,
+    num_dropped,
+    hash_range: int,
+    seed: int,
+    local_range_cap: int,
+    bucket_stride: int = 1,
+    device,
+) -> DistributedHashGraph:
+    """Port graph from the global arrays of a base ``DistributedHashGraph``.
+
+    ``offsets`` is ``(D*(local_range_cap+2),)`` int32, ``keys`` ``(D*M,)``
+    uint32, ``values`` ``(D*M,)`` int32, ``hash_splits`` ``(D+1,)``.
+    """
+    splits = np.asarray(hash_splits, dtype=np.int32)
+    d = splits.shape[0] - 1
+    offsets = np.asarray(offsets, dtype=np.int32).reshape(d, local_range_cap + 2)
+    keys = np.asarray(keys, dtype=np.uint32).reshape(d, -1).view(np.int32)
+    values = np.asarray(values, dtype=np.int32).reshape(d, -1)
+
+    def dev(a) -> torch.Tensor:
+        return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+    return DistributedHashGraph(
+        local=HashGraph(
+            offsets=dev(offsets),
+            keys=dev(keys),
+            values=dev(values),
+            table_size=int(local_range_cap),
+            seed=int(seed),
+        ),
+        hash_splits=dev(splits),
+        num_dropped=torch.tensor(int(np.asarray(num_dropped)), device=device),
+        hash_range=int(hash_range),
+        seed=int(seed),
+        local_range_cap=int(local_range_cap),
+        bucket_stride=int(bucket_stride),
+    )
+
+
+def graph_to_numpy(graph: DistributedHashGraph) -> dict:
+    """The graph's arrays in the global stacked layout, plus its metadata."""
+
+    def host(t: torch.Tensor) -> np.ndarray:
+        return t.detach().cpu().numpy()
+
+    return {
+        "offsets": host(graph.local.offsets).reshape(-1),
+        "keys": host(graph.local.keys).reshape(-1).view(np.uint32),
+        "values": host(graph.local.values).reshape(-1),
+        "hash_splits": host(graph.hash_splits),
+        "num_dropped": int(graph.num_dropped),
+        "hash_range": graph.hash_range,
+        "seed": graph.seed,
+        "local_range_cap": graph.local_range_cap,
+        "bucket_stride": graph.bucket_stride,
+    }

@@ -1,0 +1,175 @@
+"""Phases 2–3 of Alg. 2 — capacity-padded exchange on stacked shards (port of
+``repro.core.exchange``).
+
+The D shards of a table live on one device with a leading shard axis, so
+the all-to-all of a ``(D_src, D_dst * capacity, ...)`` buffer is a transpose
+of its first two block axes, ``psum`` is a sum over the shard axis and
+``my_rank`` is ``arange(D)``.  This is the single-card backend; a
+``torch.distributed`` backend for several cards is a later slice.
+
+Every all-to-all round counts one call in :data:`CALLS` under the current
+label (``"exchange"`` unless :func:`counting_as` says otherwise): the port's
+routing-budget check in place of the reference's jaxpr collective count.
+"""
+from __future__ import annotations
+
+import collections
+import contextlib
+import dataclasses
+from typing import Optional, Sequence
+
+import torch
+
+# Label -> all-to-all rounds made under it in this process.
+CALLS: collections.Counter = collections.Counter()
+_label = ["exchange"]
+
+
+@contextlib.contextmanager
+def counting_as(label: str):
+    """Count the exchange rounds made inside the block under ``label``."""
+    _label.append(label)
+    try:
+        yield
+    finally:
+        _label.pop()
+
+
+def _count_call() -> None:
+    CALLS[_label[-1]] += 1
+
+
+@dataclasses.dataclass(frozen=True)
+class Route:
+    """Bookkeeping to reverse a dispatch, one row per source shard."""
+
+    perm: torch.Tensor  # (D, N) int64 stable argsort by destination
+    slot: torch.Tensor  # (D, N) int64 flat slot in the packed buffer
+    keep: torch.Tensor  # (D, N) bool, False for capacity-dropped rows
+    num_dropped: torch.Tensor  # (D,) int64 per-source overflow count
+    num_dest: int
+    capacity: int
+
+
+def pack_by_destination(
+    payloads: Sequence[torch.Tensor],
+    dest: torch.Tensor,
+    num_dest: int,
+    capacity: int,
+    fills: Sequence[int],
+    count_mask: Optional[torch.Tensor] = None,
+) -> tuple[list[torch.Tensor], Route]:
+    """Counting-sort each shard's rows by destination into ``(D, num_dest*capacity)``.
+
+    The **stable** argsort keeps the input order inside a destination, which
+    fixes the CSR value order that retrieve returns.  Rows beyond
+    ``capacity`` per destination are scattered into one trash slot that is
+    cut off, and counted in ``num_dropped`` where ``count_mask`` marks them.
+    """
+    d_src, n = dest.shape
+    dev = dest.device
+    sdest, perm = torch.sort(dest.to(torch.int32), dim=1, stable=True)
+    targets = torch.arange(num_dest, dtype=torch.int32, device=dev).expand(d_src, -1)
+    part_start = torch.searchsorted(sdest, targets.contiguous(), side="left")
+    sdest = sdest.to(torch.int64)
+    rank_in_part = torch.arange(n, device=dev) - torch.gather(part_start, 1, sdest)
+    keep = rank_in_part < capacity
+    slot = sdest * capacity + torch.where(keep, rank_in_part, 0)
+    scatter_idx = torch.where(keep, slot, num_dest * capacity)
+    packed = []
+    for p, fill in zip(payloads, fills):
+        buf = torch.full((d_src, num_dest * capacity + 1), fill, dtype=p.dtype, device=dev)
+        buf.scatter_(1, scatter_idx, torch.gather(p, 1, perm))
+        packed.append(buf[:, :-1])
+    counted = ~keep if count_mask is None else (~keep & torch.gather(count_mask, 1, perm))
+    route = Route(
+        perm=perm,
+        slot=slot,
+        keep=keep,
+        num_dropped=counted.sum(dim=1),
+        num_dest=num_dest,
+        capacity=capacity,
+    )
+    return packed, route
+
+
+def all_to_all(x: torch.Tensor) -> torch.Tensor:
+    """``(D_src, D_dst, ...)`` → ``(D_dst, D_src, ...)``: row ``r`` of the
+    result holds the blocks every source sent to shard ``r``."""
+    return x.transpose(0, 1).contiguous()
+
+
+def dispatch(
+    payloads: Sequence[torch.Tensor],
+    dest: torch.Tensor,
+    capacity: int,
+    fills: Sequence[int],
+    count_mask: Optional[torch.Tensor] = None,
+) -> tuple[list[torch.Tensor], Route]:
+    """Send row ``j`` of shard ``s`` to shard ``dest[s, j]`` (one exchange call).
+
+    Returns received buffers ``(D, D * capacity)``, row-major by source,
+    padded with ``fills``, and the :class:`Route` to send answers back.
+    """
+    num_dest = dest.shape[0]
+    packed, route = pack_by_destination(
+        payloads, dest, num_dest, capacity, fills, count_mask=count_mask
+    )
+    _count_call()
+    received = [
+        all_to_all(buf.reshape(num_dest, num_dest, capacity)).reshape(num_dest, -1)
+        for buf in packed
+    ]
+    return received, route
+
+
+def _unsort(sorted_rows: torch.Tensor, route: Route) -> torch.Tensor:
+    out = torch.empty_like(sorted_rows)
+    return out.scatter_(1, route.perm, sorted_rows)
+
+
+def combine(answers: torch.Tensor, route: Route, fill: int) -> torch.Tensor:
+    """Inverse of :func:`dispatch` for one answer per row (one exchange call).
+
+    ``answers`` is laid out like the received buffers ``(D, D*capacity)``;
+    dropped rows get ``fill``.
+    """
+    d, cap = route.num_dest, route.capacity
+    _count_call()
+    back = all_to_all(answers.reshape(d, d, cap)).reshape(d, d * cap)
+    ans_sorted = torch.where(route.keep, torch.gather(back, 1, route.slot), fill)
+    return _unsort(ans_sorted, route)
+
+
+def combine_ragged(
+    seg_values: torch.Tensor, slot_counts: torch.Tensor, route: Route
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Inverse of :func:`dispatch` for variable-fanout answers (retrieval).
+
+    ``seg_values`` is ``(D_owner, D_src, seg_capacity)``: owner ``o``'s packed
+    answer runs for source ``s``; ``slot_counts`` ``(D_owner, D_src*capacity)``
+    the per-slot run lengths.  Values and counts go home as two transposes
+    that count as **one** exchange call (the reference packs both into one
+    buffer, an interconnect optimisation with the same outputs).
+
+    Returns ``(counts, starts, values)`` in each querier's row order:
+    ``(D, N)`` counts (0 for dropped rows), ``(D, N)`` starts into
+    ``values`` ``(D, D*seg_capacity)`` (row-major by owner).
+    """
+    d, cap = route.num_dest, route.capacity
+    seg_cap = seg_values.shape[2]
+    _count_call()
+    back_vals = all_to_all(seg_values)  # (D_src, D_owner, seg_cap)
+    back_counts = all_to_all(slot_counts.to(torch.int32).reshape(d, d, cap))
+    # Owner o packed my block by the exclusive cumsum of my slots' counts;
+    # recompute the identical offsets from the returned counts.
+    block_off = torch.cumsum(back_counts, dim=2, dtype=torch.int32) - back_counts
+    flat_counts = back_counts.reshape(d, d * cap)
+    flat_off = block_off.reshape(d, d * cap)
+    owner = torch.div(route.slot, cap, rounding_mode="floor")
+    starts_packed = owner * seg_cap + torch.gather(flat_off, 1, route.slot)
+    counts_sorted = torch.where(route.keep, torch.gather(flat_counts, 1, route.slot), 0)
+    starts_sorted = torch.where(route.keep, starts_packed, 0)
+    counts = _unsort(counts_sorted.to(torch.int32), route)
+    starts = _unsort(starts_sorted.to(torch.int32), route)
+    return counts, starts, back_vals.reshape(d, d * seg_cap)

@@ -1,0 +1,117 @@
+"""Entry points around the CSR gather kernels (port of ``repro.kernels.ops``).
+
+``csr_gather``, ``csr_gather_batched`` and ``csr_gather_layers`` keep the
+reference's contracts: the prefix sum runs as plain tensor code, the per-slot
+bisection and gather in kernel 3 or 4 on the card (their plain twin on the
+CPU).  A uint32 table (the ``torch.uint32`` dtype) goes through its int32
+view, so ``fill=-1`` comes back as ``0xFFFFFFFF``.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from repro_torch.kernels import csr_gather as _gather
+
+
+def _as_int32_table(table: torch.Tensor) -> tuple[torch.Tensor, bool]:
+    if table.dtype == torch.uint32:
+        return table.view(torch.int32), True
+    if table.dtype != torch.int32:
+        raise ValueError(f"csr_gather kernel supports int32/uint32 tables, got {table.dtype}")
+    return table, False
+
+
+def run_offsets(counts: torch.Tensor) -> torch.Tensor:
+    """Exclusive prefix sums ``(..., N+1)`` int32 of ``(..., N)`` run lengths."""
+    counts = counts.to(torch.int32)
+    zero = torch.zeros(counts.shape[:-1] + (1,), dtype=torch.int32, device=counts.device)
+    return torch.cat([zero, torch.cumsum(counts, -1, dtype=torch.int32)], -1)
+
+
+def csr_gather(
+    starts: torch.Tensor,
+    counts: torch.Tensor,
+    table: torch.Tensor,
+    *,
+    capacity: int,
+    fill: int = -1,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """CSR match-run compaction of ``(N,)`` runs into ``capacity`` slots.
+
+    Returns ``(offsets, row_idx, gathered, num_dropped)``: ``(N+1,)`` offsets
+    clamped to ``capacity``, ``(capacity,)`` row ids and values, and the ()
+    overflow ``max(0, total - capacity)``.
+    """
+    table, unsigned = _as_int32_table(table)
+    offsets = run_offsets(counts)
+    vals, rows = _gather.csr_gather_2d(
+        offsets, starts.to(torch.int32), table, capacity, fill
+    )
+    if unsigned:
+        vals = vals.view(torch.uint32)
+    num_dropped = torch.clamp(offsets[-1] - capacity, min=0)
+    return torch.clamp(offsets, max=capacity), rows, vals, num_dropped
+
+
+def csr_gather_batched(
+    starts: torch.Tensor,
+    counts: torch.Tensor,
+    table: torch.Tensor,
+    *,
+    capacity: int,
+    fill: int = -1,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """S CSR gathers over one shared table in one launch.
+
+    ``starts``/``counts`` are ``(S, N)``.  Returns ``(offsets, row_idx,
+    gathered, num_dropped)``: ``(S, N+1)`` clamped offsets, ``(S, capacity)``
+    row ids and values, and the () total overflow across sources.
+    """
+    table, unsigned = _as_int32_table(table)
+    offsets = run_offsets(counts)
+    vals, rows = _gather.csr_gather_batched_2d(
+        offsets, starts.to(torch.int32), table, capacity, fill
+    )
+    if unsigned:
+        vals = vals.view(torch.uint32)
+    num_dropped = torch.clamp(offsets[:, -1] - capacity, min=0).sum().to(torch.int32)
+    return torch.clamp(offsets, max=capacity), rows, vals, num_dropped
+
+
+def interleave_layer_runs(
+    starts: torch.Tensor, counts: torch.Tensor, tables: Sequence[torch.Tensor]
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Slot-major/layer-minor interleave of ``(L, S, N)`` run descriptors.
+
+    ``starts`` are already offset into the concatenated layer tables.  The
+    ``(S, N·L)`` result places slot ``i``'s L runs adjacently in epoch order:
+    the packing the ragged return reconstructs from per-slot totals.  The
+    single definition of that order, for the kernel path and the plain path.
+    """
+    l, s_dim, n = counts.shape
+    table_cat = tables[0] if l == 1 else torch.cat(list(tables), 0)
+    starts_i = starts.to(torch.int32).permute(1, 2, 0).reshape(s_dim, n * l)
+    counts_i = counts.to(torch.int32).permute(1, 2, 0).reshape(s_dim, n * l)
+    return starts_i, counts_i, table_cat
+
+
+def csr_gather_layers(
+    starts: torch.Tensor,
+    counts: torch.Tensor,
+    tables: Sequence[torch.Tensor],
+    *,
+    capacity: int,
+    fill: int = -1,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Owner-side gather across a layer stack: one batched launch for L·S CSRs.
+
+    Returns ``(gathered, num_dropped)``: ``(S, capacity)`` packed segments
+    and the () total overflow across sources.
+    """
+    starts_i, counts_i, table_cat = interleave_layer_runs(starts, counts, tables)
+    _, _, gathered, num_dropped = csr_gather_batched(
+        starts_i, counts_i, table_cat, capacity=capacity, fill=fill
+    )
+    return gathered, num_dropped
