@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one CUDA card and check every result.
+"""Drive the PyTorch port's main paths on one CUDA card and check every result.
 
     python3 chip_smoke.py [--keys 134217728] [--seed 0] [--profile]
                           [--out results.json]
@@ -14,18 +14,30 @@ Run from the root of a checkout: it builds the port's CUDA kernels from
    retrieved value multiset, every join pair, ``num_dropped == 0``, exactly
    two exchange calls per retrieve and per join) and reports build keys/s,
    query keys/s and retrieve results/s;
-2. counts the kernel launches of each run (every count is set to 0 just
-   before a run and read just after it) and requires each kernel > 0;
-3. calls each kernel's wrapper on the inputs each run gives it (at D = 8 the
-   batched gather of one owner over its 8 sources and the gather of one
-   querier), requires ``torch.equal`` with its plain PyTorch twin
-   (tolerance: none, every output is an integer), and times kernel, plain
-   twin and (for the histogram) ``torch.bincount`` with CUDA events beside
-   the least time the card could take: the larger of the bytes moved over
-   3.35 TB/s and the integer operations over the card's int32 rate.
+2. runs the update path through the public API, at D = 1 / N = 2^27 and at
+   D = 8 / N = 2^24: build the base (values = row ids), insert 4 batches of
+   N/32 keys, delete 2^16 base keys, insert a fifth batch that re-inserts
+   2^12 of them, upsert 2^16 keys (half present, half new), then at depth 6
+   read (query all base keys plus 2^20 absent ones through the sorted table
+   and through a ``paper_faithful_probe=True`` table on the same state,
+   retrieve, inner_join and join_size of an N/32 batch), ``fold_oldest(3)``
+   and read again, ``compact()`` and read again; at D = 8 one more insert of
+   a batch skewed onto shard 0's hash range must take the skew guard's
+   fallback, and the reads repeat on that mixed-split stack.  Every read is
+   held against a numpy oracle of the live multiset, every step against
+   ``num_dropped == 0`` and its exchange-call budget;
+3. counts the kernel launches of each run (every count is set to 0 just
+   before a run and read just after it) and requires each kernel of the run
+   > 0 (the update path runs all five);
+4. calls each kernel's wrapper on the inputs each run gives it, requires
+   ``torch.equal`` with its plain PyTorch twin (tolerance: none, every
+   output is an integer), and times kernel, plain twin and (for the
+   histogram) ``torch.bincount`` with CUDA events beside the least time the
+   card could take: the larger of the bytes moved over 3.35 TB/s and the
+   integer operations over the card's int32 rate.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line (one
-row per kernel and run, ``shards`` naming the run) and, last,
+row per kernel and run, ``path`` and ``shards`` naming the run) and, last,
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
 checkout, it exits non-zero before printing any result.
 """
@@ -47,6 +59,10 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
 ABSENT_QUERIES = 1 << 20
 RETRIEVE_QUERIES = 1 << 22
+TOMBSTONE_CAPACITY = 1 << 17
+DELETES = 1 << 16
+REINSERTS = 1 << 12
+UPSERTS = 1 << 16
 
 # Kernel name -> (source in the repo, Pallas function it replaces).
 KERNELS = {
@@ -57,7 +73,13 @@ KERNELS = {
         "src/repro_torch/csrc/csr_gather.cu",
         "src/repro/kernels/bucket_probe.py:206",
     ),
+    "bucket_probe": (
+        "src/repro_torch/csrc/bucket_probe.cu",
+        "src/repro/kernels/bucket_probe.py:40",
+    ),
 }
+# The build -> query -> retrieve path runs the first four; the update path all.
+READ_PATH_KERNELS = ("murmur_bucket", "bin_histogram", "csr_gather", "csr_gather_batched")
 
 
 class SmokeFailure(RuntimeError):
@@ -109,38 +131,40 @@ def wall(fn, device):
 
 
 class Oracle:
-    """numpy reference of a multiset table whose value is the global row id.
+    """numpy reference of a multiset table: its live ``(key, value)`` rows.
 
-    Keys are drawn from ``[0, n)``, so per-value counts come from
-    ``np.bincount`` and the rows of each value from a stable argsort; a
-    query outside ``[0, n)`` counts 0.  (A binary search per query over
+    Keys lie in ``[0, n)``, so per-key counts come from ``np.bincount``; a
+    query outside ``[0, n)`` counts 0.  Pairs are read off a stable sort of
+    only the rows whose key is queried.  (A binary search per query over
     2^27 sorted keys would take minutes on the host.)
     """
 
-    def __init__(self, keys, n: int):
+    def __init__(self, keys, values, n: int):
         import numpy as np
 
-        self.counts = np.bincount(keys, minlength=n)
-        self.first = np.cumsum(self.counts) - self.counts
-        self.order = np.argsort(keys, kind="stable")
+        self.keys, self.values = keys, values
+        self.tally = np.bincount(keys, minlength=n)
 
-    def runs(self, queries):
-        """``(first sorted row, count)`` of every query."""
+    def count(self, queries):
         import numpy as np
 
-        inside = queries < self.counts.shape[0]
-        q = np.where(inside, queries, 0)
-        return np.where(inside, self.first[q], 0), np.where(inside, self.counts[q], 0)
+        inside = queries < self.tally.shape[0]
+        return np.where(inside, self.tally[np.where(inside, queries, 0)], 0)
 
     def pairs(self, queries):
         """Every ``(query row, value)`` match, sorted."""
         import numpy as np
 
-        lo, cnt = self.runs(queries)
+        wanted = np.zeros(self.tally.shape[0], bool)
+        wanted[queries[queries < wanted.shape[0]]] = True
+        sel = wanted[self.keys]
+        order = np.argsort(self.keys[sel], kind="stable")
+        keys, values = self.keys[sel][order], self.values[sel][order]
+        cnt = self.count(queries)
+        first = np.searchsorted(keys, queries)
         qidx = np.repeat(np.arange(queries.shape[0], dtype=np.int64), cnt)
-        first = np.repeat(lo - (np.cumsum(cnt) - cnt), cnt)
-        vals = self.order[first + np.arange(qidx.shape[0])]
-        return sort_pairs(qidx, vals)
+        pos = np.repeat(first - (np.cumsum(cnt) - cnt), cnt) + np.arange(qidx.shape[0])
+        return sort_pairs(qidx, values[pos])
 
 
 def sort_pairs(qidx, vals):
@@ -201,14 +225,14 @@ def run_path(n_shards: int, n_keys: int, seed: int, device, log) -> dict:
     launches = dict(build.LAUNCHES)
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
 
-    oracle = Oracle(keys, n_keys)
-    _, want_counts = oracle.runs(queries)
+    oracle = Oracle(keys, np.arange(n_keys, dtype=np.int64), n_keys)
+    want_counts = oracle.count(queries)
     check(int(state.num_dropped) == 0, f"D={n_shards}: build dropped {int(state.num_dropped)} rows")
     check(np.array_equal(counts.cpu().numpy(), want_counts), f"D={n_shards}: query counts differ")
     want_pairs = oracle.pairs(batch)
     total = want_pairs.shape[0]
     check(int(retrieval.num_dropped) == 0, f"D={n_shards}: retrieve dropped {int(retrieval.num_dropped)}")
-    _, batch_counts = oracle.runs(batch)
+    batch_counts = oracle.count(batch)
     check(np.array_equal(retrieval.counts.cpu().numpy(), batch_counts), f"D={n_shards}: retrieve counts differ")
     check(np.array_equal(retrieval_pairs(retrieval), want_pairs),
           f"D={n_shards}: retrieved value multisets differ from the oracle")
@@ -221,10 +245,11 @@ def run_path(n_shards: int, n_keys: int, seed: int, device, log) -> dict:
     for name, calls in (("retrieve", calls_retrieve), ("inner_join", calls_join)):
         check(calls == {"exchange": 2, "plan_caps": 1},
               f"D={n_shards}: {name} exchange calls {calls}, want 2 plus the sizing round")
-    for name in KERNELS if device.type == "cuda" else ():
+    for name in READ_PATH_KERNELS if device.type == "cuda" else ():
         check(launches.get(name, 0) > 0, f"D={n_shards}: kernel {name} never launched")
 
     res = {
+        "path": "read",
         "shards": n_shards,
         "keys": n_keys,
         "queries": int(queries.shape[0]),
@@ -241,21 +266,260 @@ def run_path(n_shards: int, n_keys: int, seed: int, device, log) -> dict:
         "peak_bytes": peak,
     }
     log(f"path D={n_shards} N={n_keys}: " + json.dumps(res))
-    return {"result": res, "table": table, "state": state, "keys": keys_dev,
-            "queries": queries_dev, "batch": batch_dev}
+    run = {"result": res, "table": table, "state": state, "keys": keys_dev,
+           "queries": queries_dev, "batch": batch_dev}
+    run["inputs"] = lambda: kernel_inputs(run)
+    return run
 
 
-def profile_phases(run: dict, device) -> dict:
-    """Device time by operation for one more build, query and retrieve of a
-    run (``torch.profiler``), with the device's busy share of the wall time."""
+def to_device(a, device):
+    """A host uint32 or int32 array as the int32 tensor the port takes."""
+    import numpy as np
+    import torch
+
+    return torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(device)
+
+
+class LiveRows:
+    """The oracle's state: the live multiset, changed as the table is.
+
+    A delete removes every live row of its keys (a tombstone of the current
+    epoch hides every layer that exists), an insert appends rows, an upsert
+    keeps the last row of each key in its batch, deletes the keys and
+    inserts those rows.  Folds and compactions leave the multiset as it is.
+    """
+
+    def __init__(self, keys, values, key_range: int):
+        self.keys, self.values, self.key_range = keys, values, key_range
+
+    def insert(self, keys, values):
+        import numpy as np
+
+        self.keys = np.concatenate([self.keys, keys])
+        self.values = np.concatenate([self.values, values.astype(np.int64)])
+
+    def delete(self, keys):
+        import numpy as np
+
+        dead = np.zeros(self.key_range, bool)
+        dead[keys] = True
+        keep = ~dead[self.keys]
+        self.keys, self.values = self.keys[keep], self.values[keep]
+
+    def upsert(self, keys, values):
+        import numpy as np
+
+        _, first = np.unique(keys[::-1], return_index=True)
+        last = np.sort(keys.shape[0] - 1 - first)
+        self.delete(keys[last])
+        self.insert(keys[last], values[last])
+
+    def oracle(self):
+        return Oracle(self.keys, self.values, self.key_range)
+
+
+def spread(a, extra, d: int):
+    """``a`` with ``extra`` appended evenly to each of its ``d`` shard blocks."""
+    import numpy as np
+
+    return np.concatenate([a.reshape(d, -1), extra.reshape(d, -1)], axis=1).reshape(-1)
+
+
+def skewed_batch(state, table, lo: int, n: int):
+    """``n`` distinct keys from ``[lo, ...)`` whose hash lands in shard 0's
+    range of ``state``'s base, found with the plain hash on the host (no
+    kernel launch)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import hashing
+
+    top = int(state.base.hash_splits[1])
+    cand = np.arange(lo, lo + 16 * n, dtype=np.uint32)
+    h = hashing.hash_to_buckets_plain(torch.from_numpy(cand.view(np.int32)), table.hash_range, table.seed)
+    keys = cand[h.numpy() < top][:n]
+    check(keys.shape[0] == n, f"only {keys.shape[0]} of {n} candidate keys hash to shard 0")
+    return keys
+
+
+def run_update_path(n_shards: int, n_keys: int, seed: int, device, log, skew: bool = True) -> dict:
+    """The update path through the public API: build, 5 inserts, a delete and
+    an upsert to depth 6, reads there, ``fold_oldest(3)``, reads, ``compact()``,
+    reads, and at D > 1 (with ``skew``) a skewed insert and reads on the
+    mixed-split stack.
+
+    A mixed-split stack routes every query by each layer's own splits, and
+    the skewed delta's splits are balanced on its own keys; at small N their
+    noise can overflow the query dispatch, which zeroes counts silently (as
+    in the reference), so the small warm-up run leaves the skew step out.
+    """
+    import numpy as np
+    import torch
+
+    from repro_torch import DistributedHashTable, join_to_pairs
+    from repro_torch.core import exchange, maintenance
+    from repro_torch.kernels import build
+
+    d, batch_n = n_shards, n_keys // 32
+    # The counts are fixed at full size and shrink only for a small warm-up.
+    n_del, n_ups = min(DELETES, n_keys // 64), min(UPSERTS, batch_n // 2)
+    n_re = min(REINSERTS, n_del // 16)
+    label = f"update D={d}"
+    rng = np.random.default_rng(seed + 1)
+    base_keys = rng.integers(0, n_keys, size=n_keys, dtype=np.uint32)
+    batches = [rng.integers(0, n_keys, size=batch_n, dtype=np.uint32) for _ in range(4)]
+    dels = base_keys[rng.choice(n_keys, n_del, replace=False)]
+    batches.append(np.concatenate([
+        dels[:n_re], rng.integers(0, n_keys, size=batch_n - n_re, dtype=np.uint32),
+    ]))
+    batch_vals = [(n_keys + i * batch_n + np.arange(batch_n)).astype(np.int32) for i in range(5)]
+    ups = np.concatenate([
+        base_keys[rng.choice(n_keys, n_ups // 2, replace=False)],
+        (n_keys + rng.choice(n_keys, n_ups // 2, replace=False)).astype(np.uint32),
+    ])
+    ups_vals = (n_keys + 5 * batch_n + np.arange(n_ups)).astype(np.int32)
+    absent = rng.integers(4 * n_keys, 2**32 - 1, size=ABSENT_QUERIES, dtype=np.uint64).astype(np.uint32)
+    queries = np.concatenate([base_keys, absent])
+    batch = np.concatenate([rng.integers(0, n_keys, size=batch_n - n_ups, dtype=np.uint32), ups])
+    dev = {name: to_device(a, device) for name, a in (
+        ("keys", base_keys), ("dels", dels), ("ups", ups), ("ups_vals", ups_vals),
+        ("queries", queries), ("batch", batch),
+    )}
+    dev["batches"] = [to_device(b, device) for b in batches]
+    dev["batch_vals"] = [to_device(v, device) for v in batch_vals]
+    table = DistributedHashTable(num_shards=d, hash_range=n_keys, device=device,
+                                 tombstone_capacity=TOMBSTONE_CAPACITY)
+    probe = DistributedHashTable(num_shards=d, hash_range=n_keys, device=device,
+                                 tombstone_capacity=TOMBSTONE_CAPACITY, paper_faithful_probe=True)
+    live = LiveRows(base_keys, np.arange(n_keys, dtype=np.int64), 3 * n_keys)
+    seconds, calls_seen, reads = {}, {}, {}
+
+    def step(name, fn, want_calls):
+        exchange.CALLS.clear()
+        out, secs = wall(fn, device)
+        calls = dict(exchange.CALLS)
+        check(calls == want_calls, f"{label}: {name} exchange calls {calls}, want {want_calls}")
+        seconds[name], calls_seen[name] = secs, calls
+        return out
+
+    def no_drops(state, name):
+        check(int(state.num_dropped) == 0, f"{label}: {name} dropped {int(state.num_dropped)} rows")
+
+    def read_all(name, state, queries=queries, batch=batch):
+        """Sorted and probe query, retrieve, inner_join, join_size of ``state``
+        against the oracle and the exchange budgets."""
+        rounds = 1 if state.coherent else len(state.layers)
+        point, plan = {"exchange": 2 * rounds}, {"exchange": 2 * rounds, "plan_caps": rounds}
+        q_dev, b_dev = to_device(queries, device), to_device(batch, device)
+        oracle = live.oracle()
+        want_counts = oracle.count(queries)
+        out = {"layers": len(state.layers), "coherent": state.coherent}
+        for kind, t in (("sorted", table), ("probe", probe)):
+            counts = step(f"{name}: {kind} query", lambda t=t: t.query(state, q_dev), point)
+            check(np.array_equal(counts.cpu().numpy(), want_counts),
+                  f"{label}: {name}: {kind} query counts differ from the oracle")
+            out[f"{kind}_query_keys_per_s"] = queries.shape[0] / seconds[f"{name}: {kind} query"]
+            del counts
+        retrieval = step(f"{name}: retrieve", lambda: table.retrieve(state, b_dev), plan)
+        want_pairs = oracle.pairs(batch)
+        check(int(retrieval.num_dropped) == 0, f"{label}: {name}: retrieve dropped")
+        check(np.array_equal(retrieval.counts.cpu().numpy(), oracle.count(batch)),
+              f"{label}: {name}: retrieve counts differ from the oracle")
+        check(np.array_equal(retrieval_pairs(retrieval), want_pairs),
+              f"{label}: {name}: retrieved value multisets differ from the oracle")
+        del retrieval
+        join = step(f"{name}: inner_join", lambda: table.inner_join(state, b_dev), plan)
+        check(int(join.num_dropped) == 0, f"{label}: {name}: join dropped")
+        got = join_to_pairs(join).astype(np.int64)
+        check(np.array_equal(sort_pairs(got[:, 0], got[:, 1]), want_pairs),
+              f"{label}: {name}: join pairs differ from the oracle")
+        del join, got
+        size = step(f"{name}: join_size", lambda: int(table.join_size(state, b_dev)), point)
+        check(size == want_pairs.shape[0], f"{label}: {name}: join_size {size} != {want_pairs.shape[0]}")
+        out["queries"], out["retrieve_queries"] = int(queries.shape[0]), int(batch.shape[0])
+        out["retrieved_values"] = int(want_pairs.shape[0])
+        out["retrieve_results_per_s"] = want_pairs.shape[0] / seconds[f"{name}: retrieve"]
+        reads[name] = out
+        log(f"{label} N={n_keys} reads {name}: " + json.dumps(out))
+
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    build.LAUNCHES.clear()
+    state = step("init", lambda: table.init(dev["keys"]), {"exchange": 1})
+    for i in range(5):
+        if i == 4:
+            state = step("delete", lambda s=state: s.delete(dev["dels"]), {})
+            live.delete(dels)
+        state = step(f"insert {i + 1}", lambda s=state, i=i: s.insert(
+            dev["batches"][i], dev["batch_vals"][i]), {"exchange": 1})
+        live.insert(batches[i], batch_vals[i])
+    state = step("upsert", lambda s=state: s.upsert(dev["ups"], dev["ups_vals"]), {"exchange": 1})
+    live.upsert(ups, ups_vals)
+    check(state.epoch == 6 and state.coherent, f"{label}: depth {state.epoch}, coherent {state.coherent}")
+    no_drops(state, "depth 6")
+    read_all("depth 6", state)
+    state6 = state
+    folded = step("fold_oldest", lambda: maintenance.fold_oldest(state6, 3), {})
+    check(folded.epoch == 3 and folded.coherent, f"{label}: fold left depth {folded.epoch}")
+    no_drops(folded, "fold_oldest")
+    read_all("folded", folded)
+    compacted = step("compact", lambda: folded.compact(), {"exchange": 2})
+    check(compacted.epoch == 0, f"{label}: compact left depth {compacted.epoch}")
+    no_drops(compacted, "compact")
+    compact_live = int(live.keys.shape[0])
+    read_all("compacted", compacted)
+    mixed = None
+    if d > 1 and skew:
+        skewed = skewed_batch(compacted, table, 2 * n_keys, batch_n)
+        skew_vals = (n_keys + 6 * batch_n + np.arange(batch_n)).astype(np.int32)
+        before = table.skew_fallbacks
+        mixed = step("insert skewed", lambda: compacted.insert(
+            to_device(skewed, device), to_device(skew_vals, device)), {"exchange": 1})
+        check(table.skew_fallbacks == before + 1 and not mixed.coherent,
+              f"{label}: the skewed insert did not take the skew guard's fallback")
+        no_drops(mixed, "insert skewed")
+        live.insert(skewed, skew_vals)
+        # Skewed keys join the reads spread evenly over the query shards and
+        # within the routing slack: by the base's splits they all go to shard 0.
+        read_all("mixed-split", mixed, spread(queries, skewed[: batch_n // 16], d),
+                 spread(batch, skewed[: batch_n // 64], d))
+    sync(device)
+    launches = dict(build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
+    for name in KERNELS if device.type == "cuda" else ():
+        check(launches.get(name, 0) > 0, f"{label}: kernel {name} never launched")
+
+    res = {
+        "path": "update",
+        "shards": d,
+        "keys": n_keys,
+        "batch": batch_n,
+        "seconds": seconds,
+        "insert_keys_per_s": [batch_n / seconds[f"insert {i + 1}"] for i in range(5)],
+        "delete_s": seconds["delete"],
+        "upsert_s": seconds["upsert"],
+        "fold_s": seconds["fold_oldest"],
+        "compact_live_rows": compact_live,
+        "compact_keys_per_s": compact_live / seconds["compact"],
+        "skew_fallbacks": table.skew_fallbacks,
+        "reads": reads,
+        "exchange_calls": calls_seen,
+        "launches": launches,
+        "peak_bytes": peak,
+    }
+    log(f"{label} N={n_keys}: " + json.dumps({k: v for k, v in res.items()
+                                                if k not in ("reads", "exchange_calls")}))
+    run = {"result": res, "table": table, "probe": probe, "state": state6, "folded": folded,
+           "queries": dev["queries"], "batch": dev["batch"]}
+    run["inputs"] = lambda: update_kernel_inputs(run)
+    return run
+
+
+def profile_phases(phases: dict, device) -> dict:
+    """Device time by operation for one more call of each phase
+    (``torch.profiler``), with the device's busy share of the wall time."""
     from torch.profiler import ProfilerActivity, profile
 
-    table, state = run["table"], run["state"]
-    phases = {
-        "build": lambda: table.init(run["keys"]),
-        "query": lambda: table.query(state, run["queries"]),
-        "retrieve": lambda: table.retrieve(state, run["batch"]),
-    }
     out = {}
     for phase, fn in phases.items():
         sync(device)
@@ -274,43 +538,69 @@ def profile_phases(run: dict, device) -> dict:
     return out
 
 
-def kernel_inputs(run: dict) -> dict:
-    """Each kernel's inputs as the run's path hands them over: the sharded
-    keys to murmur and histogram (build phase 1), and from the retrieve of
-    the query batch owner 0's batched gather (one source per shard) and
-    querier 0's gather."""
+def read_path_phases(run: dict) -> dict:
+    table, state = run["table"], run["state"]
+    return {
+        "build": lambda: table.init(run["keys"]),
+        "query": lambda: table.query(state, run["queries"]),
+        "retrieve": lambda: table.retrieve(state, run["batch"]),
+    }
+
+
+def update_path_phases(run: dict) -> dict:
+    return {
+        "probe query (depth 6)": lambda: run["probe"].query(run["state"], run["queries"]),
+        "compact": lambda: run["folded"].compact(),
+    }
+
+
+def hash_inputs(table, keys) -> dict:
+    """Phase 1 of a build over ``(D, n)`` keys: murmur and histogram inputs
+    (EMPTY rows get bin -1, as the build leaves them out)."""
     import torch
 
-    from repro_torch.core import exchange, partition
-    from repro_torch.core import multi_hashgraph as mh
-    from repro_torch.kernels import murmur, ops
+    from repro_torch.core import hashgraph, partition
+    from repro_torch.kernels import murmur
 
-    table, state = run["table"], run["state"]
-    base, d = state.base, table.num_shards
-    keys = run["keys"].reshape(d, -1)
-    n = keys.numel()
+    d = keys.shape[0]
     h = murmur.murmur_bucket(keys, table.hash_range, table.seed)
     num_bins = table.num_bins or partition.choose_num_bins(table.hash_range, d)
     bsz = partition.bin_size_for(table.hash_range, num_bins)
     bins = torch.clamp(torch.div(h, bsz, rounding_mode="floor"), 0, num_bins - 1).to(torch.int32)
-    del h
-    q = run["batch"].reshape(d, -1)
+    bins = torch.where(hashgraph.is_empty_key(keys), -1, bins).to(torch.int32)
+    return {
+        "murmur_bucket": dict(keys=keys, table_size=table.hash_range, seed=table.seed, n=keys.numel()),
+        "bin_histogram": dict(bins=bins, num_bins=num_bins),
+    }
+
+
+def gather_inputs(table, state, batch) -> dict:
+    """From the retrieve of ``batch`` on ``state``: owner 0's batched gather
+    (one source per shard, every layer's runs interleaved) and querier 0's
+    gather."""
+    import torch
+
+    from repro_torch.core import exchange
+    from repro_torch.core import multi_hashgraph as mh
+    from repro_torch.kernels import ops
+
+    d = table.num_shards
+    q = batch.reshape(d, -1)
+    tombstones = state.tombstones.index()
     out_cap, seg_cap = table._resolve_caps(state, q, None, None)
-    routed = mh._route_queries_once(base, q, table.capacity_slack)
-    starts_lr, counts_lr, tables = mh._layer_run_descriptors((base,), routed)
-    cap = routed.capacity
+    routed = mh._route_queries_once(state.base, q, table.capacity_slack)
+    starts_lr, counts_lr, tables = mh._layer_run_descriptors(state.layers, routed, tombstones)
+    cap, nl = routed.capacity, len(state.layers)
 
     def owner_runs(o):
-        """Owner ``o``'s (L=1, S=D, R) run descriptors and its table."""
-        return (starts_lr[:, o].reshape(1, d, cap), counts_lr[:, o].reshape(1, d, cap),
-                (tables[0][o],))
+        """Owner ``o``'s (L, S=D, R) run descriptors and its tables."""
+        return (starts_lr[:, o].reshape(nl, d, cap), counts_lr[:, o].reshape(nl, d, cap),
+                tuple(t[o] for t in tables))
 
     starts_i, counts_i, table_cat = ops.interleave_layer_runs(*owner_runs(0))
     segs = torch.stack([ops.csr_gather_layers(*owner_runs(o), capacity=seg_cap)[0] for o in range(d)])
     counts, starts, seg_flat = exchange.combine_ragged(segs, counts_lr.sum(0), routed.route)
     return {
-        "murmur_bucket": dict(keys=keys, table_size=table.hash_range, seed=table.seed, n=n),
-        "bin_histogram": dict(bins=bins, num_bins=num_bins),
         "csr_gather_batched": dict(
             offsets=ops.run_offsets(counts_i), starts=starts_i, table=table_cat, capacity=seg_cap
         ),
@@ -318,6 +608,38 @@ def kernel_inputs(run: dict) -> dict:
             offsets=ops.run_offsets(counts[0]), starts=starts[0], table=seg_flat[0], capacity=out_cap
         ),
     }
+
+
+def kernel_inputs(run: dict) -> dict:
+    """Each kernel's inputs as the read path hands them over: the sharded
+    keys to murmur and histogram (build phase 1), and from the retrieve of
+    the query batch owner 0's batched gather and querier 0's gather."""
+    table, state = run["table"], run["state"]
+    keys = run["keys"].reshape(table.num_shards, -1)
+    return {**hash_inputs(table, keys), **gather_inputs(table, state, run["batch"])}
+
+
+def update_kernel_inputs(run: dict) -> dict:
+    """Each kernel's inputs as the update path hands them over: the rows the
+    compaction rebuilds to murmur and histogram (its build's phase 1), the
+    depth-6 retrieve's gathers, and the depth-6 probe query's base-layer
+    probe (every shard's routed slots in one launch)."""
+    from repro_torch.core import hashgraph, plans
+    from repro_torch.core import multi_hashgraph as mh
+
+    table, probe, state, folded = run["table"], run["probe"], run["state"], run["folded"]
+    d = table.num_shards
+    _, rebuild_rows = table._sizing_memo[plans.state_signature(folded)]
+    keys, _, _ = table._compact_rows(folded, rebuild_rows)
+    inputs = {**hash_inputs(table, keys), **gather_inputs(table, state, run["batch"])}
+    base = state.base
+    routed = mh._route_queries_once(base, run["queries"].reshape(d, -1), probe.capacity_slack)
+    b = mh._rebase_buckets(routed.rh, routed.is_pad, routed.lo, base.local_range_cap,
+                           base.bucket_stride)
+    starts, ends = hashgraph._bucket_windows(base.local, b)
+    inputs["bucket_probe"] = dict(starts=starts, ends=ends, q=routed.rq, table=base.local.keys,
+                                  max_probe=probe.max_probe)
+    return inputs
 
 
 def gather_work(offsets, starts, capacity: int) -> tuple[int, int]:
@@ -335,15 +657,27 @@ def gather_work(offsets, starts, capacity: int) -> tuple[int, int]:
     return nbytes, picked * (3 * levels + 8) + 2 * slots
 
 
-def check_kernels(run: dict, device, log) -> list:
-    """Each kernel against its plain twin on the run's own card inputs,
-    timed; the launch counts of the run are reported beside."""
+def probe_work(starts, ends, max_probe: int) -> tuple[int, int]:
+    """``(bytes, int32 ops)`` the bucket probe needs on these inputs: starts,
+    ends and q read and one count written per slot (16 B), and the table
+    words inside each window up to ``max_probe`` (4 B each); per word a
+    load address, a compare and an add, per slot 6 for the window set-up."""
     import torch
 
-    from repro_torch.kernels import csr_gather, histogram, murmur
+    words = int(torch.clamp(ends.to(torch.int64) - starts.to(torch.int64), 0, max_probe).sum())
+    return 16 * starts.numel() + 4 * words, 3 * words + 6 * starts.numel()
 
-    inputs = kernel_inputs(run)
-    shards, launches = run["result"]["shards"], run["result"]["launches"]
+
+def check_kernels(run: dict, device, log) -> list:
+    """Each kernel of the run against its plain twin on the run's own card
+    inputs, timed; the launch counts of the run are reported beside."""
+    import torch
+
+    from repro_torch.kernels import bucket_probe, csr_gather, histogram, murmur
+
+    inputs = run["inputs"]()
+    path, shards = run["result"]["path"], run["result"]["shards"]
+    launches = run["result"]["launches"]
     rows = []
 
     def record(name, shapes, kernel_fn, plain_fn, work, library_fn=None, reps=20):
@@ -361,6 +695,7 @@ def check_kernels(run: dict, device, log) -> list:
         del got, want
         row = {
             "name": name,
+            "path": path,
             "shards": shards,
             "route": "cuda",
             "source": KERNELS[name][0],
@@ -372,8 +707,9 @@ def check_kernels(run: dict, device, log) -> list:
             "bound_by": bound_by,
             "library_ms": mean_ms(library_fn, reps, device) if library_fn else None,
             "launches": launches.get(name, 0),
+            "shapes": shapes,
         }
-        log(f"kernel {name} D={shards} {shapes}: equal=True kernel_ms={row['ms']} plain_ms={row['plain_ms']} "
+        log(f"kernel {name} {path} D={shards} {shapes}: equal=True kernel_ms={row['ms']} plain_ms={row['plain_ms']} "
             f"library_ms={row['library_ms']} bound_ms={row['bound_ms']} ({bound_by}) "
             f"launches={row['launches']}")
         rows.append(row)
@@ -406,6 +742,18 @@ def check_kernels(run: dict, device, log) -> list:
             lambda a=a: csr_gather.gather_plain(a["offsets"], a["starts"], a["table"], a["capacity"]),
             gather_work(a["offsets"], a["starts"], a["capacity"]),
         )
+    if "bucket_probe" in inputs:
+        a = inputs["bucket_probe"]
+        record(
+            "bucket_probe",
+            f"starts/ends/q={tuple(a['q'].shape)} table={tuple(a['table'].shape)} "
+            f"max_probe={a['max_probe']} (plain twin: one probe step at a time)",
+            lambda: bucket_probe.bucket_probe(a["starts"], a["ends"], a["q"], a["table"], a["max_probe"]),
+            lambda: bucket_probe.bucket_probe_plain(
+                a["starts"], a["ends"], a["q"], a["table"], a["max_probe"]),
+            probe_work(a["starts"], a["ends"], a["max_probe"]),
+        )
+    del inputs
     return rows
 
 
@@ -416,7 +764,8 @@ def main(argv=None) -> int:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--out", default=None, help="also write the results as JSON here")
     parser.add_argument("--profile", action="store_true",
-                        help="also profile one more build, query and retrieve of the D = 1 run")
+                        help="also profile one more build, query and retrieve of the D = 1 read "
+                        "run, and one more depth-6 probe query and compact of the D = 1 update run")
     args = parser.parse_args(argv)
 
     if not os.path.isdir(os.path.join(SRC, "repro_torch", "csrc")):
@@ -444,28 +793,38 @@ def main(argv=None) -> int:
     build.library()
     log(f"kernels built from {build.CSRC} in {time.perf_counter() - t0:.1f} s")
     run_path(1, 1 << 14, args.seed, device, lambda m: None)  # warm-up at a small size
+    run_update_path(8, 1 << 17, args.seed, device, lambda m: None, skew=False)
 
-    run1 = run_path(1, args.keys, args.seed, device, log)
-    rows = check_kernels(run1, device, log)
-    profiled = profile_phases(run1, device) if args.profile else None
-    if profiled:
-        log("profile D=1: " + json.dumps(profiled))
-    paths = [run1["result"]]
-    del run1
-    run8 = run_path(8, args.keys // 8, args.seed, device, log)
-    rows += check_kernels(run8, device, log)
-    paths.append(run8["result"])
+    rows, paths, profiled = [], [], {}
+    for runner, shards, n_keys, phases in (
+        (run_path, 1, args.keys, read_path_phases),
+        (run_path, 8, args.keys // 8, None),
+        (run_update_path, 1, args.keys, update_path_phases),
+        (run_update_path, 8, args.keys // 8, None),
+    ):
+        run = runner(shards, n_keys, args.seed, device, log)
+        rows += check_kernels(run, device, log)
+        if args.profile and phases is not None:
+            key = f"{run['result']['path']} D={shards}"
+            profiled[key] = profile_phases(phases(run), device)
+            log(f"profile {key}: " + json.dumps({phase: {
+                "wall_ms": v["wall_ms"], "device_busy_ms": v["device_busy_ms"],
+                "top": [[k[:60], ms, n] for k, ms, n in v["top"][:6]],
+            } for phase, v in profiled[key].items()}))
+        paths.append(run["result"])
+        del run  # free each run's tables before the next one builds
     kernels = {"kernels": [{k: row[k] for k in (
-        "name", "shards", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+        "name", "path", "shards", "route", "source", "replaces", "launches", "max_abs_err", "ms",
         "plain_ms", "bound_ms", "bound_by", "library_ms")} for row in rows]}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"card": smi, "paths": paths,
-                       "profile": profiled, **kernels}, f, indent=1)
+                       "profile": profiled or None, "kernels": rows}, f, indent=1)
     print(json.dumps(kernels), flush=True)
+    # The script drives cuda:0 alone, so it reports one card.
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": 1,
     }}), flush=True)
     return 0
 

@@ -1,18 +1,23 @@
-"""Carry a base graph across packages as numpy arrays.
+"""Carry graphs and versioned states across packages as numpy arrays.
 
 :func:`graph_to_numpy` flattens the port's graph into the reference's global
 stacked layout (shard blocks along dim 0) and :func:`graph_from_numpy` reads
 that layout back, so a graph built by the JAX package, read out with
 ``np.asarray`` field by field, can be queried by the port, which tests the
-read path apart from the build.
+read path apart from the build.  :func:`state_from_numpy` and
+:func:`state_to_numpy` do the same for a whole ``TableState``: base, every
+delta, every tombstone field and the ``coherent`` flag.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from typing import Sequence
+
 from repro_torch.core.hashgraph import HashGraph
 from repro_torch.core.multi_hashgraph import DistributedHashGraph
+from repro_torch.core.state import TableState, Tombstones
 
 
 def graph_from_numpy(
@@ -75,4 +80,60 @@ def graph_to_numpy(graph: DistributedHashGraph) -> dict:
         "seed": graph.seed,
         "local_range_cap": graph.local_range_cap,
         "bucket_stride": graph.bucket_stride,
+    }
+
+
+def state_from_numpy(
+    *,
+    base: dict,
+    deltas: Sequence[dict],
+    tombstones: dict,
+    coherent: bool,
+    table,
+    device,
+) -> TableState:
+    """Port state from the arrays of a reference ``TableState``.
+
+    ``base`` and each of ``deltas`` hold :func:`graph_from_numpy`'s keyword
+    arguments; ``tombstones`` holds ``keys`` ``(T,)`` uint32, ``epochs`` and
+    ``expires`` ``(T,)`` int32, and the scalars ``count``, ``num_dropped``
+    and ``now``.  ``table`` is the port table the state will be read by.
+    """
+    ts_keys = np.asarray(tombstones["keys"], dtype=np.uint32).view(np.int32)
+
+    def dev(a, dtype) -> torch.Tensor:
+        return torch.from_numpy(np.array(a, dtype=dtype, copy=True)).to(device)
+
+    return TableState(
+        base=graph_from_numpy(**base, device=device),
+        deltas=tuple(graph_from_numpy(**g, device=device) for g in deltas),
+        tombstones=Tombstones(
+            keys=dev(ts_keys, np.int32),
+            epochs=dev(tombstones["epochs"], np.int32),
+            expires=dev(tombstones["expires"], np.int32),
+            count=int(np.asarray(tombstones["count"])),
+            num_dropped=int(np.asarray(tombstones["num_dropped"])),
+            now=int(np.asarray(tombstones["now"])),
+        ),
+        table=table,
+        coherent=bool(coherent),
+    )
+
+
+def state_to_numpy(state: TableState) -> dict:
+    """The state's arrays in the reference's layout (inverse of
+    :func:`state_from_numpy`, without the table)."""
+    ts = state.tombstones
+    return {
+        "base": graph_to_numpy(state.base),
+        "deltas": [graph_to_numpy(g) for g in state.deltas],
+        "tombstones": {
+            "keys": ts.keys.cpu().numpy().view(np.uint32),
+            "epochs": ts.epochs.cpu().numpy(),
+            "expires": ts.expires.cpu().numpy(),
+            "count": ts.count,
+            "num_dropped": ts.num_dropped,
+            "now": ts.now,
+        },
+        "coherent": state.coherent,
     }

@@ -99,6 +99,17 @@ def all_to_all(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(0, 1).contiguous()
 
 
+def all_to_all_hierarchical(x: torch.Tensor) -> torch.Tensor:
+    """Dense all-to-all of ``(D_src, D_dst, ...)`` blocks (one exchange call).
+
+    The reference runs one ``lax.all_to_all`` per mesh axis; with the shards
+    stacked on one device every hop together is the transpose.  Callers that
+    ship several payloads stack them into ``x`` so they travel as one call.
+    """
+    _count_call()
+    return all_to_all(x)
+
+
 def dispatch(
     payloads: Sequence[torch.Tensor],
     dest: torch.Tensor,

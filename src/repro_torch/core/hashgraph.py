@@ -14,6 +14,7 @@ patterns as unsigned integers.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -112,6 +113,15 @@ def _segment_searchsorted(
     return lo
 
 
+def _bucket_windows(hg: HashGraph, buckets: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(starts, ends)`` int32 of each routed query's bucket, with an empty
+    window at the trash bucket ``V`` (exchange padding)."""
+    b = buckets.to(torch.int64)
+    starts = torch.gather(hg.offsets, 1, b)
+    ends = torch.where(b == hg.table_size, starts, torch.gather(hg.offsets, 1, b + 1))
+    return starts, ends
+
+
 def query_locate(
     hg: HashGraph, queries: torch.Tensor, buckets: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -126,10 +136,7 @@ def query_locate(
     trash bucket, which holds every padding row of the build, and its
     callers then mask those counts to 0; the masked results are the same.)
     """
-    b = buckets.to(torch.int64)
-    starts = torch.gather(hg.offsets, 1, b)
-    ends = torch.where(b == hg.table_size, starts, torch.gather(hg.offsets, 1, b + 1))
-    del b
+    starts, ends = _bucket_windows(hg, buckets)
     keys_u = _unsigned_order(hg.keys)
     q_u = _unsigned_order(queries)
     left = _segment_searchsorted(keys_u, starts, ends, q_u, side="left")
@@ -142,6 +149,80 @@ def query_count_sorted(
 ) -> torch.Tensor:
     """Exact multiplicity of each routed query key by per-bucket bisection."""
     return query_locate(hg, queries, buckets)[1]
+
+
+def query_count_probe(
+    hg: HashGraph,
+    queries: torch.Tensor,
+    max_probe: int = 64,
+    buckets: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Paper-faithful query: linear scan of the query's bucket (kernel 5).
+
+    ``max_probe`` caps the scanned bucket length; longer buckets under-count,
+    as in the reference.  ``buckets`` default to ``hash(q) % table_size``.
+    As in :func:`query_locate`, a query routed to the trash bucket gets an
+    empty window (the reference scans it and its callers mask the count).
+    """
+    if buckets is None:
+        buckets = hashing.hash_to_buckets(queries, hg.table_size, seed=hg.seed)
+    starts, ends = _bucket_windows(hg, buckets)
+    from repro_torch.kernels import ops
+
+    return ops.bucket_probe(hg.keys, starts, ends, queries, max_probe=max_probe)
+
+
+# ---------------------------------------------------------------------------
+# Tombstone lookup.  A buffer's unused slots hold EMPTY (the largest key in
+# unsigned order) with epoch -1, so they sort last and match no layer.
+# ---------------------------------------------------------------------------
+
+
+def match_epochs(
+    keys: torch.Tensor, ts_keys: torch.Tensor, ts_epochs: torch.Tensor
+) -> torch.Tensor:
+    """Newest tombstone epoch matching each key; -1 where none match.
+
+    Broadcast compare, ``O(M * T)``: the oracle of :func:`match_epochs_sorted`.
+    """
+    if ts_keys.shape[0] == 0:
+        return torch.full(keys.shape, -1, dtype=torch.int32, device=keys.device)
+    eq = keys.unsqueeze(-1) == ts_keys
+    stamped = torch.where(eq, ts_epochs.to(torch.int32), -1)
+    return stamped.max(dim=-1).values.to(torch.int32)
+
+
+def sort_tombstones(
+    ts_keys: torch.Tensor, ts_epochs: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sort a tombstone buffer by (key as uint32, epoch).
+
+    The last entry of a key's run carries its newest epoch.  One sort of the
+    int64 ``(unsigned key << 32) + (epoch + 2^31)``: equal pairs are equal
+    elements, so stability does not matter.
+    """
+    if ts_keys.shape[0] == 0:
+        return ts_keys, ts_epochs
+    epochs = ts_epochs.to(torch.int64) - _SIGN
+    sort_key = (_unsigned_order(ts_keys).to(torch.int64) << 32) | epochs
+    sort_key, idx = torch.sort(sort_key)
+    return ts_keys[idx], ts_epochs[idx].to(torch.int32)
+
+
+def match_epochs_sorted(
+    keys: torch.Tensor, ts_keys: torch.Tensor, ts_epochs: torch.Tensor
+) -> torch.Tensor:
+    """Newest tombstone epoch matching each key (-1: none), by bisection of
+    the :func:`sort_tombstones` index; ``keys`` of any shape."""
+    t = ts_keys.shape[0]
+    if t == 0:
+        return torch.full(keys.shape, -1, dtype=torch.int32, device=keys.device)
+    q = _unsigned_order(keys).reshape(-1)
+    right = torch.searchsorted(_unsigned_order(ts_keys), q, right=True)
+    idx = torch.clamp(right - 1, 0, t - 1)
+    hit = (right > 0) & (ts_keys[idx] == keys.reshape(-1))
+    out = torch.where(hit, ts_epochs[idx].to(torch.int32), -1)
+    return out.reshape(keys.shape)
 
 
 def csr_gather(

@@ -4,16 +4,20 @@
 Where the reference runs one program per device under ``shard_map``, the
 port runs every shard at once: arrays carry a leading shard axis ``D``, the
 all-to-all is the transpose in ``exchange``, ``psum`` a sum over that axis
-and ``my_rank`` ``arange(D)``.  Hashing, histogram and the CSR gathers run
-in the port's CUDA kernels on the card.
+and ``my_rank`` ``arange(D)``.  Hashing, histogram, the CSR gathers and the
+linear bucket probe run in the port's CUDA kernels on the card.
 
 Build (:func:`build_sharded`) follows the paper's four phases: coarse-bin
 histogram and balanced splits, counting sort by destination, the
-capacity-padded exchange, and one CSR per shard over its hash range.
-Query routes each key to its owner by the build splits, locates it there
-and routes the count back.  Retrieve and join take the fused single-route
-path: one dispatch, one owner-side batched CSR gather, one ragged return and
-one querier-side CSR gather — two exchange calls.
+capacity-padded exchange, and one CSR per shard over its hash range; a delta
+of a versioned table freezes the base's splits and strides its bucket map.
+Reads take a layer stack ``(base, delta_1, ...)`` and the sorted tombstone
+index.  On a partition-coherent stack one routing round serves every layer:
+a query is one dispatch and one combine, a retrieve or join one dispatch, one
+owner-side batched CSR gather over the interleaved layer runs, one ragged
+return and one querier-side gather — two exchange calls at any depth.  A
+mixed-split stack routes each layer on its own splits (two calls per
+layer).  :func:`fold_layers_local` merges a coherent prefix with no exchange.
 """
 from __future__ import annotations
 
@@ -93,13 +97,24 @@ def build_sharded(
     capacity_slack: float = 1.25,
     range_slack: float = 1.5,
     seed: int = hashing.DEFAULT_SEED,
+    capacity: Optional[int] = None,
+    hash_splits: Optional[torch.Tensor] = None,
+    local_range_cap: Optional[int] = None,
+    bucket_stride: int = 1,
 ) -> DistributedHashGraph:
     """Build the distributed HashGraph from ``keys`` ``(D, n_local)``.
 
     ``values`` ``(D, n_local)`` ride along through the exchange (default: the
     global row id ``rank * n_local + i``).  EMPTY sentinels are left out of
     the histogram and the overflow count, routed round-robin, and land in
-    the owner's trash bucket.
+    the owner's trash bucket.  ``capacity`` overrides the per-destination
+    slot size (compaction passes an allowance for its sentinel rows).
+
+    ``hash_splits`` freezes the partitioning: phase 1 is skipped and the
+    given splits route the exchange, so a delta stays partition-coherent
+    with its base.  ``local_range_cap`` / ``bucket_stride`` size the local
+    bucket space (a delta strides the base's bucket map down to O(batch)
+    offsets).
     """
     d, n_local = keys.shape
     dev = keys.device
@@ -111,9 +126,12 @@ def build_sharded(
     # ---- Phase 1: partitioning.  psum of the per-shard histograms is one
     # histogram over every shard's keys (integer counts commute).
     h = hashing.hash_to_buckets(keys, hash_range, seed=seed)
-    bins_g = num_bins or partition.choose_num_bins(hash_range, d)
-    ghist = partition.local_bin_histogram(h, bins_g, hash_range, valid=~is_pad)
-    splits = partition.balanced_hash_splits(ghist, d, hash_range)
+    if hash_splits is None:
+        bins_g = num_bins or partition.choose_num_bins(hash_range, d)
+        ghist = partition.local_bin_histogram(h, bins_g, hash_range, valid=~is_pad)
+        splits = partition.balanced_hash_splits(ghist, d, hash_range)
+    else:
+        splits = hash_splits.to(torch.int32)  # frozen: no histogram round
 
     # ---- Phase 2: reorganization.  Sentinels route round-robin (all EMPTY
     # rows hash alike; by hash they would funnel into one owner's slot).
@@ -123,15 +141,21 @@ def build_sharded(
     dest = torch.where(is_pad, round_robin, dest)
 
     # ---- Phase 3: movement.
-    capacity = default_capacity(n_local, d, capacity_slack)
+    if capacity is None:
+        capacity = default_capacity(n_local, d, capacity_slack)
     (rkeys, rvalues), route = exchange.dispatch(
         (keys, values), dest, capacity, fills=(EMPTY_BITS, -1), count_mask=~is_pad
     )
     del dest, is_pad
 
     # ---- Phase 4: local HashGraph creation.
-    local_cap = int(cdiv(hash_range, d) * range_slack)
-    buckets = _local_buckets(rkeys, _shard_lo(splits), hash_range, local_cap, seed)
+    if local_range_cap is None:
+        local_cap = int(cdiv(hash_range, d) * range_slack)
+    else:
+        local_cap = int(local_range_cap)
+    buckets = _local_buckets(
+        rkeys, _shard_lo(splits), hash_range, local_cap, seed, bucket_stride
+    )
     local = hashgraph.build_from_buckets(rkeys, buckets, local_cap, rvalues, seed=seed)
     return DistributedHashGraph(
         local=local,
@@ -140,6 +164,7 @@ def build_sharded(
         hash_range=hash_range,
         seed=seed,
         local_range_cap=local_cap,
+        bucket_stride=bucket_stride,
     )
 
 
@@ -188,27 +213,126 @@ def _route_queries(
     return routed, rbuckets
 
 
-def _mask_counts(counts: torch.Tensor, rq: torch.Tensor) -> torch.Tensor:
-    """Zero the counts of padding slots (a base-only state has no tombstones)."""
-    return torch.where(hashgraph.is_empty_key(rq), 0, counts)
+def _tombstone_epochs(
+    rq: torch.Tensor, tombstones: Optional[tuple[torch.Tensor, torch.Tensor]]
+) -> Optional[torch.Tensor]:
+    """Newest tombstone epoch per routed key, or None without tombstones.
+
+    ``tombstones`` is the sorted ``Tombstones.index()`` pair; one bisection
+    per key, computed once per routing round and shared by every layer.
+    """
+    if tombstones is None:
+        return None
+    ts_keys, ts_epochs = tombstones
+    return hashgraph.match_epochs_sorted(rq, ts_keys, ts_epochs)
+
+
+def _mask_counts(
+    counts: torch.Tensor,
+    rq: torch.Tensor,
+    tombstones: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
+    layer_epoch: int = 0,
+    match_e: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Zero the counts of padding slots and of rows hidden by tombstones.
+
+    A row of the layer with epoch ``layer_epoch`` is hidden iff its key has
+    a tombstone of epoch ``>= layer_epoch``.  ``match_e`` is the per-key
+    epoch when the caller resolved it once for the routed batch.
+    """
+    counts = torch.where(hashgraph.is_empty_key(rq), 0, counts)
+    if match_e is None:
+        match_e = _tombstone_epochs(rq, tombstones)
+    if match_e is not None:
+        counts = torch.where(match_e >= layer_epoch, 0, counts)
+    return counts
+
+
+def _count_routed(
+    hg: HashGraph,
+    rq: torch.Tensor,
+    buckets: torch.Tensor,
+    paper_faithful_probe: bool,
+    max_probe: int,
+) -> torch.Tensor:
+    """Owner-side multiplicity of each routed key: the paper's linear bucket
+    probe (kernel 5) or the sorted bisection."""
+    if paper_faithful_probe:
+        return hashgraph.query_count_probe(hg, rq, max_probe=max_probe, buckets=buckets)
+    return hashgraph.query_count_sorted(hg, rq, buckets)
 
 
 def query_sharded(
-    dhg: DistributedHashGraph, queries: torch.Tensor, *, capacity_slack: float = 1.25
+    dhg: DistributedHashGraph,
+    queries: torch.Tensor,
+    *,
+    capacity_slack: float = 1.25,
+    paper_faithful_probe: bool = False,
+    max_probe: int = 64,
+    tombstones: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
+    layer_epoch: int = 0,
 ) -> torch.Tensor:
     """Multiplicity ``(D, n_local)`` int32 of each query key: route by the
-    build splits, count against the owner's shard, route counts back."""
+    build splits, count against the owner's shard, route counts back.
+    ``tombstones`` / ``layer_epoch`` mask rows deleted from this layer."""
     routed, rbuckets = _route_queries(dhg, queries, capacity_slack)
-    counts = hashgraph.query_count_sorted(dhg.local, routed.rq, rbuckets)
-    counts = _mask_counts(counts, routed.rq)
+    counts = _count_routed(
+        dhg.local, routed.rq, rbuckets, paper_faithful_probe, max_probe
+    )
+    counts = _mask_counts(counts, routed.rq, tombstones, layer_epoch)
     return exchange.combine(counts, routed.route, fill=0)
 
 
-def join_size_sharded(
-    dhg: DistributedHashGraph, queries: torch.Tensor, *, capacity_slack: float = 1.25
+def query_layers_sharded(
+    layers: Sequence[DistributedHashGraph],
+    queries: torch.Tensor,
+    *,
+    tombstones: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
+    fused: Optional[bool] = None,
+    capacity_slack: float = 1.25,
+    paper_faithful_probe: bool = False,
+    max_probe: int = 64,
 ) -> torch.Tensor:
-    """Global inner-join cardinality |build ⋈ queries| (int64 scalar)."""
-    return query_sharded(dhg, queries, capacity_slack=capacity_slack).sum()
+    """Merged multiplicity over a versioned stack ``(base, delta_1, ...)``.
+
+    ``fused`` (valid only for a partition-coherent stack) routes once for
+    every layer: one dispatch and one combine, two exchange calls at any
+    depth.  ``fused=False`` routes each layer on its own splits, two calls
+    per layer.  ``None`` fuses only the single-layer stack.
+    """
+    layers = tuple(layers)
+    if fused is None:
+        fused = len(layers) == 1
+    kw = dict(
+        capacity_slack=capacity_slack,
+        paper_faithful_probe=paper_faithful_probe,
+        max_probe=max_probe,
+    )
+    if not fused:
+        total = None
+        for epoch, layer in enumerate(layers):
+            c = query_sharded(layer, queries, tombstones=tombstones, layer_epoch=epoch, **kw)
+            total = c if total is None else total + c
+        return total
+
+    routed = _route_queries_once(layers[0], queries, capacity_slack)
+    match_e = _tombstone_epochs(routed.rq, tombstones)
+    total = torch.zeros(routed.rq.shape, dtype=torch.int32, device=queries.device)
+    for epoch, layer in enumerate(layers):
+        rb = _rebase_buckets(
+            routed.rh, routed.is_pad, routed.lo, layer.local_range_cap, layer.bucket_stride
+        )
+        c = _count_routed(layer.local, routed.rq, rb, paper_faithful_probe, max_probe)
+        total += _mask_counts(c, routed.rq, tombstones, epoch, match_e)
+    # One merged return trip carries the whole stack's counts.
+    return exchange.combine(total, routed.route, fill=0)
+
+
+def join_size_layers_sharded(
+    layers: Sequence[DistributedHashGraph], queries: torch.Tensor, **kw
+) -> torch.Tensor:
+    """Global inner-join cardinality against a versioned stack (int64 scalar)."""
+    return query_layers_sharded(layers, queries, **kw).sum()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -238,26 +362,44 @@ class ShardJoin:
 
 
 def _layer_run_descriptors(
-    layers: Sequence[DistributedHashGraph], routed: RoutedQueries
+    layers: Sequence[DistributedHashGraph],
+    routed: RoutedQueries,
+    tombstones: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> tuple[torch.Tensor, torch.Tensor, tuple]:
     """Owner-side locate of the routed batch in every layer (no exchange).
 
     Returns ``(starts, counts, tables)``: ``(L, D, R)`` run descriptors
     (``R`` routed slots per owner) addressing each owner's concatenated
-    layer value tables, and the per-layer ``(D, M_l)`` tables.
+    layer value tables, and the per-layer ``(D, M_l)`` tables.  Tombstone
+    epochs are resolved once for the batch and mask every layer.
     """
+    match_e = _tombstone_epochs(routed.rq, tombstones)
     starts_l, counts_l, tables = [], [], []
     off = 0
-    for layer in layers:
+    for epoch, layer in enumerate(layers):
         rb = _rebase_buckets(
             routed.rh, routed.is_pad, routed.lo, layer.local_range_cap, layer.bucket_stride
         )
         s, c = hashgraph.query_locate(layer.local, routed.rq, rb)
         starts_l.append(s + off)
-        counts_l.append(_mask_counts(c, routed.rq))
+        counts_l.append(_mask_counts(c, routed.rq, tombstones, epoch, match_e))
         tables.append(layer.local.values)
         off += layer.local.values.shape[1]
     return torch.stack(starts_l), torch.stack(counts_l), tuple(tables)
+
+
+def _querier_gather(starts, counts, seg_flat, out_capacity):
+    """Each querier compacts its returned runs with the CSR gather (kernel 3)."""
+    offsets, slot_rows, values, dropped = [], [], [], 0
+    for q in range(counts.shape[0]):
+        off, rows, vals, drop = ops.csr_gather(
+            starts[q], counts[q], seg_flat[q], capacity=out_capacity
+        )
+        offsets.append(off)
+        slot_rows.append(rows)
+        values.append(vals)
+        dropped = dropped + drop
+    return torch.stack(offsets), torch.stack(slot_rows), torch.stack(values), dropped
 
 
 def _retrieve_parts_fused(
@@ -267,19 +409,21 @@ def _retrieve_parts_fused(
     seg_capacity: int,
     out_capacity: int,
     capacity_slack: float,
+    tombstones: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
 ):
-    """Single-route merged retrieval: two exchange calls.
+    """Single-route merged retrieval over a coherent stack: two exchange calls.
 
-    One dispatch routes the queries; each owner locates them and packs every
-    source's runs into one segment with the batched CSR gather (kernel 4);
-    one ragged return ships segments and per-slot totals home; each querier
-    compacts its runs with the CSR gather (kernel 3).
+    One dispatch routes the queries; each owner locates them in every layer
+    and packs every source's runs (slot-major, epoch order) into one segment
+    with the batched CSR gather (kernel 4); one ragged return ships segments
+    and per-slot totals home; each querier compacts its runs with the CSR
+    gather (kernel 3).
     """
-    d, n_local = queries.shape
+    d = queries.shape[0]
     nlayers = len(layers)
     routed = _route_queries_once(layers[0], queries, capacity_slack)
     cap = routed.capacity
-    starts_lr, counts_lr, tables = _layer_run_descriptors(layers, routed)
+    starts_lr, counts_lr, tables = _layer_run_descriptors(layers, routed, tombstones)
 
     # Owner side: the gather's source axis is the dispatching shard, its row
     # axis the slot-major/layer-minor interleaved runs.
@@ -296,67 +440,159 @@ def _retrieve_parts_fused(
 
     # One ragged return: per-slot totals reconstruct, on the querier, the
     # interleaved offsets the owner packed with.
-    slot_totals = counts_lr.sum(0)
     counts, starts, seg_flat = exchange.combine_ragged(
-        torch.stack(segs), slot_totals, routed.route
+        torch.stack(segs), counts_lr.sum(0), routed.route
     )
-    offsets, slot_rows, values, out_dropped = [], [], [], 0
-    for q in range(d):
-        off, rows, vals, dropped = ops.csr_gather(
-            starts[q], counts[q], seg_flat[q], capacity=out_capacity
-        )
-        offsets.append(off)
-        slot_rows.append(rows)
-        values.append(vals)
-        out_dropped = out_dropped + dropped
+    offsets, slot_rows, values, out_dropped = _querier_gather(
+        starts, counts, seg_flat, out_capacity
+    )
     num_dropped = owner_dropped + routed.route.num_dropped.sum() + out_dropped
-    return (
-        torch.stack(offsets),
-        torch.stack(slot_rows),
-        torch.stack(values),
-        counts,
-        num_dropped,
-    )
+    return offsets, slot_rows, values, counts, num_dropped
 
 
-def retrieve_sharded(
+def _retrieve_runs(
     dhg: DistributedHashGraph,
+    queries: torch.Tensor,
+    *,
+    seg_capacity: int,
+    capacity_slack: float,
+    tombstones: Optional[tuple[torch.Tensor, torch.Tensor]],
+    layer_epoch: int,
+):
+    """One layer's own routing, owner-side gather and return trip (two
+    exchange calls).  Returns ``(counts, starts, seg_flat, dropped)`` in the
+    querier's row order: row ``i``'s values are
+    ``seg_flat[s, starts[s, i] : starts[s, i] + counts[s, i]]``."""
+    d = queries.shape[0]
+    routed, rbuckets = _route_queries(dhg, queries, capacity_slack)
+    cap = routed.capacity
+    run_starts, run_counts = hashgraph.query_locate(dhg.local, routed.rq, rbuckets)
+    run_counts = _mask_counts(run_counts, routed.rq, tombstones, layer_epoch)
+    segs, owner_dropped = [], 0
+    for o in range(d):
+        _, _, seg, dropped = ops.csr_gather_batched(
+            run_starts[o].reshape(d, cap),
+            run_counts[o].reshape(d, cap),
+            dhg.local.values[o],
+            capacity=seg_capacity,
+        )
+        segs.append(seg)
+        owner_dropped = owner_dropped + dropped
+    counts, starts, seg_flat = exchange.combine_ragged(
+        torch.stack(segs), run_counts, routed.route
+    )
+    return counts, starts, seg_flat, owner_dropped + routed.route.num_dropped.sum()
+
+
+def _retrieve_parts(
+    layers: Sequence[DistributedHashGraph],
     queries: torch.Tensor,
     *,
     seg_capacity: int,
     out_capacity: int,
     capacity_slack: float = 1.25,
+    tombstones: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
+    fused: Optional[bool] = None,
+):
+    """Merged retrieval over a layer stack: ``(offsets, query_rows, values,
+    counts, num_dropped)`` per querier shard.
+
+    ``fused`` (coherent stacks only) takes :func:`_retrieve_parts_fused`.
+    Otherwise each layer runs :func:`_retrieve_runs` on its own splits, and
+    one querier-side gather compacts every layer's returned runs: the
+    per-layer run descriptors are interleaved query-major, so the gather
+    yields the merged values directly and every L-th offset is a query's.
+    ``query_rows`` is each output slot's local query row (-1 unused).
+    """
+    layers = tuple(layers)
+    nlayers = len(layers)
+    if fused is None:
+        fused = nlayers == 1
+    if fused:
+        return _retrieve_parts_fused(
+            layers,
+            queries,
+            seg_capacity=seg_capacity,
+            out_capacity=out_capacity,
+            capacity_slack=capacity_slack,
+            tombstones=tombstones,
+        )
+    d, n_local = queries.shape
+    counts_l, starts_l, segs_l, dropped = [], [], [], 0
+    for epoch, layer in enumerate(layers):
+        counts, starts, seg_flat, drop = _retrieve_runs(
+            layer,
+            queries,
+            seg_capacity=seg_capacity,
+            capacity_slack=capacity_slack,
+            tombstones=tombstones,
+            layer_epoch=epoch,
+        )
+        counts_l.append(counts)
+        starts_l.append(starts + epoch * seg_flat.shape[1])
+        segs_l.append(seg_flat)
+        dropped = dropped + drop
+    seg_all = torch.cat(segs_l, dim=1)
+    counts_il = torch.stack(counts_l, dim=2).reshape(d, n_local * nlayers)
+    starts_il = torch.stack(starts_l, dim=2).reshape(d, n_local * nlayers)
+    offsets_il, slot_rows, values, out_dropped = _querier_gather(
+        starts_il, counts_il, seg_all, out_capacity
+    )
+    offsets = offsets_il[:, ::nlayers].contiguous()
+    counts = counts_il.reshape(d, n_local, nlayers).sum(2).to(torch.int32)
+    query_rows = torch.where(
+        slot_rows >= 0, torch.div(slot_rows, nlayers, rounding_mode="floor"), -1
+    ).to(torch.int32)
+    return offsets, query_rows, values, counts, dropped + out_dropped
+
+
+def retrieve_layers_sharded(
+    layers: Sequence[DistributedHashGraph],
+    queries: torch.Tensor,
+    *,
+    seg_capacity: int,
+    out_capacity: int,
+    capacity_slack: float = 1.25,
+    tombstones: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
+    fused: Optional[bool] = None,
 ) -> ShardRetrieval:
-    """All stored values for every occurrence of every query key."""
-    offsets, _, values, counts, num_dropped = _retrieve_parts_fused(
-        (dhg,),
+    """All live values for every occurrence of every query key over a
+    versioned stack; each query's values are its layers' runs in epoch order."""
+    offsets, _, values, counts, num_dropped = _retrieve_parts(
+        layers,
         queries,
         seg_capacity=seg_capacity,
         out_capacity=out_capacity,
         capacity_slack=capacity_slack,
+        tombstones=tombstones,
+        fused=fused,
     )
     return ShardRetrieval(offsets=offsets, values=values, counts=counts, num_dropped=num_dropped)
 
 
-def inner_join_sharded(
-    dhg: DistributedHashGraph,
+def inner_join_layers_sharded(
+    layers: Sequence[DistributedHashGraph],
     queries: torch.Tensor,
     *,
     seg_capacity: int,
     out_capacity: int,
     capacity_slack: float = 1.25,
+    tombstones: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
+    fused: Optional[bool] = None,
 ) -> ShardJoin:
-    """Materialized inner join ``build ⋈ queries`` as global-row match pairs."""
+    """Materialized inner join against a versioned stack, as global-row pairs."""
     d, n_local = queries.shape
-    _, slot_rows, values, counts, num_dropped = _retrieve_parts_fused(
-        (dhg,),
+    _, query_rows, values, counts, num_dropped = _retrieve_parts(
+        layers,
         queries,
         seg_capacity=seg_capacity,
         out_capacity=out_capacity,
         capacity_slack=capacity_slack,
+        tombstones=tombstones,
+        fused=fused,
     )
     rank = torch.arange(d, dtype=torch.int32, device=queries.device).unsqueeze(1)
-    query_idx = torch.where(slot_rows >= 0, rank * n_local + slot_rows, -1)
+    query_idx = torch.where(query_rows >= 0, rank * n_local + query_rows, -1)
     num_results = torch.clamp(counts.sum(1), max=out_capacity).to(torch.int32)
     return ShardJoin(
         query_idx=query_idx.to(torch.int32),
@@ -366,25 +602,108 @@ def inner_join_sharded(
     )
 
 
+def _plan_block_totals(
+    dhg: DistributedHashGraph,
+    queries: torch.Tensor,
+    *,
+    capacity_slack: float,
+    tombstones: Optional[tuple[torch.Tensor, torch.Tensor]],
+    layer_epoch: int,
+) -> torch.Tensor:
+    """``(D_owner, D_src)`` values one layer's owners return to each source,
+    routed exactly like :func:`_retrieve_runs` (one dispatch)."""
+    d = queries.shape[0]
+    routed, rbuckets = _route_queries(dhg, queries, capacity_slack)
+    _, run_counts = hashgraph.query_locate(dhg.local, routed.rq, rbuckets)
+    run_counts = _mask_counts(run_counts, routed.rq, tombstones, layer_epoch)
+    return run_counts.to(torch.int64).reshape(d, d, routed.capacity).sum(2)
+
+
 def plan_caps_sharded(
     layers: Sequence[DistributedHashGraph],
     queries: torch.Tensor,
     *,
     capacity_slack: float = 1.25,
+    tombstones: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
+    fused: Optional[bool] = None,
 ) -> tuple[int, int]:
     """One counts round sizing both retrieval capacities exactly.
 
     Returns ``(seg_capacity, out_capacity)``: the largest per-(owner, source)
-    result total, and the largest per-querier total (the reference's ``pmax``
-    and ``max(psum)``).  Its dispatch counts under the ``"plan_caps"`` label.
+    segment and the largest per-querier total (the reference's ``pmax`` and
+    ``max(psum)``).  ``fused`` must match the path being planned: the fused
+    path packs every layer into one segment (one routing round), the
+    per-layer path one segment per layer (one round per layer).  Its
+    dispatches count under the ``"plan_caps"`` label.
     """
+    layers = tuple(layers)
     d = queries.shape[0]
+    if fused is None:
+        fused = len(layers) == 1
     with exchange.counting_as("plan_caps"):
-        routed = _route_queries_once(layers[0], queries, capacity_slack)
-    _, counts_lr, _ = _layer_run_descriptors(layers, routed)
-    # block_totals[o, s]: values owner o returns to source s.
-    block_totals = counts_lr.to(torch.int64).reshape(len(layers), d, d, routed.capacity)
-    block_totals = block_totals.sum(dim=(0, 3))
-    seg = int(block_totals.max())
-    out = int(block_totals.sum(0).max())
-    return seg, out
+        if fused:
+            routed = _route_queries_once(layers[0], queries, capacity_slack)
+            _, counts_lr, _ = _layer_run_descriptors(layers, routed, tombstones)
+            # block_totals[o, s]: values owner o returns to source s.
+            block_totals = counts_lr.to(torch.int64).reshape(len(layers), d, d, routed.capacity)
+            block_totals = block_totals.sum(dim=(0, 3))
+            return int(block_totals.max()), int(block_totals.sum(0).max())
+        seg_need, out_vec = 0, 0
+        for epoch, layer in enumerate(layers):
+            block_totals = _plan_block_totals(
+                layer,
+                queries,
+                capacity_slack=capacity_slack,
+                tombstones=tombstones,
+                layer_epoch=epoch,
+            )
+            seg_need = max(seg_need, int(block_totals.max()))
+            out_vec = out_vec + block_totals
+    return seg_need, int(out_vec.sum(0).max())
+
+
+def fold_layers_local(
+    layers: Sequence[DistributedHashGraph],
+    *,
+    tombstones: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
+) -> DistributedHashGraph:
+    """Merge a partition-coherent layer prefix into one graph, with no exchange.
+
+    Every delta of a coherent stack was built on the base's splits, so each
+    shard already owns its hash range's rows in every layer: mask tombstoned
+    rows to EMPTY (a tombstone of epoch ``e`` hides layer ``i`` iff
+    ``e >= i``), concatenate each shard's rows, re-bucket through the base's
+    map and build one fresh CSR per shard.  The caller remaps the surviving
+    tombstones (``repro_torch.core.maintenance``).  Invalid for mixed-split
+    stacks.
+    """
+    layers = tuple(layers)
+    base = layers[0]
+    keys_parts, vals_parts = [], []
+    dropped = base.num_dropped
+    for epoch, layer in enumerate(layers):
+        k = layer.local.keys
+        dead = hashgraph.is_empty_key(k)
+        if tombstones is not None and tombstones[0].shape[0]:
+            dead = dead | (
+                hashgraph.match_epochs_sorted(k, tombstones[0], tombstones[1]) >= epoch
+            )
+        keys_parts.append(torch.where(dead, EMPTY_BITS, k))
+        vals_parts.append(layer.local.values)
+        if epoch:
+            dropped = dropped + layer.num_dropped
+    keys_cat = torch.cat(keys_parts, dim=1)
+    vals_cat = torch.cat(vals_parts, dim=1)
+    del keys_parts, vals_parts
+    buckets = _local_buckets(
+        keys_cat,
+        _shard_lo(base.hash_splits),
+        base.hash_range,
+        base.local_range_cap,
+        base.seed,
+        base.bucket_stride,
+    )
+    local = hashgraph.build_from_buckets(
+        keys_cat, buckets, base.local_range_cap, vals_cat, seed=base.seed
+    )
+    return dataclasses.replace(base, local=local, num_dropped=dropped)

@@ -2,9 +2,13 @@
 
     table = DistributedHashTable(num_shards=8, hash_range=1 << 20)  # the card
     state = table.init(keys)                  # keys: (N,) uint32, N % 8 == 0
+    state = state.insert(new_keys)            # functional delta insert
+    state = state.delete(dead_keys)           # tombstone delete
+    state = state.upsert(kv_keys, kv_values, ttl=5)
     counts = table.query(state, queries)
     result = table.retrieve(state, queries)   # count-first capacity sizing
     pairs = join_to_pairs(table.inner_join(state, queries))
+    state = state.compact()                   # fold deltas + tombstones
 
 The D shards live on one device (see ``repro_torch.core.exchange``).
 Results keep the reference's global layout: shard blocks stacked along dim
@@ -19,7 +23,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.core import hashing, multi_hashgraph, plans
+from repro_torch.core import exchange, hashgraph, hashing, multi_hashgraph, partition, plans
+from repro_torch.core.hashgraph import EMPTY_BITS
 from repro_torch.core.multi_hashgraph import (
     DistributedHashGraph,
     ShardJoin,
@@ -27,7 +32,11 @@ from repro_torch.core.multi_hashgraph import (
 )
 from repro_torch.core.schema import LATER_SLICE, TableSchema
 from repro_torch.core.state import TableState, as_state, empty_tombstones
+from repro_torch.kernels import histogram
 from repro_torch.utils import cdiv
+
+PLANS_SLICE = "the port's plans slice (plan/AOT objects and the *_auto retries)"
+HOT_KEYS_SLICE = "the port's hot-key replication slice (KV cache)"
 
 
 @dataclasses.dataclass(kw_only=True, eq=False)
@@ -36,8 +45,15 @@ class DistributedHashTable:
 
     ``device=None`` takes the CUDA card and raises when there is none; the
     plain PyTorch path runs only when the caller asks for ``device="cpu"``.
-    ``seed``, ``capacity_slack``, ``range_slack`` and ``num_bins`` keep the
-    reference's defaults and meaning.
+    Every other field keeps the reference's default and meaning:
+    ``paper_faithful_probe`` counts queries by the paper's linear bucket scan
+    (kernel 5) capped at ``max_probe`` words; ``max_deltas`` bounds the delta
+    ring and ``tombstone_capacity`` the delete buffer; ``coherent_deltas``
+    builds each insert on the base's frozen splits so one routing round
+    serves the whole stack (``fused_routing=False`` forces per-layer
+    routing anyway); ``skew_guard`` sends a batch that would overflow the
+    frozen-splits dispatch to a delta of its own splits instead of dropping
+    rows, counted in ``skew_fallbacks``.
     """
 
     hash_range: int
@@ -47,8 +63,16 @@ class DistributedHashTable:
     capacity_slack: float = 1.25
     range_slack: float = 1.5
     num_bins: Optional[int] = None
+    paper_faithful_probe: bool = False
+    max_probe: int = 64
     schema: Optional[TableSchema] = None
+    max_deltas: int = 8
+    tombstone_capacity: int = 1024
+    coherent_deltas: bool = True
+    fused_routing: Optional[bool] = None
+    skew_guard: bool = True
     fingerprint: Optional[bool] = None
+    replicate_hot_keys: int = 0
 
     def __post_init__(self):
         if self.device is None:
@@ -63,9 +87,16 @@ class DistributedHashTable:
             self.schema = TableSchema()
         if self.fingerprint:
             raise NotImplementedError(f"fingerprint=True belongs to {LATER_SLICE}")
+        if self.replicate_hot_keys > 1:
+            raise NotImplementedError(f"replicate_hot_keys > 1 belongs to {HOT_KEYS_SLICE}")
         if self.num_shards < 1:
             raise ValueError(f"num_shards must be >= 1, got {self.num_shards}")
         hashing.check_table_size(self.hash_range)
+        self.local_range_cap = int(cdiv(self.hash_range, self.num_shards) * self.range_slack)
+        # Inserts the skew guard sent to a delta of its own splits.
+        self.skew_fallbacks = 0
+        # Compact sizing per state signature: (capacity, rebuild_rows).
+        self._sizing_memo = {}
 
     def _shard(self, flat: torch.Tensor, what: str) -> torch.Tensor:
         n = flat.shape[0]
@@ -79,6 +110,25 @@ class DistributedHashTable:
         return self._shard(self.schema.pack_keys(queries, self.device), "queries")
 
     # -- build ----------------------------------------------------------------
+    def _num_bins_for(self, hash_range: int) -> Optional[int]:
+        # A pinned bin count is sized for the table's hash range; a narrowed
+        # delta range takes the automatic choice.
+        return self.num_bins if hash_range == self.hash_range else None
+
+    def _build(self, keys, values, *, hash_range: int, num_bins, capacity=None, **kw):
+        """Four-phase build of ``(D, n_local)`` keys with the table's settings."""
+        return multi_hashgraph.build_sharded(
+            keys,
+            hash_range=hash_range,
+            values=values,
+            num_bins=num_bins,
+            capacity_slack=self.capacity_slack,
+            range_slack=self.range_slack,
+            seed=self.seed,
+            capacity=capacity,
+            **kw,
+        )
+
     def build(self, keys, values=None) -> DistributedHashGraph:
         """Build the distributed graph from a global ``(N,)`` key array.
 
@@ -88,27 +138,249 @@ class DistributedHashTable:
         v = None
         if values is not None:
             v = self._shard(self.schema.pack_values(values, self.device), "values")
-        return multi_hashgraph.build_sharded(
-            k,
-            hash_range=self.hash_range,
-            values=v,
-            num_bins=self.num_bins,
-            capacity_slack=self.capacity_slack,
-            range_slack=self.range_slack,
-            seed=self.seed,
-        )
+        return self._build(k, v, hash_range=self.hash_range, num_bins=self.num_bins)
 
     def init(self, keys, values=None) -> TableState:
-        """Build and wrap into a (base-only) :class:`TableState`."""
+        """Build and wrap into a :class:`TableState` with an empty delta ring
+        and a zero-capacity tombstone buffer (it grows on the first delete)."""
         return TableState(
             base=self.build(keys, values),
-            tombstones=empty_tombstones(self.device),
+            deltas=(),
+            tombstones=empty_tombstones(0, device=self.device),
             table=self,
         )
 
+    # -- functional mutation ------------------------------------------------
+    def _delta_hash_range(self, num_keys: int) -> int:
+        """Hash range of an incoherent delta: sized to the batch."""
+        return min(self.hash_range, max(256, 2 * num_keys))
+
+    def _delta_bucket_geometry(self, num_keys: int) -> tuple[int, int]:
+        """``(local_range_cap, bucket_stride)`` of a coherent delta: the base's
+        bucket map strided down to O(batch) buckets."""
+        target = max(128, cdiv(2 * num_keys, self.num_shards))
+        stride = max(1, cdiv(self.local_range_cap, target))
+        return cdiv(self.local_range_cap, stride), stride
+
+    def _coherent_dispatch_overflows(self, keys: torch.Tensor, splits: torch.Tensor) -> bool:
+        """Would a frozen-splits delta build of ``(D, n_local)`` keys overflow
+        a per-(source, destination) dispatch slot?  Replays the build's
+        routing (EMPTY rows round-robin) and histograms it per pair on the
+        device; only the verdict comes to the host."""
+        d, n_local = keys.shape
+        capacity = multi_hashgraph.default_capacity(n_local, d, self.capacity_slack)
+        h = hashing.hash_to_buckets(keys, self.hash_range, seed=self.seed)
+        dest = partition.destination_of(h, splits)
+        round_robin = torch.arange(n_local, dtype=torch.int32, device=keys.device) % d
+        dest = torch.where(hashgraph.is_empty_key(keys), round_robin, dest)
+        src = torch.arange(d, dtype=torch.int32, device=keys.device).unsqueeze(1)
+        per_pair = histogram.bin_histogram((src * d + dest).to(torch.int32), d * d)
+        return bool((per_pair > capacity).any())
+
+    def insert(self, state, keys, values=None, *, auto_compact: bool = False) -> TableState:
+        """Functional insert: a new state with one more delta graph.
+
+        ``keys``/``values`` follow :meth:`build` (``N % num_shards == 0``);
+        ``values=None`` gives the row id within the batch.  Raises when the
+        ring is full unless ``auto_compact`` compacts first (whenever
+        :meth:`TableState.should_compact` fires).  With ``coherent_deltas``
+        the delta is built on the base's frozen splits; a batch that would
+        overflow that dispatch goes to a delta of its own splits instead
+        (``skew_guard``, counted in ``skew_fallbacks``).
+        """
+        st = as_state(self, state)
+        if auto_compact and st.should_compact():
+            st = self.compact(st)
+        if len(st.deltas) >= self.max_deltas:
+            raise RuntimeError(
+                f"delta ring full ({self.max_deltas} deltas); call compact() "
+                "to fold deltas into the base before inserting more"
+            )
+        flat = self.schema.pack_keys(keys, self.device)
+        if values is None:
+            vals = torch.arange(flat.shape[0], dtype=torch.int32, device=self.device)
+        else:
+            vals = self.schema.pack_values(values, self.device)
+        k = self._shard(flat, "keys")
+        v = self._shard(vals, "values")
+        coherent_build = self.coherent_deltas
+        if coherent_build and self.skew_guard:
+            if self._coherent_dispatch_overflows(k, st.base.hash_splits):
+                coherent_build = False
+                self.skew_fallbacks += 1
+        if coherent_build:
+            local_cap, stride = self._delta_bucket_geometry(flat.shape[0])
+            delta = self._build(
+                k,
+                v,
+                hash_range=self.hash_range,
+                num_bins=None,
+                hash_splits=st.base.hash_splits,
+                local_range_cap=local_cap,
+                bucket_stride=stride,
+            )
+            coherent = st.coherent
+        else:
+            hr = self._delta_hash_range(flat.shape[0])
+            delta = self._build(k, v, hash_range=hr, num_bins=self._num_bins_for(hr))
+            coherent = False  # mixed-split stack: per-layer routing from now on
+        return dataclasses.replace(st, deltas=st.deltas + (delta,), coherent=coherent)
+
+    def delete(self, state, keys) -> TableState:
+        """Functional delete: tombstone every current occurrence of ``keys``
+        at the current epoch (later inserts stay visible).  ``keys`` is one
+        unsharded array of any length; overflow past ``tombstone_capacity``
+        is counted in ``state.num_dropped``."""
+        st = as_state(self, state)
+        ts = st.tombstones
+        if ts.capacity == 0:
+            # A zero-capacity buffer grows on the first delete.  It keeps the
+            # clock (the reference restarts it at 0; ROADMAP.md, faults).
+            ts = empty_tombstones(self.tombstone_capacity, ts.now, device=self.device)
+        packed = self.schema.pack_keys(keys, self.device)
+        return dataclasses.replace(st, tombstones=ts.push(packed, epoch=len(st.deltas)))
+
+    def upsert(
+        self,
+        state,
+        keys,
+        values=None,
+        *,
+        ttl: Optional[int] = None,
+        auto_compact: bool = False,
+    ) -> TableState:
+        """Functional insert-or-replace: afterwards ``keys`` map to exactly
+        ``values``.
+
+        Prior versions are tombstoned at the current epoch ``d`` and the new
+        rows land in a fresh delta at ``d + 1``.  Within a batch the last
+        occurrence of a key wins (host-side keep-last dedup).  ``ttl``
+        pushes a pending tombstone at the new epoch that takes effect when
+        the clock reaches ``now + ttl``.  ``keys`` need not divide into the
+        shards: the batch is EMPTY-padded (padding is never tombstoned).
+        """
+        st = as_state(self, state)
+        if auto_compact and st.should_compact():
+            st = self.compact(st)
+        kn = self.schema.pack_keys(keys, "cpu").numpy()
+        if values is None:
+            vn = np.arange(kn.shape[0], dtype=np.int32)
+        else:
+            vn = self.schema.pack_values(values, "cpu").numpy()
+        # Keep-last dedup: one winner per key, EMPTY rows dropped.
+        _, first = np.unique(kn[::-1], return_index=True)
+        keep = np.sort(kn.shape[0] - 1 - first)
+        keep = keep[kn[keep] != EMPTY_BITS]
+        if keep.shape[0] == 0:
+            return st
+        real = torch.from_numpy(kn[keep]).to(self.device)
+        vals = torch.from_numpy(vn[keep]).to(self.device)
+        pad = (-real.shape[0]) % self.num_shards
+        padded_keys = torch.cat([real, real.new_full((pad,), EMPTY_BITS)])
+        padded_vals = torch.cat([vals, vals.new_full((pad,), -1)])
+        st = self.delete(st, real)  # hide prior versions: epoch d
+        st = self.insert(st, padded_keys, padded_vals)  # the new version: d + 1
+        if ttl is not None:
+            ts = st.tombstones
+            ts = ts.push(real, epoch=len(st.deltas), expires=ts.now + int(ttl))
+            st = dataclasses.replace(st, tombstones=ts)
+        return st
+
+    def compact(self, state, *, capacity: Optional[int] = None) -> TableState:
+        """Fold base + deltas - tombstones into a fresh base; reset the ring.
+
+        Every layer's rows are masked to EMPTY where tombstoned, concatenated
+        per shard, dealt round-robin across the shards (one exchange call)
+        and rebuilt (the build's one dispatch).  With ``capacity=None`` the
+        live row count (a sum, no exchange) sizes the rebuild, so steady
+        insert/delete/compact cycles keep the base flat; the sizing is
+        memoised per state signature.  ``capacity`` pins the rebuild's
+        per-destination slot size.
+        """
+        st = as_state(self, state)
+        d = self.num_shards
+        n_cat_local = sum(layer.local.keys.shape[1] for layer in st.layers)
+        rebuild_rows = None
+        if capacity is None:
+            sig = plans.state_signature(st)
+            cached = self._sizing_memo.get(sig)
+            if cached is not None:
+                capacity, rebuild_rows = cached
+            else:
+                live_local = cdiv(int(plans.exec_live_count(self, st)), d)
+                # Post-deal rows per shard: the balanced live share plus the
+                # slack; live rows lost to skew beyond it are counted.
+                rebuild_rows = max(64, int(live_local * self.capacity_slack) + 8)
+                rebuild_rows = min(cdiv(rebuild_rows, 8) * 8, n_cat_local)
+                capacity = multi_hashgraph.default_capacity(
+                    rebuild_rows, d, self.capacity_slack
+                ) + cdiv(rebuild_rows, d)
+                if len(self._sizing_memo) >= 128:
+                    self._sizing_memo.clear()
+                self._sizing_memo[sig] = (capacity, rebuild_rows)
+        capacity = cdiv(capacity, 8) * 8
+        new_base = self._compact_base(st, capacity, rebuild_rows)
+        # Tombstone carry: effective entries are spent by the rebuild; pending
+        # TTL entries masked nothing yet, so they survive (clamped to epoch 0).
+        ts = st.tombstones
+        pending = ts.capacity > 0 and bool(((ts.epochs >= 0) & (ts.now < ts.expires)).any())
+        if pending:
+            from repro_torch.core.maintenance import _remap_tombstones
+
+            new_ts = _remap_tombstones(ts, len(st.deltas))
+        else:
+            new_ts = empty_tombstones(0, ts.now, device=self.device)
+        return TableState(base=new_base, deltas=(), tombstones=new_ts, table=self)
+
+    def _compact_rows(self, st: TableState, rebuild_rows: Optional[int]):
+        """The rows a compaction rebuilds: ``(keys, values, truncated_live)``,
+        each ``(D, rows)``, live rows first on every shard."""
+        ts_keys, ts_epochs = st.tombstones.index()
+        keys_parts, vals_parts = [], []
+        for epoch, layer in enumerate(st.layers):
+            k = layer.local.keys
+            hidden = hashgraph.match_epochs_sorted(k, ts_keys, ts_epochs) >= epoch
+            keys_parts.append(torch.where(hashgraph.is_empty_key(k) | hidden, EMPTY_BITS, k))
+            vals_parts.append(layer.local.values)
+        rows = torch.stack([torch.cat(keys_parts, 1), torch.cat(vals_parts, 1)], dim=-1)
+        del keys_parts, vals_parts
+        # Strided deal: row i of every shard goes to shard i % D (the base is
+        # hash-partitioned, so rebuilding as it is would send each shard's
+        # live rows to one owner).  Keys and values travel as one exchange.
+        d, m = rows.shape[:2]
+        chunk = cdiv(m, d)
+        if chunk * d != m:
+            pad = rows.new_full((d, chunk * d - m, 2), -1)
+            rows = torch.cat([rows, pad], dim=1)
+        stripes = rows.reshape(d, chunk, d, 2).transpose(1, 2)  # (D_src, D_dst, chunk, 2)
+        rows = exchange.all_to_all_hierarchical(stripes).reshape(d, d * chunk, 2)
+        del stripes
+        # Live rows first: dispatch drops hit sentinels before any real key.
+        order = torch.sort(
+            hashgraph.is_empty_key(rows[..., 0]).to(torch.int32), dim=1, stable=True
+        ).indices
+        rows = torch.gather(rows, 1, order.unsqueeze(-1).expand(-1, -1, 2))
+        del order
+        trunc_live = 0
+        if rebuild_rows is not None and rebuild_rows < rows.shape[1]:
+            trunc_live = (~hashgraph.is_empty_key(rows[:, rebuild_rows:, 0])).sum()
+            rows = rows[:, :rebuild_rows]
+        return rows[..., 0].contiguous(), rows[..., 1].contiguous(), trunc_live
+
+    def _compact_base(
+        self, st: TableState, capacity: int, rebuild_rows: Optional[int]
+    ) -> DistributedHashGraph:
+        keys, values, trunc_live = self._compact_rows(st, rebuild_rows)
+        built = self._build(
+            keys, values, hash_range=self.hash_range, num_bins=self.num_bins, capacity=capacity
+        )
+        # Live rows cut by the live-count sizing are counted, never silent.
+        return dataclasses.replace(built, num_dropped=built.num_dropped + trunc_live)
+
     # -- reads ----------------------------------------------------------------
     def query(self, state, queries) -> torch.Tensor:
-        """Multiplicity of each global query key, ``(Nq,)`` int32."""
+        """Multiplicity of each global query key over ``base + deltas -
+        tombstones``, ``(Nq,)`` int32."""
         st = as_state(self, state)
         return plans.exec_query(self, st, self._pack_queries(queries)).reshape(-1)
 
@@ -149,7 +421,7 @@ class DistributedHashTable:
         out_capacity: Optional[int] = None,
         seg_capacity: Optional[int] = None,
     ) -> ShardRetrieval:
-        """All stored values for every occurrence of every query key.
+        """All live values for every occurrence of every query key.
 
         Global layout: block ``d`` of ``offsets`` (``n_local + 1`` rows)
         indexes block ``d`` of ``values`` (``out_capacity`` rows).  Overflow
@@ -186,6 +458,12 @@ class DistributedHashTable:
             num_results=j.num_results,
             num_dropped=j.num_dropped,
         )
+
+    # -- not ported yet ---------------------------------------------------------
+    def _later(self, *args, **kwargs):
+        raise NotImplementedError(f"this entry point belongs to {PLANS_SLICE}")
+
+    plan_query = plan_retrieve = plan_join = retrieve_auto = inner_join_auto = _later
 
 
 # ---------------------------------------------------------------------------

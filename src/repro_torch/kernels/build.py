@@ -46,6 +46,8 @@ _SIGNATURES = {
     "csr_gather_batched": (
         _P, _P, _P, _I64, _P, _P, _I64, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P,
     ),
+    # starts, ends, q, table, n, table_len, num_shards, max_probe, out, stream
+    "bucket_probe": (_P, _P, _P, _P, _I64, _I64, ctypes.c_int, ctypes.c_int, _P, _P),
 }
 
 _lock = threading.Lock()

@@ -1,10 +1,12 @@
-"""Entry points around the CSR gather kernels (port of ``repro.kernels.ops``).
+"""Entry points around the CSR gather and bucket probe kernels (port of
+``repro.kernels.ops``).
 
 ``csr_gather``, ``csr_gather_batched`` and ``csr_gather_layers`` keep the
 reference's contracts: the prefix sum runs as plain tensor code, the per-slot
 bisection and gather in kernel 3 or 4 on the card (their plain twin on the
 CPU).  A uint32 table (the ``torch.uint32`` dtype) goes through its int32
-view, so ``fill=-1`` comes back as ``0xFFFFFFFF``.
+view, so ``fill=-1`` comes back as ``0xFFFFFFFF``.  ``bucket_probe`` keeps
+the reference's argument order and runs kernel 5.
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ from typing import Sequence
 
 import torch
 
+from repro_torch.kernels import bucket_probe as _probe
 from repro_torch.kernels import csr_gather as _gather
 
 
@@ -115,3 +118,25 @@ def csr_gather_layers(
         starts_i, counts_i, table_cat, capacity=capacity, fill=fill
     )
     return gathered, num_dropped
+
+
+def bucket_probe(
+    table_keys: torch.Tensor,
+    starts: torch.Tensor,
+    ends: torch.Tensor,
+    queries: torch.Tensor,
+    *,
+    max_probe: int = 64,
+) -> torch.Tensor:
+    """Per-query match count by linear bucket scan (the paper's query loop).
+
+    Keys are int32 bit patterns or ``torch.uint32``; ``starts``/``ends`` any
+    integer type.  ``(N,)`` queries over a ``(M,)`` table, or ``(S, N)`` over
+    ``(S, M)``.
+    """
+    table_keys, _ = _as_int32_table(table_keys)
+    if queries.dtype == torch.uint32:
+        queries = queries.view(torch.int32)
+    return _probe.bucket_probe(
+        starts.to(torch.int32), ends.to(torch.int32), queries, table_keys, max_probe
+    )

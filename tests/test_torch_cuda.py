@@ -17,7 +17,8 @@ from repro_torch import DistributedHashTable, join_to_pairs
 from repro_torch.core import convert
 from repro_torch.core.hashing import DEFAULT_SEED, FINGERPRINT_SEED
 from repro_torch.core.schema import u32_bits
-from repro_torch.kernels import build, histogram, murmur, ops
+from repro_torch.core import maintenance
+from repro_torch.kernels import bucket_probe, build, histogram, murmur, ops
 
 pytestmark = pytest.mark.cuda
 
@@ -83,3 +84,55 @@ def test_card_path_matches_cpu_path(card, d):
         join_to_pairs(on_card.inner_join(sg, queries)),
         join_to_pairs(on_cpu.inner_join(sc, queries)),
     )
+
+
+@pytest.mark.parametrize("shards,n,table_len,max_len,max_probe", [
+    (1, 5000, 20000, 12, 64), (8, 3000, 4000, 90, 64), (3, 257, 129, 129, 5), (2, 0, 16, 4, 8),
+])
+def test_bucket_probe_kernel_matches_plain(card, shards, n, table_len, max_len, max_probe):
+    rng = np.random.default_rng(n + shards)
+    table = torch.from_numpy(rng.integers(-3, 3, size=(shards, table_len), dtype=np.int32))
+    starts = rng.integers(-2, table_len, size=(shards, n))
+    ends = starts + rng.integers(-1, max_len + 1, size=(shards, n))
+    st = torch.from_numpy(starts.astype(np.int32))
+    en = torch.from_numpy(np.minimum(ends, table_len + 3).astype(np.int32))
+    q = torch.from_numpy(rng.integers(-3, 3, size=(shards, n), dtype=np.int32))
+    want = bucket_probe.bucket_probe_plain(st, en, q, table, max_probe)
+    before = build.LAUNCHES["bucket_probe"]
+    got = bucket_probe.bucket_probe(st.to(card), en.to(card), q.to(card), table.to(card), max_probe)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    assert build.LAUNCHES["bucket_probe"] == before + (1 if n else 0)
+    flat = bucket_probe.bucket_probe(st[0].to(card), en[0].to(card), q[0].to(card),
+                                     table[0].to(card), max_probe)
+    assert torch.equal(flat.cpu(), want[0])
+
+
+@pytest.mark.parametrize("d", [1, 8])
+def test_card_update_path_matches_cpu_path(card, d):
+    """Insert, delete, upsert, fold and compact on the card and on the CPU
+    give the same arrays and the same sorted and probe reads."""
+    rng = np.random.default_rng(d)
+    keys = rng.integers(0, 4000, size=2048, dtype=np.uint32)
+    queries = rng.integers(0, 5000, size=512, dtype=np.uint32)
+    batch = rng.integers(0, 5000, size=256, dtype=np.uint32)
+    states, reads = {}, {}
+    for where in (card, "cpu"):
+        t = DistributedHashTable(num_shards=d, hash_range=1 << 12, device=where)
+        probe = DistributedHashTable(num_shards=d, hash_range=1 << 12, device=where,
+                                     paper_faithful_probe=True)
+        s = t.init(keys)
+        s = s.insert(batch)
+        s = s.delete(keys[:40]).insert(keys[:16])
+        s = s.upsert(keys[40:50], np.arange(10, dtype=np.int32))
+        out = []
+        for st in (s, maintenance.fold_oldest(s, 2), s.compact()):
+            out.append(t.query(st, queries).cpu())
+            out.append(probe.query(st, queries).cpu())
+            r = t.retrieve(st, queries)
+            out += [r.offsets.cpu(), r.values.cpu(), r.counts.cpu()]
+        states[str(where)], reads[str(where)] = convert.state_to_numpy(s), out
+    for a, b in zip(reads["cuda"], reads["cpu"]):
+        assert torch.equal(a, b)
+    for name in ("offsets", "keys", "values", "hash_splits"):
+        np.testing.assert_array_equal(states["cuda"]["base"][name], states["cpu"]["base"][name])
