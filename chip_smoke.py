@@ -26,15 +26,33 @@ Run from the root of a checkout: it builds the port's CUDA kernels from
    fallback, and the reads repeat on that mixed-split stack.  Every read is
    held against a numpy oracle of the live multiset, every step against
    ``num_dropped == 0`` and its exchange-call budget;
-3. counts the kernel launches of each run (every count is set to 0 just
+3. serves qwen3-4b at full width (36 layers, d_model 2560, 32 query heads
+   over 8 kv heads, vocab 151,936; random bf16 weights drawn on the card
+   from ``--seed``) through the public API: ``build_model``, a
+   ``ContinuousBatcher`` of 4 slots with 4096-token caches, 8 requests of
+   prompts drawn from ``--seed`` in [1000, 3000] tokens, 32 new tokens each,
+   run until drained; reports prefill tokens/s, decode tokens/s over the
+   steps with every slot live, time to first token per request and peak
+   bytes; replays every request through ``forward_train`` with plain
+   attention and holds the batcher's logits at every generated position
+   within ``LM_LOGIT_TOL`` of the replay's, and each generated token equal
+   to the replay's argmax wherever its top-1 beats its top-2 by more than
+   twice that;
+4. counts the kernel launches of each run (every count is set to 0 just
    before a run and read just after it) and requires each kernel of the run
-   > 0 (the update path runs all five);
-4. calls each kernel's wrapper on the inputs each run gives it, requires
-   ``torch.equal`` with its plain PyTorch twin (tolerance: none, every
-   output is an integer), and times kernel, plain twin and (for the
-   histogram) ``torch.bincount`` with CUDA events beside the least time the
-   card could take: the larger of the bytes moved over 3.35 TB/s and the
-   integer operations over the card's int32 rate.
+   > 0 (the update path runs all five table kernels), and exactly 36 x 8
+   launches of kernel 6 (flash attention), one per layer per prefill, in
+   the serving run;
+5. calls each kernel's wrapper on the inputs each run gives it and holds it
+   against its plain PyTorch twin: ``torch.equal`` for the table kernels
+   (every output is an integer), ``FLASH_TOL`` for kernel 6 on request 0's
+   layer-0 q, k, v and on small GQA, window, non-causal, decode-offset and
+   ragged cases in bf16 and f32; it times kernel, plain twin and a library
+   yardstick (``torch.bincount`` for the histogram,
+   ``scaled_dot_product_attention`` for kernel 6) with CUDA events beside the
+   least time the card could take: the larger of the bytes moved over
+   3.35 TB/s and the operations over the card's rate for them (int32 lanes
+   for the table kernels, bf16 tensor cores for kernel 6).
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line (one
 row per kernel and run, ``path`` and ``shards`` naming the run) and, last,
@@ -44,6 +62,7 @@ checkout, it exits non-zero before printing any result.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import subprocess
@@ -57,12 +76,42 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 # x 1.98 GHz boost clock (H100 SXM).  Not half the 67 TFLOP/s float32 rate:
 # that counts each fused multiply-add as two operations.
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
+# bf16 dense tensor-core rate and f32 rate outside the tensor cores (H100 SXM data sheet).
+BF16_FLOPS_PER_S = 989e12
+F32_FLOPS_PER_S = 67e12
 ABSENT_QUERIES = 1 << 20
 RETRIEVE_QUERIES = 1 << 22
 TOMBSTONE_CAPACITY = 1 << 17
 DELETES = 1 << 16
 REINSERTS = 1 << 12
 UPSERTS = 1 << 16
+# LM serving path: qwen3-4b at full width, 8 requests through 4 slots of 4096.
+LM_ARCH = "qwen3_4b"
+LM_REQUESTS, LM_SLOTS, LM_CACHE_LEN, LM_MAX_NEW = 8, 4, 4096, 32
+LM_PROMPT_LENS = (1000, 3000)
+# Kernel 6 against its twin: the same f32 arithmetic summed in another order
+# (2e-5), and in bf16 the output rounded to 8 significant bits, where the two
+# f32 sums can land one bf16 step apart (2e-2; |o| < 2).  Relative and absolute.
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# Kernel 6's small cases (hq, hkv, sq, skv, d, causal, window): GQA 4:1, a
+# sliding window, non-causal, decode offsets (sq < skv), ragged lengths.
+LM_FLASH_CASES = (
+    (8, 2, 256, 256, 128, True, None),
+    (4, 2, 300, 300, 128, True, 100),
+    (4, 4, 200, 200, 64, False, None),
+    (4, 1, 37, 900, 128, True, None),
+    (4, 2, 1, 700, 128, True, None),
+    (4, 2, 333, 333, 32, True, None),
+    (4, 2, 130, 190, 64, False, 17),
+)
+# The batcher's logits (flash prefill, plain decode over the cache) against a
+# plain-attention replay of the whole sequence, both in bf16: the two round
+# to bf16 at other points (kernel 6 against the einsum, GEMMs of M = 1 and of
+# M = thousands) and the steps carry through 36 layers.  One bf16 step of a
+# logit near 0.5 is 2^-9 ~ 0.002; the full-width runs on the card measured
+# at most 0.0107 over 256 positions, against logits of std 0.114 and
+# |max| ~0.6.  The gate is twice that maximum.
+LM_LOGIT_TOL = 2e-2
 
 # Kernel name -> (source in the repo, Pallas function it replaces).
 KERNELS = {
@@ -77,9 +126,15 @@ KERNELS = {
         "src/repro_torch/csrc/bucket_probe.cu",
         "src/repro/kernels/bucket_probe.py:40",
     ),
+    "flash_attention": (
+        "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:126",
+    ),
 }
-# The build -> query -> retrieve path runs the first four; the update path all.
+# The build -> query -> retrieve path runs the first four; the update path all
+# five table kernels; the LM serving path kernel 6 alone.
 READ_PATH_KERNELS = ("murmur_bucket", "bin_histogram", "csr_gather", "csr_gather_batched")
+TABLE_KERNELS = READ_PATH_KERNELS + ("bucket_probe",)
 
 
 class SmokeFailure(RuntimeError):
@@ -486,7 +541,7 @@ def run_update_path(n_shards: int, n_keys: int, seed: int, device, log, skew: bo
     sync(device)
     launches = dict(build.LAUNCHES)
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
-    for name in KERNELS if device.type == "cuda" else ():
+    for name in TABLE_KERNELS if device.type == "cuda" else ():
         check(launches.get(name, 0) > 0, f"{label}: kernel {name} never launched")
 
     res = {
@@ -668,6 +723,62 @@ def probe_work(starts, ends, max_probe: int) -> tuple[int, int]:
     return 16 * starts.numel() + 4 * words, 3 * words + 6 * starts.numel()
 
 
+def kernel_row(name, meta: dict, shapes: str, kernel_fn, plain_fn, bounds: dict, device, log,
+               library_fn=None, reps: int = 20, tol=None) -> dict:
+    """One kernel against its plain twin on the same card inputs, timed.
+
+    ``meta`` holds the row's ``path``, ``shards`` and ``launches`` (the count
+    of its run); ``bounds`` the least time in ms by ``"bytes"`` and by
+    ``"operations"``.  ``tol`` None requires equal outputs (integers);
+    otherwise ``|kernel - plain| <= tol * (1 + |plain|)`` elementwise."""
+    import torch
+
+    bound_by = max(bounds, key=bounds.get)
+    got, want = kernel_fn(), plain_fn()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    sync(device)
+    for a, b in zip(got, want):
+        if tol is None:
+            check(a.shape == b.shape and torch.equal(a, b), f"kernel {name} differs from its plain twin")
+        else:
+            check(a.shape == b.shape and a.dtype == b.dtype, f"kernel {name}: {a.shape}/{a.dtype} "
+                  f"against the plain twin's {b.shape}/{b.dtype}")
+            bad = int(((a.float() - b.float()).abs() > tol * (1 + b.float().abs())).sum())
+            check(bad == 0, f"kernel {name}: {bad} outputs differ from the plain twin by more "
+                  f"than {tol} (relative and absolute)")
+    if tol is None:
+        err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) if a.numel() else 0
+                  for a, b in zip(got, want))
+    else:
+        err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
+    del got, want
+    row = {
+        "name": name,
+        **meta,
+        "route": "cuda",
+        "source": KERNELS[name][0],
+        "replaces": KERNELS[name][1],
+        "max_abs_err": err,
+        "ms": mean_ms(kernel_fn, reps, device),
+        "plain_ms": mean_ms(plain_fn, 3, device),
+        "bound_ms": bounds[bound_by],
+        "bound_by": bound_by,
+        "library_ms": mean_ms(library_fn, reps, device) if library_fn else None,
+        "shapes": shapes,
+    }
+    log(f"kernel {name} {meta['path']} {shapes}: max_abs_err={err} (tol {tol or 'exact'}) "
+        f"kernel_ms={row['ms']} plain_ms={row['plain_ms']} library_ms={row['library_ms']} "
+        f"bound_ms={row['bound_ms']} ({bound_by}) launches={row['launches']}")
+    return row
+
+
+def int_bounds(work: tuple[int, int]) -> dict:
+    """Least times in ms of ``(bytes, int32 ops)``."""
+    nbytes, nops = work
+    return {"bytes": nbytes / HBM_BYTES_PER_S * 1e3, "operations": nops / INT32_OPS_PER_S * 1e3}
+
+
 def check_kernels(run: dict, device, log) -> list:
     """Each kernel of the run against its plain twin on the run's own card
     inputs, timed; the launch counts of the run are reported beside."""
@@ -680,39 +791,10 @@ def check_kernels(run: dict, device, log) -> list:
     launches = run["result"]["launches"]
     rows = []
 
-    def record(name, shapes, kernel_fn, plain_fn, work, library_fn=None, reps=20):
-        nbytes, nops = work
-        bounds = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3, "operations": nops / INT32_OPS_PER_S * 1e3}
-        bound_by = max(bounds, key=bounds.get)
-        got, want = kernel_fn(), plain_fn()
-        got = got if isinstance(got, tuple) else (got,)
-        want = want if isinstance(want, tuple) else (want,)
-        sync(device)
-        for a, b in zip(got, want):
-            check(a.shape == b.shape and torch.equal(a, b), f"kernel {name} differs from its plain twin")
-        err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) if a.numel() else 0
-                  for a, b in zip(got, want))
-        del got, want
-        row = {
-            "name": name,
-            "path": path,
-            "shards": shards,
-            "route": "cuda",
-            "source": KERNELS[name][0],
-            "replaces": KERNELS[name][1],
-            "max_abs_err": err,
-            "ms": mean_ms(kernel_fn, reps, device),
-            "plain_ms": mean_ms(plain_fn, 3, device),
-            "bound_ms": bounds[bound_by],
-            "bound_by": bound_by,
-            "library_ms": mean_ms(library_fn, reps, device) if library_fn else None,
-            "launches": launches.get(name, 0),
-            "shapes": shapes,
-        }
-        log(f"kernel {name} {path} D={shards} {shapes}: equal=True kernel_ms={row['ms']} plain_ms={row['plain_ms']} "
-            f"library_ms={row['library_ms']} bound_ms={row['bound_ms']} ({bound_by}) "
-            f"launches={row['launches']}")
-        rows.append(row)
+    def record(name, shapes, kernel_fn, plain_fn, work, library_fn=None):
+        meta = {"path": path, "shards": shards, "launches": launches.get(name, 0)}
+        rows.append(kernel_row(name, meta, shapes, kernel_fn, plain_fn, int_bounds(work), device,
+                               log, library_fn=library_fn))
 
     a = inputs["murmur_bucket"]
     record(
@@ -757,6 +839,247 @@ def check_kernels(run: dict, device, log) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# LM serving path (slice 3): qwen3-4b at full width through the batcher
+# ---------------------------------------------------------------------------
+def lm_settings() -> None:
+    """Matrix products in full f32 accumulation: TF32 off and no reduced
+    precision bf16 reductions (both PyTorch defaults are left alone inside
+    the library; this script and the card tests set them)."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+def run_lm_path(seed: int, device, log, cfg=None, requests: int = LM_REQUESTS,
+                slots: int = LM_SLOTS, cache_len: int = LM_CACHE_LEN,
+                prompt_lens: tuple = LM_PROMPT_LENS, max_new: int = LM_MAX_NEW) -> dict:
+    """Serve ``requests`` ragged prompts through the public API: build_model
+    with seeded random bf16 weights on the device, a ContinuousBatcher of
+    ``slots`` lanes of ``cache_len`` tokens, greedy decoding until drained.
+    Every prefill's 36 attention layers run kernel 6; the batcher's logits
+    are kept for the replay check."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models.api import build_model
+    from repro_torch.serve import ContinuousBatcher, Request, make_prefill_step, make_serve_step
+
+    cfg = cfg or get_config(LM_ARCH)
+    bundle = build_model(cfg, device=device)
+    params, init_s = wall(lambda: bundle.init(seed), device)
+    rng = np.random.default_rng(seed + 2)
+    lens = rng.integers(prompt_lens[0], prompt_lens[1] + 1, size=requests)
+    prompts = [rng.integers(1, cfg.vocab_size, size=int(n), dtype=np.int32) for n in lens]
+    # Warm-up outside the counted run: cuBLAS handles, the kernel's first launch.
+    _, warm = bundle.prefill(params, {"tokens": prompts[0][None, :64]}, cache_len=80)
+    bundle.decode_step(params, warm, prompts[0][None, 64:65], np.array([64], np.int32))
+    del warm
+
+    prefill, decode = make_prefill_step(bundle, cache_len=cache_len), make_serve_step(bundle)
+    rec = {"prefill_s": [], "ttft_s": [], "decode": [], "logits": {i: [] for i in range(requests)}}
+
+    def timed_prefill(p, batch):
+        uid = len(rec["prefill_s"])  # the batcher admits in submission order
+        check(batch["tokens"].shape == (1, len(prompts[uid])), f"prefill {uid}: wrong prompt")
+        (logits, cache), secs = wall(lambda: prefill(p, batch), device)
+        rec["prefill_s"].append(secs)
+        rec["ttft_s"].append(time.perf_counter() - rec["start"])
+        rec["logits"][uid].append(logits[0])
+        return logits, cache
+
+    def timed_decode(p, caches, token, pos):
+        live = [(i, r.uid) for i, r in enumerate(batcher.slots) if r is not None]
+        (logits, caches), secs = wall(lambda: decode(p, caches, token, pos), device)
+        rec["decode"].append((len(live), secs))
+        for i, uid in live:
+            rec["logits"][uid].append(logits[i])
+        return logits, caches
+
+    batcher = ContinuousBatcher(params, bundle.init_cache(slots, cache_len), timed_prefill,
+                                timed_decode, num_slots=slots)
+    for uid, prompt in enumerate(prompts):
+        batcher.submit(Request(uid=uid, prompt=prompt, max_new_tokens=max_new))
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    build.LAUNCHES.clear()
+    sync(device)
+    rec["start"] = time.perf_counter()
+    done = batcher.run_until_drained()
+    sync(device)
+    total_s = time.perf_counter() - rec["start"]
+    launches = dict(build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
+
+    check(len(done) == requests and all(r.done and len(r.out_tokens) == max_new for r in done),
+          f"LM: {len(done)} of {requests} requests finished with {max_new} tokens")
+    if device.type == "cuda":
+        want = {"flash_attention": cfg.num_layers * requests}
+        check(launches == want, f"LM: launches {launches}, want {want} (one per layer per prefill)")
+    full = [secs for live, secs in rec["decode"] if live == slots]
+    res = {
+        "path": "serve",
+        "arch": cfg.name,
+        "requests": requests,
+        "slots": slots,
+        "cache_len": cache_len,
+        "prompt_lens": [int(n) for n in lens],
+        "max_new_tokens": max_new,
+        "init_s": init_s,
+        "total_s": total_s,
+        "prefill_tokens_per_s": float(lens.sum()) / sum(rec["prefill_s"]),
+        "prefill_s": rec["prefill_s"],
+        "decode_steps": len(rec["decode"]),
+        "decode_steps_all_live": len(full),
+        "decode_tokens_per_s": slots * len(full) / sum(full) if full else None,
+        "decode_step_ms_all_live": 1e3 * sum(full) / len(full) if full else None,
+        "ttft_s": rec["ttft_s"],
+        "launches": launches,
+        "peak_bytes": peak,
+    }
+    log(f"serve {cfg.name}: " + json.dumps(res))
+    return {"result": res, "cfg": cfg, "bundle": bundle, "params": params, "prompts": prompts,
+            "done": done, "logits": rec["logits"], "batcher": batcher}
+
+
+def check_lm_replay(run: dict, device, log) -> dict:
+    """Replay every finished request through ``forward_train`` with plain
+    attention on the device (prompt + generated[:-1]) and hold the batcher's
+    logits at every generated position within LM_LOGIT_TOL of the replay's;
+    each generated token must equal the replay's argmax wherever the
+    replay's top-1 beats its top-2 by more than 2 * LM_LOGIT_TOL."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.models.api import build_model
+
+    plain = build_model(dataclasses.replace(run["cfg"], attention_impl="plain"), device=device)
+    worst, scale, decided, positions = 0.0, 0.0, 0, 0
+    for req in run["done"]:
+        toks = np.concatenate([req.prompt, np.asarray(req.out_tokens, np.int32)])[None]
+        logits, _ = plain.forward_train(run["params"], toks)
+        ref = logits[0, len(req.prompt) - 1:].float()
+        got = torch.stack(run["logits"][req.uid]).float()
+        check(got.shape == ref.shape, f"replay {req.uid}: {tuple(got.shape)} vs {tuple(ref.shape)}")
+        check(bool(torch.isfinite(got).all()), f"replay {req.uid}: non-finite batcher logits")
+        err = float((got - ref).abs().max())
+        check(err <= LM_LOGIT_TOL, f"request {req.uid}: batcher logits differ from the plain "
+              f"replay by {err} > {LM_LOGIT_TOL}")
+        top2 = ref.topk(2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > 2 * LM_LOGIT_TOL
+        tokens = torch.as_tensor(req.out_tokens, device=ref.device)
+        check(bool((tokens[sure] == ref.argmax(-1)[sure]).all()),
+              f"request {req.uid}: a generated token differs from the replay's clear argmax")
+        worst, scale = max(worst, err), max(scale, float(ref.abs().max()))
+        decided += int(sure.sum())
+        positions += ref.shape[0]
+        del logits, ref, got
+    out = {"logit_tol": LM_LOGIT_TOL, "max_abs_err": worst, "max_abs_logit": scale,
+           "positions": positions, "tokens_compared": decided,
+           "positions_inside_margin": positions - decided}
+    log("serve replay (plain attention, forward_train): " + json.dumps(out))
+    return out
+
+
+def layer0_qkv(params, prompt, cfg, device):
+    """The first layer's q (Hq, S, D), k, v (Hkv, S, D) of a prefill of
+    ``prompt``: the inputs its kernel 6 launch receives."""
+    import torch
+
+    from repro_torch.models import attention, layers, transformer
+
+    tokens = torch.as_tensor(prompt[None], device=device)
+    with torch.no_grad():
+        x = transformer._embed(params, tokens, cfg)
+        block = params.layers[0].b0
+        positions = torch.arange(x.shape[1], device=device, dtype=torch.int32)[None]
+        q, k, v = attention._project_qkv(block.attn, layers.rmsnorm(x, block.norm1), cfg, positions)
+    hd = cfg.head_dim_
+    return (q.reshape(cfg.num_heads, -1, hd).contiguous(), k[0].contiguous(), v[0].contiguous())
+
+
+def attention_bounds(hq: int, hkv: int, sq: int, skv: int, d: int, dtype: str, live: int) -> dict:
+    """Least times in ms of one attention call: q, k, v read once and o
+    written once over the memory rate; 4 * D FLOPs per live (query, key)
+    pair per query head (q.k and p.v) over the card's rate for the type
+    (bf16 tensor cores; f32 outside them)."""
+    elem = 2 if dtype == "bfloat16" else 4
+    nbytes = elem * d * (2 * hq * sq + 2 * hkv * skv)
+    rate = BF16_FLOPS_PER_S if dtype == "bfloat16" else F32_FLOPS_PER_S
+    return {"bytes": nbytes / HBM_BYTES_PER_S * 1e3, "operations": 4 * d * live * hq / rate * 1e3}
+
+
+def check_lm_kernels(run: dict, device, log) -> list:
+    """Kernel 6 against its plain twin on request 0's layer-0 q, k, v (the
+    main path's shape), timed beside ``scaled_dot_product_attention`` (a
+    yardstick the port never calls); then on the small cases of
+    LM_FLASH_CASES in bf16 and f32."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as flash
+
+    cfg = run["cfg"]
+    q, k, v = layer0_qkv(run["params"], run["prompts"][0], cfg, device)
+    hq, s, d = q.shape
+    hkv, group = k.shape[0], cfg.q_per_kv
+    live = int(flash.live_mask(s, s, causal=True, window=None, device=device).sum())
+    meta = {"path": "serve", "shards": None,
+            "launches": run["result"]["launches"].get("flash_attention", 0)}
+    row = kernel_row(
+        "flash_attention", meta,
+        f"q=({hq}, {s}, {d}) k/v=({hkv}, {s}, {d}) bf16 causal (request 0, layer 0)",
+        lambda: flash.flash_attention_fhsd(q, k, v, q_heads_per_kv=group),
+        lambda: flash.flash_attention_plain(q, k, v, q_heads_per_kv=group),
+        attention_bounds(hq, hkv, s, s, d, "bfloat16", live), device, log,
+        library_fn=lambda: F.scaled_dot_product_attention(
+            q[None], k[None], v[None], is_causal=True, enable_gqa=True),
+        tol=FLASH_TOL["bfloat16"],
+    )
+    del q, k, v
+    gen = torch.Generator(device=device).manual_seed(7)
+    for hq, hkv, sq, skv, d, causal, window in LM_FLASH_CASES:
+        for dtype in ("bfloat16", "float32"):
+            q, k, v = (torch.randn(shape, generator=gen, device=device).to(getattr(torch, dtype))
+                       for shape in ((hq, sq, d), (hkv, skv, d), (hkv, skv, d)))
+            args = dict(causal=causal, window=window, q_heads_per_kv=hq // hkv)
+            if device.type == "cuda":
+                got = flash.flash_attention_fhsd(q, k, v, **args)
+            else:  # rehearsal on the CPU: the wrapper takes the twin there
+                got = flash.flash_attention_plain(q, k, v, **args)
+            want = flash.flash_attention_plain(q, k, v, **args)
+            sync(device)
+            tol = FLASH_TOL[dtype]
+            diff = (got.float() - want.float()).abs()
+            check(got.dtype == want.dtype and bool((diff <= tol * (1 + want.float().abs())).all()),
+                  f"kernel flash_attention {(hq, hkv, sq, skv, d, causal, window)} {dtype}: "
+                  f"max error {float(diff.max())} over tolerance {tol}")
+            log(f"kernel flash_attention case hq={hq} hkv={hkv} sq={sq} skv={skv} d={d} "
+                f"causal={causal} window={window} {dtype}: max_abs_err={float(diff.max())} (tol {tol})")
+    return [row]
+
+
+def lm_path_phases(run: dict) -> dict:
+    """One more prefill of request 0 and one more decode step of all slots."""
+    import numpy as np
+
+    bundle, params, batcher = run["bundle"], run["params"], run["batcher"]
+    prompt = run["prompts"][0]
+    slots = batcher.num_slots
+    token = np.ones((slots, 1), np.int32)
+    pos = np.full((slots,), len(prompt), np.int32)
+    return {
+        "prefill (request 0)": lambda: bundle.prefill(
+            params, {"tokens": prompt[None]}, cache_len=run["result"]["cache_len"]),
+        "decode step (all slots)": lambda: bundle.decode_step(params, batcher.caches, token, pos),
+    }
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--keys", type=int, default=1 << 27,
@@ -765,7 +1088,8 @@ def main(argv=None) -> int:
     parser.add_argument("--out", default=None, help="also write the results as JSON here")
     parser.add_argument("--profile", action="store_true",
                         help="also profile one more build, query and retrieve of the D = 1 read "
-                        "run, and one more depth-6 probe query and compact of the D = 1 update run")
+                        "run, one more depth-6 probe query and compact of the D = 1 update run, "
+                        "and one more prefill and decode step of the LM serving run")
     args = parser.parse_args(argv)
 
     if not os.path.isdir(os.path.join(SRC, "repro_torch", "csrc")):
@@ -780,6 +1104,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import build
 
     device = torch.device("cuda", 0)
+    lm_settings()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -813,6 +1138,18 @@ def main(argv=None) -> int:
             } for phase, v in profiled[key].items()}))
         paths.append(run["result"])
         del run  # free each run's tables before the next one builds
+        gc.collect()  # run["inputs"] closes over run: a cycle that del alone leaves
+    lm = run_lm_path(args.seed, device, log)
+    lm["result"]["replay"] = check_lm_replay(lm, device, log)
+    rows += check_lm_kernels(lm, device, log)
+    if args.profile:
+        profiled["serve"] = profile_phases(lm_path_phases(lm), device)
+        log("profile serve: " + json.dumps({phase: {
+            "wall_ms": v["wall_ms"], "device_busy_ms": v["device_busy_ms"],
+            "top": [[k[:60], ms, n] for k, ms, n in v["top"][:8]],
+        } for phase, v in profiled["serve"].items()}))
+    paths.append(lm["result"])
+    del lm
     kernels = {"kernels": [{k: row[k] for k in (
         "name", "path", "shards", "route", "source", "replaces", "launches", "max_abs_err", "ms",
         "plain_ms", "bound_ms", "bound_by", "library_ms")} for row in rows]}

@@ -48,6 +48,10 @@ _SIGNATURES = {
     ),
     # starts, ends, q, table, n, table_len, num_shards, max_probe, out, stream
     "bucket_probe": (_P, _P, _P, _P, _I64, _I64, ctypes.c_int, ctypes.c_int, _P, _P),
+    # q, k, v, o, hq, sq, skv, d, group, causal, window, scale, is_bf16, stream
+    "flash_attention": (
+        _P, _P, _P, _P, *(ctypes.c_int,) * 7, ctypes.c_float, ctypes.c_int, _P,
+    ),
 }
 
 _lock = threading.Lock()

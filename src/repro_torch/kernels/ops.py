@@ -1,21 +1,24 @@
-"""Entry points around the CSR gather and bucket probe kernels (port of
-``repro.kernels.ops``).
+"""Entry points around the CSR gather, bucket probe and flash attention
+kernels (port of ``repro.kernels.ops``).
 
 ``csr_gather``, ``csr_gather_batched`` and ``csr_gather_layers`` keep the
 reference's contracts: the prefix sum runs as plain tensor code, the per-slot
 bisection and gather in kernel 3 or 4 on the card (their plain twin on the
 CPU).  A uint32 table (the ``torch.uint32`` dtype) goes through its int32
 view, so ``fill=-1`` comes back as ``0xFFFFFFFF``.  ``bucket_probe`` keeps
-the reference's argument order and runs kernel 5.
+the reference's argument order and runs kernel 5.  ``flash_attention``
+takes ``(B, H, S, D)`` tensors, flattens batch into heads as the reference
+does and runs kernel 6.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
 from repro_torch.kernels import bucket_probe as _probe
 from repro_torch.kernels import csr_gather as _gather
+from repro_torch.kernels import flash_attention as _flash
 
 
 def _as_int32_table(table: torch.Tensor) -> tuple[torch.Tensor, bool]:
@@ -140,3 +143,25 @@ def bucket_probe(
     return _probe.bucket_probe(
         starts.to(torch.int32), ends.to(torch.int32), queries, table_keys, max_probe
     )
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Flash attention over (B, Hq, S, D) with GQA kv (B, Hkv, Skv, D)."""
+    b, hq, sq, d = q.shape
+    _, hkv, skv, _ = k.shape
+    group = hq // hkv
+    qf = q.reshape(b * hq, sq, d).contiguous()
+    kf = k.reshape(b * hkv, skv, d).contiguous()
+    vf = v.reshape(b * hkv, skv, d).contiguous()
+    out = _flash.flash_attention_fhsd(
+        qf, kf, vf, causal=causal, window=window, scale=scale, q_heads_per_kv=group
+    )
+    return out.reshape(b, hq, sq, d)

@@ -6,8 +6,16 @@ PyTorch, skipping the repo's JAX conftest:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
-All comparisons are exact: every output is an integer.
+The table kernels' comparisons are exact: every output is an integer.
+Kernel 6 (flash attention) is held against its plain twin at 2e-5 in f32
+(the same f32 arithmetic in another summation order) and 2e-2 in bf16 (the
+output is rounded to 8 significant bits, so a different f32 sum can land
+one bf16 step away; |o| < 2 here).  Matrix products run with TF32 off and
+without reduced-precision bf16 reductions (set by the ``card`` fixture).
 """
+import copy
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -18,7 +26,11 @@ from repro_torch.core import convert
 from repro_torch.core.hashing import DEFAULT_SEED, FINGERPRINT_SEED
 from repro_torch.core.schema import u32_bits
 from repro_torch.core import maintenance
+from repro_torch.configs.base import get_smoke_config
 from repro_torch.kernels import bucket_probe, build, histogram, murmur, ops
+from repro_torch.kernels import flash_attention as flash
+from repro_torch.models.api import build_model
+from repro_torch.serve import ContinuousBatcher, Request, make_prefill_step, make_serve_step
 
 pytestmark = pytest.mark.cuda
 
@@ -27,6 +39,8 @@ pytestmark = pytest.mark.cuda
 def card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels run only on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     return torch.device("cuda")
 
 
@@ -136,3 +150,90 @@ def test_card_update_path_matches_cpu_path(card, d):
         assert torch.equal(a, b)
     for name in ("offsets", "keys", "values", "hash_splits"):
         np.testing.assert_array_equal(states["cuda"]["base"][name], states["cpu"]["base"][name])
+
+
+# (hq, hkv, sq, skv, d, causal, window): the JAX kernel tests' ATTN_CASES
+# (batch folded into heads), then decode offsets, windows and a full-width
+# qwen3-4b prefill (32 query heads over 8 kv heads, D = 128, ragged).
+FLASH_CASES = [
+    (2, 2, 128, 128, 64, True, None),
+    (8, 4, 128, 128, 64, True, None),
+    (4, 1, 256, 256, 32, True, None),
+    (2, 2, 128, 128, 64, False, None),
+    (2, 2, 256, 256, 32, True, 64),
+    (2, 1, 1, 384, 64, True, None),
+    (2, 2, 100, 100, 64, True, None),
+    (4, 2, 70, 300, 128, True, None),   # decode offset with several query rows
+    (4, 2, 70, 300, 128, True, 40),     # ... and a window
+    (2, 2, 130, 190, 32, False, 17),    # non-causal window, ragged both ways
+    (2, 1, 33, 33, 64, True, 0),        # window 0: every row masked, all zeros
+    (32, 8, 1000, 1000, 128, True, None),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_kernel_matches_plain(card, case, dtype):
+    hq, hkv, sq, skv, d, causal, window = case
+    gen = torch.Generator(device=card).manual_seed(FLASH_CASES.index(case))
+    q, k, v = (torch.randn(shape, generator=gen, device=card).to(dtype)
+               for shape in ((hq, sq, d), (hkv, skv, d), (hkv, skv, d)))
+    want = flash.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                       q_heads_per_kv=hq // hkv)
+    before = build.LAUNCHES["flash_attention"]
+    got = flash.flash_attention_fhsd(q, k, v, causal=causal, window=window,
+                                     q_heads_per_kv=hq // hkv)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_flash_kernel_refuses_what_it_does_not_take(card):
+    q = torch.zeros((2, 8, 48), device=card)
+    with pytest.raises(ValueError, match="head dims"):
+        flash.flash_attention_fhsd(q, q, q)
+    q = torch.zeros((2, 8, 64), device=card)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash.flash_attention_fhsd(q.transpose(0, 1).contiguous().transpose(0, 1), q, q)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_smoke_model_on_card_matches_cpu(card, dtype):
+    """Prefill (kernel 6 on the card, its twin on the CPU), 6 decode steps
+    and the batcher's token streams, card against CPU, on weights drawn once
+    on the CPU.  Logit tolerance: 2e-4 in f32 (the CPU tests' bound for
+    another summation order), 6e-2 in bf16 (the JAX-parity bound of the CPU
+    tests: bf16 products rounded after other partial sums)."""
+    cfg = dataclasses.replace(get_smoke_config("qwen3_4b"), dtype=dtype)
+    cpu, gpu = build_model(cfg, device="cpu"), build_model(cfg, device=card)
+    params_cpu = cpu.init(3)
+    params_gpu = copy.deepcopy(params_cpu).to(card)
+    rng = np.random.default_rng(4)
+    tokens = rng.integers(1, cfg.vocab_size, size=(1, 75), dtype=np.int32)
+    tol = 2e-4 if dtype == "float32" else 6e-2
+    before = build.LAUNCHES["flash_attention"]
+    (lc, cc), (lg, cg) = (b.prefill(p, {"tokens": tokens[:, :69]}, cache_len=80)
+                          for b, p in ((cpu, params_cpu), (gpu, params_gpu)))
+    assert build.LAUNCHES["flash_attention"] == before + cfg.num_layers
+    torch.testing.assert_close(lg.float().cpu(), lc.float(), atol=tol, rtol=tol)
+    for t in range(69, 75):
+        tok, pos = tokens[:, t:t + 1], np.array([t], np.int32)
+        lc, cc = cpu.decode_step(params_cpu, cc, tok, pos)
+        lg, cg = gpu.decode_step(params_gpu, cg, tok, pos)
+        torch.testing.assert_close(lg.float().cpu(), lc.float(), atol=tol, rtol=tol)
+    if dtype == "float32":
+        streams = {}
+        for name, bundle, params in (("cpu", cpu, params_cpu), ("card", gpu, params_gpu)):
+            batcher = ContinuousBatcher(
+                params, bundle.init_cache(3, 64), make_prefill_step(bundle, cache_len=64),
+                make_serve_step(bundle), num_slots=3,
+            )
+            prompts = np.random.default_rng(2)
+            for uid in range(7):
+                batcher.submit(Request(uid=uid, max_new_tokens=5, prompt=prompts.integers(
+                    1, cfg.vocab_size, size=8 + uid, dtype=np.int32)))
+            done = batcher.run_until_drained(max_steps=200)
+            streams[name] = {r.uid: r.out_tokens for r in done}
+        assert streams["card"] == streams["cpu"]
