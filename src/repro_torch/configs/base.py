@@ -8,7 +8,7 @@ deliberate difference: ``attention_impl`` takes ``"flash"`` (kernel 6,
 card is the port's target.  They stand for the reference's
 ``"flash_pallas"`` and ``"xla"``.
 
-Only qwen3-4b is ported so far; every other arch id raises
+qwen3-4b and xlstm-1.3b are ported so far; every other arch id raises
 ``NotImplementedError`` naming the slice that brings it.
 """
 from __future__ import annotations
@@ -151,7 +151,7 @@ ARCH_IDS = (
     "pixtral_12b",
     "whisper_base",
 )
-PORTED_ARCHS = ("qwen3_4b",)
+PORTED_ARCHS = ("qwen3_4b", "xlstm_1_3b")
 # The slice of the port that brings each arch not ported yet.
 LATER_ARCH_SLICE = {
     "granite_20b": "the dense-LM slice after qwen3 (MQA, kv_heads = 1)",
@@ -159,7 +159,6 @@ LATER_ARCH_SLICE = {
     "qwen3_14b": "the dense-LM slice after qwen3",
     "grok_1_314b": "the MoE slice",
     "mixtral_8x22b": "the MoE and swa ring-cache slices",
-    "xlstm_1_3b": "the xLSTM slice (mlstm/slstm blocks, kernel 7)",
     "recurrentgemma_9b": "the Griffin slice (rglru blocks, local ring caches)",
     "pixtral_12b": "the VLM slice (patch-embedding prefix)",
     "whisper_base": "the encoder-decoder slice",

@@ -52,6 +52,12 @@ _SIGNATURES = {
     "flash_attention": (
         _P, _P, _P, _P, *(ctypes.c_int,) * 7, ctypes.c_float, ctypes.c_int, _P,
     ),
+    # pre, its 4 strides, r, r_bf16, c0, n0, h0, m0, hs, its 3 strides,
+    # cf, nf, hf, mf, xbuf, counters, batch, heads, seq, hd, stream
+    "slstm_sequence": (
+        _P, _I64, _I64, _I64, _I64, _P, ctypes.c_int, _P, _P, _P, _P,
+        _P, _I64, _I64, _I64, _P, _P, _P, _P, _P, _P, *(ctypes.c_int,) * 4, _P,
+    ),
 }
 
 _lock = threading.Lock()

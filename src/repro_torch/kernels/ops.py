@@ -8,7 +8,8 @@ CPU).  A uint32 table (the ``torch.uint32`` dtype) goes through its int32
 view, so ``fill=-1`` comes back as ``0xFFFFFFFF``.  ``bucket_probe`` keeps
 the reference's argument order and runs kernel 5.  ``flash_attention``
 takes ``(B, H, S, D)`` tensors, flattens batch into heads as the reference
-does and runs kernel 6.
+does and runs kernel 6.  ``slstm_recurrence`` runs kernel 7 on f32 inputs
+of any length (the reference's ``t_block`` padding has no counterpart).
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import torch
 from repro_torch.kernels import bucket_probe as _probe
 from repro_torch.kernels import csr_gather as _gather
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import slstm as _slstm
 
 
 def _as_int32_table(table: torch.Tensor) -> tuple[torch.Tensor, bool]:
@@ -165,3 +167,26 @@ def flash_attention(
         qf, kf, vf, causal=causal, window=window, scale=scale, q_heads_per_kv=group
     )
     return out.reshape(b, hq, sq, d)
+
+
+def slstm_recurrence(
+    pre: torch.Tensor,
+    r: torch.Tensor,
+    c0: torch.Tensor,
+    n0: torch.Tensor,
+    h0: torch.Tensor,
+    m0: torch.Tensor,
+) -> tuple[torch.Tensor, tuple]:
+    """sLSTM recurrence with on-chip recurrent weights.
+
+    pre (B,H,S,4,hd), r (H,4,hd,hd), state (B,H,hd) each, cast to f32 (a
+    bf16 ``r`` is passed as it is: the kernel widens it exactly).  Returns
+    (hs (B,H,S,hd), (c,n,h,m) finals).
+    """
+    rr = (r if r.dtype in _slstm.R_DTYPES else r.float()).contiguous()
+    pre = pre.float()
+    if pre.stride(-1) != 1:
+        pre = pre.contiguous()
+    return _slstm.slstm_sequence(
+        pre, rr, *(t.float().contiguous() for t in (c0, n0, h0, m0))
+    )

@@ -3,7 +3,8 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_4b --requests 12 \\
         --slots 4 --prompt-len 32 --max-new 16 [--device cpu]
 
-Runs on the CUDA card unless ``--device cpu`` is given (there every kernel
+``--arch`` takes a ported arch (``qwen3_4b``, ``xlstm_1_3b``) and serves
+its smoke config.  Runs on the CUDA card unless ``--device cpu`` is given (there every kernel
 takes its plain twin); without a card and without ``--device cpu`` it
 raises.
 """

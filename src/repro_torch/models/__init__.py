@@ -1,1 +1,1 @@
-"""The port's LM stack (dense ``attn`` decoders so far)."""
+"""The port's LM stack (dense ``attn`` decoders and xLSTM stacks so far)."""

@@ -2,7 +2,8 @@
 
 The engine keeps ``num_slots`` decode lanes hot; finished or empty lanes
 are refilled from the request queue between decode steps (prefill writes
-the new sequence's KV into the lane's cache region).  Shapes are static;
+the new sequence's KV, or its recurrent state, into the lane's cache
+region).  Shapes are static;
 admission is host-side bookkeeping.  Unlike the reference, which returns a
 new cache pytree, the slot write and the decode step update the batched
 caches in place (JAX donates those buffers).
@@ -122,8 +123,8 @@ def _cache_device(caches) -> torch.device:
 def _write_slot(batched_caches, one_cache, slot: int) -> None:
     """Copy a single-sequence cache into slot ``slot``, in place.
 
-    Cache tensors are stacks ``(num_periods, B, ...)``: the batch dim is
-    axis 1.  The whole slot is overwritten, the entries past the new prompt
+    Cache tensors (every field of a KVCache, MLSTMState or SLSTMState) are
+    stacks ``(num_periods, B, ...)``: the batch dim is axis 1.  The whole slot is overwritten, the entries past the new prompt
     with the prefill cache's zeros."""
     for dst, src in zip(_cache_tensors(batched_caches), _cache_tensors(one_cache)):
         if dst.ndim >= 2:

@@ -15,8 +15,8 @@ from repro_torch.models.api import ModelBundle
 
 
 def serving_compute_copy(params):
-    """The parameters with every f32 matrix (ndim >= 2) as bf16, norm
-    vectors as they are.  Parameters already in bf16 are shared, not copied,
+    """The parameters with every f32 matrix (ndim >= 2, the sLSTM's 4-D
+    ``r`` included) as bf16, vectors (norms, the sLSTM bias) as they are.  Parameters already in bf16 are shared, not copied,
     so at full width (weights stored in bf16) this costs nothing."""
     state = params.state_dict()
     if not any(t.dtype == torch.float32 and t.ndim >= 2 for t in state.values()):

@@ -10,7 +10,10 @@ The table kernels' comparisons are exact: every output is an integer.
 Kernel 6 (flash attention) is held against its plain twin at 2e-5 in f32
 (the same f32 arithmetic in another summation order) and 2e-2 in bf16 (the
 output is rounded to 8 significant bits, so a different f32 sum can land
-one bf16 step away; |o| < 2 here).  Matrix products run with TF32 off and
+one bf16 step away; |o| < 2 here).  Kernel 7 (the sLSTM recurrence) is held
+at 2e-5 on the JAX kernel tests' shapes (f32 throughout; its hd-term dot
+products are summed in another order) and at 1e-4 where hundreds of steps
+at hd = 512 carry that difference forward.  Matrix products run with TF32 off and
 without reduced-precision bf16 reductions (set by the ``card`` fixture).
 """
 import copy
@@ -29,6 +32,7 @@ from repro_torch.core import maintenance
 from repro_torch.configs.base import get_smoke_config
 from repro_torch.kernels import bucket_probe, build, histogram, murmur, ops
 from repro_torch.kernels import flash_attention as flash
+from repro_torch.kernels import slstm
 from repro_torch.models.api import build_model
 from repro_torch.serve import ContinuousBatcher, Request, make_prefill_step, make_serve_step
 
@@ -223,6 +227,110 @@ def test_smoke_model_on_card_matches_cpu(card, dtype):
         lc, cc = cpu.decode_step(params_cpu, cc, tok, pos)
         lg, cg = gpu.decode_step(params_gpu, cg, tok, pos)
         torch.testing.assert_close(lg.float().cpu(), lc.float(), atol=tol, rtol=tol)
+    if dtype == "float32":
+        streams = {}
+        for name, bundle, params in (("cpu", cpu, params_cpu), ("card", gpu, params_gpu)):
+            batcher = ContinuousBatcher(
+                params, bundle.init_cache(3, 64), make_prefill_step(bundle, cache_len=64),
+                make_serve_step(bundle), num_slots=3,
+            )
+            prompts = np.random.default_rng(2)
+            for uid in range(7):
+                batcher.submit(Request(uid=uid, max_new_tokens=5, prompt=prompts.integers(
+                    1, cfg.vocab_size, size=8 + uid, dtype=np.int32)))
+            done = batcher.run_until_drained(max_steps=200)
+            streams[name] = {r.uid: r.out_tokens for r in done}
+        assert streams["card"] == streams["cpu"]
+
+
+# Kernel 7 (b, h, s, hd): the JAX kernel tests' shapes, a head dim of 48
+# (3 blocks per head), the full-width decode shape (4 slots, S = 1, hd = 512),
+# a full-width prefill and 64 (b, h) groups, more than one cooperative
+# launch holds at once (batch slices).
+SLSTM_CASES = [
+    (1, 1, 8, 16, 2e-5), (2, 2, 32, 32, 2e-5), (1, 4, 100, 64, 2e-5), (2, 1, 256, 128, 2e-5),
+    (3, 2, 37, 48, 2e-5), (4, 4, 1, 512, 2e-5), (1, 4, 300, 512, 1e-4), (16, 4, 20, 512, 1e-4),
+]
+
+
+def _slstm_inputs(b, h, s, hd, device, seed, r_dtype=torch.float32, warm=0):
+    """pre, r and the initial states; with ``warm`` > 0 the states are those
+    the twin reaches after ``warm`` steps of other inputs (non-zero)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    pre = 0.5 * torch.randn((b, h, s, 4, hd), generator=gen, device=device)
+    r = (torch.randn((h, 4, hd, hd), generator=gen, device=device) / hd ** 0.5).to(r_dtype)
+    z = torch.zeros((b, h, hd), device=device)
+    states = (z, z.clone(), z.clone(), torch.full_like(z, -1e30))
+    if warm:
+        prefix = 0.5 * torch.randn((b, h, warm, 4, hd), generator=gen, device=device)
+        _, states = slstm.slstm_sequence_plain(prefix, r, *states)
+    return pre, r, states
+
+
+@pytest.mark.parametrize("case", SLSTM_CASES)
+@pytest.mark.parametrize("r_dtype", [torch.float32, torch.bfloat16])
+def test_slstm_kernel_matches_plain(card, case, r_dtype):
+    b, h, s, hd, tol = case
+    for warm in (0, 5):
+        pre, r, states = _slstm_inputs(b, h, s, hd, card, SLSTM_CASES.index(case), r_dtype, warm)
+        want_hs, want_fin = slstm.slstm_sequence_plain(pre, r, *states)
+        before = build.LAUNCHES["slstm_sequence"]
+        got_hs, got_fin = slstm.slstm_sequence(pre, r, *states)
+        torch.cuda.synchronize()
+        assert build.LAUNCHES["slstm_sequence"] == before + 1
+        assert got_hs.shape == (b, h, s, hd)
+        for got, want in zip((got_hs, *got_fin), (want_hs, *want_fin)):
+            torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+
+
+def test_slstm_kernel_reads_the_block_layout_and_refuses_what_it_does_not_take(card):
+    """A strided (B, H, S, 4, hd) view of the block's (B, S, 4, H, hd)
+    projection gives what its contiguous copy gives; hd % 4 != 0 and a
+    strided last axis raise."""
+    b, s, h, hd = 2, 40, 4, 32
+    gen = torch.Generator(device=card).manual_seed(11)
+    flat = 0.5 * torch.randn((b, s, 4 * h * hd), generator=gen, device=card)
+    view = flat.view(b, s, 4, h, hd).permute(0, 3, 1, 2, 4)
+    r = torch.randn((h, 4, hd, hd), generator=gen, device=card) / hd ** 0.5
+    z = torch.zeros((b, h, hd), device=card)
+    states = (z, z, z, torch.full_like(z, -1e30))
+    got = slstm.slstm_sequence(view, r, *states)
+    want = slstm.slstm_sequence(view.contiguous(), r, *states)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0])
+    z6 = torch.zeros((1, 1, 6), device=card)
+    with pytest.raises(ValueError, match="multiples of 4"):
+        slstm.slstm_sequence(torch.zeros((1, 1, 3, 4, 6), device=card),
+                             torch.zeros((1, 4, 6, 6), device=card), z6, z6, z6, z6)
+    with pytest.raises(ValueError, match="contiguous"):
+        slstm.slstm_sequence(view.transpose(3, 4).contiguous().transpose(3, 4), r, *states)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_smoke_xlstm_on_card_matches_cpu(card, dtype):
+    """The smoke xLSTM: prefill (kernel 7 in each sLSTM layer on the card,
+    its twin on the CPU), 6 decode steps and, in f32, the batcher's token
+    streams, card against CPU, on weights drawn once on the CPU.  Logit
+    tolerance: 2e-4 in f32, 6e-2 in bf16, as for the qwen3 smoke model."""
+    cfg = dataclasses.replace(get_smoke_config("xlstm_1_3b"), dtype=dtype)
+    cpu, gpu = build_model(cfg, device="cpu"), build_model(cfg, device=card)
+    params_cpu = cpu.init(3)
+    params_gpu = copy.deepcopy(params_cpu).to(card)
+    rng = np.random.default_rng(4)
+    tokens = rng.integers(1, cfg.vocab_size, size=(1, 75), dtype=np.int32)
+    tol = 2e-4 if dtype == "float32" else 6e-2
+    n_slstm = cfg.num_periods
+    before = build.LAUNCHES["slstm_sequence"]
+    (lc, cc), (lg, cg) = (b.prefill(p, {"tokens": tokens[:, :69]})
+                          for b, p in ((cpu, params_cpu), (gpu, params_gpu)))
+    assert build.LAUNCHES["slstm_sequence"] == before + n_slstm
+    torch.testing.assert_close(lg.float().cpu(), lc.float(), atol=tol, rtol=tol)
+    for t in range(69, 75):
+        tok, pos = tokens[:, t:t + 1], np.array([t], np.int32)
+        lc, cc = cpu.decode_step(params_cpu, cc, tok, pos)
+        lg, cg = gpu.decode_step(params_gpu, cg, tok, pos)
+        torch.testing.assert_close(lg.float().cpu(), lc.float(), atol=tol, rtol=tol)
+    assert build.LAUNCHES["slstm_sequence"] == before + 7 * n_slstm
     if dtype == "float32":
         streams = {}
         for name, bundle, params in (("cpu", cpu, params_cpu), ("card", gpu, params_gpu)):

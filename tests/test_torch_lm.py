@@ -266,9 +266,11 @@ def test_convert_round_trip(jax_params):
 
 
 def test_other_archs_and_block_types_raise_not_implemented():
+    ported = {"qwen3_4b": 36, "xlstm_1_3b": 48}
     for arch in ARCH_IDS:
-        if arch == "qwen3_4b":
-            assert get_config(arch).num_layers == 36
+        if arch in ported:
+            assert get_config(arch).num_layers == ported[arch]
+            assert get_smoke_config(arch).num_layers == 4
             continue
         with pytest.raises(NotImplementedError, match="slice"):
             get_config(arch)
@@ -279,7 +281,6 @@ def test_other_archs_and_block_types_raise_not_implemented():
     base = get_smoke_config("qwen3_4b")
     for change in (dict(block_pattern=("swa",), sliding_window=8),
                    dict(block_pattern=("local",), local_window=8),
-                   dict(block_pattern=("mlstm",)), dict(block_pattern=("slstm",)),
                    dict(block_pattern=("rglru",), rnn_width=64),
                    dict(num_experts=4, experts_per_token=2)):
         with pytest.raises(NotImplementedError, match="slice"):
