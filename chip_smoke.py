@@ -124,7 +124,14 @@ LM_FLASH_CASES = (
     (4, 2, 1, 700, 128, True, None),
     (4, 2, 333, 333, 32, True, None),
     (4, 2, 130, 190, 64, False, 17),
+    # the edges of the bf16 kernel's 128-row tiles
+    (4, 2, 129, 129, 128, True, None),
+    (4, 2, 127, 127, 128, True, None),
+    (4, 2, 64, 127, 128, True, None),
 )
+# Kernel 6 at the main shape: groups of launches, timed in turns with its
+# plain twin and the SDPA yardstick (min, median and max over the groups).
+FLASH_TIMING = {"groups": 5, "launches": 20}
 # The batcher's logits (flash prefill, plain decode over the cache) against a
 # plain-attention replay of the whole sequence, both in bf16: the two round
 # to bf16 at other points (kernel 6 against the einsum, GEMMs of M = 1 and of
@@ -1148,7 +1155,8 @@ def check_lm_continuation(run: dict, device, log, tol) -> dict:
 
 def layer0_qkv(params, prompt, cfg, device):
     """The first layer's q (Hq, S, D), k, v (Hkv, S, D) of a prefill of
-    ``prompt``: the inputs its kernel 6 launch receives."""
+    ``prompt`` as kernel 6 receives them: views of the (S, heads, D)
+    projections, through their strides."""
     import torch
 
     from repro_torch.models import attention, layers, transformer
@@ -1159,8 +1167,68 @@ def layer0_qkv(params, prompt, cfg, device):
         block = params.layers[0].b0
         positions = torch.arange(x.shape[1], device=device, dtype=torch.int32)[None]
         q, k, v = attention._project_qkv(block.attn, layers.rmsnorm(x, block.norm1), cfg, positions)
-    hd = cfg.head_dim_
-    return (q.reshape(cfg.num_heads, -1, hd).contiguous(), k[0].contiguous(), v[0].contiguous())
+    _, kvh, g, s, hd = q.shape
+    return q.reshape(1, kvh * g, s, hd)[0], k[0], v[0]
+
+
+def spread_ms(fns: dict, device, groups: int, launches: int) -> dict:
+    """``{name: [min, median, max]}`` ms per call of each function over
+    ``groups`` groups of ``launches`` calls, the functions timed in turns
+    within each group after one warm-up call each (CUDA events on the card)."""
+    import statistics
+
+    import torch
+
+    times = {name: [] for name in fns}
+    for fn in fns.values():
+        fn()
+    for _ in range(groups):
+        for name, fn in fns.items():
+            sync(device)
+            if device.type != "cuda":
+                t0 = time.perf_counter()
+                for _ in range(launches):
+                    fn()
+                times[name].append((time.perf_counter() - t0) * 1e3 / launches)
+                continue
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(launches):
+                fn()
+            end.record()
+            end.synchronize()
+            times[name].append(start.elapsed_time(end) / launches)
+    return {name: [min(t), statistics.median(t), max(t)] for name, t in times.items()}
+
+
+def flash_build_report() -> dict:
+    """Registers, spills and shared memory of kernel 6's compiled kernels:
+    ``ptxas -v`` from ``build.log`` beside the library, and each block's
+    dynamic shared memory from the library itself."""
+    import re
+
+    from repro_torch.kernels import build
+
+    lib = build.library()
+    text = (build.BUILD_DIR / "build.log").read_text()
+    section = text.split("== flash_attention.cu", 1)[1].split("\n== ", 1)[0]
+    report, name = {}, None
+    for line in section.splitlines():
+        found = re.search(r"Compiling entry function '.*?(flash_fwd_\w+?)ILi(\d+)E", line)
+        if found:
+            name = f"{found.group(1)}<{found.group(2)}>"
+            d = int(found.group(2))
+            report[name] = {"dynamic_smem_bytes": lib.flash_attention_smem_bytes(
+                d, int(found.group(1) == "flash_fwd_wgmma"))}
+        elif name and "registers" in line:
+            report[name]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+        elif name and "spill" in line:
+            stores, loads = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+            report[name]["spill_bytes"] = {"stores": int(stores), "loads": int(loads)}
+        elif name and "Potential Performance Loss" in line:
+            report[name].setdefault("ptxas_notes", []).append(line.strip())
+    return report
 
 
 def attention_bounds(hq: int, hkv: int, sq: int, skv: int, d: int, dtype: str, live: int) -> dict:
@@ -1176,32 +1244,60 @@ def attention_bounds(hq: int, hkv: int, sq: int, skv: int, d: int, dtype: str, l
 
 def check_lm_kernels(run: dict, device, log) -> list:
     """Kernel 6 against its plain twin on request 0's layer-0 q, k, v (the
-    main path's shape), timed beside ``scaled_dot_product_attention`` (a
-    yardstick the port never calls); then on the small cases of
-    LM_FLASH_CASES in bf16 and f32."""
+    main path's shape), read through the strided views the model hands over
+    and as contiguous copies; timed in turns with the twin and
+    ``scaled_dot_product_attention`` (a yardstick the port never calls) in
+    FLASH_TIMING's groups; then on the small cases of LM_FLASH_CASES in bf16
+    and f32."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as flash
 
+    if device.type == "cuda":
+        log("kernel flash_attention build: " + json.dumps(flash_build_report()))
     cfg = run["cfg"]
     q, k, v = layer0_qkv(run["params"], run["prompts"][0], cfg, device)
+    qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
     hq, s, d = q.shape
     hkv, group = k.shape[0], cfg.q_per_kv
     live = int(flash.live_mask(s, s, causal=True, window=None, device=device).sum())
-    meta = {"path": "serve", "shards": None,
-            "launches": run["result"]["launches"].get("flash_attention", 0)}
-    row = kernel_row(
-        "flash_attention", meta,
-        f"q=({hq}, {s}, {d}) k/v=({hkv}, {s}, {d}) bf16 causal (request 0, layer 0)",
-        lambda: flash.flash_attention_fhsd(q, k, v, q_heads_per_kv=group),
-        lambda: flash.flash_attention_plain(q, k, v, q_heads_per_kv=group),
-        attention_bounds(hq, hkv, s, s, d, "bfloat16", live), device, log,
-        library_fn=lambda: F.scaled_dot_product_attention(
-            q[None], k[None], v[None], is_causal=True, enable_gqa=True),
-        tol=FLASH_TOL["bfloat16"],
-    )
-    del q, k, v
+    bounds = attention_bounds(hq, hkv, s, s, d, "bfloat16", live)
+    bound_by = max(bounds, key=bounds.get)
+    tol = FLASH_TOL["bfloat16"]
+    fns = {
+        "kernel": lambda: flash.flash_attention_fhsd(q, k, v, q_heads_per_kv=group),
+        "kernel_contiguous": lambda: flash.flash_attention_fhsd(qc, kc, vc, q_heads_per_kv=group),
+        "plain": lambda: flash.flash_attention_plain(q, k, v, q_heads_per_kv=group),
+        "library": lambda: F.scaled_dot_product_attention(
+            q[None], k[None], v[None], is_causal=True, enable_gqa=True)[0],
+        "library_contiguous": lambda: F.scaled_dot_product_attention(
+            qc[None], kc[None], vc[None], is_causal=True, enable_gqa=True)[0],
+    }
+    if device.type != "cuda":  # rehearsal on the CPU: the wrappers take the twin there
+        fns = {name: fns[name] for name in ("kernel", "plain", "library")}
+    want = fns["plain"]()
+    err = max(twin_error("flash_attention", fns[name](), want, tol, device)
+              for name in ("kernel", "kernel_contiguous") if name in fns)
+    del want
+    times = spread_ms(fns, device, FLASH_TIMING["groups"], FLASH_TIMING["launches"])
+    row = {
+        "name": "flash_attention", "path": "serve", "shards": None,
+        "launches": run["result"]["launches"].get("flash_attention", 0),
+        "route": "cuda", "source": KERNELS["flash_attention"][0],
+        "replaces": KERNELS["flash_attention"][1], "max_abs_err": err,
+        "ms": times["kernel"][1], "plain_ms": times["plain"][1],
+        "bound_ms": bounds[bound_by], "bound_by": bound_by, "library_ms": times["library"][1],
+        "shapes": f"q=({hq}, {s}, {d}) k/v=({hkv}, {s}, {d}) bf16 causal (request 0, layer 0, "
+                  "strided views of the projections)",
+        "spread_ms": times, "bounds_ms": bounds, "tflops": 4 * d * live * hq / times["kernel"][1] / 1e9,
+    }
+    log(f"kernel flash_attention serve {row['shapes']}: max_abs_err={err} (tol {tol}) "
+        f"[min, median, max] ms over {FLASH_TIMING['groups']} groups of "
+        f"{FLASH_TIMING['launches']}: {json.dumps(times)} bound_ms={row['bound_ms']} ({bound_by}) "
+        f"= {row['bound_ms'] / row['ms']:.3f} of the kernel's median, {row['tflops']:.1f} "
+        f"TFLOP/s, launches={row['launches']}")
+    del q, k, v, qc, kc, vc
     gen = torch.Generator(device=device).manual_seed(7)
     for hq, hkv, sq, skv, d, causal, window in LM_FLASH_CASES:
         for dtype in ("bfloat16", "float32"):

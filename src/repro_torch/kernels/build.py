@@ -48,10 +48,13 @@ _SIGNATURES = {
     ),
     # starts, ends, q, table, n, table_len, num_shards, max_probe, out, stream
     "bucket_probe": (_P, _P, _P, _P, _I64, _I64, ctypes.c_int, ctypes.c_int, _P, _P),
-    # q, k, v, o, hq, sq, skv, d, group, causal, window, scale, is_bf16, stream
+    # q, k, v, o, the (batch, head, row) strides of each, nb, hq, sq, skv, d,
+    # group, causal, window, scale, is_bf16, stream
     "flash_attention": (
-        _P, _P, _P, _P, *(ctypes.c_int,) * 7, ctypes.c_float, ctypes.c_int, _P,
+        _P, _P, _P, _P, *(_I64,) * 12, *(ctypes.c_int,) * 8, ctypes.c_float, ctypes.c_int, _P,
     ),
+    # d, is_bf16 (a query, not a launch: the block's dynamic shared memory)
+    "flash_attention_smem_bytes": (ctypes.c_int, ctypes.c_int),
     # pre, its 4 strides, r, r_bf16, c0, n0, h0, m0, hs, its 3 strides,
     # cf, nf, hf, mf, xbuf, counters, batch, heads, seq, hd, stream
     "slstm_sequence": (

@@ -8,8 +8,13 @@ reading kv head ``h // q_heads_per_kv``; causal (aligned to the end of the
 kv axis, offset ``Skv - Sq``), sliding-window or full; f32 scores, softmax
 and accumulator; a row with no live key gives 0; the result in q's type.
 The TPU kernel's ``block_q``/``block_kv`` have no counterpart: the CUDA
-kernel's tiles are fixed (64 x 64).  On CUDA tensors the wrapper launches
-the kernel or raises; on CPU tensors it runs :func:`flash_attention_plain`.
+kernel's tiles are fixed (128 x 128 in bf16, 64 x 64 in f32).
+
+The kernel reads q, k, v and writes o through strides (see
+:func:`card_strides`), so :func:`flash_attention_bhsd` takes the permuted
+views of a model's projections, with a batch dimension, and an output
+buffer in the model's own layout.  On CUDA tensors the wrappers launch the
+kernel or raise; on CPU tensors they run :func:`flash_attention_plain`.
 """
 from __future__ import annotations
 
@@ -53,37 +58,115 @@ def flash_attention_plain(
 ) -> torch.Tensor:
     """The kernel's plain twin: the masked grouped einsum in f32.
 
-    Query heads are viewed as ``(Hkv, G)`` so kv is broadcast, not copied,
-    over the group; fully masked rows give 0.
+    q ``(..., Hq, Sq, D)``, k/v ``(..., Hkv, Skv, D)`` with the same leading
+    dims.  Query heads are viewed as ``(Hkv, G)`` so kv is broadcast, not
+    copied, over the group; fully masked rows give 0.
     """
-    hq, sq, d = q.shape
-    hkv, skv, _ = k.shape
+    *lead, hq, sq, d = q.shape
+    hkv, skv, _ = k.shape[-3:]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    qg = q.float().reshape(hkv, q_heads_per_kv, sq, d) * scale
-    s = torch.einsum("kgqd,ktd->kgqt", qg, k.float())
+    qg = q.float().reshape(*lead, hkv, q_heads_per_kv, sq, d) * scale
+    s = torch.einsum("...kgqd,...ktd->...kgqt", qg, k.float())
     mask = live_mask(sq, skv, causal=causal, window=window, device=q.device)
     s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("kgqt,ktd->kgqd", p, v.float())
+    out = torch.einsum("...kgqt,...ktd->...kgqd", p, v.float())
     out = torch.where(mask.any(dim=1)[:, None], out, 0.0)
-    return out.reshape(hq, sq, d).to(q.dtype)
+    return out.reshape(*lead, hq, sq, d).to(q.dtype)
+
+
+def card_strides(t: torch.Tensor, name: str) -> tuple[int, ...]:
+    """The element strides of all but the last dim of ``t``, as the kernel
+    takes them; raises ValueError for a view it does not take.
+
+    The last dim must be contiguous, every other stride a multiple of 16
+    bytes and the base 16-byte aligned: what a TMA tensor map takes (the f32
+    kernel keeps the same rule).  A dim of size 1 is never stepped, so its
+    stride is replaced by a valid one.  Pure Python: runs without a card.
+    """
+    elem = t.element_size()
+    if t.shape[-1] > 1 and t.stride(-1) != 1:
+        raise ValueError(f"{NAME}: {name} needs a contiguous last dim, got strides {t.stride()}")
+    strides = []
+    for size, stride in zip(t.shape[:-1], t.stride()[:-1]):
+        if size == 1:
+            stride = 16 // elem * t.shape[-1]
+        if stride <= 0 or (stride * elem) % 16:
+            raise ValueError(f"{NAME}: {name}'s strides {t.stride()} are not positive multiples "
+                             f"of 16 bytes")
+        strides.append(stride)
+    if t.data_ptr() % 16:
+        raise ValueError(f"{NAME}: {name}'s base is not 16-byte aligned")
+    return tuple(strides)
 
 
 def _check(q, k, v, q_heads_per_kv: int) -> None:
-    if q.ndim != 3 or k.ndim != 3 or v.shape != k.shape:
+    if q.ndim not in (3, 4) or k.ndim != q.ndim or v.shape != k.shape:
         raise ValueError(
-            f"{NAME}: q (Hq, Sq, D) and k, v (Hkv, Skv, D) expected, got "
+            f"{NAME}: q ([B,] Hq, Sq, D) and k, v ([B,] Hkv, Skv, D) expected, got "
             f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
         )
-    if k.shape[2] != q.shape[2]:
-        raise ValueError(f"{NAME}: head dims differ: q {q.shape[2]}, k {k.shape[2]}")
-    if q.shape[0] != k.shape[0] * q_heads_per_kv:
+    if q.ndim == 4 and k.shape[0] != q.shape[0]:
+        raise ValueError(f"{NAME}: batch sizes differ: q {q.shape[0]}, k {k.shape[0]}")
+    if k.shape[-1] != q.shape[-1]:
+        raise ValueError(f"{NAME}: head dims differ: q {q.shape[-1]}, k {k.shape[-1]}")
+    if q.shape[-3] != k.shape[-3] * q_heads_per_kv:
         raise ValueError(
-            f"{NAME}: GQA mismatch: {q.shape[0]} != {k.shape[0]} * {q_heads_per_kv}"
+            f"{NAME}: GQA mismatch: {q.shape[-3]} != {k.shape[-3]} * {q_heads_per_kv}"
         )
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in DTYPES:
         raise TypeError(f"{NAME}: q, k, v must share one of {DTYPES}, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+
+
+def flash_attention_bhsd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+    q_heads_per_kv: int = 1,
+    out: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Attention of q ``(B, Hq, Sq, D)`` over k/v ``(B, Hkv, Skv, D)``, any
+    views :func:`card_strides` takes; returns ``out`` (allocated
+    ``(B, Hq, Sq, D)`` when None, else written in place through its
+    strides) in q's type.  One launch on the card (D in 32/64/128)."""
+    _check(q, k, v, q_heads_per_kv)
+    if q.ndim != 4:
+        raise ValueError(f"{NAME}: flash_attention_bhsd takes (B, H, S, D) tensors")
+    if window is not None and window < 0:
+        raise ValueError(f"{NAME}: window must be >= 0 or None, got {window}")
+    if out is not None and (out.shape != q.shape or out.dtype != q.dtype or out.device != q.device):
+        raise ValueError(f"{NAME}: out must be {tuple(q.shape)} {q.dtype} on {q.device}, got "
+                         f"{tuple(out.shape)} {out.dtype} on {out.device}")
+    if not build.on_card(NAME, q):
+        got = flash_attention_plain(
+            q, k, v, causal=causal, window=window, scale=scale, q_heads_per_kv=q_heads_per_kv
+        )
+        return got if out is None else out.copy_(got)
+    nb, hq, sq, d = q.shape
+    skv = k.shape[2]
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{NAME}: the CUDA kernel takes head dims {HEAD_DIMS}, got {d}")
+    if out is None:
+        out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    if out.numel() == 0:
+        return out
+    for t in (k, v, out):
+        if t.device != q.device:
+            raise ValueError(f"{NAME}: tensors on {t.device} and {q.device}")
+    strides = [s for t, n in ((q, "q"), (k, "k"), (v, "v"), (out, "out"))
+               for s in card_strides(t, n)]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    build.launch(
+        NAME, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *strides,
+        nb, hq, sq, skv, d, q_heads_per_kv, int(causal), -1 if window is None else int(window),
+        float(scale), int(q.dtype == torch.bfloat16), build.stream_of(q),
+    )
+    return out
 
 
 def flash_attention_fhsd(
@@ -97,26 +180,12 @@ def flash_attention_fhsd(
     q_heads_per_kv: int = 1,
 ) -> torch.Tensor:
     """Attention of q ``(Hq, Sq, D)`` over k/v ``(Hkv, Skv, D)``; ``(Hq, Sq, D)``
-    in q's type.  One launch on the card (contiguous inputs, D in 32/64/128)."""
+    in q's type.  The reference's layout; views are taken as
+    :func:`flash_attention_bhsd` takes them."""
     _check(q, k, v, q_heads_per_kv)
-    if window is not None and window < 0:
-        raise ValueError(f"{NAME}: window must be >= 0 or None, got {window}")
-    if not build.on_card(NAME, q):
-        return flash_attention_plain(
-            q, k, v, causal=causal, window=window, scale=scale, q_heads_per_kv=q_heads_per_kv
-        )
-    hq, sq, d = q.shape
-    skv = k.shape[1]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"{NAME}: the CUDA kernel takes head dims {HEAD_DIMS}, got {d}")
-    out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
-    build.require_cuda(NAME, q, k, v, out)
-    scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    build.launch(
-        NAME, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        hq, sq, skv, d, q_heads_per_kv, int(causal), -1 if window is None else int(window),
-        float(scale), int(q.dtype == torch.bfloat16), build.stream_of(q),
-    )
-    return out
+    if q.ndim != 3:
+        raise ValueError(f"{NAME}: flash_attention_fhsd takes (H, S, D) tensors")
+    return flash_attention_bhsd(
+        q[None], k[None], v[None], causal=causal, window=window, scale=scale,
+        q_heads_per_kv=q_heads_per_kv,
+    )[0]

@@ -7,9 +7,10 @@ bisection and gather in kernel 3 or 4 on the card (their plain twin on the
 CPU).  A uint32 table (the ``torch.uint32`` dtype) goes through its int32
 view, so ``fill=-1`` comes back as ``0xFFFFFFFF``.  ``bucket_probe`` keeps
 the reference's argument order and runs kernel 5.  ``flash_attention``
-takes ``(B, H, S, D)`` tensors, flattens batch into heads as the reference
-does and runs kernel 6.  ``slstm_recurrence`` runs kernel 7 on f32 inputs
-of any length (the reference's ``t_block`` padding has no counterpart).
+takes ``(B, H, S, D)`` views and runs kernel 6 on them through their
+strides (the reference flattens batch into heads).  ``slstm_recurrence``
+runs kernel 7 on f32 inputs of any length (the reference's ``t_block``
+padding has no counterpart).
 """
 from __future__ import annotations
 
@@ -155,18 +156,18 @@ def flash_attention(
     causal: bool = True,
     window: Optional[int] = None,
     scale: Optional[float] = None,
+    out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Flash attention over (B, Hq, S, D) with GQA kv (B, Hkv, Skv, D)."""
-    b, hq, sq, d = q.shape
-    _, hkv, skv, _ = k.shape
-    group = hq // hkv
-    qf = q.reshape(b * hq, sq, d).contiguous()
-    kf = k.reshape(b * hkv, skv, d).contiguous()
-    vf = v.reshape(b * hkv, skv, d).contiguous()
-    out = _flash.flash_attention_fhsd(
-        qf, kf, vf, causal=causal, window=window, scale=scale, q_heads_per_kv=group
+    """Flash attention over (B, Hq, S, D) with GQA kv (B, Hkv, Skv, D).
+
+    The views are handed to kernel 6 as they are (no copy: it reads them
+    through their strides); ``out``, a (B, Hq, S, D) view of any layout the
+    kernel takes, receives the result in place when given.
+    """
+    return _flash.flash_attention_bhsd(
+        q, k, v, causal=causal, window=window, scale=scale,
+        q_heads_per_kv=q.shape[1] // k.shape[1], out=out,
     )
-    return out.reshape(b, hq, sq, d)
 
 
 def slstm_recurrence(

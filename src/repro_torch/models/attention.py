@@ -108,11 +108,20 @@ def _masked_attention(q, k, v, *, causal, window, q_offset, kv_len_mask=None):
 
 
 def _flash_attention(q, k, v, *, causal, window):
-    """Kernel 6 path. q (B,KV,G,S,hd), k/v (B,KV,S,hd)."""
+    """Kernel 6 path. q (B,KV,G,S,hd), k/v (B,KV,S,hd), the views
+    ``_project_qkv`` returns, go to the kernel as they are; it writes o into
+    a (B, S, H, hd) buffer, returned as the merged (B, S, H·hd) view."""
     b, kvh, g, s, hd = q.shape
-    qf = q.reshape(b, kvh * g, s, hd)
-    out = kops.flash_attention(qf, k, v, causal=causal, window=window)
-    return out.reshape(b, kvh, g, s, hd)
+    o = torch.empty((b, s, kvh * g, hd), dtype=q.dtype, device=q.device)
+    kops.flash_attention(q.reshape(b, kvh * g, s, hd), k, v, causal=causal, window=window,
+                         out=o.permute(0, 2, 1, 3))
+    return o.reshape(b, s, kvh * g * hd)
+
+
+def _merge_heads(out):
+    """(B, KV, G, S, hd) → (B, S, H·hd)."""
+    b, kv, g, s, hd = out.shape
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, kv * g * hd)
 
 
 def attention(
@@ -146,13 +155,15 @@ def attention(
         k_all[rows, :, pos] = k_new[:, :, 0]
         v_all[rows, :, pos] = v_new[:, :, 0]
         kv_len_mask = torch.arange(k_all.shape[2], device=x.device)[None, :] <= pos[:, None]
-        out = _masked_attention_decode(q, k_all, v_all, pos, window=window, kv_len_mask=kv_len_mask)
+        merged = _merge_heads(_masked_attention_decode(
+            q, k_all, v_all, pos, window=window, kv_len_mask=kv_len_mask))
         new_cache = cache
     else:
         if cfg.attention_impl == "flash" and s > 1:
-            out = _flash_attention(q, k_new, v_new, causal=causal, window=window)
+            merged = _flash_attention(q, k_new, v_new, causal=causal, window=window)
         else:
-            out = _masked_attention(q, k_new, v_new, causal=causal, window=window, q_offset=0)
+            merged = _merge_heads(_masked_attention(
+                q, k_new, v_new, causal=causal, window=window, q_offset=0))
         new_cache = None
         if return_cache:
             smax = cache_len or s
@@ -163,8 +174,6 @@ def attention(
             v_c[:, :, :s] = v_new
             new_cache = KVCache(k_c, v_c)
 
-    _, kv, g, _, hd = out.shape
-    merged = out.permute(0, 3, 1, 2, 4).reshape(b, s, kv * g * hd)
     return merged @ p.wo.to(x.dtype), new_cache
 
 

@@ -157,7 +157,9 @@ def test_card_update_path_matches_cpu_path(card, d):
 
 
 # (hq, hkv, sq, skv, d, causal, window): the JAX kernel tests' ATTN_CASES
-# (batch folded into heads), then decode offsets, windows and a full-width
+# (batch folded into heads), then decode offsets, windows, the edges of the
+# bf16 kernel's 128-row tiles (Sq and Skv one above and one below a
+# multiple of 128, Skv < 128, Sq = 1) at each head dim, and a full-width
 # qwen3-4b prefill (32 query heads over 8 kv heads, D = 128, ragged).
 FLASH_CASES = [
     (2, 2, 128, 128, 64, True, None),
@@ -171,17 +173,37 @@ FLASH_CASES = [
     (4, 2, 70, 300, 128, True, 40),     # ... and a window
     (2, 2, 130, 190, 32, False, 17),    # non-causal window, ragged both ways
     (2, 1, 33, 33, 64, True, 0),        # window 0: every row masked, all zeros
+    (4, 2, 127, 127, 128, True, None),  # one below a tile
+    (4, 2, 129, 129, 128, True, None),  # one above a tile
+    (4, 1, 255, 257, 64, True, None),   # ... both, Sq < Skv
+    (2, 2, 257, 255, 32, True, None),   # Sq > Skv: leading rows see no key
+    (2, 1, 129, 127, 64, False, None),  # Skv < 128, non-causal
+    (4, 2, 1, 129, 128, True, None),    # Sq = 1 (a decode-shaped call)
+    (2, 2, 1, 127, 32, True, None),
     (32, 8, 1000, 1000, 128, True, None),
 ]
 
 
+def _flash_inputs(case, dtype, layout, device):
+    """q, k, v of ``case``: contiguous, or strided views as a model hands
+    them over (the heads of one (S, H, D) projection buffer, permuted)."""
+    hq, hkv, sq, skv, d = case[:5]
+    gen = torch.Generator(device=device).manual_seed(FLASH_CASES.index(case))
+    if layout == "contiguous":
+        return tuple(torch.randn(shape, generator=gen, device=device).to(dtype)
+                     for shape in ((hq, sq, d), (hkv, skv, d), (hkv, skv, d)))
+    q = torch.randn((sq, hq, d), generator=gen, device=device).to(dtype).transpose(0, 1)
+    kv = torch.randn((skv, 2 * hkv, d), generator=gen, device=device).to(dtype).transpose(0, 1)
+    return q, kv[:hkv], kv[hkv:]
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "strided"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", FLASH_CASES)
-def test_flash_kernel_matches_plain(card, case, dtype):
+def test_flash_kernel_matches_plain(card, case, dtype, layout):
     hq, hkv, sq, skv, d, causal, window = case
-    gen = torch.Generator(device=card).manual_seed(FLASH_CASES.index(case))
-    q, k, v = (torch.randn(shape, generator=gen, device=card).to(dtype)
-               for shape in ((hq, sq, d), (hkv, skv, d), (hkv, skv, d)))
+    q, k, v = _flash_inputs(case, dtype, layout, card)
+    assert q.is_contiguous() == (layout == "contiguous" or sq == 1)
     want = flash.flash_attention_plain(q, k, v, causal=causal, window=window,
                                        q_heads_per_kv=hq // hkv)
     before = build.LAUNCHES["flash_attention"]
@@ -194,13 +216,45 @@ def test_flash_kernel_matches_plain(card, case, dtype):
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_flash_kernel_reads_projection_views_and_writes_the_output_buffer(card, d, dtype):
+    """B = 2, GQA 4:1: q, k, v as views of one fused (B, S, heads, D)
+    projection, o written into a (B, S, Hq, D) buffer, one launch."""
+    b, hq, hkv, s = 2, 8, 2, 300
+    gen = torch.Generator(device=card).manual_seed(d)
+    qkv = torch.randn((b, s, hq + 2 * hkv, d), generator=gen, device=card).to(dtype)
+    q, k, v = (qkv[:, :, lo:hi].permute(0, 2, 1, 3)
+               for lo, hi in ((0, hq), (hq, hq + hkv), (hq + hkv, hq + 2 * hkv)))
+    buf = torch.full((b, s, hq, d), float("nan"), device=card, dtype=dtype)
+    before = build.LAUNCHES["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=True, window=None, out=buf.permute(0, 2, 1, 3))
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["flash_attention"] == before + 1
+    assert got.data_ptr() == buf.data_ptr()
+    want = flash.flash_attention_plain(q, k, v, q_heads_per_kv=hq // hkv)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(buf.permute(0, 2, 1, 3).float(), want.float(), atol=tol, rtol=tol)
+
+
 def test_flash_kernel_refuses_what_it_does_not_take(card):
     q = torch.zeros((2, 8, 48), device=card)
     with pytest.raises(ValueError, match="head dims"):
         flash.flash_attention_fhsd(q, q, q)
-    q = torch.zeros((2, 8, 64), device=card)
-    with pytest.raises(ValueError, match="contiguous"):
-        flash.flash_attention_fhsd(q.transpose(0, 1).contiguous().transpose(0, 1), q, q)
+    wide = torch.zeros((2, 8, 128), device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous last dim"):
+        flash.flash_attention_fhsd(wide[..., ::2], wide[..., ::2], wide[..., ::2])
+    rows = torch.zeros((2, 8, 68), device=card, dtype=torch.bfloat16)[..., :64]
+    with pytest.raises(ValueError, match="multiples of 16 bytes"):
+        flash.flash_attention_fhsd(rows, rows, rows)
+    shifted = torch.zeros(2 * 8 * 64 + 4, device=card, dtype=torch.bfloat16)[4:].view(2, 8, 64)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash.flash_attention_fhsd(shifted, shifted, shifted)
+    before = build.LAUNCHES["flash_attention"]
+    ok = torch.zeros((8, 2, 64), device=card, dtype=torch.bfloat16).transpose(0, 1)
+    flash.flash_attention_fhsd(ok, ok, ok)  # a strided view is taken
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["flash_attention"] == before + 1
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

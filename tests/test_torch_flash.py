@@ -111,3 +111,76 @@ def test_explicit_scale_and_argument_checks():
         flash.flash_attention_fhsd(q.half(), k.half(), k.half(), q_heads_per_kv=2)
     with pytest.raises(ValueError, match="window"):
         flash.flash_attention_fhsd(q, k, k, window=-1, q_heads_per_kv=2)
+
+
+# (d, causal, window) for the projection-view tests: B = 2, GQA 4:1 (8 query
+# heads over 2 kv heads), a ragged S = 75; causal, and causal with a window.
+VIEW_CASES = [(32, True, None), (32, True, 20), (128, True, None), (128, True, 20)]
+
+
+def _projection_views(d, dtype, seed):
+    """q (B, KV, G, S, d), k/v (B, KV, S, d) as ``_project_qkv`` hands them
+    over (permuted views of the (B, S, heads, d) projections), with the same
+    values as (B, H, S, D) JAX arrays."""
+    b, kv, g, s = 2, 2, 4, 75
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal(shape).astype(np.float32)
+            for shape in ((b, s, kv, g, d), (b, s, kv, d), (b, s, kv, d))]
+    jx = [jnp.asarray(a, JNP[dtype]) for a in arrs]
+    tq, tk, tv = (torch.from_numpy(np.array(a, np.float32)).to(TORCH[dtype]) for a in jx)
+    q, k, v = tq.permute(0, 2, 3, 1, 4), tk.permute(0, 2, 1, 3), tv.permute(0, 2, 1, 3)
+    jq = jnp.transpose(jx[0], (0, 2, 3, 1, 4)).reshape(b, kv * g, s, d)
+    jk, jv = (jnp.transpose(a, (0, 2, 1, 3)) for a in jx[1:])
+    return (q, k, v), (jq, jk, jv)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", VIEW_CASES)
+def test_projection_views_match_pallas(case, dtype):
+    """``ops.flash_attention`` on the strided views the model hands over,
+    into a (B, S, Hq, D) output buffer, against the Pallas kernel in
+    interpret mode; and the model's ``_flash_attention`` returning the merged
+    (B, S, Hq·D) view of that buffer."""
+    from repro_torch.models import attention
+
+    d, causal, window = case
+    (q, k, v), (jq, jk, jv) = _projection_views(d, dtype, VIEW_CASES.index(case))
+    assert not (q.is_contiguous() or k.is_contiguous() or v.is_contiguous())
+    pallas = _np(jops.flash_attention(jq, jk, jv, causal=causal, window=window,
+                                      block_q=64, block_kv=64, interpret=True))
+    b, kv, g, s, _ = q.shape
+    buf = torch.full((b, s, kv * g, d), float("nan"), dtype=TORCH[dtype])
+    got = ops.flash_attention(q.reshape(b, kv * g, s, d), k, v, causal=causal, window=window,
+                              out=buf.permute(0, 2, 1, 3))
+    assert got.data_ptr() == buf.data_ptr() and got.shape == (b, kv * g, s, d)
+    tol = TOL[dtype]
+    np.testing.assert_allclose(_np(got), pallas, atol=tol, rtol=tol)
+    np.testing.assert_allclose(_np(buf.permute(0, 2, 1, 3)), pallas, atol=tol, rtol=tol)
+    merged = attention._flash_attention(q, k, v, causal=causal, window=window)
+    assert merged.shape == (b, s, kv * g * d) and merged.is_contiguous()
+    np.testing.assert_allclose(_np(merged), pallas.transpose(0, 2, 1, 3).reshape(b, s, -1),
+                               atol=tol, rtol=tol)
+
+
+def test_card_strides_takes_views_and_refuses_the_rest():
+    """What the card path accepts, checked without a card: the last dim
+    contiguous, the other strides multiples of 16 bytes, a 16-byte aligned
+    base; a dim of size 1 gets a valid stride whatever its own."""
+    buf = torch.zeros((2, 75, 12, 128), dtype=torch.bfloat16)
+    q = buf[:, :, :8].permute(0, 2, 1, 3)  # (B, H, S, D) view of a fused projection
+    assert flash.card_strides(q, "q") == (75 * 12 * 128, 128, 12 * 128)
+    k = buf[:, :, 8:10].permute(0, 2, 1, 3)
+    assert flash.card_strides(k, "k") == (75 * 12 * 128, 128, 12 * 128)
+    f32 = torch.zeros((3, 5, 32))
+    assert flash.card_strides(f32, "q") == (160, 32)
+    assert flash.card_strides(f32[None], "q") == (4 * 32, 160, 32)
+    assert flash.card_strides(f32[:1, :1], "q") == (4 * 32, 4 * 32)
+    with pytest.raises(ValueError, match="contiguous last dim"):
+        flash.card_strides(buf[..., ::2], "q")
+    with pytest.raises(ValueError, match="multiples of 16 bytes"):
+        flash.card_strides(torch.zeros((4, 9, 68), dtype=torch.bfloat16)[..., :64], "k")
+    with pytest.raises(ValueError, match="multiples of 16 bytes"):
+        flash.card_strides(torch.zeros((4, 9, 34))[..., :32], "v")
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash.card_strides(torch.zeros(4 * 9 * 64 + 4, dtype=torch.bfloat16)[4:].view(4, 9, 64),
+                           "q")
