@@ -60,10 +60,12 @@ Run from the root of a checkout: it builds the port's CUDA kernels from
    (every output is an integer), ``FLASH_TOL`` for kernel 6 on request 0's
    layer-0 q, k, v and on small GQA, window, non-causal, decode-offset and
    ragged cases in bf16 and f32, ``SLSTM_TOL`` for kernel 7 on request 0's
-   first sLSTM layer (S = 2675, bf16 r) in 256-step chunks from the
-   kernel's own state (the whole launch equal to its chunks bit for bit,
-   and reported against the twin over all steps), on a decode-shaped call
-   from the run's own states and on the JAX kernel tests' shapes; it times
+   first sLSTM layer (S = 2675) with the model's bf16 r (the cluster
+   kernel) and its f32 widening (the cooperative kernel), each in 256-step
+   chunks from the kernel's own state (the whole launch equal to its chunks
+   bit for bit; the bf16 launch also reported against the twin over all
+   steps), on a decode-shaped call from the run's own states and on the JAX
+   kernel tests' shapes with f32 and bf16 r; it times
    kernel, plain twin and a library yardstick (``torch.bincount`` for the
    histogram, ``scaled_dot_product_attention`` for kernel 6; none computes
    kernel 7's function) with CUDA events beside the least time the card
@@ -162,8 +164,13 @@ SLSTM_TOL = {"steps": 2e-5, "main": 1e-4}
 # amplifies those roundings over thousands of steps (``slstm_whole_launch``).
 XLSTM_LOGIT_TOL = {"bfloat16": 0.3, "float32": 3e-4}
 SLSTM_CHUNK = 256  # steps per chunk of the main-path comparison
-# The JAX kernel tests' shapes (b, h, s, hd), in f32.
+# The JAX kernel tests' shapes (b, h, s, hd), with f32 r (the cooperative
+# kernel) and bf16 r (the cluster kernel).
 SLSTM_CASES = ((1, 1, 8, 16), (2, 2, 32, 32), (1, 4, 100, 64), (2, 1, 256, 128))
+# Kernel 7 at the main shape: groups of launches of its bf16 (cluster) and
+# f32 (cooperative) variants, timed in turns (min, median and max over the
+# groups); its plain twin takes 0.3-1.1 s a call and is timed over 3 calls.
+SLSTM_TIMING = {"groups": 5, "launches": 20}
 
 # Kernel name -> (source in the repo, Pallas function it replaces).
 KERNELS = {
@@ -819,18 +826,15 @@ def twin_error(name, got, want, tol, device):
 
 
 def kernel_row(name, meta: dict, shapes: str, kernel_fn, plain_fn, bounds: dict, device, log,
-               library_fn=None, reps: int = 20, tol=None, compared=None) -> dict:
-    """One kernel against its plain twin on the same card inputs, timed.
+               library_fn=None, reps: int = 20) -> dict:
+    """One table kernel against its plain twin on the same card inputs (every
+    output an integer: equal), timed.
 
     ``meta`` holds the row's ``path``, ``shards`` and ``launches`` (the count
     of its run); ``bounds`` the least time in ms by ``"bytes"`` and by
-    ``"operations"``.  ``tol`` None requires equal outputs (integers);
-    otherwise ``|kernel - plain| <= tol * (1 + |plain|)`` elementwise.
-    ``compared``, when given, is the largest error of the caller's own
-    comparison, made in place of the whole calls' (which are then only
-    timed)."""
+    ``"operations"``."""
     bound_by = max(bounds, key=bounds.get)
-    err = twin_error(name, kernel_fn(), plain_fn(), tol, device) if compared is None else compared
+    err = twin_error(name, kernel_fn(), plain_fn(), None, device)
     row = {
         "name": name,
         **meta,
@@ -845,7 +849,7 @@ def kernel_row(name, meta: dict, shapes: str, kernel_fn, plain_fn, bounds: dict,
         "library_ms": mean_ms(library_fn, reps, device) if library_fn else None,
         "shapes": shapes,
     }
-    log(f"kernel {name} {meta['path']} {shapes}: max_abs_err={err} (tol {tol or 'exact'}) "
+    log(f"kernel {name} {meta['path']} {shapes}: max_abs_err={err} (exact) "
         f"kernel_ms={row['ms']} plain_ms={row['plain_ms']} library_ms={row['library_ms']} "
         f"bound_ms={row['bound_ms']} ({bound_by}) launches={row['launches']}")
     return row
@@ -1202,25 +1206,24 @@ def spread_ms(fns: dict, device, groups: int, launches: int) -> dict:
     return {name: [min(t), statistics.median(t), max(t)] for name, t in times.items()}
 
 
-def flash_build_report() -> dict:
-    """Registers, spills and shared memory of kernel 6's compiled kernels:
-    ``ptxas -v`` from ``build.log`` beside the library, and each block's
-    dynamic shared memory from the library itself."""
+def ptxas_report(source: str, pattern: str) -> dict:
+    """Registers, spills and ptxas notes of the kernels of one source file,
+    from the ``ptxas -v`` output kept in ``build.log`` beside the library;
+    ``pattern`` names a kernel by the groups of its mangled name."""
     import re
 
     from repro_torch.kernels import build
 
-    lib = build.library()
+    build.library()
     text = (build.BUILD_DIR / "build.log").read_text()
-    section = text.split("== flash_attention.cu", 1)[1].split("\n== ", 1)[0]
+    section = text.split(f"== {source}", 1)[1].split("\n== ", 1)[0]
     report, name = {}, None
     for line in section.splitlines():
-        found = re.search(r"Compiling entry function '.*?(flash_fwd_\w+?)ILi(\d+)E", line)
+        found = re.search(r"Compiling entry function '.*?" + pattern, line)
         if found:
-            name = f"{found.group(1)}<{found.group(2)}>"
-            d = int(found.group(2))
-            report[name] = {"dynamic_smem_bytes": lib.flash_attention_smem_bytes(
-                d, int(found.group(1) == "flash_fwd_wgmma"))}
+            groups = [x for x in found.groups()[1:] if x is not None]
+            name = found.group(1) + (f"<{', '.join(groups)}>" if groups else "")
+            report[name] = {}
         elif name and "registers" in line:
             report[name]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
         elif name and "spill" in line:
@@ -1229,6 +1232,33 @@ def flash_build_report() -> dict:
         elif name and "Potential Performance Loss" in line:
             report[name].setdefault("ptxas_notes", []).append(line.strip())
     return report
+
+
+def flash_build_report() -> dict:
+    """Registers, spills and shared memory of kernel 6's compiled kernels:
+    ``ptxas -v`` from ``build.log`` beside the library, and each block's
+    dynamic shared memory from the library itself."""
+    from repro_torch.kernels import build
+
+    report = ptxas_report("flash_attention.cu", r"(flash_fwd_\w+?)ILi(\d+)E")
+    for name, entry in report.items():
+        kind, d = name[:-1].split("<")
+        entry["dynamic_smem_bytes"] = build.library().flash_attention_smem_bytes(
+            int(d), int(kind == "flash_fwd_wgmma"))
+    return report
+
+
+def slstm_build_report(hd: int, batch: int, heads: int) -> dict:
+    """Registers and spills of kernel 7's compiled kernels (``slstm_cluster<KS,
+    NT>``, ``slstm_coop``) and the plan of each variant at the given shape
+    (``slstm_plan``: cluster size, units, threads, dynamic shared bytes)."""
+    import torch
+
+    from repro_torch.kernels import slstm
+
+    return {"kernels": ptxas_report("slstm.cu", r"\d(slstm_(?:cluster|coop))(?:ILi(\d+)ELi(\d+)E)?"),
+            "plans": {str(dt): slstm.card_plan(hd, dt, batch, heads)
+                      for dt in (torch.bfloat16, torch.float32)}}
 
 
 def attention_bounds(hq: int, hkv: int, sq: int, skv: int, d: int, dtype: str, live: int) -> dict:
@@ -1415,9 +1445,11 @@ def slstm_whole_launch(pre, r, states, device, kernel_out) -> dict:
 
 def check_slstm_kernel(run: dict, device, log) -> list:
     """Kernel 7 against its plain twin on request 0's first sLSTM layer (the
-    main path's shape, bf16 r), timed; then on a decode-shaped call (all
-    slots, S = 1) from the run's own layer-0 states, and on the JAX kernel
-    tests' shapes in f32."""
+    main path's shape): the bf16 r of the model (the cluster kernel) and its
+    f32 widening (the cooperative kernel), each in SLSTM_CHUNK-step chunks,
+    timed in turns in SLSTM_TIMING's groups; then on a decode-shaped call
+    (all slots, S = 1) from the run's own layer-0 states, and on the JAX
+    kernel tests' shapes with f32 and bf16 r."""
     import torch
 
     from repro_torch.kernels import slstm
@@ -1436,28 +1468,54 @@ def check_slstm_kernel(run: dict, device, log) -> list:
             worst = max(worst, float(diff.max()) if diff.numel() else 0.0)
         log(f"kernel slstm_sequence {name}: max_abs_err={worst} (tol {tol})")
 
+    cuda = device.type == "cuda"
     cfg = run["cfg"]
     pre, r, states = slstm_layer0_inputs(run["params"], run["prompts"][0], cfg, device)
     b, h, s, _, hd = pre.shape
+    rf = r.float()
+    plans = {str(dt): (slstm.card_plan(hd, dt, b, h) if cuda else slstm.launch_plan(hd, dt, b))
+             for dt in (r.dtype, rf.dtype)}
+    if cuda:
+        log("kernel slstm_sequence build: " + json.dumps(slstm_build_report(hd, b, h)))
     err, whole = slstm_chunks_against_twin(pre, r, states, device)
-    log(f"kernel slstm_sequence main shape, {SLSTM_CHUNK}-step chunks from the kernel's own "
-        f"states: max_abs_err={err} (tol {SLSTM_TOL['main']}); the whole launch equals its chunks "
-        "bit for bit")
-    meta = {"path": run["result"]["path"], "shards": None,
-            "launches": run["result"]["launches"].get("slstm_sequence", 0)}
-    row = kernel_row(
-        "slstm_sequence", meta,
-        f"pre=({b}, {h}, {s}, 4, {hd}) f32 (strided view) r=({h}, 4, {hd}, {hd}) {r.dtype} "
-        "(request 0, first sLSTM layer)",
-        lambda: flat(slstm.slstm_sequence(pre, r, *states)),
-        lambda: flat(slstm.slstm_sequence_plain(pre, r, *states)),
-        slstm_bounds(b, h, s, hd, r.element_size()), device, log, tol=SLSTM_TOL["main"],
-        compared=err,
-    )
-    row["whole_launch"] = slstm_whole_launch(pre, r, states, device, whole)
+    log(f"kernel slstm_sequence main shape, {r.dtype} r ({plans[str(r.dtype)]['variant']}), "
+        f"{SLSTM_CHUNK}-step chunks from the kernel's own states: max_abs_err={err} (tol "
+        f"{SLSTM_TOL['main']}); the whole launch equals its chunks bit for bit")
+    whole_launch = slstm_whole_launch(pre, r, states, device, whole)
     log("kernel slstm_sequence whole launch against the twin over all steps (not gated): "
-        + json.dumps(row["whole_launch"]))
-    del pre, whole
+        + json.dumps(whole_launch))
+    del whole
+    err32, whole32 = slstm_chunks_against_twin(pre, rf, states, device)
+    log(f"kernel slstm_sequence main shape, f32 r ({plans[str(rf.dtype)]['variant']}), "
+        f"{SLSTM_CHUNK}-step chunks: max_abs_err={err32} (tol {SLSTM_TOL['main']}); the whole "
+        "launch equals its chunks bit for bit")
+    del whole32
+    times = spread_ms({"kernel": lambda: slstm.slstm_sequence(pre, r, *states),
+                       "kernel_f32": lambda: slstm.slstm_sequence(pre, rf, *states)},
+                      device, SLSTM_TIMING["groups"], SLSTM_TIMING["launches"])
+    bounds = slstm_bounds(b, h, s, hd, r.element_size())
+    bound_by = max(bounds, key=bounds.get)
+    plan = plans[str(r.dtype)]
+    row = {
+        "name": "slstm_sequence", "path": run["result"]["path"], "shards": None,
+        "launches": run["result"]["launches"].get("slstm_sequence", 0),
+        "route": "cuda", "source": KERNELS["slstm_sequence"][0],
+        "replaces": KERNELS["slstm_sequence"][1], "max_abs_err": max(err, err32),
+        "ms": times["kernel"][1],
+        "plain_ms": mean_ms(lambda: flat(slstm.slstm_sequence_plain(pre, r, *states)), 3, device),
+        "bound_ms": bounds[bound_by], "bound_by": bound_by, "library_ms": None,
+        "shapes": f"pre=({b}, {h}, {s}, 4, {hd}) f32 (strided view) r=({h}, 4, {hd}, {hd}) "
+                  f"{r.dtype} (request 0, first sLSTM layer)",
+        "variant": plan["variant"], "cluster": plan["cluster"], "spread_ms": times,
+        "ns_per_step": times["kernel"][1] * 1e6 / s, "f32_ms": times["kernel_f32"][1],
+        "f32_variant": plans[str(rf.dtype)]["variant"], "whole_launch": whole_launch,
+    }
+    log(f"kernel slstm_sequence {row['path']} {row['shapes']}: variant={row['variant']} "
+        f"cluster={row['cluster']} [min, median, max] ms over {SLSTM_TIMING['groups']} groups of "
+        f"{SLSTM_TIMING['launches']}: {json.dumps(times)} ns_per_step={row['ns_per_step']:.1f} "
+        f"plain_ms={row['plain_ms']} bound_ms={row['bound_ms']} ({bound_by}) = "
+        f"{row['bound_ms'] / row['ms']:.3f} of the kernel's median, launches={row['launches']}")
+    del pre, rf
     # Decode shape: every slot, one step, from the states the run left in
     # the first sLSTM layer (non-zero), with bf16 r.
     gen = torch.Generator(device=device).manual_seed(11)
@@ -1465,19 +1523,30 @@ def check_slstm_kernel(run: dict, device, log) -> list:
     slots = cache.c.shape[1]
     dec_states = tuple(t[0].reshape(slots, h, hd).clone() for t in cache)
     dec_pre = 0.5 * torch.randn((slots, h, 1, 4, hd), generator=gen, device=device)
-    run_kernel = slstm.slstm_sequence if device.type == "cuda" else slstm.slstm_sequence_plain
+    run_kernel = slstm.slstm_sequence if cuda else slstm.slstm_sequence_plain
     held(f"decode pre=({slots}, {h}, 1, 4, {hd}) from the run's states",
          run_kernel(dec_pre, r, *dec_states),
          slstm.slstm_sequence_plain(dec_pre, r, *dec_states), SLSTM_TOL["steps"])
-    row["decode_ms"] = mean_ms(lambda: run_kernel(dec_pre, r, *dec_states), 20, device)
-    log(f"kernel slstm_sequence decode shape: kernel_ms={row['decode_ms']}")
+    decode = lambda: run_kernel(dec_pre, r, *dec_states)  # noqa: E731
+    row["decode_ms"] = spread_ms({"decode": decode}, device, SLSTM_TIMING["groups"],
+                                 SLSTM_TIMING["launches"])["decode"]
+    if cuda:  # the device's time a launch (torch.profiler), without the host's share
+        prof = profile_phases({"decode": lambda: [decode() for _ in range(SLSTM_TIMING["launches"])]},
+                              device)["decode"]["by_class"]["kernel 7"]
+        row["decode_device_ms"] = prof["ms"] / prof["launches"]
+    else:
+        row["decode_device_ms"] = None
+    log(f"kernel slstm_sequence decode shape: [min, median, max] ms a call {row['decode_ms']} "
+        f"(host included), device ms a launch {row['decode_device_ms']}")
     for b, h, s, hd in SLSTM_CASES:
         pre = 0.5 * torch.randn((b, h, s, 4, hd), generator=gen, device=device)
         rr = torch.randn((h, 4, hd, hd), generator=gen, device=device) / hd ** 0.5
         z = torch.zeros((b, h, hd), device=device)
         st = (z, z, z, torch.full_like(z, -1e30))
-        held(f"case b={b} h={h} s={s} hd={hd} f32", run_kernel(pre, rr, *st),
-             slstm.slstm_sequence_plain(pre, rr, *st), SLSTM_TOL["steps"])
+        for r_dtype in (torch.float32, torch.bfloat16):
+            rd = rr.to(r_dtype)
+            held(f"case b={b} h={h} s={s} hd={hd} {r_dtype} r", run_kernel(pre, rd, *st),
+                 slstm.slstm_sequence_plain(pre, rd, *st), SLSTM_TOL["steps"])
     return [row]
 
 

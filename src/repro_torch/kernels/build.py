@@ -56,11 +56,14 @@ _SIGNATURES = {
     # d, is_bf16 (a query, not a launch: the block's dynamic shared memory)
     "flash_attention_smem_bytes": (ctypes.c_int, ctypes.c_int),
     # pre, its 4 strides, r, r_bf16, c0, n0, h0, m0, hs, its 3 strides,
-    # cf, nf, hf, mf, xbuf, counters, batch, heads, seq, hd, stream
+    # cf, nf, hf, mf, xbuf, counters (f32 r only; null for bf16), batch,
+    # heads, seq, hd, stream
     "slstm_sequence": (
         _P, _I64, _I64, _I64, _I64, _P, ctypes.c_int, _P, _P, _P, _P,
         _P, _I64, _I64, _I64, _P, _P, _P, _P, _P, _P, *(ctypes.c_int,) * 4, _P,
     ),
+    # hd, r_bf16, batch, heads, out int[8] (a query, not a launch: the plan)
+    "slstm_plan": (ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P),
 }
 
 _lock = threading.Lock()

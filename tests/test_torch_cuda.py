@@ -300,11 +300,26 @@ def test_smoke_model_on_card_matches_cpu(card, dtype):
 # Kernel 7 (b, h, s, hd): the JAX kernel tests' shapes, a head dim of 48
 # (3 blocks per head), the full-width decode shape (4 slots, S = 1, hd = 512),
 # a full-width prefill and 64 (b, h) groups, more than one cooperative
-# launch holds at once (batch slices).
+# launch holds at once (batch slices); then, for the cluster kernel (bf16
+# r), head dims that are not multiples of 16 (20, 36), one head dim for
+# every cluster size its plan picks (68: 2 blocks, 132: 3, 196: 4, 260-484:
+# 9-16, uneven splits among them) and 3 rows in a slice of 4.
 SLSTM_CASES = [
     (1, 1, 8, 16, 2e-5), (2, 2, 32, 32, 2e-5), (1, 4, 100, 64, 2e-5), (2, 1, 256, 128, 2e-5),
     (3, 2, 37, 48, 2e-5), (4, 4, 1, 512, 2e-5), (1, 4, 300, 512, 1e-4), (16, 4, 20, 512, 1e-4),
+    (1, 2, 12, 20, 2e-5), (2, 1, 12, 36, 2e-5), (1, 1, 12, 68, 2e-5), (1, 1, 12, 132, 2e-5),
+    (2, 1, 12, 196, 2e-5), (1, 1, 12, 260, 2e-5), (1, 1, 12, 292, 2e-5), (1, 1, 12, 324, 2e-5),
+    (1, 1, 12, 356, 2e-5), (1, 1, 12, 388, 2e-5), (1, 1, 12, 420, 2e-5), (1, 1, 12, 452, 2e-5),
+    (1, 1, 12, 484, 2e-5), (3, 4, 9, 512, 2e-5),
 ]
+
+
+def test_slstm_cases_cover_every_cluster_size():
+    """Plain Python (no card): SLSTM_CASES reach every cluster size the
+    bf16 plan picks for head dims up to 512."""
+    sizes = {slstm.launch_plan(hd, torch.bfloat16, 1)["cluster"] for hd in range(4, 513, 4)}
+    covered = {slstm.launch_plan(c[3], torch.bfloat16, c[0])["cluster"] for c in SLSTM_CASES}
+    assert covered == sizes
 
 
 def _slstm_inputs(b, h, s, hd, device, seed, r_dtype=torch.float32, warm=0):
@@ -358,6 +373,49 @@ def test_slstm_kernel_reads_the_block_layout_and_refuses_what_it_does_not_take(c
                              torch.zeros((1, 4, 6, 6), device=card), z6, z6, z6, z6)
     with pytest.raises(ValueError, match="contiguous"):
         slstm.slstm_sequence(view.transpose(3, 4).contiguous().transpose(3, 4), r, *states)
+
+
+@pytest.mark.parametrize("hd", [20, 48, 512])
+def test_slstm_variant_follows_r_dtype(card, hd):
+    """The C entry point's own plan (``slstm_plan``): f32 r takes the
+    cooperative kernel, bf16 r the cluster kernel, as the Python plan says,
+    and the card holds at least one such cluster."""
+    for r_dtype, variant in ((torch.float32, "cooperative"), (torch.bfloat16, "cluster")):
+        for batch in (1, 4, 16):
+            got = slstm.card_plan(hd, r_dtype, batch, 4)
+            want = slstm.launch_plan(hd, r_dtype, batch)
+            assert got["variant"] == variant and got["resident"] >= 1
+            for key in slstm.PLAN_KEYS:
+                if not (key == "slices" and variant == "cooperative"):
+                    assert got[key] == want[key], (key, got, want)
+
+
+@pytest.mark.parametrize("shape", [(1, 4, 2675, 512), (4, 4, 1, 512)])
+def test_slstm_bf16_call_is_one_launch_and_no_memset(card, shape):
+    """At the main (prefill) and decode shapes a bf16 call puts exactly one
+    kernel on the card, the cluster kernel, and no memset or copy."""
+    from torch.profiler import ProfilerActivity, profile
+
+    pre, r, states = _slstm_inputs(*shape, card, 3, torch.bfloat16)
+    slstm.slstm_sequence(pre, r, *states)  # build, load and configure first
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        slstm.slstm_sequence(pre, r, *states)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 1 and "slstm_cluster" in names[0], names
+
+
+def test_slstm_cluster_kernel_refuses_wide_heads(card):
+    """bf16 r takes head dims up to 512 (a cluster of 16 holds r[h] in
+    registers); f32 r still takes them."""
+    hd = 516
+    z = torch.zeros((1, 1, hd), device=card)
+    pre = torch.zeros((1, 1, 2, 4, hd), device=card)
+    r = torch.zeros((1, 4, hd, hd), device=card)
+    with pytest.raises(ValueError, match="up to 512"):
+        slstm.slstm_sequence(pre, r.bfloat16(), z, z, z, z)
+    slstm.slstm_sequence(pre, r, z, z, z, z)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

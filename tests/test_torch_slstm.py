@@ -123,6 +123,127 @@ def test_strided_pre_and_shape_checks():
 
 
 # ---------------------------------------------------------------------------
+# the card kernel's launch plan and its split product, in plain Python
+# ---------------------------------------------------------------------------
+PLAN_HDS = (16, 20, 32, 48, 64, 128, 256, 512)
+
+
+@pytest.mark.parametrize("r_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hd", PLAN_HDS)
+def test_launch_plan_fits_the_card(hd, r_dtype):
+    """bf16 r: a cluster of at most 16 blocks whose units cover hd exactly
+    here, whose r fragments and reserve fit the register file and whose
+    shared memory fits a block; f32 r: the cooperative kernel (at hd = 512
+    too: an f32 slice would not fit)."""
+    plan = slstm.launch_plan(hd, r_dtype, 1)
+    assert plan["cluster"] * plan["units"] == hd
+    assert plan["smem_bytes"] <= slstm.MAX_SMEM_OPTIN
+    if r_dtype == torch.float32:
+        assert plan["variant"] == "cooperative" and plan["threads"] == slstm.COOP_THREADS
+        assert plan["units"] in (4, 8, 16)
+        return
+    assert plan["variant"] == "cluster"
+    assert 1 <= plan["cluster"] <= slstm.MAX_CLUSTER and plan["units"] % 4 == 0
+    assert plan["threads"] == 8 * plan["units"]  # a warp a 4 units
+    assert 16 * plan["k_steps"] >= hd and plan["r_regs"] == 4 * plan["k_steps"]
+    assert plan["threads"] * (plan["r_regs"] + slstm.REG_RESERVE) <= slstm.REG_FILE
+    warps = slstm._max_warps(plan["k_steps"])  # a power of two that fits the file
+    assert plan["threads"] <= 32 * warps
+    if plan["cluster"] > 1:  # the smallest cluster: one block fewer would not fit
+        fewer = plan["cluster"] - 1
+        assert -(-hd // (4 * fewer)) > warps
+    if hd == 512:
+        assert (plan["cluster"], plan["units"], plan["threads"]) == (16, 32, 256)
+
+
+def test_launch_plan_batch_slices_and_refusals():
+    """Up to 2 rows a cluster for batches of 1-2, 4 above; slices cover the
+    batch; an f32 r at hd = 512 takes 32 blocks of 16 units; the cluster
+    kernel refuses hd > 512 and every plan hd % 4 != 0."""
+    for batch, rows, slices in ((1, 2, 1), (2, 2, 1), (3, 4, 1), (4, 4, 1), (5, 4, 2), (16, 4, 4)):
+        plan = slstm.launch_plan(512, torch.bfloat16, batch)
+        assert (plan["rows"], plan["slices"]) == (rows, slices)
+        assert plan["rows"] * plan["slices"] >= batch
+    assert slstm.launch_plan(512, torch.float32, 4)["cluster"] == 32
+    # every cluster size the plan picks for hd a multiple of 4 up to 512
+    sizes = {slstm.launch_plan(hd, torch.bfloat16, 1)["cluster"] for hd in range(4, 513, 4)}
+    assert sizes == {1, 2, 3, 4} | set(range(9, 17))
+    for hd in range(4, 513, 4):  # uneven splits still cover hd, short of a whole block
+        plan = slstm.launch_plan(hd, torch.bfloat16, 1)
+        assert hd <= plan["cluster"] * plan["units"] < hd + plan["units"]
+    with pytest.raises(ValueError, match="up to 512"):
+        slstm.launch_plan(516, torch.bfloat16, 1)
+    with pytest.raises(ValueError, match="multiples of 4"):
+        slstm.launch_plan(18, torch.float32, 1)
+
+
+def _split3(h):
+    """The card kernel's three bf16 parts of an f32 tensor (round to nearest even)."""
+    hi = h.bfloat16().float()
+    mid = (h - hi).bfloat16().float()
+    lo = (h - hi - mid).bfloat16().float()
+    return hi, mid, lo
+
+
+def _split_product_sequence(pre, r16, c0, n0, h0, m0):
+    """The recurrence with h.r computed as the card kernel does: bf16 r times
+    each bf16 part of h, accumulated in f32 (each product exact), the three
+    part sums added."""
+    rf = r16.float()
+    c, n, h, m = c0, n0, h0, m0
+    hs = []
+    for t in range(pre.shape[2]):
+        rec = sum(torch.einsum("bhd,hgde->bhge", part, rf) for part in _split3(h))
+        c, n, h, m = slstm._gates(pre[:, :, t] + rec, c, n, m)
+        hs.append(h)
+    return torch.stack(hs, 2), (c, n, h, m)
+
+
+def test_split_parts_sum_to_h_exactly():
+    rng = np.random.default_rng(21)
+    h = torch.from_numpy(np.concatenate([
+        rng.standard_normal(4096) * 0.3, rng.uniform(-1, 1, 4096), [0.0, -0.0, 1e-30, -3.5e-20, 1.0]
+    ]).astype(np.float32))
+    hi, mid, lo = _split3(h)
+    assert torch.equal((hi + mid) + lo, h)
+    for part in (hi, mid, lo):
+        assert torch.equal(part, part.bfloat16().float())
+
+
+@pytest.mark.parametrize("b,h,s,hd,t_block", JAX_CASES)
+def test_split_product_matches_twin_and_pallas_kernel(b, h, s, hd, t_block):
+    """The numeric premise of the card kernel's bf16 path: the split product
+    agrees with the twin and with the Pallas kernel (interpret mode) on the
+    bf16 widening of r, within KERNEL_TOL."""
+    pre, r, states = _inputs(b, h, s, hd, b * 1000 + s + 7)
+    r16 = torch.from_numpy(r).bfloat16()
+    t = [torch.from_numpy(a) for a in (pre, *states)]
+    got_hs, got_fin = _split_product_sequence(t[0], r16, *t[1:])
+    twin_hs, twin_fin = slstm.slstm_sequence_plain(t[0], r16, *t[1:])
+    rw = np.asarray(r16.float().numpy())
+    j = [jnp.asarray(a) for a in (pre, rw, *states)]
+    want_hs, want_fin = jops.slstm_recurrence(*j, t_block=t_block, interpret=True)
+    for label, (w_hs, w_fin) in (("twin", (twin_hs, twin_fin)), ("pallas", (want_hs, want_fin))):
+        _close(got_hs, w_hs, KERNEL_TOL, f"split hs vs {label}")
+        for g, w, name in zip(got_fin, w_fin, "cnhm"):
+            _close(g, w, KERNEL_TOL, f"split final {name} vs {label}")
+
+
+def test_split_product_at_full_width_matches_twin():
+    """hd = 512 (the xlstm-1.3b head), 16 steps from warm states."""
+    b, h, s, hd = 1, 4, 16, 512
+    pre, r, zero = _inputs(b, h, s, hd, 31)
+    r16 = torch.from_numpy(r).bfloat16()
+    prefix = torch.from_numpy((np.random.default_rng(32).standard_normal((b, h, 5, 4, hd)) * 0.5)
+                              .astype(np.float32))
+    _, states = slstm.slstm_sequence_plain(prefix, r16, *(torch.from_numpy(a) for a in zero))
+    got = _split_product_sequence(torch.from_numpy(pre), r16, *states)
+    want = slstm.slstm_sequence_plain(torch.from_numpy(pre), r16, *states)
+    for g, w in zip((got[0], *got[1]), (want[0], *want[1])):
+        _close(g, w.numpy(), KERNEL_TOL)
+
+
+# ---------------------------------------------------------------------------
 # the block
 # ---------------------------------------------------------------------------
 def _block_params(seed):

@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
-"""Time qwen3-4b prefills of one prompt through a given copy of the port.
+"""Time prefills of one prompt through a given copy of the port.
 
-    python3 tools/prefill_ab.py --src SRC [--repeats 10] [--seed 0]
+    python3 tools/prefill_ab.py --src SRC [--config qwen3_4b] [--repeats 10] [--seed 0]
 
 ``SRC`` is the ``src`` directory of a checkout (this one, or an earlier
 commit unpacked with ``git archive``); ``repro_torch`` is imported from
 there, so two versions can be compared on one card by running the script
-once for each, in turns (A, B, B, A).  The script builds qwen3-4b at full
-width on the card with the seeded random bf16 weights of
-``chip_smoke.py`` and the prompt of its request 0 (2675 tokens at seed 0),
+once for each, in turns (A, B, B, A).  The script builds ``--config``
+(``qwen3_4b`` or ``xlstm_1_3b``) at full width on the card with the seeded
+random bf16 weights of ``chip_smoke.py`` and the prompt of its request 0
+(2675 tokens at seed 0),
 runs ``prefill`` with a 4096-token cache twice to warm up and then
 ``--repeats`` times, each synchronised on both sides, and profiles one
 more call (``torch.profiler``: device time by kernel class, as
@@ -33,6 +34,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--src", required=True)
+    parser.add_argument("--config", default="qwen3_4b", help="a config name of get_config")
     parser.add_argument("--repeats", type=int, default=10)
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args(argv)
@@ -53,7 +55,7 @@ def main(argv=None) -> int:
     print(card, flush=True)
     chip_smoke.lm_settings()
     device = torch.device("cuda", 0)
-    cfg = get_config(chip_smoke.LM_ARCH)
+    cfg = get_config(args.config)
     bundle = build_model(cfg, device=device)
     params = bundle.init(args.seed)
     rng = np.random.default_rng(args.seed + 2)  # request 0's prompt, as chip_smoke draws it
@@ -72,7 +74,8 @@ def main(argv=None) -> int:
                 walls.append(seconds * 1e3)
         profiled = chip_smoke.profile_phases({"prefill": prefill}, device)["prefill"]
     print(json.dumps({
-        "card": card, "src": args.src, "prompt_tokens": int(lens[0]), "wall_ms": walls,
+        "card": card, "src": args.src, "config": args.config, "prompt_tokens": int(lens[0]),
+        "wall_ms": walls,
         "wall_ms_min_median_max": [min(walls), statistics.median(walls), max(walls)],
         "tokens_per_s_at_median": int(lens[0]) / statistics.median(walls) * 1e3,
         "profiled": {k: profiled[k] for k in ("wall_ms", "device_busy_ms", "by_class")},
