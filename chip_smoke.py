@@ -50,14 +50,18 @@ Run from the root of a checkout: it builds the port's CUDA kernels from
    the prefix over thousands of steps, so no fixed tolerance holds it);
 5. counts the kernel launches of each run (every count is set to 0 just
    before a run and read just after it) and requires each kernel of the run
-   > 0 (the update path runs all five table kernels), exactly 36 x 8
+   > 0 (the update path runs all five table kernels), exactly one launch of
+   kernel 5's layer entry per layer per probe query in the update run (12 at
+   D = 1, 14 at D = 8) and none of its window entry, exactly 36 x 8
    launches of kernel 6 (flash attention), one per layer per prefill, in
    the qwen3 serving run, and exactly 24 x (8 + decode steps) launches of
    kernel 7 (the sLSTM recurrence), one per sLSTM layer per prefill and per
    decode step, and none of kernel 6, in the xLSTM run;
 6. calls each kernel's wrapper on the inputs each run gives it and holds it
    against its plain PyTorch twin: ``torch.equal`` for the table kernels
-   (every output is an integer), ``FLASH_TOL`` for kernel 6 on request 0's
+   (every output is an integer; kernel 5's two entries on the depth-6
+   probe query's base layer, the layer entry on its routed batch, with the
+   sectors it touches printed beside its bound), ``FLASH_TOL`` for kernel 6 on request 0's
    layer-0 q, k, v and on small GQA, window, non-causal, decode-offset and
    ragged cases in bf16 and f32, ``SLSTM_TOL`` for kernel 7 on request 0's
    first sLSTM layer (S = 2675) with the model's bf16 r (the cluster
@@ -68,7 +72,9 @@ Run from the root of a checkout: it builds the port's CUDA kernels from
    kernel tests' shapes with f32 and bf16 r; it times
    kernel, plain twin and a library yardstick (``torch.bincount`` for the
    histogram, ``scaled_dot_product_attention`` for kernel 6; none computes
-   kernel 7's function) with CUDA events beside the least time the card
+   kernel 7's function) with CUDA events (kernels 5's layer entry, 6 and 7
+   at their main shapes in 5 groups of 20 launches: min, median, max)
+   beside the least time the card
    could take: the larger of the bytes moved over 3.35 TB/s and the
    operations over the card's rate for them (int32 lanes for the table
    kernels, bf16 tensor cores for kernel 6, f32 units for kernel 7).
@@ -185,6 +191,10 @@ KERNELS = {
         "src/repro_torch/csrc/bucket_probe.cu",
         "src/repro/kernels/bucket_probe.py:40",
     ),
+    "bucket_probe_layer": (
+        "src/repro_torch/csrc/bucket_probe.cu",
+        "src/repro/kernels/bucket_probe.py:40",
+    ),
     "flash_attention": (
         "src/repro_torch/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention.py:126",
@@ -192,10 +202,15 @@ KERNELS = {
     "slstm_sequence": ("src/repro_torch/csrc/slstm.cu", "src/repro/kernels/slstm.py:93"),
 }
 # The build -> query -> retrieve path runs the first four; the update path all
-# five table kernels; the qwen3 serving path kernel 6 alone, the xLSTM
-# serving path kernel 7 alone.
+# five table kernels, kernel 5 through its layer entry (one launch per layer
+# per probe query; its window entry, the Pallas function's interface, is
+# only held against its twin); the qwen3 serving path kernel 6 alone, the
+# xLSTM serving path kernel 7 alone.
 READ_PATH_KERNELS = ("murmur_bucket", "bin_histogram", "csr_gather", "csr_gather_batched")
-TABLE_KERNELS = READ_PATH_KERNELS + ("bucket_probe",)
+TABLE_KERNELS = READ_PATH_KERNELS + ("bucket_probe_layer",)
+# Kernel 5's layer entry at the depth-6 base layer: groups of launches
+# (min, median and max over the groups), as kernels 6 and 7 are timed.
+PROBE_TIMING = {"groups": 5, "launches": 20}
 
 
 class SmokeFailure(RuntimeError):
@@ -458,6 +473,45 @@ def skewed_batch(state, table, lo: int, n: int):
     return keys
 
 
+def update_data(n_keys: int, seed: int, device) -> tuple[dict, dict]:
+    """The update path's data, drawn from ``seed``: the base keys, 5 insert
+    batches of N/32 (the fifth re-inserts 2^12 deleted keys) with their
+    values, 2^16 deletes, a 2^16-key upsert (half present, half new), the
+    queries (every base key plus 2^20 absent ones) and the retrieve batch.
+    Returns the host arrays and their copies on ``device``."""
+    import numpy as np
+
+    batch_n = n_keys // 32
+    # The counts are fixed at full size and shrink only for a small warm-up.
+    n_del, n_ups = min(DELETES, n_keys // 64), min(UPSERTS, batch_n // 2)
+    n_re = min(REINSERTS, n_del // 16)
+    rng = np.random.default_rng(seed + 1)
+    base_keys = rng.integers(0, n_keys, size=n_keys, dtype=np.uint32)
+    batches = [rng.integers(0, n_keys, size=batch_n, dtype=np.uint32) for _ in range(4)]
+    dels = base_keys[rng.choice(n_keys, n_del, replace=False)]
+    batches.append(np.concatenate([
+        dels[:n_re], rng.integers(0, n_keys, size=batch_n - n_re, dtype=np.uint32),
+    ]))
+    batch_vals = [(n_keys + i * batch_n + np.arange(batch_n)).astype(np.int32) for i in range(5)]
+    ups = np.concatenate([
+        base_keys[rng.choice(n_keys, n_ups // 2, replace=False)],
+        (n_keys + rng.choice(n_keys, n_ups // 2, replace=False)).astype(np.uint32),
+    ])
+    ups_vals = (n_keys + 5 * batch_n + np.arange(n_ups)).astype(np.int32)
+    absent = rng.integers(4 * n_keys, 2**32 - 1, size=ABSENT_QUERIES, dtype=np.uint64).astype(np.uint32)
+    queries = np.concatenate([base_keys, absent])
+    batch = np.concatenate([rng.integers(0, n_keys, size=batch_n - n_ups, dtype=np.uint32), ups])
+    host = dict(keys=base_keys, batches=batches, batch_vals=batch_vals, dels=dels, ups=ups,
+                ups_vals=ups_vals, queries=queries, batch=batch)
+    dev = {name: to_device(a, device) for name, a in (
+        ("keys", base_keys), ("dels", dels), ("ups", ups), ("ups_vals", ups_vals),
+        ("queries", queries), ("batch", batch),
+    )}
+    dev["batches"] = [to_device(b, device) for b in batches]
+    dev["batch_vals"] = [to_device(v, device) for v in batch_vals]
+    return host, dev
+
+
 def run_update_path(n_shards: int, n_keys: int, seed: int, device, log, skew: bool = True) -> dict:
     """The update path through the public API: build, 5 inserts, a delete and
     an upsert to depth 6, reads there, ``fold_oldest(3)``, reads, ``compact()``,
@@ -477,38 +531,17 @@ def run_update_path(n_shards: int, n_keys: int, seed: int, device, log, skew: bo
     from repro_torch.kernels import build
 
     d, batch_n = n_shards, n_keys // 32
-    # The counts are fixed at full size and shrink only for a small warm-up.
-    n_del, n_ups = min(DELETES, n_keys // 64), min(UPSERTS, batch_n // 2)
-    n_re = min(REINSERTS, n_del // 16)
     label = f"update D={d}"
-    rng = np.random.default_rng(seed + 1)
-    base_keys = rng.integers(0, n_keys, size=n_keys, dtype=np.uint32)
-    batches = [rng.integers(0, n_keys, size=batch_n, dtype=np.uint32) for _ in range(4)]
-    dels = base_keys[rng.choice(n_keys, n_del, replace=False)]
-    batches.append(np.concatenate([
-        dels[:n_re], rng.integers(0, n_keys, size=batch_n - n_re, dtype=np.uint32),
-    ]))
-    batch_vals = [(n_keys + i * batch_n + np.arange(batch_n)).astype(np.int32) for i in range(5)]
-    ups = np.concatenate([
-        base_keys[rng.choice(n_keys, n_ups // 2, replace=False)],
-        (n_keys + rng.choice(n_keys, n_ups // 2, replace=False)).astype(np.uint32),
-    ])
-    ups_vals = (n_keys + 5 * batch_n + np.arange(n_ups)).astype(np.int32)
-    absent = rng.integers(4 * n_keys, 2**32 - 1, size=ABSENT_QUERIES, dtype=np.uint64).astype(np.uint32)
-    queries = np.concatenate([base_keys, absent])
-    batch = np.concatenate([rng.integers(0, n_keys, size=batch_n - n_ups, dtype=np.uint32), ups])
-    dev = {name: to_device(a, device) for name, a in (
-        ("keys", base_keys), ("dels", dels), ("ups", ups), ("ups_vals", ups_vals),
-        ("queries", queries), ("batch", batch),
-    )}
-    dev["batches"] = [to_device(b, device) for b in batches]
-    dev["batch_vals"] = [to_device(v, device) for v in batch_vals]
+    host, dev = update_data(n_keys, seed, device)
+    base_keys, batches, batch_vals, dels, ups, ups_vals, queries, batch = (host[k] for k in (
+        "keys", "batches", "batch_vals", "dels", "ups", "ups_vals", "queries", "batch"))
     table = DistributedHashTable(num_shards=d, hash_range=n_keys, device=device,
                                  tombstone_capacity=TOMBSTONE_CAPACITY)
     probe = DistributedHashTable(num_shards=d, hash_range=n_keys, device=device,
                                  tombstone_capacity=TOMBSTONE_CAPACITY, paper_faithful_probe=True)
     live = LiveRows(base_keys, np.arange(n_keys, dtype=np.int64), 3 * n_keys)
     seconds, calls_seen, reads = {}, {}, {}
+    probe_layers = [0]  # layers read by probe queries: one kernel 5 launch each
 
     def step(name, fn, want_calls):
         exchange.CALLS.clear()
@@ -536,6 +569,7 @@ def run_update_path(n_shards: int, n_keys: int, seed: int, device, log, skew: bo
                   f"{label}: {name}: {kind} query counts differ from the oracle")
             out[f"{kind}_query_keys_per_s"] = queries.shape[0] / seconds[f"{name}: {kind} query"]
             del counts
+        probe_layers[0] += len(state.layers)
         retrieval = step(f"{name}: retrieve", lambda: table.retrieve(state, b_dev), plan)
         want_pairs = oracle.pairs(batch)
         check(int(retrieval.num_dropped) == 0, f"{label}: {name}: retrieve dropped")
@@ -604,6 +638,12 @@ def run_update_path(n_shards: int, n_keys: int, seed: int, device, log, skew: bo
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
     for name in TABLE_KERNELS if device.type == "cuda" else ():
         check(launches.get(name, 0) > 0, f"{label}: kernel {name} never launched")
+    if device.type == "cuda":
+        check(launches.get("bucket_probe_layer", 0) == probe_layers[0],
+              f"{label}: {launches.get('bucket_probe_layer', 0)} launches of bucket_probe_layer, "
+              f"want one per layer per probe query ({probe_layers[0]})")
+        check(launches.get("bucket_probe", 0) == 0,
+              f"{label}: the probe path launched the window entry bucket_probe")
 
     res = {
         "path": "update",
@@ -618,6 +658,7 @@ def run_update_path(n_shards: int, n_keys: int, seed: int, device, log, skew: bo
         "compact_live_rows": compact_live,
         "compact_keys_per_s": compact_live / seconds["compact"],
         "skew_fallbacks": table.skew_fallbacks,
+        "probe_layers_read": probe_layers[0],
         "reads": reads,
         "exchange_calls": calls_seen,
         "launches": launches,
@@ -635,6 +676,7 @@ def kernel_class(name: str) -> str:
     """Which part of the work a device kernel belongs to, by its name."""
     low = name.lower()
     for cls, marks in (("kernel 7", ("slstm",)), ("kernel 6", ("flash_fwd",)),
+                       ("kernel 5", ("probe",)),
                        ("GEMM", ("nvjet", "gemm", "gemv", "xmma", "cutlass")),
                        ("copies", ("memcpy", "memset", "copy"))):
         if any(m in low for m in marks):
@@ -756,8 +798,10 @@ def kernel_inputs(run: dict) -> dict:
 def update_kernel_inputs(run: dict) -> dict:
     """Each kernel's inputs as the update path hands them over: the rows the
     compaction rebuilds to murmur and histogram (its build's phase 1), the
-    depth-6 retrieve's gathers, and the depth-6 probe query's base-layer
-    probe (every shard's routed slots in one launch)."""
+    depth-6 retrieve's gathers, and the depth-6 probe query's base layer:
+    its routed batch to kernel 5's layer entry (every shard's slots in one
+    launch, the first layer writing the total), and the windows the plain
+    steps find for it to the window entry."""
     from repro_torch.core import hashgraph, plans
     from repro_torch.core import multi_hashgraph as mh
 
@@ -768,11 +812,17 @@ def update_kernel_inputs(run: dict) -> dict:
     inputs = {**hash_inputs(table, keys), **gather_inputs(table, state, run["batch"])}
     base = state.base
     routed = mh._route_queries_once(base, run["queries"].reshape(d, -1), probe.capacity_slack)
+    inputs["bucket_probe_layer"] = dict(
+        rq=routed.rq, rh=routed.rh, lo=routed.lo,
+        match_e=mh._tombstone_epochs(routed.rq, state.tombstones.index()),
+        offsets=base.local.offsets, keys=base.local.keys, table_size=base.local_range_cap,
+        stride=base.bucket_stride, epoch=0, max_probe=probe.max_probe, accumulate=False,
+    )
     b = mh._rebase_buckets(routed.rh, routed.is_pad, routed.lo, base.local_range_cap,
                            base.bucket_stride)
-    starts, ends = hashgraph._bucket_windows(base.local, b)
-    inputs["bucket_probe"] = dict(starts=starts, ends=ends, q=routed.rq, table=base.local.keys,
-                                  max_probe=probe.max_probe)
+    starts, ends = hashgraph.bucket_windows(base.local.offsets, base.local_range_cap, b)
+    inputs["bucket_probe"] = dict(starts=starts.to(routed.rq.dtype), ends=ends.to(routed.rq.dtype),
+                                  q=routed.rq, table=base.local.keys, max_probe=probe.max_probe)
     return inputs
 
 
@@ -792,7 +842,7 @@ def gather_work(offsets, starts, capacity: int) -> tuple[int, int]:
 
 
 def probe_work(starts, ends, max_probe: int) -> tuple[int, int]:
-    """``(bytes, int32 ops)`` the bucket probe needs on these inputs: starts,
+    """``(bytes, int32 ops)`` the window entry needs on these inputs: starts,
     ends and q read and one count written per slot (16 B), and the table
     words inside each window up to ``max_probe`` (4 B each); per word a
     load address, a compare and an add, per slot 6 for the window set-up."""
@@ -800,6 +850,52 @@ def probe_work(starts, ends, max_probe: int) -> tuple[int, int]:
 
     words = int(torch.clamp(ends.to(torch.int64) - starts.to(torch.int64), 0, max_probe).sum())
     return 16 * starts.numel() + 4 * words, 3 * words + 6 * starts.numel()
+
+
+def probe_layer_work(a: dict) -> dict:
+    """What kernel 5's layer entry needs on these inputs, each byte once:
+    per slot 4 B each of rq, rh and match_e and of total (twice where it
+    accumulates); per live slot (not padding, not tombstoned) its offsets
+    pair (8 B) and its window words up to ``max_probe`` (4 B each), each of
+    the two arrays counted at most once whole.  Operations: per slot 12 for
+    the set-up and mask, per word 3 (address, compare, add).  ``sectors``
+    counts the distinct 32-byte sectors each live slot touches in offsets
+    and keys (its pair's and its window's): where the tables are far beyond
+    L2 each is a separate DRAM access, so ``sector_floor_ms`` (the streamed
+    slot bytes plus 32 B a sector, over the memory rate) is a floor above
+    the bytes-once bound."""
+    import torch
+
+    from repro_torch.core import hashgraph
+    from repro_torch.core import multi_hashgraph as mh
+
+    rq, offsets, keys = a["rq"], a["offsets"], a["keys"]
+    d, n = rq.shape
+    live = rq != hashgraph.EMPTY_BITS
+    if a["match_e"] is not None:
+        live &= a["match_e"] < a["epoch"]
+    b = mh._rebase_buckets(a["rh"], ~live, a["lo"], a["table_size"], a["stride"])
+    starts, ends = hashgraph.bucket_windows(offsets, a["table_size"], b)
+    words = torch.where(live, torch.clamp(ends - starts, 0, a["max_probe"]), 0)
+    n_live, n_words = int(live.sum()), int(words.sum())
+    slot_bytes = 4 * rq.numel() * (3 + (a["match_e"] is not None) + bool(a["accumulate"]))
+    nbytes = (slot_bytes + min(8 * n_live, 4 * offsets.numel())
+              + min(4 * n_words, 4 * keys.numel()))
+    shard = torch.arange(d, device=rq.device, dtype=torch.int64).unsqueeze(1)
+    pair = shard * offsets.shape[1] + b.to(torch.int64)
+    pair_sectors = torch.where(live, 1 + (pair + 1) // 8 - pair // 8, 0)
+    first = shard * keys.shape[1] + starts.to(torch.int64)
+    window_sectors = torch.where(words > 0, (first + words - 1) // 8 - first // 8 + 1, 0)
+    sectors = int(pair_sectors.sum()) + int(window_sectors.sum())
+    return {
+        "bytes": nbytes,
+        "ops": 3 * n_words + 12 * rq.numel(),
+        "slots": rq.numel(),
+        "live_slots": n_live,
+        "window_words": n_words,
+        "sectors": sectors,
+        "sector_floor_ms": (slot_bytes + 32 * sectors) / HBM_BYTES_PER_S * 1e3,
+    }
 
 
 def twin_error(name, got, want, tol, device):
@@ -826,15 +922,20 @@ def twin_error(name, got, want, tol, device):
 
 
 def kernel_row(name, meta: dict, shapes: str, kernel_fn, plain_fn, bounds: dict, device, log,
-               library_fn=None, reps: int = 20) -> dict:
+               library_fn=None, reps: int = 20, timing=None) -> dict:
     """One table kernel against its plain twin on the same card inputs (every
     output an integer: equal), timed.
 
     ``meta`` holds the row's ``path``, ``shards`` and ``launches`` (the count
     of its run); ``bounds`` the least time in ms by ``"bytes"`` and by
-    ``"operations"``."""
+    ``"operations"``.  The kernel's ``ms`` is the mean of ``reps`` launches,
+    or with ``timing`` the median over ``timing["groups"]`` groups of
+    ``timing["launches"]`` (``ms_min_median_max`` beside it)."""
     bound_by = max(bounds, key=bounds.get)
     err = twin_error(name, kernel_fn(), plain_fn(), None, device)
+    spread = None
+    if timing is not None:
+        spread = spread_ms({name: kernel_fn}, device, timing["groups"], timing["launches"])[name]
     row = {
         "name": name,
         **meta,
@@ -842,7 +943,8 @@ def kernel_row(name, meta: dict, shapes: str, kernel_fn, plain_fn, bounds: dict,
         "source": KERNELS[name][0],
         "replaces": KERNELS[name][1],
         "max_abs_err": err,
-        "ms": mean_ms(kernel_fn, reps, device),
+        "ms": spread[1] if spread else mean_ms(kernel_fn, reps, device),
+        "ms_min_median_max": spread,
         "plain_ms": mean_ms(plain_fn, 3, device),
         "bound_ms": bounds[bound_by],
         "bound_by": bound_by,
@@ -850,7 +952,7 @@ def kernel_row(name, meta: dict, shapes: str, kernel_fn, plain_fn, bounds: dict,
         "shapes": shapes,
     }
     log(f"kernel {name} {meta['path']} {shapes}: max_abs_err={err} (exact) "
-        f"kernel_ms={row['ms']} plain_ms={row['plain_ms']} library_ms={row['library_ms']} "
+        f"kernel_ms={row['ms']} {'[min, median, max]=' + str(spread) + ' ' if spread else ''}plain_ms={row['plain_ms']} library_ms={row['library_ms']} "
         f"bound_ms={row['bound_ms']} ({bound_by}) launches={row['launches']}")
     return row
 
@@ -866,6 +968,7 @@ def check_kernels(run: dict, device, log) -> list:
     inputs, timed; the launch counts of the run are reported beside."""
     import torch
 
+    from repro_torch.core import multi_hashgraph as mh
     from repro_torch.kernels import bucket_probe, csr_gather, histogram, murmur
 
     inputs = run["inputs"]()
@@ -873,10 +976,10 @@ def check_kernels(run: dict, device, log) -> list:
     launches = run["result"]["launches"]
     rows = []
 
-    def record(name, shapes, kernel_fn, plain_fn, work, library_fn=None):
+    def record(name, shapes, kernel_fn, plain_fn, work, library_fn=None, timing=None):
         meta = {"path": path, "shards": shards, "launches": launches.get(name, 0)}
         rows.append(kernel_row(name, meta, shapes, kernel_fn, plain_fn, int_bounds(work), device,
-                               log, library_fn=library_fn))
+                               log, library_fn=library_fn, timing=timing))
 
     a = inputs["murmur_bucket"]
     record(
@@ -906,6 +1009,35 @@ def check_kernels(run: dict, device, log) -> list:
             lambda a=a: csr_gather.gather_plain(a["offsets"], a["starts"], a["table"], a["capacity"]),
             gather_work(a["offsets"], a["starts"], a["capacity"]),
         )
+    if "bucket_probe_layer" in inputs:
+        a = inputs["bucket_probe_layer"]
+        args = tuple(a[k] for k in ("rq", "rh", "lo", "match_e", "offsets", "keys"))
+        kw = {k: a[k] for k in ("table_size", "stride", "epoch", "max_probe", "accumulate")}
+        total = torch.empty_like(a["rq"])
+        work = probe_layer_work(a)
+        log(f"kernel bucket_probe_layer {path} D={shards} work: " + json.dumps(work))
+        record(
+            "bucket_probe_layer",
+            f"rq/rh/match_e={tuple(a['rq'].shape)} offsets={tuple(a['offsets'].shape)} "
+            f"keys={tuple(a['keys'].shape)} stride={a['stride']} max_probe={a['max_probe']} "
+            f"(the depth-6 probe query's base layer; plain twin: rebase, windows, one probe "
+            f"step at a time, mask)",
+            lambda: bucket_probe.bucket_probe_layer(*args, total=total, **kw),
+            lambda: bucket_probe.bucket_probe_layer_plain(*args, total=torch.empty_like(total), **kw),
+            (work["bytes"], work["ops"]),
+            timing=PROBE_TIMING,
+        )
+        # A yardstick of the card's rate for random words: one torch.gather of
+        # each slot's offsets word (it also streams its int64 index and output).
+        buckets = mh._rebase_buckets(a["rh"], a["rq"] == -1, a["lo"], a["table_size"],
+                                     a["stride"]).to(torch.int64)
+        gather_ms = mean_ms(lambda: torch.gather(a["offsets"], 1, buckets), 10, device)
+        del buckets
+        rows[-1].update(sectors=work["sectors"], sector_floor_ms=work["sector_floor_ms"],
+                        random_gather_ms=gather_ms)
+        log(f"kernel bucket_probe_layer {path} D={shards}: sectors={work['sectors']} "
+            f"sector_floor_ms={work['sector_floor_ms']} random_gather_ms={gather_ms} "
+            f"(torch.gather of one offsets word per slot)")
     if "bucket_probe" in inputs:
         a = inputs["bucket_probe"]
         record(
@@ -1604,6 +1736,8 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     build.library()
     log(f"kernels built from {build.CSRC} in {time.perf_counter() - t0:.1f} s")
+    log("kernel bucket_probe build: " + json.dumps(
+        ptxas_report("bucket_probe.cu", r"\d(probe_(?:layer|windows)_kernel)(?:ILb(\d)E)?")))
     run_path(1, 1 << 14, args.seed, device, lambda m: None)  # warm-up at a small size
     run_update_path(8, 1 << 17, args.seed, device, lambda m: None, skew=False)
 

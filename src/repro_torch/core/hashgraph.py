@@ -113,12 +113,15 @@ def _segment_searchsorted(
     return lo
 
 
-def _bucket_windows(hg: HashGraph, buckets: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """``(starts, ends)`` int32 of each routed query's bucket, with an empty
-    window at the trash bucket ``V`` (exchange padding)."""
+def bucket_windows(
+    offsets: torch.Tensor, table_size: int, buckets: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(starts, ends)`` int32 of each routed query's bucket in a ``(D, V+2)``
+    CSR ``offsets``, with an empty window at the trash bucket ``V``
+    (exchange padding)."""
     b = buckets.to(torch.int64)
-    starts = torch.gather(hg.offsets, 1, b)
-    ends = torch.where(b == hg.table_size, starts, torch.gather(hg.offsets, 1, b + 1))
+    starts = torch.gather(offsets, 1, b)
+    ends = torch.where(b == table_size, starts, torch.gather(offsets, 1, b + 1))
     return starts, ends
 
 
@@ -136,7 +139,7 @@ def query_locate(
     trash bucket, which holds every padding row of the build, and its
     callers then mask those counts to 0; the masked results are the same.)
     """
-    starts, ends = _bucket_windows(hg, buckets)
+    starts, ends = bucket_windows(hg.offsets, hg.table_size, buckets)
     keys_u = _unsigned_order(hg.keys)
     q_u = _unsigned_order(queries)
     left = _segment_searchsorted(keys_u, starts, ends, q_u, side="left")
@@ -166,7 +169,7 @@ def query_count_probe(
     """
     if buckets is None:
         buckets = hashing.hash_to_buckets(queries, hg.table_size, seed=hg.seed)
-    starts, ends = _bucket_windows(hg, buckets)
+    starts, ends = bucket_windows(hg.offsets, hg.table_size, buckets)
     from repro_torch.kernels import ops
 
     return ops.bucket_probe(hg.keys, starts, ends, queries, max_probe=max_probe)

@@ -28,7 +28,7 @@ import torch
 
 from repro_torch.core import exchange, hashing, hashgraph, partition
 from repro_torch.core.hashgraph import EMPTY_BITS, HashGraph
-from repro_torch.kernels import ops
+from repro_torch.kernels import bucket_probe, ops
 from repro_torch.utils import cdiv
 
 
@@ -175,9 +175,14 @@ class RoutedQueries:
     rq: torch.Tensor  # (D, D*capacity) received keys, EMPTY-padded
     route: exchange.Route
     rh: torch.Tensor  # (D, D*capacity) owner-side hash values
-    is_pad: torch.Tensor  # (D, D*capacity) bool
     lo: torch.Tensor  # (D, 1) each owner's split base
     capacity: int
+
+    @property
+    def is_pad(self) -> torch.Tensor:
+        """``(D, D*capacity)`` bool: the padding slots (the probe kernel
+        finds them itself, so only the other paths compute this)."""
+        return hashgraph.is_empty_key(self.rq)
 
 
 def _route_queries_once(
@@ -196,7 +201,6 @@ def _route_queries_once(
         rq=rq,
         route=route,
         rh=rh,
-        is_pad=hashgraph.is_empty_key(rq),
         lo=_shard_lo(dhg.hash_splits),
         capacity=capacity,
     )
@@ -248,18 +252,35 @@ def _mask_counts(
     return counts
 
 
-def _count_routed(
-    hg: HashGraph,
-    rq: torch.Tensor,
-    buckets: torch.Tensor,
+def _count_layer(
+    layer: DistributedHashGraph,
+    routed: RoutedQueries,
+    match_e: Optional[torch.Tensor],
+    epoch: int,
+    total: torch.Tensor,
+    accumulate: bool,
     paper_faithful_probe: bool,
     max_probe: int,
 ) -> torch.Tensor:
-    """Owner-side multiplicity of each routed key: the paper's linear bucket
-    probe (kernel 5) or the sorted bisection."""
+    """Owner-side multiplicity of each routed key in one layer, masked by
+    padding and tombstones (``match_e`` against ``epoch``), written
+    (``accumulate=False``) or added into ``total`` in place.
+
+    The paper's linear bucket probe is one launch of kernel 5's layer entry,
+    which rebases, looks up the windows, probes and masks by itself; the
+    sorted path bisects each bucket."""
     if paper_faithful_probe:
-        return hashgraph.query_count_probe(hg, rq, max_probe=max_probe, buckets=buckets)
-    return hashgraph.query_count_sorted(hg, rq, buckets)
+        return bucket_probe.bucket_probe_layer(
+            routed.rq, routed.rh, routed.lo, match_e, layer.local.offsets, layer.local.keys,
+            table_size=layer.local_range_cap, stride=layer.bucket_stride, epoch=epoch,
+            max_probe=max_probe, total=total, accumulate=accumulate,
+        )
+    rb = _rebase_buckets(
+        routed.rh, routed.is_pad, routed.lo, layer.local_range_cap, layer.bucket_stride
+    )
+    counts = hashgraph.query_count_sorted(layer.local, routed.rq, rb)
+    counts = _mask_counts(counts, routed.rq, layer_epoch=epoch, match_e=match_e)
+    return total.add_(counts) if accumulate else total.copy_(counts)
 
 
 def query_sharded(
@@ -275,11 +296,12 @@ def query_sharded(
     """Multiplicity ``(D, n_local)`` int32 of each query key: route by the
     build splits, count against the owner's shard, route counts back.
     ``tombstones`` / ``layer_epoch`` mask rows deleted from this layer."""
-    routed, rbuckets = _route_queries(dhg, queries, capacity_slack)
-    counts = _count_routed(
-        dhg.local, routed.rq, rbuckets, paper_faithful_probe, max_probe
+    routed = _route_queries_once(dhg, queries, capacity_slack)
+    counts = torch.empty(routed.rq.shape, dtype=torch.int32, device=queries.device)
+    _count_layer(
+        dhg, routed, _tombstone_epochs(routed.rq, tombstones), layer_epoch, counts,
+        False, paper_faithful_probe, max_probe,
     )
-    counts = _mask_counts(counts, routed.rq, tombstones, layer_epoch)
     return exchange.combine(counts, routed.route, fill=0)
 
 
@@ -297,8 +319,10 @@ def query_layers_sharded(
 
     ``fused`` (valid only for a partition-coherent stack) routes once for
     every layer: one dispatch and one combine, two exchange calls at any
-    depth.  ``fused=False`` routes each layer on its own splits, two calls
-    per layer.  ``None`` fuses only the single-layer stack.
+    depth; the layers' counts go into one running total in epoch order
+    (with the probe, one kernel launch a layer).  ``fused=False`` routes
+    each layer on its own splits, two calls per layer.  ``None`` fuses only
+    the single-layer stack.
     """
     layers = tuple(layers)
     if fused is None:
@@ -317,13 +341,11 @@ def query_layers_sharded(
 
     routed = _route_queries_once(layers[0], queries, capacity_slack)
     match_e = _tombstone_epochs(routed.rq, tombstones)
-    total = torch.zeros(routed.rq.shape, dtype=torch.int32, device=queries.device)
+    total = torch.empty(routed.rq.shape, dtype=torch.int32, device=queries.device)
     for epoch, layer in enumerate(layers):
-        rb = _rebase_buckets(
-            routed.rh, routed.is_pad, routed.lo, layer.local_range_cap, layer.bucket_stride
+        _count_layer(
+            layer, routed, match_e, epoch, total, epoch > 0, paper_faithful_probe, max_probe
         )
-        c = _count_routed(layer.local, routed.rq, rb, paper_faithful_probe, max_probe)
-        total += _mask_counts(c, routed.rq, tombstones, epoch, match_e)
     # One merged return trip carries the whole stack's counts.
     return exchange.combine(total, routed.route, fill=0)
 

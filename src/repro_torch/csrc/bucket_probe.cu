@@ -1,60 +1,240 @@
 // Kernel 5: the paper's linear bucket probe (query by scanning the bucket).
 //
-// Replaces the Pallas kernel `bucket_probe_2d` (src/repro/kernels/bucket_probe.py,
-// `_kernel`).  For each routed query slot i of shard s:
-//   out[s,i] = sum_{j < max_probe} [starts[s,i] + j < ends[s,i]
-//                                   and table[s, clip(starts[s,i] + j)] == q[s,i]]
-// where clip() keeps the index inside the shard's table, as the TPU kernel's
-// `jnp.clip` does.  A window longer than max_probe under-counts exactly as the
-// TPU kernel does: both stop after max_probe words.  The TPU kernel runs a
-// fixed max_probe trips and masks; here the loop ends at the window's end,
-// which gives the same count (trips past the end match nothing).
+// Replaces the Pallas kernel `bucket_probe_2d` (src/repro/kernels/bucket_probe.py:40,
+// `_kernel`).  Two entries share one device routine, `count_windows`:
 //
-// Keys are 32-bit patterns (the port carries uint32 keys in int32), so the
-// compare is plain 32-bit equality and the sign does not matter.  The TPU
-// kernel's (rows, 128) lane tiling is not carried over.
+// - `bucket_probe_layer`, the table's query path: one launch per layer of a
+//   versioned stack finds each routed slot's window itself, masks the count
+//   and accumulates it in place.  For routed slot i of shard s:
+//     pad   = rq == EMPTY (-1)
+//     b     = clamp((rh - lo[s]) / stride, 0, V - 1)
+//     start = offsets[s, b],  end = offsets[s, b + 1]
+//     c     = #{ j < max_probe : start + j < end and keys[s, start + j] == rq }
+//     c     = 0 where pad or match_e >= epoch
+//     total[s, i] = c (first layer) or total[s, i] + c (the others)
+//   The division truncates where the reference floors: the two differ only
+//   for a negative rh - lo, which the clamp sends to bucket 0 either way.
+//   Padding is sent to the trash bucket V by the reference, scanned there and
+//   masked to 0; here its window is never read.  The offsets are a CSR
+//   (monotone, inside [0, M]), so every window lies inside the keys.
+// - `bucket_probe`, the Pallas function's own interface: starts, ends and q
+//   given, each window index clipped into the table as the TPU kernel's
+//   `jnp.clip` does.
+// A window longer than max_probe under-counts exactly as the TPU kernel does:
+// both stop after max_probe words.  The TPU kernel runs a fixed max_probe
+// trips and masks; here the loop ends at the window's end, which gives the
+// same count.  Keys are 32-bit patterns (uint32 carried in int32), so the
+// compare is plain 32-bit equality.  The TPU kernel's (rows, 128) lane
+// tiling is not carried over.
 //
-// Layout: starts, ends, q and out are (S, n) int32, the table (S, table_len);
-// blockIdx.y is the shard, so one launch serves the D shards of a layer.
+// Layout: every per-slot array is (S, n) int32, offsets (S, V + 2), keys and
+// the window entry's table (S, M); blockIdx.y is the shard, so one launch
+// serves the S shards of a layer.
 //
-// Bound on the H100: memory.  The function reads starts, ends and q once,
-// writes one count, and reads the table words inside each window (at most
-// max_probe).  Design of this first version: one thread per query slot, the
-// slot arrays read coalesced, the window read through the read-only cache.
-// Windows hold a few words on average, so a warp's loads scatter over the
-// table; gathering neighbouring windows into shared memory is later work.
+// Bound on the H100: memory.  Bytes once: per slot rq, rh, match_e and
+// total (4 B each, total read again where it accumulates), and the offsets
+// pair and the window words of each live slot, each array at most once.
+// That is 1.3 ms for the base layer of the depth-6 query at D = 1 / N = 2^27
+// (1.69e8 slots).  Its real floor is higher: that layer's offsets (2.01e8
+// buckets, 805 MB) and keys (671 MB) are far beyond the 50 MB L2 and every
+// slot lands at a random place in both, so each live slot (1.35e8; the
+// rest are padding) costs at least one 32-byte sector of each: 8.6 GB,
+// 2.6 ms at the streaming rate (`chip_smoke.py` counts the sectors).  A
+// delta of that stack (2^23 buckets, 2^22 keys: about 55 MB) nearly fits in
+// L2 when it is probed alone, which is why each layer is its own launch
+// rather than one launch walking the whole stack per slot.
+//
+// Design.  A slot is a chain of dependent loads: the streamed slot words,
+// then the offsets pair, then the window words.  So the kernel is bound by
+// random loads, and by how many are in flight.  Each thread takes kSlots
+// consecutive slots, read as one 16-byte load per array, and issues every
+// slot's offsets pair, then the first kFirstWords words of every slot's
+// window, before it compares anything; only longer windows (fewer than one
+// in 10^4 at the base layer's load) go on in a loop.  The grid is one thread per
+// kSlots slots, uncapped.  The streamed arrays are read and written
+// evict-first (`ld.global.cs` / `st.global.cs`) so that they do not push
+// the layer's tables out of L2.  Table words go through the read-only path
+// and are allocated in L1 (`ld.global.nc`): the two words of a pair and the
+// words of a window lie in one sector, and loads of one line in flight
+// together merge into one L2 request only where the line is allocated.  (A
+// variant reading them with `ld.global.nc.L1::no_allocate`, with one 8-byte
+// load for an aligned pair, ran slower on every layer: each word became an
+// L2 request of its own.)  Measured on the card at the base layer above,
+// the kernel moves about two random sectors per live slot at the rate a
+// plain `torch.gather` of one random word per slot reaches (`chip_smoke.py`
+// prints both), well below the 3.35 TB/s of streamed bytes.
+//
+// Neither `wgmma` nor TMA serves this function: there is no product to
+// compute, and TMA copies tiles of a tensor, where every access here is a
+// scattered word or two at a random place.
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-__global__ void bucket_probe_kernel(const int32_t* __restrict__ starts,
-                                    const int32_t* __restrict__ ends,
-                                    const int32_t* __restrict__ q,
-                                    const int32_t* __restrict__ table, long long n,
-                                    long long table_len, int max_probe,
-                                    int32_t* __restrict__ out) {
-  const long long s = blockIdx.y;
-  const int32_t* st = starts + s * n;
-  const int32_t* en = ends + s * n;
-  const int32_t* qs = q + s * n;
-  const int32_t* tb = table + s * table_len;
-  int32_t* o = out + s * n;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const long long lo = st[i];
-    long long trips = static_cast<long long>(en[i]) - lo;
-    trips = trips < max_probe ? trips : max_probe;
-    const int32_t key = qs[i];
-    int32_t count = 0;
-    for (long long j = 0; j < trips; ++j) {
-      long long idx = lo + j;
-      idx = idx < 0 ? 0 : (idx > table_len - 1 ? table_len - 1 : idx);
-      count += __ldg(tb + idx) == key;
-    }
-    o[i] = count;
+constexpr int kThreads = 256;
+constexpr int kSlots = 4;       // routed slots a thread takes: one int4 of each slot array
+constexpr int kFirstWords = 6;  // window words of every slot in flight before a compare
+constexpr int32_t kEmpty = -1;
+
+// One table word through the read-only path, loaded only where `pred`
+// holds (else 0); the guard is a predicate, not a branch, so the loads of
+// all slots are issued back to back.
+__device__ __forceinline__ int32_t ld_table(const int32_t* p, bool pred) {
+  int32_t v = 0;
+  asm("{\n .reg .pred p;\n setp.ne.b32 p, %2, 0;\n"
+      " @p ld.global.nc.b32 %0, [%1];\n}"
+      : "+r"(v)
+      : "l"(p), "r"(static_cast<int>(pred)));
+  return v;
+}
+
+// kSlots consecutive words of a streamed slot array: one evict-first 16-byte
+// load where all are present and the address is aligned, else one word
+// each; the `valid`..kSlots-1 slots past the row's end take `fill`.
+__device__ __forceinline__ void load_slots(const int32_t* p, int valid, int32_t fill,
+                                           int32_t (&v)[kSlots]) {
+  static_assert(kSlots == 4, "one int4 per slot array");
+  if (valid == kSlots && (reinterpret_cast<uintptr_t>(p) & 15) == 0) {
+    const int4 x = __ldcs(reinterpret_cast<const int4*>(p));
+    v[0] = x.x;
+    v[1] = x.y;
+    v[2] = x.z;
+    v[3] = x.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < kSlots; ++k) v[k] = k < valid ? __ldcs(p + k) : fill;
   }
+}
+
+__device__ __forceinline__ void store_slots(int32_t* p, int valid, const int32_t (&v)[kSlots]) {
+  if (valid == kSlots && (reinterpret_cast<uintptr_t>(p) & 15) == 0) {
+    __stcs(reinterpret_cast<int4*>(p), make_int4(v[0], v[1], v[2], v[3]));
+  } else {
+#pragma unroll
+    for (int k = 0; k < kSlots; ++k) {
+      if (k < valid) __stcs(p + k, v[k]);
+    }
+  }
+}
+
+__device__ __forceinline__ const int32_t* clipped(const int32_t* table, long long len,
+                                                  long long idx) {
+  idx = idx < 0 ? 0 : (idx > len - 1 ? len - 1 : idx);
+  return table + idx;
+}
+
+// The shared routine: count[k] = #{ j < trips[k] : word j of slot k == q[k] }
+// where word j is table[start[k] + j], clipped into the row's `len` words
+// for the window entry (kClip; len > 0 wherever trips > 0).  The table's
+// path needs no clip (its windows lie inside the keys), which keeps each
+// address one add from the slot's start and the kernel at 32 registers.
+// The first kFirstWords words of every slot's window are in flight before
+// the first compare.
+template <bool kClip>
+__device__ __forceinline__ void count_windows(const int32_t* table, long long len,
+                                              const int32_t (&start)[kSlots],
+                                              const int (&trips)[kSlots],
+                                              const int32_t (&q)[kSlots],
+                                              int32_t (&count)[kSlots]) {
+  const auto word = [&](int k, int j) {
+    return kClip ? clipped(table, len, static_cast<long long>(start[k]) + j)
+                 : table + start[k] + j;
+  };
+  int32_t w[kFirstWords][kSlots];
+#pragma unroll
+  for (int j = 0; j < kFirstWords; ++j) {
+#pragma unroll
+    for (int k = 0; k < kSlots; ++k) w[j][k] = ld_table(word(k, j), trips[k] > j);
+  }
+#pragma unroll
+  for (int k = 0; k < kSlots; ++k) {
+    count[k] = 0;
+#pragma unroll
+    for (int j = 0; j < kFirstWords; ++j) {
+      count[k] += static_cast<int32_t>(trips[k] > j && w[j][k] == q[k]);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kSlots; ++k) {
+    for (int j = kFirstWords; j < trips[k]; ++j) count[k] += ld_table(word(k, j), true) == q[k];
+  }
+}
+
+// The Pallas interface: windows given as starts and ends.
+__global__ void __launch_bounds__(kThreads)
+    probe_windows_kernel(const int32_t* __restrict__ starts, const int32_t* __restrict__ ends,
+                         const int32_t* __restrict__ q, const int32_t* __restrict__ table,
+                         long long n, long long table_len, int max_probe,
+                         int32_t* __restrict__ out) {
+  const long long s = blockIdx.y;
+  const long long i0 =
+      (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) * kSlots;
+  if (i0 >= n) return;
+  const int valid = n - i0 < kSlots ? static_cast<int>(n - i0) : kSlots;
+  const long long at = s * n + i0;
+  int32_t st[kSlots], en[kSlots], key[kSlots], count[kSlots];
+  load_slots(starts + at, valid, 0, st);
+  load_slots(ends + at, valid, 0, en);
+  load_slots(q + at, valid, 0, key);
+  int trips[kSlots];
+#pragma unroll
+  for (int k = 0; k < kSlots; ++k) {
+    const long long t = static_cast<long long>(en[k]) - st[k];
+    trips[k] = table_len > 0 && t > 0 ? static_cast<int>(t < max_probe ? t : max_probe) : 0;
+  }
+  count_windows<true>(table + s * table_len, table_len, st, trips, key, count);
+  store_slots(out + at, valid, count);
+}
+
+// The table's path: one layer of the stack, windows found here.
+template <bool kMatch>
+__global__ void __launch_bounds__(kThreads)
+    probe_layer_kernel(const int32_t* __restrict__ rq, const int32_t* __restrict__ rh,
+                       const int32_t* __restrict__ lo, const int32_t* __restrict__ match_e,
+                       const int32_t* __restrict__ offsets, const int32_t* __restrict__ keys,
+                       long long n, long long keys_len, int table_size, int stride, int epoch,
+                       int max_probe, int accumulate, int32_t* __restrict__ total) {
+  const long long s = blockIdx.y;
+  const long long i0 =
+      (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) * kSlots;
+  if (i0 >= n) return;
+  const int valid = n - i0 < kSlots ? static_cast<int>(n - i0) : kSlots;
+  const long long at = s * n + i0;
+  int32_t key[kSlots], h[kSlots], e[kSlots], count[kSlots];
+  load_slots(rq + at, valid, kEmpty, key);
+  load_slots(rh + at, valid, 0, h);
+  if (kMatch) load_slots(match_e + at, valid, 0, e);
+  const int32_t base = __ldg(lo + s);
+  const int32_t* orow = offsets + s * (table_size + 2LL);
+  int32_t start[kSlots];
+  int trips[kSlots];
+#pragma unroll
+  for (int k = 0; k < kSlots; ++k) {
+    const bool live = key[k] != kEmpty && (!kMatch || e[k] < epoch);
+    const int32_t r = h[k] - base;
+    int32_t b = r <= 0 ? 0 : (stride == 1 ? r : r / stride);
+    b = b < table_size - 1 ? b : table_size - 1;
+    const int32_t lo_w = ld_table(orow + b, live);
+    const int32_t hi_w = ld_table(orow + b + 1, live);
+    const int32_t t = hi_w - lo_w;  // 0 where the slot is not live
+    start[k] = lo_w;
+    trips[k] = keys_len > 0 && t > 0 ? (t < max_probe ? t : max_probe) : 0;
+  }
+  count_windows<false>(keys + s * keys_len, keys_len, start, trips, key, count);
+  if (accumulate) {
+    int32_t before[kSlots];
+    load_slots(total + at, valid, 0, before);
+#pragma unroll
+    for (int k = 0; k < kSlots; ++k) count[k] += before[k];
+  }
+  store_slots(total + at, valid, count);
+}
+
+dim3 slot_grid(long long n, int num_shards) {
+  const long long threads = (n + kSlots - 1) / kSlots;
+  return dim3(static_cast<unsigned>((threads + kThreads - 1) / kThreads),
+              static_cast<unsigned>(num_shards));
 }
 
 }  // namespace
@@ -62,15 +242,40 @@ __global__ void bucket_probe_kernel(const int32_t* __restrict__ starts,
 extern "C" int bucket_probe(const void* starts, const void* ends, const void* q,
                             const void* table, long long n, long long table_len,
                             int num_shards, int max_probe, void* out, void* stream) {
-  if (n > 0 && num_shards > 0 && table_len > 0) {
-    const int threads = 256;
-    long long blocks = (n + threads - 1) / threads;
-    if (blocks > 132 * 64) blocks = 132 * 64;
-    dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(num_shards));
-    bucket_probe_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (n > 0 && num_shards > 0) {
+    probe_windows_kernel<<<slot_grid(n, num_shards), kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int32_t*>(starts), static_cast<const int32_t*>(ends),
         static_cast<const int32_t*>(q), static_cast<const int32_t*>(table), n, table_len,
         max_probe, static_cast<int32_t*>(out));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int bucket_probe_layer(const void* rq, const void* rh, const void* lo,
+                                  const void* match_e, const void* offsets, const void* keys,
+                                  long long n, long long keys_len, int num_shards,
+                                  int table_size, int stride, int epoch, int max_probe,
+                                  int accumulate, void* total, void* stream) {
+  if (n > 0 && num_shards > 0) {
+    const dim3 grid = slot_grid(n, num_shards);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const auto* rq_p = static_cast<const int32_t*>(rq);
+    const auto* rh_p = static_cast<const int32_t*>(rh);
+    const auto* lo_p = static_cast<const int32_t*>(lo);
+    const auto* e_p = static_cast<const int32_t*>(match_e);
+    const auto* off_p = static_cast<const int32_t*>(offsets);
+    const auto* keys_p = static_cast<const int32_t*>(keys);
+    auto* out = static_cast<int32_t*>(total);
+    if (match_e != nullptr) {
+      probe_layer_kernel<true><<<grid, kThreads, 0, st>>>(rq_p, rh_p, lo_p, e_p, off_p, keys_p,
+                                                          n, keys_len, table_size, stride, epoch,
+                                                          max_probe, accumulate, out);
+    } else {
+      probe_layer_kernel<false><<<grid, kThreads, 0, st>>>(rq_p, rh_p, lo_p, e_p, off_p, keys_p,
+                                                           n, keys_len, table_size, stride, epoch,
+                                                           max_probe, accumulate, out);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

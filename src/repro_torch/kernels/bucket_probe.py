@@ -1,18 +1,31 @@
-"""Kernel 5 wrapper: the paper's linear bucket probe (``csrc/bucket_probe.cu``).
+"""Kernel 5 wrappers: the paper's linear bucket probe (``csrc/bucket_probe.cu``).
 
 Replaces the Pallas ``bucket_probe_2d`` (``repro/kernels/bucket_probe.py``):
 for each query slot, the number of ``j < max_probe`` with
-``starts + j < ends`` and ``table[starts + j] == q``.  On CUDA tensors the
-wrapper launches the kernel or raises; on CPU tensors it runs
-:func:`bucket_probe_plain`.
+``starts + j < ends`` and ``table[starts + j] == q``.  Two entries launch
+the same device routine:
+
+- :func:`bucket_probe` keeps the Pallas function's interface (windows
+  given as ``starts`` and ``ends``);
+- :func:`bucket_probe_layer`, the table's query path, probes one layer of a
+  versioned stack for a routed batch: it finds each slot's window from its
+  hash, masks padding and tombstoned keys and adds the count into a running
+  total in place, in one launch.
+
+On CUDA tensors each wrapper launches its kernel or raises; on CPU tensors
+it runs its plain twin (:func:`bucket_probe_plain`,
+:func:`bucket_probe_layer_plain`).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels import build
 
 NAME = "bucket_probe"
+LAYER_NAME = "bucket_probe_layer"
 
 
 def bucket_probe_plain(
@@ -87,3 +100,115 @@ def bucket_probe(
         n, table_len, num_shards, int(max_probe), out.data_ptr(), build.stream_of(q),
     )
     return out
+
+
+def bucket_probe_layer_plain(
+    rq: torch.Tensor,
+    rh: torch.Tensor,
+    lo: torch.Tensor,
+    match_e: Optional[torch.Tensor],
+    offsets: torch.Tensor,
+    keys: torch.Tensor,
+    *,
+    table_size: int,
+    stride: int,
+    epoch: int,
+    max_probe: int,
+    total: torch.Tensor,
+    accumulate: bool,
+) -> torch.Tensor:
+    """The layer kernel's plain twin, composed of the table's plain steps:
+    rebase the hashes to local buckets, look up the bucket windows, probe
+    them (:func:`bucket_probe_plain`), mask padding and tombstoned keys, and
+    write or add the counts into ``total``."""
+    from repro_torch.core import hashgraph
+    from repro_torch.core import multi_hashgraph as mh
+
+    buckets = mh._rebase_buckets(
+        rh, hashgraph.is_empty_key(rq), lo.reshape(-1, 1), table_size, stride
+    )
+    starts, ends = hashgraph.bucket_windows(offsets, table_size, buckets)
+    counts = bucket_probe_plain(
+        starts.to(torch.int32), ends.to(torch.int32), rq, keys, max_probe
+    )
+    counts = mh._mask_counts(counts, rq, layer_epoch=epoch, match_e=match_e)
+    return total.add_(counts) if accumulate else total.copy_(counts)
+
+
+def _check_layer(rq, rh, lo, match_e, offsets, keys, total, table_size, stride, max_probe):
+    named = (("rq", rq), ("rh", rh), ("lo", lo), ("offsets", offsets), ("keys", keys),
+             ("total", total), ("match_e", match_e))
+    for label, t in named:
+        if t is not None and t.dtype != torch.int32:
+            raise TypeError(f"{LAYER_NAME}: {label} must be int32, got {t.dtype}")
+    if rq.ndim != 2:
+        raise ValueError(f"{LAYER_NAME}: rq must be (S, N), got {tuple(rq.shape)}")
+    d = rq.shape[0]
+    for label, t in (("rh", rh), ("total", total), ("match_e", match_e)):
+        if t is not None and t.shape != rq.shape:
+            raise ValueError(
+                f"{LAYER_NAME}: {label} {tuple(t.shape)} does not match rq {tuple(rq.shape)}"
+            )
+    if lo.numel() != d:
+        raise ValueError(f"{LAYER_NAME}: lo holds {lo.numel()} split bases for {d} shards")
+    if table_size < 1 or offsets.shape != (d, table_size + 2):
+        raise ValueError(
+            f"{LAYER_NAME}: offsets {tuple(offsets.shape)} is not ({d}, table_size + 2) "
+            f"for table_size {table_size}"
+        )
+    if keys.ndim != 2 or keys.shape[0] != d:
+        raise ValueError(f"{LAYER_NAME}: keys {tuple(keys.shape)} is not ({d}, M)")
+    if stride < 1:
+        raise ValueError(f"{LAYER_NAME}: stride must be >= 1, got {stride}")
+    if not 0 <= max_probe < 2**31:
+        raise ValueError(f"{LAYER_NAME}: max_probe must be in [0, 2^31), got {max_probe}")
+
+
+def bucket_probe_layer(
+    rq: torch.Tensor,
+    rh: torch.Tensor,
+    lo: torch.Tensor,
+    match_e: Optional[torch.Tensor],
+    offsets: torch.Tensor,
+    keys: torch.Tensor,
+    *,
+    table_size: int,
+    stride: int,
+    epoch: int,
+    max_probe: int,
+    total: torch.Tensor,
+    accumulate: bool,
+) -> torch.Tensor:
+    """One layer's masked probe counts of a routed batch, into ``total``.
+
+    ``rq`` ``(S, N)`` routed keys (EMPTY pads), ``rh`` their hashes, ``lo``
+    the S shards' split bases, ``match_e`` ``(S, N)`` each key's newest
+    tombstone epoch or None, ``offsets`` ``(S, V + 2)`` and ``keys``
+    ``(S, M)`` the layer's CSR (``V = table_size``) with bucket ``stride``.
+    A slot counts its key's matches among the first ``max_probe`` words of
+    bucket ``clamp((rh - lo) // stride, 0, V - 1)``, and 0 where it is
+    padding or ``match_e >= epoch``.  ``total`` ``(S, N)`` is overwritten
+    (``accumulate=False``) or added to, in place, and returned.
+    """
+    _check_layer(rq, rh, lo, match_e, offsets, keys, total, table_size, stride, max_probe)
+    kw = dict(table_size=table_size, stride=stride, epoch=epoch, max_probe=max_probe,
+              total=total, accumulate=accumulate)
+    if not build.on_card(LAYER_NAME, rq):
+        return bucket_probe_layer_plain(rq, rh, lo, match_e, offsets, keys, **kw)
+    d, n = rq.shape
+    if d > 65535:
+        raise ValueError(f"{LAYER_NAME}: at most 65535 shards a launch, got {d}")
+    operands = [t.contiguous() for t in (rq, rh, lo, offsets, keys)]
+    if match_e is not None:
+        operands.append(match_e.contiguous())
+    build.require_cuda(LAYER_NAME, *operands, total)  # total is written in place
+    if n == 0:
+        return total
+    rq, rh, lo, offsets, keys = operands[:5]
+    build.launch(
+        LAYER_NAME, rq.data_ptr(), rh.data_ptr(), lo.data_ptr(),
+        None if match_e is None else operands[5].data_ptr(), offsets.data_ptr(),
+        keys.data_ptr(), n, keys.shape[1], d, int(table_size), int(stride), int(epoch),
+        int(max_probe), int(bool(accumulate)), total.data_ptr(), build.stream_of(rq),
+    )
+    return total

@@ -48,6 +48,11 @@ _SIGNATURES = {
     ),
     # starts, ends, q, table, n, table_len, num_shards, max_probe, out, stream
     "bucket_probe": (_P, _P, _P, _P, _I64, _I64, ctypes.c_int, ctypes.c_int, _P, _P),
+    # rq, rh, lo, match_e (null: none), offsets, keys, n, keys_len, num_shards,
+    # table_size, stride, epoch, max_probe, accumulate, total, stream
+    "bucket_probe_layer": (
+        _P, _P, _P, _P, _P, _P, _I64, _I64, *(ctypes.c_int,) * 6, _P, _P,
+    ),
     # q, k, v, o, the (batch, head, row) strides of each, nb, hq, sq, skv, d,
     # group, causal, window, scale, is_bf16, stream
     "flash_attention": (

@@ -6,7 +6,9 @@ reference's contracts: the prefix sum runs as plain tensor code, the per-slot
 bisection and gather in kernel 3 or 4 on the card (their plain twin on the
 CPU).  A uint32 table (the ``torch.uint32`` dtype) goes through its int32
 view, so ``fill=-1`` comes back as ``0xFFFFFFFF``.  ``bucket_probe`` keeps
-the reference's argument order and runs kernel 5.  ``flash_attention``
+the reference's argument order and runs kernel 5's window entry (the
+table's query path calls kernel 5's layer entry,
+``kernels.bucket_probe.bucket_probe_layer``, directly).  ``flash_attention``
 takes ``(B, H, S, D)`` views and runs kernel 6 on them through their
 strides (the reference flattens batch into heads).  ``slstm_recurrence``
 runs kernel 7 on f32 inputs of any length (the reference's ``t_block``

@@ -29,6 +29,7 @@ from repro_torch.core import convert
 from repro_torch.core.hashing import DEFAULT_SEED, FINGERPRINT_SEED
 from repro_torch.core.schema import u32_bits
 from repro_torch.core import maintenance
+from repro_torch.core import multi_hashgraph as mh
 from repro_torch.configs.base import get_smoke_config
 from repro_torch.kernels import bucket_probe, build, histogram, murmur, ops
 from repro_torch.kernels import flash_attention as flash
@@ -124,6 +125,105 @@ def test_bucket_probe_kernel_matches_plain(card, shards, n, table_len, max_len, 
     flat = bucket_probe.bucket_probe(st[0].to(card), en[0].to(card), q[0].to(card),
                                      table[0].to(card), max_probe)
     assert torch.equal(flat.cpu(), want[0])
+
+
+def _layer_case(seed, d, n, table_size):
+    """A routed batch and a CSR layer for the layer probe: bucket sizes of
+    mean 0.7, keys and queries from 4 values (so windows match), every 7th
+    slot EMPTY padding, split bases above some hashes, tombstone epochs in
+    [-1, 3] and a running total to add to."""
+    rng = np.random.default_rng(seed)
+    sizes = rng.poisson(0.7, size=(d, table_size + 1))
+    offsets = np.zeros((d, table_size + 2), np.int64)
+    offsets[:, 1:] = np.cumsum(sizes, axis=1)
+    m = int(offsets[:, -1].max())
+    offsets[:, -1] = m  # every row ends at M (the trash bucket takes the rest)
+    keys = rng.integers(0, 4, size=(d, m), dtype=np.int32)
+    rq = rng.integers(0, 4, size=(d, n), dtype=np.int32)
+    rq[:, ::7] = -1
+    hash_range = 2 * table_size
+    rh = rng.integers(0, hash_range, size=(d, n), dtype=np.int32)
+    lo = rng.integers(0, hash_range // 4 + 1, size=d, dtype=np.int32)
+    match_e = rng.integers(-1, 4, size=(d, n), dtype=np.int32)
+    prev = rng.integers(0, 9, size=(d, n), dtype=np.int32)
+    return {name: torch.from_numpy(np.ascontiguousarray(a)) for name, a in (
+        ("rq", rq), ("rh", rh), ("lo", lo), ("match_e", match_e), ("prev", prev),
+        ("offsets", offsets.astype(np.int32)), ("keys", keys))}
+
+
+# (d, n, table_size, stride, max_probe, tombstones, accumulate): n not a
+# multiple of the kernel's 4 slots a thread, n < 4, n = 0, odd and even
+# table sizes (8-byte and split offsets pairs), and 2^22 slots over a
+# table beyond the 50 MB L2 (2^24 buckets: 67 MB of offsets, 47 MB of keys).
+LAYER_CASES = [
+    (1, 4097, 1000, 1, 64, True, False),
+    (4, 4097, 1001, 3, 64, False, True),
+    (4, 4101, 999, 2, 2, True, True),
+    (1, 5, 33, 2, 64, True, True),
+    (4, 0, 64, 1, 64, True, True),
+    (1, 3000, 500, 1, 0, False, False),
+    (1, 1 << 22, (1 << 24) + 3, 1, 64, True, False),
+    (4, 1 << 22, (1 << 22) + 1, 2, 64, True, True),
+]
+
+
+@pytest.mark.parametrize("case", LAYER_CASES)
+def test_bucket_probe_layer_kernel_matches_plain(card, case):
+    d, n, table_size, stride, max_probe, masked, accumulate = case
+    a = _layer_case(LAYER_CASES.index(case), d, n, table_size)
+    match_e = a["match_e"] if masked else None
+    kw = dict(table_size=table_size, stride=stride, epoch=1, max_probe=max_probe,
+              accumulate=accumulate)
+    want = bucket_probe.bucket_probe_layer(
+        a["rq"], a["rh"], a["lo"], match_e, a["offsets"], a["keys"], total=a["prev"].clone(), **kw)
+    on = {k: v.to(card) for k, v in a.items()}
+    total = on["prev"].clone() if accumulate else torch.full_like(on["prev"], -7)
+    before = dict(build.LAUNCHES)
+    got = bucket_probe.bucket_probe_layer(
+        on["rq"], on["rh"], on["lo"], on["match_e"] if masked else None, on["offsets"],
+        on["keys"], total=total, **kw)
+    torch.cuda.synchronize()
+    assert got is total
+    assert torch.equal(got.cpu(), want)
+    assert build.LAUNCHES["bucket_probe_layer"] == before.get("bucket_probe_layer", 0) + (1 if n else 0)
+    assert build.LAUNCHES["bucket_probe"] == before.get("bucket_probe", 0)
+    if n >= 4096 and max_probe:
+        assert int(want.max()) > 1  # windows of several matching words were read
+
+
+@pytest.mark.parametrize("d", [1, 8])
+def test_probe_table_on_card_matches_cpu_through_a_deep_stack(card, d):
+    """A probe table's query over base + 4 deltas with tombstones (depth 5),
+    fused and routed layer by layer, equals the CPU's; the card makes one
+    layer launch per layer and never launches the window entry."""
+    rng = np.random.default_rng(10 + d)
+    keys = rng.integers(0, 3000, size=4096, dtype=np.uint32)
+    queries = rng.integers(0, 3500, size=1024, dtype=np.uint32)
+    out = {}
+    for where in (card, "cpu"):
+        t = DistributedHashTable(num_shards=d, hash_range=1 << 12, device=where,
+                                 paper_faithful_probe=True)
+        rs = np.random.default_rng(d)
+        s = t.init(keys)
+        for i in range(3):
+            s = s.insert(rs.integers(0, 3000, size=256, dtype=np.uint32))
+            s = s.delete(keys[40 * i: 40 * i + 24])
+        s = s.upsert(keys[200:216], np.arange(16, dtype=np.int32))
+        assert s.epoch == 4 and s.coherent
+        before = dict(build.LAUNCHES)
+        fused = t.query(s, queries).cpu()
+        q = torch.from_numpy(queries.view(np.int32)).to(where).reshape(d, -1)
+        layered = mh.query_layers_sharded(
+            s.layers, q, tombstones=s.tombstones.index(), fused=False,
+            paper_faithful_probe=True).cpu()
+        if where == card:
+            torch.cuda.synchronize()
+            assert build.LAUNCHES["bucket_probe_layer"] == before.get("bucket_probe_layer", 0) + 10
+            assert build.LAUNCHES["bucket_probe"] == before.get("bucket_probe", 0)
+        out[str(where)] = (fused, layered.reshape(-1))
+    assert torch.equal(out["cuda"][0], out["cpu"][0])
+    assert torch.equal(out["cuda"][1], out["cpu"][1])
+    assert torch.equal(out["cpu"][0], out["cpu"][1])
 
 
 @pytest.mark.parametrize("d", [1, 8])
