@@ -52,14 +52,24 @@ Run from the root of a checkout: it builds the port's CUDA kernels from
    before a run and read just after it) and requires each kernel of the run
    > 0 (the update path runs all five table kernels), exactly one launch of
    kernel 5's layer entry per layer per probe query in the update run (12 at
-   D = 1, 14 at D = 8) and none of its window entry, exactly 36 x 8
+   D = 1, 14 at D = 8) and none of its window entry, exactly one launch of
+   kernels 3-4's owner entry per routing round of a retrieve or join and
+   one of their querier entry per call (2 and 2 a read run; 6 and 6 in the
+   update run at D = 1, 10 and 8 at D = 8, whose mixed-split stack routes
+   its two layers separately) and none of their Pallas-interface entries,
+   exactly 36 x 8
    launches of kernel 6 (flash attention), one per layer per prefill, in
    the qwen3 serving run, and exactly 24 x (8 + decode steps) launches of
    kernel 7 (the sLSTM recurrence), one per sLSTM layer per prefill and per
    decode step, and none of kernel 6, in the xLSTM run;
 6. calls each kernel's wrapper on the inputs each run gives it and holds it
    against its plain PyTorch twin: ``torch.equal`` for the table kernels
-   (every output is an integer; kernel 5's two entries on the depth-6
+   (every output is an integer; kernels 3-4's owner and querier entries
+   on the retrieve's own inputs for every owner, layer and querier, the
+   table sectors the owner entry's picked words touch printed beside its
+   bound, their
+   Pallas-interface entries on owner 0's interleaved runs and querier 0's
+   CSR; kernel 5's two entries on the depth-6
    probe query's base layer, the layer entry on its routed batch, with the
    sectors it touches printed beside its bound), ``FLASH_TOL`` for kernel 6 on request 0's
    layer-0 q, k, v and on small GQA, window, non-causal, decode-offset and
@@ -72,8 +82,9 @@ Run from the root of a checkout: it builds the port's CUDA kernels from
    kernel tests' shapes with f32 and bf16 r; it times
    kernel, plain twin and a library yardstick (``torch.bincount`` for the
    histogram, ``scaled_dot_product_attention`` for kernel 6; none computes
-   kernel 7's function) with CUDA events (kernels 5's layer entry, 6 and 7
-   at their main shapes in 5 groups of 20 launches: min, median, max)
+   kernel 7's function) with CUDA events (kernels 3-4's owner and querier
+   entries, 5's layer entry, 6 and 7 at their main shapes in 5 groups of
+   20 launches: min, median, max)
    beside the least time the card
    could take: the larger of the bytes moved over 3.35 TB/s and the
    operations over the card's rate for them (int32 lanes for the table
@@ -187,6 +198,14 @@ KERNELS = {
         "src/repro_torch/csrc/csr_gather.cu",
         "src/repro/kernels/bucket_probe.py:206",
     ),
+    "csr_gather_owners": (
+        "src/repro_torch/csrc/csr_gather.cu",
+        "src/repro/kernels/bucket_probe.py:206",
+    ),
+    "csr_gather_queriers": (
+        "src/repro_torch/csrc/csr_gather.cu",
+        "src/repro/kernels/bucket_probe.py:161",
+    ),
     "bucket_probe": (
         "src/repro_torch/csrc/bucket_probe.cu",
         "src/repro/kernels/bucket_probe.py:40",
@@ -201,15 +220,20 @@ KERNELS = {
     ),
     "slstm_sequence": ("src/repro_torch/csrc/slstm.cu", "src/repro/kernels/slstm.py:93"),
 }
-# The build -> query -> retrieve path runs the first four; the update path all
+# The build -> query -> retrieve path runs kernels 1-4; the update path all
 # five table kernels, kernel 5 through its layer entry (one launch per layer
 # per probe query; its window entry, the Pallas function's interface, is
 # only held against its twin); the qwen3 serving path kernel 6 alone, the
-# xLSTM serving path kernel 7 alone.
-READ_PATH_KERNELS = ("murmur_bucket", "bin_histogram", "csr_gather", "csr_gather_batched")
+# xLSTM serving path kernel 7 alone.  Kernels 3-4 run on the table's path
+# as their owner and querier entries, one launch each per routing round of
+# a retrieve or join; their Pallas-interface entries (``csr_gather``,
+# ``csr_gather_batched``) are only held against their twin.
+READ_PATH_KERNELS = ("murmur_bucket", "bin_histogram", "csr_gather_owners", "csr_gather_queriers")
 TABLE_KERNELS = READ_PATH_KERNELS + ("bucket_probe_layer",)
-# Kernel 5's layer entry at the depth-6 base layer: groups of launches
-# (min, median and max over the groups), as kernels 6 and 7 are timed.
+PALLAS_GATHERS = ("csr_gather", "csr_gather_batched")
+# Kernel 5's layer entry at the depth-6 base layer and kernels 3-4's owner
+# and querier entries: groups of launches (min, median and max over the
+# groups), as kernels 6 and 7 are timed.
 PROBE_TIMING = {"groups": 5, "launches": 20}
 
 
@@ -259,6 +283,47 @@ def wall(fn, device):
     out = fn()
     sync(device)
     return out, time.perf_counter() - t0
+
+
+def repeat_walls(fn, device, repeats: int, parts, label: str):
+    """Wall ms of ``repeats`` calls of ``fn`` after two warm-up calls, each
+    synchronised on both sides (``wall``).  Every call's ``parts(result)``,
+    a tuple of tensors, must equal the first call's.  Returns ``(walls,
+    first)``."""
+    import torch
+
+    walls, first = [], None
+    for i in range(2 + repeats):
+        out, seconds = wall(fn, device)
+        out = parts(out)
+        if first is None:
+            first = out
+        check(all(torch.equal(a, b) for a, b in zip(out, first)),
+              f"{label}: repeat {i} differs from the first")
+        if i >= 2:
+            walls.append(seconds * 1e3)
+        del out
+    return walls, first
+
+
+def peak_bytes(fn, device) -> int:
+    """Peak device bytes of one call of ``fn`` above those allocated before."""
+    import torch
+
+    sync(device)
+    resident = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    fn()
+    sync(device)
+    return torch.cuda.max_memory_allocated(device) - resident
+
+
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
 
 
 class Oracle:
@@ -378,6 +443,10 @@ def run_path(n_shards: int, n_keys: int, seed: int, device, log) -> dict:
               f"D={n_shards}: {name} exchange calls {calls}, want 2 plus the sizing round")
     for name in READ_PATH_KERNELS if device.type == "cuda" else ():
         check(launches.get(name, 0) > 0, f"D={n_shards}: kernel {name} never launched")
+    if device.type == "cuda":
+        # One routing round a retrieve and a join: one launch of each side.
+        check_gather_launches(launches, {"csr_gather_owners": 2, "csr_gather_queriers": 2},
+                              f"D={n_shards}")
 
     res = {
         "path": "read",
@@ -512,6 +581,20 @@ def update_data(n_keys: int, seed: int, device) -> tuple[dict, dict]:
     return host, dev
 
 
+def depth6_state(table, dev: dict):
+    """The update path's depth-6 state of ``table`` from ``update_data``'s
+    device arrays, without the reads between: the base, four inserts, the
+    deletes, a fifth insert and the upsert (seven layers, coherent)."""
+    state = table.init(dev["keys"])
+    for i in range(5):
+        if i == 4:
+            state = state.delete(dev["dels"])
+        state = state.insert(dev["batches"][i], dev["batch_vals"][i])
+    state = state.upsert(dev["ups"], dev["ups_vals"])
+    check(state.epoch == 6 and state.coherent, f"depth {state.epoch}, coherent {state.coherent}")
+    return state
+
+
 def run_update_path(n_shards: int, n_keys: int, seed: int, device, log, skew: bool = True) -> dict:
     """The update path through the public API: build, 5 inserts, a delete and
     an upsert to depth 6, reads there, ``fold_oldest(3)``, reads, ``compact()``,
@@ -542,6 +625,10 @@ def run_update_path(n_shards: int, n_keys: int, seed: int, device, log, skew: bo
     live = LiveRows(base_keys, np.arange(n_keys, dtype=np.int64), 3 * n_keys)
     seconds, calls_seen, reads = {}, {}, {}
     probe_layers = [0]  # layers read by probe queries: one kernel 5 launch each
+    # Gather launches a retrieve or join makes: one owner launch a routing
+    # round (one round on a coherent stack, one a layer on a mixed-split
+    # one) and one querier launch.
+    gathers = {"csr_gather_owners": 0, "csr_gather_queriers": 0}
 
     def step(name, fn, want_calls):
         exchange.CALLS.clear()
@@ -570,6 +657,8 @@ def run_update_path(n_shards: int, n_keys: int, seed: int, device, log, skew: bo
             out[f"{kind}_query_keys_per_s"] = queries.shape[0] / seconds[f"{name}: {kind} query"]
             del counts
         probe_layers[0] += len(state.layers)
+        gathers["csr_gather_owners"] += 2 * rounds
+        gathers["csr_gather_queriers"] += 2
         retrieval = step(f"{name}: retrieve", lambda: table.retrieve(state, b_dev), plan)
         want_pairs = oracle.pairs(batch)
         check(int(retrieval.num_dropped) == 0, f"{label}: {name}: retrieve dropped")
@@ -644,6 +733,7 @@ def run_update_path(n_shards: int, n_keys: int, seed: int, device, log, skew: bo
               f"want one per layer per probe query ({probe_layers[0]})")
         check(launches.get("bucket_probe", 0) == 0,
               f"{label}: the probe path launched the window entry bucket_probe")
+        check_gather_launches(launches, gathers, label)
 
     res = {
         "path": "update",
@@ -672,11 +762,21 @@ def run_update_path(n_shards: int, n_keys: int, seed: int, device, log, skew: bo
     return run
 
 
+def check_gather_launches(launches: dict, want: dict, label: str) -> None:
+    """Kernels 3-4 on the table's path: exactly ``want`` launches of the
+    owner and querier entries, none of the Pallas-interface entries."""
+    for name, n in want.items():
+        check(launches.get(name, 0) == n,
+              f"{label}: {launches.get(name, 0)} launches of {name}, want {n}")
+    for name in PALLAS_GATHERS:
+        check(launches.get(name, 0) == 0, f"{label}: the table's path launched {name}")
+
+
 def kernel_class(name: str) -> str:
     """Which part of the work a device kernel belongs to, by its name."""
     low = name.lower()
     for cls, marks in (("kernel 7", ("slstm",)), ("kernel 6", ("flash_fwd",)),
-                       ("kernel 5", ("probe",)),
+                       ("kernel 5", ("probe",)), ("kernels 3-4", ("gather_tiles", "csr_gather")),
                        ("GEMM", ("nvjet", "gemm", "gemv", "xmma", "cutlass")),
                        ("copies", ("memcpy", "memset", "copy"))):
         if any(m in low for m in marks):
@@ -684,10 +784,23 @@ def kernel_class(name: str) -> str:
     return "elementwise and reductions"
 
 
-def profile_phases(phases: dict, device) -> dict:
+def _split_by_class(rows) -> dict:
+    """``{class: {"ms", "launches"}}`` of ``(name, ms, launches)`` rows."""
+    split: dict = {}
+    for name, ms, n in rows:
+        cls = kernel_class(name)
+        t, c = split.get(cls, (0.0, 0))
+        split[cls] = (t + ms, c + n)
+    return {cls: {"ms": ms, "launches": n} for cls, (ms, n) in split.items()}
+
+
+def profile_phases(phases: dict, device, window: str = None) -> dict:
     """Device time by operation for one more call of each phase
     (``torch.profiler``), with the device's busy share of the wall time and
-    the busy time split by ``kernel_class``."""
+    the busy time split by ``kernel_class``.  With ``window``, the name of
+    ``record_function`` ranges the phase opens, each phase also reports the
+    kernels and copies that ran on the card inside those ranges' device
+    windows (one stream, so a window holds exactly the range's work)."""
     from torch.profiler import ProfilerActivity, profile
 
     out = {}
@@ -700,17 +813,30 @@ def profile_phases(phases: dict, device) -> dict:
                   if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0]
         busy_ms = sum(e.self_device_time_total for e in events) / 1e3
         top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:15]
-        split: dict = {}
-        for e in events:
-            cls = kernel_class(e.key)
-            ms, n = split.get(cls, (0.0, 0))
-            split[cls] = (ms + e.self_device_time_total / 1e3, n + e.count)
         out[phase] = {
             "wall_ms": seconds * 1e3,
             "device_busy_ms": busy_ms,
-            "by_class": {cls: {"ms": ms, "launches": n} for cls, (ms, n) in split.items()},
+            "by_class": _split_by_class(
+                (e.key, e.self_device_time_total / 1e3, e.count) for e in events),
             "top": [[e.key, e.self_device_time_total / 1e3, e.count] for e in top],
         }
+        if window is not None:
+            trace = prof.events()
+            on_card = [e for e in trace if not str(e.device_type).endswith("CPU")]
+            spans = [e.time_range for e in on_card if e.name == window]
+            inside = [e for e in on_card if e.name != window and any(
+                w.start <= e.time_range.start and e.time_range.end <= w.end for w in spans)]
+            ms = [(e.name, e.time_range.elapsed_us() / 1e3, 1) for e in inside]
+            out[phase]["window"] = {
+                "name": window,
+                "calls": sum(1 for e in trace if e.name == window
+                             and str(e.device_type).endswith("CPU")),
+                "device_windows": len(spans),
+                "device_ms": sum(m for _, m, _ in ms),
+                "launches": len(inside),
+                "by_class": _split_by_class(ms),
+                "top": [[n[:110], m] for n, m, _ in sorted(ms, key=lambda r: -r[1])[:12]],
+            }
     return out
 
 
@@ -751,9 +877,10 @@ def hash_inputs(table, keys) -> dict:
 
 
 def gather_inputs(table, state, batch) -> dict:
-    """From the retrieve of ``batch`` on ``state``: owner 0's batched gather
-    (one source per shard, every layer's runs interleaved) and querier 0's
-    gather."""
+    """From the retrieve of ``batch`` on ``state``: the owner entry's inputs
+    for every owner and layer, the querier entry's for every querier (as the
+    path hands them over), and, for the Pallas-interface rows, owner 0's
+    interleaved runs over its concatenated tables and querier 0's CSR."""
     import torch
 
     from repro_torch.core import exchange
@@ -767,16 +894,17 @@ def gather_inputs(table, state, batch) -> dict:
     routed = mh._route_queries_once(state.base, q, table.capacity_slack)
     starts_lr, counts_lr, tables = mh._layer_run_descriptors(state.layers, routed, tombstones)
     cap, nl = routed.capacity, len(state.layers)
-
-    def owner_runs(o):
-        """Owner ``o``'s (L, S=D, R) run descriptors and its tables."""
-        return (starts_lr[:, o].reshape(nl, d, cap), counts_lr[:, o].reshape(nl, d, cap),
-                tuple(t[o] for t in tables))
-
-    starts_i, counts_i, table_cat = ops.interleave_layer_runs(*owner_runs(0))
-    segs = torch.stack([ops.csr_gather_layers(*owner_runs(o), capacity=seg_cap)[0] for o in range(d)])
-    counts, starts, seg_flat = exchange.combine_ragged(segs, counts_lr.sum(0), routed.route)
+    starts4, counts4 = starts_lr.reshape(nl, d, d, cap), counts_lr.reshape(nl, d, d, cap)
+    seg, _, slot_counts = ops.csr_gather_owners(starts4, counts4, tables, capacity=seg_cap)
+    counts, starts, seg_flat = exchange.combine_ragged(seg, slot_counts, routed.route)
+    del seg
+    widths = torch.tensor([0] + [t.shape[1] for t in tables[:-1]], device=starts_lr.device)
+    base = torch.cumsum(widths, 0).to(torch.int32).view(nl, 1, 1)
+    starts_i, counts_i, table_cat = ops.interleave_layer_runs(
+        starts4[:, 0] + base, counts4[:, 0], tuple(t[0] for t in tables))
     return {
+        "csr_gather_owners": dict(starts=starts4, counts=counts4, tables=tables, capacity=seg_cap),
+        "csr_gather_queriers": dict(starts=starts, counts=counts, table=seg_flat, capacity=out_cap),
         "csr_gather_batched": dict(
             offsets=ops.run_offsets(counts_i), starts=starts_i, table=table_cat, capacity=seg_cap
         ),
@@ -788,8 +916,8 @@ def gather_inputs(table, state, batch) -> dict:
 
 def kernel_inputs(run: dict) -> dict:
     """Each kernel's inputs as the read path hands them over: the sharded
-    keys to murmur and histogram (build phase 1), and from the retrieve of
-    the query batch owner 0's batched gather and querier 0's gather."""
+    keys to murmur and histogram (build phase 1), and the gathers of the
+    retrieve of the query batch (``gather_inputs``)."""
     table, state = run["table"], run["state"]
     keys = run["keys"].reshape(table.num_shards, -1)
     return {**hash_inputs(table, keys), **gather_inputs(table, state, run["batch"])}
@@ -826,19 +954,98 @@ def update_kernel_inputs(run: dict) -> dict:
     return inputs
 
 
+def live_start_bytes(counts) -> int:
+    """The bytes of a run-start array laid out as ``counts`` that a gather
+    must read: 32 B for each 32-byte sector holding a start whose count is
+    > 0 (no slot reads the start of an empty run)."""
+    import torch
+
+    live = counts.reshape(-1) > 0
+    pad = (-live.numel()) % 8
+    if pad:
+        live = torch.cat([live, live.new_zeros(pad)])
+    return 32 * int(live.view(-1, 8).any(1).sum())
+
+
 def gather_work(offsets, starts, capacity: int) -> tuple[int, int]:
-    """``(bytes, int32 ops)`` a CSR gather needs on these inputs: offsets and
-    starts read once, the table words the valid slots select, two int32
-    written per slot; each valid slot bisects ``bit_length(N + 1)`` levels
-    at 3 operations (midpoint, compare, select) plus 8 for the address."""
+    """``(bytes, int32 ops)`` a Pallas-interface CSR gather needs on these
+    inputs: the offsets read once, the starts of non-empty runs
+    (``live_start_bytes``), the table words the valid slots select, two
+    int32 written per slot; per valid slot 12 operations (its row's step,
+    the offset, the address and its clamp), per slot 2 for the stores."""
     import torch
 
     totals = offsets[..., -1].to(torch.int64)
     picked = int(torch.clamp(totals, max=capacity).sum())
     slots = capacity * (offsets.shape[0] if offsets.ndim == 2 else 1)
-    nbytes = 4 * (offsets.numel() + starts.numel() + picked) + 8 * slots
-    levels = (offsets.shape[-1]).bit_length()
-    return nbytes, picked * (3 * levels + 8) + 2 * slots
+    nbytes = (4 * (offsets.numel() + picked) + live_start_bytes(torch.diff(offsets, dim=-1))
+              + 8 * slots)
+    return nbytes, 12 * picked + 2 * slots
+
+
+def owners_work(a: dict) -> tuple[int, int]:
+    """``(bytes, int32 ops)`` the owner entry needs on these inputs, each
+    byte once: the (L, D_o, D_s, R) counts, the starts of non-empty runs
+    (``live_start_bytes``), one prefix sum per routed slot, the picked
+    table words, the written segment and one overflow word per block; per
+    picked word 12 operations plus 3 per layer (the layer walk), per slot 1
+    for the store."""
+    import torch
+
+    counts, cap = a["counts"], a["capacity"]
+    nl = counts.shape[0]
+    blocks = counts.shape[1] * counts.shape[2]
+    totals = counts.sum((0, 3), dtype=torch.int64)
+    picked = int(torch.clamp(totals, max=cap).sum())
+    nbytes = (4 * (counts.numel() + counts[0].numel() + picked + blocks * cap + blocks)
+              + live_start_bytes(counts))
+    return nbytes, picked * (12 + 3 * nl) + blocks * cap
+
+
+def owners_sectors(a: dict) -> dict:
+    """The distinct 32-byte sectors of the layer tables that the owner
+    entry's picked words touch (the runs of these inputs, every word once)
+    and the floor they set: the streamed bytes (counts, the sectors of
+    non-empty runs' starts, slot sums, segment) plus 32 B a table sector
+    over the memory rate.  Where the tables are far beyond L2, each run that
+    starts in a new sector is a separate DRAM access."""
+    import torch
+
+    starts, counts = a["starts"], a["counts"]
+    d_o = counts.shape[1]
+    per_owner = counts[0].numel() // d_o
+    owner = torch.arange(d_o, device=counts.device).repeat_interleave(per_owner)
+    sectors = 0
+    for l, t in enumerate(a["tables"]):
+        c = counts[l].reshape(-1).to(torch.int64)
+        live = c > 0
+        c = c[live]
+        first = (t.data_ptr() // 4 + owner[live] * t.stride(0)
+                 + starts[l].reshape(-1)[live].to(torch.int64))
+        run_start = torch.cumsum(c, 0) - c
+        words = (torch.repeat_interleave(first - run_start, c)
+                 + torch.arange(int(c.sum()), device=c.device))
+        sectors += int(torch.unique(torch.div(words, 8, rounding_mode="floor")).numel())
+    blocks = counts.shape[1] * counts.shape[2]
+    streamed = (4 * (counts.numel() + counts[0].numel() + blocks * a["capacity"])
+                + live_start_bytes(counts))
+    return {"sectors": sectors, "sector_floor_ms": (streamed + 32 * sectors) / HBM_BYTES_PER_S * 1e3}
+
+
+def queriers_work(a: dict) -> tuple[int, int]:
+    """``(bytes, int32 ops)`` the querier entry needs on these inputs, each
+    byte once: the counts, the starts of non-empty runs
+    (``live_start_bytes``), the picked words of the returned segments,
+    values and row ids written per slot, the clamped offsets and one
+    overflow word per querier; per picked word 12 operations, per slot 2."""
+    import torch
+
+    counts, cap = a["counts"], a["capacity"]
+    d, n = counts.shape
+    picked = int(torch.clamp(counts.to(torch.int64).sum(-1), max=cap).sum())
+    nbytes = (4 * (counts.numel() + picked + 2 * d * cap + d * (n + 1) + d)
+              + live_start_bytes(counts))
+    return nbytes, 12 * picked + 2 * d * cap
 
 
 def probe_work(starts, ends, max_probe: int) -> tuple[int, int]:
@@ -997,6 +1204,33 @@ def check_kernels(run: dict, device, log) -> list:
         (4 * bins.numel() + 4 * a["num_bins"], 3 * bins.numel()),  # 2 compares, 1 atomic
         library_fn=(lambda: torch.bincount(bins.reshape(-1), minlength=a["num_bins"]))
         if bool((bins >= 0).all()) else None,
+    )
+    a = inputs["csr_gather_owners"]
+    owner_args = (a["starts"], a["counts"], a["tables"], a["capacity"])
+    record(
+        "csr_gather_owners",
+        f"starts/counts={tuple(a['counts'].shape)} tables="
+        f"{[tuple(t.shape) for t in a['tables']]} seg_capacity={a['capacity']} (every owner, "
+        f"source and layer; plain twin: per owner, the runs rebased into the concatenated "
+        f"tables, interleaved and gathered)",
+        lambda: csr_gather.csr_gather_owners(*owner_args),
+        lambda: csr_gather.csr_gather_owners_plain(*owner_args),
+        owners_work(a),
+        timing=PROBE_TIMING,
+    )
+    sectors = owners_sectors(a)
+    rows[-1].update(sectors)
+    log(f"kernel csr_gather_owners {path} D={shards}: " + json.dumps(sectors))
+    a = inputs["csr_gather_queriers"]
+    querier_args = (a["starts"], a["counts"], a["table"], a["capacity"])
+    record(
+        "csr_gather_queriers",
+        f"starts/counts={tuple(a['counts'].shape)} table={tuple(a['table'].shape)} "
+        f"capacity={a['capacity']} (every querier; plain twin: one CSR gather a querier)",
+        lambda: csr_gather.csr_gather_queriers(*querier_args),
+        lambda: csr_gather.csr_gather_queriers_plain(*querier_args),
+        queriers_work(a),
+        timing=PROBE_TIMING,
     )
     for name, fn in (("csr_gather_batched", csr_gather.csr_gather_batched_2d),
                      ("csr_gather", csr_gather.csr_gather_2d)):
@@ -1724,10 +1958,7 @@ def main(argv=None) -> int:
 
     device = torch.device("cuda", 0)
     lm_settings()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = card_line()
     print(smi, flush=True)
 
     def log(msg):
@@ -1738,6 +1969,7 @@ def main(argv=None) -> int:
     log(f"kernels built from {build.CSRC} in {time.perf_counter() - t0:.1f} s")
     log("kernel bucket_probe build: " + json.dumps(
         ptxas_report("bucket_probe.cu", r"\d(probe_(?:layer|windows)_kernel)(?:ILb(\d)E)?")))
+    log("kernel csr_gather build: " + json.dumps(ptxas_report("csr_gather.cu", r"\d(gather_tiles)")))
     run_path(1, 1 << 14, args.seed, device, lambda m: None)  # warm-up at a small size
     run_update_path(8, 1 << 17, args.seed, device, lambda m: None, skew=False)
 

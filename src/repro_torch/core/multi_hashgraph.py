@@ -14,8 +14,8 @@ of a versioned table freezes the base's splits and strides its bucket map.
 Reads take a layer stack ``(base, delta_1, ...)`` and the sorted tombstone
 index.  On a partition-coherent stack one routing round serves every layer:
 a query is one dispatch and one combine, a retrieve or join one dispatch, one
-owner-side batched CSR gather over the interleaved layer runs, one ragged
-return and one querier-side gather — two exchange calls at any depth.  A
+owner-side gather launch over every layer's runs, one ragged return and one
+querier-side gather launch — two exchange calls at any depth.  A
 mixed-split stack routes each layer on its own splits (two calls per
 layer).  :func:`fold_layers_local` merges a coherent prefix with no exchange.
 """
@@ -391,37 +391,35 @@ def _layer_run_descriptors(
     """Owner-side locate of the routed batch in every layer (no exchange).
 
     Returns ``(starts, counts, tables)``: ``(L, D, R)`` run descriptors
-    (``R`` routed slots per owner) addressing each owner's concatenated
-    layer value tables, and the per-layer ``(D, M_l)`` tables.  Tombstone
-    epochs are resolved once for the batch and mask every layer.
+    (``R`` routed slots per owner), each start indexing its own layer's
+    values table, and the per-layer ``(D, M_l)`` tables.  Tombstone epochs
+    are resolved once for the batch and mask every layer.
     """
     match_e = _tombstone_epochs(routed.rq, tombstones)
     starts_l, counts_l, tables = [], [], []
-    off = 0
     for epoch, layer in enumerate(layers):
         rb = _rebase_buckets(
             routed.rh, routed.is_pad, routed.lo, layer.local_range_cap, layer.bucket_stride
         )
         s, c = hashgraph.query_locate(layer.local, routed.rq, rb)
-        starts_l.append(s + off)
+        starts_l.append(s)
         counts_l.append(_mask_counts(c, routed.rq, tombstones, epoch, match_e))
         tables.append(layer.local.values)
-        off += layer.local.values.shape[1]
     return torch.stack(starts_l), torch.stack(counts_l), tuple(tables)
 
 
-def _querier_gather(starts, counts, seg_flat, out_capacity):
-    """Each querier compacts its returned runs with the CSR gather (kernel 3)."""
-    offsets, slot_rows, values, dropped = [], [], [], 0
-    for q in range(counts.shape[0]):
-        off, rows, vals, drop = ops.csr_gather(
-            starts[q], counts[q], seg_flat[q], capacity=out_capacity
-        )
-        offsets.append(off)
-        slot_rows.append(rows)
-        values.append(vals)
-        dropped = dropped + drop
-    return torch.stack(offsets), torch.stack(slot_rows), torch.stack(values), dropped
+def _owner_gather(starts, counts, tables, seg_capacity, d, cap):
+    """Every owner packs every source's runs of every layer (slot-major,
+    epoch order) into one segment per (owner, source): one launch of
+    ``csr_gather_owners``.  ``starts``/``counts`` are ``(L, D, D*cap)``.
+    Returns ``(segments (D, D, seg_capacity), slot totals (D, D*cap),
+    num_dropped)``."""
+    nl = counts.shape[0]
+    seg, dropped, slot_counts = ops.csr_gather_owners(
+        starts.reshape(nl, d, d, cap), counts.reshape(nl, d, d, cap), tables,
+        capacity=seg_capacity,
+    )
+    return seg, slot_counts.reshape(d, d * cap), dropped
 
 
 def _retrieve_parts_fused(
@@ -437,36 +435,22 @@ def _retrieve_parts_fused(
 
     One dispatch routes the queries; each owner locates them in every layer
     and packs every source's runs (slot-major, epoch order) into one segment
-    with the batched CSR gather (kernel 4); one ragged return ships segments
-    and per-slot totals home; each querier compacts its runs with the CSR
-    gather (kernel 3).
+    (one owner-side gather launch for all owners and layers); one ragged
+    return ships segments and per-slot totals home; each querier compacts
+    its runs (one querier-side gather launch for all queriers).
     """
     d = queries.shape[0]
-    nlayers = len(layers)
     routed = _route_queries_once(layers[0], queries, capacity_slack)
-    cap = routed.capacity
     starts_lr, counts_lr, tables = _layer_run_descriptors(layers, routed, tombstones)
-
-    # Owner side: the gather's source axis is the dispatching shard, its row
-    # axis the slot-major/layer-minor interleaved runs.
-    segs, owner_dropped = [], 0
-    for o in range(d):
-        seg, dropped = ops.csr_gather_layers(
-            starts_lr[:, o].reshape(nlayers, d, cap),
-            counts_lr[:, o].reshape(nlayers, d, cap),
-            tuple(t[o] for t in tables),
-            capacity=seg_capacity,
-        )
-        segs.append(seg)
-        owner_dropped = owner_dropped + dropped
-
+    seg, slot_counts, owner_dropped = _owner_gather(
+        starts_lr, counts_lr, tables, seg_capacity, d, routed.capacity
+    )
+    del starts_lr, counts_lr
     # One ragged return: per-slot totals reconstruct, on the querier, the
     # interleaved offsets the owner packed with.
-    counts, starts, seg_flat = exchange.combine_ragged(
-        torch.stack(segs), counts_lr.sum(0), routed.route
-    )
-    offsets, slot_rows, values, out_dropped = _querier_gather(
-        starts, counts, seg_flat, out_capacity
+    counts, starts, seg_flat = exchange.combine_ragged(seg, slot_counts, routed.route)
+    offsets, slot_rows, values, out_dropped = ops.csr_gather_queriers(
+        starts, counts, seg_flat, capacity=out_capacity
     )
     num_dropped = owner_dropped + routed.route.num_dropped.sum() + out_dropped
     return offsets, slot_rows, values, counts, num_dropped
@@ -481,28 +465,19 @@ def _retrieve_runs(
     tombstones: Optional[tuple[torch.Tensor, torch.Tensor]],
     layer_epoch: int,
 ):
-    """One layer's own routing, owner-side gather and return trip (two
-    exchange calls).  Returns ``(counts, starts, seg_flat, dropped)`` in the
-    querier's row order: row ``i``'s values are
+    """One layer's own routing, owner-side gather (one launch) and return
+    trip (two exchange calls).  Returns ``(counts, starts, seg_flat,
+    dropped)`` in the querier's row order: row ``i``'s values are
     ``seg_flat[s, starts[s, i] : starts[s, i] + counts[s, i]]``."""
     d = queries.shape[0]
     routed, rbuckets = _route_queries(dhg, queries, capacity_slack)
-    cap = routed.capacity
     run_starts, run_counts = hashgraph.query_locate(dhg.local, routed.rq, rbuckets)
     run_counts = _mask_counts(run_counts, routed.rq, tombstones, layer_epoch)
-    segs, owner_dropped = [], 0
-    for o in range(d):
-        _, _, seg, dropped = ops.csr_gather_batched(
-            run_starts[o].reshape(d, cap),
-            run_counts[o].reshape(d, cap),
-            dhg.local.values[o],
-            capacity=seg_capacity,
-        )
-        segs.append(seg)
-        owner_dropped = owner_dropped + dropped
-    counts, starts, seg_flat = exchange.combine_ragged(
-        torch.stack(segs), run_counts, routed.route
+    seg, slot_counts, owner_dropped = _owner_gather(
+        run_starts[None], run_counts[None], (dhg.local.values,), seg_capacity, d,
+        routed.capacity,
     )
+    counts, starts, seg_flat = exchange.combine_ragged(seg, slot_counts, routed.route)
     return counts, starts, seg_flat, owner_dropped + routed.route.num_dropped.sum()
 
 
@@ -557,8 +532,8 @@ def _retrieve_parts(
     seg_all = torch.cat(segs_l, dim=1)
     counts_il = torch.stack(counts_l, dim=2).reshape(d, n_local * nlayers)
     starts_il = torch.stack(starts_l, dim=2).reshape(d, n_local * nlayers)
-    offsets_il, slot_rows, values, out_dropped = _querier_gather(
-        starts_il, counts_il, seg_all, out_capacity
+    offsets_il, slot_rows, values, out_dropped = ops.csr_gather_queriers(
+        starts_il, counts_il, seg_all, capacity=out_capacity
     )
     offsets = offsets_il[:, ::nlayers].contiguous()
     counts = counts_il.reshape(d, n_local, nlayers).sum(2).to(torch.int32)

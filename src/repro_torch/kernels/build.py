@@ -46,6 +46,17 @@ _SIGNATURES = {
     "csr_gather_batched": (
         _P, _P, _P, _I64, _P, _P, _I64, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P,
     ),
+    # slot_incl, starts, counts, layer_tables (L x 3 int64 on the card),
+    # num_layers, num_owners, num_sources, num_rows, seg, dropped,
+    # seg_capacity, fill, stream
+    "csr_gather_owners": (
+        _P, _P, _P, _P, *(ctypes.c_int,) * 4, _P, _P, _I64, ctypes.c_int, _P,
+    ),
+    # incl, starts, table, table_stride, vals, rows, offsets_out, dropped,
+    # capacity, num_rows, num_queriers, fill, stream
+    "csr_gather_queriers": (
+        _P, _P, _P, _I64, _P, _P, _P, _P, _I64, *(ctypes.c_int,) * 3, _P,
+    ),
     # starts, ends, q, table, n, table_len, num_shards, max_probe, out, stream
     "bucket_probe": (_P, _P, _P, _P, _I64, _I64, ctypes.c_int, ctypes.c_int, _P, _P),
     # rq, rh, lo, match_e (null: none), offsets, keys, n, keys_len, num_shards,

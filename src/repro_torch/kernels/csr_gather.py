@@ -1,12 +1,27 @@
 """Kernels 3 and 4 wrappers: CSR gather (``csrc/csr_gather.cu``).
 
 Replace the Pallas ``csr_gather_2d`` and ``csr_gather_batched_2d``
-(``repro/kernels/bucket_probe.py``).  Both take the exact ``num_rows + 1``
-prefix sums of the run lengths, the run starts and an int32 table, and
-return ``(values, row_idx)`` per output slot.  On CUDA tensors the wrappers
-launch the kernel or raise; on CPU tensors they run :func:`gather_plain`.
+(``repro/kernels/bucket_probe.py``).  Four entries launch one device
+routine (a load-balanced search per tile of output slots):
+
+- :func:`csr_gather_2d` and :func:`csr_gather_batched_2d`, the Pallas
+  functions' interface: the exact ``num_rows + 1`` prefix sums of the run
+  lengths, the run starts and an int32 table, returning
+  ``(values, row_idx)`` per output slot;
+- :func:`csr_gather_owners`, the owner side of a retrieve: every owner,
+  source and layer in one launch, reading the per-layer run descriptors and
+  the layer tables in place;
+- :func:`csr_gather_queriers`, the querier side: every querier in one
+  launch, each from its own row of the returned segments.
+
+On CUDA tensors the wrappers launch the kernel or raise; on CPU tensors
+they run the plain twins (:func:`gather_plain`,
+:func:`csr_gather_owners_plain`, :func:`csr_gather_queriers_plain`).
 """
 from __future__ import annotations
+
+import ctypes
+from typing import Sequence
 
 import torch
 
@@ -15,6 +30,28 @@ from repro_torch.kernels import build
 
 SINGLE = "csr_gather"
 BATCHED = "csr_gather_batched"
+OWNERS = "csr_gather_owners"
+QUERIERS = "csr_gather_queriers"
+# Output slots of one block: positions are int32 in the kernel, with a tile
+# of headroom.
+MAX_CAPACITY = 2**31 - 1 - 2048
+
+
+def interleave_layer_runs(
+    starts: torch.Tensor, counts: torch.Tensor, tables: Sequence[torch.Tensor]
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Slot-major/layer-minor interleave of ``(L, S, N)`` run descriptors.
+
+    ``starts`` are already offset into the concatenated layer tables.  The
+    ``(S, N·L)`` result places slot ``i``'s L runs adjacently in epoch order:
+    the packing the ragged return reconstructs from per-slot totals.  The
+    single definition of that order for the plain path.
+    """
+    l, s_dim, n = counts.shape
+    table_cat = tables[0] if l == 1 else torch.cat(list(tables), 0)
+    starts_i = starts.to(torch.int32).permute(1, 2, 0).reshape(s_dim, n * l)
+    counts_i = counts.to(torch.int32).permute(1, 2, 0).reshape(s_dim, n * l)
+    return starts_i, counts_i, table_cat
 
 
 def gather_plain(
@@ -29,6 +66,47 @@ def gather_plain(
     counts = torch.diff(offsets, dim=-1)
     _, rows, vals, _ = hashgraph.csr_gather(starts, counts, table, capacity, fill=fill)
     return vals, rows
+
+
+def csr_gather_owners_plain(
+    starts: torch.Tensor,
+    counts: torch.Tensor,
+    tables: Sequence[torch.Tensor],
+    seg_capacity: int,
+    fill: int = -1,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain twin of :func:`csr_gather_owners`: per owner, the layers' runs
+    rebased into the concatenated tables, interleaved slot-major and gathered
+    per source."""
+    nl, d_o, d_s, r = counts.shape
+    widths = [0] + [t.shape[1] for t in tables[:-1]]
+    base = torch.cumsum(torch.tensor(widths, dtype=torch.int32), 0, dtype=torch.int32)
+    base = base.to(starts.device).view(nl, 1, 1)
+    segs, dropped = [], []
+    for o in range(d_o):
+        st, ct, table = interleave_layer_runs(
+            starts[:, o] + base, counts[:, o], tuple(t[o] for t in tables)
+        )
+        _, _, seg, drop = hashgraph.csr_gather(st, ct, table, seg_capacity, fill=fill)
+        segs.append(seg)
+        dropped.append(drop)
+    return torch.stack(segs), torch.stack(dropped), counts.sum(0, dtype=torch.int32)
+
+
+def csr_gather_queriers_plain(
+    starts: torch.Tensor,
+    counts: torch.Tensor,
+    table: torch.Tensor,
+    capacity: int,
+    fill: int = -1,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain twin of :func:`csr_gather_queriers`: one CSR gather per querier
+    over its own table row."""
+    parts = [
+        hashgraph.csr_gather(starts[q], counts[q], table[q], capacity, fill=fill)
+        for q in range(counts.shape[0])
+    ]
+    return tuple(torch.stack(p) for p in zip(*parts))
 
 
 def _check(name, offsets, starts, table, lead: int) -> int:
@@ -51,6 +129,11 @@ def _check(name, offsets, starts, table, lead: int) -> int:
     return num_rows
 
 
+def _check_capacity(name: str, capacity: int) -> None:
+    if not 0 <= capacity <= MAX_CAPACITY:
+        raise ValueError(f"{name}: capacity {capacity} outside [0, {MAX_CAPACITY}]")
+
+
 def _launch(name, offsets, starts, table, capacity, fill, num_sources):
     num_rows = starts.shape[-1]
     dev = offsets.device
@@ -58,8 +141,7 @@ def _launch(name, offsets, starts, table, capacity, fill, num_sources):
     rows = torch.empty((num_sources, capacity), dtype=torch.int32, device=dev)
     if capacity == 0 or num_sources == 0:
         return vals, rows
-    if table.numel() == 0:  # then no slot is valid; keep the kernel's reads in bounds
-        table = torch.full((1,), fill, dtype=torch.int32, device=dev)
+    _check_capacity(name, capacity)
     build.require_cuda(name, offsets, starts, table, vals, rows)
     args = [
         offsets.data_ptr(), starts.data_ptr(), table.data_ptr(), table.numel(),
@@ -105,3 +187,109 @@ def csr_gather_batched_2d(
         BATCHED, offsets.contiguous(), starts.contiguous(), table.contiguous(),
         capacity, fill, offsets.shape[0],
     )
+
+
+def csr_gather_owners(
+    starts: torch.Tensor,
+    counts: torch.Tensor,
+    tables: Sequence[torch.Tensor],
+    seg_capacity: int,
+    fill: int = -1,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Owner-side gather of a retrieve, every owner and layer in one launch.
+
+    ``starts``/``counts`` ``(L, D_o, D_s, R)`` int32: layer ``l``'s run of
+    routed slot ``n`` from source ``s`` at owner ``o``, a start into that
+    owner's row of ``tables[l]`` ``(D_o, M_l)`` (each run inside it, as the
+    locate gives them).  Returns ``(seg, dropped, slot_counts)``:
+    ``(D_o, D_s, seg_capacity)`` segments, slot ``n``'s layer runs packed
+    in epoch order, slots in order (``fill`` past the total), the
+    ``(D_o, D_s)`` overflows ``max(0, total - seg_capacity)``, and each
+    slot's total over the layers ``(D_o, D_s, R)`` (``counts.sum(0)``, the
+    sizes the ragged return ships).
+    """
+    if starts.dtype != torch.int32 or counts.dtype != torch.int32:
+        raise TypeError(f"{OWNERS}: starts and counts must be int32")
+    if counts.ndim != 4 or starts.shape != counts.shape:
+        raise ValueError(f"{OWNERS}: starts {tuple(starts.shape)}, counts {tuple(counts.shape)}")
+    nl, d_o, d_s, r = counts.shape
+    if nl < 1 or len(tables) != nl:
+        raise ValueError(f"{OWNERS}: {len(tables)} tables for counts {tuple(counts.shape)}")
+    for t in tables:
+        if t.dtype != torch.int32 or t.ndim != 2 or t.shape[0] != d_o:
+            raise ValueError(f"{OWNERS}: a table of {t.dtype} {tuple(t.shape)}, want int32 ({d_o}, M)")
+    if r >= 2**31 - 1:
+        raise ValueError(f"{OWNERS}: {r} rows exceed int32")
+    _check_capacity(OWNERS, seg_capacity)
+    if not build.on_card(OWNERS, counts):
+        return csr_gather_owners_plain(starts, counts, tables, seg_capacity, fill)
+    dev = counts.device
+    starts, counts = starts.contiguous(), counts.contiguous()
+    tables = [t if t.stride(1) == 1 else t.contiguous() for t in tables]
+    slot_counts = counts.sum(0, dtype=torch.int32)
+    # One flat scan: the kernel rebases each block (a scan per row of a
+    # (D_o, D_s, R) tensor is one slow launch at D > 1).
+    slot_incl = torch.cumsum(slot_counts.reshape(-1), 0, dtype=torch.int32)
+    seg = torch.empty((d_o, d_s, seg_capacity), dtype=torch.int32, device=dev)
+    dropped = torch.empty((d_o, d_s), dtype=torch.int32, device=dev)
+    build.require_cuda(OWNERS, counts, starts, slot_incl, seg, dropped)
+    if any(t.device != dev for t in tables):
+        raise ValueError(f"{OWNERS}: tables on {[str(t.device) for t in tables]}, runs on {dev}")
+    # Each layer's (base address, row stride, row length), L x 24 bytes: the
+    # copy from pageable memory is staged before it returns, so the host
+    # tensor may go at once.
+    layer_tables = torch.tensor(
+        [[t.data_ptr(), t.stride(0), t.shape[1]] for t in tables], dtype=torch.int64
+    ).to(dev, non_blocking=True)
+    build.launch(
+        OWNERS, slot_incl.data_ptr(), starts.data_ptr(), counts.data_ptr(),
+        layer_tables.data_ptr(), nl, d_o, d_s, r, seg.data_ptr(), dropped.data_ptr(),
+        seg_capacity, int(fill), build.stream_of(counts),
+    )
+    return seg, dropped, slot_counts
+
+
+def csr_gather_queriers(
+    starts: torch.Tensor,
+    counts: torch.Tensor,
+    table: torch.Tensor,
+    capacity: int,
+    fill: int = -1,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Querier-side gather of a retrieve, every querier in one launch.
+
+    ``starts``/``counts`` ``(D, N)`` int32 runs into each querier's own row
+    of ``table`` ``(D, W)``.  Returns ``(offsets, row_idx, values,
+    dropped)``: ``(D, N+1)`` offsets clamped to ``capacity``, ``(D,
+    capacity)`` row ids (-1 unused) and values (``fill`` unused), and the
+    ``(D,)`` overflows ``max(0, total - capacity)``.
+    """
+    if starts.dtype != torch.int32 or counts.dtype != torch.int32 or table.dtype != torch.int32:
+        raise TypeError(f"{QUERIERS}: starts, counts and table must be int32")
+    if counts.ndim != 2 or starts.shape != counts.shape or table.ndim != 2 or (
+        table.shape[0] != counts.shape[0]
+    ):
+        raise ValueError(
+            f"{QUERIERS}: starts {tuple(starts.shape)}, counts {tuple(counts.shape)}, "
+            f"table {tuple(table.shape)}"
+        )
+    d, n = counts.shape
+    if n >= 2**31 - 1:
+        raise ValueError(f"{QUERIERS}: {n} rows exceed int32")
+    _check_capacity(QUERIERS, capacity)
+    if not build.on_card(QUERIERS, counts):
+        return csr_gather_queriers_plain(starts, counts, table, capacity, fill)
+    dev = counts.device
+    starts, table = starts.contiguous(), table.contiguous()
+    incl = torch.cumsum(counts.reshape(-1), 0, dtype=torch.int32)  # flat, as the owners'
+    offsets = torch.empty((d, n + 1), dtype=torch.int32, device=dev)
+    rows = torch.empty((d, capacity), dtype=torch.int32, device=dev)
+    vals = torch.empty((d, capacity), dtype=torch.int32, device=dev)
+    dropped = torch.empty((d,), dtype=torch.int32, device=dev)
+    build.require_cuda(QUERIERS, incl, starts, table, offsets, rows, vals, dropped)
+    build.launch(
+        QUERIERS, incl.data_ptr(), starts.data_ptr(), table.data_ptr(), table.shape[1],
+        vals.data_ptr(), rows.data_ptr(), offsets.data_ptr(), dropped.data_ptr(), capacity,
+        n, d, int(fill), build.stream_of(counts),
+    )
+    return offsets, rows, vals, dropped

@@ -2,10 +2,12 @@
 kernels (port of ``repro.kernels.ops``).
 
 ``csr_gather``, ``csr_gather_batched`` and ``csr_gather_layers`` keep the
-reference's contracts: the prefix sum runs as plain tensor code, the per-slot
-bisection and gather in kernel 3 or 4 on the card (their plain twin on the
-CPU).  A uint32 table (the ``torch.uint32`` dtype) goes through its int32
-view, so ``fill=-1`` comes back as ``0xFFFFFFFF``.  ``bucket_probe`` keeps
+reference's contracts: the prefix sum runs as plain tensor code, the gather
+in kernel 3 or 4's Pallas-interface entries on the card (their plain twin on
+the CPU).  The table's retrieve calls ``csr_gather_owners`` and
+``csr_gather_queriers``, one launch per side for every shard and layer.  A
+uint32 table (the ``torch.uint32`` dtype) goes through its int32 view, so
+``fill=-1`` comes back as ``0xFFFFFFFF``.  ``bucket_probe`` keeps
 the reference's argument order and runs kernel 5's window entry (the
 table's query path calls kernel 5's layer entry,
 ``kernels.bucket_probe.bucket_probe_layer``, directly).  ``flash_attention``
@@ -91,21 +93,7 @@ def csr_gather_batched(
     return torch.clamp(offsets, max=capacity), rows, vals, num_dropped
 
 
-def interleave_layer_runs(
-    starts: torch.Tensor, counts: torch.Tensor, tables: Sequence[torch.Tensor]
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Slot-major/layer-minor interleave of ``(L, S, N)`` run descriptors.
-
-    ``starts`` are already offset into the concatenated layer tables.  The
-    ``(S, N·L)`` result places slot ``i``'s L runs adjacently in epoch order:
-    the packing the ragged return reconstructs from per-slot totals.  The
-    single definition of that order, for the kernel path and the plain path.
-    """
-    l, s_dim, n = counts.shape
-    table_cat = tables[0] if l == 1 else torch.cat(list(tables), 0)
-    starts_i = starts.to(torch.int32).permute(1, 2, 0).reshape(s_dim, n * l)
-    counts_i = counts.to(torch.int32).permute(1, 2, 0).reshape(s_dim, n * l)
-    return starts_i, counts_i, table_cat
+interleave_layer_runs = _gather.interleave_layer_runs
 
 
 def csr_gather_layers(
@@ -126,6 +114,52 @@ def csr_gather_layers(
         starts_i, counts_i, table_cat, capacity=capacity, fill=fill
     )
     return gathered, num_dropped
+
+
+def csr_gather_owners(
+    starts: torch.Tensor,
+    counts: torch.Tensor,
+    tables: Sequence[torch.Tensor],
+    *,
+    capacity: int,
+    fill: int = -1,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Owner side of a retrieve: every owner, source and layer in one launch.
+
+    ``starts``/``counts`` ``(L, D_o, D_s, R)`` index each layer's own table
+    ``(D_o, M_l)``.  Returns ``(segments, num_dropped, slot_counts)``:
+    ``(D_o, D_s, capacity)`` packed slot-major/layer-minor (the order of
+    :func:`csr_gather_layers`), the () total overflow, and the int32
+    ``(D_o, D_s, R)`` per-slot totals ``counts.sum(0)``.
+    """
+    conv = [_as_int32_table(t) for t in tables]
+    seg, dropped, slot_counts = _gather.csr_gather_owners(
+        starts.to(torch.int32), counts.to(torch.int32), [t for t, _ in conv], capacity, fill,
+    )
+    if conv and conv[0][1]:
+        seg = seg.view(torch.uint32)
+    return seg, dropped.sum(), slot_counts
+
+
+def csr_gather_queriers(
+    starts: torch.Tensor,
+    counts: torch.Tensor,
+    table: torch.Tensor,
+    *,
+    capacity: int,
+    fill: int = -1,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Querier side of a retrieve: ``D`` CSR gathers, each over its own row
+    of ``table`` ``(D, W)``, in one launch.  Returns ``(offsets, row_idx,
+    gathered, num_dropped)`` as :func:`csr_gather` does per row, and the ()
+    total overflow."""
+    table, unsigned = _as_int32_table(table)
+    offsets, rows, vals, dropped = _gather.csr_gather_queriers(
+        starts.to(torch.int32), counts.to(torch.int32), table, capacity, fill
+    )
+    if unsigned:
+        vals = vals.view(torch.uint32)
+    return offsets, rows, vals, dropped.sum()
 
 
 def bucket_probe(

@@ -31,7 +31,7 @@ from repro_torch.core.schema import u32_bits
 from repro_torch.core import maintenance
 from repro_torch.core import multi_hashgraph as mh
 from repro_torch.configs.base import get_smoke_config
-from repro_torch.kernels import bucket_probe, build, histogram, murmur, ops
+from repro_torch.kernels import bucket_probe, build, csr_gather, histogram, murmur, ops
 from repro_torch.kernels import flash_attention as flash
 from repro_torch.kernels import slstm
 from repro_torch.models.api import build_model
@@ -81,6 +81,208 @@ def test_gather_kernels_match_plain(card, n_rows, table_len, capacity):
             assert torch.equal(g.cpu(), w)
     assert build.LAUNCHES["csr_gather"] == before.get("csr_gather", 0) + 1
     assert build.LAUNCHES["csr_gather_batched"] == before.get("csr_gather_batched", 0) + 1
+
+
+def _gather_runs(rng, shape, width, zero_frac, max_count):
+    """Run descriptors inside a table row of ``width`` words."""
+    if width == 0:
+        return np.zeros(shape, np.int32), np.zeros(shape, np.int32)
+    counts = rng.integers(0, max_count, size=shape).astype(np.int32)
+    counts[rng.random(shape) < zero_frac] = 0
+    starts = rng.integers(0, width, size=shape).astype(np.int32)
+    return starts, np.minimum(counts, width - starts).astype(np.int32)
+
+
+# (L, D, R, layer widths, seg_capacity, zero_frac, max_count, one long run)
+OWNER_CARD_CASES = {
+    "small": (3, 2, 300, (200, 50, 80), 700, 0.4, 5, None),
+    "deep-d4": (7, 4, 500, (900, 200, 200, 200, 200, 200, 60), 3001, 0.4, 5, None),
+    "2^22 slots": (7, 1, 1 << 19, (1 << 21, 1 << 19, 1 << 19, 1 << 19, 1 << 19, 1 << 19, 1 << 14),
+                   1 << 22, 0.3, 4, None),
+    "empty rows past the stage": (3, 1, 60000, (4000, 300, 300), 512, 0.999, 4, None),
+    "2^16-long run": (2, 1, 1000, (1 << 17, 500), 1 << 17, 0.5, 3, 1 << 16),
+    "total 0": (3, 2, 100, (100, 100, 100), 64, 1.0, 3, None),
+    "total above capacity": (3, 2, 400, (300, 300, 300), 257, 0.4, 5, None),
+    "depth 70": (70, 2, 300, (400,) * 35 + (90,) * 35, 3000, 0.6, 3, None),
+}
+
+
+@pytest.mark.parametrize("case", list(OWNER_CARD_CASES))
+def test_owner_entry_matches_plain(card, case):
+    nl, d, r, widths, cap, zero_frac, max_count, long_run = OWNER_CARD_CASES[case]
+    rng = np.random.default_rng(len(case))
+    tables = [torch.from_numpy(rng.integers(-2**31, 2**31 - 1, size=(d, w), dtype=np.int32))
+              for w in widths]
+    runs = [_gather_runs(rng, (d, d, r), w, zero_frac, max_count) for w in widths]
+    starts = torch.from_numpy(np.stack([s for s, _ in runs]))
+    counts = torch.from_numpy(np.stack([c for _, c in runs]))
+    if long_run is not None:
+        starts[0, 0, 0, r // 2], counts[0, 0, 0, r // 2] = 0, long_run
+    slot = counts.sum(0, dtype=torch.int32)
+    args = [starts, counts, tables]
+    card_args = [starts.to(card), counts.to(card), [t.to(card) for t in tables]]
+    before = dict(build.LAUNCHES)
+    got = csr_gather.csr_gather_owners(*card_args, cap)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["csr_gather_owners"] == before.get("csr_gather_owners", 0) + 1
+    want = csr_gather.csr_gather_owners_plain(*card_args, cap)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert torch.equal(got[2].cpu(), slot)
+    totals = slot.to(torch.int64).sum(-1)
+    if case == "total 0":
+        assert int(totals.max()) == 0
+    elif case == "total above capacity":
+        assert int(got[1].sum()) > 0
+    elif case == "2^22 slots":
+        assert int(totals.max()) > 3 << 20
+    # The slot totals equal to the capacity: the segment is exactly full.
+    exact = int(totals.max())
+    if 0 < exact <= csr_gather.MAX_CAPACITY and case == "small":
+        g = csr_gather.csr_gather_owners(*card_args, exact)
+        w = csr_gather.csr_gather_owners_plain(*args, exact)
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(g, w))
+        assert int(g[1].sum()) == 0
+
+
+# (D, rows, table width, capacity, zero_frac, max_count, one long run)
+QUERIER_CARD_CASES = {
+    "small": (2, 300, 900, 700, 0.4, 5, None),
+    "d4": (4, 5000, 16000, 12001, 0.4, 5, None),
+    "2^22 slots": (1, 1 << 21, 1 << 23, 1 << 22, 0.2, 4, None),
+    "empty rows past the stage": (2, 200000, 3000, 300, 0.9995, 4, None),
+    "2^16-long run": (2, 4000, 1 << 17, 1 << 17, 0.5, 3, 1 << 16),
+    "total 0": (2, 100, 100, 64, 1.0, 3, None),
+    "total above capacity": (4, 600, 1000, 333, 0.4, 5, None),
+}
+
+
+@pytest.mark.parametrize("case", list(QUERIER_CARD_CASES))
+def test_querier_entry_matches_plain(card, case):
+    d, n, width, cap, zero_frac, max_count, long_run = QUERIER_CARD_CASES[case]
+    rng = np.random.default_rng(len(case) + 100)
+    table = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, size=(d, width), dtype=np.int32))
+    starts, counts = (torch.from_numpy(a) for a in _gather_runs(rng, (d, n), width, zero_frac,
+                                                              max_count))
+    if long_run is not None:
+        starts[0, n // 3], counts[0, n // 3] = 0, long_run
+    args = [starts.to(card), counts.to(card), table.to(card)]
+    before = dict(build.LAUNCHES)
+    got = csr_gather.csr_gather_queriers(*args, cap)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["csr_gather_queriers"] == before.get("csr_gather_queriers", 0) + 1
+    want = csr_gather.csr_gather_queriers_plain(*args, cap)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    totals = counts.to(torch.int64).sum(-1)
+    if case == "total above capacity":
+        assert int(got[3].sum()) > 0
+    exact = int(totals.max())
+    if case == "small":  # a capacity equal to the largest total
+        g = csr_gather.csr_gather_queriers(*args, exact)
+        w = csr_gather.csr_gather_queriers_plain(starts, counts, table, exact)
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(g, w))
+        assert int(g[3].sum()) == 0
+
+
+def test_gather_entries_rebase_flat_sums_past_2_31(card):
+    """Both entries scan every block's rows in one flat int32 sum and rebase
+    each block: where that sum passes 2^31 (every row a 2^20-word run of one
+    table, 2^28-2^29 words a block, 2^32 in all) each block's overflow and
+    segment still equal the twin's."""
+    width, run = 1 << 20, 1 << 20
+    table = torch.arange(8 * width, dtype=torch.int32).reshape(8, width)
+    starts = torch.zeros((8, 512), dtype=torch.int32)
+    counts = torch.full((8, 512), run, dtype=torch.int32)
+    got = csr_gather.csr_gather_queriers(starts.to(card), counts.to(card), table.to(card), 4096)
+    want = csr_gather.csr_gather_queriers_plain(starts, counts, table, 4096)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert int(got[3][0]) == 512 * run - 4096
+    tables = [table[:4]]
+    st = torch.zeros((1, 4, 4, 256), dtype=torch.int32)
+    ct = torch.full((1, 4, 4, 256), run, dtype=torch.int32)
+    got = csr_gather.csr_gather_owners(st.to(card), ct.to(card), [t.to(card) for t in tables],
+                                       4096)
+    want = csr_gather.csr_gather_owners_plain(st, ct, tables, 4096)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert int(got[1][3, 3]) == 256 * run - 4096
+
+
+def _deep_stack(t, d, rng):
+    keys = rng.integers(0, 3000, size=4096, dtype=np.uint32)
+    keys[1000:1300] = keys[5]  # one key, 300 duplicates
+    s = t.init(keys)
+    for i in range(3):
+        s = s.insert(rng.integers(0, 3000, size=256, dtype=np.uint32))
+        s = s.delete(keys[40 * i + 100: 40 * i + 124])
+    return s.upsert(keys[200:216], np.arange(16, dtype=np.int32))
+
+
+@pytest.mark.parametrize("d", [1, 4])
+@pytest.mark.parametrize("coherent", [True, False], ids=["coherent", "mixed-splits"])
+def test_retrieve_and_join_on_card_match_cpu_through_a_deep_stack(card, d, coherent):
+    """Retrieve and inner join over base + 4 deltas with tombstones (depth 4)
+    equal the CPU's; each makes one owner launch per routing round (one on a
+    coherent stack, one a layer on a mixed-split one) and one querier
+    launch, and no launch of the Pallas-interface gathers."""
+    queries = np.random.default_rng(d).integers(0, 3500, size=1024, dtype=np.uint32)
+    out = {}
+    for where in (card, "cpu"):
+        t = DistributedHashTable(num_shards=d, hash_range=1 << 12, device=where,
+                                 coherent_deltas=coherent)
+        s = _deep_stack(t, d, np.random.default_rng(7 + d))
+        assert s.epoch == 4 and s.coherent == coherent
+        caps = t.plan_caps(s, queries)
+        before = dict(build.LAUNCHES)
+        r = t.retrieve(s, queries)
+        j = t.inner_join(s, queries)
+        small = t.retrieve(s, queries, out_capacity=caps[1] // 3, seg_capacity=caps[0] // 2)
+        if where == card:
+            torch.cuda.synchronize()
+            rounds = 1 if coherent else len(s.layers)
+            got = {k: build.LAUNCHES[k] - before.get(k, 0) for k in (
+                "csr_gather_owners", "csr_gather_queriers", "csr_gather", "csr_gather_batched")}
+            assert got == {"csr_gather_owners": 3 * rounds, "csr_gather_queriers": 3,
+                           "csr_gather": 0, "csr_gather_batched": 0}
+        out[str(where)] = [r.offsets.cpu(), r.values.cpu(), r.counts.cpu(), r.num_dropped.cpu(),
+                           torch.from_numpy(join_to_pairs(j)), small.offsets.cpu(),
+                           small.values.cpu(), small.num_dropped.cpu()]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert torch.equal(a, b)
+    # Truncated at the small capacities; at the planned ones only a
+    # mixed-split stack's small deltas may overflow the query dispatch.
+    assert int(out["cpu"][7]) > 0 and (int(out["cpu"][3]) == 0 or not coherent)
+
+
+def test_retrieve_and_join_on_card_match_cpu_through_a_70_layer_deep_stack(card):
+    """A coherent stack of 70 layers (base + 69 inserts, a delete among
+    them): retrieve and inner join equal the CPU's, one owner launch each."""
+    rng = np.random.default_rng(70)
+    keys = rng.integers(0, 2000, size=2048, dtype=np.uint32)
+    batches = [rng.integers(0, 2000, size=32, dtype=np.uint32) for _ in range(69)]
+    queries = rng.integers(0, 2100, size=512, dtype=np.uint32)
+    out = {}
+    for where in (card, "cpu"):
+        t = DistributedHashTable(num_shards=2, hash_range=1 << 11, device=where, max_deltas=80)
+        s = t.init(keys)
+        for i, b in enumerate(batches):
+            if i == 30:
+                s = s.delete(keys[:16])
+            s = s.insert(b, np.arange(100 * i, 100 * i + 32, dtype=np.int32))
+        assert len(s.layers) == 70 and s.coherent
+        before = build.LAUNCHES.get("csr_gather_owners", 0)
+        r = t.retrieve(s, queries)
+        j = t.inner_join(s, queries)
+        if where == card:
+            torch.cuda.synchronize()
+            assert build.LAUNCHES["csr_gather_owners"] - before == 2
+        out[str(where)] = [r.offsets.cpu(), r.values.cpu(), r.counts.cpu(), r.num_dropped.cpu(),
+                           torch.from_numpy(join_to_pairs(j))]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert torch.equal(a, b)
+    assert int(out["cpu"][3]) == 0 and int(out["cpu"][2].sum()) > 0
 
 
 @pytest.mark.parametrize("d", [1, 8])

@@ -419,3 +419,46 @@ def test_query_dispatch_overflow_zeroes_counts_silently_in_both(mesh8):
     np.testing.assert_array_equal(got, np.asarray(p.jt.query(p.js, jnp.asarray(queries))))
     assert (got[: 7 * 128] >= 1).all()
     assert (got[7 * 128 :] == 0).sum() >= 16  # present keys counted 0, silently
+
+
+def _depth6(p, rng):
+    """Base, four inserts, a delete, a fifth insert and an upsert: depth 6
+    with tombstones; one key of the base holds 40 duplicates."""
+    keys = rng.integers(0, 1 << 13, 512, dtype=np.uint32)
+    keys[100:140] = keys[60]
+    p.init(keys)
+    for i in range(5):
+        if i == 4:
+            p.apply("delete", keys[:24])
+        p.apply("insert", rng.integers(0, 1 << 13, 96, dtype=np.uint32),
+                np.arange(1000 * (i + 1), 1000 * (i + 1) + 96, dtype=np.int32))
+    p.apply("upsert", keys[30:46], np.arange(9000, 9016, dtype=np.int32))
+    assert p.ps.epoch == 6
+    return keys
+
+
+@MESHES
+@pytest.mark.parametrize("stack", ["coherent", "mixed-splits"])
+def test_retrieve_and_join_through_one_gather_launch_a_side_match_reference(d, stack, request):
+    """Retrieve and inner join of a depth-6 stack with tombstones and a
+    40-fold duplicate key, through the owner and querier gathers (one launch
+    per side per routing round on the card), equal the reference's: at the
+    planned capacities, and with capacities too small (truncated segments
+    and results, the same ``num_dropped``)."""
+    kw = {} if stack == "coherent" else {"coherent_deltas": False}
+    p = Pair(_mesh(request, d), d, **kw)
+    keys = _depth6(p, np.random.default_rng(61 + d))
+    assert p.ps.coherent == (stack == "coherent")
+    rng = np.random.default_rng(62)
+    q = np.concatenate([keys[:64], rng.integers(0, 1 << 13, 136, dtype=np.uint32)])
+    p.check(q)
+    jq = jnp.asarray(q)
+    for caps in ({"out_capacity": 6, "seg_capacity": 3}, {"out_capacity": 8}):
+        got, want = p.pt.retrieve(p.ps, q, **caps), p.jt.retrieve(p.js, jq, **caps)
+        for name in ("offsets", "values", "counts"):
+            np.testing.assert_array_equal(_np(getattr(got, name)), np.asarray(getattr(want, name)))
+        assert int(got.num_dropped) == int(want.num_dropped) > 0
+        gj, wj = p.pt.inner_join(p.ps, q, **caps), p.jt.inner_join(p.js, jq, **caps)
+        for name in ("query_idx", "values", "num_results"):
+            np.testing.assert_array_equal(_np(getattr(gj, name)), np.asarray(getattr(wj, name)))
+        assert int(gj.num_dropped) == int(wj.num_dropped) > 0

@@ -41,7 +41,6 @@ import argparse
 import json
 import os
 import statistics
-import subprocess
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -97,21 +96,14 @@ def main(argv=None) -> int:
     from repro_torch import DistributedHashTable
     from repro_torch.core import multi_hashgraph as mh
 
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    card = chip_smoke.card_line()
     print(card, flush=True)
     device = torch.device("cuda", 0)
     _, dev = chip_smoke.update_data(args.keys, args.seed, device)
     probe = DistributedHashTable(num_shards=1, hash_range=args.keys, device=device,
                                  tombstone_capacity=chip_smoke.TOMBSTONE_CAPACITY,
                                  paper_faithful_probe=True)
-    state = probe.init(dev["keys"])
-    for i in range(5):
-        if i == 4:
-            state = state.delete(dev["dels"])
-        state = state.insert(dev["batches"][i], dev["batch_vals"][i])
-    state = state.upsert(dev["ups"], dev["ups_vals"])
-    chip_smoke.check(state.epoch == 6 and state.coherent, f"depth {state.epoch}")
+    state = chip_smoke.depth6_state(probe, dev)
     queries = dev["queries"]
 
     def query():
@@ -122,26 +114,14 @@ def main(argv=None) -> int:
             state.layers[:k], queries.reshape(1, -1), tombstones=state.tombstones.index(),
             fused=True, paper_faithful_probe=True, max_probe=probe.max_probe)
 
-    walls, first = [], None
-    for i in range(2 + args.repeats):
-        counts, seconds = chip_smoke.wall(query, device)
-        if first is None:
-            first = counts
-        chip_smoke.check(torch.equal(counts, first), f"repeat {i} differs from the first")
-        if i >= 2:
-            walls.append(seconds * 1e3)
+    walls, _ = chip_smoke.repeat_walls(query, device, args.repeats, lambda c: (c,), "query")
     by_depth = {}
     for k in (1, 4, 7):
         fn = query_layers(k)
         fn()
         by_depth[k] = statistics.median(
             chip_smoke.wall(fn, device)[1] * 1e3 for _ in range(args.repeats))
-    chip_smoke.sync(device)
-    resident = torch.cuda.memory_allocated(device)
-    torch.cuda.reset_peak_memory_stats(device)
-    query()
-    chip_smoke.sync(device)
-    peak = torch.cuda.max_memory_allocated(device) - resident
+    peak = chip_smoke.peak_bytes(query, device)
     profiled = chip_smoke.profile_phases({"probe query (depth 6)": query}, device)
     profiled = profiled["probe query (depth 6)"]
     print(json.dumps({
