@@ -26,6 +26,13 @@ Run from the root of a checkout: it builds the port's CUDA kernels from
    fallback, and the reads repeat on that mixed-split stack.  Every read is
    held against a numpy oracle of the live multiset, every step against
    ``num_dropped == 0`` and its exchange-call budget;
+2b. runs both again with ``TableSchema("uint64", 4)`` (the u64x4 runs,
+   fingerprint lane on by default): keys ``raw | raw << 32`` of the same
+   ``raw`` draws (as ``benchmarks/bench_widths.py`` makes them), four int32
+   value columns drawn from ``--seed`` on the card, the upsert with a TTL
+   (pending throughout, so the live multiset is as in 2), and the same
+   numpy oracles on the uint64 keys (counts, four-column value multisets,
+   join rows), ``num_dropped == 0`` and exchange budgets;
 3. serves qwen3-4b at full width (36 layers, d_model 2560, 32 query heads
    over 8 kv heads, vocab 151,936; random bf16 weights drawn on the card
    from ``--seed``) through the public API: ``build_model``, a
@@ -50,7 +57,10 @@ Run from the root of a checkout: it builds the port's CUDA kernels from
    the prefix over thousands of steps, so no fixed tolerance holds it);
 5. counts the kernel launches of each run (every count is set to 0 just
    before a run and read just after it) and requires each kernel of the run
-   > 0 (the update path runs all five table kernels), exactly one launch of
+   > 0 (the update path runs all five table kernels; the u64x4 runs kernel
+   1's two-output entry ``murmur_hash`` at 2 lanes, as many launches as the
+   uint32 run of its path made of ``murmur_bucket``, and none of
+   ``murmur_bucket``), exactly one launch of
    kernel 5's layer entry per layer per probe query in the update run (12 at
    D = 1, 14 at D = 8) and none of its window entry, exactly one launch of
    kernels 3-4's owner entry per routing round of a retrieve or join and
@@ -63,7 +73,9 @@ Run from the root of a checkout: it builds the port's CUDA kernels from
    kernel 7 (the sLSTM recurrence), one per sLSTM layer per prefill and per
    decode step, and none of kernel 6, in the xLSTM run;
 6. calls each kernel's wrapper on the inputs each run gives it and holds it
-   against its plain PyTorch twin: ``torch.equal`` for the table kernels
+   against its plain PyTorch twin (in the u64x4 runs: kernel 1 at 2 lanes
+   with both outputs, kernels 3-4 with 4 value columns, kernel 5 at 2
+   lanes): ``torch.equal`` for the table kernels
    (every output is an integer; kernels 3-4's owner and querier entries
    on the retrieve's own inputs for every owner, layer and querier, the
    table sectors the owner entry's picked words touch printed beside its
@@ -90,8 +102,9 @@ Run from the root of a checkout: it builds the port's CUDA kernels from
    operations over the card's rate for them (int32 lanes for the table
    kernels, bf16 tensor cores for kernel 6, f32 units for kernel 7).
 
-It prints the card's name and power limit, a ``{"kernels": [...]}`` line (one
-row per kernel and run, ``path`` and ``shards`` naming the run) and, last,
+It prints the seconds each run took, the card's name and power limit, a
+``{"kernels": [...]}`` line (one row per kernel and run, ``path`` and
+``shards`` naming the run) and, last,
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
 checkout, it exits non-zero before printing any result.
 """
@@ -99,6 +112,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import gc
 import json
 import os
@@ -122,6 +136,12 @@ TOMBSTONE_CAPACITY = 1 << 17
 DELETES = 1 << 16
 REINSERTS = 1 << 12
 UPSERTS = 1 << 16
+# The u64x4 runs: value columns, and a tombstone buffer for 2^16 deletes,
+# 2^16 upserted keys and their 2^16 TTL entries; the TTL is never reached,
+# so those entries stay pending and mask nothing.
+WIDE_COLS = 4
+WIDE_TOMBSTONE_CAPACITY = 1 << 18
+UPSERT_TTL = 1000
 # LM serving paths: qwen3-4b, then xlstm-1.3b, at full width, 8 requests
 # through 4 slots (qwen3's KV caches of 4096 tokens; xLSTM states do not
 # depend on the cache length).
@@ -192,6 +212,7 @@ SLSTM_TIMING = {"groups": 5, "launches": 20}
 # Kernel name -> (source in the repo, Pallas function it replaces).
 KERNELS = {
     "murmur_bucket": ("src/repro_torch/csrc/murmur.cu", "src/repro/kernels/murmur.py:53"),
+    "murmur_hash": ("src/repro_torch/csrc/murmur.cu", "src/repro/kernels/murmur.py:53"),
     "bin_histogram": ("src/repro_torch/csrc/histogram.cu", "src/repro/kernels/histogram.py:41"),
     "csr_gather": ("src/repro_torch/csrc/csr_gather.cu", "src/repro/kernels/bucket_probe.py:161"),
     "csr_gather_batched": (
@@ -230,6 +251,12 @@ KERNELS = {
 # ``csr_gather_batched``) are only held against their twin.
 READ_PATH_KERNELS = ("murmur_bucket", "bin_histogram", "csr_gather_owners", "csr_gather_queriers")
 TABLE_KERNELS = READ_PATH_KERNELS + ("bucket_probe_layer",)
+# The u64x4 runs hash 2-lane keys through kernel 1's two-output entry.
+WIDE_READ_KERNELS = ("murmur_hash",) + READ_PATH_KERNELS[1:]
+WIDE_TABLE_KERNELS = WIDE_READ_KERNELS + ("bucket_probe_layer",)
+# murmur_bucket launches of each uint32 run, by (path, shards): the u64x4
+# run of the path must make as many launches of murmur_hash.
+HASH_LAUNCHES: dict = {}
 PALLAS_GATHERS = ("csr_gather", "csr_gather_batched")
 # Kernel 5's layer entry at the depth-6 base layer and kernels 3-4's owner
 # and querier entries: groups of launches (min, median and max over the
@@ -326,13 +353,65 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
+def raw_of(keys):
+    """Host keys → the oracle's index: uint32 keys as they are; a uint64
+    key ``raw | raw << 32`` (the u64x4 runs' keys) its ``raw``, and any
+    other uint64 key 2^40, which no table row has."""
+    import numpy as np
+
+    if keys.dtype != np.uint64:
+        return keys
+    lo = (keys & np.uint64(0xFFFFFFFF)).astype(np.int64)
+    return np.where((keys >> np.uint64(32)).astype(np.int64) == lo, lo, 1 << 40)
+
+
+def widen(raw):
+    """uint32 ``raw`` → the uint64 keys ``raw | raw << 32``."""
+    import numpy as np
+
+    r = raw.astype(np.uint64)
+    return r | (r << np.uint64(32))
+
+
+def keys_on(raw, device, wide: bool):
+    """Host ``raw`` keys as the table takes them on ``device``: int32 bits,
+    or for the u64x4 runs the ``(N, 2)`` lanes of ``raw | raw << 32`` (both
+    lanes ``raw``)."""
+    import torch
+
+    k = to_device(raw, device)
+    return torch.stack([k, k], -1).contiguous() if wide else k
+
+
+def value_store(rows: int, seed: int, device):
+    """The u64x4 runs' values: ``(rows, 4)`` int32 drawn on ``device`` from
+    ``seed``; a table row's values are the store's row of its row id."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.randint(-2**31, 2**31, (rows, WIDE_COLS), generator=g, device=device,
+                         dtype=torch.int64).to(torch.int32)
+
+
+def store_pairs(pairs, store):
+    """Oracle ``(query row, row id)`` pairs as ``(query row, value columns)``
+    rows of the value store, sorted."""
+    import torch
+
+    if store is None:
+        return pairs
+    ids = torch.from_numpy(pairs[:, 1]).to(store.device)
+    return sort_pairs(pairs[:, 0], store[ids].cpu().numpy())
+
+
 class Oracle:
     """numpy reference of a multiset table: its live ``(key, value)`` rows.
 
-    Keys lie in ``[0, n)``, so per-key counts come from ``np.bincount``; a
-    query outside ``[0, n)`` counts 0.  Pairs are read off a stable sort of
-    only the rows whose key is queried.  (A binary search per query over
-    2^27 sorted keys would take minutes on the host.)
+    Keys lie in ``[0, n)`` (``raw_of`` maps the u64x4 runs' uint64 keys
+    there), so per-key counts come from ``np.bincount``; a query outside
+    ``[0, n)`` counts 0.  Pairs are read off a stable sort of only the rows
+    whose key is queried.  (A binary search per query over 2^27 sorted keys
+    would take minutes on the host.)
     """
 
     def __init__(self, keys, values, n: int):
@@ -364,30 +443,68 @@ class Oracle:
 
 
 def sort_pairs(qidx, vals):
+    """``(query row, value columns...)`` int64 rows, ``vals`` ``(K,)`` or
+    ``(K, C)``, in one canonical order: by the columns' 32-bit patterns,
+    two packed into each uint64 sort key (query rows are below 2^32), so
+    a row of 1 + C columns takes ceil((1 + C) / 2) keys."""
     import numpy as np
 
-    key = np.lexsort((vals, qidx))
-    return np.stack([qidx[key], vals[key]], axis=1).astype(np.int64)
+    rows = np.column_stack([qidx, vals.reshape(qidx.shape[0], -1)]).astype(np.int64)
+    words = (rows & 0xFFFFFFFF).astype(np.uint64)
+    if words.shape[1] % 2:
+        words = np.column_stack([words, np.zeros(words.shape[0], np.uint64)])
+    keys = (words[:, 0::2] << np.uint64(32)) | words[:, 1::2]
+    return rows[np.lexsort(keys.T[::-1])]
 
 
 def retrieval_pairs(result):
-    """``(query row, value)`` of every retrieved value, sorted."""
+    """``(query row, value columns...)`` of every retrieved value, sorted:
+    each shard's CSR sliced as ``retrieval_to_lists`` slices it, without
+    making one array a query (4.2e6 of them cost the host tens of seconds
+    a read)."""
     import numpy as np
 
-    from repro_torch import retrieval_to_lists
+    counts, offsets, values = (t.cpu().numpy() for t in (
+        result.counts, result.offsets, result.values))
+    d = offsets.shape[0] - counts.shape[0]
+    n_local, out_cap = counts.shape[0] // d, values.shape[0] // d
+    off2 = offsets.reshape(d, n_local + 1)
+    flat = np.concatenate([values[s * out_cap: s * out_cap + off2[s, -1]] for s in range(d)])
+    lens = np.diff(off2, axis=1).reshape(-1)
+    qidx = np.repeat(np.arange(d * n_local, dtype=np.int64), lens)
+    return sort_pairs(qidx, flat.astype(np.int64))
 
-    lists = retrieval_to_lists(result)
-    lens = np.fromiter(map(len, lists), dtype=np.int64, count=len(lists))
-    qidx = np.repeat(np.arange(len(lists), dtype=np.int64), lens)
-    return sort_pairs(qidx, np.concatenate(lists).astype(np.int64))
+
+def join_pairs(join):
+    """``(query row, value columns...)`` of every join pair, sorted."""
+    from repro_torch import join_to_pairs
+
+    got = join_to_pairs(join).astype("int64")
+    return sort_pairs(got[:, 0], got[:, 1:])
 
 
-def run_path(n_shards: int, n_keys: int, seed: int, device, log) -> dict:
-    """One build -> query -> retrieve -> inner_join run through the public API."""
+def check_hash_launches(launches: dict, path: str, shards: int, wide: bool, label: str) -> None:
+    """Kernel 1 in a u64x4 run: the two-output entry, as many launches as
+    the uint32 run of the path made of the one-word entry, none of that."""
+    if not wide:
+        HASH_LAUNCHES[(path, shards)] = launches.get("murmur_bucket", 0)
+        return
+    check(launches.get("murmur_bucket", 0) == 0, f"{label}: a 2-lane run launched murmur_bucket")
+    want = HASH_LAUNCHES.get((path, shards))
+    if want is not None:
+        check(launches.get("murmur_hash", 0) == want,
+              f"{label}: {launches.get('murmur_hash', 0)} launches of murmur_hash, want {want} "
+              f"(the uint32 run's murmur_bucket launches)")
+
+
+def run_path(n_shards: int, n_keys: int, seed: int, device, log, wide: bool = False) -> dict:
+    """One build -> query -> retrieve -> inner_join run through the public
+    API; ``wide``: the u64x4 run (``TableSchema("uint64", 4)``, keys ``raw |
+    raw << 32`` of the same draws, values from the value store)."""
     import numpy as np
     import torch
 
-    from repro_torch import DistributedHashTable, join_to_pairs
+    from repro_torch import DistributedHashTable, TableSchema
     from repro_torch.core import exchange
     from repro_torch.kernels import build
 
@@ -396,16 +513,22 @@ def run_path(n_shards: int, n_keys: int, seed: int, device, log) -> dict:
     absent = rng.integers(n_keys, 2**32 - 1, size=ABSENT_QUERIES, dtype=np.uint64).astype(np.uint32)
     queries = np.concatenate([keys, absent])
     batch = rng.integers(0, n_keys, size=RETRIEVE_QUERIES, dtype=np.uint32)
-    keys_dev = torch.from_numpy(keys.view(np.int32)).to(device)
-    queries_dev = torch.from_numpy(queries.view(np.int32)).to(device)
-    batch_dev = torch.from_numpy(batch.view(np.int32)).to(device)
-    table = DistributedHashTable(num_shards=n_shards, hash_range=n_keys, device=device)
+    keys_dev = keys_on(keys, device, wide)
+    queries_dev = keys_on(queries, device, wide)
+    batch_dev = keys_on(batch, device, wide)
+    path = "read-u64x4" if wide else "read"
+    store = value_store(n_keys, seed, device) if wide else None
+    schema = TableSchema("uint64", WIDE_COLS) if wide else None
+    if wide:  # the oracle's keys are the uint64 keys themselves
+        keys, queries, batch = widen(keys), widen(queries), widen(batch)
+    table = DistributedHashTable(num_shards=n_shards, hash_range=n_keys, device=device,
+                                 schema=schema)
 
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     build.LAUNCHES.clear()
     exchange.CALLS.clear()
-    state, build_s = wall(lambda: table.init(keys_dev), device)
+    state, build_s = wall(lambda: table.init(keys_dev, store), device)
     calls_build = dict(exchange.CALLS)
     exchange.CALLS.clear()
     counts, query_s = wall(lambda: table.query(state, queries_dev), device)
@@ -421,35 +544,35 @@ def run_path(n_shards: int, n_keys: int, seed: int, device, log) -> dict:
     launches = dict(build.LAUNCHES)
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
 
-    oracle = Oracle(keys, np.arange(n_keys, dtype=np.int64), n_keys)
-    want_counts = oracle.count(queries)
-    check(int(state.num_dropped) == 0, f"D={n_shards}: build dropped {int(state.num_dropped)} rows")
-    check(np.array_equal(counts.cpu().numpy(), want_counts), f"D={n_shards}: query counts differ")
-    want_pairs = oracle.pairs(batch)
+    oracle = Oracle(raw_of(keys), np.arange(n_keys, dtype=np.int64), n_keys)
+    want_counts = oracle.count(raw_of(queries))
+    label = f"{path} D={n_shards}"
+    check(int(state.num_dropped) == 0, f"{label}: build dropped {int(state.num_dropped)} rows")
+    check(np.array_equal(counts.cpu().numpy(), want_counts), f"{label}: query counts differ")
+    want_pairs = store_pairs(oracle.pairs(raw_of(batch)), store)
     total = want_pairs.shape[0]
-    check(int(retrieval.num_dropped) == 0, f"D={n_shards}: retrieve dropped {int(retrieval.num_dropped)}")
-    batch_counts = oracle.count(batch)
-    check(np.array_equal(retrieval.counts.cpu().numpy(), batch_counts), f"D={n_shards}: retrieve counts differ")
+    check(int(retrieval.num_dropped) == 0, f"{label}: retrieve dropped {int(retrieval.num_dropped)}")
+    batch_counts = oracle.count(raw_of(batch))
+    check(np.array_equal(retrieval.counts.cpu().numpy(), batch_counts), f"{label}: retrieve counts differ")
     check(np.array_equal(retrieval_pairs(retrieval), want_pairs),
-          f"D={n_shards}: retrieved value multisets differ from the oracle")
-    check(int(join.num_dropped) == 0, f"D={n_shards}: join dropped {int(join.num_dropped)}")
-    got = join_to_pairs(join).astype(np.int64)
-    check(np.array_equal(sort_pairs(got[:, 0], got[:, 1]), want_pairs), f"D={n_shards}: join pairs differ")
-    check(join_size == total == int(batch_counts.sum()), f"D={n_shards}: join_size {join_size} != {total}")
-    check(calls_build == {"exchange": 1}, f"D={n_shards}: build exchange calls {calls_build}")
-    check(calls_query == {"exchange": 2}, f"D={n_shards}: query exchange calls {calls_query}")
+          f"{label}: retrieved value multisets differ from the oracle")
+    check(int(join.num_dropped) == 0, f"{label}: join dropped {int(join.num_dropped)}")
+    check(np.array_equal(join_pairs(join), want_pairs), f"{label}: join pairs differ")
+    check(join_size == total == int(batch_counts.sum()), f"{label}: join_size {join_size} != {total}")
+    check(calls_build == {"exchange": 1}, f"{label}: build exchange calls {calls_build}")
+    check(calls_query == {"exchange": 2}, f"{label}: query exchange calls {calls_query}")
     for name, calls in (("retrieve", calls_retrieve), ("inner_join", calls_join)):
         check(calls == {"exchange": 2, "plan_caps": 1},
-              f"D={n_shards}: {name} exchange calls {calls}, want 2 plus the sizing round")
-    for name in READ_PATH_KERNELS if device.type == "cuda" else ():
-        check(launches.get(name, 0) > 0, f"D={n_shards}: kernel {name} never launched")
+              f"{label}: {name} exchange calls {calls}, want 2 plus the sizing round")
+    for name in (WIDE_READ_KERNELS if wide else READ_PATH_KERNELS) if device.type == "cuda" else ():
+        check(launches.get(name, 0) > 0, f"{label}: kernel {name} never launched")
     if device.type == "cuda":
         # One routing round a retrieve and a join: one launch of each side.
-        check_gather_launches(launches, {"csr_gather_owners": 2, "csr_gather_queriers": 2},
-                              f"D={n_shards}")
+        check_gather_launches(launches, {"csr_gather_owners": 2, "csr_gather_queriers": 2}, label)
+        check_hash_launches(launches, "read", n_shards, wide, label)
 
     res = {
-        "path": "read",
+        "path": path,
         "shards": n_shards,
         "keys": n_keys,
         "queries": int(queries.shape[0]),
@@ -465,7 +588,7 @@ def run_path(n_shards: int, n_keys: int, seed: int, device, log) -> dict:
         "launches": launches,
         "peak_bytes": peak,
     }
-    log(f"path D={n_shards} N={n_keys}: " + json.dumps(res))
+    log(f"path {'' if path == 'read' else path + ' '}D={n_shards} N={n_keys}: " + json.dumps(res))
     run = {"result": res, "table": table, "state": state, "keys": keys_dev,
            "queries": queries_dev, "batch": batch_dev}
     run["inputs"] = lambda: kernel_inputs(run)
@@ -525,10 +648,10 @@ def spread(a, extra, d: int):
     return np.concatenate([a.reshape(d, -1), extra.reshape(d, -1)], axis=1).reshape(-1)
 
 
-def skewed_batch(state, table, lo: int, n: int):
-    """``n`` distinct keys from ``[lo, ...)`` whose hash lands in shard 0's
-    range of ``state``'s base, found with the plain hash on the host (no
-    kernel launch)."""
+def skewed_batch(state, table, lo: int, n: int, wide: bool = False):
+    """``n`` distinct keys from ``[lo, ...)`` (``raw``; the u64x4 runs hash
+    ``raw | raw << 32``) whose hash lands in shard 0's range of ``state``'s
+    base, found with the plain hash on the host (no kernel launch)."""
     import numpy as np
     import torch
 
@@ -536,18 +659,24 @@ def skewed_batch(state, table, lo: int, n: int):
 
     top = int(state.base.hash_splits[1])
     cand = np.arange(lo, lo + 16 * n, dtype=np.uint32)
-    h = hashing.hash_to_buckets_plain(torch.from_numpy(cand.view(np.int32)), table.hash_range, table.seed)
+    k = torch.from_numpy(cand.view(np.int32))
+    if wide:
+        k = torch.stack([k, k], -1)
+    h = hashing.hash_to_buckets_plain(k, table.hash_range, table.seed, 2 if wide else 1)
     keys = cand[h.numpy() < top][:n]
     check(keys.shape[0] == n, f"only {keys.shape[0]} of {n} candidate keys hash to shard 0")
     return keys
 
 
-def update_data(n_keys: int, seed: int, device) -> tuple[dict, dict]:
+def update_data(n_keys: int, seed: int, device, wide: bool = False) -> tuple[dict, dict]:
     """The update path's data, drawn from ``seed``: the base keys, 5 insert
     batches of N/32 (the fifth re-inserts 2^12 deleted keys) with their
     values, 2^16 deletes, a 2^16-key upsert (half present, half new), the
     queries (every base key plus 2^20 absent ones) and the retrieve batch.
-    Returns the host arrays and their copies on ``device``."""
+    Values are row ids (base rows first, then the batches, the upsert and
+    the skewed batch); ``wide`` makes the device keys ``raw | raw << 32``
+    lanes and the device values the value store's rows of those row ids.
+    Returns the host arrays (``raw`` keys) and their copies on ``device``."""
     import numpy as np
 
     batch_n = n_keys // 32
@@ -572,12 +701,23 @@ def update_data(n_keys: int, seed: int, device) -> tuple[dict, dict]:
     batch = np.concatenate([rng.integers(0, n_keys, size=batch_n - n_ups, dtype=np.uint32), ups])
     host = dict(keys=base_keys, batches=batches, batch_vals=batch_vals, dels=dels, ups=ups,
                 ups_vals=ups_vals, queries=queries, batch=batch)
-    dev = {name: to_device(a, device) for name, a in (
-        ("keys", base_keys), ("dels", dels), ("ups", ups), ("ups_vals", ups_vals),
-        ("queries", queries), ("batch", batch),
+    dev = {name: keys_on(a, device, wide) for name, a in (
+        ("keys", base_keys), ("dels", dels), ("ups", ups), ("queries", queries), ("batch", batch),
     )}
-    dev["batches"] = [to_device(b, device) for b in batches]
-    dev["batch_vals"] = [to_device(v, device) for v in batch_vals]
+    dev["batches"] = [keys_on(b, device, wide) for b in batches]
+    if wide:
+        import torch
+
+        store = value_store(n_keys + 7 * batch_n, seed, device)
+        dev["store"] = store
+        dev["base_vals"] = store[:n_keys]
+        rows = [torch.from_numpy(v.astype(np.int64)).to(device) for v in batch_vals + [ups_vals]]
+        dev["batch_vals"] = [store[r] for r in rows[:5]]
+        dev["ups_vals"] = store[rows[5]]
+    else:
+        dev["store"] = dev["base_vals"] = None
+        dev["batch_vals"] = [to_device(v, device) for v in batch_vals]
+        dev["ups_vals"] = to_device(ups_vals, device)
     return host, dev
 
 
@@ -595,11 +735,13 @@ def depth6_state(table, dev: dict):
     return state
 
 
-def run_update_path(n_shards: int, n_keys: int, seed: int, device, log, skew: bool = True) -> dict:
+def run_update_path(n_shards: int, n_keys: int, seed: int, device, log, skew: bool = True,
+                    wide: bool = False) -> dict:
     """The update path through the public API: build, 5 inserts, a delete and
     an upsert to depth 6, reads there, ``fold_oldest(3)``, reads, ``compact()``,
     reads, and at D > 1 (with ``skew``) a skewed insert and reads on the
-    mixed-split stack.
+    mixed-split stack.  ``wide``: the u64x4 run (``TableSchema("uint64",
+    4)``, the upsert with a TTL the clock never reaches).
 
     A mixed-split stack routes every query by each layer's own splits, and
     the skewed delta's splits are balanced on its own keys; at small N their
@@ -609,20 +751,27 @@ def run_update_path(n_shards: int, n_keys: int, seed: int, device, log, skew: bo
     import numpy as np
     import torch
 
-    from repro_torch import DistributedHashTable, join_to_pairs
+    from repro_torch import DistributedHashTable, TableSchema
     from repro_torch.core import exchange, maintenance
     from repro_torch.kernels import build
 
     d, batch_n = n_shards, n_keys // 32
-    label = f"update D={d}"
-    host, dev = update_data(n_keys, seed, device)
+    path = "update-u64x4" if wide else "update"
+    label = f"{path} D={d}"
+    host, dev = update_data(n_keys, seed, device, wide)
     base_keys, batches, batch_vals, dels, ups, ups_vals, queries, batch = (host[k] for k in (
         "keys", "batches", "batch_vals", "dels", "ups", "ups_vals", "queries", "batch"))
-    table = DistributedHashTable(num_shards=d, hash_range=n_keys, device=device,
-                                 tombstone_capacity=TOMBSTONE_CAPACITY)
-    probe = DistributedHashTable(num_shards=d, hash_range=n_keys, device=device,
-                                 tombstone_capacity=TOMBSTONE_CAPACITY, paper_faithful_probe=True)
-    live = LiveRows(base_keys, np.arange(n_keys, dtype=np.int64), 3 * n_keys)
+    store = dev["store"]
+    # The oracle's keys: the uint64 keys themselves in the u64x4 run (those
+    # of the query set once: it is read at every step).
+    okeys = (lambda a: raw_of(widen(a))) if wide else (lambda a: a)
+    all_queries, oracle_queries = queries, okeys(queries)
+    kw = dict(num_shards=d, hash_range=n_keys, device=device,
+              tombstone_capacity=WIDE_TOMBSTONE_CAPACITY if wide else TOMBSTONE_CAPACITY,
+              schema=TableSchema("uint64", WIDE_COLS) if wide else None)
+    table = DistributedHashTable(**kw)
+    probe = DistributedHashTable(**kw, paper_faithful_probe=True)
+    live = LiveRows(okeys(base_keys), np.arange(n_keys, dtype=np.int64), 3 * n_keys)
     seconds, calls_seen, reads = {}, {}, {}
     probe_layers = [0]  # layers read by probe queries: one kernel 5 launch each
     # Gather launches a retrieve or join makes: one owner launch a routing
@@ -646,9 +795,9 @@ def run_update_path(n_shards: int, n_keys: int, seed: int, device, log, skew: bo
         against the oracle and the exchange budgets."""
         rounds = 1 if state.coherent else len(state.layers)
         point, plan = {"exchange": 2 * rounds}, {"exchange": 2 * rounds, "plan_caps": rounds}
-        q_dev, b_dev = to_device(queries, device), to_device(batch, device)
+        q_dev, b_dev = keys_on(queries, device, wide), keys_on(batch, device, wide)
         oracle = live.oracle()
-        want_counts = oracle.count(queries)
+        want_counts = oracle.count(oracle_queries if queries is all_queries else okeys(queries))
         out = {"layers": len(state.layers), "coherent": state.coherent}
         for kind, t in (("sorted", table), ("probe", probe)):
             counts = step(f"{name}: {kind} query", lambda t=t: t.query(state, q_dev), point)
@@ -660,19 +809,18 @@ def run_update_path(n_shards: int, n_keys: int, seed: int, device, log, skew: bo
         gathers["csr_gather_owners"] += 2 * rounds
         gathers["csr_gather_queriers"] += 2
         retrieval = step(f"{name}: retrieve", lambda: table.retrieve(state, b_dev), plan)
-        want_pairs = oracle.pairs(batch)
+        want_pairs = store_pairs(oracle.pairs(okeys(batch)), store)
         check(int(retrieval.num_dropped) == 0, f"{label}: {name}: retrieve dropped")
-        check(np.array_equal(retrieval.counts.cpu().numpy(), oracle.count(batch)),
+        check(np.array_equal(retrieval.counts.cpu().numpy(), oracle.count(okeys(batch))),
               f"{label}: {name}: retrieve counts differ from the oracle")
         check(np.array_equal(retrieval_pairs(retrieval), want_pairs),
               f"{label}: {name}: retrieved value multisets differ from the oracle")
         del retrieval
         join = step(f"{name}: inner_join", lambda: table.inner_join(state, b_dev), plan)
         check(int(join.num_dropped) == 0, f"{label}: {name}: join dropped")
-        got = join_to_pairs(join).astype(np.int64)
-        check(np.array_equal(sort_pairs(got[:, 0], got[:, 1]), want_pairs),
+        check(np.array_equal(join_pairs(join), want_pairs),
               f"{label}: {name}: join pairs differ from the oracle")
-        del join, got
+        del join
         size = step(f"{name}: join_size", lambda: int(table.join_size(state, b_dev)), point)
         check(size == want_pairs.shape[0], f"{label}: {name}: join_size {size} != {want_pairs.shape[0]}")
         out["queries"], out["retrieve_queries"] = int(queries.shape[0]), int(batch.shape[0])
@@ -684,16 +832,18 @@ def run_update_path(n_shards: int, n_keys: int, seed: int, device, log, skew: bo
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     build.LAUNCHES.clear()
-    state = step("init", lambda: table.init(dev["keys"]), {"exchange": 1})
+    state = step("init", lambda: table.init(dev["keys"], dev["base_vals"]), {"exchange": 1})
     for i in range(5):
         if i == 4:
             state = step("delete", lambda s=state: s.delete(dev["dels"]), {})
-            live.delete(dels)
+            live.delete(okeys(dels))
         state = step(f"insert {i + 1}", lambda s=state, i=i: s.insert(
             dev["batches"][i], dev["batch_vals"][i]), {"exchange": 1})
-        live.insert(batches[i], batch_vals[i])
-    state = step("upsert", lambda s=state: s.upsert(dev["ups"], dev["ups_vals"]), {"exchange": 1})
-    live.upsert(ups, ups_vals)
+        live.insert(okeys(batches[i]), batch_vals[i])
+    ttl = UPSERT_TTL if wide else None
+    state = step("upsert", lambda s=state: s.upsert(dev["ups"], dev["ups_vals"], ttl=ttl),
+                 {"exchange": 1})
+    live.upsert(okeys(ups), ups_vals)
     check(state.epoch == 6 and state.coherent, f"{label}: depth {state.epoch}, coherent {state.coherent}")
     no_drops(state, "depth 6")
     read_all("depth 6", state)
@@ -709,15 +859,18 @@ def run_update_path(n_shards: int, n_keys: int, seed: int, device, log, skew: bo
     read_all("compacted", compacted)
     mixed = None
     if d > 1 and skew:
-        skewed = skewed_batch(compacted, table, 2 * n_keys, batch_n)
+        skewed = skewed_batch(compacted, table, 2 * n_keys, batch_n, wide)
         skew_vals = (n_keys + 6 * batch_n + np.arange(batch_n)).astype(np.int32)
+        skew_dev = to_device(skew_vals, device)
+        if wide:
+            skew_dev = store[skew_dev.to(torch.int64)]
         before = table.skew_fallbacks
         mixed = step("insert skewed", lambda: compacted.insert(
-            to_device(skewed, device), to_device(skew_vals, device)), {"exchange": 1})
+            keys_on(skewed, device, wide), skew_dev), {"exchange": 1})
         check(table.skew_fallbacks == before + 1 and not mixed.coherent,
               f"{label}: the skewed insert did not take the skew guard's fallback")
         no_drops(mixed, "insert skewed")
-        live.insert(skewed, skew_vals)
+        live.insert(okeys(skewed), skew_vals)
         # Skewed keys join the reads spread evenly over the query shards and
         # within the routing slack: by the base's splits they all go to shard 0.
         read_all("mixed-split", mixed, spread(queries, skewed[: batch_n // 16], d),
@@ -725,9 +878,10 @@ def run_update_path(n_shards: int, n_keys: int, seed: int, device, log, skew: bo
     sync(device)
     launches = dict(build.LAUNCHES)
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
-    for name in TABLE_KERNELS if device.type == "cuda" else ():
+    for name in (WIDE_TABLE_KERNELS if wide else TABLE_KERNELS) if device.type == "cuda" else ():
         check(launches.get(name, 0) > 0, f"{label}: kernel {name} never launched")
     if device.type == "cuda":
+        check_hash_launches(launches, "update", d, wide, label)
         check(launches.get("bucket_probe_layer", 0) == probe_layers[0],
               f"{label}: {launches.get('bucket_probe_layer', 0)} launches of bucket_probe_layer, "
               f"want one per layer per probe query ({probe_layers[0]})")
@@ -736,7 +890,7 @@ def run_update_path(n_shards: int, n_keys: int, seed: int, device, log, skew: bo
         check_gather_launches(launches, gathers, label)
 
     res = {
-        "path": "update",
+        "path": path,
         "shards": d,
         "keys": n_keys,
         "batch": batch_n,
@@ -858,20 +1012,24 @@ def update_path_phases(run: dict) -> dict:
 
 def hash_inputs(table, keys) -> dict:
     """Phase 1 of a build over ``(D, n)`` keys: murmur and histogram inputs
-    (EMPTY rows get bin -1, as the build leaves them out)."""
+    (EMPTY rows get bin -1, as the build leaves them out).  2-lane keys
+    ``(D, n, 2)`` go to kernel 1's two-output entry, both outputs asked for,
+    as the owner side of a build or a routed batch asks."""
     import torch
 
     from repro_torch.core import hashgraph, partition
     from repro_torch.kernels import murmur
 
-    d = keys.shape[0]
-    h = murmur.murmur_bucket(keys, table.hash_range, table.seed)
+    d, lanes = keys.shape[0], hashgraph.shard_lanes(keys)
+    h, _ = murmur.murmur_hash(keys, table.hash_range, table.seed, lanes=lanes)
     num_bins = table.num_bins or partition.choose_num_bins(table.hash_range, d)
     bsz = partition.bin_size_for(table.hash_range, num_bins)
     bins = torch.clamp(torch.div(h, bsz, rounding_mode="floor"), 0, num_bins - 1).to(torch.int32)
-    bins = torch.where(hashgraph.is_empty_key(keys), -1, bins).to(torch.int32)
+    bins = torch.where(hashgraph.is_empty_key(keys, lanes), -1, bins).to(torch.int32)
+    name = "murmur_bucket" if lanes == 1 else "murmur_hash"
     return {
-        "murmur_bucket": dict(keys=keys, table_size=table.hash_range, seed=table.seed, n=keys.numel()),
+        name: dict(keys=keys, table_size=table.hash_range, seed=table.seed,
+                   n=keys.numel() // lanes, lanes=lanes),
         "bin_histogram": dict(bins=bins, num_bins=num_bins),
     }
 
@@ -888,10 +1046,13 @@ def gather_inputs(table, state, batch) -> dict:
     from repro_torch.kernels import ops
 
     d = table.num_shards
-    q = batch.reshape(d, -1)
+    q = batch.reshape(d, -1, *batch.shape[1:])
     tombstones = state.tombstones.index()
     out_cap, seg_cap = table._resolve_caps(state, q, None, None)
-    routed = mh._route_queries_once(state.base, q, table.capacity_slack)
+    # With the fingerprint lane the routing also hashes the fingerprints (an
+    # argument earlier sources, timed by tools/gather_ab.py, do not take).
+    fp = any(getattr(layer.local, "fingerprints", None) is not None for layer in state.layers)
+    routed = mh._route_queries_once(state.base, q, table.capacity_slack, *((True,) if fp else ()))
     starts_lr, counts_lr, tables = mh._layer_run_descriptors(state.layers, routed, tombstones)
     cap, nl = routed.capacity, len(state.layers)
     starts4, counts4 = starts_lr.reshape(nl, d, d, cap), counts_lr.reshape(nl, d, d, cap)
@@ -919,7 +1080,7 @@ def kernel_inputs(run: dict) -> dict:
     keys to murmur and histogram (build phase 1), and the gathers of the
     retrieve of the query batch (``gather_inputs``)."""
     table, state = run["table"], run["state"]
-    keys = run["keys"].reshape(table.num_shards, -1)
+    keys = run["keys"].reshape(table.num_shards, -1, *run["keys"].shape[1:])
     return {**hash_inputs(table, keys), **gather_inputs(table, state, run["batch"])}
 
 
@@ -939,7 +1100,8 @@ def update_kernel_inputs(run: dict) -> dict:
     keys, _, _ = table._compact_rows(folded, rebuild_rows)
     inputs = {**hash_inputs(table, keys), **gather_inputs(table, state, run["batch"])}
     base = state.base
-    routed = mh._route_queries_once(base, run["queries"].reshape(d, -1), probe.capacity_slack)
+    q = run["queries"]
+    routed = mh._route_queries_once(base, q.reshape(d, -1, *q.shape[1:]), probe.capacity_slack)
     inputs["bucket_probe_layer"] = dict(
         rq=routed.rq, rh=routed.rh, lo=routed.lo,
         match_e=mh._tombstone_epochs(routed.rq, state.tombstones.index()),
@@ -967,39 +1129,41 @@ def live_start_bytes(counts) -> int:
     return 32 * int(live.view(-1, 8).any(1).sum())
 
 
-def gather_work(offsets, starts, capacity: int) -> tuple[int, int]:
+def gather_work(offsets, starts, capacity: int, cols: int = 1) -> tuple[int, int]:
     """``(bytes, int32 ops)`` a Pallas-interface CSR gather needs on these
     inputs: the offsets read once, the starts of non-empty runs
-    (``live_start_bytes``), the table words the valid slots select, two
-    int32 written per slot; per valid slot 12 operations (its row's step,
-    the offset, the address and its clamp), per slot 2 for the stores."""
+    (``live_start_bytes``), the C table words of each row the valid slots
+    select, C values and a row id written per slot; per valid slot 12
+    operations (its row's step, the offset, the address and its clamp), per
+    slot 1 + C for the stores."""
     import torch
 
     totals = offsets[..., -1].to(torch.int64)
     picked = int(torch.clamp(totals, max=capacity).sum())
     slots = capacity * (offsets.shape[0] if offsets.ndim == 2 else 1)
-    nbytes = (4 * (offsets.numel() + picked) + live_start_bytes(torch.diff(offsets, dim=-1))
-              + 8 * slots)
-    return nbytes, 12 * picked + 2 * slots
+    nbytes = (4 * (offsets.numel() + cols * picked) + live_start_bytes(torch.diff(offsets, dim=-1))
+              + 4 * (1 + cols) * slots)
+    return nbytes, 12 * picked + (1 + cols) * slots
 
 
 def owners_work(a: dict) -> tuple[int, int]:
     """``(bytes, int32 ops)`` the owner entry needs on these inputs, each
     byte once: the (L, D_o, D_s, R) counts, the starts of non-empty runs
-    (``live_start_bytes``), one prefix sum per routed slot, the picked
-    table words, the written segment and one overflow word per block; per
-    picked word 12 operations plus 3 per layer (the layer walk), per slot 1
-    for the store."""
+    (``live_start_bytes``), one prefix sum per routed slot, the C words of
+    each picked table row, the written segment (C words a slot) and one
+    overflow word per block; per picked row 12 operations plus 3 per layer
+    (the layer walk), per slot C for the stores."""
     import torch
 
     counts, cap = a["counts"], a["capacity"]
+    cols = a["tables"][0].shape[-1] if a["tables"][0].ndim == 3 else 1
     nl = counts.shape[0]
     blocks = counts.shape[1] * counts.shape[2]
     totals = counts.sum((0, 3), dtype=torch.int64)
     picked = int(torch.clamp(totals, max=cap).sum())
-    nbytes = (4 * (counts.numel() + counts[0].numel() + picked + blocks * cap + blocks)
+    nbytes = (4 * (counts.numel() + counts[0].numel() + cols * (picked + blocks * cap) + blocks)
               + live_start_bytes(counts))
-    return nbytes, picked * (12 + 3 * nl) + blocks * cap
+    return nbytes, picked * (12 + 3 * nl) + cols * blocks * cap
 
 
 def owners_sectors(a: dict) -> dict:
@@ -1012,6 +1176,7 @@ def owners_sectors(a: dict) -> dict:
     import torch
 
     starts, counts = a["starts"], a["counts"]
+    cols = a["tables"][0].shape[-1] if a["tables"][0].ndim == 3 else 1
     d_o = counts.shape[1]
     per_owner = counts[0].numel() // d_o
     owner = torch.arange(d_o, device=counts.device).repeat_interleave(per_owner)
@@ -1020,14 +1185,16 @@ def owners_sectors(a: dict) -> dict:
         c = counts[l].reshape(-1).to(torch.int64)
         live = c > 0
         c = c[live]
-        first = (t.data_ptr() // 4 + owner[live] * t.stride(0)
-                 + starts[l].reshape(-1)[live].to(torch.int64))
+        first = starts[l].reshape(-1)[live].to(torch.int64)
         run_start = torch.cumsum(c, 0) - c
-        words = (torch.repeat_interleave(first - run_start, c)
-                 + torch.arange(int(c.sum()), device=c.device))
-        sectors += int(torch.unique(torch.div(words, 8, rounding_mode="floor")).numel())
+        rows = (torch.repeat_interleave(first - run_start, c)
+                + torch.arange(int(c.sum()), device=c.device))
+        words = (t.data_ptr() // 4 + torch.repeat_interleave(owner[live], c) * t.stride(0)
+                 + rows * cols)
+        sectors += int(torch.unique(torch.cat([
+            torch.div(words + j, 8, rounding_mode="floor") for j in range(cols)])).numel())
     blocks = counts.shape[1] * counts.shape[2]
-    streamed = (4 * (counts.numel() + counts[0].numel() + blocks * a["capacity"])
+    streamed = (4 * (counts.numel() + counts[0].numel() + cols * blocks * a["capacity"])
                 + live_start_bytes(counts))
     return {"sectors": sectors, "sector_floor_ms": (streamed + 32 * sectors) / HBM_BYTES_PER_S * 1e3}
 
@@ -1035,36 +1202,40 @@ def owners_sectors(a: dict) -> dict:
 def queriers_work(a: dict) -> tuple[int, int]:
     """``(bytes, int32 ops)`` the querier entry needs on these inputs, each
     byte once: the counts, the starts of non-empty runs
-    (``live_start_bytes``), the picked words of the returned segments,
-    values and row ids written per slot, the clamped offsets and one
-    overflow word per querier; per picked word 12 operations, per slot 2."""
+    (``live_start_bytes``), the picked rows (C words) of the returned
+    segments, C values and a row id written per slot, the clamped offsets
+    and one overflow word per querier; per picked row 12 operations, per
+    slot 1 + C."""
     import torch
 
     counts, cap = a["counts"], a["capacity"]
+    cols = a["table"].shape[-1] if a["table"].ndim == 3 else 1
     d, n = counts.shape
     picked = int(torch.clamp(counts.to(torch.int64).sum(-1), max=cap).sum())
-    nbytes = (4 * (counts.numel() + picked + 2 * d * cap + d * (n + 1) + d)
+    nbytes = (4 * (counts.numel() + cols * picked + (1 + cols) * d * cap + d * (n + 1) + d)
               + live_start_bytes(counts))
-    return nbytes, 12 * picked + 2 * d * cap
+    return nbytes, 12 * picked + (1 + cols) * d * cap
 
 
-def probe_work(starts, ends, max_probe: int) -> tuple[int, int]:
+def probe_work(starts, ends, max_probe: int, word_bytes: int = 4) -> tuple[int, int]:
     """``(bytes, int32 ops)`` the window entry needs on these inputs: starts,
-    ends and q read and one count written per slot (16 B), and the table
-    words inside each window up to ``max_probe`` (4 B each); per word a
-    load address, a compare and an add, per slot 6 for the window set-up."""
+    ends and one count (4 B each) and q (a key word: 4 B, 8 B for 2
+    lanes) per slot, and the table words inside each window up to
+    ``max_probe``; per word a load address, a compare and an add, per slot 6
+    for the window set-up."""
     import torch
 
     words = int(torch.clamp(ends.to(torch.int64) - starts.to(torch.int64), 0, max_probe).sum())
-    return 16 * starts.numel() + 4 * words, 3 * words + 6 * starts.numel()
+    return (12 + word_bytes) * starts.numel() + word_bytes * words, 3 * words + 6 * starts.numel()
 
 
 def probe_layer_work(a: dict) -> dict:
     """What kernel 5's layer entry needs on these inputs, each byte once:
-    per slot 4 B each of rq, rh and match_e and of total (twice where it
-    accumulates); per live slot (not padding, not tombstoned) its offsets
-    pair (8 B) and its window words up to ``max_probe`` (4 B each), each of
-    the two arrays counted at most once whole.  Operations: per slot 12 for
+    per slot its key word rq (4 B; 8 B for 2 lanes) and 4 B each of rh and
+    match_e and of total (twice where it accumulates); per live slot (not
+    padding, not tombstoned) its offsets pair (8 B) and its window's key
+    words up to ``max_probe``, each of the two arrays counted at most once
+    whole.  Operations: per slot 12 for
     the set-up and mask, per word 3 (address, compare, add).  ``sectors``
     counts the distinct 32-byte sectors each live slot touches in offsets
     and keys (its pair's and its window's): where the tables are far beyond
@@ -1077,27 +1248,29 @@ def probe_layer_work(a: dict) -> dict:
     from repro_torch.core import multi_hashgraph as mh
 
     rq, offsets, keys = a["rq"], a["offsets"], a["keys"]
-    d, n = rq.shape
-    live = rq != hashgraph.EMPTY_BITS
+    d, n = rq.shape[:2]
+    lanes = hashgraph.shard_lanes(rq)
+    wb = 4 * lanes  # bytes of a key word
+    live = ~hashgraph.is_empty_key(rq, lanes)
     if a["match_e"] is not None:
         live &= a["match_e"] < a["epoch"]
     b = mh._rebase_buckets(a["rh"], ~live, a["lo"], a["table_size"], a["stride"])
     starts, ends = hashgraph.bucket_windows(offsets, a["table_size"], b)
     words = torch.where(live, torch.clamp(ends - starts, 0, a["max_probe"]), 0)
     n_live, n_words = int(live.sum()), int(words.sum())
-    slot_bytes = 4 * rq.numel() * (3 + (a["match_e"] is not None) + bool(a["accumulate"]))
+    slot_bytes = d * n * (wb + 4 * (2 + (a["match_e"] is not None) + bool(a["accumulate"])))
     nbytes = (slot_bytes + min(8 * n_live, 4 * offsets.numel())
-              + min(4 * n_words, 4 * keys.numel()))
+              + min(wb * n_words, wb * keys.shape[0] * keys.shape[1]))
     shard = torch.arange(d, device=rq.device, dtype=torch.int64).unsqueeze(1)
     pair = shard * offsets.shape[1] + b.to(torch.int64)
     pair_sectors = torch.where(live, 1 + (pair + 1) // 8 - pair // 8, 0)
-    first = shard * keys.shape[1] + starts.to(torch.int64)
-    window_sectors = torch.where(words > 0, (first + words - 1) // 8 - first // 8 + 1, 0)
+    first = (shard * keys.shape[1] + starts.to(torch.int64)) * wb  # byte address
+    window_sectors = torch.where(words > 0, (first + wb * words - 1) // 32 - first // 32 + 1, 0)
     sectors = int(pair_sectors.sum()) + int(window_sectors.sum())
     return {
         "bytes": nbytes,
-        "ops": 3 * n_words + 12 * rq.numel(),
-        "slots": rq.numel(),
+        "ops": 3 * n_words + 12 * d * n,
+        "slots": d * n,
         "live_slots": n_live,
         "window_words": n_words,
         "sectors": sectors,
@@ -1175,6 +1348,7 @@ def check_kernels(run: dict, device, log) -> list:
     inputs, timed; the launch counts of the run are reported beside."""
     import torch
 
+    from repro_torch.core import hashgraph
     from repro_torch.core import multi_hashgraph as mh
     from repro_torch.kernels import bucket_probe, csr_gather, histogram, murmur
 
@@ -1188,13 +1362,27 @@ def check_kernels(run: dict, device, log) -> list:
         rows.append(kernel_row(name, meta, shapes, kernel_fn, plain_fn, int_bounds(work), device,
                                log, library_fn=library_fn, timing=timing))
 
-    a = inputs["murmur_bucket"]
-    record(
-        "murmur_bucket", f"keys={tuple(a['keys'].shape)} int32 -> int32 of the same shape",
-        lambda: murmur.murmur_bucket(a["keys"], a["table_size"], a["seed"]),
-        lambda: murmur.murmur_bucket_plain(a["keys"], a["table_size"], a["seed"]),
-        (8 * a["n"], 22 * a["n"]),  # 5 multiplies, 2 rotates, 3 shift-xors, mod, ...
-    )
+    if "murmur_bucket" in inputs:
+        a = inputs["murmur_bucket"]
+        record(
+            "murmur_bucket", f"keys={tuple(a['keys'].shape)} int32 -> int32 of the same shape",
+            lambda: murmur.murmur_bucket(a["keys"], a["table_size"], a["seed"]),
+            lambda: murmur.murmur_bucket_plain(a["keys"], a["table_size"], a["seed"]),
+            (8 * a["n"], 22 * a["n"]),  # 5 multiplies, 2 rotates, 3 shift-xors, mod, ...
+        )
+    else:
+        a = inputs["murmur_hash"]
+        hash_kw = dict(lanes=a["lanes"], fingerprint=True)
+        record(
+            "murmur_hash",
+            f"keys={tuple(a['keys'].shape)} int32 ({a['lanes']} lanes) -> bucket ids and "
+            f"fingerprints, two int32 of {a['n']} rows",
+            lambda: murmur.murmur_hash(a["keys"], a["table_size"], a["seed"], **hash_kw),
+            lambda: murmur.murmur_hash_plain(a["keys"], a["table_size"], a["seed"], **hash_kw),
+            # Read 4 L bytes, write 8; per hash 9 operations a word and 11
+            # for the length mix and finalizer, one mod.
+            ((4 * a["lanes"] + 8) * a["n"], (2 * (9 * a["lanes"] + 11) + 1) * a["n"]),
+        )
     a = inputs["bin_histogram"]
     bins = a["bins"]
     record(
@@ -1241,13 +1429,14 @@ def check_kernels(run: dict, device, log) -> list:
             f"table={tuple(a['table'].shape)} capacity={a['capacity']}",
             lambda fn=fn, a=a: fn(a["offsets"], a["starts"], a["table"], a["capacity"]),
             lambda a=a: csr_gather.gather_plain(a["offsets"], a["starts"], a["table"], a["capacity"]),
-            gather_work(a["offsets"], a["starts"], a["capacity"]),
+            gather_work(a["offsets"], a["starts"], a["capacity"],
+                        1 if a["table"].ndim == 1 else a["table"].shape[-1]),
         )
     if "bucket_probe_layer" in inputs:
         a = inputs["bucket_probe_layer"]
         args = tuple(a[k] for k in ("rq", "rh", "lo", "match_e", "offsets", "keys"))
         kw = {k: a[k] for k in ("table_size", "stride", "epoch", "max_probe", "accumulate")}
-        total = torch.empty_like(a["rq"])
+        total = torch.empty(a["rq"].shape[:2], dtype=torch.int32, device=a["rq"].device)
         work = probe_layer_work(a)
         log(f"kernel bucket_probe_layer {path} D={shards} work: " + json.dumps(work))
         record(
@@ -1263,7 +1452,8 @@ def check_kernels(run: dict, device, log) -> list:
         )
         # A yardstick of the card's rate for random words: one torch.gather of
         # each slot's offsets word (it also streams its int64 index and output).
-        buckets = mh._rebase_buckets(a["rh"], a["rq"] == -1, a["lo"], a["table_size"],
+        pad = hashgraph.is_empty_key(a["rq"], hashgraph.shard_lanes(a["rq"]))
+        buckets = mh._rebase_buckets(a["rh"], pad, a["lo"], a["table_size"],
                                      a["stride"]).to(torch.int64)
         gather_ms = mean_ms(lambda: torch.gather(a["offsets"], 1, buckets), 10, device)
         del buckets
@@ -1281,7 +1471,7 @@ def check_kernels(run: dict, device, log) -> list:
             lambda: bucket_probe.bucket_probe(a["starts"], a["ends"], a["q"], a["table"], a["max_probe"]),
             lambda: bucket_probe.bucket_probe_plain(
                 a["starts"], a["ends"], a["q"], a["table"], a["max_probe"]),
-            probe_work(a["starts"], a["ends"], a["max_probe"]),
+            probe_work(a["starts"], a["ends"], a["max_probe"], 4 * (a["q"].ndim - a["starts"].ndim + 1)),
         )
     del inputs
     return rows
@@ -1967,21 +2157,34 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     build.library()
     log(f"kernels built from {build.CSRC} in {time.perf_counter() - t0:.1f} s")
-    log("kernel bucket_probe build: " + json.dumps(
-        ptxas_report("bucket_probe.cu", r"\d(probe_(?:layer|windows)_kernel)(?:ILb(\d)E)?")))
-    log("kernel csr_gather build: " + json.dumps(ptxas_report("csr_gather.cu", r"\d(gather_tiles)")))
+    log("kernel bucket_probe build: " + json.dumps(ptxas_report(
+        "bucket_probe.cu", r"\d(probe_(?:layer|windows)_kernel)I(?:Lb(\d)E)?([ix])E")))
+    log("kernel csr_gather build: " + json.dumps(
+        ptxas_report("csr_gather.cu", r"\d(gather_tiles)ILi(\d)E")))
+    log("kernel murmur_hash build: " + json.dumps(
+        ptxas_report("murmur.cu", r"\d(murmur_hash_kernel)ILi(\d)ELb(\d)ELb(\d)E")))
     run_path(1, 1 << 14, args.seed, device, lambda m: None)  # warm-up at a small size
     run_update_path(8, 1 << 17, args.seed, device, lambda m: None, skew=False)
 
     rows, paths, profiled = [], [], {}
+    wide_read = functools.partial(run_path, wide=True)
+    wide_update = functools.partial(run_update_path, wide=True)
     for runner, shards, n_keys, phases in (
         (run_path, 1, args.keys, read_path_phases),
         (run_path, 8, args.keys // 8, None),
         (run_update_path, 1, args.keys, update_path_phases),
         (run_update_path, 8, args.keys // 8, None),
+        (wide_read, 1, args.keys, None),
+        (wide_read, 8, args.keys // 8, None),
+        (wide_update, 1, args.keys, None),
+        (wide_update, 8, args.keys // 8, None),
     ):
+        t_run = time.perf_counter()
         run = runner(shards, n_keys, args.seed, device, log)
         rows += check_kernels(run, device, log)
+        run["result"]["run_s"] = time.perf_counter() - t_run
+        log(f"run {run['result']['path']} D={shards}: {run['result']['run_s']:.1f} s "
+            "(the run, its oracles and its kernel checks)")
         if args.profile and phases is not None:
             key = f"{run['result']['path']} D={shards}"
             profiled[key] = profile_phases(phases(run), device)
@@ -1992,9 +2195,11 @@ def main(argv=None) -> int:
         paths.append(run["result"])
         del run  # free each run's tables before the next one builds
         gc.collect()  # run["inputs"] closes over run: a cycle that del alone leaves
+    t_run = time.perf_counter()
     lm = run_lm_path(args.seed, device, log)
     lm["result"]["replay"] = check_lm_replay(lm, device, log)
     rows += check_lm_kernels(lm, device, log)
+    log(f"run serve: {time.perf_counter() - t_run:.1f} s")
     if args.profile:
         profiled["serve"] = profile_phases(lm_path_phases(lm), device)
         log("profile serve: " + json.dumps({phase: {
@@ -2005,11 +2210,13 @@ def main(argv=None) -> int:
     del lm
     gc.collect()
     torch.cuda.empty_cache()
+    t_run = time.perf_counter()
     xl = run_lm_path(args.seed, device, log, cfg=get_config(XLSTM_ARCH), path="serve-xlstm")
     xl["result"]["replay"] = check_lm_replay(xl, device, log, tol=None)
     xl["result"]["continuation"] = check_lm_continuation(xl, device, log,
                                                          XLSTM_LOGIT_TOL["bfloat16"])
     rows += check_slstm_kernel(xl, device, log)
+    log(f"run serve-xlstm: {time.perf_counter() - t_run:.1f} s")
     if args.profile:
         profiled["serve-xlstm"] = profile_phases(lm_path_phases(xl), device)
         log("profile serve-xlstm: " + json.dumps({phase: {
@@ -2021,11 +2228,13 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     # The state carry again in f32 at full width, where rounding cannot hide a fault.
+    t_run = time.perf_counter()
     xf = run_lm_path(args.seed, device, log, requests=2, slots=2, max_new=8,
                      cfg=dataclasses.replace(get_config(XLSTM_ARCH), dtype="float32"),
                      path="serve-xlstm-f32")
     xf["result"]["continuation"] = check_lm_continuation(xf, device, log,
                                                          XLSTM_LOGIT_TOL["float32"])
+    log(f"run serve-xlstm-f32: {time.perf_counter() - t_run:.1f} s")
     paths.append(xf["result"])
     del xf
     kernels = {"kernels": [{k: row[k] for k in (
@@ -2036,6 +2245,7 @@ def main(argv=None) -> int:
         with open(args.out, "w") as f:
             json.dump({"card": smi, "paths": paths,
                        "profile": profiled or None, "kernels": rows}, f, indent=1)
+    log(f"chip_smoke: {time.perf_counter() - t0:.1f} s in all")
     print(json.dumps(kernels), flush=True)
     # The script drives cuda:0 alone, so it reports one card.
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,10 @@ that layout back, so a graph built by the JAX package, read out with
 ``np.asarray`` field by field, can be queried by the port, which tests the
 read path apart from the build.  :func:`state_from_numpy` and
 :func:`state_to_numpy` do the same for a whole ``TableState``: base, every
-delta, every tombstone field and the ``coherent`` flag.
+delta, every tombstone field and the ``coherent`` flag.  Key lanes ``(...,
+2)``, value columns ``(..., C)``, the fingerprint lane and 2-lane
+tombstones carry across in the reference's layout (uint32 lanes,
+``fingerprints`` ``(D*M,)`` uint32 or None).
 """
 from __future__ import annotations
 
@@ -31,18 +34,24 @@ def graph_from_numpy(
     seed: int,
     local_range_cap: int,
     bucket_stride: int = 1,
+    fingerprints=None,
     device,
 ) -> DistributedHashGraph:
     """Port graph from the global arrays of a base ``DistributedHashGraph``.
 
     ``offsets`` is ``(D*(local_range_cap+2),)`` int32, ``keys`` ``(D*M,)``
-    uint32, ``values`` ``(D*M,)`` int32, ``hash_splits`` ``(D+1,)``.
+    or ``(D*M, L)`` uint32, ``values`` ``(D*M,)`` or ``(D*M, C)`` int32,
+    ``hash_splits`` ``(D+1,)``, ``fingerprints`` ``(D*M,)`` uint32 or None.
     """
     splits = np.asarray(hash_splits, dtype=np.int32)
     d = splits.shape[0] - 1
     offsets = np.asarray(offsets, dtype=np.int32).reshape(d, local_range_cap + 2)
-    keys = np.asarray(keys, dtype=np.uint32).reshape(d, -1).view(np.int32)
-    values = np.asarray(values, dtype=np.int32).reshape(d, -1)
+    keys = np.asarray(keys, dtype=np.uint32)
+    keys = keys.reshape(d, -1, *keys.shape[1:]).view(np.int32)
+    values = np.asarray(values, dtype=np.int32)
+    values = values.reshape(d, -1, *values.shape[1:])
+    if fingerprints is not None:
+        fingerprints = np.asarray(fingerprints, dtype=np.uint32).reshape(d, -1).view(np.int32)
 
     def dev(a) -> torch.Tensor:
         return torch.from_numpy(np.array(a, copy=True)).to(device)
@@ -54,6 +63,7 @@ def graph_from_numpy(
             values=dev(values),
             table_size=int(local_range_cap),
             seed=int(seed),
+            fingerprints=None if fingerprints is None else dev(fingerprints),
         ),
         hash_splits=dev(splits),
         num_dropped=torch.tensor(int(np.asarray(num_dropped)), device=device),
@@ -65,15 +75,20 @@ def graph_from_numpy(
 
 
 def graph_to_numpy(graph: DistributedHashGraph) -> dict:
-    """The graph's arrays in the global stacked layout, plus its metadata."""
+    """The graph's arrays in the global stacked layout, plus its metadata
+    (``fingerprints`` only where the graph has the lane)."""
 
-    def host(t: torch.Tensor) -> np.ndarray:
-        return t.detach().cpu().numpy()
+    def host(t):
+        return None if t is None else t.detach().cpu().numpy()
 
+    keys, values, fp = (host(t) for t in (graph.local.keys, graph.local.values,
+                                          graph.local.fingerprints))
+    lane = {} if fp is None else {"fingerprints": fp.reshape(-1).view(np.uint32)}
     return {
+        **lane,
         "offsets": host(graph.local.offsets).reshape(-1),
-        "keys": host(graph.local.keys).reshape(-1).view(np.uint32),
-        "values": host(graph.local.values).reshape(-1),
+        "keys": keys.reshape(-1, *keys.shape[2:]).view(np.uint32),
+        "values": values.reshape(-1, *values.shape[2:]),
         "hash_splits": host(graph.hash_splits),
         "num_dropped": int(graph.num_dropped),
         "hash_range": graph.hash_range,
@@ -95,7 +110,7 @@ def state_from_numpy(
     """Port state from the arrays of a reference ``TableState``.
 
     ``base`` and each of ``deltas`` hold :func:`graph_from_numpy`'s keyword
-    arguments; ``tombstones`` holds ``keys`` ``(T,)`` uint32, ``epochs`` and
+    arguments; ``tombstones`` holds ``keys`` ``(T,)`` or ``(T, L)`` uint32, ``epochs`` and
     ``expires`` ``(T,)`` int32, and the scalars ``count``, ``num_dropped``
     and ``now``.  ``table`` is the port table the state will be read by.
     """

@@ -20,6 +20,8 @@ from typing import Optional, Sequence
 
 import torch
 
+from repro_torch.utils import take_rows
+
 # Label -> all-to-all rounds made under it in this process.
 CALLS: collections.Counter = collections.Counter()
 _label = ["exchange"]
@@ -61,8 +63,10 @@ def pack_by_destination(
 ) -> tuple[list[torch.Tensor], Route]:
     """Counting-sort each shard's rows by destination into ``(D, num_dest*capacity)``.
 
-    The **stable** argsort keeps the input order inside a destination, which
-    fixes the CSR value order that retrieve returns.  Rows beyond
+    A payload may carry a trailing dim (key lanes, value columns): ``(D, N,
+    W)`` packs into ``(D, num_dest*capacity, W)``.  The **stable** argsort
+    keeps the input order inside a destination, which fixes the CSR value
+    order that retrieve returns.  Rows beyond
     ``capacity`` per destination are scattered into one trash slot that is
     cut off, and counted in ``num_dropped`` where ``count_mask`` marks them.
     """
@@ -78,8 +82,10 @@ def pack_by_destination(
     scatter_idx = torch.where(keep, slot, num_dest * capacity)
     packed = []
     for p, fill in zip(payloads, fills):
-        buf = torch.full((d_src, num_dest * capacity + 1), fill, dtype=p.dtype, device=dev)
-        buf.scatter_(1, scatter_idx, torch.gather(p, 1, perm))
+        rest = tuple(p.shape[2:])
+        buf = torch.full((d_src, num_dest * capacity + 1) + rest, fill, dtype=p.dtype, device=dev)
+        idx = scatter_idx if not rest else scatter_idx.unsqueeze(-1).expand(d_src, n, *rest)
+        buf.scatter_(1, idx, take_rows(p, perm))
         packed.append(buf[:, :-1])
     counted = ~keep if count_mask is None else (~keep & torch.gather(count_mask, 1, perm))
     route = Route(
@@ -119,8 +125,10 @@ def dispatch(
 ) -> tuple[list[torch.Tensor], Route]:
     """Send row ``j`` of shard ``s`` to shard ``dest[s, j]`` (one exchange call).
 
-    Returns received buffers ``(D, D * capacity)``, row-major by source,
-    padded with ``fills``, and the :class:`Route` to send answers back.
+    Returns received buffers ``(D, D * capacity[, W])``, row-major by
+    source, padded with ``fills``, and the :class:`Route` to send answers
+    back.  Every payload (key lanes and value columns as trailing dims)
+    travels in this one call.
     """
     num_dest = dest.shape[0]
     packed, route = pack_by_destination(
@@ -128,7 +136,9 @@ def dispatch(
     )
     _count_call()
     received = [
-        all_to_all(buf.reshape(num_dest, num_dest, capacity)).reshape(num_dest, -1)
+        all_to_all(buf.reshape(num_dest, num_dest, capacity, *buf.shape[2:])).reshape(
+            num_dest, num_dest * capacity, *buf.shape[2:]
+        )
         for buf in packed
     ]
     return received, route
@@ -157,20 +167,20 @@ def combine_ragged(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Inverse of :func:`dispatch` for variable-fanout answers (retrieval).
 
-    ``seg_values`` is ``(D_owner, D_src, seg_capacity)``: owner ``o``'s packed
-    answer runs for source ``s``; ``slot_counts`` ``(D_owner, D_src*capacity)``
-    the per-slot run lengths.  Values and counts go home as two transposes
+    ``seg_values`` is ``(D_owner, D_src, seg_capacity[, C])``: owner ``o``'s
+    packed answer runs for source ``s`` (a row's C value columns together);
+    ``slot_counts`` ``(D_owner, D_src*capacity)`` the per-slot run lengths.  Values and counts go home as two transposes
     that count as **one** exchange call (the reference packs both into one
     buffer, an interconnect optimisation with the same outputs).
 
     Returns ``(counts, starts, values)`` in each querier's row order:
     ``(D, N)`` counts (0 for dropped rows), ``(D, N)`` starts into
-    ``values`` ``(D, D*seg_capacity)`` (row-major by owner).
+    ``values`` ``(D, D*seg_capacity[, C])`` (row-major by owner).
     """
     d, cap = route.num_dest, route.capacity
     seg_cap = seg_values.shape[2]
     _count_call()
-    back_vals = all_to_all(seg_values)  # (D_src, D_owner, seg_cap)
+    back_vals = all_to_all(seg_values)  # (D_src, D_owner, seg_cap[, C])
     back_counts = all_to_all(slot_counts.to(torch.int32).reshape(d, d, cap))
     # Owner o packed my block by the exclusive cumsum of my slots' counts;
     # recompute the identical offsets from the returned counts.
@@ -183,4 +193,4 @@ def combine_ragged(
     starts_sorted = torch.where(route.keep, starts_packed, 0)
     counts = _unsort(counts_sorted.to(torch.int32), route)
     starts = _unsort(starts_sorted.to(torch.int32), route)
-    return counts, starts, back_vals.reshape(d, d * seg_cap)
+    return counts, starts, back_vals.reshape(d, d * seg_cap, *seg_values.shape[3:])

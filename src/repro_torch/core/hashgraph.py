@@ -2,14 +2,18 @@
 
 Each shard's table is the CSR of (bucket × key): bucket ``v`` of shard ``s``
 holds ``keys[s, offsets[s, v] : offsets[s, v+1]]``; bucket ``V`` is the trash
-bucket for padding.  All arrays carry a leading shard axis ``D``.
+bucket for padding.  All arrays carry a leading shard axis ``D``; keys are
+``(D, M)`` int32 or ``(D, M, 2)`` int32 lanes and values ``(D, M)`` or
+``(D, M, C)`` (``repro_torch.core.schema`` states the layout).
 
-The reference's ``jax.lax.sort`` over (bucket, key) with values riding along
-becomes one stable ``torch.sort`` of the int64 key ``(bucket << 32) | key``
-per shard row (bucket ids are ``<= local_cap < 2^31``, so the key fits), and
-the values are gathered with the returned indices.  Keys are int32 tensors
-holding uint32 bit patterns; comparisons flip the sign bit, which orders the
-patterns as unsigned integers.
+The reference's stable ``jax.lax.sort`` over (bucket, [fingerprint,] key)
+with values riding along becomes, for 1-lane keys without a fingerprint, one
+stable ``torch.sort`` of the int64 ``(bucket << 32) | key`` per shard row;
+(bucket, fp, key-hi, key-lo) is 127 bits, so wider rows take two stable
+sorts: by the key's order view (:func:`key_order`), then by ``(bucket << 32)
+| fp``, which keeps equal keys in input order.  Comparisons run on the order
+view: the int32 bits with the sign flipped (uint32 order) or the int64 view
+of the two lanes with the sign flipped (the reference's packed order).
 """
 from __future__ import annotations
 
@@ -19,32 +23,74 @@ from typing import Optional
 import torch
 
 from repro_torch.core import hashing
+from repro_torch.utils import take_rows
 
-# Sentinel key marking capacity padding: 0xFFFFFFFF as an int32 bit pattern.
+# Sentinel key marking capacity padding: all ones in every lane (0xFFFFFFFF
+# as an int32 bit pattern, -1 in the int64 view of two lanes).
 EMPTY_KEY = 0xFFFFFFFF
 EMPTY_BITS = -1
 _SIGN = -(2**31)
+_SIGN64 = -(2**63)
+_MASK = 0xFFFFFFFF
 
 
-def is_empty_key(keys: torch.Tensor) -> torch.Tensor:
-    """Padding-sentinel mask."""
-    return keys == EMPTY_BITS
+def shard_lanes(keys: torch.Tensor) -> int:
+    """Key lanes of a shard-stacked ``(D, N)`` or ``(D, N, L)`` key array."""
+    return 1 if keys.ndim == 2 else int(keys.shape[-1])
 
 
-def _unsigned_order(keys: torch.Tensor) -> torch.Tensor:
-    """int32 bit patterns mapped so that signed order is uint32 order."""
-    return keys ^ _SIGN
+def key_words(keys: torch.Tensor, lanes: int) -> torch.Tensor:
+    """One word per key: the int32 bits (1 lane) or the int64 view of the
+    two lanes ``(..., 2)`` → ``(...)`` (the uint64 bit pattern)."""
+    if lanes == 1:
+        return keys
+    if lanes != 2:
+        raise ValueError(f"keys of {lanes} lanes are not supported (1 or 2)")
+    return keys.contiguous().view(torch.int64)[..., 0]
+
+
+def words_to_keys(words: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`key_words`: int64 words → ``(..., 2)`` int32 lanes."""
+    if words.dtype == torch.int32:
+        return words
+    return words.contiguous().unsqueeze(-1).view(torch.int32)
+
+
+def key_order(keys: torch.Tensor, lanes: int) -> torch.Tensor:
+    """Keys mapped so that signed order is the reference's unsigned order
+    (lane 1 most significant): :func:`key_words` with the sign bit flipped."""
+    return key_words(keys, lanes) ^ (_SIGN if lanes == 1 else _SIGN64)
+
+
+def is_empty_key(keys: torch.Tensor, lanes: int = 1) -> torch.Tensor:
+    """Padding-sentinel mask: every lane EMPTY."""
+    empty = keys == EMPTY_BITS
+    return empty.all(-1) if lanes > 1 else empty
 
 
 @dataclasses.dataclass(frozen=True)
 class HashGraph:
-    """Stacked CSR hash tables, one per shard: ``offsets`` ``(D, V+2)``."""
+    """Stacked CSR hash tables, one per shard: ``offsets`` ``(D, V+2)``.
+
+    With ``fingerprints`` the rows of a bucket are ordered by (fingerprint,
+    key) instead of (key): the sorted probe bisects the one-lane
+    fingerprints first and the key lanes only inside the fingerprint's run.
+    """
 
     offsets: torch.Tensor  # (D, V+2) int32, monotone per row
-    keys: torch.Tensor  # (D, M) int32 (uint32 bits), grouped by bucket
-    values: torch.Tensor  # (D, M) int32 payload
+    keys: torch.Tensor  # (D, M) int32 or (D, M, L) int32 lanes, grouped by bucket
+    values: torch.Tensor  # (D, M) or (D, M, C) int32 payload
     table_size: int  # V
     seed: int
+    fingerprints: Optional[torch.Tensor] = None  # (D, M) int32 uint32 bits, or None
+
+    @property
+    def key_lanes(self) -> int:
+        return shard_lanes(self.keys)
+
+    @property
+    def value_cols(self) -> int:
+        return 1 if self.values.ndim == 2 else int(self.values.shape[-1])
 
 
 def build_from_buckets(
@@ -54,20 +100,38 @@ def build_from_buckets(
     values: torch.Tensor,
     *,
     seed: int = hashing.DEFAULT_SEED,
+    fingerprints: Optional[torch.Tensor] = None,
 ) -> HashGraph:
     """Build one CSR per shard row from precomputed bucket ids.
 
     ``buckets`` may hold ``table_size`` to send padding to the trash bucket.
-    Rows sort by (bucket, key as uint32), stably, so equal keys keep their
-    input order, as the reference's stable ``lax.sort`` does.
+    Rows sort by (bucket, [fingerprint,] key in the reference's packed
+    order), stably, so equal keys keep their input order, as the
+    reference's stable ``lax.sort`` does.  ``fingerprints`` ``(D, M)`` (the
+    keys' ``hashing.fingerprint32``) turn the fingerprint lane on.
     """
     d = keys.shape[0]
-    sort_key = (buckets.to(torch.int64) << 32) | (keys.to(torch.int64) & 0xFFFFFFFF)
-    sort_key, idx = torch.sort(sort_key, dim=1, stable=True)
-    sorted_keys = torch.gather(keys, 1, idx)
-    sorted_values = torch.gather(values, 1, idx)
+    lanes = shard_lanes(keys)
+    # sort_key >> 32 is the bucket where sort_key packs (bucket, key or fp).
+    packed = lanes == 1 or fingerprints is not None
+    if lanes == 1 and fingerprints is None:
+        sort_key = (buckets.to(torch.int64) << 32) | (keys.to(torch.int64) & _MASK)
+        sort_key, idx = torch.sort(sort_key, dim=1, stable=True)
+    else:
+        # Two stable sorts: by the key, then by (bucket, [fp]).
+        _, idx = torch.sort(key_order(keys, lanes), dim=1, stable=True)
+        outer = buckets.to(torch.int64)
+        if fingerprints is not None:
+            outer = (outer << 32) | (fingerprints.to(torch.int64) & _MASK)
+        sort_key, idx2 = torch.sort(torch.gather(outer, 1, idx), dim=1, stable=True)
+        del outer
+        idx = torch.gather(idx, 1, idx2)
+        del idx2
+    sorted_keys = words_to_keys(torch.gather(key_words(keys, lanes), 1, idx))
+    sorted_values = take_rows(values, idx)
+    sorted_fp = None if fingerprints is None else torch.gather(fingerprints, 1, idx)
     del idx
-    sorted_buckets = sort_key >> 32
+    sorted_buckets = sort_key >> 32 if packed else sort_key
     del sort_key
     ids = torch.arange(table_size + 2, dtype=torch.int64, device=keys.device)
     # offsets[v] = first row whose bucket id >= v ;  offsets[V+1] = M.
@@ -80,6 +144,7 @@ def build_from_buckets(
         values=sorted_values,
         table_size=table_size,
         seed=seed,
+        fingerprints=sorted_fp,
     )
 
 
@@ -92,7 +157,8 @@ def _segment_searchsorted(
 ) -> torch.Tensor:
     """Per-row binary search of ``q[s, i]`` within ``sorted_keys[s, lo:hi]``.
 
-    ``sorted_keys`` and ``q`` are in unsigned order (:func:`_unsigned_order`).
+    ``sorted_keys`` and ``q`` are order views (:func:`key_order`, or a
+    fingerprint lane with its sign flipped), int32 or int64.
     The reference runs a fixed ``bit_length(M)`` trips; lanes with
     ``lo == hi`` never move, so stopping once every lane has converged gives
     the same result (buckets hold a few keys, so a handful of trips do).
@@ -126,32 +192,51 @@ def bucket_windows(
 
 
 def query_locate(
-    hg: HashGraph, queries: torch.Tensor, buckets: torch.Tensor
+    hg: HashGraph,
+    queries: torch.Tensor,
+    buckets: torch.Tensor,
+    qfp: Optional[torch.Tensor] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Each routed query's match run per shard: ``(starts, counts)`` int32.
 
     All occurrences of a key are contiguous in a bucket-sorted shard, so the
     matches of ``queries[s, i]`` are ``keys[s, starts : starts + counts]``.
     ``buckets`` are the local bucket ids the caller routed the queries to.
+    With a fingerprint lane the window is bisected on the fingerprints
+    first and on the keys only inside the fingerprint's run; ``qfp`` are
+    the queries' fingerprints when the caller computed them once for every
+    layer (ignored by a graph without the lane).
 
     A query routed to the trash bucket ``V`` is exchange padding: its window
     is empty, so it counts 0 without a search.  (The reference bisects the
     trash bucket, which holds every padding row of the build, and its
     callers then mask those counts to 0; the masked results are the same.)
     """
+    lanes = hg.key_lanes
     starts, ends = bucket_windows(hg.offsets, hg.table_size, buckets)
-    keys_u = _unsigned_order(hg.keys)
-    q_u = _unsigned_order(queries)
+    if hg.fingerprints is not None:
+        if qfp is None:
+            qfp = hashing.fingerprint32(queries, lanes)
+        fp_u, qfp_u = hg.fingerprints ^ _SIGN, qfp ^ _SIGN
+        fl = _segment_searchsorted(fp_u, starts, ends, qfp_u, side="left")
+        fr = _segment_searchsorted(fp_u, starts, ends, qfp_u, side="right")
+        del fp_u, qfp_u
+        starts, ends = fl, fr
+    keys_u = key_order(hg.keys, lanes)
+    q_u = key_order(queries, lanes)
     left = _segment_searchsorted(keys_u, starts, ends, q_u, side="left")
     right = _segment_searchsorted(keys_u, starts, ends, q_u, side="right")
     return left.to(torch.int32), (right - left).to(torch.int32)
 
 
 def query_count_sorted(
-    hg: HashGraph, queries: torch.Tensor, buckets: torch.Tensor
+    hg: HashGraph,
+    queries: torch.Tensor,
+    buckets: torch.Tensor,
+    qfp: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Exact multiplicity of each routed query key by per-bucket bisection."""
-    return query_locate(hg, queries, buckets)[1]
+    return query_locate(hg, queries, buckets, qfp)[1]
 
 
 def query_count_probe(
@@ -168,7 +253,7 @@ def query_count_probe(
     empty window (the reference scans it and its callers mask the count).
     """
     if buckets is None:
-        buckets = hashing.hash_to_buckets(queries, hg.table_size, seed=hg.seed)
+        buckets = hashing.hash_to_buckets(queries, hg.table_size, hg.seed, hg.key_lanes)
     starts, ends = bucket_windows(hg.offsets, hg.table_size, buckets)
     from repro_torch.kernels import ops
 
@@ -181,16 +266,24 @@ def query_count_probe(
 # ---------------------------------------------------------------------------
 
 
+def _ts_lanes(ts_keys: torch.Tensor) -> int:
+    return 1 if ts_keys.ndim == 1 else int(ts_keys.shape[-1])
+
+
 def match_epochs(
     keys: torch.Tensor, ts_keys: torch.Tensor, ts_epochs: torch.Tensor
 ) -> torch.Tensor:
     """Newest tombstone epoch matching each key; -1 where none match.
 
-    Broadcast compare, ``O(M * T)``: the oracle of :func:`match_epochs_sorted`.
+    ``ts_keys`` is ``(T,)`` or ``(T, L)`` and sets the lane count; ``keys``
+    are ``(...)`` or ``(..., L)``.  Broadcast compare, ``O(M * T)``: the
+    oracle of :func:`match_epochs_sorted`.
     """
+    lanes = _ts_lanes(ts_keys)
+    kw = key_words(keys, lanes)
     if ts_keys.shape[0] == 0:
-        return torch.full(keys.shape, -1, dtype=torch.int32, device=keys.device)
-    eq = keys.unsqueeze(-1) == ts_keys
+        return torch.full(kw.shape, -1, dtype=torch.int32, device=keys.device)
+    eq = kw.unsqueeze(-1) == key_words(ts_keys, lanes)
     stamped = torch.where(eq, ts_epochs.to(torch.int32), -1)
     return stamped.max(dim=-1).values.to(torch.int32)
 
@@ -198,17 +291,24 @@ def match_epochs(
 def sort_tombstones(
     ts_keys: torch.Tensor, ts_epochs: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Sort a tombstone buffer by (key as uint32, epoch).
+    """Sort a tombstone buffer by (key in packed order, epoch).
 
-    The last entry of a key's run carries its newest epoch.  One sort of the
-    int64 ``(unsigned key << 32) + (epoch + 2^31)``: equal pairs are equal
-    elements, so stability does not matter.
+    The last entry of a key's run carries its newest epoch.  1 lane: one
+    sort of the int64 ``(unsigned key << 32) + (epoch + 2^31)``; 2 lanes: a
+    sort by epoch, then a stable sort by the key's order view.  Equal pairs
+    are equal elements, so the order among them does not matter.
     """
     if ts_keys.shape[0] == 0:
         return ts_keys, ts_epochs
-    epochs = ts_epochs.to(torch.int64) - _SIGN
-    sort_key = (_unsigned_order(ts_keys).to(torch.int64) << 32) | epochs
-    sort_key, idx = torch.sort(sort_key)
+    lanes = _ts_lanes(ts_keys)
+    if lanes == 1:
+        epochs = ts_epochs.to(torch.int64) - _SIGN
+        sort_key = (key_order(ts_keys, 1).to(torch.int64) << 32) | epochs
+        _, idx = torch.sort(sort_key)
+    else:
+        _, by_epoch = torch.sort(ts_epochs, stable=True)
+        _, idx = torch.sort(key_order(ts_keys, lanes)[by_epoch], stable=True)
+        idx = by_epoch[idx]
     return ts_keys[idx], ts_epochs[idx].to(torch.int32)
 
 
@@ -216,16 +316,21 @@ def match_epochs_sorted(
     keys: torch.Tensor, ts_keys: torch.Tensor, ts_epochs: torch.Tensor
 ) -> torch.Tensor:
     """Newest tombstone epoch matching each key (-1: none), by bisection of
-    the :func:`sort_tombstones` index; ``keys`` of any shape."""
+    the :func:`sort_tombstones` index; ``keys`` of any shape (with the
+    trailing lane dim for 2-lane keys)."""
+    lanes = _ts_lanes(ts_keys)
+    kw = key_words(keys, lanes)
     t = ts_keys.shape[0]
     if t == 0:
-        return torch.full(keys.shape, -1, dtype=torch.int32, device=keys.device)
-    q = _unsigned_order(keys).reshape(-1)
-    right = torch.searchsorted(_unsigned_order(ts_keys), q, right=True)
+        return torch.full(kw.shape, -1, dtype=torch.int32, device=keys.device)
+    sign = _SIGN if lanes == 1 else _SIGN64
+    q = (kw ^ sign).reshape(-1)
+    ts_w = key_words(ts_keys, lanes)
+    right = torch.searchsorted(ts_w ^ sign, q, right=True)
     idx = torch.clamp(right - 1, 0, t - 1)
-    hit = (right > 0) & (ts_keys[idx] == keys.reshape(-1))
+    hit = (right > 0) & (ts_w[idx] == kw.reshape(-1))
     out = torch.where(hit, ts_epochs[idx].to(torch.int32), -1)
-    return out.reshape(keys.shape)
+    return out.reshape(kw.shape)
 
 
 def csr_gather(
@@ -240,10 +345,11 @@ def csr_gather(
 
     Row ``i`` of each batch entry owns ``table[starts[i] : starts[i]+counts[i]]``;
     the runs are concatenated into a ``capacity``-slot buffer.  ``starts`` and
-    ``counts`` are ``(..., N)`` sharing one 1-D ``table``.  Returns
-    ``(offsets, row_idx, gathered, num_dropped)``: offsets ``(..., N+1)``
-    clamped to ``capacity``, ``(..., capacity)`` row ids (-1 unused) and
-    values (``fill`` unused), and the per-entry overflow ``(...)``.
+    ``counts`` are ``(..., N)`` sharing one ``(M,)`` or ``(M, C)`` ``table``
+    (a row's C columns move together).  Returns ``(offsets, row_idx,
+    gathered, num_dropped)``: offsets ``(..., N+1)`` clamped to
+    ``capacity``, ``(..., capacity)`` row ids (-1 unused), values ``(...,
+    capacity[, C])`` (``fill`` unused), and the per-entry overflow ``(...)``.
 
     This is the plain twin of the CSR gather kernels
     (``repro_torch.kernels.csr_gather``); ``repro_torch.kernels.ops.csr_gather``
@@ -261,14 +367,14 @@ def csr_gather(
     row = torch.clamp(row, 0, max(n_rows - 1, 0))
     valid = slot < total
     if n_rows == 0 or table.numel() == 0:
-        gathered = torch.full(slot.shape, fill, dtype=table.dtype, device=dev)
+        gathered = torch.full(slot.shape + table.shape[1:], fill, dtype=table.dtype, device=dev)
         row_idx = torch.full(slot.shape, -1, dtype=torch.int32, device=dev)
     else:
         src = torch.gather(starts.to(torch.int64), -1, row) + (
             slot - torch.gather(offsets, -1, row)
         )
         src = torch.clamp(src, 0, table.shape[0] - 1)
-        gathered = torch.where(valid, table[src], fill)
+        gathered = torch.where(valid if table.ndim == 1 else valid.unsqueeze(-1), table[src], fill)
         row_idx = torch.where(valid, row.to(torch.int32), -1)
     num_dropped = torch.clamp(total[..., 0] - capacity, min=0).to(torch.int32)
     return torch.clamp(offsets, max=capacity), row_idx, gathered, num_dropped

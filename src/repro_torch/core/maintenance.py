@@ -56,6 +56,11 @@ class TableStats:
         return self.tombstone_expired / self.tombstone_capacity
 
 
+def _rows(graph) -> int:
+    """CSR rows of a graph over all shards (keys are ``(D, M[, L])``)."""
+    return int(graph.local.keys.shape[0] * graph.local.keys.shape[1])
+
+
 def collect_stats(state: TableState) -> TableStats:
     """Read a :class:`TableStats` snapshot off ``state``."""
     ts = state.tombstones
@@ -64,8 +69,8 @@ def collect_stats(state: TableState) -> TableStats:
         expired = int(((ts.epochs >= 0) & (ts.now >= ts.expires)).sum())
     return TableStats(
         delta_depth=len(state.deltas),
-        base_rows=int(state.base.local.keys.numel()),
-        delta_rows=sum(int(d.local.keys.numel()) for d in state.deltas),
+        base_rows=_rows(state.base),
+        delta_rows=sum(_rows(d) for d in state.deltas),
         tombstone_count=int(ts.count),
         tombstone_capacity=ts.capacity,
         tombstone_dropped=int(ts.num_dropped),
@@ -77,7 +82,7 @@ def collect_stats(state: TableState) -> TableStats:
 def collect_layer_live(state: TableState) -> tuple:
     """Per-layer ``(live_rows, allocated_rows)`` pairs, base first."""
     live = [int(x) for x in plans.exec_layer_live(state.table, state)]
-    alloc = [int(layer.local.keys.numel()) for layer in state.layers]
+    alloc = [_rows(layer) for layer in state.layers]
     return tuple(zip(live, alloc))
 
 
@@ -152,8 +157,8 @@ class CompactionPolicy:
 
 def allocated_rows(state: TableState) -> int:
     """Total allocated CSR rows (base + deltas) over all shards."""
-    return int(state.base.local.keys.numel()) + sum(
-        int(d.local.keys.numel()) for d in state.deltas
+    return _rows(state.base) + sum(
+        _rows(d) for d in state.deltas
     )
 
 
@@ -172,7 +177,7 @@ def _remap_tombstones(ts: Tombstones, k: int) -> Tombstones:
     kept = keep[order]
     new_epochs = torch.clamp(ts.epochs[order] - k, min=0)
     return Tombstones(
-        keys=torch.where(kept, ts.keys[order], EMPTY_BITS),
+        keys=torch.where(kept.view(-1, *(1,) * (ts.keys.ndim - 1)), ts.keys[order], EMPTY_BITS),
         epochs=torch.where(kept, new_epochs, -1).to(torch.int32),
         expires=torch.where(kept, ts.expires[order], 0).to(torch.int32),
         count=int(keep.sum()),

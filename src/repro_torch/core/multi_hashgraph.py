@@ -7,6 +7,13 @@ all-to-all is the transpose in ``exchange``, ``psum`` a sum over that axis
 and ``my_rank`` ``arange(D)``.  Hashing, histogram, the CSR gathers and the
 linear bucket probe run in the port's CUDA kernels on the card.
 
+Keys are ``(D, N)`` int32 or ``(D, N, 2)`` int32 lanes and values ``(D,
+N)`` or ``(D, N, C)`` (``repro_torch.core.schema``); the lanes and columns
+ride every exchange as trailing dims of one call.  A graph with the
+fingerprint lane is probed with the routed batch's fingerprints, computed
+once per routing round with its hashes (one kernel 1 launch) and shared by
+every layer.
+
 Build (:func:`build_sharded`) follows the paper's four phases: coarse-bin
 histogram and balanced splits, counting sort by destination, the
 capacity-padded exchange, and one CSR per shard over its hash range; a delta
@@ -76,6 +83,17 @@ def _rebase_buckets(
     return torch.where(is_pad, local_cap, rebased).to(torch.int32)
 
 
+def _hash_routed(
+    keys: torch.Tensor, hash_range: int, seed: int, fingerprint: bool
+) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Owner-side hash of received keys, with their fingerprints from the
+    same read where ``fingerprint`` (one kernel 1 launch either way)."""
+    lanes = hashgraph.shard_lanes(keys)
+    if fingerprint:
+        return hashing.hash_and_fingerprint(keys, hash_range, seed, lanes)
+    return hashing.hash_to_buckets(keys, hash_range, seed, lanes), None
+
+
 def _local_buckets(
     keys: torch.Tensor,
     lo: torch.Tensor,
@@ -83,9 +101,19 @@ def _local_buckets(
     local_cap: int,
     seed: int,
     stride: int = 1,
-) -> torch.Tensor:
-    h = hashing.hash_to_buckets(keys, hash_range, seed=seed)
-    return _rebase_buckets(h, hashgraph.is_empty_key(keys), lo, local_cap, stride)
+    fingerprint: bool = False,
+) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Local bucket ids of ``(D, M[, L])`` keys (sentinels to the trash
+    bucket) and, where ``fingerprint``, their fingerprints."""
+    h, fp = _hash_routed(keys, hash_range, seed, fingerprint)
+    is_pad = hashgraph.is_empty_key(keys, hashgraph.shard_lanes(keys))
+    return _rebase_buckets(h, is_pad, lo, local_cap, stride), fp
+
+
+def _wants_fingerprints(layers: Sequence["DistributedHashGraph"]) -> bool:
+    """Does any layer carry the fingerprint lane (its probe needs the
+    routed batch's fingerprints)?"""
+    return any(layer.local.fingerprints is not None for layer in layers)
 
 
 def build_sharded(
@@ -101,31 +129,37 @@ def build_sharded(
     hash_splits: Optional[torch.Tensor] = None,
     local_range_cap: Optional[int] = None,
     bucket_stride: int = 1,
+    fingerprint: Optional[bool] = None,
 ) -> DistributedHashGraph:
-    """Build the distributed HashGraph from ``keys`` ``(D, n_local)``.
+    """Build the distributed HashGraph from ``keys`` ``(D, n_local[, L])``.
 
-    ``values`` ``(D, n_local)`` ride along through the exchange (default: the
-    global row id ``rank * n_local + i``).  EMPTY sentinels are left out of
-    the histogram and the overflow count, routed round-robin, and land in
-    the owner's trash bucket.  ``capacity`` overrides the per-destination
+    ``values`` ``(D, n_local[, C])`` ride along through the exchange
+    (default: the global row id ``rank * n_local + i``).  EMPTY sentinels
+    are left out of the histogram and the overflow count, routed
+    round-robin, and land in the owner's trash bucket.  ``capacity`` overrides the per-destination
     slot size (compaction passes an allowance for its sentinel rows).
 
     ``hash_splits`` freezes the partitioning: phase 1 is skipped and the
     given splits route the exchange, so a delta stays partition-coherent
     with its base.  ``local_range_cap`` / ``bucket_stride`` size the local
     bucket space (a delta strides the base's bucket map down to O(batch)
-    offsets).
+    offsets).  ``fingerprint`` stores the probe fingerprint lane (``None``:
+    exactly for multi-lane keys), computed owner-side from the received
+    keys with their hashes.
     """
-    d, n_local = keys.shape
+    d, n_local = keys.shape[:2]
     dev = keys.device
+    lanes = hashgraph.shard_lanes(keys)
+    if fingerprint is None:
+        fingerprint = lanes > 1
     if values is None:
         rank = torch.arange(d, dtype=torch.int32, device=dev).unsqueeze(1)
         values = rank * n_local + torch.arange(n_local, dtype=torch.int32, device=dev)
-    is_pad = hashgraph.is_empty_key(keys)
+    is_pad = hashgraph.is_empty_key(keys, lanes)
 
     # ---- Phase 1: partitioning.  psum of the per-shard histograms is one
     # histogram over every shard's keys (integer counts commute).
-    h = hashing.hash_to_buckets(keys, hash_range, seed=seed)
+    h = hashing.hash_to_buckets(keys, hash_range, seed, lanes)
     if hash_splits is None:
         bins_g = num_bins or partition.choose_num_bins(hash_range, d)
         ghist = partition.local_bin_histogram(h, bins_g, hash_range, valid=~is_pad)
@@ -153,10 +187,12 @@ def build_sharded(
         local_cap = int(cdiv(hash_range, d) * range_slack)
     else:
         local_cap = int(local_range_cap)
-    buckets = _local_buckets(
-        rkeys, _shard_lo(splits), hash_range, local_cap, seed, bucket_stride
+    buckets, fp = _local_buckets(
+        rkeys, _shard_lo(splits), hash_range, local_cap, seed, bucket_stride, fingerprint
     )
-    local = hashgraph.build_from_buckets(rkeys, buckets, local_cap, rvalues, seed=seed)
+    local = hashgraph.build_from_buckets(
+        rkeys, buckets, local_cap, rvalues, seed=seed, fingerprints=fp
+    )
     return DistributedHashGraph(
         local=local,
         hash_splits=splits,
@@ -172,37 +208,45 @@ def build_sharded(
 class RoutedQueries:
     """One dispatch round of a query batch, seen from the owners."""
 
-    rq: torch.Tensor  # (D, D*capacity) received keys, EMPTY-padded
+    rq: torch.Tensor  # (D, D*capacity[, L]) received keys, EMPTY-padded
     route: exchange.Route
     rh: torch.Tensor  # (D, D*capacity) owner-side hash values
     lo: torch.Tensor  # (D, 1) each owner's split base
     capacity: int
+    rfp: Optional[torch.Tensor] = None  # (D, D*capacity) fingerprints, or None
 
     @property
     def is_pad(self) -> torch.Tensor:
         """``(D, D*capacity)`` bool: the padding slots (the probe kernel
         finds them itself, so only the other paths compute this)."""
-        return hashgraph.is_empty_key(self.rq)
+        return hashgraph.is_empty_key(self.rq, hashgraph.shard_lanes(self.rq))
 
 
 def _route_queries_once(
-    dhg: DistributedHashGraph, queries: torch.Tensor, capacity_slack: float
+    dhg: DistributedHashGraph,
+    queries: torch.Tensor,
+    capacity_slack: float,
+    fingerprint: bool = False,
 ) -> RoutedQueries:
     """The one exchange round of the query path (paper §3.3 phase 1):
-    hash the queries and dispatch them to their owners by the build splits."""
-    d, n_local = queries.shape
-    h = hashing.hash_to_buckets(queries, dhg.hash_range, seed=dhg.seed)
+    hash the queries and dispatch them to their owners by the build splits.
+    ``fingerprint`` also computes the routed keys' fingerprints, from the
+    same read as their owner-side hashes."""
+    d, n_local = queries.shape[:2]
+    lanes = hashgraph.shard_lanes(queries)
+    h = hashing.hash_to_buckets(queries, dhg.hash_range, dhg.seed, lanes)
     dest = partition.destination_of(h, dhg.hash_splits)
     del h
     capacity = default_capacity(n_local, d, capacity_slack)
     (rq,), route = exchange.dispatch((queries,), dest, capacity, fills=(EMPTY_BITS,))
-    rh = hashing.hash_to_buckets(rq, dhg.hash_range, seed=dhg.seed)
+    rh, rfp = _hash_routed(rq, dhg.hash_range, dhg.seed, fingerprint)
     return RoutedQueries(
         rq=rq,
         route=route,
         rh=rh,
         lo=_shard_lo(dhg.hash_splits),
         capacity=capacity,
+        rfp=rfp,
     )
 
 
@@ -210,7 +254,7 @@ def _route_queries(
     dhg: DistributedHashGraph, queries: torch.Tensor, capacity_slack: float
 ) -> tuple[RoutedQueries, torch.Tensor]:
     """:func:`_route_queries_once` plus this graph's own bucket rebase."""
-    routed = _route_queries_once(dhg, queries, capacity_slack)
+    routed = _route_queries_once(dhg, queries, capacity_slack, _wants_fingerprints((dhg,)))
     rbuckets = _rebase_buckets(
         routed.rh, routed.is_pad, routed.lo, dhg.local_range_cap, dhg.bucket_stride
     )
@@ -244,7 +288,7 @@ def _mask_counts(
     a tombstone of epoch ``>= layer_epoch``.  ``match_e`` is the per-key
     epoch when the caller resolved it once for the routed batch.
     """
-    counts = torch.where(hashgraph.is_empty_key(rq), 0, counts)
+    counts = torch.where(hashgraph.is_empty_key(rq, hashgraph.shard_lanes(rq)), 0, counts)
     if match_e is None:
         match_e = _tombstone_epochs(rq, tombstones)
     if match_e is not None:
@@ -278,7 +322,7 @@ def _count_layer(
     rb = _rebase_buckets(
         routed.rh, routed.is_pad, routed.lo, layer.local_range_cap, layer.bucket_stride
     )
-    counts = hashgraph.query_count_sorted(layer.local, routed.rq, rb)
+    counts = hashgraph.query_count_sorted(layer.local, routed.rq, rb, routed.rfp)
     counts = _mask_counts(counts, routed.rq, layer_epoch=epoch, match_e=match_e)
     return total.add_(counts) if accumulate else total.copy_(counts)
 
@@ -296,8 +340,11 @@ def query_sharded(
     """Multiplicity ``(D, n_local)`` int32 of each query key: route by the
     build splits, count against the owner's shard, route counts back.
     ``tombstones`` / ``layer_epoch`` mask rows deleted from this layer."""
-    routed = _route_queries_once(dhg, queries, capacity_slack)
-    counts = torch.empty(routed.rq.shape, dtype=torch.int32, device=queries.device)
+    routed = _route_queries_once(
+        dhg, queries, capacity_slack,
+        not paper_faithful_probe and _wants_fingerprints((dhg,)),
+    )
+    counts = torch.empty(routed.rh.shape, dtype=torch.int32, device=queries.device)
     _count_layer(
         dhg, routed, _tombstone_epochs(routed.rq, tombstones), layer_epoch, counts,
         False, paper_faithful_probe, max_probe,
@@ -339,9 +386,12 @@ def query_layers_sharded(
             total = c if total is None else total + c
         return total
 
-    routed = _route_queries_once(layers[0], queries, capacity_slack)
+    routed = _route_queries_once(
+        layers[0], queries, capacity_slack,
+        not paper_faithful_probe and _wants_fingerprints(layers),
+    )
     match_e = _tombstone_epochs(routed.rq, tombstones)
-    total = torch.empty(routed.rq.shape, dtype=torch.int32, device=queries.device)
+    total = torch.empty(routed.rh.shape, dtype=torch.int32, device=queries.device)
     for epoch, layer in enumerate(layers):
         _count_layer(
             layer, routed, match_e, epoch, total, epoch > 0, paper_faithful_probe, max_probe
@@ -367,7 +417,7 @@ class ShardRetrieval:
     """
 
     offsets: torch.Tensor  # (D, n_local + 1) int32
-    values: torch.Tensor  # (D, out_capacity) int32
+    values: torch.Tensor  # (D, out_capacity[, C]) int32
     counts: torch.Tensor  # (D, n_local) int32
     num_dropped: torch.Tensor  # () int64
 
@@ -378,7 +428,7 @@ class ShardJoin:
     ``j < num_results[s]``; ``query_idx`` is the global query row id."""
 
     query_idx: torch.Tensor  # (D, out_capacity) int32, -1 beyond num_results
-    values: torch.Tensor  # (D, out_capacity) int32
+    values: torch.Tensor  # (D, out_capacity[, C]) int32
     num_results: torch.Tensor  # (D,) int32
     num_dropped: torch.Tensor  # () int64
 
@@ -392,8 +442,9 @@ def _layer_run_descriptors(
 
     Returns ``(starts, counts, tables)``: ``(L, D, R)`` run descriptors
     (``R`` routed slots per owner), each start indexing its own layer's
-    values table, and the per-layer ``(D, M_l)`` tables.  Tombstone epochs
-    are resolved once for the batch and mask every layer.
+    values table, and the per-layer ``(D, M_l[, C])`` tables.  Tombstone
+    epochs are resolved once for the batch and mask every layer (and the
+    fingerprints, where the routing computed them, serve every layer).
     """
     match_e = _tombstone_epochs(routed.rq, tombstones)
     starts_l, counts_l, tables = [], [], []
@@ -401,7 +452,7 @@ def _layer_run_descriptors(
         rb = _rebase_buckets(
             routed.rh, routed.is_pad, routed.lo, layer.local_range_cap, layer.bucket_stride
         )
-        s, c = hashgraph.query_locate(layer.local, routed.rq, rb)
+        s, c = hashgraph.query_locate(layer.local, routed.rq, rb, routed.rfp)
         starts_l.append(s)
         counts_l.append(_mask_counts(c, routed.rq, tombstones, epoch, match_e))
         tables.append(layer.local.values)
@@ -412,7 +463,7 @@ def _owner_gather(starts, counts, tables, seg_capacity, d, cap):
     """Every owner packs every source's runs of every layer (slot-major,
     epoch order) into one segment per (owner, source): one launch of
     ``csr_gather_owners``.  ``starts``/``counts`` are ``(L, D, D*cap)``.
-    Returns ``(segments (D, D, seg_capacity), slot totals (D, D*cap),
+    Returns ``(segments (D, D, seg_capacity[, C]), slot totals (D, D*cap),
     num_dropped)``."""
     nl = counts.shape[0]
     seg, dropped, slot_counts = ops.csr_gather_owners(
@@ -440,7 +491,7 @@ def _retrieve_parts_fused(
     its runs (one querier-side gather launch for all queriers).
     """
     d = queries.shape[0]
-    routed = _route_queries_once(layers[0], queries, capacity_slack)
+    routed = _route_queries_once(layers[0], queries, capacity_slack, _wants_fingerprints(layers))
     starts_lr, counts_lr, tables = _layer_run_descriptors(layers, routed, tombstones)
     seg, slot_counts, owner_dropped = _owner_gather(
         starts_lr, counts_lr, tables, seg_capacity, d, routed.capacity
@@ -471,7 +522,7 @@ def _retrieve_runs(
     ``seg_flat[s, starts[s, i] : starts[s, i] + counts[s, i]]``."""
     d = queries.shape[0]
     routed, rbuckets = _route_queries(dhg, queries, capacity_slack)
-    run_starts, run_counts = hashgraph.query_locate(dhg.local, routed.rq, rbuckets)
+    run_starts, run_counts = hashgraph.query_locate(dhg.local, routed.rq, rbuckets, routed.rfp)
     run_counts = _mask_counts(run_counts, routed.rq, tombstones, layer_epoch)
     seg, slot_counts, owner_dropped = _owner_gather(
         run_starts[None], run_counts[None], (dhg.local.values,), seg_capacity, d,
@@ -514,7 +565,7 @@ def _retrieve_parts(
             capacity_slack=capacity_slack,
             tombstones=tombstones,
         )
-    d, n_local = queries.shape
+    d, n_local = queries.shape[:2]
     counts_l, starts_l, segs_l, dropped = [], [], [], 0
     for epoch, layer in enumerate(layers):
         counts, starts, seg_flat, drop = _retrieve_runs(
@@ -578,7 +629,7 @@ def inner_join_layers_sharded(
     fused: Optional[bool] = None,
 ) -> ShardJoin:
     """Materialized inner join against a versioned stack, as global-row pairs."""
-    d, n_local = queries.shape
+    d, n_local = queries.shape[:2]
     _, query_rows, values, counts, num_dropped = _retrieve_parts(
         layers,
         queries,
@@ -611,7 +662,7 @@ def _plan_block_totals(
     routed exactly like :func:`_retrieve_runs` (one dispatch)."""
     d = queries.shape[0]
     routed, rbuckets = _route_queries(dhg, queries, capacity_slack)
-    _, run_counts = hashgraph.query_locate(dhg.local, routed.rq, rbuckets)
+    _, run_counts = hashgraph.query_locate(dhg.local, routed.rq, rbuckets, routed.rfp)
     run_counts = _mask_counts(run_counts, routed.rq, tombstones, layer_epoch)
     return run_counts.to(torch.int64).reshape(d, d, routed.capacity).sum(2)
 
@@ -639,7 +690,9 @@ def plan_caps_sharded(
         fused = len(layers) == 1
     with exchange.counting_as("plan_caps"):
         if fused:
-            routed = _route_queries_once(layers[0], queries, capacity_slack)
+            routed = _route_queries_once(
+                layers[0], queries, capacity_slack, _wants_fingerprints(layers)
+            )
             _, counts_lr, _ = _layer_run_descriptors(layers, routed, tombstones)
             # block_totals[o, s]: values owner o returns to source s.
             block_totals = counts_lr.to(torch.int64).reshape(len(layers), d, d, routed.capacity)
@@ -678,29 +731,31 @@ def fold_layers_local(
     base = layers[0]
     keys_parts, vals_parts = [], []
     dropped = base.num_dropped
+    lanes = base.local.key_lanes
     for epoch, layer in enumerate(layers):
         k = layer.local.keys
-        dead = hashgraph.is_empty_key(k)
+        dead = hashgraph.is_empty_key(k, lanes)
         if tombstones is not None and tombstones[0].shape[0]:
             dead = dead | (
                 hashgraph.match_epochs_sorted(k, tombstones[0], tombstones[1]) >= epoch
             )
-        keys_parts.append(torch.where(dead, EMPTY_BITS, k))
+        keys_parts.append(torch.where(dead.unsqueeze(-1) if lanes > 1 else dead, EMPTY_BITS, k))
         vals_parts.append(layer.local.values)
         if epoch:
             dropped = dropped + layer.num_dropped
     keys_cat = torch.cat(keys_parts, dim=1)
     vals_cat = torch.cat(vals_parts, dim=1)
     del keys_parts, vals_parts
-    buckets = _local_buckets(
+    buckets, fp = _local_buckets(
         keys_cat,
         _shard_lo(base.hash_splits),
         base.hash_range,
         base.local_range_cap,
         base.seed,
         base.bucket_stride,
+        fingerprint=base.local.fingerprints is not None,
     )
     local = hashgraph.build_from_buckets(
-        keys_cat, buckets, base.local_range_cap, vals_cat, seed=base.seed
+        keys_cat, buckets, base.local_range_cap, vals_cat, seed=base.seed, fingerprints=fp
     )
     return dataclasses.replace(base, local=local, num_dropped=dropped)

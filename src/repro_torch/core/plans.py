@@ -101,7 +101,7 @@ def _layer_live(state: TableState) -> list[torch.Tensor]:
     live = []
     for epoch, layer in enumerate(state.layers):
         k = layer.local.keys
-        dead = hashgraph.is_empty_key(k)
+        dead = hashgraph.is_empty_key(k, layer.local.key_lanes)
         if ts_keys.shape[0]:
             dead = dead | (hashgraph.match_epochs_sorted(k, ts_keys, ts_epochs) >= epoch)
         live.append((~dead).sum())

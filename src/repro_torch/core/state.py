@@ -48,7 +48,7 @@ class Tombstones:
     ``num_dropped`` counts deletes that overflowed the buffer.
     """
 
-    keys: torch.Tensor  # (T,) int32 uint32 bits
+    keys: torch.Tensor  # (T,) int32 uint32 bits, or (T, L) int32 lanes
     epochs: torch.Tensor  # (T,) int32, -1 in unused slots
     expires: torch.Tensor  # (T,) int32, logical time the entry takes effect
     count: int  # used slots
@@ -109,10 +109,11 @@ class Tombstones:
         return sort_tombstones(self.keys, self.effective_epochs())
 
 
-def empty_tombstones(capacity: int, now: int = 0, *, device) -> Tombstones:
-    """An all-empty tombstone buffer of ``capacity`` slots."""
+def empty_tombstones(capacity: int, now: int = 0, *, device, key_lanes: int = 1) -> Tombstones:
+    """An all-empty tombstone buffer of ``capacity`` slots of ``key_lanes``-lane keys."""
+    shape = (capacity,) if key_lanes == 1 else (capacity, key_lanes)
     return Tombstones(
-        keys=torch.full((capacity,), EMPTY_BITS, dtype=torch.int32, device=device),
+        keys=torch.full(shape, EMPTY_BITS, dtype=torch.int32, device=device),
         epochs=torch.full((capacity,), -1, dtype=torch.int32, device=device),
         expires=torch.full((capacity,), NEVER_EXPIRES, dtype=torch.int32, device=device),
         count=0,
@@ -210,7 +211,9 @@ def as_state(table: "DistributedHashTable", state) -> TableState:
         return TableState(
             base=state,
             deltas=(),
-            tombstones=empty_tombstones(0, device=state.hash_splits.device),
+            tombstones=empty_tombstones(
+                0, device=state.hash_splits.device, key_lanes=state.local.key_lanes
+            ),
             table=table,
         )
     raise TypeError(

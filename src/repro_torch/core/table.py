@@ -2,6 +2,9 @@
 
     table = DistributedHashTable(num_shards=8, hash_range=1 << 20)  # the card
     state = table.init(keys)                  # keys: (N,) uint32, N % 8 == 0
+    wide = DistributedHashTable(num_shards=8, hash_range=1 << 20,
+                                schema=TableSchema("uint64", 4))
+    state64 = wide.init(keys64, values)       # (N,) uint64 or (N, 2) lanes; (N, 4) int32
     state = state.insert(new_keys)            # functional delta insert
     state = state.delete(dead_keys)           # tombstone delete
     state = state.upsert(kv_keys, kv_values, ttl=5)
@@ -30,10 +33,10 @@ from repro_torch.core.multi_hashgraph import (
     ShardJoin,
     ShardRetrieval,
 )
-from repro_torch.core.schema import LATER_SLICE, TableSchema
+from repro_torch.core.schema import TableSchema
 from repro_torch.core.state import TableState, as_state, empty_tombstones
 from repro_torch.kernels import histogram
-from repro_torch.utils import cdiv
+from repro_torch.utils import cdiv, take_rows
 
 PLANS_SLICE = "the port's plans slice (plan/AOT objects and the *_auto retries)"
 HOT_KEYS_SLICE = "the port's hot-key replication slice (KV cache)"
@@ -53,7 +56,9 @@ class DistributedHashTable:
     serves the whole stack (``fused_routing=False`` forces per-layer
     routing anyway); ``skew_guard`` sends a batch that would overflow the
     frozen-splits dispatch to a delta of its own splits instead of dropping
-    rows, counted in ``skew_fallbacks``.
+    rows, counted in ``skew_fallbacks``.  ``schema`` sets the key width and
+    value columns; ``fingerprint`` the probe fingerprint lane of every
+    layer (``None``: on exactly for multi-lane keys).
     """
 
     hash_range: int
@@ -85,8 +90,11 @@ class DistributedHashTable:
         self.device = torch.device(self.device)
         if self.schema is None:
             self.schema = TableSchema()
-        if self.fingerprint:
-            raise NotImplementedError(f"fingerprint=True belongs to {LATER_SLICE}")
+        # One probe layout for base, delta, fold and compact builds.
+        if self.fingerprint is None:
+            self.use_fingerprint = self.schema.key_lanes > 1
+        else:
+            self.use_fingerprint = bool(self.fingerprint)
         if self.replicate_hot_keys > 1:
             raise NotImplementedError(f"replicate_hot_keys > 1 belongs to {HOT_KEYS_SLICE}")
         if self.num_shards < 1:
@@ -104,7 +112,7 @@ class DistributedHashTable:
             raise ValueError(
                 f"{what} length {n} is not divisible by num_shards={self.num_shards}"
             )
-        return flat.reshape(self.num_shards, n // self.num_shards)
+        return flat.reshape(self.num_shards, n // self.num_shards, *flat.shape[1:])
 
     def _pack_queries(self, queries) -> torch.Tensor:
         return self._shard(self.schema.pack_keys(queries, self.device), "queries")
@@ -126,18 +134,23 @@ class DistributedHashTable:
             range_slack=self.range_slack,
             seed=self.seed,
             capacity=capacity,
+            fingerprint=self.use_fingerprint,
             **kw,
         )
 
     def build(self, keys, values=None) -> DistributedHashGraph:
-        """Build the distributed graph from a global ``(N,)`` key array.
+        """Build the distributed graph from a global ``(N,)`` key array
+        (``(N,)`` uint64 or ``(N, 2)`` lanes for the uint64 schema).
 
-        ``values``: optional ``(N,)`` int32 payload (default: global row ids).
+        ``values``: optional ``(N,)`` / ``(N, C)`` int32 payload (default:
+        global row ids, 1-column schemas only).
         """
-        k = self._shard(self.schema.pack_keys(keys, self.device), "keys")
-        v = None
-        if values is not None:
-            v = self._shard(self.schema.pack_values(values, self.device), "values")
+        flat = self.schema.pack_keys(keys, self.device)
+        if values is None:
+            vals = self.schema.default_values(flat.shape[0], self.device)
+        else:
+            vals = self.schema.pack_values(values, self.device)
+        k, v = self._shard(flat, "keys"), self._shard(vals, "values")
         return self._build(k, v, hash_range=self.hash_range, num_bins=self.num_bins)
 
     def init(self, keys, values=None) -> TableState:
@@ -146,7 +159,7 @@ class DistributedHashTable:
         return TableState(
             base=self.build(keys, values),
             deltas=(),
-            tombstones=empty_tombstones(0, device=self.device),
+            tombstones=empty_tombstones(0, device=self.device, key_lanes=self.schema.key_lanes),
             table=self,
         )
 
@@ -167,12 +180,13 @@ class DistributedHashTable:
         a per-(source, destination) dispatch slot?  Replays the build's
         routing (EMPTY rows round-robin) and histograms it per pair on the
         device; only the verdict comes to the host."""
-        d, n_local = keys.shape
+        d, n_local = keys.shape[:2]
+        lanes = self.schema.key_lanes
         capacity = multi_hashgraph.default_capacity(n_local, d, self.capacity_slack)
-        h = hashing.hash_to_buckets(keys, self.hash_range, seed=self.seed)
+        h = hashing.hash_to_buckets(keys, self.hash_range, self.seed, lanes)
         dest = partition.destination_of(h, splits)
         round_robin = torch.arange(n_local, dtype=torch.int32, device=keys.device) % d
-        dest = torch.where(hashgraph.is_empty_key(keys), round_robin, dest)
+        dest = torch.where(hashgraph.is_empty_key(keys, lanes), round_robin, dest)
         src = torch.arange(d, dtype=torch.int32, device=keys.device).unsqueeze(1)
         per_pair = histogram.bin_histogram((src * d + dest).to(torch.int32), d * d)
         return bool((per_pair > capacity).any())
@@ -198,7 +212,7 @@ class DistributedHashTable:
             )
         flat = self.schema.pack_keys(keys, self.device)
         if values is None:
-            vals = torch.arange(flat.shape[0], dtype=torch.int32, device=self.device)
+            vals = self.schema.default_values(flat.shape[0], self.device)
         else:
             vals = self.schema.pack_values(values, self.device)
         k = self._shard(flat, "keys")
@@ -236,7 +250,8 @@ class DistributedHashTable:
         if ts.capacity == 0:
             # A zero-capacity buffer grows on the first delete.  It keeps the
             # clock (the reference restarts it at 0; ROADMAP.md, faults).
-            ts = empty_tombstones(self.tombstone_capacity, ts.now, device=self.device)
+            ts = empty_tombstones(self.tombstone_capacity, ts.now, device=self.device,
+                                  key_lanes=self.schema.key_lanes)
         packed = self.schema.pack_keys(keys, self.device)
         return dataclasses.replace(st, tombstones=ts.push(packed, epoch=len(st.deltas)))
 
@@ -264,20 +279,22 @@ class DistributedHashTable:
             st = self.compact(st)
         kn = self.schema.pack_keys(keys, "cpu").numpy()
         if values is None:
-            vn = np.arange(kn.shape[0], dtype=np.int32)
+            vn = self.schema.default_values(kn.shape[0], "cpu").numpy()
         else:
             vn = self.schema.pack_values(values, "cpu").numpy()
-        # Keep-last dedup: one winner per key, EMPTY rows dropped.
-        _, first = np.unique(kn[::-1], return_index=True)
+        # Keep-last dedup: one winner per key, EMPTY rows dropped (one word a
+        # key: the int64 view of a 2-lane key, EMPTY -1 either way).
+        words = kn if kn.ndim == 1 else np.ascontiguousarray(kn).view(np.int64)[:, 0]
+        _, first = np.unique(words[::-1], return_index=True)
         keep = np.sort(kn.shape[0] - 1 - first)
-        keep = keep[kn[keep] != EMPTY_BITS]
+        keep = keep[words[keep] != EMPTY_BITS]
         if keep.shape[0] == 0:
             return st
         real = torch.from_numpy(kn[keep]).to(self.device)
         vals = torch.from_numpy(vn[keep]).to(self.device)
         pad = (-real.shape[0]) % self.num_shards
-        padded_keys = torch.cat([real, real.new_full((pad,), EMPTY_BITS)])
-        padded_vals = torch.cat([vals, vals.new_full((pad,), -1)])
+        padded_keys = torch.cat([real, real.new_full((pad,) + real.shape[1:], EMPTY_BITS)])
+        padded_vals = torch.cat([vals, vals.new_full((pad,) + vals.shape[1:], -1)])
         st = self.delete(st, real)  # hide prior versions: epoch d
         st = self.insert(st, padded_keys, padded_vals)  # the new version: d + 1
         if ttl is not None:
@@ -329,43 +346,54 @@ class DistributedHashTable:
 
             new_ts = _remap_tombstones(ts, len(st.deltas))
         else:
-            new_ts = empty_tombstones(0, ts.now, device=self.device)
+            new_ts = empty_tombstones(0, ts.now, device=self.device,
+                                      key_lanes=self.schema.key_lanes)
         return TableState(base=new_base, deltas=(), tombstones=new_ts, table=self)
 
     def _compact_rows(self, st: TableState, rebuild_rows: Optional[int]):
         """The rows a compaction rebuilds: ``(keys, values, truncated_live)``,
-        each ``(D, rows)``, live rows first on every shard."""
+        keys ``(D, rows[, L])`` and values ``(D, rows[, C])``, live rows first
+        on every shard."""
         ts_keys, ts_epochs = st.tombstones.index()
+        lanes, cols = self.schema.key_lanes, self.schema.value_cols
         keys_parts, vals_parts = [], []
         for epoch, layer in enumerate(st.layers):
             k = layer.local.keys
             hidden = hashgraph.match_epochs_sorted(k, ts_keys, ts_epochs) >= epoch
-            keys_parts.append(torch.where(hashgraph.is_empty_key(k) | hidden, EMPTY_BITS, k))
+            dead = hashgraph.is_empty_key(k, lanes) | hidden
+            keys_parts.append(torch.where(dead.unsqueeze(-1) if lanes > 1 else dead, EMPTY_BITS, k))
             vals_parts.append(layer.local.values)
-        rows = torch.stack([torch.cat(keys_parts, 1), torch.cat(vals_parts, 1)], dim=-1)
+        d = keys_parts[0].shape[0]
+        # One row of L key lanes and C value columns.
+        rows = torch.cat([torch.cat(keys_parts, 1).reshape(d, -1, lanes),
+                          torch.cat(vals_parts, 1).reshape(d, -1, cols)], dim=-1)
         del keys_parts, vals_parts
+        width = lanes + cols
         # Strided deal: row i of every shard goes to shard i % D (the base is
         # hash-partitioned, so rebuilding as it is would send each shard's
         # live rows to one owner).  Keys and values travel as one exchange.
-        d, m = rows.shape[:2]
+        m = rows.shape[1]
         chunk = cdiv(m, d)
         if chunk * d != m:
-            pad = rows.new_full((d, chunk * d - m, 2), -1)
+            pad = rows.new_full((d, chunk * d - m, width), -1)
             rows = torch.cat([rows, pad], dim=1)
-        stripes = rows.reshape(d, chunk, d, 2).transpose(1, 2)  # (D_src, D_dst, chunk, 2)
-        rows = exchange.all_to_all_hierarchical(stripes).reshape(d, d * chunk, 2)
+        stripes = rows.reshape(d, chunk, d, width).transpose(1, 2)  # (D_src, D_dst, chunk, W)
+        rows = exchange.all_to_all_hierarchical(stripes).reshape(d, d * chunk, width)
         del stripes
         # Live rows first: dispatch drops hit sentinels before any real key.
-        order = torch.sort(
-            hashgraph.is_empty_key(rows[..., 0]).to(torch.int32), dim=1, stable=True
-        ).indices
-        rows = torch.gather(rows, 1, order.unsqueeze(-1).expand(-1, -1, 2))
+        empty = (rows[..., :lanes] == EMPTY_BITS).all(-1)
+        order = torch.sort(empty.to(torch.int32), dim=1, stable=True).indices
+        rows = take_rows(rows, order)
+        empty = torch.gather(empty, 1, order)
         del order
         trunc_live = 0
         if rebuild_rows is not None and rebuild_rows < rows.shape[1]:
-            trunc_live = (~hashgraph.is_empty_key(rows[:, rebuild_rows:, 0])).sum()
+            trunc_live = (~empty[:, rebuild_rows:]).sum()
             rows = rows[:, :rebuild_rows]
-        return rows[..., 0].contiguous(), rows[..., 1].contiguous(), trunc_live
+        keys = rows[..., :lanes].contiguous()
+        values = rows[..., lanes:].contiguous()
+        return (keys[..., 0] if lanes == 1 else keys), (
+            values[..., 0] if cols == 1 else values), trunc_live
 
     def _compact_base(
         self, st: TableState, capacity: int, rebuild_rows: Optional[int]
@@ -433,7 +461,7 @@ class DistributedHashTable:
         r = plans.exec_retrieve(self, st, q, out_capacity=out_cap, seg_capacity=seg_cap)
         return ShardRetrieval(
             offsets=r.offsets.reshape(-1),
-            values=r.values.reshape(-1),
+            values=r.values.reshape(-1, *r.values.shape[2:]),
             counts=r.counts.reshape(-1),
             num_dropped=r.num_dropped,
         )
@@ -454,7 +482,7 @@ class DistributedHashTable:
         j = plans.exec_join(self, st, q, out_capacity=out_cap, seg_capacity=seg_cap)
         return ShardJoin(
             query_idx=j.query_idx.reshape(-1),
-            values=j.values.reshape(-1),
+            values=j.values.reshape(-1, *j.values.shape[2:]),
             num_results=j.num_results,
             num_dropped=j.num_dropped,
         )
@@ -476,7 +504,8 @@ def _np(t) -> np.ndarray:
 
 
 def retrieval_to_lists(result: ShardRetrieval) -> list:
-    """One np.ndarray of values per global query (vectorized block slicing)."""
+    """One np.ndarray of values per global query (vectorized block slicing):
+    ``(k,)`` for one value column, ``(k, C)`` for C."""
     counts = _np(result.counts)
     offsets = _np(result.offsets)
     values = _np(result.values)
@@ -492,9 +521,12 @@ def retrieval_to_lists(result: ShardRetrieval) -> list:
 
 
 def join_to_pairs(result: ShardJoin) -> np.ndarray:
-    """``(M, 2)`` int32 rows ``(query_idx, value)`` of every valid pair."""
+    """``(M, 1 + C)`` int32 rows ``(query_idx, *value_columns)`` of every
+    valid pair (``(M, 2)`` for one column)."""
     qi = _np(result.query_idx)
-    vals = _np(result.values)[:, None]
+    vals = _np(result.values)
+    if vals.ndim == 1:
+        vals = vals[:, None]
     nres = _np(result.num_results)
     d = nres.shape[0]
     out_cap = qi.shape[0] // d

@@ -23,13 +23,20 @@
 // A window longer than max_probe under-counts exactly as the TPU kernel does:
 // both stop after max_probe words.  The TPU kernel runs a fixed max_probe
 // trips and masks; here the loop ends at the window's end, which gives the
-// same count.  Keys are 32-bit patterns (uint32 carried in int32), so the
-// compare is plain 32-bit equality.  The TPU kernel's (rows, 128) lane
-// tiling is not carried over.
+// same count.  Keys are 32-bit patterns (uint32 carried in int32) or 2-lane
+// uint64 keys (two int32 lanes, lane 0 low, read as one 8-byte word), so the
+// compare is plain equality of one word: every routine is templated on the
+// word type W (int32_t or long long), and a 2-lane launch reads 8-byte
+// table and key words where a 1-lane one reads 4 (EMPTY is all ones either
+// way).  The Pallas kernel is uint32-only; the 2-lane reference is
+// `hashgraph.query_count_probe`'s jnp path (src/repro/core/hashgraph.py:505-531),
+// which compares every lane.  W = int32_t is the instantiation the 1-lane
+// table has always run.  The TPU kernel's (rows, 128) lane tiling is not
+// carried over.
 //
-// Layout: every per-slot array is (S, n) int32, offsets (S, V + 2), keys and
-// the window entry's table (S, M); blockIdx.y is the shard, so one launch
-// serves the S shards of a layer.
+// Layout: every per-slot array is (S, n) int32 (the keys (S, n) words),
+// offsets (S, V + 2), keys and the window entry's table (S, M) words;
+// blockIdx.y is the shard, so one launch serves the S shards of a layer.
 //
 // Bound on the H100: memory.  Bytes once: per slot rq, rh, match_e and
 // total (4 B each, total read again where it accumulates), and the offsets
@@ -75,7 +82,6 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kSlots = 4;       // routed slots a thread takes: one int4 of each slot array
 constexpr int kFirstWords = 6;  // window words of every slot in flight before a compare
-constexpr int32_t kEmpty = -1;
 
 // One table word through the read-only path, loaded only where `pred`
 // holds (else 0); the guard is a predicate, not a branch, so the loads of
@@ -85,6 +91,16 @@ __device__ __forceinline__ int32_t ld_table(const int32_t* p, bool pred) {
   asm("{\n .reg .pred p;\n setp.ne.b32 p, %2, 0;\n"
       " @p ld.global.nc.b32 %0, [%1];\n}"
       : "+r"(v)
+      : "l"(p), "r"(static_cast<int>(pred)));
+  return v;
+}
+
+// The same for an 8-byte word (a 2-lane key).
+__device__ __forceinline__ long long ld_table(const long long* p, bool pred) {
+  long long v = 0;
+  asm("{\n .reg .pred p;\n setp.ne.b32 p, %2, 0;\n"
+      " @p ld.global.nc.b64 %0, [%1];\n}"
+      : "+l"(v)
       : "l"(p), "r"(static_cast<int>(pred)));
   return v;
 }
@@ -107,6 +123,22 @@ __device__ __forceinline__ void load_slots(const int32_t* p, int valid, int32_t 
   }
 }
 
+// The same for 8-byte words: two 16-byte loads.
+__device__ __forceinline__ void load_slots(const long long* p, int valid, long long fill,
+                                           long long (&v)[kSlots]) {
+  if (valid == kSlots && (reinterpret_cast<uintptr_t>(p) & 15) == 0) {
+    const longlong2 a = __ldcs(reinterpret_cast<const longlong2*>(p));
+    const longlong2 b = __ldcs(reinterpret_cast<const longlong2*>(p) + 1);
+    v[0] = a.x;
+    v[1] = a.y;
+    v[2] = b.x;
+    v[3] = b.y;
+  } else {
+#pragma unroll
+    for (int k = 0; k < kSlots; ++k) v[k] = k < valid ? __ldcs(p + k) : fill;
+  }
+}
+
 __device__ __forceinline__ void store_slots(int32_t* p, int valid, const int32_t (&v)[kSlots]) {
   if (valid == kSlots && (reinterpret_cast<uintptr_t>(p) & 15) == 0) {
     __stcs(reinterpret_cast<int4*>(p), make_int4(v[0], v[1], v[2], v[3]));
@@ -118,8 +150,8 @@ __device__ __forceinline__ void store_slots(int32_t* p, int valid, const int32_t
   }
 }
 
-__device__ __forceinline__ const int32_t* clipped(const int32_t* table, long long len,
-                                                  long long idx) {
+template <typename W>
+__device__ __forceinline__ const W* clipped(const W* table, long long len, long long idx) {
   idx = idx < 0 ? 0 : (idx > len - 1 ? len - 1 : idx);
   return table + idx;
 }
@@ -131,17 +163,17 @@ __device__ __forceinline__ const int32_t* clipped(const int32_t* table, long lon
 // address one add from the slot's start and the kernel at 32 registers.
 // The first kFirstWords words of every slot's window are in flight before
 // the first compare.
-template <bool kClip>
-__device__ __forceinline__ void count_windows(const int32_t* table, long long len,
+template <bool kClip, typename W>
+__device__ __forceinline__ void count_windows(const W* table, long long len,
                                               const int32_t (&start)[kSlots],
                                               const int (&trips)[kSlots],
-                                              const int32_t (&q)[kSlots],
+                                              const W (&q)[kSlots],
                                               int32_t (&count)[kSlots]) {
   const auto word = [&](int k, int j) {
     return kClip ? clipped(table, len, static_cast<long long>(start[k]) + j)
                  : table + start[k] + j;
   };
-  int32_t w[kFirstWords][kSlots];
+  W w[kFirstWords][kSlots];
 #pragma unroll
   for (int j = 0; j < kFirstWords; ++j) {
 #pragma unroll
@@ -162,9 +194,10 @@ __device__ __forceinline__ void count_windows(const int32_t* table, long long le
 }
 
 // The Pallas interface: windows given as starts and ends.
+template <typename W>
 __global__ void __launch_bounds__(kThreads)
     probe_windows_kernel(const int32_t* __restrict__ starts, const int32_t* __restrict__ ends,
-                         const int32_t* __restrict__ q, const int32_t* __restrict__ table,
+                         const W* __restrict__ q, const W* __restrict__ table,
                          long long n, long long table_len, int max_probe,
                          int32_t* __restrict__ out) {
   const long long s = blockIdx.y;
@@ -173,26 +206,27 @@ __global__ void __launch_bounds__(kThreads)
   if (i0 >= n) return;
   const int valid = n - i0 < kSlots ? static_cast<int>(n - i0) : kSlots;
   const long long at = s * n + i0;
-  int32_t st[kSlots], en[kSlots], key[kSlots], count[kSlots];
+  int32_t st[kSlots], en[kSlots], count[kSlots];
+  W key[kSlots];
   load_slots(starts + at, valid, 0, st);
   load_slots(ends + at, valid, 0, en);
-  load_slots(q + at, valid, 0, key);
+  load_slots(q + at, valid, W(0), key);
   int trips[kSlots];
 #pragma unroll
   for (int k = 0; k < kSlots; ++k) {
     const long long t = static_cast<long long>(en[k]) - st[k];
     trips[k] = table_len > 0 && t > 0 ? static_cast<int>(t < max_probe ? t : max_probe) : 0;
   }
-  count_windows<true>(table + s * table_len, table_len, st, trips, key, count);
+  count_windows<true, W>(table + s * table_len, table_len, st, trips, key, count);
   store_slots(out + at, valid, count);
 }
 
 // The table's path: one layer of the stack, windows found here.
-template <bool kMatch>
+template <bool kMatch, typename W>
 __global__ void __launch_bounds__(kThreads)
-    probe_layer_kernel(const int32_t* __restrict__ rq, const int32_t* __restrict__ rh,
+    probe_layer_kernel(const W* __restrict__ rq, const int32_t* __restrict__ rh,
                        const int32_t* __restrict__ lo, const int32_t* __restrict__ match_e,
-                       const int32_t* __restrict__ offsets, const int32_t* __restrict__ keys,
+                       const int32_t* __restrict__ offsets, const W* __restrict__ keys,
                        long long n, long long keys_len, int table_size, int stride, int epoch,
                        int max_probe, int accumulate, int32_t* __restrict__ total) {
   const long long s = blockIdx.y;
@@ -201,7 +235,9 @@ __global__ void __launch_bounds__(kThreads)
   if (i0 >= n) return;
   const int valid = n - i0 < kSlots ? static_cast<int>(n - i0) : kSlots;
   const long long at = s * n + i0;
-  int32_t key[kSlots], h[kSlots], e[kSlots], count[kSlots];
+  constexpr W kEmpty = -1;  // all ones in every lane
+  W key[kSlots];
+  int32_t h[kSlots], e[kSlots], count[kSlots];
   load_slots(rq + at, valid, kEmpty, key);
   load_slots(rh + at, valid, 0, h);
   if (kMatch) load_slots(match_e + at, valid, 0, e);
@@ -221,7 +257,7 @@ __global__ void __launch_bounds__(kThreads)
     start[k] = lo_w;
     trips[k] = keys_len > 0 && t > 0 ? (t < max_probe ? t : max_probe) : 0;
   }
-  count_windows<false>(keys + s * keys_len, keys_len, start, trips, key, count);
+  count_windows<false, W>(keys + s * keys_len, keys_len, start, trips, key, count);
   if (accumulate) {
     int32_t before[kSlots];
     load_slots(total + at, valid, 0, before);
@@ -237,44 +273,77 @@ dim3 slot_grid(long long n, int num_shards) {
               static_cast<unsigned>(num_shards));
 }
 
+template <typename W>
+void launch_windows(const void* starts, const void* ends, const void* q, const void* table,
+                    long long n, long long table_len, int num_shards, int max_probe, void* out,
+                    cudaStream_t st) {
+  probe_windows_kernel<W><<<slot_grid(n, num_shards), kThreads, 0, st>>>(
+      static_cast<const int32_t*>(starts), static_cast<const int32_t*>(ends),
+      static_cast<const W*>(q), static_cast<const W*>(table), n, table_len, max_probe,
+      static_cast<int32_t*>(out));
+}
+
+template <typename W>
+void launch_layer(const void* rq, const void* rh, const void* lo, const void* match_e,
+                  const void* offsets, const void* keys, long long n, long long keys_len,
+                  int num_shards, int table_size, int stride, int epoch, int max_probe,
+                  int accumulate, void* total, cudaStream_t st) {
+  const dim3 grid = slot_grid(n, num_shards);
+  const auto* rq_p = static_cast<const W*>(rq);
+  const auto* rh_p = static_cast<const int32_t*>(rh);
+  const auto* lo_p = static_cast<const int32_t*>(lo);
+  const auto* e_p = static_cast<const int32_t*>(match_e);
+  const auto* off_p = static_cast<const int32_t*>(offsets);
+  const auto* keys_p = static_cast<const W*>(keys);
+  auto* out = static_cast<int32_t*>(total);
+  if (match_e != nullptr) {
+    probe_layer_kernel<true, W><<<grid, kThreads, 0, st>>>(rq_p, rh_p, lo_p, e_p, off_p, keys_p,
+                                                           n, keys_len, table_size, stride,
+                                                           epoch, max_probe, accumulate, out);
+  } else {
+    probe_layer_kernel<false, W><<<grid, kThreads, 0, st>>>(rq_p, rh_p, lo_p, e_p, off_p,
+                                                            keys_p, n, keys_len, table_size,
+                                                            stride, epoch, max_probe,
+                                                            accumulate, out);
+  }
+}
+
 }  // namespace
 
+// lanes: 1 (4-byte keys) or 2 (8-byte keys: two int32 lanes, 8-byte aligned);
+// q and table hold words of that size, table_len counts words.
 extern "C" int bucket_probe(const void* starts, const void* ends, const void* q,
                             const void* table, long long n, long long table_len,
-                            int num_shards, int max_probe, void* out, void* stream) {
+                            int num_shards, int max_probe, int lanes, void* out, void* stream) {
+  if (lanes != 1 && lanes != 2) return static_cast<int>(cudaErrorInvalidValue);
   if (n > 0 && num_shards > 0) {
-    probe_windows_kernel<<<slot_grid(n, num_shards), kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int32_t*>(starts), static_cast<const int32_t*>(ends),
-        static_cast<const int32_t*>(q), static_cast<const int32_t*>(table), n, table_len,
-        max_probe, static_cast<int32_t*>(out));
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (lanes == 1) {
+      launch_windows<int32_t>(starts, ends, q, table, n, table_len, num_shards, max_probe, out,
+                              st);
+    } else {
+      launch_windows<long long>(starts, ends, q, table, n, table_len, num_shards, max_probe,
+                                out, st);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }
 
+// rq and keys hold words of `lanes` int32 lanes (1 or 2); keys_len counts words.
 extern "C" int bucket_probe_layer(const void* rq, const void* rh, const void* lo,
                                   const void* match_e, const void* offsets, const void* keys,
                                   long long n, long long keys_len, int num_shards,
                                   int table_size, int stride, int epoch, int max_probe,
-                                  int accumulate, void* total, void* stream) {
+                                  int accumulate, int lanes, void* total, void* stream) {
+  if (lanes != 1 && lanes != 2) return static_cast<int>(cudaErrorInvalidValue);
   if (n > 0 && num_shards > 0) {
-    const dim3 grid = slot_grid(n, num_shards);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const auto* rq_p = static_cast<const int32_t*>(rq);
-    const auto* rh_p = static_cast<const int32_t*>(rh);
-    const auto* lo_p = static_cast<const int32_t*>(lo);
-    const auto* e_p = static_cast<const int32_t*>(match_e);
-    const auto* off_p = static_cast<const int32_t*>(offsets);
-    const auto* keys_p = static_cast<const int32_t*>(keys);
-    auto* out = static_cast<int32_t*>(total);
-    if (match_e != nullptr) {
-      probe_layer_kernel<true><<<grid, kThreads, 0, st>>>(rq_p, rh_p, lo_p, e_p, off_p, keys_p,
-                                                          n, keys_len, table_size, stride, epoch,
-                                                          max_probe, accumulate, out);
+    if (lanes == 1) {
+      launch_layer<int32_t>(rq, rh, lo, match_e, offsets, keys, n, keys_len, num_shards,
+                            table_size, stride, epoch, max_probe, accumulate, total, st);
     } else {
-      probe_layer_kernel<false><<<grid, kThreads, 0, st>>>(rq_p, rh_p, lo_p, e_p, off_p, keys_p,
-                                                           n, keys_len, table_size, stride, epoch,
-                                                           max_probe, accumulate, out);
+      launch_layer<long long>(rq, rh, lo, match_e, offsets, keys, n, keys_len, num_shards,
+                              table_size, stride, epoch, max_probe, accumulate, total, st);
     }
   }
   return static_cast<int>(cudaGetLastError());

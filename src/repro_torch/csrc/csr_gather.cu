@@ -29,6 +29,15 @@
 //   each gathering from its own row of the returned segments (a row stride);
 //   writes values, row ids, the offsets clamped to the capacity and each
 //   querier's overflow.
+// Value columns: every entry takes tables of C int32 columns a row, row-major
+// ((M, C); C = 1 is the 1-D table), and writes C words a slot.  A slot's row
+// and source word are resolved once; then its C words move together: one
+// 16-byte load and store for C = 4 (the wrapper keeps table bases 16-byte
+// aligned), a loop over the columns for other C.  C = 1 is the
+// instantiation the 1-column table has always run (`gather_tiles<1>`).  The
+// reference gathers its columns through the same row ids after the kernel
+// (src/repro/kernels/ops.py:176-212).
+//
 // The new entries take one inclusive prefix sum over all their blocks' rows
 // (one flat `cumsum`: a scan per block row is one slow launch at D > 1), and
 // each block subtracts the sum before its first row, modulo 2^32, so a block
@@ -90,8 +99,9 @@ struct Args {
   const long long* layer_tables;
   const int32_t* table;
   long long table_stride;  // words between rows (0: one shared table)
-  long long table_len;     // words a row
-  int32_t* vals;          // (B, cap)
+  long long table_len;     // table rows (of C words) a row
+  int cols;                // C: words a table row and an output slot
+  int32_t* vals;          // (B, cap, C)
   int32_t* rows;          // (B, cap) row ids, or null
   int32_t* off_out;       // (B, R + 1) exclusive offsets clamped to cap, or null
   int32_t* dropped;       // (B,) max(0, total - cap), or null
@@ -104,7 +114,7 @@ struct Args {
   int fill;
 };
 
-// Row `row` of layer l's table and its length.
+// Row `row` of layer l's table and its length in table rows.
 struct TableRow {
   const int32_t* base;
   long long len;
@@ -205,8 +215,25 @@ __device__ __forceinline__ void store_group(int32_t* out, long long s0, int p_en
   }
 }
 
-// Resolve and store this thread's kSlots slots of the tile.
+// Group gi's row ids (-1 where the slot holds no value), where asked for.
 template <bool kStaged>
+__device__ __forceinline__ void store_rows(const Args& g, const RowOffsets<kStaged>& s,
+                                           const int (&row)[kSlots], const int (&layer)[kSlots],
+                                           int gi, int s0, int p_end, bool vec,
+                                           long long out0) {
+  if (g.rows == nullptr) return;
+  int r[kVec];
+#pragma unroll
+  for (int j = 0; j < kVec; ++j) {
+    const int i = gi * kVec + j;
+    r[j] = layer[i] >= 0 ? s.r0 + row[i] : -1;
+  }
+  store_group(g.rows + out0, s0, p_end, r, vec);
+}
+
+// Resolve and store this thread's kSlots slots of the tile.  kCols: the
+// table's columns (0: g.cols, any number, in a loop).
+template <bool kStaged, int kCols>
 __device__ __forceinline__ void gather_slots(const Args& g, int b,
                                              const RowOffsets<kStaged>& s, int ns,
                                              int p0, int p_end, int valid_end) {
@@ -258,6 +285,7 @@ __device__ __forceinline__ void gather_slots(const Args& g, int b,
     }
   }
   const int table_idx = b / g.owners_div;
+  const int cols = kCols ? kCols : g.cols;
   const int32_t* src[kSlots];
 #pragma unroll
   for (int i = 0; i < kSlots; ++i) {
@@ -269,33 +297,64 @@ __device__ __forceinline__ void gather_slots(const Args& g, int b,
       const TableRow tr = table_row(g, l, table_idx);
       at = at < 0 ? 0 : (at > tr.len - 1 ? tr.len - 1 : at);
       if (tr.len > 0) {
-        src[i] = tr.base + at;
+        src[i] = tr.base + at * cols;
       } else {
         layer[i] = -1;  // an empty table holds no valid slot (as the plain twin)
       }
     }
   }
-  int v[kSlots];
-#pragma unroll
-  for (int i = 0; i < kSlots; ++i) v[i] = src[i] ? __ldg(src[i]) : g.fill;
   const long long out0 = static_cast<long long>(b) * g.cap;
   const bool vec = (g.cap & (kVec - 1)) == 0;
+  if constexpr (kCols == 1) {
+    int v[kSlots];
 #pragma unroll
-  for (int gi = 0; gi < kGroups; ++gi) {
-    const int s0 = p0 + gi * kThreads * kVec + static_cast<int>(threadIdx.x) * kVec;
-    store_group(g.vals + out0, s0, p_end, v + gi * kVec, vec);
-    if (g.rows != nullptr) {
-      int r[kVec];
+    for (int i = 0; i < kSlots; ++i) v[i] = src[i] ? __ldg(src[i]) : g.fill;
+#pragma unroll
+    for (int gi = 0; gi < kGroups; ++gi) {
+      const int s0 = p0 + gi * kThreads * kVec + static_cast<int>(threadIdx.x) * kVec;
+      store_group(g.vals + out0, s0, p_end, v + gi * kVec, vec);
+      store_rows(g, s, row, layer, gi, s0, p_end, vec, out0);
+    }
+    return;
+  } else if constexpr (kCols == 4) {
+    // A slot's 4 columns: one 16-byte load and one 16-byte store.
+    int4 v[kSlots];
+    const int4 fill4 = make_int4(g.fill, g.fill, g.fill, g.fill);
+#pragma unroll
+    for (int i = 0; i < kSlots; ++i) {
+      v[i] = src[i] ? __ldg(reinterpret_cast<const int4*>(src[i])) : fill4;
+    }
+#pragma unroll
+    for (int gi = 0; gi < kGroups; ++gi) {
+      const int s0 = p0 + gi * kThreads * kVec + static_cast<int>(threadIdx.x) * kVec;
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) {
+        if (s0 + j < p_end) {
+          *reinterpret_cast<int4*>(g.vals + (out0 + s0 + j) * 4) = v[gi * kVec + j];
+        }
+      }
+    }
+  } else {
+#pragma unroll
+    for (int gi = 0; gi < kGroups; ++gi) {
+      const int s0 = p0 + gi * kThreads * kVec + static_cast<int>(threadIdx.x) * kVec;
 #pragma unroll
       for (int j = 0; j < kVec; ++j) {
         const int i = gi * kVec + j;
-        r[j] = layer[i] >= 0 ? s.r0 + row[i] : -1;
+        if (s0 + j >= p_end) continue;
+        int32_t* out = g.vals + (out0 + s0 + j) * cols;
+        for (int c = 0; c < cols; ++c) out[c] = src[i] ? __ldg(src[i] + c) : g.fill;
       }
-      store_group(g.rows + out0, s0, p_end, r, vec);
     }
+  }
+#pragma unroll
+  for (int gi = 0; gi < kGroups; ++gi) {
+    const int s0 = p0 + gi * kThreads * kVec + static_cast<int>(threadIdx.x) * kVec;
+    store_rows(g, s, row, layer, gi, s0, p_end, vec, out0);
   }
 }
 
+template <int kCols>
 __global__ void __launch_bounds__(kThreads)
 gather_tiles(const Args g) {
   __shared__ int stage[kStage];
@@ -329,7 +388,7 @@ gather_tiles(const Args g) {
   const int valid_end = static_cast<int>(total < p_end ? total : p_end);
   if (valid_end <= p0) {  // past the total: fill only
     RowOffsets<true> none{stage, sums, 0};
-    gather_slots<true>(g, b, none, 0, p0, p_end, p0);
+    gather_slots<true, kCols>(g, b, none, 0, p0, p_end, p0);
     return;
   }
   const int warp = threadIdx.x >> 5;
@@ -343,7 +402,8 @@ gather_tiles(const Args g) {
   const int r0 = tile_rows[0];
   const int ns = tile_rows[1] - r0 + 1;  // rows r0 .. r1; s(ns) is row r1's end
   if (ns + 1 > kStage) {
-    gather_slots<false>(g, b, RowOffsets<false>{stage, sums, r0}, ns, p0, p_end, valid_end);
+    gather_slots<false, kCols>(g, b, RowOffsets<false>{stage, sums, r0}, ns, p0, p_end,
+                               valid_end);
     return;
   }
   constexpr int kUnroll = 4;
@@ -361,15 +421,23 @@ gather_tiles(const Args g) {
     }
   }
   __syncthreads();
-  gather_slots<true>(g, b, RowOffsets<true>{stage, sums, r0}, ns, p0, p_end, valid_end);
+  gather_slots<true, kCols>(g, b, RowOffsets<true>{stage, sums, r0}, ns, p0, p_end, valid_end);
 }
 
 int launch(const Args& a, void* stream) {
   if (a.num_blocks > 0) {
     const long long grid = static_cast<long long>(a.tiles) * a.num_blocks;
     if (grid > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
-    gather_tiles<<<static_cast<unsigned>(grid), kThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(a);
+    if (a.cols < 1) return static_cast<int>(cudaErrorInvalidValue);
+    const dim3 blocks(static_cast<unsigned>(grid));
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (a.cols == 1) {
+      gather_tiles<1><<<blocks, kThreads, 0, st>>>(a);
+    } else if (a.cols == 4) {
+      gather_tiles<4><<<blocks, kThreads, 0, st>>>(a);
+    } else {
+      gather_tiles<0><<<blocks, kThreads, 0, st>>>(a);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -379,16 +447,19 @@ int tiles_for(long long capacity) {
   return static_cast<int>(tiles < 1 ? 1 : (tiles > INT_MAX ? INT_MAX : tiles));
 }
 
-// The Pallas functions' interface: exclusive offsets (S, num_rows + 1).
+// The Pallas functions' interface: exclusive offsets (S, num_rows + 1); a
+// table of table_len rows of `cols` words.
 int pallas_interface(const void* offsets, const void* starts, const void* table,
-                     long long table_len, void* vals, void* rows, long long capacity,
-                     int num_rows, int num_sources, int fill, void* stream) {
+                     long long table_len, int cols, void* vals, void* rows,
+                     long long capacity, int num_rows, int num_sources, int fill,
+                     void* stream) {
   Args a{};
   a.incl = static_cast<const int32_t*>(offsets) + 1;
   a.incl_stride = static_cast<long long>(num_rows) + 1;
   a.starts = static_cast<const int32_t*>(starts);
   a.table = static_cast<const int32_t*>(table);
   a.table_len = table_len;
+  a.cols = cols;
   a.vals = static_cast<int32_t*>(vals);
   a.rows = static_cast<int32_t*>(rows);
   a.cap = capacity;
@@ -403,30 +474,32 @@ int pallas_interface(const void* offsets, const void* starts, const void* table,
 
 }  // namespace
 
+// table (table_len, cols) int32; vals (capacity, cols); rows (capacity,).
 extern "C" int csr_gather(const void* offsets, const void* starts, const void* table,
-                          long long table_len, void* vals, void* rows,
+                          long long table_len, int cols, void* vals, void* rows,
                           long long capacity, int num_rows, int fill, void* stream) {
-  return pallas_interface(offsets, starts, table, table_len, vals, rows, capacity, num_rows,
-                          1, fill, stream);
+  return pallas_interface(offsets, starts, table, table_len, cols, vals, rows, capacity,
+                          num_rows, 1, fill, stream);
 }
 
 extern "C" int csr_gather_batched(const void* offsets, const void* starts,
-                                  const void* table, long long table_len, void* vals,
-                                  void* rows, long long capacity, int num_rows,
+                                  const void* table, long long table_len, int cols,
+                                  void* vals, void* rows, long long capacity, int num_rows,
                                   int num_sources, int fill, void* stream) {
-  return pallas_interface(offsets, starts, table, table_len, vals, rows, capacity, num_rows,
-                          num_sources, fill, stream);
+  return pallas_interface(offsets, starts, table, table_len, cols, vals, rows, capacity,
+                          num_rows, num_sources, fill, stream);
 }
 
 // Owner side: slot_incl (D_o, D_s, R) flat inclusive sums of the slots'
 // totals over the layers; starts and counts (L, D_o, D_s, R); layer_tables
-// (L, 3) int64 on the device: layer l's table is (D_o, [l, 2]) words at
-// address [l, 0] with row stride [l, 1]; seg (D_o, D_s, seg_capacity);
-// dropped (D_o, D_s).
+// (L, 3) int64 on the device: layer l's table is (D_o, [l, 2], cols) words
+// at address [l, 0] with row stride [l, 1] words; seg (D_o, D_s,
+// seg_capacity, cols); dropped (D_o, D_s).
 extern "C" int csr_gather_owners(const void* slot_incl, const void* starts, const void* counts,
                                  const void* layer_tables, int num_layers, int num_owners,
-                                 int num_sources, int num_rows, void* seg, void* dropped,
-                                 long long seg_capacity, int fill, void* stream) {
+                                 int num_sources, int num_rows, int cols, void* seg,
+                                 void* dropped, long long seg_capacity, int fill,
+                                 void* stream) {
   if (num_layers < 1) return static_cast<int>(cudaErrorInvalidValue);
   Args a{};
   a.incl = static_cast<const int32_t*>(slot_incl);
@@ -434,6 +507,7 @@ extern "C" int csr_gather_owners(const void* slot_incl, const void* starts, cons
   a.starts = static_cast<const int32_t*>(starts);
   a.counts = static_cast<const int32_t*>(counts);
   a.layer_tables = static_cast<const long long*>(layer_tables);
+  a.cols = cols;
   a.vals = static_cast<int32_t*>(seg);
   a.dropped = static_cast<int32_t*>(dropped);
   a.cap = seg_capacity;
@@ -447,10 +521,11 @@ extern "C" int csr_gather_owners(const void* slot_incl, const void* starts, cons
 }
 
 // Querier side: incl (D, N) flat inclusive sums of the returned counts; starts
-// (D, N) into each querier's row of table (D, table_stride); vals and rows
-// (D, capacity); offsets_out (D, N + 1) clamped to capacity; dropped (D,).
+// (D, N) into each querier's row of table (D, table_rows, cols); vals (D,
+// capacity, cols) and rows (D, capacity); offsets_out (D, N + 1) clamped to
+// capacity; dropped (D,).
 extern "C" int csr_gather_queriers(const void* incl, const void* starts, const void* table,
-                                   long long table_stride, void* vals, void* rows,
+                                   long long table_rows, int cols, void* vals, void* rows,
                                    void* offsets_out, void* dropped, long long capacity,
                                    int num_rows, int num_queriers, int fill, void* stream) {
   Args a{};
@@ -458,8 +533,9 @@ extern "C" int csr_gather_queriers(const void* incl, const void* starts, const v
   a.incl_stride = num_rows;
   a.starts = static_cast<const int32_t*>(starts);
   a.table = static_cast<const int32_t*>(table);
-  a.table_stride = table_stride;
-  a.table_len = table_stride;
+  a.table_stride = table_rows * cols;
+  a.table_len = table_rows;
+  a.cols = cols;
   a.vals = static_cast<int32_t*>(vals);
   a.rows = static_cast<int32_t*>(rows);
   a.off_out = static_cast<int32_t*>(offsets_out);

@@ -38,31 +38,40 @@ _I64 = ctypes.c_longlong
 _SIGNATURES = {
     # keys, out, n, seed, table_size, stream
     "murmur_bucket": (_P, _P, _I64, ctypes.c_uint, ctypes.c_uint, _P),
+    # keys, bucket (null: none), fp (null: none), n, lanes, seed, fp_seed,
+    # table_size, stream
+    "murmur_hash": (
+        _P, _P, _P, _I64, ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_uint, _P,
+    ),
     # bins, n, hist, num_bins, stream
     "bin_histogram": (_P, _I64, _P, ctypes.c_int, _P),
-    # offsets, starts, table, table_len, vals, rows, capacity, num_rows, fill, stream
-    "csr_gather": (_P, _P, _P, _I64, _P, _P, _I64, ctypes.c_int, ctypes.c_int, _P),
+    # offsets, starts, table, table_len (rows), cols, vals, rows, capacity,
+    # num_rows, fill, stream
+    "csr_gather": (
+        _P, _P, _P, _I64, ctypes.c_int, _P, _P, _I64, ctypes.c_int, ctypes.c_int, _P,
+    ),
     # ... as csr_gather, with num_sources before fill
     "csr_gather_batched": (
-        _P, _P, _P, _I64, _P, _P, _I64, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P,
+        _P, _P, _P, _I64, ctypes.c_int, _P, _P, _I64, *(ctypes.c_int,) * 3, _P,
     ),
     # slot_incl, starts, counts, layer_tables (L x 3 int64 on the card),
-    # num_layers, num_owners, num_sources, num_rows, seg, dropped,
+    # num_layers, num_owners, num_sources, num_rows, cols, seg, dropped,
     # seg_capacity, fill, stream
     "csr_gather_owners": (
-        _P, _P, _P, _P, *(ctypes.c_int,) * 4, _P, _P, _I64, ctypes.c_int, _P,
+        _P, _P, _P, _P, *(ctypes.c_int,) * 5, _P, _P, _I64, ctypes.c_int, _P,
     ),
-    # incl, starts, table, table_stride, vals, rows, offsets_out, dropped,
+    # incl, starts, table, table_rows, cols, vals, rows, offsets_out, dropped,
     # capacity, num_rows, num_queriers, fill, stream
     "csr_gather_queriers": (
-        _P, _P, _P, _I64, _P, _P, _P, _P, _I64, *(ctypes.c_int,) * 3, _P,
+        _P, _P, _P, _I64, ctypes.c_int, _P, _P, _P, _P, _I64, *(ctypes.c_int,) * 3, _P,
     ),
-    # starts, ends, q, table, n, table_len, num_shards, max_probe, out, stream
-    "bucket_probe": (_P, _P, _P, _P, _I64, _I64, ctypes.c_int, ctypes.c_int, _P, _P),
+    # starts, ends, q, table, n, table_len, num_shards, max_probe, lanes, out,
+    # stream
+    "bucket_probe": (_P, _P, _P, _P, _I64, _I64, *(ctypes.c_int,) * 3, _P, _P),
     # rq, rh, lo, match_e (null: none), offsets, keys, n, keys_len, num_shards,
-    # table_size, stride, epoch, max_probe, accumulate, total, stream
+    # table_size, stride, epoch, max_probe, accumulate, lanes, total, stream
     "bucket_probe_layer": (
-        _P, _P, _P, _P, _P, _P, _I64, _I64, *(ctypes.c_int,) * 6, _P, _P,
+        _P, _P, _P, _P, _P, _P, _I64, _I64, *(ctypes.c_int,) * 7, _P, _P,
     ),
     # q, k, v, o, the (batch, head, row) strides of each, nb, hq, sq, skv, d,
     # group, causal, window, scale, is_bf16, stream

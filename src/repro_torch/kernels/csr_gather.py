@@ -14,13 +14,16 @@ routine (a load-balanced search per tile of output slots):
 - :func:`csr_gather_queriers`, the querier side: every querier in one
   launch, each from its own row of the returned segments.
 
+Every table may carry C value columns, ``(..., M, C)`` int32 row-major
+(``(..., M)`` is one column): each output slot then holds its row's C words,
+``(..., capacity, C)``, found with one row search.
+
 On CUDA tensors the wrappers launch the kernel or raise; on CPU tensors
 they run the plain twins (:func:`gather_plain`,
 :func:`csr_gather_owners_plain`, :func:`csr_gather_queriers_plain`).
 """
 from __future__ import annotations
 
-import ctypes
 from typing import Sequence
 
 import torch
@@ -62,7 +65,8 @@ def gather_plain(
     fill: int = -1,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain twin of both kernels: ``offsets`` ``(..., N+1)`` with
-    ``offsets[..., 0] == 0``, ``starts`` ``(..., N)``, a 1-D ``table``."""
+    ``offsets[..., 0] == 0``, ``starts`` ``(..., N)``, a ``(M,)`` or
+    ``(M, C)`` ``table``."""
     counts = torch.diff(offsets, dim=-1)
     _, rows, vals, _ = hashgraph.csr_gather(starts, counts, table, capacity, fill=fill)
     return vals, rows
@@ -113,7 +117,7 @@ def _check(name, offsets, starts, table, lead: int) -> int:
     for label, t in (("offsets", offsets), ("starts", starts), ("table", table)):
         if t.dtype != torch.int32:
             raise TypeError(f"{name}: {label} must be int32, got {t.dtype}")
-    if offsets.ndim != lead + 1 or starts.ndim != lead + 1 or table.ndim != 1:
+    if offsets.ndim != lead + 1 or starts.ndim != lead + 1 or table.ndim not in (1, 2):
         raise ValueError(
             f"{name}: shapes offsets {tuple(offsets.shape)}, starts "
             f"{tuple(starts.shape)}, table {tuple(table.shape)}"
@@ -134,17 +138,43 @@ def _check_capacity(name: str, capacity: int) -> None:
         raise ValueError(f"{name}: capacity {capacity} outside [0, {MAX_CAPACITY}]")
 
 
+def _cols(table: torch.Tensor, lead: int) -> int:
+    """Value columns of a table with ``lead`` leading dims before its rows."""
+    return 1 if table.ndim == lead + 1 else int(table.shape[-1])
+
+
+def _aligned(table: torch.Tensor, cols: int) -> torch.Tensor:
+    """The table contiguous, and 16-byte aligned where the kernel moves its
+    rows of 4 columns with 16-byte loads."""
+    table = table.contiguous()
+    if cols == 4 and table.data_ptr() % 16:
+        table = table.clone()
+    return table
+
+
+def _owner_table(t: torch.Tensor, cols: int) -> torch.Tensor:
+    """A layer's ``(D_o, M[, C])`` table as the owner entry reads it: each
+    owner's rows of C words in place (the stride between owners is read as
+    it is), 16-byte aligned rows for C = 4; else a contiguous copy."""
+    ok = t.stride(1) == cols and (t.ndim == 2 or t.stride(2) == 1)
+    if cols == 4:
+        ok = ok and t.data_ptr() % 16 == 0 and t.stride(0) % 4 == 0
+    return t if ok else _aligned(t, cols)
+
+
 def _launch(name, offsets, starts, table, capacity, fill, num_sources):
     num_rows = starts.shape[-1]
     dev = offsets.device
-    vals = torch.empty((num_sources, capacity), dtype=torch.int32, device=dev)
+    cols = _cols(table, 0)
+    vals = torch.empty((num_sources, capacity) + tuple(table.shape[1:]), dtype=torch.int32,
+                       device=dev)
     rows = torch.empty((num_sources, capacity), dtype=torch.int32, device=dev)
     if capacity == 0 or num_sources == 0:
         return vals, rows
     _check_capacity(name, capacity)
     build.require_cuda(name, offsets, starts, table, vals, rows)
     args = [
-        offsets.data_ptr(), starts.data_ptr(), table.data_ptr(), table.numel(),
+        offsets.data_ptr(), starts.data_ptr(), table.data_ptr(), table.shape[0], cols,
         vals.data_ptr(), rows.data_ptr(), capacity, num_rows,
     ]
     if name == BATCHED:
@@ -160,12 +190,13 @@ def csr_gather_2d(
     capacity: int,
     fill: int = -1,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Kernel 3: one CSR.  ``offsets`` ``(N+1,)``, ``starts`` ``(N,)`` → two ``(capacity,)``."""
+    """Kernel 3: one CSR.  ``offsets`` ``(N+1,)``, ``starts`` ``(N,)``, a
+    ``(M[, C])`` table → values ``(capacity[, C])`` and row ids ``(capacity,)``."""
     _check(SINGLE, offsets, starts, table, lead=0)
     if not build.on_card(SINGLE, offsets):
         return gather_plain(offsets, starts, table, capacity, fill)
     vals, rows = _launch(
-        SINGLE, offsets.contiguous(), starts.contiguous(), table.contiguous(),
+        SINGLE, offsets.contiguous(), starts.contiguous(), _aligned(table, _cols(table, 0)),
         capacity, fill, 1,
     )
     return vals[0], rows[0]
@@ -178,13 +209,14 @@ def csr_gather_batched_2d(
     capacity: int,
     fill: int = -1,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Kernel 4: one CSR per source over a shared table.  ``offsets``
-    ``(S, N+1)``, ``starts`` ``(S, N)`` → two ``(S, capacity)``."""
+    """Kernel 4: one CSR per source over a shared ``(M[, C])`` table.
+    ``offsets`` ``(S, N+1)``, ``starts`` ``(S, N)`` → values ``(S,
+    capacity[, C])`` and row ids ``(S, capacity)``."""
     _check(BATCHED, offsets, starts, table, lead=1)
     if not build.on_card(BATCHED, offsets):
         return gather_plain(offsets, starts, table, capacity, fill)
     return _launch(
-        BATCHED, offsets.contiguous(), starts.contiguous(), table.contiguous(),
+        BATCHED, offsets.contiguous(), starts.contiguous(), _aligned(table, _cols(table, 0)),
         capacity, fill, offsets.shape[0],
     )
 
@@ -200,9 +232,10 @@ def csr_gather_owners(
 
     ``starts``/``counts`` ``(L, D_o, D_s, R)`` int32: layer ``l``'s run of
     routed slot ``n`` from source ``s`` at owner ``o``, a start into that
-    owner's row of ``tables[l]`` ``(D_o, M_l)`` (each run inside it, as the
-    locate gives them).  Returns ``(seg, dropped, slot_counts)``:
-    ``(D_o, D_s, seg_capacity)`` segments, slot ``n``'s layer runs packed
+    owner's row of ``tables[l]`` ``(D_o, M_l[, C])`` (each run inside it, as
+    the locate gives them; every layer has the same C).  Returns ``(seg,
+    dropped, slot_counts)``: ``(D_o, D_s, seg_capacity[, C])`` segments,
+    slot ``n``'s layer runs packed
     in epoch order, slots in order (``fill`` past the total), the
     ``(D_o, D_s)`` overflows ``max(0, total - seg_capacity)``, and each
     slot's total over the layers ``(D_o, D_s, R)`` (``counts.sum(0)``, the
@@ -215,9 +248,15 @@ def csr_gather_owners(
     nl, d_o, d_s, r = counts.shape
     if nl < 1 or len(tables) != nl:
         raise ValueError(f"{OWNERS}: {len(tables)} tables for counts {tuple(counts.shape)}")
+    cols = _cols(tables[0], 1)
     for t in tables:
-        if t.dtype != torch.int32 or t.ndim != 2 or t.shape[0] != d_o:
-            raise ValueError(f"{OWNERS}: a table of {t.dtype} {tuple(t.shape)}, want int32 ({d_o}, M)")
+        if t.dtype != torch.int32 or t.ndim not in (2, 3) or t.shape[0] != d_o or (
+            _cols(t, 1) != cols
+        ):
+            raise ValueError(
+                f"{OWNERS}: a table of {t.dtype} {tuple(t.shape)}, want int32 ({d_o}, M) or "
+                f"({d_o}, M, C) with one C for every layer"
+            )
     if r >= 2**31 - 1:
         raise ValueError(f"{OWNERS}: {r} rows exceed int32")
     _check_capacity(OWNERS, seg_capacity)
@@ -225,25 +264,26 @@ def csr_gather_owners(
         return csr_gather_owners_plain(starts, counts, tables, seg_capacity, fill)
     dev = counts.device
     starts, counts = starts.contiguous(), counts.contiguous()
-    tables = [t if t.stride(1) == 1 else t.contiguous() for t in tables]
+    tables = [_owner_table(t, cols) for t in tables]
     slot_counts = counts.sum(0, dtype=torch.int32)
     # One flat scan: the kernel rebases each block (a scan per row of a
     # (D_o, D_s, R) tensor is one slow launch at D > 1).
     slot_incl = torch.cumsum(slot_counts.reshape(-1), 0, dtype=torch.int32)
-    seg = torch.empty((d_o, d_s, seg_capacity), dtype=torch.int32, device=dev)
+    seg = torch.empty((d_o, d_s, seg_capacity) + tuple(tables[0].shape[2:]), dtype=torch.int32,
+                      device=dev)
     dropped = torch.empty((d_o, d_s), dtype=torch.int32, device=dev)
     build.require_cuda(OWNERS, counts, starts, slot_incl, seg, dropped)
     if any(t.device != dev for t in tables):
         raise ValueError(f"{OWNERS}: tables on {[str(t.device) for t in tables]}, runs on {dev}")
-    # Each layer's (base address, row stride, row length), L x 24 bytes: the
-    # copy from pageable memory is staged before it returns, so the host
-    # tensor may go at once.
+    # Each layer's (base address, owner row stride in words, table rows),
+    # L x 24 bytes: the copy from pageable memory is staged before it
+    # returns, so the host tensor may go at once.
     layer_tables = torch.tensor(
         [[t.data_ptr(), t.stride(0), t.shape[1]] for t in tables], dtype=torch.int64
     ).to(dev, non_blocking=True)
     build.launch(
         OWNERS, slot_incl.data_ptr(), starts.data_ptr(), counts.data_ptr(),
-        layer_tables.data_ptr(), nl, d_o, d_s, r, seg.data_ptr(), dropped.data_ptr(),
+        layer_tables.data_ptr(), nl, d_o, d_s, r, cols, seg.data_ptr(), dropped.data_ptr(),
         seg_capacity, int(fill), build.stream_of(counts),
     )
     return seg, dropped, slot_counts
@@ -259,14 +299,15 @@ def csr_gather_queriers(
     """Querier-side gather of a retrieve, every querier in one launch.
 
     ``starts``/``counts`` ``(D, N)`` int32 runs into each querier's own row
-    of ``table`` ``(D, W)``.  Returns ``(offsets, row_idx, values,
+    of ``table`` ``(D, W[, C])``.  Returns ``(offsets, row_idx, values,
     dropped)``: ``(D, N+1)`` offsets clamped to ``capacity``, ``(D,
-    capacity)`` row ids (-1 unused) and values (``fill`` unused), and the
-    ``(D,)`` overflows ``max(0, total - capacity)``.
+    capacity)`` row ids (-1 unused), ``(D, capacity[, C])`` values
+    (``fill`` unused), and the ``(D,)`` overflows ``max(0, total -
+    capacity)``.
     """
     if starts.dtype != torch.int32 or counts.dtype != torch.int32 or table.dtype != torch.int32:
         raise TypeError(f"{QUERIERS}: starts, counts and table must be int32")
-    if counts.ndim != 2 or starts.shape != counts.shape or table.ndim != 2 or (
+    if counts.ndim != 2 or starts.shape != counts.shape or table.ndim not in (2, 3) or (
         table.shape[0] != counts.shape[0]
     ):
         raise ValueError(
@@ -280,16 +321,16 @@ def csr_gather_queriers(
     if not build.on_card(QUERIERS, counts):
         return csr_gather_queriers_plain(starts, counts, table, capacity, fill)
     dev = counts.device
-    starts, table = starts.contiguous(), table.contiguous()
+    starts, table = starts.contiguous(), _aligned(table, _cols(table, 1))
     incl = torch.cumsum(counts.reshape(-1), 0, dtype=torch.int32)  # flat, as the owners'
     offsets = torch.empty((d, n + 1), dtype=torch.int32, device=dev)
     rows = torch.empty((d, capacity), dtype=torch.int32, device=dev)
-    vals = torch.empty((d, capacity), dtype=torch.int32, device=dev)
+    vals = torch.empty((d, capacity) + tuple(table.shape[2:]), dtype=torch.int32, device=dev)
     dropped = torch.empty((d,), dtype=torch.int32, device=dev)
     build.require_cuda(QUERIERS, incl, starts, table, offsets, rows, vals, dropped)
     build.launch(
         QUERIERS, incl.data_ptr(), starts.data_ptr(), table.data_ptr(), table.shape[1],
-        vals.data_ptr(), rows.data_ptr(), offsets.data_ptr(), dropped.data_ptr(), capacity,
-        n, d, int(fill), build.stream_of(counts),
+        _cols(table, 1), vals.data_ptr(), rows.data_ptr(), offsets.data_ptr(),
+        dropped.data_ptr(), capacity, n, d, int(fill), build.stream_of(counts),
     )
     return offsets, rows, vals, dropped

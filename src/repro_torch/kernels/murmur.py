@@ -1,8 +1,16 @@
-"""Kernel 1 wrapper: fused murmur3 + bucket id (``csrc/murmur.cu``).
+"""Kernel 1 wrappers: fused murmur3 + bucket id (``csrc/murmur.cu``).
 
-Replaces the Pallas ``murmur_bucket_2d`` (``repro/kernels/murmur.py``).  On a
-CUDA tensor the wrapper launches the kernel or raises; on a CPU tensor it
-runs the plain twin, :func:`repro_torch.core.hashing.hash_to_buckets_plain`.
+Replaces the Pallas ``murmur_bucket_2d`` (``repro/kernels/murmur.py``).  Two
+entries:
+
+- :func:`murmur_bucket`, one word a key, the bucket id;
+- :func:`murmur_hash`, 1 or 2 words a key, the bucket id and/or the raw
+  32-bit hash under ``FINGERPRINT_SEED`` (the fingerprint lane) from one
+  read of the keys.
+
+On a CUDA tensor each wrapper launches the kernel or raises; on a CPU
+tensor it runs its plain twin (:func:`murmur_bucket_plain`,
+:func:`murmur_hash_plain`).
 """
 from __future__ import annotations
 
@@ -12,6 +20,7 @@ from repro_torch.core import hashing
 from repro_torch.kernels import build
 
 NAME = "murmur_bucket"
+HASH_NAME = "murmur_hash"
 
 
 def murmur_bucket_plain(
@@ -50,3 +59,68 @@ def murmur_bucket(
         build.stream_of(keys),
     )
     return out
+
+
+def murmur_hash_plain(
+    keys: torch.Tensor,
+    table_size: int,
+    seed: int = hashing.DEFAULT_SEED,
+    *,
+    lanes: int = 1,
+    fingerprint: bool = False,
+    buckets: bool = True,
+) -> tuple:
+    """The two-output kernel's plain twin: ``(bucket ids or None,
+    fingerprints or None)``."""
+    b = hashing.hash_to_buckets_plain(keys, table_size, seed, lanes) if buckets else None
+    f = hashing.fingerprint32(keys, lanes) if fingerprint else None
+    return b, f
+
+
+def murmur_hash(
+    keys: torch.Tensor,
+    table_size: int,
+    seed: int = hashing.DEFAULT_SEED,
+    *,
+    lanes: int = 1,
+    fingerprint: bool = False,
+    buckets: bool = True,
+) -> tuple:
+    """``(buckets, fingerprints)`` of ``lanes``-word keys, each int32 of the
+    key shape (``keys.shape[:-1]`` for 2 lanes) or None where not asked.
+
+    ``buckets`` are ``murmur3(keys, seed) % table_size``; ``fingerprints``
+    the raw hash under ``FINGERPRINT_SEED`` as int32 bits.  ``keys`` is an
+    int32 tensor of uint32 lane bits, ``(...)`` or ``(..., 2)``.
+    """
+    hashing.check_table_size(table_size)
+    if keys.dtype != torch.int32:
+        raise TypeError(f"{HASH_NAME}: keys must be int32 (uint32 bits), got {keys.dtype}")
+    if lanes > 1 and (keys.ndim < 1 or keys.shape[-1] != lanes):
+        raise ValueError(f"{HASH_NAME}: {lanes}-lane keys need a trailing dim of {lanes}, "
+                         f"got {tuple(keys.shape)}")
+    if not (buckets or fingerprint):
+        raise ValueError(f"{HASH_NAME}: asked for no output")
+    if not build.on_card(HASH_NAME, keys):
+        return murmur_hash_plain(keys, table_size, seed, lanes=lanes,
+                                 fingerprint=fingerprint, buckets=buckets)
+    if lanes == 1 and not fingerprint:
+        return murmur_bucket(keys, table_size, seed), None
+    if lanes not in (1, 2):
+        raise ValueError(f"{HASH_NAME}: the kernel takes 1 or 2 lanes, got {lanes}")
+    keys = keys.contiguous()
+    if keys.data_ptr() % 16:
+        keys = keys.clone()  # 16-byte loads
+    shape = keys.shape[:-1] if lanes > 1 else keys.shape
+    b = torch.empty(shape, dtype=torch.int32, device=keys.device) if buckets else None
+    f = torch.empty(shape, dtype=torch.int32, device=keys.device) if fingerprint else None
+    outs = [t for t in (b, f) if t is not None]
+    if keys.numel() == 0:
+        return b, f
+    build.require_cuda(HASH_NAME, keys, *outs)
+    build.launch(
+        HASH_NAME, keys.data_ptr(), None if b is None else b.data_ptr(),
+        None if f is None else f.data_ptr(), keys.numel() // lanes, lanes,
+        seed & 0xFFFFFFFF, hashing.FINGERPRINT_SEED, table_size, build.stream_of(keys),
+    )
+    return b, f

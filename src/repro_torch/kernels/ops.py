@@ -4,7 +4,8 @@ kernels (port of ``repro.kernels.ops``).
 ``csr_gather``, ``csr_gather_batched`` and ``csr_gather_layers`` keep the
 reference's contracts: the prefix sum runs as plain tensor code, the gather
 in kernel 3 or 4's Pallas-interface entries on the card (their plain twin on
-the CPU).  The table's retrieve calls ``csr_gather_owners`` and
+the CPU); a ``(Tn, C)`` table gives ``(capacity, C)`` values from one row
+search per slot, its columns read together.  The table's retrieve calls ``csr_gather_owners`` and
 ``csr_gather_queriers``, one launch per side for every shard and layer.  A
 uint32 table (the ``torch.uint32`` dtype) goes through its int32 view, so
 ``fill=-1`` comes back as ``0xFFFFFFFF``.  ``bucket_probe`` keeps
@@ -174,7 +175,7 @@ def bucket_probe(
 
     Keys are int32 bit patterns or ``torch.uint32``; ``starts``/``ends`` any
     integer type.  ``(N,)`` queries over a ``(M,)`` table, or ``(S, N)`` over
-    ``(S, M)``.
+    ``(S, M)``; 2-lane keys add a trailing dim of 2 to both.
     """
     table_keys, _ = _as_int32_table(table_keys)
     if queries.dtype == torch.uint32:

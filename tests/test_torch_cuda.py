@@ -458,6 +458,203 @@ def test_card_update_path_matches_cpu_path(card, d):
         np.testing.assert_array_equal(states["cuda"]["base"][name], states["cpu"]["base"][name])
 
 
+# ---------------------------------------------------------------------------
+# Key lanes and value columns: kernel 1 at 2 lanes with both outputs,
+# kernels 3-4 with C value columns, kernel 5 at 2 lanes, a u64x4 table.
+# ---------------------------------------------------------------------------
+
+
+def _u64_lanes(rng, n, empty_every=0):
+    """(n, 2) int32 lanes of random uint64 keys, every ``empty_every``-th row
+    EMPTY (all ones), one row with only its low lane all ones."""
+    k = rng.integers(0, 2**64 - 1, size=n, dtype=np.uint64)
+    if empty_every:
+        k[::empty_every] = np.uint64(2**64 - 1)
+    if n > 3:
+        k[3] = np.uint64(0x1234_FFFF_FFFF)
+    lo = (k & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    hi = (k >> np.uint64(32)).astype(np.uint32)
+    return torch.from_numpy(np.stack([lo, hi], -1).view(np.int32))
+
+
+@pytest.mark.parametrize("n", [1, 5, 1001, 4099, 1 << 20])
+def test_murmur_hash_kernel_takes_lanes_and_the_fingerprint(card, n):
+    """Kernel 1's two-output entry at 2 lanes (and at 1 lane with the
+    fingerprint) equals its twin in every output mode, EMPTY keys and a
+    tail of n % 2 keys included, and on a misaligned view."""
+    keys = _u64_lanes(np.random.default_rng(n), n, empty_every=7)
+    for lanes, k in ((2, keys), (1, keys[:, 0].contiguous())):
+        for bk, fp in ((True, True), (True, False), (False, True)):
+            if lanes == 1 and not fp:
+                continue
+            want = murmur.murmur_hash_plain(k, 1 << 27, DEFAULT_SEED, lanes=lanes,
+                                            fingerprint=fp, buckets=bk)
+            before = build.LAUNCHES["murmur_hash"]
+            got = murmur.murmur_hash(k.to(card), 1 << 27, DEFAULT_SEED, lanes=lanes,
+                                     fingerprint=fp, buckets=bk)
+            torch.cuda.synchronize()
+            assert build.LAUNCHES["murmur_hash"] == before + 1
+            for g, w in zip(got, want):
+                assert (g is None) == (w is None)
+                if w is not None:
+                    assert torch.equal(g.cpu(), w)
+    if n > 2:  # a view starting 8 bytes into its storage
+        view = keys.to(card)[1:]
+        got = murmur.murmur_hash(view, 1000003, FINGERPRINT_SEED, lanes=2, fingerprint=True)
+        want = murmur.murmur_hash_plain(keys[1:], 1000003, FINGERPRINT_SEED, lanes=2,
+                                        fingerprint=True)
+        assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+
+
+COLS = [1, 2, 4, 5]
+
+
+@pytest.mark.parametrize("cols", COLS)
+@pytest.mark.parametrize("case", ["small", "deep-d4", "total above capacity", "depth 70"])
+def test_owner_entry_takes_value_columns(card, case, cols):
+    nl, d, r, widths, cap, zero_frac, max_count, _ = OWNER_CARD_CASES[case]
+    rng = np.random.default_rng(len(case) + cols)
+    tables = [torch.from_numpy(rng.integers(-2**31, 2**31 - 1, size=(d, w, cols),
+                                            dtype=np.int32)) for w in widths]
+    if cols == 1:
+        tables = [t[..., 0].contiguous() for t in tables]
+    runs = [_gather_runs(rng, (d, d, r), w, zero_frac, max_count) for w in widths]
+    starts = torch.from_numpy(np.stack([s for s, _ in runs]))
+    counts = torch.from_numpy(np.stack([c for _, c in runs]))
+    card_args = [starts.to(card), counts.to(card), [t.to(card) for t in tables]]
+    got = csr_gather.csr_gather_owners(*card_args, cap)
+    want = csr_gather.csr_gather_owners_plain(starts, counts, tables, cap)
+    assert got[0].shape == (d, d, cap) + (() if cols == 1 else (cols,))
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    if cols == 4:  # each layer a strided view: 4 of 5 columns, rows not 16-byte aligned
+        wide = [torch.cat([t, t[..., :1]], -1).to(card) for t in tables]
+        got = csr_gather.csr_gather_owners(starts.to(card), counts.to(card),
+                                           [t[..., 1:] for t in wide], cap)
+        want = csr_gather.csr_gather_owners_plain(
+            starts, counts, [t[..., 1:].cpu() for t in wide], cap)
+        assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("cols", COLS)
+@pytest.mark.parametrize("case", ["small", "d4", "total above capacity", "2^16-long run"])
+def test_querier_and_pallas_entries_take_value_columns(card, case, cols):
+    d, n, width, cap, zero_frac, max_count, long_run = QUERIER_CARD_CASES[case]
+    rng = np.random.default_rng(len(case) + 10 * cols)
+    table = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, size=(d, width, cols),
+                                          dtype=np.int32))
+    if cols == 1:
+        table = table[..., 0].contiguous()
+    starts, counts = (torch.from_numpy(a) for a in _gather_runs(rng, (d, n), width, zero_frac,
+                                                              max_count))
+    if long_run is not None:
+        starts[0, n // 3], counts[0, n // 3] = 0, long_run
+    got = csr_gather.csr_gather_queriers(starts.to(card), counts.to(card), table.to(card), cap)
+    want = csr_gather.csr_gather_queriers_plain(starts, counts, table, cap)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    # The Pallas-interface entries on querier 0's CSR and on every querier's
+    # runs over querier 0's table: one row search, the columns reused.
+    for fn, args in ((ops.csr_gather, (starts[0], counts[0])),
+                     (ops.csr_gather_batched, (starts, counts))):
+        want = fn(*args, table[0], capacity=cap)
+        got = fn(*(a.to(card) for a in args), table[0].to(card), capacity=cap)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+
+
+def _lane_layer_case(seed, d, n, table_size):
+    """``_layer_case`` with 2-lane keys: lane 0 from 4 values and lane 1
+    from 2, so windows hold keys equal in one lane only; EMPTY pads and a
+    key with only its low lane all ones."""
+    a = _layer_case(seed, d, n, table_size)
+    rng = np.random.default_rng(seed + 1)
+    m = a["keys"].shape[1]
+    hi_k = rng.integers(0, 2, size=(d, m), dtype=np.int32)
+    hi_q = rng.integers(0, 2, size=(d, n), dtype=np.int32)
+    rq = torch.stack([a["rq"], torch.from_numpy(hi_q)], -1)
+    rq[a["rq"] == -1] = -1
+    if n > 3:
+        rq[:, 3, 0] = -1  # only the low lane all ones: a key, not padding
+    a["rq"] = rq.contiguous()
+    a["keys"] = torch.stack([a["keys"], torch.from_numpy(hi_k)], -1).contiguous()
+    return a
+
+
+@pytest.mark.parametrize("case", LAYER_CASES[:6] + LAYER_CASES[7:])
+def test_bucket_probe_kernels_take_two_lanes(card, case):
+    d, n, table_size, stride, max_probe, masked, accumulate = case
+    a = _lane_layer_case(LAYER_CASES.index(case), d, n, table_size)
+    match_e = a["match_e"] if masked else None
+    kw = dict(table_size=table_size, stride=stride, epoch=1, max_probe=max_probe,
+              accumulate=accumulate)
+    want = bucket_probe.bucket_probe_layer(
+        a["rq"], a["rh"], a["lo"], match_e, a["offsets"], a["keys"], total=a["prev"].clone(), **kw)
+    on = {k: v.to(card) for k, v in a.items()}
+    total = on["prev"].clone() if accumulate else torch.full_like(on["prev"], -7)
+    got = bucket_probe.bucket_probe_layer(
+        on["rq"], on["rh"], on["lo"], on["match_e"] if masked else None, on["offsets"],
+        on["keys"], total=total, **kw)
+    assert torch.equal(got.cpu(), want)
+    if n >= 4096 and max_probe:
+        assert int(want.max()) > 1
+    # The window entry on the windows the plain steps find for this batch.
+    b = mh._rebase_buckets(a["rh"], (a["rq"] == -1).all(-1), a["lo"].reshape(-1, 1),
+                           table_size, stride)
+    from repro_torch.core import hashgraph
+
+    st, en = hashgraph.bucket_windows(a["offsets"], table_size, b)
+    st, en = st.to(torch.int32), en.to(torch.int32)
+    want = bucket_probe.bucket_probe(st, en, a["rq"], a["keys"], max_probe)
+    got = bucket_probe.bucket_probe(st.to(card), en.to(card), on["rq"], on["keys"], max_probe)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("probe", [False, True], ids=["sorted", "probe"])
+def test_u64x4_table_on_card_matches_cpu(card, probe):
+    """A u64x4 table at D = 8 (fingerprint lane on) through build, inserts, a
+    delete, an upsert with TTL, fold and compact equals the CPU path in its
+    arrays, queries, retrieves and joins; the card runs kernel 1's
+    two-output entry, kernels 3-4 with 4 columns and (probe) kernel 5 at 2
+    lanes."""
+    from repro_torch.core.schema import TableSchema
+
+    rng = np.random.default_rng(64)
+    pool = rng.integers(0, 2**63, size=3000, dtype=np.uint64)
+    keys = rng.choice(pool, 4096)
+    vals = rng.integers(-2**31, 2**31, size=(4096, 4), dtype=np.int64).astype(np.int32)
+    queries = np.concatenate([rng.choice(pool, 960), rng.integers(0, 2**63, 64, dtype=np.uint64)])
+    batches = [rng.choice(pool, 256) for _ in range(3)]
+    out, states = {}, {}
+    for where in (card, "cpu"):
+        t = DistributedHashTable(num_shards=8, hash_range=1 << 12, device=where,
+                                 schema=TableSchema("uint64", 4), paper_faithful_probe=probe)
+        before = dict(build.LAUNCHES)
+        s = t.init(keys, vals)
+        for i in range(3):
+            s = s.insert(batches[i], vals[256 * i: 256 * (i + 1)])
+            s = s.delete(pool[40 * i: 40 * i + 24])
+        s = s.upsert(pool[200:216], vals[:16], ttl=2)
+        res = []
+        for st in (s, maintenance.fold_oldest(s, 2), s.advance(2).compact()):
+            r, j = t.retrieve(st, queries), t.inner_join(st, queries)
+            res += [t.query(st, queries).cpu(), r.offsets.cpu(), r.values.cpu(),
+                    r.counts.cpu(), torch.from_numpy(join_to_pairs(j))]
+        if where == card:
+            torch.cuda.synchronize()
+            got = {k: build.LAUNCHES[k] - before.get(k, 0) for k in (
+                "murmur_hash", "csr_gather_owners", "csr_gather_queriers", "bucket_probe_layer")}
+            assert got["murmur_hash"] > 0 and got["csr_gather_owners"] == 6
+            assert got["csr_gather_queriers"] == 6
+            assert got["bucket_probe_layer"] == (5 + 3 + 1 if probe else 0)
+        out[str(where)], states[str(where)] = res, convert.state_to_numpy(s)
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert torch.equal(a, b)
+    for name in ("offsets", "keys", "values", "fingerprints", "hash_splits"):
+        np.testing.assert_array_equal(states["cuda"]["base"][name], states["cpu"]["base"][name])
+    assert int(out["cpu"][3].sum()) > 0
+
+
 # (hq, hkv, sq, skv, d, causal, window): the JAX kernel tests' ATTN_CASES
 # (batch folded into heads), then decode offsets, windows, the edges of the
 # bf16 kernel's 128-row tiles (Sq and Skv one above and one below a

@@ -153,14 +153,17 @@ def test_table_without_device_raises_on_a_host_without_cuda(monkeypatch):
 
 
 def test_later_slices_raise_not_implemented():
+    # Key widths, value columns and the fingerprint lane are ported; the
+    # hot-key replication slice still raises, and bad schemas are refused.
+    assert TableSchema("uint64").key_lanes == 2
+    assert TableSchema("uint32", 3).value_cols == 3
+    assert DistributedHashTable(hash_range=1 << 10, device="cpu", fingerprint=True).use_fingerprint
     with pytest.raises(NotImplementedError, match="slice"):
-        TableSchema("uint64")
-    with pytest.raises(NotImplementedError, match="slice"):
-        TableSchema("uint32", 3)
-    with pytest.raises(NotImplementedError, match="slice"):
-        DistributedHashTable(hash_range=1 << 10, device="cpu", fingerprint=True)
+        DistributedHashTable(hash_range=1 << 10, device="cpu", replicate_hot_keys=2)
     with pytest.raises(ValueError):
         TableSchema("int8")
+    with pytest.raises(ValueError):
+        TableSchema("uint64", 0)
 
 
 def test_pack_keys_rejects_wide_keys_and_keeps_bits():

@@ -32,8 +32,8 @@ def _np(x):
 
 def jax_graph(g) -> dict:
     """A reference ``DistributedHashGraph`` as ``convert.graph_from_numpy``'s
-    keyword arguments."""
-    return {
+    keyword arguments (``fingerprints`` only where the graph has the lane)."""
+    out = {
         "offsets": np.asarray(g.local.offsets),
         "keys": np.asarray(g.local.keys),
         "values": np.asarray(g.local.values),
@@ -44,6 +44,9 @@ def jax_graph(g) -> dict:
         "local_range_cap": g.local_range_cap,
         "bucket_stride": g.bucket_stride,
     }
+    if g.local.fingerprints is not None:
+        out["fingerprints"] = np.asarray(g.local.fingerprints)
+    return out
 
 
 def jax_state(js) -> dict:
