@@ -33,6 +33,35 @@ Run from the root of a checkout: it builds the port's CUDA kernels from
    (pending throughout, so the live multiset is as in 2), and the same
    numpy oracles on the uint64 keys (counts, four-column value multisets,
    join rows), ``num_dropped == 0`` and exchange budgets;
+2c. serves the table (the ``serve-table`` phase), at D = 1 / N = 2^27 and
+   D = 8 / N = 2^24: a base of N uint32 keys uniform in [0, N) (values =
+   row ids, ``tombstone_capacity = 2^15``, ``capacity_slack = 2.0`` for
+   reads of 1024-4096 keys at D = 8) behind ``TableServer(write_bucket=
+   2^16, policy=CompactionPolicy(max_delta_depth=8, fold_k=2),
+   batcher=MicroBatcher(min_bucket=1024))``, warmed on buckets 1024-4096,
+   depths 0-8 and two folds ahead (query, retrieve and per-layer
+   retrieve), then, through ``AsyncFrontend(linger=0.002,
+   flush_keys=4096)``, four readers submit 2,048 requests of 4-256 keys
+   (90 % present, 10 % absent) while a fifth thread calls
+   ``retrieve_many(per_layer_counts=True)`` on 64 groups of 8 and a writer
+   submits 8 inserts of 2^16 keys (each with 512 copies of one key absent
+   from the base), a delete and an upsert of 2^12 base keys; the policy
+   folds at depth 8 while reads flow.  Gates: every response against a
+   numpy oracle at the seqno it reports (counts, value multisets, per-layer
+   counts summing to the counts), every future resolved once, zero drops,
+   zero AOT misses and no kernel library build or load after ``warm()``,
+   two exchange rounds per read execution and none per incremental fold
+   (counted on each thread), reads whose kernels ran during the fold and
+   none that waited for it (CUDA events), no ``last_error``, no skew
+   fallback, one owner and one querier gather launch per retrieve batch
+   and no Pallas-interface launch, the registry scraped back from its
+   Prometheus text, and ``retrieve_auto`` / ``inner_join_auto`` of the
+   hot key from a quarter of its caps equal to the oracle within two
+   doublings.  It prints latency p50 / p99 / p999, keys/s, the tracer's
+   phases, the fold's pause and the reads during it, warm-up seconds and
+   grid entries, device ms and launches per batch at each bucket, peak
+   bytes and the phase's seconds, and holds kernels 3-4 against their
+   twins on one 4096-key retrieve batch of the final state;
 3. serves qwen3-4b at full width (36 layers, d_model 2560, 32 query heads
    over 8 kv heads, vocab 151,936; random bf16 weights drawn on the card
    from ``--seed``) through the public API: ``build_model``, a
@@ -1034,11 +1063,13 @@ def hash_inputs(table, keys) -> dict:
     }
 
 
-def gather_inputs(table, state, batch) -> dict:
+def gather_inputs(table, state, batch, caps=None) -> dict:
     """From the retrieve of ``batch`` on ``state``: the owner entry's inputs
     for every owner and layer, the querier entry's for every querier (as the
     path hands them over), and, for the Pallas-interface rows, owner 0's
-    interleaved runs over its concatenated tables and querier 0's CSR."""
+    interleaved runs over its concatenated tables and querier 0's CSR.
+    ``caps`` ``(out, seg)`` fixes the capacities (default: the counts
+    round's exact sizing)."""
     import torch
 
     from repro_torch.core import exchange
@@ -1048,7 +1079,7 @@ def gather_inputs(table, state, batch) -> dict:
     d = table.num_shards
     q = batch.reshape(d, -1, *batch.shape[1:])
     tombstones = state.tombstones.index()
-    out_cap, seg_cap = table._resolve_caps(state, q, None, None)
+    out_cap, seg_cap = caps if caps is not None else table._resolve_caps(state, q, None, None)
     # With the fingerprint lane the routing also hashes the fingerprints (an
     # argument earlier sources, timed by tools/gather_ab.py, do not take).
     fp = any(getattr(layer.local, "fingerprints", None) is not None for layer in state.layers)
@@ -1474,6 +1505,489 @@ def check_kernels(run: dict, device, log) -> list:
             probe_work(a["starts"], a["ends"], a["max_probe"], 4 * (a["q"].ndim - a["starts"].ndim + 1)),
         )
     del inputs
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Table serving path: TableServer + AsyncFrontend on the card
+# ---------------------------------------------------------------------------
+
+SERVE_BUCKETS = (1024, 2048, 4096)
+SERVE_WRITE_BUCKET = 1 << 16
+SERVE_TOMBSTONES = 1 << 15  # the stream's 2^13 tombstones stay below half of it
+SERVE_READERS = 4
+SERVE_REQUESTS = 2048  # query requests over all readers
+SERVE_REQ_SIZES = (4, 256)  # uniform, as bench_serve.py's --req-min / --req-max
+SERVE_ABSENT = 0.1
+SERVE_GROUPS = 64  # retrieve_many calls of SERVE_GROUP requests, per-layer counts on
+SERVE_GROUP = 8
+SERVE_INSERTS = 8
+SERVE_DELETES = 1 << 12
+SERVE_UPSERTS = 1 << 12
+SERVE_HOT_REPEATS = 512  # one key absent from the base, in every insert
+SERVE_FOLD_HORIZON = 2
+SERVE_PACING_S = 0.006  # mean gap between one reader's submissions
+SERVE_GROUP_GAP_S = 0.01  # mean gap between the retrieve thread's calls
+# A read batch of B keys sends each of the D^2 (source, owner) slots about
+# B / D^2 keys: at D = 8 and B = 2048 that is 32 +- 5.3 against a slot of
+# 48 at the default slack 1.25 (3 sigma, so one batch in ~12 drops a real
+# key).  2.0 puts the slot at 72 (7.5 sigma) and costs the base build a
+# larger dispatch buffer.
+SERVE_CAPACITY_SLACK = 2.0
+
+
+class ServeOracle:
+    """numpy reference of the served table after each prefix of the write
+    stream: the base's counts by ``np.bincount`` (its keys lie in [0, N);
+    values = row ids), its rows of the ``wanted`` keys (those a retrieve
+    asks for) in one stable sort, then the applied inserts, the delete and
+    the upsert in submission order."""
+
+    def __init__(self, keys, n_keys: int, wanted):
+        import numpy as np
+
+        self.n_keys = n_keys
+        self.tally = np.bincount(keys, minlength=n_keys).astype(np.int32)
+        mask = np.zeros(n_keys, bool)
+        mask[wanted[wanted < n_keys]] = True
+        rows = np.flatnonzero(mask[keys])
+        order = np.argsort(keys[rows], kind="stable")
+        self.sorted_keys, self.rows = keys[rows][order], rows[order].astype(np.int64)
+        self.ops = []  # ("insert" | "delete" | "upsert", sorted keys, values in that order)
+
+    def add(self, kind, keys, values=None):
+        import numpy as np
+
+        order = np.argsort(keys, kind="stable")
+        self.ops.append((kind, keys[order], None if values is None else values[order]))
+
+    @staticmethod
+    def _runs(sorted_keys, q):
+        import numpy as np
+
+        lo = np.searchsorted(sorted_keys, q, "left")
+        return lo, np.searchsorted(sorted_keys, q, "right") - lo
+
+    def count(self, q, applied: int):
+        import numpy as np
+
+        inside = q < self.n_keys
+        c = np.where(inside, self.tally[np.where(inside, q, 0)], 0).astype(np.int64)
+        for kind, keys, _ in self.ops[:applied]:
+            hit = self._runs(keys, q)[1]
+            if kind == "insert":
+                c = c + hit
+            elif kind == "delete":
+                c = np.where(hit > 0, 0, c)
+            else:  # upsert: its keys are distinct, one row each after it
+                c = np.where(hit > 0, 1, c)
+        return c
+
+    def values(self, k, applied: int) -> list:
+        """The sorted values of a wanted key ``k`` after ``applied`` writes."""
+        lo, n = self._runs(self.sorted_keys, k)
+        vals = list(self.rows[lo: lo + n])
+        for kind, keys, v in self.ops[:applied]:
+            lo, n = self._runs(keys, k)
+            if kind == "insert":
+                vals += list(v[lo: lo + n])
+            elif n:
+                vals = [] if kind == "delete" else list(v[lo: lo + n])
+        return sorted(int(x) for x in vals)
+
+
+def serve_requests(rng, keys, n_keys: int, hot: int, count: int):
+    """``count`` requests of ``SERVE_REQ_SIZES`` keys: 90 % drawn from the
+    base's rows, 10 % absent (>= N, never the hot key)."""
+    import numpy as np
+
+    out = []
+    for size in rng.integers(SERVE_REQ_SIZES[0], SERVE_REQ_SIZES[1] + 1, size=count):
+        absent = rng.random(size) < SERVE_ABSENT
+        req = keys[rng.integers(0, keys.shape[0], size=size)].astype(np.uint32)
+        far = rng.integers(n_keys + 1024, 2**32 - 2, size=size, dtype=np.uint64).astype(np.uint32)
+        req[absent] = far[absent]
+        assert not (req == hot).any()
+        out.append(req)
+    return out
+
+
+def _pctl(a, p):
+    import numpy as np
+
+    return float(np.percentile(np.asarray(a), p)) if len(a) else None
+
+
+def run_serve_table(n_shards: int, n_keys: int, seed: int, device, log) -> dict:
+    """The table server under load: a base of N uint32 keys (uniform in [0,
+    N), values = row ids) behind ``TableServer`` and ``AsyncFrontend``,
+    warmed, then four readers, a per-layer retrieve thread and one writer
+    at once; every response is held against the oracle at its seqno."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from repro_torch import DistributedHashTable, retrieval_to_lists
+    from repro_torch.kernels import build
+    from repro_torch.obs import parse_prometheus, render_prometheus
+    from repro_torch.serve_table import AsyncFrontend, CompactionPolicy, MicroBatcher, TableServer
+    from repro_torch.utils import cdiv, on_stream
+
+    on_card = device.type == "cuda"
+    label = f"serve-table D={n_shards}"
+    t_phase = time.perf_counter()
+    if on_card:
+        sync(device)  # the phase may be the process's first use of the card
+        torch.cuda.reset_peak_memory_stats(device)
+    rng = np.random.default_rng(seed + 2100 + n_shards)
+    keys = rng.integers(0, n_keys, size=n_keys, dtype=np.uint32)
+    values = np.arange(n_keys, dtype=np.int32)
+    hot = n_keys + 7
+    reader_reqs = [serve_requests(np.random.default_rng(seed + 31 * r + n_shards), keys, n_keys,
+                                  hot, SERVE_REQUESTS // SERVE_READERS)
+                   for r in range(SERVE_READERS)]
+    groups = serve_requests(np.random.default_rng(seed + 977 + n_shards), keys, n_keys, hot,
+                            SERVE_GROUPS * SERVE_GROUP)
+    hot_req = np.concatenate([np.array([hot], np.uint32),
+                              np.concatenate(reader_reqs[0])[: 128 * n_shards - 1]])
+    oracle = ServeOracle(keys, n_keys, np.concatenate(groups + [hot_req]))
+    groups = [groups[i: i + SERVE_GROUP] for i in range(0, len(groups), SERVE_GROUP)]
+    data_s = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
+    table = DistributedHashTable(num_shards=n_shards, hash_range=n_keys, device=device,
+                                 tombstone_capacity=SERVE_TOMBSTONES,
+                                 capacity_slack=SERVE_CAPACITY_SLACK)
+    server = TableServer(table, keys, values, write_bucket=SERVE_WRITE_BUCKET,
+                         policy=CompactionPolicy(max_delta_depth=8, fold_k=2),
+                         batcher=MicroBatcher(table, min_bucket=SERVE_BUCKETS[0]))
+    build_s = time.perf_counter() - t0
+
+    # Retrieve caps per bucket: one counts round on a sample of base rows
+    # (every key present), with 2x headroom, rounded up to powers of two.
+    state0 = server.current().state
+    caps = {}
+    for b in SERVE_BUCKETS:
+        seg, out = table.plan_caps(state0, keys[rng.integers(0, n_keys, size=b)])
+        caps[b] = (1 << (2 * out - 1).bit_length(), 1 << (2 * seg - 1).bit_length())
+    del state0
+    t0 = time.perf_counter()
+    warm = server.warm(buckets=SERVE_BUCKETS, depths=range(9), fold_horizon=SERVE_FOLD_HORIZON,
+                       retrieve_caps=caps, per_layer_counts=(False, True))
+    warm_s = time.perf_counter() - t0
+    library_after_warm = dict(build.LIBRARY_EVENTS)
+    log(f"{label}: warmed {warm.entries} grid entries in {warm_s:.3f} s (caps {caps}; "
+        f"profiled rounds {sorted({c.all_to_alls for c in warm.profiles})})")
+    check(all(c.all_to_alls == 2 for c in warm.profiles), f"{label}: a warmed executor "
+          f"makes other than 2 exchange rounds: {[c.as_dict() for c in warm.profiles]}")
+
+    # The write stream: 8 inserts of 2^16 keys (512 copies of the hot key in
+    # each), a delete of 2^12 base keys, an upsert of 2^12 other base keys.
+    writes = []
+    for i in range(SERVE_INSERTS):
+        k = rng.integers(0, n_keys, size=SERVE_WRITE_BUCKET, dtype=np.uint32)
+        k[rng.choice(SERVE_WRITE_BUCKET, SERVE_HOT_REPEATS, replace=False)] = hot
+        writes.append(("insert", k, ((1 << 28) + i * SERVE_WRITE_BUCKET
+                                     + np.arange(SERVE_WRITE_BUCKET)).astype(np.int32)))
+    present = np.unique(keys[rng.choice(n_keys, 2 * (SERVE_DELETES + SERVE_UPSERTS),
+                                        replace=False)])
+    present = rng.permutation(present)[: SERVE_DELETES + SERVE_UPSERTS]
+    writes.append(("delete", present[:SERVE_DELETES], None))
+    ups = present[SERVE_DELETES:]
+    writes.append(("upsert", ups, ((1 << 29) + np.arange(ups.shape[0])).astype(np.int32)))
+    for kind, k, v in writes:
+        oracle.add(kind, k, v)
+
+    applied_at = {0: 0}  # seqno -> writes applied when it was published
+    real_publish = server.registry.publish
+
+    def publish(state, ready=None):
+        snap = real_publish(state, ready)
+        applied_at[snap.seqno] = int(server.metrics_registry.snapshot().value(
+            "serve_writes_applied_total"))
+        return snap
+
+    server.registry.publish = publish
+
+    fe = AsyncFrontend(server, linger=0.002, flush_keys=4096, write_backlog=64)
+    phase2 = threading.Event()  # the inserts are published: the fold is next
+    errors, responses, retrieved, resolved = [], [], [], {}
+    lock = threading.Lock()
+    build.LAUNCHES.clear()
+    events0 = dict(build.LIBRARY_EVENTS)
+
+    def reader(r):
+        try:
+            prng = np.random.default_rng(seed + 5000 + r)
+            reqs = reader_reqs[r]
+            for i, req in enumerate(reqs):
+                if i == len(reqs) // 2:
+                    check(phase2.wait(300), f"{label}: the inserts never published")
+                t_sub = time.perf_counter()
+                fut = fe.submit_query(req, timeout=60)
+
+                def done(f, req=req, t_sub=t_sub):
+                    with lock:
+                        resolved[id(f)] = resolved.get(id(f), 0) + 1
+                        responses.append((req, f, t_sub, time.perf_counter()))
+
+                fut.add_done_callback(done)
+                time.sleep(prng.exponential(SERVE_PACING_S))
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(f"reader {r}: {type(e).__name__}: {e}")
+
+    def retriever():
+        try:
+            prng = np.random.default_rng(seed + 6000)
+            for i, group in enumerate(groups):
+                if i == len(groups) // 2:
+                    check(phase2.wait(300), f"{label}: the inserts never published")
+                res, seqno = server.retrieve_many(group, per_layer_counts=True)
+                retrieved.append((group, res, seqno))
+                time.sleep(prng.exponential(SERVE_GROUP_GAP_S))
+        except Exception as e:  # noqa: BLE001
+            errors.append(f"retrieve: {type(e).__name__}: {e}")
+
+    def writer():
+        try:
+            for kind, k, v in writes[:SERVE_INSERTS]:
+                fe.submit_insert(k, v, timeout=300)
+            deadline = time.monotonic() + 300
+            while len(server.current().state.deltas) < SERVE_INSERTS:
+                check(time.monotonic() < deadline and server._last_error is None,
+                      f"{label}: the inserts did not publish ({server._last_error})")
+                time.sleep(0.001)
+            phase2.set()
+            fe.submit_delete(writes[SERVE_INSERTS][1], timeout=300)
+            fe.submit_upsert(writes[SERVE_INSERTS + 1][1], writes[SERVE_INSERTS + 1][2],
+                             timeout=300)
+        except Exception as e:  # noqa: BLE001
+            errors.append(f"writer: {type(e).__name__}: {e}")
+            phase2.set()
+
+    base_event = None
+    if on_card:
+        sync(device)
+        base_event = torch.cuda.Event(enable_timing=True)
+        base_event.record(server.batcher.stream)
+    t_traffic = time.perf_counter()
+    fe.start()
+    threads = [threading.Thread(target=reader, args=(r,), name=f"smoke-reader-{r}")
+               for r in range(SERVE_READERS)]
+    threads += [threading.Thread(target=retriever, name="smoke-retrieve"),
+                threading.Thread(target=writer, name="smoke-writer")]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+        check(not t.is_alive(), f"{label}: thread {t.name} did not finish")
+    futures = [f for _, f, _, _ in responses]
+    server.drain(timeout=300)
+    fe.stop()
+    if on_card:
+        sync(device)
+    traffic_s = time.perf_counter() - t_traffic
+    launches = dict(build.LAUNCHES)
+    check(not errors, f"{label}: {errors[:3]}")
+    st = server.stats()
+    check(st.last_error is None, f"{label}: last_error {st.last_error}")
+    check(st.skew_fallbacks == 0, f"{label}: {st.skew_fallbacks} skew fallbacks")
+    check(st.shadow.num_dropped == 0, f"{label}: the stack dropped {st.shadow.num_dropped} rows")
+    check(dict(build.LIBRARY_EVENTS) == events0 == library_after_warm,
+          f"{label}: the kernel library was built or loaded after warm()")
+    fst = fe.stats()
+    check(fst.submitted == fst.completed == SERVE_REQUESTS and fst.failed == 0,
+          f"{label}: front end {fst}")
+    check(len(responses) == SERVE_REQUESTS and all(v == 1 for v in resolved.values())
+          and len(resolved) == SERVE_REQUESTS, f"{label}: a future resolved twice or never")
+    check(st.warmup.aot_misses == 0, f"{label}: {st.warmup.aot_misses} reads missed the grid")
+
+    # Every response against the oracle at the seqno it reports.
+    n_keys_served = 0
+    for req, fut, _, _ in responses:
+        r = fut.result()
+        check(r.seqno in applied_at, f"{label}: unknown seqno {r.seqno}")
+        check(np.array_equal(np.asarray(r.counts), oracle.count(req, applied_at[r.seqno])),
+              f"{label}: query counts at seqno {r.seqno} differ from the oracle")
+        n_keys_served += req.shape[0]
+    for group, res, seqno in retrieved:
+        applied = applied_at[seqno]
+        for req, (vals, lc) in zip(group, res):
+            want = oracle.count(req, applied)
+            check(lc.shape == (req.shape[0], lc.shape[1]) and (lc >= 0).all()
+                  and np.array_equal(lc.sum(1), want),
+                  f"{label}: per-layer counts at seqno {seqno} do not sum to the counts")
+            for k, v in zip(req, vals):
+                check(sorted(np.asarray(v).tolist()) == oracle.values(k, applied),
+                      f"{label}: retrieved values of key {int(k)} at seqno {seqno} differ")
+    final = applied_at[server.current().seqno]
+    check(final == len(writes), f"{label}: {final} of {len(writes)} writes applied")
+
+    # Exchange rounds and launches of every read execution and fold.
+    timeline = list(server.batcher.timeline)
+    for rec in timeline:
+        check(rec.fused and rec.rounds == rec.budget == 2,
+              f"{label}: a {rec.kind} execution made {rec.rounds} exchange rounds, want 2")
+        if on_card and rec.kind == "retrieve":
+            check(rec.launches.get("csr_gather_owners", 0) == 1
+                  and rec.launches.get("csr_gather_queriers", 0) == 1,
+                  f"{label}: a retrieve batch launched {rec.launches}")
+    folds = list(server.fold_log)
+    check(any(f.kind == "fold" for f in folds), f"{label}: no incremental fold ran")
+    check(all(f.rounds == 0 for f in folds if f.kind == "fold"),
+          f"{label}: an incremental fold made exchange rounds: {[f.rounds for f in folds]}")
+    if on_card:
+        for name in PALLAS_GATHERS + ("bucket_probe",):
+            check(launches.get(name, 0) == 0, f"{label}: the server's path launched {name}")
+        for name in READ_PATH_KERNELS:
+            check(launches.get(name, 0) > 0, f"{label}: kernel {name} never launched")
+
+    # Reads during a fold, judged with CUDA events on the read stream and
+    # the fold stream (times from one event recorded before the traffic):
+    # served during it = the read's kernels ran while the fold's did (and its
+    # dispatch overlapped the fold on the host); waited = dispatched while
+    # the fold's kernels still ran, yet started on its own stream only after
+    # they ended, as a read queued behind the fold would.  "nested" reads
+    # started and ended on the card inside the fold.
+    during, waited, fold_rows = [], [], []
+    at = (lambda e: base_event.elapsed_time(e)) if on_card else None
+    for f in folds:
+        host = [r for r in timeline if r.t0 < f.t_ready and r.t1 > f.t0]
+        if on_card:
+            fs, fe_ = at(f.start), at(f.end)
+            inside = [r for r in host if at(r.start) < fe_ and at(r.end) > fs]
+            nested = [r for r in inside if at(r.start) >= fs and at(r.end) <= fe_]
+            waited += [r for r in host if r.t0 < f.t_ready - 1e-3 and at(r.start) > fe_]
+        else:
+            inside, nested = host, []
+        during += inside
+        fold_rows.append({"kind": f.kind, "background": f.background, "pause_s": f.t1 - f.t0,
+                          "device_ms": (fe_ - fs) if on_card else None,
+                          "reads_during": len(inside), "reads_nested": len(nested),
+                          "rounds": f.rounds})
+    log(f"{label}: folds {json.dumps(fold_rows)}")
+    check(during, f"{label}: no read was served while a fold was in flight")
+    check(not waited, f"{label}: {len(waited)} reads during the fold waited for it")
+
+    # The hot key through the capacity-doubling retries from a quarter of its need.
+    state = server.current().state
+    with on_stream(server.batcher.stream):
+        seg_need, out_need = table.plan_caps(state, hot_req)
+        start = (cdiv(out_need, 4), cdiv(seg_need, 4))
+        auto = table.retrieve_auto(state, hot_req, out_capacity=start[0], seg_capacity=start[1],
+                                   max_retries=2)
+        join = table.inner_join_auto(state, hot_req, out_capacity=start[0],
+                                     seg_capacity=start[1], max_retries=2)
+        check(int(auto.num_dropped) == 0 and int(join.num_dropped) == 0,
+              f"{label}: the *_auto calls still drop after 2 doublings")
+        lists = retrieval_to_lists(auto)
+        pairs = join_pairs(join)
+    want_hot = oracle.values(hot, final)
+    check(len(want_hot) == SERVE_INSERTS * SERVE_HOT_REPEATS and sorted(lists[0].tolist()) == want_hot,
+          f"{label}: retrieve_auto of the hot key differs from the oracle")
+    want_pairs = []
+    for i, k in enumerate(hot_req):
+        check(sorted(lists[i].tolist()) == oracle.values(k, final),
+              f"{label}: retrieve_auto of key {int(k)} differs from the oracle")
+        want_pairs += [(i, v) for v in oracle.values(k, final)]
+    check(np.array_equal(pairs, sort_pairs(np.array([p[0] for p in want_pairs], np.int64),
+                                           np.array([p[1] for p in want_pairs], np.int64))),
+          f"{label}: inner_join_auto pairs differ from the oracle")
+
+    # The registry, scraped back from its Prometheus text.
+    scraped = parse_prometheus(render_prometheus(server.metrics()))
+    for name, want in (("aot_misses_total", 0), ("batch_exchange_budget_misses_total", 0),
+                       ("maintenance_fold_budget_misses_total", 0), ("serve_dropped_rows", 0),
+                       ("serve_skew_fallbacks", 0), ("frontend_failed_total", 0),
+                       ("frontend_completed_total", SERVE_REQUESTS),
+                       ("serve_reads_total", SERVE_GROUPS * SERVE_GROUP)):
+        check(scraped.get((name, ()), 0) == want,
+              f"{label}: scraped {name} = {scraped.get((name, ()))}, want {want}")
+
+    snap = server.metrics()
+    lat_ms = [(t1 - t0) * 1e3 for _, _, t0, t1 in responses]
+    phases = {}
+    for phase in ("admission", "linger", "dispatch", "device", "scatter"):
+        h = snap.histogram("trace_phase_seconds", {"phase": phase})
+        phases[phase] = {"count": h.count, "p50_ms": h.p50 * 1e3, "p99_ms": h.p99 * 1e3}
+    by_bucket = {}
+    for rec in timeline:
+        row = by_bucket.setdefault(f"{rec.kind} {rec.bucket}", {"batches": 0, "device_ms": [],
+                                                               "launches": []})
+        row["batches"] += 1
+        row["launches"].append(sum(rec.launches.values()))
+        if on_card:
+            row["device_ms"].append(rec.start.elapsed_time(rec.end))
+    for row in by_bucket.values():
+        row["device_ms_p50"] = _pctl(row.pop("device_ms"), 50)
+        row["launches_p50"] = _pctl(row.pop("launches"), 50)
+    first_sub = min(t0 for _, _, t0, _ in responses)
+    last_done = max(t1 for _, _, _, t1 in responses)
+    peak = torch.cuda.max_memory_allocated(device) if on_card else None
+    res = {
+        "path": "serve-table",
+        "shards": n_shards,
+        "keys": n_keys,
+        "requests": SERVE_REQUESTS,
+        "retrieve_groups": SERVE_GROUPS,
+        "keys_served": n_keys_served,
+        "latency_ms": {"p50": _pctl(lat_ms, 50), "p99": _pctl(lat_ms, 99),
+                       "p999": _pctl(lat_ms, 99.9)},
+        "keys_per_s": n_keys_served / (last_done - first_sub),
+        "tracer_phases": phases,
+        "folds": fold_rows,
+        "reads_during_folds": len(during),
+        "warm_s": warm_s,
+        "grid_entries": warm.entries,
+        "caps": {str(b): c for b, c in caps.items()},
+        "by_bucket": by_bucket,
+        "data_s": data_s,
+        "build_s": build_s,
+        "traffic_s": traffic_s,
+        "aot_hits": st.warmup.aot_hits,
+        "seqnos": len(applied_at),
+        "launches": launches,
+        "peak_bytes": peak,
+    }
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"path serve-table D={n_shards} N={n_keys}: " + json.dumps(res))
+    run = {"result": res, "table": table, "state": state, "server": server,
+           "batch": to_device(np.concatenate(reader_reqs[1])[: SERVE_BUCKETS[-1]], device),
+           "caps": caps[SERVE_BUCKETS[-1]]}
+    return run
+
+
+def check_serve_kernels(run: dict, device, log) -> list:
+    """Kernels 3-4 against their twins on one server retrieve batch of 4096
+    keys at the final depth, with the server's capacities for that bucket."""
+    from repro_torch.kernels import csr_gather
+
+    table, state = run["table"], run["state"]
+    out_cap, seg_cap = run["caps"]
+    inputs = gather_inputs(table, state, run["batch"], caps=(out_cap, seg_cap))
+    path, shards = run["result"]["path"], run["result"]["shards"]
+    launches = run["result"]["launches"]
+    rows = []
+    a = inputs["csr_gather_owners"]
+    owner_args = (a["starts"], a["counts"], a["tables"], a["capacity"])
+    rows.append(kernel_row(
+        "csr_gather_owners", {"path": path, "shards": shards,
+                              "launches": launches.get("csr_gather_owners", 0)},
+        f"starts/counts={tuple(a['counts'].shape)} seg_capacity={a['capacity']} (one server "
+        f"retrieve batch of {run['batch'].shape[0]} keys at depth {len(state.deltas)})",
+        lambda: csr_gather.csr_gather_owners(*owner_args),
+        lambda: csr_gather.csr_gather_owners_plain(*owner_args),
+        int_bounds(owners_work(a)), device, log, timing=PROBE_TIMING))
+    a = inputs["csr_gather_queriers"]
+    querier_args = (a["starts"], a["counts"], a["table"], a["capacity"])
+    rows.append(kernel_row(
+        "csr_gather_queriers", {"path": path, "shards": shards,
+                                "launches": launches.get("csr_gather_queriers", 0)},
+        f"starts/counts={tuple(a['counts'].shape)} table={tuple(a['table'].shape)} "
+        f"capacity={a['capacity']} (the same batch)",
+        lambda: csr_gather.csr_gather_queriers(*querier_args),
+        lambda: csr_gather.csr_gather_queriers_plain(*querier_args),
+        int_bounds(queriers_work(a)), device, log, timing=PROBE_TIMING))
     return rows
 
 
@@ -2195,6 +2709,17 @@ def main(argv=None) -> int:
         paths.append(run["result"])
         del run  # free each run's tables before the next one builds
         gc.collect()  # run["inputs"] closes over run: a cycle that del alone leaves
+    for shards, n_keys in ((1, args.keys), (8, args.keys // 8)):
+        t_run = time.perf_counter()
+        run = run_serve_table(shards, n_keys, args.seed, device, log)
+        rows += check_serve_kernels(run, device, log)
+        run["result"]["run_s"] = time.perf_counter() - t_run
+        log(f"run serve-table D={shards}: {run['result']['run_s']:.1f} s (warm-up, traffic, "
+            f"oracles and kernel checks; {smi})")
+        paths.append(run["result"])
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
     t_run = time.perf_counter()
     lm = run_lm_path(args.seed, device, log)
     lm["result"]["replay"] = check_lm_replay(lm, device, log)

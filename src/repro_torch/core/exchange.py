@@ -7,38 +7,57 @@ of its first two block axes, ``psum`` is a sum over the shard axis and
 ``my_rank`` is ``arange(D)``.  This is the single-card backend; a
 ``torch.distributed`` backend for several cards is a later slice.
 
-Every all-to-all round counts one call in :data:`CALLS` under the current
-label (``"exchange"`` unless :func:`counting_as` says otherwise): the port's
-routing-budget check in place of the reference's jaxpr collective count.
+Every all-to-all round counts one call in :data:`CALLS` under the calling
+thread's current label (``"exchange"`` unless :func:`counting_as` says
+otherwise), and in the thread's open ``counting.scoped`` blocks with the
+bytes one shard sends: the port's routing-budget check in place of the
+reference's jaxpr collective count.
 """
 from __future__ import annotations
 
 import collections
 import contextlib
 import dataclasses
+import threading
 from typing import Optional, Sequence
 
 import torch
 
+from repro_torch import counting
 from repro_torch.utils import take_rows
 
-# Label -> all-to-all rounds made under it in this process.
+# Label -> all-to-all rounds made under it in this process (every thread).
 CALLS: collections.Counter = collections.Counter()
-_label = ["exchange"]
+_calls_lock = threading.Lock()
+_local = threading.local()
+
+
+def _labels() -> list:
+    labels = getattr(_local, "labels", None)
+    if labels is None:
+        labels = _local.labels = ["exchange"]
+    return labels
 
 
 @contextlib.contextmanager
 def counting_as(label: str):
-    """Count the exchange rounds made inside the block under ``label``."""
-    _label.append(label)
+    """Count the exchange rounds this thread makes inside the block under
+    ``label`` (other threads keep their own labels)."""
+    labels = _labels()
+    labels.append(label)
     try:
         yield
     finally:
-        _label.pop()
+        labels.pop()
 
 
-def _count_call() -> None:
-    CALLS[_label[-1]] += 1
+def _count_call(*buffers: torch.Tensor) -> None:
+    """One round; ``buffers`` are what it transposes, ``(D, ...)`` each."""
+    label = _labels()[-1]
+    nbytes = sum(b.numel() * b.element_size() // max(1, b.shape[0]) for b in buffers)
+    with _calls_lock:
+        CALLS[label] += 1
+    counting.record_round(label, nbytes)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,7 +131,7 @@ def all_to_all_hierarchical(x: torch.Tensor) -> torch.Tensor:
     stacked on one device every hop together is the transpose.  Callers that
     ship several payloads stack them into ``x`` so they travel as one call.
     """
-    _count_call()
+    _count_call(x)
     return all_to_all(x)
 
 
@@ -134,7 +153,7 @@ def dispatch(
     packed, route = pack_by_destination(
         payloads, dest, num_dest, capacity, fills, count_mask=count_mask
     )
-    _count_call()
+    _count_call(*packed)
     received = [
         all_to_all(buf.reshape(num_dest, num_dest, capacity, *buf.shape[2:])).reshape(
             num_dest, num_dest * capacity, *buf.shape[2:]
@@ -156,32 +175,49 @@ def combine(answers: torch.Tensor, route: Route, fill: int) -> torch.Tensor:
     dropped rows get ``fill``.
     """
     d, cap = route.num_dest, route.capacity
-    _count_call()
+    _count_call(answers)
     back = all_to_all(answers.reshape(d, d, cap)).reshape(d, d * cap)
     ans_sorted = torch.where(route.keep, torch.gather(back, 1, route.slot), fill)
     return _unsort(ans_sorted, route)
 
 
 def combine_ragged(
-    seg_values: torch.Tensor, slot_counts: torch.Tensor, route: Route
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    seg_values: torch.Tensor,
+    slot_counts: torch.Tensor,
+    route: Route,
+    layer_counts: Optional[torch.Tensor] = None,
+):
     """Inverse of :func:`dispatch` for variable-fanout answers (retrieval).
 
     ``seg_values`` is ``(D_owner, D_src, seg_capacity[, C])``: owner ``o``'s
     packed answer runs for source ``s`` (a row's C value columns together);
-    ``slot_counts`` ``(D_owner, D_src*capacity)`` the per-slot run lengths.  Values and counts go home as two transposes
-    that count as **one** exchange call (the reference packs both into one
-    buffer, an interconnect optimisation with the same outputs).
+    ``slot_counts`` ``(D_owner, D_src*capacity)`` the per-slot run lengths.
+    Values and counts go home as transposes that count as **one** exchange
+    call (the reference packs both into one buffer, an interconnect
+    optimisation with the same outputs).
 
-    Returns ``(counts, starts, values)`` in each querier's row order:
-    ``(D, N)`` counts (0 for dropped rows), ``(D, N)`` starts into
+    ``layer_counts`` ``(L, D_owner, D_src*capacity)``, the per-layer run
+    lengths of a fused layered retrieval laid out like ``slot_counts``, rides
+    the same call (the reference bitcasts the L planes into that buffer) and
+    adds a fourth output: ``(D, N, L)`` each row's count split by layer (0
+    for dropped rows).
+
+    Returns ``(counts, starts, values[, per_layer])`` in each querier's row
+    order: ``(D, N)`` counts (0 for dropped rows), ``(D, N)`` starts into
     ``values`` ``(D, D*seg_capacity[, C])`` (row-major by owner).
     """
     d, cap = route.num_dest, route.capacity
     seg_cap = seg_values.shape[2]
-    _count_call()
+    counts_i32 = slot_counts.to(torch.int32).reshape(d, d, cap)
+    planes = None
+    if layer_counts is not None:
+        nl = layer_counts.shape[0]
+        planes = layer_counts.to(torch.int32).reshape(nl, d, d, cap)
+        _count_call(seg_values, counts_i32, planes.transpose(0, 1))
+    else:
+        _count_call(seg_values, counts_i32)
     back_vals = all_to_all(seg_values)  # (D_src, D_owner, seg_cap[, C])
-    back_counts = all_to_all(slot_counts.to(torch.int32).reshape(d, d, cap))
+    back_counts = all_to_all(counts_i32)
     # Owner o packed my block by the exclusive cumsum of my slots' counts;
     # recompute the identical offsets from the returned counts.
     block_off = torch.cumsum(back_counts, dim=2, dtype=torch.int32) - back_counts
@@ -193,4 +229,15 @@ def combine_ragged(
     starts_sorted = torch.where(route.keep, starts_packed, 0)
     counts = _unsort(counts_sorted.to(torch.int32), route)
     starts = _unsort(starts_sorted.to(torch.int32), route)
-    return counts, starts, back_vals.reshape(d, d * seg_cap, *seg_values.shape[3:])
+    values = back_vals.reshape(d, d * seg_cap, *seg_values.shape[3:])
+    if planes is None:
+        return counts, starts, values
+    # (L, D_owner, D_src, cap) -> (D_src, L, D_owner * cap): each querier's
+    # planes, addressed by the route's slots like the counts.
+    back_planes = planes.permute(2, 0, 1, 3).reshape(d, nl, d * cap)
+    n = route.slot.shape[1]
+    slot = route.slot.unsqueeze(1).expand(d, nl, n)
+    per_sorted = torch.where(route.keep.unsqueeze(1), torch.gather(back_planes, 2, slot), 0)
+    per_layer = torch.empty_like(per_sorted).scatter_(
+        2, route.perm.unsqueeze(1).expand(d, nl, n), per_sorted)
+    return counts, starts, values, per_layer.permute(0, 2, 1).contiguous()

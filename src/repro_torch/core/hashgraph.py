@@ -148,29 +148,37 @@ def build_from_buckets(
     )
 
 
+def _window_trips(lo: torch.Tensor, hi: torch.Tensor) -> int:
+    """Bisection steps that settle every window ``[lo, hi)``: the bit length
+    of the widest (one device read)."""
+    return int((hi - lo).max()).bit_length() if lo.numel() else 0
+
+
 def _segment_searchsorted(
     sorted_keys: torch.Tensor,
     lo: torch.Tensor,
     hi: torch.Tensor,
     q: torch.Tensor,
     side: str,
+    trips: Optional[int] = None,
 ) -> torch.Tensor:
     """Per-row binary search of ``q[s, i]`` within ``sorted_keys[s, lo:hi]``.
 
     ``sorted_keys`` and ``q`` are order views (:func:`key_order`, or a
     fingerprint lane with its sign flipped), int32 or int64.
-    The reference runs a fixed ``bit_length(M)`` trips; lanes with
-    ``lo == hi`` never move, so stopping once every lane has converged gives
-    the same result (buckets hold a few keys, so a handful of trips do).
+    The reference runs a fixed ``bit_length(M)`` trips; each trip at least
+    halves every window and lanes with ``lo == hi`` never move, so
+    ``trips`` = the widest window's bit length (:func:`_window_trips`, the
+    default; buckets hold a few keys) gives the same result with one device
+    read for the whole search instead of one a trip.
     """
     m = sorted_keys.shape[1]
-    iters = max(1, int(m).bit_length())
     lo = lo.to(torch.int64)
     hi = hi.to(torch.int64)
-    for _ in range(iters):
+    if trips is None:
+        trips = _window_trips(lo, hi)
+    for _ in range(min(trips, max(1, int(m).bit_length()))):
         active = lo < hi
-        if not bool(active.any()):
-            break
         mid = (lo + hi) >> 1
         v = torch.gather(sorted_keys, 1, torch.clamp(mid, 0, m - 1))
         go_right = (v < q) if side == "left" else (v <= q)
@@ -218,14 +226,16 @@ def query_locate(
         if qfp is None:
             qfp = hashing.fingerprint32(queries, lanes)
         fp_u, qfp_u = hg.fingerprints ^ _SIGN, qfp ^ _SIGN
-        fl = _segment_searchsorted(fp_u, starts, ends, qfp_u, side="left")
-        fr = _segment_searchsorted(fp_u, starts, ends, qfp_u, side="right")
+        trips = _window_trips(starts, ends)
+        fl = _segment_searchsorted(fp_u, starts, ends, qfp_u, side="left", trips=trips)
+        fr = _segment_searchsorted(fp_u, starts, ends, qfp_u, side="right", trips=trips)
         del fp_u, qfp_u
         starts, ends = fl, fr
     keys_u = key_order(hg.keys, lanes)
     q_u = key_order(queries, lanes)
-    left = _segment_searchsorted(keys_u, starts, ends, q_u, side="left")
-    right = _segment_searchsorted(keys_u, starts, ends, q_u, side="right")
+    trips = _window_trips(starts, ends)
+    left = _segment_searchsorted(keys_u, starts, ends, q_u, side="left", trips=trips)
+    right = _segment_searchsorted(keys_u, starts, ends, q_u, side="right", trips=trips)
     return left.to(torch.int32), (right - left).to(torch.int32)
 
 

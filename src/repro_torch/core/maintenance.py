@@ -10,13 +10,14 @@ exchange call at all (``exchange.CALLS`` stays unchanged), and the remaining
 deltas and surviving tombstones shift down by ``k`` epochs.
 
 :class:`CompactionPolicy` decides when: delta-depth, tombstone-load and
-dropped-rows triggers over a :class:`TableStats` snapshot.  Recording folds
-into a metrics registry (``record_fold``, ``fold_oldest(metrics=...)``)
-belongs to the port's observability slice.
+dropped-rows triggers over a :class:`TableStats` snapshot.
+:func:`record_fold` records a fold's pause and reclaimed rows into a metrics
+registry (``repro_torch.obs.registry``), once per fold.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Optional
 
 import torch
@@ -24,8 +25,6 @@ import torch
 from repro_torch.core import multi_hashgraph, plans
 from repro_torch.core.hashgraph import EMPTY_BITS
 from repro_torch.core.state import TableState, Tombstones
-
-OBS_SLICE = "the port's observability slice (obs/, record_fold)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -162,6 +161,38 @@ def allocated_rows(state: TableState) -> int:
     )
 
 
+def record_fold(metrics, *, kind: str, seconds: float, rows_before: int, rows_after: int) -> None:
+    """Record one fold's pause time and reclaimed rows into ``metrics``.
+
+    ``kind`` is ``"fold"`` (incremental) or ``"full"`` (compaction).
+    Reclaimed rows clamp at zero: an incremental fold grows the base by the
+    folded deltas' rows, and a counter must not go down.  One recording site
+    per fold: the server's fold code calls this, and only direct callers
+    pass ``metrics`` to :func:`fold_oldest`.  ``metrics=None`` is a no-op.
+    """
+    if metrics is None:
+        return
+    metrics.counter(
+        "maintenance_folds_total",
+        labels={"kind": kind},
+        help="Fold/compact passes by kind (fold=incremental, full=rebuild).",
+    ).inc()
+    metrics.histogram(
+        "maintenance_fold_seconds",
+        labels={"kind": kind},
+        help="Fold pause time (the write-path stall a fold costs).",
+    ).observe(seconds)
+    reclaimed = max(0, int(rows_before) - int(rows_after))
+    metrics.counter(
+        "maintenance_reclaimed_rows_total",
+        help="Allocated CSR rows returned by folds/compactions.",
+    ).inc(reclaimed)
+    metrics.gauge(
+        "maintenance_last_reclaimed_rows",
+        help="Rows reclaimed by the most recent fold (0 when it grew).",
+    ).set(reclaimed)
+
+
 def _remap_tombstones(ts: Tombstones, k: int) -> Tombstones:
     """Shift a tombstone buffer past a fold of the ``k`` oldest deltas.
 
@@ -193,23 +224,30 @@ def fold_oldest(state: TableState, k: int, *, metrics=None) -> TableState:
     shifted down ``k`` epochs, and answers every query as before.  On a
     coherent stack the fold is layer-local (no exchange call); a mixed-split
     stack cannot fold locally and takes the full ``compact()``.  ``k <= 0``
-    is the identity; ``k`` is clamped to the delta depth.  ``metrics=`` is
-    not ported yet and raises ``NotImplementedError``.
+    is the identity; ``k`` is clamped to the delta depth.  ``metrics`` (a
+    ``MetricsRegistry``) records the fold by :func:`record_fold`, for direct
+    callers only: the server times its folds itself.
     """
-    if metrics is not None:
-        raise NotImplementedError(f"fold_oldest(metrics=...) belongs to {OBS_SLICE}")
     k = min(int(k), len(state.deltas))
     if k <= 0:
         return state
+    t0 = time.perf_counter()
+    rows_before = allocated_rows(state)
     if not state.coherent:
-        return state.table.compact(state)
-    new_base = multi_hashgraph.fold_layers_local(
-        state.layers[: k + 1], tombstones=state.tombstones.index()
-    )
-    return TableState(
-        base=new_base,
-        deltas=state.deltas[k:],
-        tombstones=_remap_tombstones(state.tombstones, k),
-        table=state.table,
-        coherent=True,
-    )
+        out = state.table.compact(state)
+        kind = "full"
+    else:
+        new_base = multi_hashgraph.fold_layers_local(
+            state.layers[: k + 1], tombstones=state.tombstones.index()
+        )
+        out = TableState(
+            base=new_base,
+            deltas=state.deltas[k:],
+            tombstones=_remap_tombstones(state.tombstones, k),
+            table=state.table,
+            coherent=True,
+        )
+        kind = "fold"
+    record_fold(metrics, kind=kind, seconds=time.perf_counter() - t0,
+                rows_before=rows_before, rows_after=allocated_rows(out))
+    return out

@@ -231,14 +231,22 @@ def _route_queries_once(
     """The one exchange round of the query path (paper §3.3 phase 1):
     hash the queries and dispatch them to their owners by the build splits.
     ``fingerprint`` also computes the routed keys' fingerprints, from the
-    same read as their owner-side hashes."""
+    same read as their owner-side hashes.
+
+    EMPTY queries (a batch's padding) all hash to one owner and answer
+    nothing; past a full slot they are dropped without being counted in
+    ``num_dropped`` (the reference counts them, so a padded batch whose
+    padding fills a shard overflows there).  Real keys precede a batch's
+    padding in the stable dispatch order, so padding never displaces them.
+    """
     d, n_local = queries.shape[:2]
     lanes = hashgraph.shard_lanes(queries)
     h = hashing.hash_to_buckets(queries, dhg.hash_range, dhg.seed, lanes)
     dest = partition.destination_of(h, dhg.hash_splits)
     del h
     capacity = default_capacity(n_local, d, capacity_slack)
-    (rq,), route = exchange.dispatch((queries,), dest, capacity, fills=(EMPTY_BITS,))
+    (rq,), route = exchange.dispatch((queries,), dest, capacity, fills=(EMPTY_BITS,),
+                                     count_mask=~hashgraph.is_empty_key(queries, lanes))
     rh, rfp = _hash_routed(rq, dhg.hash_range, dhg.seed, fingerprint)
     return RoutedQueries(
         rq=rq,
@@ -414,12 +422,16 @@ class ShardRetrieval:
 
     ``num_dropped`` is zero iff no static capacity truncated a result;
     when positive it is an overflow indicator, not an exact loss count.
+    ``layer_counts`` (``retrieve(..., per_layer_counts=True)``) splits each
+    query's count by layer, base first: ``layer_counts[s, i].sum() ==
+    counts[s, i]``.  On the fused path it rides the values' return call.
     """
 
     offsets: torch.Tensor  # (D, n_local + 1) int32
     values: torch.Tensor  # (D, out_capacity[, C]) int32
     counts: torch.Tensor  # (D, n_local) int32
     num_dropped: torch.Tensor  # () int64
+    layer_counts: Optional[torch.Tensor] = None  # (D, n_local, L) int32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -481,13 +493,15 @@ def _retrieve_parts_fused(
     out_capacity: int,
     capacity_slack: float,
     tombstones: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
+    per_layer: bool = False,
 ):
     """Single-route merged retrieval over a coherent stack: two exchange calls.
 
     One dispatch routes the queries; each owner locates them in every layer
     and packs every source's runs (slot-major, epoch order) into one segment
     (one owner-side gather launch for all owners and layers); one ragged
-    return ships segments and per-slot totals home; each querier compacts
+    return ships segments and per-slot totals home (with ``per_layer`` also
+    the L per-layer count planes, in the same call); each querier compacts
     its runs (one querier-side gather launch for all queriers).
     """
     d = queries.shape[0]
@@ -496,15 +510,20 @@ def _retrieve_parts_fused(
     seg, slot_counts, owner_dropped = _owner_gather(
         starts_lr, counts_lr, tables, seg_capacity, d, routed.capacity
     )
-    del starts_lr, counts_lr
+    del starts_lr
     # One ragged return: per-slot totals reconstruct, on the querier, the
     # interleaved offsets the owner packed with.
-    counts, starts, seg_flat = exchange.combine_ragged(seg, slot_counts, routed.route)
+    returned = exchange.combine_ragged(
+        seg, slot_counts, routed.route, layer_counts=counts_lr if per_layer else None
+    )
+    del counts_lr
+    counts, starts, seg_flat = returned[:3]
     offsets, slot_rows, values, out_dropped = ops.csr_gather_queriers(
         starts, counts, seg_flat, capacity=out_capacity
     )
     num_dropped = owner_dropped + routed.route.num_dropped.sum() + out_dropped
-    return offsets, slot_rows, values, counts, num_dropped
+    layer_counts = returned[3] if per_layer else None
+    return offsets, slot_rows, values, counts, num_dropped, layer_counts
 
 
 def _retrieve_runs(
@@ -541,9 +560,11 @@ def _retrieve_parts(
     capacity_slack: float = 1.25,
     tombstones: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
     fused: Optional[bool] = None,
+    per_layer: bool = False,
 ):
     """Merged retrieval over a layer stack: ``(offsets, query_rows, values,
-    counts, num_dropped)`` per querier shard.
+    counts, num_dropped, layer_counts)`` per querier shard (``layer_counts``
+    ``(D, n_local, L)`` with ``per_layer``, else None).
 
     ``fused`` (coherent stacks only) takes :func:`_retrieve_parts_fused`.
     Otherwise each layer runs :func:`_retrieve_runs` on its own splits, and
@@ -564,6 +585,7 @@ def _retrieve_parts(
             out_capacity=out_capacity,
             capacity_slack=capacity_slack,
             tombstones=tombstones,
+            per_layer=per_layer,
         )
     d, n_local = queries.shape[:2]
     counts_l, starts_l, segs_l, dropped = [], [], [], 0
@@ -591,7 +613,8 @@ def _retrieve_parts(
     query_rows = torch.where(
         slot_rows >= 0, torch.div(slot_rows, nlayers, rounding_mode="floor"), -1
     ).to(torch.int32)
-    return offsets, query_rows, values, counts, dropped + out_dropped
+    layer_counts = torch.stack(counts_l, dim=2).to(torch.int32) if per_layer else None
+    return offsets, query_rows, values, counts, dropped + out_dropped, layer_counts
 
 
 def retrieve_layers_sharded(
@@ -603,10 +626,13 @@ def retrieve_layers_sharded(
     capacity_slack: float = 1.25,
     tombstones: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
     fused: Optional[bool] = None,
+    per_layer_counts: bool = False,
 ) -> ShardRetrieval:
     """All live values for every occurrence of every query key over a
-    versioned stack; each query's values are its layers' runs in epoch order."""
-    offsets, _, values, counts, num_dropped = _retrieve_parts(
+    versioned stack; each query's values are its layers' runs in epoch order.
+    ``per_layer_counts`` fills ``layer_counts`` (on the fused path in the
+    same return call as the values: still two exchange calls)."""
+    offsets, _, values, counts, num_dropped, layer_counts = _retrieve_parts(
         layers,
         queries,
         seg_capacity=seg_capacity,
@@ -614,8 +640,10 @@ def retrieve_layers_sharded(
         capacity_slack=capacity_slack,
         tombstones=tombstones,
         fused=fused,
+        per_layer=per_layer_counts,
     )
-    return ShardRetrieval(offsets=offsets, values=values, counts=counts, num_dropped=num_dropped)
+    return ShardRetrieval(offsets=offsets, values=values, counts=counts, num_dropped=num_dropped,
+                          layer_counts=layer_counts)
 
 
 def inner_join_layers_sharded(
@@ -630,7 +658,7 @@ def inner_join_layers_sharded(
 ) -> ShardJoin:
     """Materialized inner join against a versioned stack, as global-row pairs."""
     d, n_local = queries.shape[:2]
-    _, query_rows, values, counts, num_dropped = _retrieve_parts(
+    _, query_rows, values, counts, num_dropped, _ = _retrieve_parts(
         layers,
         queries,
         seg_capacity=seg_capacity,

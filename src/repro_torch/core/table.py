@@ -11,6 +11,8 @@
     counts = table.query(state, queries)
     result = table.retrieve(state, queries)   # count-first capacity sizing
     pairs = join_to_pairs(table.inner_join(state, queries))
+    plan = table.plan_retrieve(num_queries=n, out_capacity=4096, seg_capacity=512)
+    compiled = plan.compile(state)            # bound to state's structure
     state = state.compact()                   # fold deltas + tombstones
 
 The D shards live on one device (see ``repro_torch.core.exchange``).
@@ -33,12 +35,12 @@ from repro_torch.core.multi_hashgraph import (
     ShardJoin,
     ShardRetrieval,
 )
+from repro_torch.core.plans import JoinPlan, QueryPlan, RetrievePlan
 from repro_torch.core.schema import TableSchema
 from repro_torch.core.state import TableState, as_state, empty_tombstones
 from repro_torch.kernels import histogram
 from repro_torch.utils import cdiv, take_rows
 
-PLANS_SLICE = "the port's plans slice (plan/AOT objects and the *_auto retries)"
 HOT_KEYS_SLICE = "the port's hot-key replication slice (KV cache)"
 
 
@@ -105,6 +107,11 @@ class DistributedHashTable:
         self.skew_fallbacks = 0
         # Compact sizing per state signature: (capacity, rebuild_rows).
         self._sizing_memo = {}
+
+    @property
+    def num_devices(self) -> int:
+        """The shard count (the reference's device count)."""
+        return self.num_shards
 
     def _shard(self, flat: torch.Tensor, what: str) -> torch.Tensor:
         n = flat.shape[0]
@@ -441,6 +448,71 @@ class DistributedHashTable:
         seg_cap = max(8, cdiv(seg_capacity, 8) * 8)
         return out_cap, seg_cap
 
+    # -- plans -------------------------------------------------------------------
+    def plan_query(self, num_queries: Optional[int] = None) -> QueryPlan:
+        """A ``(state, queries) -> counts`` callable (no capacities), with
+        ``.join_size(state, queries)`` under the same plan."""
+        return QueryPlan(self, num_queries)
+
+    def _plan_statics(self, name, state, queries, num_queries, out_capacity, seg_capacity):
+        """``(num_queries, out_cap, seg_cap)`` of a plan: capacities left
+        ``None`` are sized by the counts round against the sample ``(state,
+        queries)`` (the plan itself never syncs); with both explicit no
+        sample is needed."""
+        if out_capacity is None or seg_capacity is None:
+            if state is None or queries is None:
+                raise ValueError(
+                    f"{name} needs a (state, queries) sample to size "
+                    "capacities, or explicit out_capacity and seg_capacity"
+                )
+            out_capacity, seg_capacity = self._resolve_caps(
+                as_state(self, state), self._pack_queries(queries), out_capacity, seg_capacity
+            )
+        else:
+            out_capacity = max(8, cdiv(out_capacity, 8) * 8)
+            seg_capacity = max(8, cdiv(seg_capacity, 8) * 8)
+        if num_queries is None and queries is not None:
+            num_queries = len(queries)
+        return num_queries, out_capacity, seg_capacity
+
+    def plan_retrieve(
+        self,
+        state=None,
+        queries=None,
+        *,
+        num_queries: Optional[int] = None,
+        out_capacity: Optional[int] = None,
+        seg_capacity: Optional[int] = None,
+        per_layer_counts: bool = False,
+    ) -> RetrievePlan:
+        """A ``(state, queries) -> ShardRetrieval`` callable with fixed
+        capacities (see :meth:`_plan_statics`); ``per_layer_counts`` fills
+        ``layer_counts`` in the same return call on the fused path."""
+        return RetrievePlan(
+            self,
+            *self._plan_statics(
+                "plan_retrieve", state, queries, num_queries, out_capacity, seg_capacity
+            ),
+            per_layer_counts=per_layer_counts,
+        )
+
+    def plan_join(
+        self,
+        state=None,
+        queries=None,
+        *,
+        num_queries: Optional[int] = None,
+        out_capacity: Optional[int] = None,
+        seg_capacity: Optional[int] = None,
+    ) -> JoinPlan:
+        """A ``(state, queries) -> ShardJoin`` callable with fixed capacities."""
+        return JoinPlan(
+            self,
+            *self._plan_statics(
+                "plan_join", state, queries, num_queries, out_capacity, seg_capacity
+            ),
+        )
+
     def retrieve(
         self,
         state,
@@ -448,23 +520,24 @@ class DistributedHashTable:
         *,
         out_capacity: Optional[int] = None,
         seg_capacity: Optional[int] = None,
+        per_layer_counts: bool = False,
     ) -> ShardRetrieval:
         """All live values for every occurrence of every query key.
 
         Global layout: block ``d`` of ``offsets`` (``n_local + 1`` rows)
         indexes block ``d`` of ``values`` (``out_capacity`` rows).  Overflow
         is reported in ``num_dropped``, never silently truncated.
+        ``per_layer_counts=True`` also returns ``layer_counts`` ``(Nq, L)``,
+        each query's count split by layer, base first (on the fused path in
+        the values' return call: still two exchange calls).
         """
         st = as_state(self, state)
         q = self._pack_queries(queries)
         out_cap, seg_cap = self._resolve_caps(st, q, out_capacity, seg_capacity)
-        r = plans.exec_retrieve(self, st, q, out_capacity=out_cap, seg_capacity=seg_cap)
-        return ShardRetrieval(
-            offsets=r.offsets.reshape(-1),
-            values=r.values.reshape(-1, *r.values.shape[2:]),
-            counts=r.counts.reshape(-1),
-            num_dropped=r.num_dropped,
-        )
+        return plans.global_retrieval(plans.exec_retrieve(
+            self, st, q, out_capacity=out_cap, seg_capacity=seg_cap,
+            per_layer_counts=per_layer_counts,
+        ))
 
     def inner_join(
         self,
@@ -479,19 +552,58 @@ class DistributedHashTable:
         st = as_state(self, state)
         q = self._pack_queries(queries)
         out_cap, seg_cap = self._resolve_caps(st, q, out_capacity, seg_capacity)
-        j = plans.exec_join(self, st, q, out_capacity=out_cap, seg_capacity=seg_cap)
-        return ShardJoin(
-            query_idx=j.query_idx.reshape(-1),
-            values=j.values.reshape(-1, *j.values.shape[2:]),
-            num_results=j.num_results,
-            num_dropped=j.num_dropped,
-        )
+        return plans.global_join(
+            plans.exec_join(self, st, q, out_capacity=out_cap, seg_capacity=seg_cap))
 
-    # -- not ported yet ---------------------------------------------------------
-    def _later(self, *args, **kwargs):
-        raise NotImplementedError(f"this entry point belongs to {PLANS_SLICE}")
+    # -- capacity-doubling retries ------------------------------------------------
+    def _auto_retry(self, exec_fn, state, queries, out_capacity, seg_capacity, max_retries):
+        """Re-run ``exec_fn`` with doubled caps while ``num_dropped > 0``.
 
-    plan_query = plan_retrieve = plan_join = retrieve_auto = inner_join_auto = _later
+        Stops early when doubling no longer shrinks ``num_dropped``: drops
+        of the dispatch stage depend on ``capacity_slack``, not on the
+        output caps, so no doubling fixes them.
+        """
+        st = as_state(self, state)
+        q = self._pack_queries(queries)
+        out_cap, seg_cap = self._resolve_caps(st, q, out_capacity, seg_capacity)
+        res = exec_fn(self, st, q, out_capacity=out_cap, seg_capacity=seg_cap)
+        dropped = int(res.num_dropped)
+        for _ in range(max_retries):
+            if dropped == 0:
+                break
+            out_cap, seg_cap = out_cap * 2, seg_cap * 2
+            res = exec_fn(self, st, q, out_capacity=out_cap, seg_capacity=seg_cap)
+            prev, dropped = dropped, int(res.num_dropped)
+            if dropped >= prev:
+                break  # not a capacity problem (e.g. route drops)
+        return res
+
+    def retrieve_auto(
+        self,
+        state,
+        queries,
+        *,
+        out_capacity: Optional[int] = None,
+        seg_capacity: Optional[int] = None,
+        max_retries: int = 4,
+    ) -> ShardRetrieval:
+        """:meth:`retrieve` with at most ``max_retries`` capacity doublings
+        while ``num_dropped > 0``; returns the last attempt either way."""
+        return plans.global_retrieval(self._auto_retry(
+            plans.exec_retrieve, state, queries, out_capacity, seg_capacity, max_retries))
+
+    def inner_join_auto(
+        self,
+        state,
+        queries,
+        *,
+        out_capacity: Optional[int] = None,
+        seg_capacity: Optional[int] = None,
+        max_retries: int = 4,
+    ) -> ShardJoin:
+        """:meth:`inner_join` with bounded capacity-doubling retries."""
+        return plans.global_join(self._auto_retry(
+            plans.exec_join, state, queries, out_capacity, seg_capacity, max_retries))
 
 
 # ---------------------------------------------------------------------------

@@ -10,7 +10,10 @@ source is never served by a stale build.  Nothing here runs at import time.
 
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`launch` raises on a non-zero code and counts
-the launch in :data:`LAUNCHES`.
+the launch in :data:`LAUNCHES` (under a lock: every thread's launches) and
+in the calling thread's ``counting.scoped`` blocks.  :data:`LIBRARY_EVENTS`
+counts the builds and loads of the library, so a warmed server can show it
+loaded nothing more.
 """
 from __future__ import annotations
 
@@ -23,6 +26,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+from repro_torch import counting
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = (
@@ -32,6 +37,9 @@ NVCC_FLAGS = (
 
 # Kernel name -> launches made by its wrapper in this process.
 LAUNCHES: collections.Counter = collections.Counter()
+# "build" (nvcc ran) and "load" (the library was opened) in this process.
+LIBRARY_EVENTS: collections.Counter = collections.Counter()
+_launches_lock = threading.Lock()
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
@@ -164,6 +172,7 @@ def build() -> Path:
         )
     os.replace(tmp, out)
     shutil.rmtree(work, ignore_errors=True)
+    LIBRARY_EVENTS["build"] += 1
     return out
 
 
@@ -180,6 +189,7 @@ def library() -> ctypes.CDLL:
             lib.kernel_error_string.argtypes = [ctypes.c_int]
             lib.kernel_error_string.restype = ctypes.c_char_p
             _lib = lib
+            LIBRARY_EVENTS["load"] += 1
     return _lib
 
 
@@ -196,7 +206,9 @@ def launch(name: str, *args) -> None:
     if code != 0:
         msg = lib.kernel_error_string(code).decode()
         raise RuntimeError(f"CUDA kernel {name} failed to launch: {msg} (error {code})")
-    LAUNCHES[name] += 1
+    with _launches_lock:
+        LAUNCHES[name] += 1
+    counting.record_launch(name)
 
 
 def on_card(name: str, tensor) -> bool:

@@ -1,6 +1,8 @@
 """Small shared helpers (the port's copy of ``repro.utils.cdiv``)."""
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -16,3 +18,8 @@ def take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if x.ndim == idx.ndim:
         return torch.gather(x, 1, idx)
     return torch.gather(x, 1, idx.unsqueeze(-1).expand(*idx.shape, x.shape[-1]))
+
+
+def on_stream(stream):
+    """``torch.cuda.stream(stream)``, or no context for ``None`` (the CPU)."""
+    return torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext()

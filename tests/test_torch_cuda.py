@@ -956,3 +956,93 @@ def test_smoke_xlstm_on_card_matches_cpu(card, dtype):
             done = batcher.run_until_drained(max_steps=200)
             streams[name] = {r.uid: r.out_tokens for r in done}
         assert streams["card"] == streams["cpu"]
+
+
+# ---------------------------------------------------------------------------
+# The table server on the card: reads never wait for a fold
+# ---------------------------------------------------------------------------
+
+FOLD_SPIN_CYCLES = 2_000_000_000  # about a second of one spinning thread
+
+
+def _server_with_deltas(card, shards, depth=None, **warm):
+    """A server at depth 2, warmed (which also gives the writer's and the
+    fold stream's memory pools blocks of a delta's and a fold's sizes)."""
+    from repro_torch.serve_table import CompactionPolicy, MicroBatcher, TableServer
+
+    table = DistributedHashTable(num_shards=shards, hash_range=1 << 18, device=card, max_deltas=4)
+    keys = np.arange(1 << 16, dtype=np.uint32)
+    server = TableServer(table, keys, policy=CompactionPolicy(max_delta_depth=depth, fold_k=2),
+                         batcher=MicroBatcher(table, min_bucket=64), write_bucket=64 * shards)
+    for i in range(2):
+        server.submit_insert(np.arange(1 << 20, (1 << 20) + 64 * shards, dtype=np.uint32) + i)
+    server.drain()
+    server.warm(**{"buckets": (64,), "depths": range(5), "fold_horizon": 1, **warm})
+    return server, keys
+
+
+def _spin_fold_stream(server):
+    """Queue a long kernel on the fold stream: the fold's own kernels (and
+    its hand-over) wait behind it, so the fold stays in flight."""
+    with torch.cuda.stream(server._fold_stream):
+        torch.cuda._sleep(FOLD_SPIN_CYCLES)
+
+
+@pytest.mark.parametrize("shards", [1, 8])
+def test_read_during_fold_does_not_wait_for_the_fold_stream(card, shards):
+    import time
+
+    server, keys = _server_with_deltas(card, shards)
+    q = keys[: 64 * shards]
+    server.query_many([q])  # first call: library and allocator warm
+    pre = server.current().seqno
+    _spin_fold_stream(server)
+    t0 = time.perf_counter()
+    fold = server.fold_async(k=1)
+    counts, seqno = server.query_many([q])
+    read_s = time.perf_counter() - t0
+    assert server.fold_in_flight, "the fold ended before the read: spin longer"
+    assert read_s < 0.3, f"the read took {read_s:.3f} s: it waited for the fold"
+    assert counts[0].tolist() == [1] * q.shape[0] and seqno == pre
+    rec = server.batcher.timeline[-1]
+    assert rec.end.query() and rec.rounds == 2 == rec.budget
+    fold.join()
+    assert server.current().seqno == pre + 1 and server.stats().folds == 1
+    assert server.fold_log[-1].rounds == 0
+    assert server.query_many([q])[0][0].tolist() == [1] * q.shape[0]
+
+
+def test_pending_batch_wait_returns_before_the_fold_ends(card):
+    server, keys = _server_with_deltas(card, 8)
+    q = keys[:512]
+    server.query_many([q])
+    _spin_fold_stream(server)
+    fold = server.fold_async(k=1)
+    snap = server.current()
+    pending = server.batcher.dispatch_query(snap.state, [q], seqno=snap.seqno, ready=snap.ready)
+    pending.wait()
+    assert server.fold_in_flight, "PendingBatch.wait() waited for the fold"
+    assert pending.scatter()[0].tolist() == [1] * 512
+    fold.join()
+
+
+def test_no_library_build_or_load_after_warm(card):
+    """Warmed at depths 0-4 and one policy fold ahead: reads (query and
+    per-layer retrieve), three inserts and the policy fold they trigger
+    load nothing and miss nothing."""
+    server, keys = _server_with_deltas(card, 8, depth=4, buckets=(64, 128),
+                                       retrieve_caps={64: (512, 256), 128: (512, 256)},
+                                       per_layer_counts=(False, True))
+    events = dict(build.LIBRARY_EVENTS)
+    server.query_many([keys[:100]])
+    server.retrieve_many([keys[:50]], per_layer_counts=True)
+    for i in range(3):  # depth 2 -> 4, then the policy folds 2 before the third
+        server.submit_insert(np.arange(1 << 21, (1 << 21) + 512, dtype=np.uint32) + 1024 * i)
+        server.drain()
+        counts, _ = server.query_many([keys[:100]])
+        assert counts[0].tolist() == [1] * 100
+    assert server.stats().folds == 1
+    vals, _ = server.retrieve_many([keys[:50]], per_layer_counts=True)
+    assert [v.shape[0] for v in vals[0][0]] == [1] * 50
+    assert dict(build.LIBRARY_EVENTS) == events
+    assert server.stats().warmup.aot_misses == 0

@@ -395,15 +395,24 @@ def test_clock_survives_the_first_delete_after_compact():
 
 
 def test_later_slices_raise_not_implemented():
+    # Hot-key replication still raises; the plan entry points and
+    # fold_oldest(metrics=) are ported now (tests/test_torch_plans.py and
+    # tests/test_torch_obs.py hold them against the reference).
     with pytest.raises(NotImplementedError, match="slice"):
         DistributedHashTable(hash_range=1 << 10, device="cpu", replicate_hot_keys=2)
     pt = DistributedHashTable(hash_range=1 << 10, device="cpu")
     state = pt.init(np.arange(16, dtype=np.uint32))
-    for name in ("plan_query", "plan_retrieve", "plan_join", "retrieve_auto", "inner_join_auto"):
-        with pytest.raises(NotImplementedError, match="slice"):
-            getattr(pt, name)(state, np.arange(8, dtype=np.uint32))
-    with pytest.raises(NotImplementedError, match="slice"):
-        maintenance.fold_oldest(state.insert(np.arange(8, dtype=np.uint32)), 1, metrics=object())
+    q = np.arange(8, dtype=np.uint32)
+    assert pt.plan_query(num_queries=8)(state, q).tolist() == [1] * 8
+    assert pt.plan_retrieve(state, q)(state, q).counts.tolist() == [1] * 8
+    assert join_to_pairs(pt.plan_join(state, q)(state, q)).shape == (8, 2)
+    assert int(pt.retrieve_auto(state, q).num_dropped) == 0
+    assert int(pt.inner_join_auto(state, q).num_dropped) == 0
+    from repro_torch.obs import MetricsRegistry
+
+    reg = MetricsRegistry()
+    maintenance.fold_oldest(state.insert(q), 1, metrics=reg)
+    assert reg.snapshot().value("maintenance_folds_total", {"kind": "fold"}) == 1
 
 
 def test_query_dispatch_overflow_zeroes_counts_silently_in_both(mesh8):

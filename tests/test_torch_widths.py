@@ -61,6 +61,24 @@ def _pool(rng, key_dtype: str, n: int) -> np.ndarray:
     return np.unique(keys)
 
 
+U32_EDGES = np.array([0x7FFFFFFF, 0x80000000], np.uint32)
+U64_EDGES = np.array([0x7FFF_FFFF_FFFF_FFFF, 0x8000_0000_0000_0000, 0xFFFF_FFFE_FFFF_FFFF,
+                      2**64 - 2], np.uint64)
+
+
+def _pool_full(rng, key_dtype: str, n: int) -> np.ndarray:
+    """``n`` distinct keys from the top half of the key range (uint32 keys
+    at or above 2^31; uint64 keys whose high lane is), with the edge keys
+    where the sign-flipped int64 view and the int32 bit patterns turn over."""
+    if key_dtype == "uint32":
+        keys = rng.integers(2**31, 2**32 - 1, size=n, dtype=np.uint64).astype(np.uint32)
+        return np.unique(np.concatenate([keys[: n - 2], U32_EDGES]))
+    his = rng.integers(2**31, 2**32, size=n, dtype=np.uint64)
+    keys = (his << np.uint64(32)) | rng.integers(0, 2**32, size=n, dtype=np.uint64)
+    keys = keys[keys != EMPTY64]
+    return np.unique(np.concatenate([keys[: n - 4], U64_EDGES]))
+
+
 def _values(rng, n: int, cols: int) -> np.ndarray:
     v = rng.integers(-2**31, 2**31, size=(n, cols), dtype=np.int64).astype(np.int32)
     return v[:, 0].copy() if cols == 1 else v
@@ -342,3 +360,61 @@ def test_convert_round_trip_u64x4(d, tables):
     for g, w in zip([back["base"], *back["deltas"]], [arrays["base"], *arrays["deltas"]]):
         for name in w:
             np.testing.assert_array_equal(g[name], w[name], err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# full-range keys
+# ---------------------------------------------------------------------------
+
+FULL_RANGE = [
+    pytest.param(("uint32", 1, True), 1, id="mesh1-u32x1fp"),
+    pytest.param(("uint32", 1, True), 8, id="mesh8-u32x1fp"),
+    pytest.param(("uint64", 2, None), 1, id="mesh1-u64x2"),
+    pytest.param(("uint64", 2, None), 8, id="mesh8-u64x2"),
+]
+
+
+@pytest.mark.parametrize("layout, d", FULL_RANGE)
+def test_full_range_keys_match(layout, d, tables):
+    """Keys from ``_pool_full`` (the top bit of the key or of its high lane
+    set, and the edge keys): the build, the reads (every edge key among the
+    queries), delete, upsert with TTL, inserts to depth 4 read by the sorted
+    and the probe query, ``fold_oldest(3)`` and ``compact()`` give the
+    reference's arrays and reads."""
+    key_dtype, cols, _ = layout
+    rng = np.random.default_rng(6 + d)
+    pool = _pool_full(rng, key_dtype, 96)
+    edges = U32_EDGES if key_dtype == "uint32" else U64_EDGES
+    keys = np.concatenate([rng.choice(pool, 256 - edges.shape[0]), edges])
+    vals = _values(rng, keys.shape[0], cols)
+    absent = _pool_full(np.random.default_rng(99), key_dtype, 16)
+    absent = absent[~np.isin(absent, pool)]
+    queries = np.concatenate([rng.choice(pool, 40), absent[:16], edges])
+    queries = np.concatenate([queries, pool[: 64 - queries.shape[0]]])
+    jt, pt = tables(layout, d, tombstone_capacity=64)
+    jp, pp = tables(layout, d, paper_faithful_probe=True)
+    js, ps = jt.init(_jq(keys), jnp.asarray(vals)), pt.init(keys, vals)
+    assert_same_state(ps, js)
+    assert_same_reads(pt, ps, jt, js, queries)
+
+    def both(op, *args, **kw):
+        nonlocal js, ps
+        jargs = [_jq(a) if isinstance(a, np.ndarray) and a.dtype.kind == "u" else
+                 jnp.asarray(a) if isinstance(a, np.ndarray) else a for a in args]
+        js = getattr(js, op)(*jargs, **kw)
+        ps = getattr(ps, op)(*args, **kw)
+        assert_same_state(ps, js)
+
+    both("insert", rng.choice(pool, 8 * d), _values(rng, 8 * d, cols))
+    both("delete", np.concatenate([edges[:1], pool[:5]]))
+    both("upsert", np.concatenate([edges[1:], pool[6:9]]), _values(rng, edges.shape[0] + 2, cols),
+         ttl=3)
+    both("insert", edges[:1].repeat(8 * d), _values(rng, 8 * d, cols))  # reinsert a deleted edge
+    both("advance", 3)
+    both("insert", rng.choice(pool, 8 * d), _values(rng, 8 * d, cols))
+    assert ps.epoch == js.epoch == 4
+    assert_same_reads(pt, ps, jt, js, queries, pp, jp, join=False)
+    pf = fold_oldest(ps, 3)
+    jf = jfold_oldest(js, 3)
+    assert_same_state(pf, jf)
+    assert_same_state(pf.compact(), jf.compact())
