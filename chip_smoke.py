@@ -62,6 +62,55 @@ Run from the root of a checkout: it builds the port's CUDA kernels from
    grid entries, device ms and launches per batch at each bucket, peak
    bytes and the phase's seconds, and holds kernels 3-4 against their
    twins on one 4096-key retrieve batch of the final state;
+2d. drives the table's users, each phase after the earlier runs' state is
+   freed, its data from ``--seed``, every result against a numpy oracle,
+   launches and exchange rounds counted on its thread
+   (``counting.scoped``), its numbers ending with its seconds and peak
+   bytes:
+   - ``hashgraph-1``, the single-card API (Alg. 1) at the read run's draw
+     (N = 2^27 keys uniform in [0, N), values = row ids, ``table_size =
+     N``): ``hashgraph.build``, ``query_count_sorted`` and ``contains`` of
+     the N keys plus 2^20 absent ones, ``lookup_first``, ``retrieve`` and
+     ``inner_join`` of a 2^22-key batch, ``intersect_join_size`` against a
+     graph of 2^22 keys; the counts and value multisets also equal to a
+     D = 1 ``DistributedHashTable``'s on the same keys; no exchange round,
+     and exactly two launches of kernel 3's Pallas-interface entry
+     ``csr_gather`` (the retrieve and the join) and none of the table's
+     gather entries; build keys/s, query keys/s, results/s;
+   - ``hot-keys``, heavily duplicated keys at D = 8: a base of 2^24 uniform
+     keys, one insert of 2^20 keys ``key_of(rank)`` with ranks zipfian over
+     2^20 (theta 0.99, then 1.2, each on a fresh table) through
+     ``replicate_hot_keys = 4`` at ``capacity_slack = 2.0``, then
+     ``fold_oldest(1)`` and ``compact()``: hot keys registered, no skew
+     fallback, no drops, counts of every distinct batch key and 2^20 base
+     keys against the oracle after each step, 2 x 4 exchange rounds a
+     query, a probe query of one kernel 5 launch per layer per replica
+     round that never over-counts (its scan stops at ``max_probe``), the
+     retrieve of the hot keys equal to the oracle's replica-0 rows; the
+     theta-1.2 batch without replication (the control) takes the skew
+     guard's fallback, reported; kernel 5's layer entry is held against its
+     twin on replica round 1 and kernels 3-4 on the hot keys' retrieve;
+   - ``kv-cache``, YCSB A to F through one ``KVCache`` at D = 1 / N = 2^26
+     and D = 8 / N = 2^24 (theta 0.99, batches of 2^13 ops, 2^19 ops a
+     letter, scans of 16 keys, ``tombstone_capacity = 2^17``, the default
+     policy; ``capacity_slack = 2.5`` at D = 8), then a TTL run (2^16
+     loaded keys put with ``ttl = 4``, read through ``now + 3``, missing
+     from ``now + 4``, ``evict_expired()`` reclaiming at least 2^16 rows):
+     every get against a numpy value array by insertion index,
+     ``live_count`` after each letter, no drops or skew fallbacks, one
+     querier gather launch a get and one owner launch a routing round;
+     ops/s, get and put p50 / p99 from the cache's registry histograms,
+     folds, evictions and delta depth per letter;
+   - ``dedup``, exact dedup of a training stream: 2^20 rows of 128 tokens
+     of ``SyntheticCorpus(vocab_size=151_936, dup_rate=0.1)`` drawn on the
+     card, ``dedup_mask`` and ``dedup_mask_distributed`` (D = 8,
+     ``hash_range = 2^20``) equal to a numpy MurmurHash3's first
+     occurrences, then 4 steps of ``ShardedLoader(dedup="distributed",
+     batch_size=2^16)`` (kept rows equal to the corpus's, refills in the
+     vocab, ``skip_to(2)`` replaying steps 2-3 bit for bit); fingerprint,
+     mask and distributed-mask rows/s;
+   each phase holds the kernels it ran against their twins on its own
+   inputs (``check_kernels``);
 3. serves qwen3-4b at full width (36 layers, d_model 2560, 32 query heads
    over 8 kv heads, vocab 151,936; random bf16 weights drawn on the card
    from ``--seed``) through the public API: ``build_model``, a
@@ -946,13 +995,15 @@ def run_update_path(n_shards: int, n_keys: int, seed: int, device, log, skew: bo
 
 
 def check_gather_launches(launches: dict, want: dict, label: str) -> None:
-    """Kernels 3-4 on the table's path: exactly ``want`` launches of the
-    owner and querier entries, none of the Pallas-interface entries."""
+    """Kernels 3-4 on a path: exactly ``want`` launches of the entries it
+    names, and none of the Pallas-interface entries it does not (only the
+    single-card API's retrieve and join run ``csr_gather``)."""
     for name, n in want.items():
         check(launches.get(name, 0) == n,
               f"{label}: {launches.get(name, 0)} launches of {name}, want {n}")
     for name in PALLAS_GATHERS:
-        check(launches.get(name, 0) == 0, f"{label}: the table's path launched {name}")
+        if name not in want:
+            check(launches.get(name, 0) == 0, f"{label}: the table's path launched {name}")
 
 
 def kernel_class(name: str) -> str:
@@ -1376,7 +1427,8 @@ def int_bounds(work: tuple[int, int]) -> dict:
 
 def check_kernels(run: dict, device, log) -> list:
     """Each kernel of the run against its plain twin on the run's own card
-    inputs, timed; the launch counts of the run are reported beside."""
+    inputs (those ``run["inputs"]()`` gives: a run checks the kernels it
+    ran), timed; the launch counts of the run are reported beside."""
     import torch
 
     from repro_torch.core import hashgraph
@@ -1401,7 +1453,7 @@ def check_kernels(run: dict, device, log) -> list:
             lambda: murmur.murmur_bucket_plain(a["keys"], a["table_size"], a["seed"]),
             (8 * a["n"], 22 * a["n"]),  # 5 multiplies, 2 rotates, 3 shift-xors, mod, ...
         )
-    else:
+    elif "murmur_hash" in inputs:
         a = inputs["murmur_hash"]
         hash_kw = dict(lanes=a["lanes"], fingerprint=True)
         record(
@@ -1414,45 +1466,49 @@ def check_kernels(run: dict, device, log) -> list:
             # for the length mix and finalizer, one mod.
             ((4 * a["lanes"] + 8) * a["n"], (2 * (9 * a["lanes"] + 11) + 1) * a["n"]),
         )
-    a = inputs["bin_histogram"]
-    bins = a["bins"]
-    record(
-        "bin_histogram", f"bins={tuple(bins.shape)} int32 -> ({a['num_bins']},) int32",
-        lambda: histogram.bin_histogram(bins, a["num_bins"]),
-        lambda: histogram.bin_histogram_plain(bins, a["num_bins"]),
-        (4 * bins.numel() + 4 * a["num_bins"], 3 * bins.numel()),  # 2 compares, 1 atomic
-        library_fn=(lambda: torch.bincount(bins.reshape(-1), minlength=a["num_bins"]))
-        if bool((bins >= 0).all()) else None,
-    )
-    a = inputs["csr_gather_owners"]
-    owner_args = (a["starts"], a["counts"], a["tables"], a["capacity"])
-    record(
-        "csr_gather_owners",
-        f"starts/counts={tuple(a['counts'].shape)} tables="
-        f"{[tuple(t.shape) for t in a['tables']]} seg_capacity={a['capacity']} (every owner, "
-        f"source and layer; plain twin: per owner, the runs rebased into the concatenated "
-        f"tables, interleaved and gathered)",
-        lambda: csr_gather.csr_gather_owners(*owner_args),
-        lambda: csr_gather.csr_gather_owners_plain(*owner_args),
-        owners_work(a),
-        timing=PROBE_TIMING,
-    )
-    sectors = owners_sectors(a)
-    rows[-1].update(sectors)
-    log(f"kernel csr_gather_owners {path} D={shards}: " + json.dumps(sectors))
-    a = inputs["csr_gather_queriers"]
-    querier_args = (a["starts"], a["counts"], a["table"], a["capacity"])
-    record(
-        "csr_gather_queriers",
-        f"starts/counts={tuple(a['counts'].shape)} table={tuple(a['table'].shape)} "
-        f"capacity={a['capacity']} (every querier; plain twin: one CSR gather a querier)",
-        lambda: csr_gather.csr_gather_queriers(*querier_args),
-        lambda: csr_gather.csr_gather_queriers_plain(*querier_args),
-        queriers_work(a),
-        timing=PROBE_TIMING,
-    )
+    if "bin_histogram" in inputs:
+        a = inputs["bin_histogram"]
+        bins = a["bins"]
+        record(
+            "bin_histogram", f"bins={tuple(bins.shape)} int32 -> ({a['num_bins']},) int32",
+            lambda: histogram.bin_histogram(bins, a["num_bins"]),
+            lambda: histogram.bin_histogram_plain(bins, a["num_bins"]),
+            (4 * bins.numel() + 4 * a["num_bins"], 3 * bins.numel()),  # 2 compares, 1 atomic
+            library_fn=(lambda: torch.bincount(bins.reshape(-1), minlength=a["num_bins"]))
+            if bool((bins >= 0).all()) else None,
+        )
+    if "csr_gather_owners" in inputs:
+        a = inputs["csr_gather_owners"]
+        owner_args = (a["starts"], a["counts"], a["tables"], a["capacity"])
+        record(
+            "csr_gather_owners",
+            f"starts/counts={tuple(a['counts'].shape)} tables="
+            f"{[tuple(t.shape) for t in a['tables']]} seg_capacity={a['capacity']} (every "
+            f"owner, source and layer; plain twin: per owner, the runs rebased into the "
+            f"concatenated tables, interleaved and gathered)",
+            lambda: csr_gather.csr_gather_owners(*owner_args),
+            lambda: csr_gather.csr_gather_owners_plain(*owner_args),
+            owners_work(a),
+            timing=PROBE_TIMING,
+        )
+        sectors = owners_sectors(a)
+        rows[-1].update(sectors)
+        log(f"kernel csr_gather_owners {path} D={shards}: " + json.dumps(sectors))
+        a = inputs["csr_gather_queriers"]
+        querier_args = (a["starts"], a["counts"], a["table"], a["capacity"])
+        record(
+            "csr_gather_queriers",
+            f"starts/counts={tuple(a['counts'].shape)} table={tuple(a['table'].shape)} "
+            f"capacity={a['capacity']} (every querier; plain twin: one CSR gather a querier)",
+            lambda: csr_gather.csr_gather_queriers(*querier_args),
+            lambda: csr_gather.csr_gather_queriers_plain(*querier_args),
+            queriers_work(a),
+            timing=PROBE_TIMING,
+        )
     for name, fn in (("csr_gather_batched", csr_gather.csr_gather_batched_2d),
                      ("csr_gather", csr_gather.csr_gather_2d)):
+        if name not in inputs:
+            continue
         a = inputs[name]
         record(
             name,
@@ -1474,8 +1530,8 @@ def check_kernels(run: dict, device, log) -> list:
             "bucket_probe_layer",
             f"rq/rh/match_e={tuple(a['rq'].shape)} offsets={tuple(a['offsets'].shape)} "
             f"keys={tuple(a['keys'].shape)} stride={a['stride']} max_probe={a['max_probe']} "
-            f"(the depth-6 probe query's base layer; plain twin: rebase, windows, one probe "
-            f"step at a time, mask)",
+            f"({a.get('what', 'the depth-6 probe query' + chr(39) + 's base layer')}; plain "
+            f"twin: rebase, windows, one probe step at a time, mask)",
             lambda: bucket_probe.bucket_probe_layer(*args, total=total, **kw),
             lambda: bucket_probe.bucket_probe_layer_plain(*args, total=torch.empty_like(total), **kw),
             (work["bytes"], work["ops"]),
@@ -1989,6 +2045,715 @@ def check_serve_kernels(run: dict, device, log) -> list:
         lambda: csr_gather.csr_gather_queriers_plain(*querier_args),
         int_bounds(queriers_work(a)), device, log, timing=PROBE_TIMING))
     return rows
+
+
+# ---------------------------------------------------------------------------
+# The table's users: the single-card API, hot keys, the KV cache, dedup
+# ---------------------------------------------------------------------------
+
+INTERSECT_KEYS = 1 << 22  # the second graph of intersect_join_size
+HOT_BASE_KEYS = 1 << 24
+HOT_BATCH = 1 << 20  # one insert of key_of(rank), ranks zipfian over 2^20
+HOT_THETAS = (0.99, 1.2)
+HOT_REPLICAS = 4
+HOT_SLACK = 2.0  # the reference test's capacity slack
+KV_OPS = 1 << 19  # ops per workload letter
+KV_BATCH = 1 << 13  # ops per generator batch
+KV_SCAN_LEN = 16
+KV_THETA = 0.99
+KV_TOMBSTONES = 1 << 17
+# D = 8: the zipfian reads of a 2^13-op batch put more than the default slack
+# of 1.25 allows into one (source, owner) dispatch slot (the phase prints the
+# largest share of each letter, ``dispatch_share_max``); 2.5 keeps them in.
+KV_SLACK = {1: 1.25, 8: 2.5}
+KV_TTL_KEYS = 1 << 16
+KV_TTL = 4
+DEDUP_ROWS = 1 << 20
+DEDUP_SEQ = 128
+DEDUP_VOCAB = 151_936  # qwen3-4b's vocab
+DEDUP_DUP_RATE = 0.1
+DEDUP_SHARDS = 8
+DEDUP_HASH_RANGE = 1 << 20
+LOADER_BATCH = 1 << 16
+LOADER_STEPS = 4
+
+
+def scoped_call(fn, device):
+    """``(result, seconds, scope)``: one call synchronised on both sides
+    (``wall``), its exchange rounds and launches counted on this thread."""
+    from repro_torch import counting
+
+    with counting.scoped() as scope:
+        out, secs = wall(fn, device)
+    return out, secs, scope
+
+
+def add_launches(total: dict, scope) -> None:
+    for name, n in scope.launches.items():
+        total[name] = total.get(name, 0) + n
+
+
+def phase_peak(device) -> int:
+    import torch
+
+    return torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
+
+
+def reset_peak(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def first_values(pairs, n: int):
+    """The smallest value per query row of sorted ``(query row, value)``
+    pairs, -1 for rows with none: the single-card ``lookup_first`` oracle
+    (the first row of a key's run is its smallest row id)."""
+    import numpy as np
+
+    out = np.full(n, -1, np.int64)
+    rows = pairs[:, 0]
+    head = np.ones(rows.shape[0], bool)
+    head[1:] = rows[1:] != rows[:-1]
+    out[rows[head]] = pairs[head, 1]
+    return out
+
+
+def csr_pairs(offsets, values):
+    """``(query row, value)`` pairs of one CSR, sorted."""
+    import numpy as np
+
+    off = offsets.cpu().numpy().astype(np.int64)
+    qidx = np.repeat(np.arange(off.shape[0] - 1, dtype=np.int64), np.diff(off))
+    return sort_pairs(qidx, values[: off[-1]].cpu().numpy().astype(np.int64))
+
+
+def run_hashgraph_single(n_keys: int, seed: int, device, log) -> dict:
+    """The single-card API at the read run's size: ``hashgraph.build`` of N
+    uniform keys (the read run's draw; values = row ids, ``table_size =
+    N``), ``query_count_sorted`` and ``contains`` of the N keys plus 2^20
+    absent ones, and on the 2^22-key retrieve batch ``lookup_first``,
+    ``retrieve`` and ``inner_join`` (capacity from one counts call), then
+    ``intersect_join_size`` against a graph of 2^22 keys from [0, 2N).
+    Every output against the numpy oracle, and the counts and value
+    multisets against a D = 1 ``DistributedHashTable`` on the same keys."""
+    import numpy as np
+    import torch
+
+    from repro_torch import DistributedHashTable
+    from repro_torch.core import hashgraph
+
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(0, n_keys, size=n_keys, dtype=np.uint32)
+    absent = rng.integers(n_keys, 2**32 - 1, size=ABSENT_QUERIES, dtype=np.uint64).astype(np.uint32)
+    queries = np.concatenate([keys, absent])
+    batch = rng.integers(0, n_keys, size=RETRIEVE_QUERIES, dtype=np.uint32)
+    second = rng.integers(0, 2 * n_keys, size=INTERSECT_KEYS, dtype=np.uint32)
+    keys_dev, queries_dev, batch_dev, second_dev = (
+        to_device(a, device) for a in (keys, queries, batch, second))
+    label = f"hashgraph-1 N={n_keys}"
+    launches, seconds, rounds = {}, {}, {}
+
+    def call(name, fn):
+        out, secs, scope = scoped_call(fn, device)
+        add_launches(launches, scope)
+        seconds[name], rounds[name] = secs, scope.exchange_rounds
+        return out
+
+    reset_peak(device)
+    hg = call("build", lambda: hashgraph.build(keys_dev, n_keys))
+    counts = call("query_count_sorted", lambda: hashgraph.query_count_sorted(hg, queries_dev))
+    present = call("contains", lambda: hashgraph.contains(hg, queries_dev))
+    first = call("lookup_first", lambda: hashgraph.lookup_first(hg, batch_dev))
+    cap = call("counts round", lambda: int(hashgraph.query_count_sorted(hg, batch_dev).sum()))
+    offsets, values, dropped = call(
+        "retrieve", lambda: hashgraph.retrieve(hg, batch_dev, capacity=cap))
+    join = call("inner_join", lambda: hashgraph.inner_join(hg, batch_dev, capacity=cap))
+    hg2 = call("build 2^22", lambda: hashgraph.build(second_dev, INTERSECT_KEYS))
+    size = call("intersect_join_size", lambda: int(hashgraph.intersect_join_size(hg, hg2)))
+    peak = phase_peak(device)
+
+    oracle = Oracle(keys, np.arange(n_keys, dtype=np.int64), n_keys)
+    want_counts = oracle.count(queries)
+    got_counts = counts.cpu().numpy()
+    check(np.array_equal(got_counts, want_counts), f"{label}: query_count_sorted differs")
+    check(np.array_equal(present.cpu().numpy(), want_counts > 0), f"{label}: contains differs")
+    want_pairs = oracle.pairs(batch)
+    check(np.array_equal(first.cpu().numpy(), first_values(want_pairs, batch.shape[0])),
+          f"{label}: lookup_first differs from the smallest row id")
+    check(cap == want_pairs.shape[0] and int(dropped) == 0,
+          f"{label}: retrieve capacity {cap}, dropped {int(dropped)}")
+    got_pairs = csr_pairs(offsets, values)
+    check(np.array_equal(got_pairs, want_pairs), f"{label}: retrieved value multisets differ")
+    qidx, jvals, nres, jdrop = join
+    n_res = int(nres)
+    check(n_res == cap and int(jdrop) == 0, f"{label}: join results {n_res}, dropped {int(jdrop)}")
+    check(np.array_equal(sort_pairs(qidx[:n_res].cpu().numpy(), jvals[:n_res].cpu().numpy()),
+                         want_pairs), f"{label}: join pairs differ")
+    check(size == int(oracle.count(second).sum()), f"{label}: intersect_join_size {size}")
+    check(all(r == 0 for r in rounds.values()), f"{label}: exchange rounds {rounds}")
+    del present, first, join, hg2
+    # The same keys through the D = 1 table: counts and value multisets.
+    table = DistributedHashTable(num_shards=1, hash_range=n_keys, device=device)
+    state = table.init(keys_dev)
+    check(torch.equal(table.query(state, queries_dev), counts),
+          f"{label}: the D = 1 table's counts differ from the single-card graph's")
+    check(np.array_equal(retrieval_pairs(table.retrieve(state, batch_dev)), got_pairs),
+          f"{label}: the D = 1 table's value multisets differ from the single-card graph's")
+    del state, table, counts
+    if device.type == "cuda":
+        for name in ("murmur_bucket", "csr_gather"):
+            check(launches.get(name, 0) > 0, f"{label}: kernel {name} never launched")
+        # The single-card retrieve and join gather through kernel 3's
+        # Pallas-interface entry, once each; the table's entries never run.
+        check_gather_launches(launches, {"csr_gather": 2, "csr_gather_owners": 0,
+                                         "csr_gather_queriers": 0, "csr_gather_batched": 0},
+                              label)
+    res = {
+        "path": "hashgraph-1",
+        "shards": 1,
+        "keys": n_keys,
+        "queries": int(queries.shape[0]),
+        "retrieve_queries": RETRIEVE_QUERIES,
+        "retrieved_values": cap,
+        "seconds": seconds,
+        "build_keys_per_s": n_keys / seconds["build"],
+        "query_keys_per_s": queries.shape[0] / seconds["query_count_sorted"],
+        "contains_keys_per_s": queries.shape[0] / seconds["contains"],
+        "retrieve_results_per_s": cap / seconds["retrieve"],
+        "join_results_per_s": cap / seconds["inner_join"],
+        "launches": launches,
+        "peak_bytes": peak,
+    }
+    log(f"path hashgraph-1 N={n_keys}: " + json.dumps(res))
+    run = {"result": res, "graph": hg, "keys": keys_dev, "batch": batch_dev}
+    run["inputs"] = lambda: single_graph_inputs(run)
+    return run
+
+
+def single_graph_inputs(run: dict) -> dict:
+    """Kernel 1 on the build's keys and kernel 3's Pallas-interface entry on
+    the retrieve's runs (``offsets`` of the counts, starts, the values)."""
+    from repro_torch.core import hashgraph
+    from repro_torch.core.hashing import DEFAULT_SEED
+    from repro_torch.kernels import ops
+
+    hg, keys, batch = run["graph"], run["keys"], run["batch"]
+    starts, counts = hashgraph.query_locate(hg, batch)
+    offsets = ops.run_offsets(counts)
+    return {
+        "murmur_bucket": dict(keys=keys, table_size=hg.table_size, seed=DEFAULT_SEED,
+                              n=keys.numel(), lanes=1),
+        "csr_gather": dict(offsets=offsets, starts=starts, table=hg.values[0],
+                           capacity=int(offsets[-1])),
+    }
+
+
+def hot_oracle_counts(base_tally, uniq, uniq_counts, q):
+    """Counts of ``q`` over a base of keys in ``[0, len(base_tally))`` and a
+    batch of distinct keys ``uniq`` (sorted) with their counts."""
+    import numpy as np
+
+    inside = q < base_tally.shape[0]
+    out = np.where(inside, base_tally[np.where(inside, q, 0)], 0).astype(np.int64)
+    pos = np.clip(np.searchsorted(uniq, q), 0, uniq.shape[0] - 1)
+    return out + np.where(uniq[pos] == q, uniq_counts[pos], 0)
+
+
+def dispatch_pair_max(table, state, flat, offsets=None) -> int:
+    """The largest per-(source, destination) share of a frozen-splits delta
+    build of ``flat`` keys (as the skew guard histograms it)."""
+    import torch
+
+    from repro_torch.core import hashing, partition
+
+    d = table.num_shards
+    k = flat.reshape(d, -1)
+    dest = partition.destination_of(hashing.hash_to_buckets(k, table.hash_range, table.seed),
+                                    state.base.hash_splits)
+    if offsets is not None:
+        dest = (dest + offsets.reshape(d, -1)) % d
+    pair = torch.arange(d, device=k.device).unsqueeze(1) * d + dest
+    return int(torch.bincount(pair.reshape(-1), minlength=d * d).max())
+
+
+def run_hot_keys(seed: int, device, log) -> dict:
+    """k-mer-style counting of heavily duplicated keys at D = 8: a base of
+    2^24 uniform keys, then one insert of 2^20 keys ``key_of(rank)`` with
+    ranks zipfian over 2^20 (theta 0.99, then 1.2, each on a fresh table)
+    with ``replicate_hot_keys = 4`` and ``capacity_slack = 2.0``, reads
+    after the insert, after ``fold_oldest(1)`` and after ``compact()``.
+    Gates: hot keys registered, no skew fallback, no drops, counts of every
+    distinct batch key and 2^20 base keys against the oracle at each step,
+    R routed rounds a query, a probe query of one kernel 5 launch per layer
+    per round whose counts never exceed the sorted read's, and the retrieve
+    of the hot keys equal to the oracle's replica-0 rows.  The theta-1.2
+    batch through a table without replication is the control (reported)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import DistributedHashTable
+    from repro_torch.cache import ZipfianGenerator, key_of
+    from repro_torch.core import maintenance
+    from repro_torch.core.multi_hashgraph import default_capacity
+
+    d, n = 8, HOT_BASE_KEYS
+    rng = np.random.default_rng(seed + 2)
+    base = rng.integers(0, n, size=n, dtype=np.uint32)
+    base_dev = to_device(base, device)
+    base_tally = np.bincount(base, minlength=n)
+    others = base[rng.choice(n, ABSENT_QUERIES, replace=False)]
+    kw = dict(num_shards=d, hash_range=n, device=device, capacity_slack=HOT_SLACK)
+    runs, launches = {}, {}
+    reset_peak(device)
+    for theta in HOT_THETAS:
+        label = f"hot-keys theta={theta}"
+        ranks = ZipfianGenerator(HOT_BATCH, theta=theta, seed=seed + 3).sample(HOT_BATCH)
+        keys = key_of(ranks)
+        vals = (n + np.arange(HOT_BATCH)).astype(np.int32)
+        uniq, inv, uniq_counts = np.unique(keys, return_inverse=True, return_counts=True)
+        rank_in_key = np.empty(HOT_BATCH, np.int64)  # occurrence rank in row order
+        order = np.argsort(inv, kind="stable")
+        starts = np.cumsum(uniq_counts) - uniq_counts
+        rank_in_key[order] = np.arange(HOT_BATCH) - np.repeat(starts, uniq_counts)
+        keys_dev, vals_dev = to_device(keys, device), to_device(vals, device)
+        table = DistributedHashTable(**kw, replicate_hot_keys=HOT_REPLICAS)
+        probe = DistributedHashTable(**kw, replicate_hot_keys=HOT_REPLICAS, paper_faithful_probe=True)
+        out, secs = {}, {}
+        st0 = table.init(base_dev)
+        pair_plain = dispatch_pair_max(table, st0, keys_dev)
+        st1, secs["insert"], scope = scoped_call(lambda: st0.insert(keys_dev, vals_dev), device)
+        add_launches(launches, scope)
+        hot = sorted(k[0] for k in table.hot_keys)
+        r = max(table.hot_keys.values(), default=1)
+        check(hot and r == HOT_REPLICAS, f"{label}: hot keys {table.hot_keys}")
+        check(table.skew_fallbacks == 0, f"{label}: {table.skew_fallbacks} skew fallbacks")
+        probe.hot_keys = table.hot_keys  # the registry the inserting table filled
+        hot_offsets = torch.from_numpy(np.where(
+            np.isin(keys, np.array(hot, np.uint32)), rank_in_key % r, 0).astype(np.int32)).to(device)
+        pair_hot = dispatch_pair_max(table, st0, keys_dev, hot_offsets)
+        q = np.concatenate([uniq, others])
+        q = np.concatenate([q, others[: (-q.shape[0]) % d]])
+        q_dev = to_device(q, device)
+        want = hot_oracle_counts(base_tally, uniq, uniq_counts, q)
+        steps = (("insert", st1), ("fold_oldest", None), ("compact", None))
+        state = st1
+        for name, _ in steps:
+            if name == "fold_oldest":
+                state, secs[name], scope = scoped_call(lambda: maintenance.fold_oldest(st1, 1), device)
+                add_launches(launches, scope)
+                check(state.epoch == 0 and state.coherent, f"{label}: fold left {state.epoch}")
+            elif name == "compact":
+                folded = state
+                state, secs[name], scope = scoped_call(lambda: folded.compact(), device)
+                add_launches(launches, scope)
+            check(int(state.num_dropped) == 0, f"{label}: {name} dropped {int(state.num_dropped)}")
+            counts, secs[f"{name}: query"], scope = scoped_call(lambda: table.query(state, q_dev), device)
+            add_launches(launches, scope)
+            check(scope.exchange_rounds == 2 * r,
+                  f"{label}: {name}: {scope.exchange_rounds} exchange rounds, want {2 * r}")
+            check(np.array_equal(counts.cpu().numpy(), want),
+                  f"{label}: {name}: counts differ from the oracle")
+            out[f"{name}_query_keys_per_s"] = q.shape[0] / secs[f"{name}: query"]
+            del counts
+        # The paper's probe on the insert's state: one launch a layer a round;
+        # its scan stops at max_probe words, so a hot key's bucket counts less.
+        pcounts, secs["probe query"], scope = scoped_call(lambda: probe.query(st1, q_dev), device)
+        add_launches(launches, scope)
+        if device.type == "cuda":
+            check(scope.launches.get("bucket_probe_layer", 0) == r * len(st1.layers),
+                  f"{label}: {scope.launches.get('bucket_probe_layer', 0)} probe launches, "
+                  f"want {r * len(st1.layers)}")
+        pc = pcounts.cpu().numpy()
+        check(bool((pc <= want).all()), f"{label}: the probe query over-counts")
+        out["probe_undercounted_keys"] = int((pc < want).sum())
+        out["probe_undercounted_hot_keys"] = int(np.isin(q[pc < want], hot).sum())
+        # Retrieve the hot keys: replica 0 only, as in the reference.
+        hq = np.array(hot + [int(x) for x in others[: (-len(hot)) % d]], np.uint32)
+        hq_dev = to_device(hq, device)
+        res, secs["retrieve hot"], scope = scoped_call(lambda: table.retrieve(st1, hq_dev), device)
+        add_launches(launches, scope)
+        if device.type == "cuda":
+            check(scope.launches.get("csr_gather_owners", 0) == 1
+                  and scope.launches.get("csr_gather_queriers", 0) == 1,
+                  f"{label}: retrieve gather launches {dict(scope.launches)}")
+        check(int(res.num_dropped) == 0, f"{label}: retrieve of the hot keys dropped")
+        rep0 = (hot_offsets.cpu().numpy() == 0) & np.isin(keys, hq)
+        pair_keys = np.concatenate([base, keys[rep0]])
+        pair_vals = np.concatenate([np.arange(n), vals[rep0]]).astype(np.int64)
+        want_pairs = _pairs_of(pair_keys, pair_vals, hq)
+        check(np.array_equal(retrieval_pairs(res), want_pairs),
+              f"{label}: the hot keys' retrieve differs from the oracle's replica-0 rows")
+        out.update({
+            "hot_keys": len(hot), "replicas": r, "head_copies": int(uniq_counts.max()),
+            "distinct_keys": int(uniq.shape[0]),
+            "slot": default_capacity(HOT_BATCH // d, d, HOT_SLACK),
+            "pair_max_without_replication": pair_plain, "pair_max_with_replication": pair_hot,
+            "hot_retrieved_values": int(want_pairs.shape[0]),
+            "insert_keys_per_s": HOT_BATCH / secs["insert"], "seconds": secs,
+        })
+        log(f"{label}: " + json.dumps(out))
+        runs[theta] = out
+        if theta == HOT_THETAS[-1]:
+            kernel_state = dict(table=table, probe=probe, state=st1, q=q_dev, hq=hq_dev,
+                                keys=keys_dev, r=r)
+        del st0, st1, state, folded, res, pcounts
+    # Control: the theta-1.2 batch without replication takes the guard's fallback.
+    control = DistributedHashTable(**kw)
+    st = control.insert(control.init(base_dev), keys_dev, vals_dev)
+    runs["control"] = {"skew_fallbacks": control.skew_fallbacks, "coherent": st.coherent,
+                       "num_dropped": int(st.num_dropped)}
+    log("hot-keys control (theta 1.2, no replication): " + json.dumps(runs["control"]))
+    del st, control
+    peak = phase_peak(device)
+    if device.type == "cuda":
+        for name in TABLE_KERNELS:
+            check(launches.get(name, 0) > 0, f"hot-keys: kernel {name} never launched")
+        check_gather_launches(launches, {}, "hot-keys")
+    res = {"path": "hot-keys", "shards": d, "keys": n, "batch": HOT_BATCH, "runs": runs,
+           "launches": launches, "peak_bytes": peak}
+    run = {"result": res, **kernel_state}
+    run["inputs"] = lambda: hot_key_inputs(run)
+    return run
+
+
+def _pairs_of(keys, values, queries):
+    """Sorted ``(query row, value)`` pairs of ``queries`` over the rows
+    ``(keys, values)`` (any uint32 keys; a stable sort of the queried rows)."""
+    import numpy as np
+
+    sel = np.isin(keys, queries)
+    k, v = keys[sel], values[sel]
+    order = np.argsort(k, kind="stable")
+    k, v = k[order], v[order]
+    lo, hi = np.searchsorted(k, queries, "left"), np.searchsorted(k, queries, "right")
+    cnt = hi - lo
+    qidx = np.repeat(np.arange(queries.shape[0], dtype=np.int64), cnt)
+    pos = np.repeat(lo - (np.cumsum(cnt) - cnt), cnt) + np.arange(qidx.shape[0])
+    return sort_pairs(qidx, v[pos])
+
+
+def hot_key_inputs(run: dict) -> dict:
+    """Kernel 1 and 2 on the hot batch's routing (its sharded keys), kernels
+    3-4 on the retrieve of the hot keys (buckets of tens of thousands of
+    one key's copies), kernel 5's layer entry on the delta layer of replica
+    round 1 of the probe query (every query lands off its owner, in a
+    clamped edge bucket)."""
+    from repro_torch.core import multi_hashgraph as mh
+
+    table, probe, state, r = run["table"], run["probe"], run["state"], run["r"]
+    d = table.num_shards
+    inputs = table_user_inputs(table, state, run["hq"])
+    inputs.update(hash_inputs(table, run["keys"].reshape(d, -1)))
+    q = run["q"].reshape(d, -1)
+    routed = mh._route_queries_once(state.base, q, probe.capacity_slack, False, 1)
+    layer = state.deltas[0]
+    inputs["bucket_probe_layer"] = dict(
+        rq=routed.rq, rh=routed.rh, lo=routed.lo,
+        match_e=mh._tombstone_epochs(routed.rq, state.tombstones.index()),
+        offsets=layer.local.offsets, keys=layer.local.keys, table_size=layer.local_range_cap,
+        stride=layer.bucket_stride, epoch=1, max_probe=probe.max_probe, accumulate=False,
+        what="replica round 1 of the probe query on the hot batch's delta layer",
+    )
+    return inputs
+
+
+def key_index(keys):
+    """Inverse of ``key_of``'s affine map mod 2^31 - 1: each key's insertion
+    index (the KV oracle's row)."""
+    import numpy as np
+
+    p, a, b = (1 << 31) - 1, 1103515245, 12345
+    inv = pow(a, -1, p)
+    k = keys.astype(np.uint64)
+    return (((k + np.uint64(p - b)) % np.uint64(p)) * np.uint64(inv) % np.uint64(p)).astype(np.int64)
+
+
+def keep_last(idx, vals):
+    """The last occurrence of each index in a batch (an upsert's winners)."""
+    import numpy as np
+
+    _, first = np.unique(idx[::-1], return_index=True)
+    last = idx.shape[0] - 1 - first
+    return idx[last], vals[last]
+
+
+def histogram_delta(after, before):
+    """The observations a registry histogram took between two snapshots."""
+    import dataclasses as dc
+
+    return dc.replace(after, count=after.count - before.count, sum=after.sum - before.sum,
+                      counts=tuple(a - b for a, b in zip(after.counts, before.counts)))
+
+
+def run_kv_cache(n_shards: int, n_keys: int, seed: int, device, log) -> dict:
+    """YCSB A to F through one ``KVCache`` (N records loaded, theta 0.99,
+    generator batches of 2^13 ops, 2^19 ops a letter, scans of 16 keys,
+    ``tombstone_capacity = 2^17``, the default policy), then a TTL run:
+    2^16 loaded keys put with ``ttl = 4``, read through ``now + 3`` and
+    missing from ``now + 4``, and ``evict_expired()``.  The oracle is a
+    numpy value array by insertion index (``key_index`` inverts
+    ``key_of``).  Gates: every get, ``live_count`` after each letter, no
+    drops, no skew fallback, one querier gather launch a get and one owner
+    launch a routing round, at least 2^16 rows reclaimed."""
+    import numpy as np
+
+    from repro_torch import DistributedHashTable
+    from repro_torch.cache import WORKLOADS, KVCache, YCSBWorkload, key_of
+
+    d = n_shards
+    label = f"kv-cache D={d}"
+    table = DistributedHashTable(num_shards=d, hash_range=n_keys, device=device,
+                                 tombstone_capacity=KV_TOMBSTONES, capacity_slack=KV_SLACK[d])
+    w = YCSBWorkload(WORKLOADS["A"], n_keys, theta=KV_THETA, batch=KV_BATCH,
+                     scan_len=KV_SCAN_LEN, seed=seed)
+    reset_peak(device)
+    cache, load_s = wall(lambda: KVCache(table, w.load_keys(), w.load_values()), device)
+    extra = 6 * KV_OPS  # room for every insert the letters could make
+    oracle = np.full(n_keys + extra, -1, np.int32)
+    oracle[:n_keys] = w.load_values()
+    launches, letters = {}, {}
+    reg = cache.metrics_registry
+    walls = {"get": [], "put": []}  # synchronised wall ms of each call in a letter
+    shares = []  # each get's largest (source, owner) dispatch share / the balanced share
+
+    def get(keys):
+        if d > 1:
+            q, _ = cache._pad_queries(keys)
+            shares.append(dispatch_pair_max(table, cache.state, q) / -(-(q.shape[0] // d) // d))
+        out, secs, scope = scoped_call(lambda: cache.get(keys), device)
+        walls["get"].append(secs * 1e3)
+        add_launches(launches, scope)
+        rounds = 1 if cache.state.coherent else len(cache.state.layers)
+        if device.type == "cuda":
+            check(scope.launches.get("csr_gather_queriers", 0) == 1
+                  and scope.launches.get("csr_gather_owners", 0) == rounds,
+                  f"{label}: get launched {dict(scope.launches)}, want 1 querier and "
+                  f"{rounds} owner launches")
+        check(np.array_equal(out, oracle[key_index(keys)]), f"{label}: get differs from the oracle")
+
+    def put(keys, vals, ttl=None):
+        _, secs, scope = scoped_call(lambda: cache.put(keys, vals, ttl=ttl), device)
+        walls["put"].append(secs * 1e3)
+        add_launches(launches, scope)
+        idx, v = keep_last(key_index(keys), vals)
+        oracle[idx] = v
+
+    sample = {}  # one read and one write batch, for --profile
+    for letter in "ABCDEF":
+        w.spec = WORKLOADS[letter]
+        h_get, h_put = reg.histogram("kvcache_get_seconds").snapshot(), reg.histogram(
+            "kvcache_put_seconds").snapshot()
+        folds, evictions = cache.folds, cache.evictions
+        walls["get"].clear()
+        walls["put"].clear()
+        shares.clear()
+        t0 = time.perf_counter()
+        kinds = {}
+        for kind, keys, vals in w.batches(KV_OPS):
+            kinds[kind] = kinds.get(kind, 0) + 1
+            if kind in ("read", "scan", "rmw"):
+                get(keys)
+                sample.setdefault(f"get ({kind})", keys)
+            if kind in ("update", "insert", "rmw"):
+                put(keys, vals)
+                sample.setdefault(f"put ({kind})", (keys, vals))
+        sync(device)
+        secs = time.perf_counter() - t0
+        live = cache.live_count()
+        check(live == int((oracle >= 0).sum()), f"{label}: {letter}: live_count {live}")
+        st = cache.stats()
+        check(st.num_dropped == 0, f"{label}: {letter}: {st.num_dropped} rows dropped")
+        check(table.skew_fallbacks == 0, f"{label}: {letter}: skew fallback")
+        g = histogram_delta(reg.histogram("kvcache_get_seconds").snapshot(), h_get)
+        p = histogram_delta(reg.histogram("kvcache_put_seconds").snapshot(), h_put)
+        letters[letter] = {
+            "ops_per_s": KV_OPS / secs, "seconds": secs, "calls": kinds,
+            "get_p50_ms": g.p50 * 1e3 if g.count else None,
+            "get_p99_ms": g.p99 * 1e3 if g.count else None,
+            "put_p50_ms": p.p50 * 1e3 if p.count else None,
+            "put_p99_ms": p.p99 * 1e3 if p.count else None,
+            "gets": g.count, "puts": p.count,
+            # The registry's buckets are coarse; these are each call's wall.
+            "get_wall_p50_ms": _pctl(walls["get"], 50), "get_wall_p99_ms": _pctl(walls["get"], 99),
+            "put_wall_p50_ms": _pctl(walls["put"], 50), "put_wall_p99_ms": _pctl(walls["put"], 99),
+            "dispatch_share_max": max(shares, default=None),
+            "folds": cache.folds - folds, "evictions": cache.evictions - evictions,
+            "delta_depth": st.delta_depth, "live": live,
+        }
+        log(f"{label} N={n_keys} YCSB-{letter}: " + json.dumps(letters[letter]))
+    # TTL: expiry exactly at now + ttl, then the eviction pass reclaims it.
+    rng = np.random.default_rng(seed + 4)
+    ttl_idx = rng.choice(n_keys, KV_TTL_KEYS, replace=False)
+    ttl_keys = key_of(ttl_idx)
+    ttl_vals = (1 << 30) + np.arange(KV_TTL_KEYS, dtype=np.int32)
+    cache.evict_expired()  # an empty buffer holds the put's deletes and TTL entries
+    now = cache.now
+    put(ttl_keys, ttl_vals, ttl=KV_TTL)
+    for t in range(KV_TTL + 1):
+        cache.advance(now + t)
+        if t == KV_TTL:
+            oracle[ttl_idx] = -1
+        get(ttl_keys)
+    live_before = cache.live_count()
+    check(live_before == int((oracle >= 0).sum()), f"{label}: TTL: live_count {live_before}")
+    reclaimed, evict_s = wall(cache.evict_expired, device)
+    check(reclaimed >= KV_TTL_KEYS, f"{label}: evict_expired reclaimed {reclaimed} rows")
+    live = cache.live_count()
+    check(live == int((oracle >= 0).sum()), f"{label}: after eviction live_count {live}")
+    check(cache.stats().num_dropped == 0, f"{label}: TTL run dropped rows")
+    peak = phase_peak(device)
+    if device.type == "cuda":
+        for name in READ_PATH_KERNELS:
+            check(launches.get(name, 0) > 0, f"{label}: kernel {name} never launched")
+        check_gather_launches(launches, {}, label)
+    res = {"path": "kv-cache", "shards": d, "keys": n_keys, "load_s": load_s,
+           "letters": letters, "ttl": {"reclaimed_rows": reclaimed, "evict_s": evict_s,
+                                       "live": live}, "folds": cache.folds,
+           "evictions": cache.evictions, "launches": launches, "peak_bytes": peak}
+    log(f"{label} N={n_keys}: " + json.dumps({k: v for k, v in res.items() if k != "letters"}))
+    keys = to_device(key_of(np.arange(0, n_keys, max(1, n_keys // (1 << 16)))[: 1 << 16]), device)
+    run = {"result": res, "table": table, "state": cache.state, "batch": keys, "cache": cache,
+           "sample": sample}
+    run["inputs"] = lambda: table_user_inputs(run["table"], run["state"], run["batch"])
+    return run
+
+
+def kv_phases(run: dict) -> dict:
+    """One get and one put of the run's first batches of each kind, on the
+    final cache (a put runs the policy first, as every put does)."""
+    cache, phases = run["cache"], {}
+    for name, arg in run["sample"].items():
+        if name.startswith("get"):
+            phases[f"{name[:-1]}, {arg.shape[0]} keys)"] = lambda k=arg: cache.get(k)
+        else:
+            phases[f"{name[:-1]}, {arg[0].shape[0]} keys)"] = lambda kv=arg: cache.put(*kv)
+    return phases
+
+
+def table_user_inputs(table, state, batch) -> dict:
+    """Kernels 1-2 on ``batch``'s sharded keys and kernels 3-4's owner and
+    querier entries on its retrieve (the phases that read through the
+    table run no Pallas-interface gather)."""
+    inputs = {**hash_inputs(table, batch.reshape(table.num_shards, -1, *batch.shape[1:])),
+              **gather_inputs(table, state, batch)}
+    for name in PALLAS_GATHERS:
+        inputs.pop(name)
+    return inputs
+
+
+def np_murmur3_rows(words, seed: int):
+    """MurmurHash3_x86_32 of each row of uint32 words in numpy (the dedup
+    oracle, independent of the port's hashing)."""
+    import numpy as np
+
+    u = np.uint32
+    cols = np.ascontiguousarray(words.astype(np.uint32).T)
+    h = np.full(cols.shape[1], seed & 0xFFFFFFFF, np.uint32)
+    with np.errstate(over="ignore"):
+        for k in cols:
+            k = k * u(0xCC9E2D51)
+            k = (k << u(15)) | (k >> u(17))
+            k = k * u(0x1B873593)
+            h ^= k
+            h = (h << u(13)) | (h >> u(19))
+            h = h * u(5) + u(0xE6546B64)
+        h ^= u(4 * cols.shape[0])
+        h ^= h >> u(16)
+        h = h * u(0x85EBCA6B)
+        h ^= h >> u(13)
+        h = h * u(0xC2B2AE35)
+        h ^= h >> u(16)
+    return h
+
+
+def first_rows_mask(fp):
+    import numpy as np
+
+    _, first = np.unique(fp, return_index=True)
+    keep = np.zeros(fp.shape[0], bool)
+    keep[first] = True
+    return keep
+
+
+def run_dedup(seed: int, device, log) -> dict:
+    """Exact dedup of a training stream: 2^20 rows of 128 tokens from
+    ``SyntheticCorpus(vocab_size=151_936, seq_len=128, dup_rate=0.1)`` drawn
+    on the card, ``dedup_mask`` (D = 1) and ``dedup_mask_distributed`` on a
+    ``DistributedHashTable(num_shards=8, hash_range=2^20)``, both against a
+    numpy MurmurHash3 of each row and its first occurrences; then 4 steps
+    of ``ShardedLoader(dedup="distributed", batch_size=2^16)``: kept rows
+    equal to the corpus's, refills in the vocab, ``skip_to(2)`` replaying
+    steps 2-3 bit for bit."""
+    import numpy as np
+    import torch
+
+    from repro_torch import DistributedHashTable
+    from repro_torch.core.hashing import DEFAULT_SEED
+    from repro_torch.data import (ShardedLoader, SyntheticCorpus, dedup_mask,
+                                  dedup_mask_distributed, sequence_fingerprints)
+
+    label = "dedup"
+    reset_peak(device)
+    corpus = SyntheticCorpus(vocab_size=DEDUP_VOCAB, seq_len=DEDUP_SEQ, seed=seed,
+                             dup_rate=DEDUP_DUP_RATE, device=device)
+    toks, draw_s = wall(lambda: corpus.batch(0, DEDUP_ROWS), device)
+    rows = toks[:, :-1]
+    table = DistributedHashTable(num_shards=DEDUP_SHARDS, hash_range=DEDUP_HASH_RANGE,
+                                 device=device)
+    launches, seconds = {}, {}
+
+    def call(name, fn):
+        out, secs, scope = scoped_call(fn, device)
+        add_launches(launches, scope)
+        seconds[name] = secs
+        return out
+
+    fp = call("fingerprints", lambda: sequence_fingerprints(rows))
+    mask = call("dedup_mask", lambda: dedup_mask(rows))
+    dmask = call("dedup_mask_distributed", lambda: dedup_mask_distributed(table, rows))
+    host = rows.cpu().numpy()
+    want_fp = np_murmur3_rows(host, DEFAULT_SEED)
+    check(np.array_equal(fp.cpu().numpy().view(np.uint32), want_fp),
+          f"{label}: fingerprints differ from numpy's MurmurHash3")
+    want = first_rows_mask(want_fp)
+    check(np.array_equal(mask.cpu().numpy(), want), f"{label}: dedup_mask differs")
+    check(np.array_equal(dmask.cpu().numpy(), want), f"{label}: dedup_mask_distributed differs")
+    dups = int((~want).sum())
+    del host, fp, mask, dmask, rows, toks
+    loader = ShardedLoader(corpus, batch_size=LOADER_BATCH, dedup="distributed", dedup_table=table)
+    batches = []
+    for step in range(LOADER_STEPS):
+        out = call(f"loader step {step}", lambda: loader.next_batch()["tokens"])
+        raw = corpus.batch(step, LOADER_BATCH).cpu().numpy()
+        keep = first_rows_mask(np_murmur3_rows(raw[:, :-1], DEFAULT_SEED))
+        got = out.cpu().numpy()
+        check(got.shape == raw.shape and np.array_equal(got[keep], raw[keep]),
+              f"{label}: loader step {step}: kept rows differ from the corpus's")
+        check(bool(((got[~keep] >= 0) & (got[~keep] < DEDUP_VOCAB)).all()),
+              f"{label}: loader step {step}: refills outside the vocab")
+        batches.append(out)
+    loader.skip_to(2)
+    for step in (2, 3):
+        check(torch.equal(loader.next_batch()["tokens"], batches[step]),
+              f"{label}: skip_to(2) does not replay step {step}")
+    peak = phase_peak(device)
+    if device.type == "cuda":
+        for name in ("murmur_bucket", "bin_histogram"):
+            check(launches.get(name, 0) > 0, f"{label}: kernel {name} never launched")
+        check_gather_launches(launches, {}, label)
+    res = {"path": "dedup", "shards": DEDUP_SHARDS, "rows": DEDUP_ROWS, "seq_len": DEDUP_SEQ,
+           "duplicate_rows": dups, "draw_s": draw_s, "seconds": seconds,
+           "fingerprint_rows_per_s": DEDUP_ROWS / seconds["fingerprints"],
+           "mask_rows_per_s": DEDUP_ROWS / seconds["dedup_mask"],
+           "distributed_mask_rows_per_s": DEDUP_ROWS / seconds["dedup_mask_distributed"],
+           "launches": launches, "peak_bytes": peak}
+    log("path dedup: " + json.dumps(res))
+    keys = sequence_fingerprints(corpus.batch(0, LOADER_BATCH)[:, :-1])
+    run = {"result": res, "table": table, "keys": keys.reshape(DEDUP_SHARDS, -1)}
+    run["inputs"] = lambda: hash_inputs(run["table"], run["keys"])
+    return run
 
 
 # ---------------------------------------------------------------------------
@@ -2602,8 +3367,11 @@ def check_slstm_kernel(run: dict, device, log) -> list:
                                  SLSTM_TIMING["launches"])["decode"]
     if cuda:  # the device's time a launch (torch.profiler), without the host's share
         prof = profile_phases({"decode": lambda: [decode() for _ in range(SLSTM_TIMING["launches"])]},
-                              device)["decode"]["by_class"]["kernel 7"]
-        row["decode_device_ms"] = prof["ms"] / prof["launches"]
+                              device)["decode"]["by_class"].get("kernel 7")
+        # After many profiler sessions in one process (--profile) the
+        # profiler can return no device rows: the device time is then not
+        # measured (the events' times above are).
+        row["decode_device_ms"] = prof["ms"] / prof["launches"] if prof else None
     else:
         row["decode_device_ms"] = None
     log(f"kernel slstm_sequence decode shape: [min, median, max] ms a call {row['decode_ms']} "
@@ -2645,6 +3413,7 @@ def main(argv=None) -> int:
     parser.add_argument("--profile", action="store_true",
                         help="also profile one more build, query and retrieve of the D = 1 read "
                         "run, one more depth-6 probe query and compact of the D = 1 update run, "
+                        "one get and one put of each kind of the D = 1 KV-cache run, "
                         "and one more prefill and decode step of each LM serving run")
     args = parser.parse_args(argv)
 
@@ -2716,6 +3485,31 @@ def main(argv=None) -> int:
         run["result"]["run_s"] = time.perf_counter() - t_run
         log(f"run serve-table D={shards}: {run['result']['run_s']:.1f} s (warm-up, traffic, "
             f"oracles and kernel checks; {smi})")
+        paths.append(run["result"])
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+    # The table's users: the single-card API, hot keys, the KV cache, dedup.
+    for name, runner, phases in (
+        ("hashgraph-1", lambda: run_hashgraph_single(args.keys, args.seed, device, log), None),
+        ("hot-keys", lambda: run_hot_keys(args.seed, device, log), None),
+        ("kv-cache D=1", lambda: run_kv_cache(1, args.keys // 2, args.seed, device, log),
+         kv_phases),
+        ("kv-cache D=8", lambda: run_kv_cache(8, args.keys // 8, args.seed, device, log), None),
+        ("dedup", lambda: run_dedup(args.seed, device, log), None),
+    ):
+        t_run = time.perf_counter()
+        run = runner()
+        rows += check_kernels(run, device, log)
+        run["result"]["run_s"] = time.perf_counter() - t_run
+        if args.profile and phases is not None:
+            profiled[name] = profile_phases(phases(run), device)
+            log(f"profile {name}: " + json.dumps({phase: {
+                "wall_ms": v["wall_ms"], "device_busy_ms": v["device_busy_ms"],
+                "by_class": v["by_class"], "top": [[k[:60], ms, n] for k, ms, n in v["top"][:8]],
+            } for phase, v in profiled[name].items()}))
+        log(f"run {name}: {run['result']['run_s']:.1f} s, peak {run['result']['peak_bytes']} "
+            f"bytes (the phase, its oracles and its kernel checks; {smi})")
         paths.append(run["result"])
         del run
         gc.collect()

@@ -75,6 +75,8 @@ class HashGraph:
     With ``fingerprints`` the rows of a bucket are ordered by (fingerprint,
     key) instead of (key): the sorted probe bisects the one-lane
     fingerprints first and the key lanes only inside the fingerprint's run.
+    ``sorted_within_bucket=False`` (the single-card :func:`build` option)
+    keeps a bucket's rows in input order: only the linear probe reads it.
     """
 
     offsets: torch.Tensor  # (D, V+2) int32, monotone per row
@@ -83,6 +85,12 @@ class HashGraph:
     table_size: int  # V
     seed: int
     fingerprints: Optional[torch.Tensor] = None  # (D, M) int32 uint32 bits, or None
+    sorted_within_bucket: bool = True
+
+    @property
+    def capacity(self) -> int:
+        """Rows of one shard's CSR."""
+        return int(self.keys.shape[1])
 
     @property
     def key_lanes(self) -> int:
@@ -91,6 +99,16 @@ class HashGraph:
     @property
     def value_cols(self) -> int:
         return 1 if self.values.ndim == 2 else int(self.values.shape[-1])
+
+    @property
+    def num_valid(self) -> torch.Tensor:
+        """Non-padding rows (each shard's trash-bucket start), summed over
+        the shards: a () int64 tensor."""
+        return self.offsets[:, self.table_size].sum()
+
+    def bucket_of(self, queries: torch.Tensor) -> torch.Tensor:
+        """``hash(q) % table_size`` of keys of this graph's lane count."""
+        return hashing.hash_to_buckets(queries, self.table_size, self.seed, self.key_lanes)
 
 
 def build_from_buckets(
@@ -101,6 +119,7 @@ def build_from_buckets(
     *,
     seed: int = hashing.DEFAULT_SEED,
     fingerprints: Optional[torch.Tensor] = None,
+    sort_within_bucket: bool = True,
 ) -> HashGraph:
     """Build one CSR per shard row from precomputed bucket ids.
 
@@ -109,12 +128,18 @@ def build_from_buckets(
     order), stably, so equal keys keep their input order, as the
     reference's stable ``lax.sort`` does.  ``fingerprints`` ``(D, M)`` (the
     keys' ``hashing.fingerprint32``) turn the fingerprint lane on.
+    ``sort_within_bucket=False`` sorts stably by bucket alone (a bucket's
+    rows in input order, no fingerprint lane), as the reference does.
     """
     d = keys.shape[0]
     lanes = shard_lanes(keys)
+    if not sort_within_bucket:
+        fingerprints = None
     # sort_key >> 32 is the bucket where sort_key packs (bucket, key or fp).
-    packed = lanes == 1 or fingerprints is not None
-    if lanes == 1 and fingerprints is None:
+    packed = sort_within_bucket and (lanes == 1 or fingerprints is not None)
+    if not sort_within_bucket:
+        sort_key, idx = torch.sort(buckets.to(torch.int64), dim=1, stable=True)
+    elif lanes == 1 and fingerprints is None:
         sort_key = (buckets.to(torch.int64) << 32) | (keys.to(torch.int64) & _MASK)
         sort_key, idx = torch.sort(sort_key, dim=1, stable=True)
     else:
@@ -145,7 +170,61 @@ def build_from_buckets(
         table_size=table_size,
         seed=seed,
         fingerprints=sorted_fp,
+        sorted_within_bucket=sort_within_bucket,
     )
+
+
+def build(
+    keys: torch.Tensor,
+    table_size: int,
+    values: Optional[torch.Tensor] = None,
+    *,
+    seed: int = hashing.DEFAULT_SEED,
+    sort_within_bucket: bool = True,
+    fingerprint: Optional[bool] = None,
+) -> HashGraph:
+    """Hash ``keys`` and build one CSR (Alg. 1): the single-card table.
+
+    ``keys`` are ``(N,)`` int32 uint32 bits or ``(N, L)`` int32 lanes on
+    the device the graph is to live on; ``values`` ``(N,)`` or ``(N, C)``
+    int32 (default: row ids).  The graph is the stacked form with one
+    shard (``offsets`` ``(1, V+2)``).  The hash runs in kernel 1 on the
+    card, with the fingerprints from the same read where the lane is on
+    (``fingerprint=None``: exactly for multi-lane keys; never without
+    ``sort_within_bucket``).
+    """
+    lanes = 1 if keys.ndim == 1 else int(keys.shape[-1])
+    if values is None:
+        values = torch.arange(keys.shape[0], dtype=torch.int32, device=keys.device)
+    if fingerprint is None:
+        fingerprint = lanes > 1
+    fingerprint = bool(fingerprint) and sort_within_bucket
+    if fingerprint:
+        buckets, fp = hashing.hash_and_fingerprint(keys, table_size, seed, lanes)
+        fp = fp.unsqueeze(0)
+    else:
+        buckets, fp = hashing.hash_to_buckets(keys, table_size, seed, lanes), None
+    return build_from_buckets(
+        keys.unsqueeze(0), buckets.unsqueeze(0), table_size, values.unsqueeze(0), seed=seed,
+        fingerprints=fp, sort_within_bucket=sort_within_bucket,
+    )
+
+
+def _stacked(hg: HashGraph, queries: torch.Tensor) -> tuple[torch.Tensor, bool]:
+    """``queries`` in the graph's stacked ``(D, n[, L])`` form, and whether
+    they came so: unstacked ``(n,)`` / ``(n, L)`` queries of a one-shard
+    graph gain the shard axis (results drop it again)."""
+    if queries.ndim == hg.keys.ndim:
+        return queries, True
+    if hg.keys.shape[0] != 1:
+        raise ValueError(
+            f"unstacked queries need a one-shard graph, got {hg.keys.shape[0]} shards"
+        )
+    return queries.unsqueeze(0), False
+
+
+def _unstack(x: torch.Tensor, stacked: bool) -> torch.Tensor:
+    return x if stacked else x[0]
 
 
 def _window_trips(lo: torch.Tensor, hi: torch.Tensor) -> int:
@@ -202,14 +281,16 @@ def bucket_windows(
 def query_locate(
     hg: HashGraph,
     queries: torch.Tensor,
-    buckets: torch.Tensor,
+    buckets: Optional[torch.Tensor] = None,
     qfp: Optional[torch.Tensor] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Each routed query's match run per shard: ``(starts, counts)`` int32.
 
     All occurrences of a key are contiguous in a bucket-sorted shard, so the
     matches of ``queries[s, i]`` are ``keys[s, starts : starts + counts]``.
-    ``buckets`` are the local bucket ids the caller routed the queries to.
+    ``buckets`` are the local bucket ids the caller routed the queries to
+    (``None``: ``hg.bucket_of``, the single-card table's; unstacked queries
+    of a one-shard graph give unstacked results).
     With a fingerprint lane the window is bisected on the fingerprints
     first and on the keys only inside the fingerprint's run; ``qfp`` are
     the queries' fingerprints when the caller computed them once for every
@@ -220,6 +301,15 @@ def query_locate(
     trash bucket, which holds every padding row of the build, and its
     callers then mask those counts to 0; the masked results are the same.)
     """
+    if not hg.sorted_within_bucket:
+        raise ValueError("query_locate needs a bucket-sorted HashGraph")
+    queries, stacked = _stacked(hg, queries)
+    if buckets is None:
+        buckets = hg.bucket_of(queries)
+    elif not stacked:
+        buckets = buckets.unsqueeze(0)
+    if qfp is not None and not stacked:
+        qfp = qfp.unsqueeze(0)
     lanes = hg.key_lanes
     starts, ends = bucket_windows(hg.offsets, hg.table_size, buckets)
     if hg.fingerprints is not None:
@@ -236,16 +326,18 @@ def query_locate(
     trips = _window_trips(starts, ends)
     left = _segment_searchsorted(keys_u, starts, ends, q_u, side="left", trips=trips)
     right = _segment_searchsorted(keys_u, starts, ends, q_u, side="right", trips=trips)
-    return left.to(torch.int32), (right - left).to(torch.int32)
+    return (_unstack(left.to(torch.int32), stacked),
+            _unstack((right - left).to(torch.int32), stacked))
 
 
 def query_count_sorted(
     hg: HashGraph,
     queries: torch.Tensor,
-    buckets: torch.Tensor,
+    buckets: Optional[torch.Tensor] = None,
     qfp: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Exact multiplicity of each routed query key by per-bucket bisection."""
+    """Exact multiplicity of each query key by per-bucket bisection
+    (``buckets=None``: the single-card table's own buckets)."""
     return query_locate(hg, queries, buckets, qfp)[1]
 
 
@@ -262,12 +354,105 @@ def query_count_probe(
     As in :func:`query_locate`, a query routed to the trash bucket gets an
     empty window (the reference scans it and its callers mask the count).
     """
+    queries, stacked = _stacked(hg, queries)
     if buckets is None:
-        buckets = hashing.hash_to_buckets(queries, hg.table_size, hg.seed, hg.key_lanes)
+        buckets = hg.bucket_of(queries)
+    elif not stacked:
+        buckets = buckets.unsqueeze(0)
     starts, ends = bucket_windows(hg.offsets, hg.table_size, buckets)
     from repro_torch.kernels import ops
 
-    return ops.bucket_probe(hg.keys, starts, ends, queries, max_probe=max_probe)
+    return _unstack(ops.bucket_probe(hg.keys, starts, ends, queries, max_probe=max_probe), stacked)
+
+
+# ---------------------------------------------------------------------------
+# The single-card API (the reference's Alg. 1 table): one-shard graphs from
+# :func:`build`, unstacked ``(N,)`` / ``(N, L)`` queries.
+# ---------------------------------------------------------------------------
+
+
+def _one_shard(hg: HashGraph, what: str) -> None:
+    if hg.keys.shape[0] != 1:
+        raise ValueError(f"{what} takes a one-shard graph, got {hg.keys.shape[0]} shards")
+
+
+def retrieve(
+    hg: HashGraph,
+    queries: torch.Tensor,
+    *,
+    capacity: int,
+    buckets: Optional[torch.Tensor] = None,
+    fill: int = -1,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Values under every occurrence of every query key, CSR-shaped:
+    ``(offsets, values, num_dropped)``, query ``i``'s values at
+    ``values[offsets[i]:offsets[i+1]]`` in the table's bucket order.
+
+    ``capacity`` is the static output size; overflow is reported in
+    ``num_dropped``.  The gather is kernel 3 on the card
+    (``ops.csr_gather``; its plain twin on the CPU).
+    """
+    from repro_torch.kernels import ops
+
+    _one_shard(hg, "retrieve")
+    starts, counts = query_locate(hg, queries, buckets)
+    offsets, _, values, num_dropped = ops.csr_gather(
+        starts, counts, hg.values[0], capacity=capacity, fill=fill
+    )
+    return offsets, values, num_dropped
+
+
+def inner_join(
+    hg: HashGraph,
+    queries: torch.Tensor,
+    *,
+    capacity: int,
+    buckets: Optional[torch.Tensor] = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Every ``(query_idx, build_value)`` match pair: ``(query_idx, values,
+    num_results, num_dropped)``, the arrays ``(capacity,)`` with -1 / fill
+    beyond ``num_results`` (kernel 3 on the card)."""
+    from repro_torch.kernels import ops
+
+    _one_shard(hg, "inner_join")
+    starts, counts = query_locate(hg, queries, buckets)
+    _, query_idx, values, num_dropped = ops.csr_gather(
+        starts, counts, hg.values[0], capacity=capacity
+    )
+    num_results = torch.clamp(counts.sum(), max=capacity).to(torch.int32)
+    return query_idx, values, num_results, num_dropped
+
+
+def lookup_first(
+    hg: HashGraph, queries: torch.Tensor, buckets: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """Value row of the first matching key per query, -1 (every column) on
+    a miss: ``(Nq,)`` or ``(Nq, C)`` int32."""
+    queries, stacked = _stacked(hg, queries)
+    if buckets is not None and not stacked:
+        buckets = buckets.unsqueeze(0)
+    # A key's run starts at its left bisection point; it matched iff the run
+    # is not empty (the reference's ``keys[left] == q``).
+    starts, counts = query_locate(hg, queries, buckets)
+    vals = take_rows(hg.values, torch.clamp(starts, 0, max(hg.capacity - 1, 0)).to(torch.int64))
+    found = counts > 0 if hg.values.ndim == 2 else (counts > 0).unsqueeze(-1)
+    return _unstack(torch.where(found, vals, -1), stacked)
+
+
+def contains(hg: HashGraph, queries: torch.Tensor) -> torch.Tensor:
+    """Membership of each query key."""
+    return query_count_sorted(hg, queries) > 0
+
+
+def intersect_join_size(hg_build: HashGraph, hg_query: HashGraph) -> torch.Tensor:
+    """Inner-join cardinality of two one-shard graphs (the paper's query
+    phase, §3.3): each valid key of ``hg_query`` counted in ``hg_build``
+    (trash-bucket rows contribute 0).  An int64 scalar tensor."""
+    _one_shard(hg_query, "intersect_join_size")
+    keys = hg_query.keys[0]
+    valid = torch.arange(keys.shape[0], device=keys.device) < hg_query.num_valid
+    counts = query_count_sorted(hg_build, keys)
+    return torch.where(valid, counts, 0).to(torch.int64).sum()
 
 
 # ---------------------------------------------------------------------------

@@ -130,6 +130,7 @@ def build_sharded(
     local_range_cap: Optional[int] = None,
     bucket_stride: int = 1,
     fingerprint: Optional[bool] = None,
+    dest_offsets: Optional[torch.Tensor] = None,
 ) -> DistributedHashGraph:
     """Build the distributed HashGraph from ``keys`` ``(D, n_local[, L])``.
 
@@ -146,6 +147,12 @@ def build_sharded(
     offsets).  ``fingerprint`` stores the probe fingerprint lane (``None``:
     exactly for multi-lane keys), computed owner-side from the received
     keys with their hashes.
+
+    ``dest_offsets`` ``(D, n_local)`` (hot-key replication) send each row to
+    ``(hash owner + offset) % D``, so one hot key's rows spread over R
+    owners.  An off-owner row lands in the receiver's clamped edge bucket
+    (``_rebase_buckets``), where the exact key compare still finds it;
+    readers sum one query round per offset (``query_layers_sharded``).
     """
     d, n_local = keys.shape[:2]
     dev = keys.device
@@ -171,6 +178,8 @@ def build_sharded(
     # rows hash alike; by hash they would funnel into one owner's slot).
     dest = partition.destination_of(h, splits)
     del h
+    if dest_offsets is not None:
+        dest = (dest + dest_offsets.to(torch.int32)) % d
     round_robin = (torch.arange(n_local, dtype=torch.int32, device=dev) % d).expand(d, -1)
     dest = torch.where(is_pad, round_robin, dest)
 
@@ -227,11 +236,14 @@ def _route_queries_once(
     queries: torch.Tensor,
     capacity_slack: float,
     fingerprint: bool = False,
+    dest_offset: int = 0,
 ) -> RoutedQueries:
     """The one exchange round of the query path (paper §3.3 phase 1):
     hash the queries and dispatch them to their owners by the build splits.
     ``fingerprint`` also computes the routed keys' fingerprints, from the
-    same read as their owner-side hashes.
+    same read as their owner-side hashes.  ``dest_offset`` sends every query
+    ``r`` shards past its owner: the read of replica ``r`` of hot-key rows
+    (a key that was not replicated counts 0 there).
 
     EMPTY queries (a batch's padding) all hash to one owner and answer
     nothing; past a full slot they are dropped without being counted in
@@ -244,6 +256,8 @@ def _route_queries_once(
     h = hashing.hash_to_buckets(queries, dhg.hash_range, dhg.seed, lanes)
     dest = partition.destination_of(h, dhg.hash_splits)
     del h
+    if dest_offset:
+        dest = (dest + dest_offset) % d
     capacity = default_capacity(n_local, d, capacity_slack)
     (rq,), route = exchange.dispatch((queries,), dest, capacity, fills=(EMPTY_BITS,),
                                      count_mask=~hashgraph.is_empty_key(queries, lanes))
@@ -259,10 +273,12 @@ def _route_queries_once(
 
 
 def _route_queries(
-    dhg: DistributedHashGraph, queries: torch.Tensor, capacity_slack: float
+    dhg: DistributedHashGraph, queries: torch.Tensor, capacity_slack: float,
+    dest_offset: int = 0,
 ) -> tuple[RoutedQueries, torch.Tensor]:
     """:func:`_route_queries_once` plus this graph's own bucket rebase."""
-    routed = _route_queries_once(dhg, queries, capacity_slack, _wants_fingerprints((dhg,)))
+    routed = _route_queries_once(dhg, queries, capacity_slack, _wants_fingerprints((dhg,)),
+                                 dest_offset)
     rbuckets = _rebase_buckets(
         routed.rh, routed.is_pad, routed.lo, dhg.local_range_cap, dhg.bucket_stride
     )
@@ -344,13 +360,15 @@ def query_sharded(
     max_probe: int = 64,
     tombstones: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
     layer_epoch: int = 0,
+    dest_offset: int = 0,
 ) -> torch.Tensor:
     """Multiplicity ``(D, n_local)`` int32 of each query key: route by the
     build splits, count against the owner's shard, route counts back.
-    ``tombstones`` / ``layer_epoch`` mask rows deleted from this layer."""
+    ``tombstones`` / ``layer_epoch`` mask rows deleted from this layer;
+    ``dest_offset`` counts replica ``r`` of hot-key rows."""
     routed = _route_queries_once(
         dhg, queries, capacity_slack,
-        not paper_faithful_probe and _wants_fingerprints((dhg,)),
+        not paper_faithful_probe and _wants_fingerprints((dhg,)), dest_offset,
     )
     counts = torch.empty(routed.rh.shape, dtype=torch.int32, device=queries.device)
     _count_layer(
@@ -369,6 +387,7 @@ def query_layers_sharded(
     capacity_slack: float = 1.25,
     paper_faithful_probe: bool = False,
     max_probe: int = 64,
+    dest_offset: int = 0,
 ) -> torch.Tensor:
     """Merged multiplicity over a versioned stack ``(base, delta_1, ...)``.
 
@@ -377,7 +396,8 @@ def query_layers_sharded(
     depth; the layers' counts go into one running total in epoch order
     (with the probe, one kernel launch a layer).  ``fused=False`` routes
     each layer on its own splits, two calls per layer.  ``None`` fuses only
-    the single-layer stack.
+    the single-layer stack.  ``dest_offset`` routes every query that many
+    shards past its owner (replica ``r`` of hot-key rows).
     """
     layers = tuple(layers)
     if fused is None:
@@ -386,6 +406,7 @@ def query_layers_sharded(
         capacity_slack=capacity_slack,
         paper_faithful_probe=paper_faithful_probe,
         max_probe=max_probe,
+        dest_offset=dest_offset,
     )
     if not fused:
         total = None
@@ -396,7 +417,7 @@ def query_layers_sharded(
 
     routed = _route_queries_once(
         layers[0], queries, capacity_slack,
-        not paper_faithful_probe and _wants_fingerprints(layers),
+        not paper_faithful_probe and _wants_fingerprints(layers), dest_offset,
     )
     match_e = _tombstone_epochs(routed.rq, tombstones)
     total = torch.empty(routed.rh.shape, dtype=torch.int32, device=queries.device)

@@ -48,13 +48,21 @@ def _read_kw(table, state: TableState) -> dict:
     )
 
 
-def exec_query(table, state: TableState, queries: torch.Tensor) -> torch.Tensor:
-    """Merged multiplicity per query, ``(D, n_local)`` int32."""
+def exec_query(
+    table, state: TableState, queries: torch.Tensor, *, dest_offset: int = 0
+) -> torch.Tensor:
+    """Merged multiplicity per query, ``(D, n_local)`` int32.
+
+    ``dest_offset`` counts replica ``r`` of hot-key rows; ``table.query``
+    sums the rounds ``r = 0..R-1`` (a key that was not replicated counts 0
+    on every round but the first).  The default 0 is the one fused round.
+    """
     return multi_hashgraph.query_layers_sharded(
         state.layers,
         queries,
         paper_faithful_probe=table.paper_faithful_probe,
         max_probe=table.max_probe,
+        dest_offset=dest_offset,
         **_read_kw(table, state),
     )
 

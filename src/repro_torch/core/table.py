@@ -41,9 +41,6 @@ from repro_torch.core.state import TableState, as_state, empty_tombstones
 from repro_torch.kernels import histogram
 from repro_torch.utils import cdiv, take_rows
 
-HOT_KEYS_SLICE = "the port's hot-key replication slice (KV cache)"
-
-
 @dataclasses.dataclass(kw_only=True, eq=False)
 class DistributedHashTable:
     """The distributed HashGraph of ``num_shards`` shards on one device.
@@ -61,6 +58,15 @@ class DistributedHashTable:
     rows, counted in ``skew_fallbacks``.  ``schema`` sets the key width and
     value columns; ``fingerprint`` the probe fingerprint lane of every
     layer (``None``: on exactly for multi-lane keys).
+
+    ``replicate_hot_keys`` (R > 1 enables) handles the skew no split can
+    fix: one key whose copies in an insert batch exceed the per-(source,
+    destination) dispatch slot.  A coherent insert spreads each such key's
+    rows over ``max(2, min(R, D))`` consecutive owners and registers it in
+    ``hot_keys``; ``query`` (and ``contains``) then sum one routed round
+    per replica rank.  As in the reference, ``retrieve``, ``inner_join``
+    and ``join_size`` see only replica 0, and ``compact()`` gathers the
+    rows back onto their hash owner.
     """
 
     hash_range: int
@@ -97,14 +103,14 @@ class DistributedHashTable:
             self.use_fingerprint = self.schema.key_lanes > 1
         else:
             self.use_fingerprint = bool(self.fingerprint)
-        if self.replicate_hot_keys > 1:
-            raise NotImplementedError(f"replicate_hot_keys > 1 belongs to {HOT_KEYS_SLICE}")
         if self.num_shards < 1:
             raise ValueError(f"num_shards must be >= 1, got {self.num_shards}")
         hashing.check_table_size(self.hash_range)
         self.local_range_cap = int(cdiv(self.hash_range, self.num_shards) * self.range_slack)
         # Inserts the skew guard sent to a delta of its own splits.
         self.skew_fallbacks = 0
+        # Hot-key registry: packed key tuple (lane values, lane 0 first) -> R.
+        self.hot_keys = {}
         # Compact sizing per state signature: (capacity, rebuild_rows).
         self._sizing_memo = {}
 
@@ -182,16 +188,55 @@ class DistributedHashTable:
         stride = max(1, cdiv(self.local_range_cap, target))
         return cdiv(self.local_range_cap, stride), stride
 
-    def _coherent_dispatch_overflows(self, keys: torch.Tensor, splits: torch.Tensor) -> bool:
+    def _hot_key_offsets(self, flat: torch.Tensor) -> Optional[torch.Tensor]:
+        """Hot-key detection: per-row destination offsets ``(N,)`` int32, or
+        None when no key of the batch is hot.
+
+        A key is hot when its copies in this batch exceed the per-(source,
+        destination) dispatch slot of the coherent delta build, and it is
+        not EMPTY.  Its rows get ``occurrence_rank % R`` (the rank in row
+        order over the whole batch, R = ``max(2, min(replicate_hot_keys,
+        D))``), every other row 0, and it is registered in ``hot_keys``.
+        The ranks come from a stable sort of the keys on the device; only
+        the verdict and the hot keys come to the host.
+        """
+        d, n = self.num_shards, flat.shape[0]
+        if n == 0:
+            return None
+        lanes = self.schema.key_lanes
+        slot = multi_hashgraph.default_capacity(n // d, d, self.capacity_slack)
+        words, order = torch.sort(hashgraph.key_words(flat, lanes), stable=True)
+        new_run = torch.ones(n, dtype=torch.bool, device=flat.device)
+        new_run[1:] = words[1:] != words[:-1]
+        run_start = torch.nonzero(new_run).squeeze(1)
+        run_len = torch.diff(run_start, append=run_start.new_tensor([n]))
+        hot = (run_len > slot) & (words[run_start] != EMPTY_BITS)
+        if not bool(hot.any()):
+            return None
+        r = max(2, min(self.replicate_hot_keys, d))
+        run_id = torch.cumsum(new_run, 0) - 1
+        rank = torch.arange(n, device=flat.device) - run_start[run_id]
+        sorted_offs = torch.where(hot[run_id], rank % r, 0).to(torch.int32)
+        offsets = torch.empty_like(sorted_offs).scatter_(0, order, sorted_offs)
+        for w in words[run_start[hot]].tolist():
+            self.hot_keys[tuple((w >> (32 * i)) & 0xFFFFFFFF for i in range(lanes))] = r
+        return offsets
+
+    def _coherent_dispatch_overflows(
+        self, keys: torch.Tensor, splits: torch.Tensor, offsets: Optional[torch.Tensor] = None
+    ) -> bool:
         """Would a frozen-splits delta build of ``(D, n_local)`` keys overflow
         a per-(source, destination) dispatch slot?  Replays the build's
-        routing (EMPTY rows round-robin) and histograms it per pair on the
-        device; only the verdict comes to the host."""
+        routing (the hot-key ``offsets`` ``(D, n_local)`` added, EMPTY rows
+        round-robin) and histograms it per pair on the device; only the
+        verdict comes to the host."""
         d, n_local = keys.shape[:2]
         lanes = self.schema.key_lanes
         capacity = multi_hashgraph.default_capacity(n_local, d, self.capacity_slack)
         h = hashing.hash_to_buckets(keys, self.hash_range, self.seed, lanes)
         dest = partition.destination_of(h, splits)
+        if offsets is not None:
+            dest = (dest + offsets) % d
         round_robin = torch.arange(n_local, dtype=torch.int32, device=keys.device) % d
         dest = torch.where(hashgraph.is_empty_key(keys, lanes), round_robin, dest)
         src = torch.arange(d, dtype=torch.int32, device=keys.device).unsqueeze(1)
@@ -207,7 +252,8 @@ class DistributedHashTable:
         :meth:`TableState.should_compact` fires).  With ``coherent_deltas``
         the delta is built on the base's frozen splits; a batch that would
         overflow that dispatch goes to a delta of its own splits instead
-        (``skew_guard``, counted in ``skew_fallbacks``).
+        (``skew_guard``, counted in ``skew_fallbacks``), after hot keys
+        (``replicate_hot_keys``) were spread over their replica owners.
         """
         st = as_state(self, state)
         if auto_compact and st.should_compact():
@@ -225,8 +271,15 @@ class DistributedHashTable:
         k = self._shard(flat, "keys")
         v = self._shard(vals, "values")
         coherent_build = self.coherent_deltas
+        offsets = None
+        if coherent_build and self.replicate_hot_keys > 1:
+            # One-key skew no split fixes: spread each hot key's rows over R
+            # consecutive owners before the guard checks the batch.
+            offsets = self._hot_key_offsets(flat)
+            if offsets is not None:
+                offsets = self._shard(offsets, "offsets")
         if coherent_build and self.skew_guard:
-            if self._coherent_dispatch_overflows(k, st.base.hash_splits):
+            if self._coherent_dispatch_overflows(k, st.base.hash_splits, offsets):
                 coherent_build = False
                 self.skew_fallbacks += 1
         if coherent_build:
@@ -239,6 +292,7 @@ class DistributedHashTable:
                 hash_splits=st.base.hash_splits,
                 local_range_cap=local_cap,
                 bucket_stride=stride,
+                dest_offsets=offsets,
             )
             coherent = st.coherent
         else:
@@ -415,9 +469,19 @@ class DistributedHashTable:
     # -- reads ----------------------------------------------------------------
     def query(self, state, queries) -> torch.Tensor:
         """Multiplicity of each global query key over ``base + deltas -
-        tombstones``, ``(Nq,)`` int32."""
+        tombstones``, ``(Nq,)`` int32.
+
+        With registered hot keys, one more routed round per replica rank
+        adds the counts of rows spread off their hash owner (a key that was
+        not replicated counts 0 off its owner, so the sum is exact for every
+        key); without, this is the one fused round.
+        """
         st = as_state(self, state)
-        return plans.exec_query(self, st, self._pack_queries(queries)).reshape(-1)
+        q = self._pack_queries(queries)
+        total = plans.exec_query(self, st, q)
+        for r in range(1, max(self.hot_keys.values(), default=1)):
+            total = total + plans.exec_query(self, st, q, dest_offset=r)
+        return total.reshape(-1)
 
     def contains(self, state, queries) -> torch.Tensor:
         return self.query(state, queries) > 0

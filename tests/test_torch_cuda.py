@@ -25,7 +25,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch import DistributedHashTable, join_to_pairs
-from repro_torch.core import convert
+from repro_torch.core import convert, exchange
 from repro_torch.core.hashing import DEFAULT_SEED, FINGERPRINT_SEED
 from repro_torch.core.schema import u32_bits
 from repro_torch.core import maintenance
@@ -1046,3 +1046,114 @@ def test_no_library_build_or_load_after_warm(card):
     assert [v.shape[0] for v in vals[0][0]] == [1] * 50
     assert dict(build.LIBRARY_EVENTS) == events
     assert server.stats().warmup.aot_misses == 0
+
+
+# ---------------------------------------------------------------------------
+# The table's users: the single-card API, hot-key replica rounds, dedup.
+# ---------------------------------------------------------------------------
+def _hot_pair(card, copies: int):
+    """A D = 8 table with ``replicate_hot_keys = 4`` on the card and its CPU
+    twin, after one insert holding ``copies`` rows of one key (replicated:
+    about ``copies / 4`` rows of it a shard) among 2^14 others."""
+    rng = np.random.default_rng(11)
+    base = u32_bits(rng.integers(0, 1 << 16, size=1 << 14, dtype=np.uint32))
+    batch = rng.integers(0, 1 << 16, size=1 << 14, dtype=np.uint32)
+    batch = rng.permutation(np.concatenate([batch, np.full(copies, 777, np.uint32)]))
+    batch = u32_bits(batch)
+    batch = batch[: (batch.shape[0] // 8) * 8]
+    vals = torch.arange(batch.shape[0], dtype=torch.int32)
+    out = []
+    for dev in (card, torch.device("cpu")):
+        t = DistributedHashTable(num_shards=8, hash_range=1 << 16, device=dev,
+                                 capacity_slack=2.0, replicate_hot_keys=4)
+        s = t.insert(t.init(base.to(dev)), batch.to(dev), vals.to(dev))
+        assert t.hot_keys == {(777,): 4} and int(s.num_dropped) == 0 and t.skew_fallbacks == 0
+        out.append((t, s))
+    return out
+
+
+def test_probe_layer_on_a_replica_round_matches_plain(card):
+    (tc, sc), (tp, sp) = _hot_pair(card, 40_000)
+    q = torch.cat([torch.tensor([777], dtype=torch.int32), sp.deltas[0].local.keys[0, :1023]])
+    for probe in (False, True):
+        tc.paper_faithful_probe = tp.paper_faithful_probe = probe
+        assert torch.equal(tc.query(sc, q.to(card)).cpu(), tp.query(sp, q))
+    # Replica round 1: every query lands off its owner, in a clamped edge
+    # bucket of the delta, where the hot key's replica rows sit.
+    routed = mh._route_queries_once(sc.base, q.to(card).reshape(8, -1), tc.capacity_slack, False, 1)
+    layer = sc.deltas[0]
+    args = (routed.rq, routed.rh, routed.lo, None, layer.local.offsets, layer.local.keys)
+    kw = dict(table_size=layer.local_range_cap, stride=layer.bucket_stride, epoch=1,
+              max_probe=64, accumulate=False)
+    total = torch.empty(routed.rq.shape, dtype=torch.int32, device=card)
+    got = bucket_probe.bucket_probe_layer(*args, total=total, **kw)
+    want = bucket_probe.bucket_probe_layer_plain(*args, total=torch.empty_like(total), **kw)
+    assert torch.equal(got, want) and int(got.sum()) > 0
+
+
+def test_gather_kernels_on_a_bucket_of_one_key(card):
+    (tc, sc), (tp, sp) = _hot_pair(card, 40_000)
+    q = torch.tensor([777] + list(range(1, 8)), dtype=torch.int32)
+    got, want = tc.retrieve(sc, q.to(card)), tp.retrieve(sp, q)
+    for name in ("offsets", "values", "counts"):
+        assert torch.equal(getattr(got, name).cpu(), getattr(want, name))
+    assert int(got.counts[0]) >= 9_000  # replica 0 of the hot key: about 10^4 copies
+    routed = mh._route_queries_once(sc.base, q.to(card).reshape(8, -1), tc.capacity_slack)
+    starts, counts, tables = mh._layer_run_descriptors(sc.layers, routed)
+    nl, cap = len(sc.layers), routed.capacity
+    starts4, counts4 = starts.reshape(nl, 8, 8, cap), counts.reshape(nl, 8, 8, cap)
+    seg = 1 << 14
+    g = csr_gather.csr_gather_owners(starts4, counts4, tables, seg)
+    w = csr_gather.csr_gather_owners_plain(starts4, counts4, tables, seg)
+    for a, b in zip(g, w):
+        assert torch.equal(a, b)
+    back_counts, back_starts, seg_flat = exchange.combine_ragged(g[0], g[2], routed.route)
+    g = csr_gather.csr_gather_queriers(back_starts, back_counts, seg_flat, seg)
+    w = csr_gather.csr_gather_queriers_plain(back_starts, back_counts, seg_flat, seg)
+    for a, b in zip(g, w):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("lanes", [1, 2])
+def test_single_card_graph_on_card_matches_cpu(card, lanes):
+    from repro_torch.core import hashgraph
+
+    rng = np.random.default_rng(lanes)
+    pool = rng.integers(0, 2**32 - 1, size=(5000, lanes), dtype=np.uint64).astype(np.uint32)
+    keys = pool[rng.integers(0, 5000, 1 << 16)]
+    keys[:12_000] = pool[0]  # about 10^4 copies of one key in one bucket
+    keys = torch.from_numpy(keys.view(np.int32))
+    queries = torch.from_numpy(pool.view(np.int32))
+    if lanes == 1:
+        keys, queries = keys[:, 0].contiguous(), queries[:, 0].contiguous()
+    cpu = hashgraph.build(keys, 1 << 12, seed=5)
+    dev = hashgraph.build(keys.to(card), 1 << 12, seed=5)
+    for name in ("offsets", "keys", "values", "fingerprints"):
+        a, b = getattr(dev, name), getattr(cpu, name)
+        assert (a is None) == (b is None) and (a is None or torch.equal(a.cpu(), b))
+    qd = queries.to(card)
+    for fn in (hashgraph.query_count_sorted, hashgraph.lookup_first, hashgraph.contains):
+        assert torch.equal(fn(dev, qd).cpu(), fn(cpu, queries))
+    cap = int(hashgraph.query_count_sorted(cpu, queries).sum())
+    before = build.LAUNCHES["csr_gather"]
+    for fn in (hashgraph.retrieve, hashgraph.inner_join):
+        for a, b in zip(fn(dev, qd, capacity=cap), fn(cpu, queries, capacity=cap)):
+            assert torch.equal(a.cpu(), b)
+    assert build.LAUNCHES["csr_gather"] == before + 2
+    assert int(hashgraph.intersect_join_size(dev, dev)) == int(hashgraph.intersect_join_size(cpu, cpu))
+
+
+def test_distributed_dedup_on_card_matches_cpu(card):
+    from repro_torch.data import dedup_mask, dedup_mask_distributed
+
+    rng = np.random.default_rng(4)
+    toks = rng.integers(0, 151_936, size=(1 << 14, 128), dtype=np.int32)
+    toks[rng.choice(1 << 14, 3000)] = toks[rng.integers(0, 1 << 14, 3000)]
+    toks[:100] = toks[100]  # past the 64-row run window
+    t = torch.from_numpy(toks)
+    for shards in (1, 8):
+        tables = [DistributedHashTable(num_shards=shards, hash_range=1 << 14, device=dev)
+                  for dev in (card, "cpu")]
+        assert torch.equal(dedup_mask_distributed(tables[0], t.to(card)).cpu(),
+                           dedup_mask_distributed(tables[1], t))
+    assert torch.equal(dedup_mask(t.to(card)).cpu(), dedup_mask(t))

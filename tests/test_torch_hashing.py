@@ -153,13 +153,17 @@ def test_table_without_device_raises_on_a_host_without_cuda(monkeypatch):
 
 
 def test_later_slices_raise_not_implemented():
-    # Key widths, value columns and the fingerprint lane are ported; the
-    # hot-key replication slice still raises, and bad schemas are refused.
+    # Key widths, value columns, the fingerprint lane and hot-key
+    # replication are ported; the several-cards slice still raises (a
+    # loader over a mesh), and bad schemas are refused.
+    from repro_torch.data import ShardedLoader, SyntheticCorpus
+
     assert TableSchema("uint64").key_lanes == 2
     assert TableSchema("uint32", 3).value_cols == 3
     assert DistributedHashTable(hash_range=1 << 10, device="cpu", fingerprint=True).use_fingerprint
+    assert DistributedHashTable(hash_range=1 << 10, device="cpu", replicate_hot_keys=2).hot_keys == {}
     with pytest.raises(NotImplementedError, match="slice"):
-        DistributedHashTable(hash_range=1 << 10, device="cpu", replicate_hot_keys=2)
+        ShardedLoader(SyntheticCorpus(100, 8, device="cpu"), 4, mesh=object())
     with pytest.raises(ValueError):
         TableSchema("int8")
     with pytest.raises(ValueError):

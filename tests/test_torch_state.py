@@ -395,11 +395,15 @@ def test_clock_survives_the_first_delete_after_compact():
 
 
 def test_later_slices_raise_not_implemented():
-    # Hot-key replication still raises; the plan entry points and
-    # fold_oldest(metrics=) are ported now (tests/test_torch_plans.py and
-    # tests/test_torch_obs.py hold them against the reference).
+    # A loader over a mesh (several cards) still raises; hot-key
+    # replication, the plan entry points and fold_oldest(metrics=) are
+    # ported now (tests/test_torch_hot_keys.py, tests/test_torch_plans.py
+    # and tests/test_torch_obs.py hold them against the reference).
+    from repro_torch.data import ShardedLoader, SyntheticCorpus
+
     with pytest.raises(NotImplementedError, match="slice"):
-        DistributedHashTable(hash_range=1 << 10, device="cpu", replicate_hot_keys=2)
+        ShardedLoader(SyntheticCorpus(100, 8, device="cpu"), 4, mesh=object())
+    assert DistributedHashTable(hash_range=1 << 10, device="cpu", replicate_hot_keys=2).hot_keys == {}
     pt = DistributedHashTable(hash_range=1 << 10, device="cpu")
     state = pt.init(np.arange(16, dtype=np.uint32))
     q = np.arange(8, dtype=np.uint32)
