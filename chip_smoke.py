@@ -111,6 +111,29 @@ Run from the root of a checkout: it builds the port's CUDA kernels from
      mask and distributed-mask rows/s;
    each phase holds the kernels it ran against their twins on its own
    inputs (``check_kernels``);
+2e. runs the table across processes (the ``procs`` phase): the pass of
+   ``repro_torch.launch.table_run`` (u32x1; N = 2^26 keys uniform over
+   [0, N/2) with EMPTY rows, 2^22 reads; init, query / contains /
+   join_size, plan_caps, retrieve with and without per-layer counts,
+   inner_join, the auto retries from a quarter of their caps, two inserts
+   of N/8, a delete and an upsert with TTL of N/32 replicated keys, the
+   sorted and the probe query at depth 3, the clock past the TTL,
+   ``fold_oldest(2)``, an insert skewed onto shard 0 that takes the skew
+   guard's fallback, reads of the mixed-split stack, ``compact`` and reads)
+   stacked at D = 4, then on four ranks of a gloo group on this card
+   (``launch.mesh.spawn``; 2^24 keys a rank, each rank launching the
+   kernels on its own shard, every exchange staged through host memory),
+   then stacked at D = 1 and on one NCCL rank in this process.  Every
+   rank's outputs equal its row of the stacked run bit for bit (chunk
+   digests; a mismatch prints the first differing index), its scalars, its
+   exchange rounds, bytes and launches per entry point equal the stacked
+   run's, its sampled query rows equal a numpy oracle (counts, retrieved
+   and joined value multisets), nothing is dropped, kernels 1-2 launch in
+   the build, 3-4 once a side a retrieve or join and 5 once a layer of the
+   depth-3 probe query (4); it prints each rank's wall, rounds, bytes and
+   ``agree`` all-reduces per entry point and peak bytes, and rank 0 holds
+   kernels 1, 2, 3-4 and 5 against their twins on its own inputs (rows
+   ``procs-gloo-4``);
 3. serves qwen3-4b at full width (36 layers, d_model 2560, 32 query heads
    over 8 kv heads, vocab 151,936; random bf16 weights drawn on the card
    from ``--seed``) through the public API: ``build_model``, a
@@ -1100,7 +1123,7 @@ def hash_inputs(table, keys) -> dict:
     from repro_torch.core import hashgraph, partition
     from repro_torch.kernels import murmur
 
-    d, lanes = keys.shape[0], hashgraph.shard_lanes(keys)
+    d, lanes = table.num_shards, hashgraph.shard_lanes(keys)
     h, _ = murmur.murmur_hash(keys, table.hash_range, table.seed, lanes=lanes)
     num_bins = table.num_bins or partition.choose_num_bins(table.hash_range, d)
     bsz = partition.bin_size_for(table.hash_range, num_bins)
@@ -1127,8 +1150,8 @@ def gather_inputs(table, state, batch, caps=None) -> dict:
     from repro_torch.core import multi_hashgraph as mh
     from repro_torch.kernels import ops
 
-    d = table.num_shards
-    q = batch.reshape(d, -1, *batch.shape[1:])
+    d, local = table.num_shards, table.group.local
+    q = batch.reshape(local, -1, *batch.shape[1:])
     tombstones = state.tombstones.index()
     out_cap, seg_cap = caps if caps is not None else table._resolve_caps(state, q, None, None)
     # With the fingerprint lane the routing also hashes the fingerprints (an
@@ -1137,7 +1160,8 @@ def gather_inputs(table, state, batch, caps=None) -> dict:
     routed = mh._route_queries_once(state.base, q, table.capacity_slack, *((True,) if fp else ()))
     starts_lr, counts_lr, tables = mh._layer_run_descriptors(state.layers, routed, tombstones)
     cap, nl = routed.capacity, len(state.layers)
-    starts4, counts4 = starts_lr.reshape(nl, d, d, cap), counts_lr.reshape(nl, d, d, cap)
+    starts4 = starts_lr.reshape(nl, local, d, cap)
+    counts4 = counts_lr.reshape(nl, local, d, cap)
     seg, _, slot_counts = ops.csr_gather_owners(starts4, counts4, tables, capacity=seg_cap)
     counts, starts, seg_flat = exchange.combine_ragged(seg, slot_counts, routed.route)
     del seg
@@ -2757,6 +2781,324 @@ def run_dedup(seed: int, device, log) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# The table across processes (procs): one shard per rank of a process group
+# ---------------------------------------------------------------------------
+PROCS_KEYS = 1 << 26  # 2^24 a shard at world 4
+PROCS_QUERIES = 1 << 22  # the reads' global batch
+PROCS_WORLD = 4
+PROCS_TIMEOUT_S = 300.0
+PROCS_CHUNK = 4096  # elements a digest covers
+PROCS_SAMPLES = 4096  # query rows a rank holds against the numpy oracle
+
+
+def procs_config(seed: int, n_keys: int = PROCS_KEYS):
+    """The pass ``repro_torch.launch.table_run`` drives (u32x1): N keys,
+    ``PROCS_QUERIES`` reads, two inserts of N/8, delete and upsert batches
+    of N/32 (replicated), tombstone capacity 4 x N/32."""
+    from repro_torch.launch import table_run
+
+    return table_run.SliceConfig(n_keys=n_keys, seed=seed, queries=PROCS_QUERIES)
+
+
+def chunk_digests(t):
+    """``(rows, chunks)`` int64 digests of a ``(rows, ...)`` tensor, one a
+    run of ``PROCS_CHUNK`` elements of a row (position-weighted, on the
+    tensor's device): equal rows give equal digests."""
+    import torch
+
+    x = t.reshape(t.shape[0], -1).to(torch.int64)
+    pad = (-x.shape[1]) % PROCS_CHUNK
+    if pad:
+        x = torch.nn.functional.pad(x, (0, pad), value=-7)
+    x = x.reshape(x.shape[0], -1, PROCS_CHUNK)
+    pos = torch.arange(1, PROCS_CHUNK + 1, dtype=torch.int64, device=x.device)
+    return ((x ^ (pos * 0x27D4EB2F165667C5)) * 0x165667B19E3779F9).sum(-1)
+
+
+class DigestSink:
+    """A ``table_run`` sink that keeps each output's chunk digests and its
+    blocks on the host (to place a mismatch and feed the oracle)."""
+
+    def __init__(self):
+        self.digests, self.scalars, self.raw = {}, {}, {}
+
+    def put(self, name, blocks):
+        self.digests[name] = chunk_digests(blocks).cpu().numpy()
+        self.raw[name] = blocks.detach().cpu().numpy()
+
+    def scalar(self, name, value):
+        self.scalars[name] = value
+
+
+def procs_kernel_inputs(run: dict) -> dict:
+    """A rank's kernel inputs from its own pass (built on every rank: the
+    gathers' inputs need the exchange): its block of the base keys to
+    kernels 1-2, the final state's retrieve gathers to 3-4, the probe
+    query's base layer to kernel 5's layer entry."""
+    from repro_torch.core import multi_hashgraph as mh
+
+    table, probe, state, q = run["table"], run["probe"], run["state"], run["queries"]
+    d, local = table.num_shards, table.group.local
+    keys = run["data"]["keys"]
+    n = keys.shape[0] // d
+    rank = table.group.rank
+    mine = keys[rank * n : (rank + local) * n]
+    packed = table.schema.pack_keys(mine, table.device).reshape(local, -1)
+    qt = table.schema.pack_keys(q, table.device)
+    inputs = {**hash_inputs(table, packed), **gather_inputs(table, state, qt)}
+    base = state.base
+    qt = qt.reshape(local, -1)
+    routed = mh._route_queries_once(base, qt, probe.capacity_slack)
+    inputs["bucket_probe_layer"] = dict(
+        rq=routed.rq, rh=routed.rh, lo=routed.lo,
+        match_e=mh._tombstone_epochs(routed.rq, state.tombstones.index()),
+        offsets=base.local.offsets, keys=base.local.keys, table_size=base.local_range_cap,
+        stride=base.bucket_stride, epoch=0, max_probe=probe.max_probe, accumulate=False,
+        what="the compacted state's probe query",
+    )
+    for name in ("csr_gather_batched", "csr_gather"):
+        inputs.pop(name, None)  # the Pallas-interface rows stay with the stacked runs
+    return inputs
+
+
+
+
+def procs_rank(group, cfg, ref: dict, path: str, check_kernels_here: bool) -> dict:
+    """One rank of a procs run: the pass on its shard, every output's
+    digests against the stacked run's row ``rank`` (the first differing
+    chunk sent back raw), its steps (wall, rounds, bytes, launches,
+    reductions per entry point), the numpy oracle on sampled rows, its
+    kernels' inputs built with the other ranks and, on rank 0 with
+    ``check_kernels_here``, its kernels held against their twins."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import table_run
+
+    started = time.time()
+    card = torch.cuda.is_available()
+    device = torch.device("cuda", torch.cuda.current_device()) if card else torch.device("cpu")
+    if card:
+        torch.cuda.reset_peak_memory_stats(device)
+    rank = group.rank
+    sink = DigestSink()
+    t0 = time.perf_counter()
+    run = table_run.run_slice(cfg, sink, group=group, device=device, keep_state=True)
+    pass_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device) if card else None
+    mismatch = None
+    for name, want in ref["digests"].items():
+        got = sink.digests.get(name)
+        if got is None or got.shape[1:] != want.shape[1:]:
+            mismatch = {"name": name, "why": "missing or of another shape"}
+            break
+        diff = np.nonzero(got[0] != want[rank])[0]
+        if diff.shape[0]:
+            c = int(diff[0])
+            mismatch = {"name": name, "chunk": c, "raw": sink.raw[name][0].reshape(-1)[
+                c * PROCS_CHUNK : (c + 1) * PROCS_CHUNK].copy()}
+            break
+    t1 = time.perf_counter()
+    oracle = table_run.sampled_oracle(run["data"], cfg.seed, group.size, rank,
+                                      {k: v[0] for k, v in sink.raw.items()}, PROCS_SAMPLES)
+    sink.raw.clear()
+    t2 = time.perf_counter()
+    inputs = procs_kernel_inputs(run)
+    t3 = time.perf_counter()
+    steps = run["steps"]
+    launches = {}
+    for s in steps.values():
+        for k, n in s["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    rows = []
+    if check_kernels_here and rank == 0:
+        rows = check_kernels({"inputs": lambda: inputs, "result": {
+            "path": path, "shards": group.size, "launches": launches}}, device,
+            lambda m: print(m, flush=True))
+    del inputs, run
+    seconds = {"pass": pass_s, "compare": t1 - t0 - pass_s, "oracle": t2 - t1,
+               "kernel_inputs": t3 - t2, "kernel_checks": time.perf_counter() - t3,
+               "started_at": started, "ended_at": time.time()}
+    return {"rank": rank, "steps": steps, "pass_s": pass_s, "seconds": seconds,
+            "peak_bytes": peak,
+            "mismatch": mismatch, "scalars": sink.scalars, "oracle": oracle, "rows": rows,
+            "launches": launches}
+
+
+def procs_reference(cfg, shards: int, device, log) -> dict:
+    """The stacked run of the pass at ``shards``: its digests and scalars
+    for the ranks, its blocks on the host to place a mismatch, its steps."""
+    import torch
+
+    from repro_torch.launch import table_run
+
+    sink = DigestSink()
+    t0 = time.perf_counter()
+    out = table_run.run_slice(cfg, sink, num_shards=shards, device=device)
+    secs = time.perf_counter() - t0
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    walls = {step: round(v["wall_s"] * 1e3, 3) for step, v in out["steps"].items()}
+    log(f"procs stacked D={shards}: the pass in {secs:.1f} s, {len(sink.digests)} outputs; "
+        "wall ms per step " + json.dumps(walls))
+    return {"digests": sink.digests, "scalars": sink.scalars, "raw": sink.raw,
+            "steps": out["steps"], "seconds": secs, "walls_ms": walls}
+
+
+def procs_check(label: str, ranks: list, ref: dict, cfg, log, card: bool) -> None:
+    """Every rank against the stacked run: outputs bit for bit (the first
+    differing index printed), scalars, zero drops, the sampled oracle,
+    rounds, bytes and launches per entry point equal to the stacked run's,
+    and (``card``) the path's kernels gated."""
+    for res in ranks:
+        r, mm = res["rank"], res["mismatch"]
+        if mm is not None:
+            where = mm.get("why", "")
+            if "chunk" in mm:
+                want = ref["raw"][mm["name"]][r].reshape(-1)
+                c = mm["chunk"]
+                seg = want[c * PROCS_CHUNK : (c + 1) * PROCS_CHUNK]
+                at = int((mm["raw"] != seg).argmax())
+                where = (f"first differing flat index {c * PROCS_CHUNK + at}: {seg[at]} "
+                         f"stacked, {mm['raw'][at]} on the rank")
+            check(False, f"{label} rank {r}: {mm['name']} differs from the stacked row ({where})")
+        diff = {k: (v, ref["scalars"].get(k)) for k, v in res["scalars"].items()
+                if ref["scalars"].get(k) != v}
+        check(not diff and set(res["scalars"]) == set(ref["scalars"]),
+              f"{label} rank {r}: scalars differ from the stacked run's: " + str(diff)[:2000])
+        check(res["oracle"]["bad"] == 0, f"{label} rank {r}: {res['oracle']['bad']} of "
+              f"{res['oracle']['rows']} sampled rows differ from the numpy oracle")
+        for step, w in ref["steps"].items():
+            g = res["steps"][step]
+            for field in ("rounds", "plan_rounds", "bytes", "launches"):
+                check(g[field] == w[field], f"{label} rank {r} {step}: {field} {g[field]}, "
+                      f"the stacked run's {w[field]}")
+        if not card:
+            continue
+        st = res["steps"]
+        init = st["init"]["launches"]
+        check(init.get("murmur_bucket", 0) >= 1 and init.get("bin_histogram", 0) == 1,
+              f"{label} rank {r}: the build's kernels 1-2 launched {init}")
+        for step in ("r0.retrieve", "r0.inner_join", "r3.retrieve", "r_compact.retrieve"):
+            check_gather_launches(st[step]["launches"],
+                                  {"csr_gather_owners": 1, "csr_gather_queriers": 1},
+                                  f"{label} rank {r} {step}")
+        probe = st["r3.probe_query"]["launches"].get("bucket_probe_layer", 0)
+        check(probe == 4, f"{label} rank {r}: the depth-3 probe query launched kernel 5 "
+              f"{probe} times, want 4 (one a layer)")
+    s = ref["scalars"]
+    for name, v in s.items():
+        if name.endswith("num_dropped"):
+            check(v == 0, f"{label}: {name} = {v}")
+    if len(ranks) > 1:
+        check(s["skew.fallback"] == 1 and not s["skew.coherent"],
+              f"{label}: the skewed insert did not take the skew guard's fallback")
+
+
+def procs_report(label: str, ranks: list, smi: str, log) -> dict:
+    """Per rank: [wall ms, exchange rounds, bytes, agree all-reduces] per
+    entry point, and peak bytes; per world: the slowest rank's wall."""
+    world = {}
+    for res in ranks:
+        per = {step: [round(v["wall_s"] * 1e3, 3), v["rounds"] + v["plan_rounds"], v["bytes"],
+                      v["collectives"].get("agree", 0)]
+               for step, v in res["steps"].items()}
+        agree = sum(v["collectives"].get("agree", 0) for v in res["steps"].values())
+        reduce = sum(sum(v["collectives"].values()) for v in res["steps"].values()) - agree
+        log(f"{label} rank {res['rank']} [wall_ms, rounds, bytes, agree] per step: "
+            + json.dumps(per) + f"; agree all-reduces {agree}, psum/pmax all-reduces {reduce}, "
+            f"peak {res['peak_bytes']} bytes, seconds " + json.dumps(
+                {k: round(v, 3) for k, v in res["seconds"].items()}) + f" ({smi})")
+        for step, v in res["steps"].items():
+            world[step] = max(world.get(step, 0.0), v["wall_s"] * 1e3)
+    log(f"{label} world: the slowest rank's wall ms per step " + json.dumps(
+        {k: round(v, 3) for k, v in world.items()}) + f" ({smi})")
+    return world
+
+
+def run_procs(seed: int, device, log, n_keys: int = PROCS_KEYS) -> dict:
+    """The ``procs`` phase: the table's path with one shard per process.
+
+    1. the stacked run at D = 4 (``n_keys``, 2^24 a shard by default);
+    2. gloo-4: four ranks on ``device`` through ``launch.mesh.spawn``, each
+       launching the port's kernels on its own shard, every exchange staged
+       through host memory (its walls measure gloo's staging, not an
+       exchange over NVLink): every rank's outputs equal the stacked run's
+       row bit for bit, with its rounds, bytes and launches per entry point;
+       rank 0 holds kernels 1, 2, 3-4 and 5 against their twins on its own
+       inputs (rows ``procs-gloo-4``);
+    3. nccl-1: the same pass over NCCL at world 1 in this process (gloo on
+       the CPU), against the stacked run at D = 1."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh
+
+    card = device.type == "cuda"
+    smi = card_line() if card else "cpu"
+    cfg = procs_config(seed, n_keys)
+    result = {"path": "procs", "shards": PROCS_WORLD, "keys": n_keys, "queries": cfg.queries}
+    ref4 = procs_reference(cfg, PROCS_WORLD, device, log)
+    t0, wall0 = time.perf_counter(), time.time()
+    ranks = mesh.spawn(procs_rank, PROCS_WORLD, "gloo", str(device),
+                       args=(cfg, {"digests": ref4["digests"], "scalars": ref4["scalars"]},
+                             "procs-gloo-4", card), timeout_s=PROCS_TIMEOUT_S)
+    result["gloo4_s"] = time.perf_counter() - t0
+    wall1 = time.time()
+    for res in ranks:  # start-up (spawn to the rank's job) and wind-down, on the host clock
+        sec = res["seconds"]
+        sec["start_up"] = sec.pop("started_at") - wall0
+        sec["wind_down"] = wall1 - sec.pop("ended_at")
+    log(f"procs-gloo-4: {result['gloo4_s']:.2f} s from spawn to the last result; rank 0 "
+        + json.dumps({k: round(v, 3) for k, v in ranks[0]["seconds"].items()}))
+    procs_check("procs-gloo-4", ranks, ref4, cfg, log, card)
+    result["gloo4"] = {"walls_ms": procs_report("procs-gloo-4", ranks, smi, log),
+                       "peak_bytes": [r["peak_bytes"] for r in ranks],
+                       "stacked_s": ref4["seconds"], "stacked_walls_ms": ref4["walls_ms"],
+                       "oracle_rows": sum(r["oracle"]["rows"] for r in ranks)}
+    result["launches"] = ranks[0]["launches"]
+    rows = ranks[0]["rows"]
+    del ranks, ref4
+    gc.collect()
+    ref1 = procs_reference(cfg, 1, device, log)
+    backend = "nccl" if card else "gloo"
+    store = tempfile.mkdtemp(prefix="procs_world1_")
+    t0 = time.perf_counter()
+    group = mesh.init_shard_group(backend, "file://" + os.path.join(store, "store"),
+                                  timeout_s=PROCS_TIMEOUT_S, rank=0, world_size=1, device=device)
+    t_init = time.perf_counter() - t0
+    try:
+        one = procs_rank(group, cfg, {"digests": ref1["digests"], "scalars": ref1["scalars"]},
+                         f"procs-{backend}-1", False)
+    finally:
+        t1 = time.perf_counter()
+        dist.destroy_process_group()
+        t_destroy = time.perf_counter() - t1
+        for name in os.listdir(store):
+            os.remove(os.path.join(store, name))
+        os.rmdir(store)
+    result["world1_s"] = time.perf_counter() - t0
+    for k in ("started_at", "ended_at"):
+        one["seconds"].pop(k)
+    log(f"procs-{backend}-1: group init {t_init:.2f} s, destroy {t_destroy:.2f} s, the rank "
+        + json.dumps({k: round(v, 3) for k, v in one["seconds"].items()}))
+    procs_check(f"procs-{backend}-1", [one], ref1, cfg, log, card)
+    result["world1"] = {"backend": backend, "peak_bytes": one["peak_bytes"],
+                        "stacked_s": ref1["seconds"], "stacked_walls_ms": ref1["walls_ms"],
+                        "walls_ms": procs_report(f"procs-{backend}-1", [one], smi, log)}
+    del one, ref1
+    gc.collect()
+    if card:
+        torch.cuda.empty_cache()
+    log("path procs: " + json.dumps({k: v for k, v in result.items()
+                                     if k not in ("gloo4", "world1")}))
+    return {"result": result, "rows": rows}
+
+
+# ---------------------------------------------------------------------------
 # LM serving path (slice 3): qwen3-4b at full width through the batcher
 # ---------------------------------------------------------------------------
 def lm_settings() -> None:
@@ -3410,6 +3752,8 @@ def main(argv=None) -> int:
                         help="N of the D = 1 run; the D = 8 run takes N / 8")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--out", default=None, help="also write the results as JSON here")
+    parser.add_argument("--procs-keys", type=int, default=PROCS_KEYS,
+                        help="N of the procs phase (its D = 4 and D = 1 runs)")
     parser.add_argument("--profile", action="store_true",
                         help="also profile one more build, query and retrieve of the D = 1 read "
                         "run, one more depth-6 probe query and compact of the D = 1 update run, "
@@ -3514,6 +3858,17 @@ def main(argv=None) -> int:
         del run
         gc.collect()
         torch.cuda.empty_cache()
+    # The table across processes: gloo-4 on this card and NCCL at world 1.
+    t_run = time.perf_counter()
+    procs = run_procs(args.seed, device, log, n_keys=args.procs_keys)
+    rows += procs["rows"]
+    procs["result"]["run_s"] = time.perf_counter() - t_run
+    log(f"run procs: {procs['result']['run_s']:.1f} s (stacked runs, four ranks, one NCCL "
+        f"rank, oracles and rank 0's kernel checks; {smi})")
+    paths.append(procs["result"])
+    del procs
+    gc.collect()
+    torch.cuda.empty_cache()
     t_run = time.perf_counter()
     lm = run_lm_path(args.seed, device, log)
     lm["result"]["replay"] = check_lm_replay(lm, device, log)

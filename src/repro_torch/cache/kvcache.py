@@ -63,6 +63,9 @@ class KVCache:
         policy: Optional[CompactionPolicy] = None,
         metrics: Optional[MetricsRegistry] = None,
     ):
+        if table.group.is_process:
+            raise NotImplementedError(
+                "KVCache over a process group is ROADMAP item 7c; use a stacked table")
         self.table = table
         self.default_ttl = default_ttl
         self.metrics_registry = metrics if metrics is not None else MetricsRegistry()

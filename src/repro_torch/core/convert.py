@@ -10,8 +10,16 @@ delta, every tombstone field and the ``coherent`` flag.  Key lanes ``(...,
 2)``, value columns ``(..., C)``, the fingerprint lane and 2-lane
 tombstones carry across in the reference's layout (uint32 lanes,
 ``fingerprints`` ``(D*M,)`` uint32 or None).
+
+:func:`state_for_rank` turns a stacked state of D shards (the port's, or
+the reference's through :func:`state_from_numpy`) into one rank's state of
+a table over a process group: row ``r`` of every per-shard tensor, the
+splits, ``num_dropped`` and the tombstones replicated.  Both backends then
+read identical states, whatever built them.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -132,6 +140,44 @@ def state_from_numpy(
         ),
         table=table,
         coherent=bool(coherent),
+    )
+
+
+def graph_for_rank(graph: DistributedHashGraph, group, device=None) -> DistributedHashGraph:
+    """Rank ``group.rank``'s graph of a stacked ``graph`` of ``group.size``
+    shards: its row of ``offsets`` / ``keys`` / ``values`` /
+    ``fingerprints`` as a leading axis of 1, on ``device`` (default: the
+    graph's); ``hash_splits`` and ``num_dropped`` whole."""
+    if graph.local.keys.shape[0] != group.size:
+        raise ValueError(
+            f"graph has {graph.local.keys.shape[0]} shards, the group {group.size}"
+        )
+    device = graph.hash_splits.device if device is None else device
+
+    def mine(t):
+        return None if t is None else group.rows(t).clone().to(device)
+
+    loc = graph.local
+    local = dataclasses.replace(loc, offsets=mine(loc.offsets), keys=mine(loc.keys),
+                                values=mine(loc.values), fingerprints=mine(loc.fingerprints))
+    return dataclasses.replace(graph, local=local, hash_splits=graph.hash_splits.clone().to(device),
+                               num_dropped=graph.num_dropped.clone().to(device), group=group)
+
+
+def state_for_rank(state: TableState, table) -> TableState:
+    """Rank ``r``'s state of ``table`` (a ``DistributedHashTable`` over a
+    process group) from a stacked ``state`` of as many shards: every layer
+    through :func:`graph_for_rank`, the tombstone buffer replicated."""
+    group, dev = table.group, table.device
+    ts = state.tombstones
+    return TableState(
+        base=graph_for_rank(state.base, group, dev),
+        deltas=tuple(graph_for_rank(g, group, dev) for g in state.deltas),
+        tombstones=dataclasses.replace(ts, keys=ts.keys.clone().to(dev),
+                                       epochs=ts.epochs.clone().to(dev),
+                                       expires=ts.expires.clone().to(dev)),
+        table=table,
+        coherent=state.coherent,
     )
 
 

@@ -1,17 +1,35 @@
-"""Phases 2–3 of Alg. 2 — capacity-padded exchange on stacked shards (port of
-``repro.core.exchange``).
+"""Phases 2–3 of Alg. 2 — capacity-padded exchange over a shard group (port
+of ``repro.core.exchange``).
 
-The D shards of a table live on one device with a leading shard axis, so
-the all-to-all of a ``(D_src, D_dst * capacity, ...)`` buffer is a transpose
-of its first two block axes, ``psum`` is a sum over the shard axis and
-``my_rank`` is ``arange(D)``.  This is the single-card backend; a
-``torch.distributed`` backend for several cards is a later slice.
+A *shard group* is the port's counterpart of the reference's ``axis_names``:
+the D shards of a table and the few primitives every cross-shard step goes
+through (``size``, ``local``, ``ranks()``, ``all_to_all``, ``psum``,
+``pmax`` and the host-side ``agree``).  A process holds ``local`` of the D
+shards as the leading axis of every per-shard tensor.  Two backends:
+
+* :class:`StackedGroup` — all D shards on one device (``local == size``):
+  the all-to-all of ``(D_src, D_dst, ...)`` blocks is a transpose, ``psum``
+  and ``pmax`` of a value already reduced over the local rows are that value
+  and ``ranks()`` is ``arange(D)``: no copy, launch or sync beyond what the
+  single-card path always did.
+* :class:`ProcessGroup` — one shard per process of a ``torch.distributed``
+  group (``local == 1``, rank ``r`` holds shard ``r``): the all-to-all is one
+  ``all_to_all_single`` over equal capacity-padded splits, ``psum`` /
+  ``pmax`` are ``all_reduce``s.  NCCL moves CUDA buffers; gloo moves CPU
+  buffers and stages CUDA ones through pinned host memory.
+
+The reference's multi-axis mesh exchanges one hop per mesh axis; its
+row-major composite rank is the process rank here, and one flat
+all-to-all over the group gives the same blocks.
 
 Every all-to-all round counts one call in :data:`CALLS` under the calling
 thread's current label (``"exchange"`` unless :func:`counting_as` says
 otherwise), and in the thread's open ``counting.scoped`` blocks with the
 bytes one shard sends: the port's routing-budget check in place of the
-reference's jaxpr collective count.
+reference's jaxpr collective count.  A process group's reductions count
+apart, in :data:`REDUCTIONS` and ``Scope.collectives`` (``"psum"``,
+``"pmax"``, and ``"agree"`` for the host agreements), so a rank's rounds
+equal the stacked run's.
 """
 from __future__ import annotations
 
@@ -28,6 +46,8 @@ from repro_torch.utils import take_rows
 
 # Label -> all-to-all rounds made under it in this process (every thread).
 CALLS: collections.Counter = collections.Counter()
+# Kind ("psum", "pmax", "agree") -> a process group's reductions in this process.
+REDUCTIONS: collections.Counter = collections.Counter()
 _calls_lock = threading.Lock()
 _local = threading.local()
 
@@ -60,6 +80,201 @@ def _count_call(*buffers: torch.Tensor) -> None:
     counting.record_round(label, nbytes)
 
 
+def _count_reduction(kind: str) -> None:
+    with _calls_lock:
+        REDUCTIONS[kind] += 1
+    counting.record_collective(kind)
+
+
+# ---------------------------------------------------------------------------
+# Shard groups
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class StackedGroup:
+    """All ``size`` shards stacked on one device (``local == size``)."""
+
+    size: int
+
+    @property
+    def local(self) -> int:
+        return self.size
+
+    is_process = False
+    rank = 0  # the shard id of the first local row
+
+    def ranks(self, device) -> torch.Tensor:
+        """``(local,)`` int32 shard ids of the local rows."""
+        return torch.arange(self.size, dtype=torch.int32, device=device)
+
+    def rows(self, t: torch.Tensor) -> torch.Tensor:
+        """The local rows of a tensor indexed by shard id along dim 0."""
+        return t
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """``(local, D, ...)`` blocks by destination → ``(local, D, ...)``
+        blocks by source: row ``r`` holds what every source sent shard ``r``.
+        A view: every caller's reshape makes the one copy."""
+        return x.transpose(0, 1)
+
+    def all_to_all_many(self, xs: Sequence[torch.Tensor]) -> list:
+        """:meth:`all_to_all` of several buffers as one round."""
+        return [self.all_to_all(x) for x in xs]
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum over every shard of ``x``, this process's partial (already
+        summed over its local rows).  Stacked, that partial is the total."""
+        return x
+
+    def pmax(self, x: torch.Tensor) -> torch.Tensor:
+        """Elementwise maximum over processes of a partial maximum."""
+        return x
+
+    def agree(self, values: Sequence[int]) -> tuple:
+        """Host integers, each the maximum over the processes; one process
+        has nothing to agree with."""
+        return tuple(int(v) for v in values)
+
+    def same(self, values: Sequence[int]) -> bool:
+        """Did every process pass the same host integers?"""
+        return True
+
+
+_REDUCE_OPS = {"sum": "SUM", "max": "MAX"}
+
+
+class ProcessGroup:
+    """One shard per process of a ``torch.distributed`` process group.
+
+    ``pg`` is the group (``None``: the default group); rank ``r`` holds
+    shard ``r`` as a leading axis of 1.  Collectives go over NCCL on the
+    card or gloo (CPU buffers; CUDA buffers staged through pinned host
+    memory, so several ranks can share one card).  Buffers travel as bytes,
+    so every dtype rides one call (NCCL has no ``bool``).
+    """
+
+    is_process = True
+    local = 1
+
+    def __init__(self, pg=None):
+        import torch.distributed as dist
+
+        self._dist = dist
+        self.pg = pg
+        self.size = dist.get_world_size(pg)
+        self.rank = dist.get_rank(pg)
+        self.backend = str(dist.get_backend(pg)).lower()
+        # Host agreements travel on the transport's own device.
+        if self.backend == "nccl":
+            self.host_device = torch.device("cuda", torch.cuda.current_device())
+        else:
+            self.host_device = torch.device("cpu")
+
+    def __repr__(self) -> str:
+        return f"ProcessGroup(size={self.size}, rank={self.rank}, backend={self.backend!r})"
+
+    def ranks(self, device) -> torch.Tensor:
+        return torch.tensor([self.rank], dtype=torch.int32, device=device)
+
+    def rows(self, t: torch.Tensor) -> torch.Tensor:
+        return t[self.rank : self.rank + 1]
+
+    # -- transport ------------------------------------------------------------
+    def _staged(self, t: torch.Tensor) -> bool:
+        return self.backend == "gloo" and t.is_cuda
+
+    def _to_wire(self, t: torch.Tensor) -> torch.Tensor:
+        if not self._staged(t):
+            return t
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        return host.copy_(t)
+
+    def _exchange_bytes(self, send: torch.Tensor) -> torch.Tensor:
+        """``(D, B)`` uint8 rows by destination → ``(D, B)`` rows by source."""
+        wire = self._to_wire(send.contiguous())
+        out = torch.empty_like(wire)
+        self._dist.all_to_all_single(out, wire, group=self.pg)
+        return out.to(send.device, non_blocking=False) if self._staged(send) else out
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        return self.all_to_all_many([x])[0]
+
+    def all_to_all_many(self, xs: Sequence[torch.Tensor]) -> list:
+        """Every ``(1, D, ...)`` buffer in one ``all_to_all_single``: each
+        destination's blocks side by side as bytes, split on arrival."""
+        d = self.size
+        parts, widths = [], []
+        for x in xs:
+            if x.shape[0] != 1 or x.shape[1] != d:
+                raise ValueError(f"all_to_all takes (1, {d}, ...) blocks, got {tuple(x.shape)}")
+            b = x.reshape(d, -1).contiguous()
+            if b.dtype == torch.bool:
+                b = b.to(torch.uint8)
+            b = b.view(torch.uint8)
+            parts.append(b)
+            widths.append(b.shape[1])
+        got = self._exchange_bytes(parts[0] if len(parts) == 1 else torch.cat(parts, dim=1))
+        out, at = [], 0
+        for x, w in zip(xs, widths):
+            chunk = got[:, at : at + w].contiguous()
+            at += w
+            if x.dtype == torch.bool:
+                y = chunk.view(torch.uint8).to(torch.bool)
+            else:
+                y = chunk.view(x.dtype)
+            out.append(y.reshape(x.shape))
+        return out
+
+    def _all_reduce(self, t: torch.Tensor, op: str) -> torch.Tensor:
+        wire = self._to_wire(t.clone())
+        self._dist.all_reduce(wire, op=getattr(self._dist.ReduceOp, _REDUCE_OPS[op]),
+                              group=self.pg)
+        return wire.to(t.device) if self._staged(t) else wire
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        _count_reduction("psum")
+        return self._all_reduce(x, "sum")
+
+    def pmax(self, x: torch.Tensor) -> torch.Tensor:
+        _count_reduction("pmax")
+        return self._all_reduce(x, "max")
+
+    def agree(self, values: Sequence[int]) -> tuple:
+        _count_reduction("agree")
+        t = torch.tensor([int(v) for v in values], dtype=torch.int64, device=self.host_device)
+        return tuple(int(v) for v in self._all_reduce(t, "max").tolist())
+
+    def same(self, values: Sequence[int]) -> bool:
+        """One MAX all-reduce of ``(v, -v)``: equal everywhere iff max == min."""
+        vals = [int(v) for v in values]
+        got = self.agree(vals + [-v for v in vals])
+        k = len(vals)
+        return all(got[i] == -got[k + i] for i in range(k))
+
+
+def as_group(group, size: Optional[int] = None):
+    """A shard group from ``group``: ``None`` is the stacked group of
+    ``size`` shards; a ``torch.distributed`` process group (or ``"world"``
+    for the default one) is wrapped in a :class:`ProcessGroup`."""
+    if group is None:
+        return StackedGroup(int(size))
+    if isinstance(group, (StackedGroup, ProcessGroup)):
+        return group
+    return ProcessGroup(None if group == "world" else group)
+
+
+def checksum64(t: torch.Tensor) -> int:
+    """An order-sensitive 64-bit checksum of an integer tensor's rows (a
+    cheap test that two processes hold the same batch; wraps mod 2^64)."""
+    flat = t.reshape(-1).to(torch.int64)
+    if flat.numel() == 0:
+        return 0
+    pos = torch.arange(1, flat.numel() + 1, dtype=torch.int64, device=flat.device)
+    mixed = (flat ^ (pos * 0x27D4EB2F165667C5)) * 0x165667B19E3779F9
+    return int(mixed.sum())
+
+
 @dataclasses.dataclass(frozen=True)
 class Route:
     """Bookkeeping to reverse a dispatch, one row per source shard."""
@@ -70,6 +285,7 @@ class Route:
     num_dropped: torch.Tensor  # (D,) int64 per-source overflow count
     num_dest: int
     capacity: int
+    group: object = None  # the shard group the dispatch went over
 
 
 def pack_by_destination(
@@ -118,21 +334,17 @@ def pack_by_destination(
     return packed, route
 
 
-def all_to_all(x: torch.Tensor) -> torch.Tensor:
-    """``(D_src, D_dst, ...)`` → ``(D_dst, D_src, ...)``: row ``r`` of the
-    result holds the blocks every source sent to shard ``r``."""
-    return x.transpose(0, 1).contiguous()
-
-
-def all_to_all_hierarchical(x: torch.Tensor) -> torch.Tensor:
-    """Dense all-to-all of ``(D_src, D_dst, ...)`` blocks (one exchange call).
+def all_to_all_hierarchical(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Dense all-to-all of ``(local, D_dst, ...)`` blocks (one exchange call).
 
     The reference runs one ``lax.all_to_all`` per mesh axis; with the shards
-    stacked on one device every hop together is the transpose.  Callers that
-    ship several payloads stack them into ``x`` so they travel as one call.
+    stacked on one device every hop together is the transpose, and over a
+    process group one flat all-to-all.  Callers that ship several payloads
+    stack them into ``x`` so they travel as one call.
     """
+    group = as_group(group, x.shape[0])
     _count_call(x)
-    return all_to_all(x)
+    return group.all_to_all(x)
 
 
 def dispatch(
@@ -141,25 +353,28 @@ def dispatch(
     capacity: int,
     fills: Sequence[int],
     count_mask: Optional[torch.Tensor] = None,
+    group=None,
 ) -> tuple[list[torch.Tensor], Route]:
-    """Send row ``j`` of shard ``s`` to shard ``dest[s, j]`` (one exchange call).
+    """Send row ``j`` of local shard ``s`` to shard ``dest[s, j]`` (one
+    exchange call) over ``group`` (``None``: the stacked group of
+    ``dest.shape[0]`` shards).
 
-    Returns received buffers ``(D, D * capacity[, W])``, row-major by
+    Returns received buffers ``(local, D * capacity[, W])``, row-major by
     source, padded with ``fills``, and the :class:`Route` to send answers
     back.  Every payload (key lanes and value columns as trailing dims)
     travels in this one call.
     """
-    num_dest = dest.shape[0]
+    group = as_group(group, dest.shape[0])
+    local, num_dest = dest.shape[0], group.size
     packed, route = pack_by_destination(
         payloads, dest, num_dest, capacity, fills, count_mask=count_mask
     )
+    route = dataclasses.replace(route, group=group)
     _count_call(*packed)
-    received = [
-        all_to_all(buf.reshape(num_dest, num_dest, capacity, *buf.shape[2:])).reshape(
-            num_dest, num_dest * capacity, *buf.shape[2:]
-        )
-        for buf in packed
-    ]
+    received = group.all_to_all_many(
+        [buf.reshape(local, num_dest, capacity, *buf.shape[2:]) for buf in packed]
+    )
+    received = [r.reshape(local, num_dest * capacity, *r.shape[3:]) for r in received]
     return received, route
 
 
@@ -171,12 +386,13 @@ def _unsort(sorted_rows: torch.Tensor, route: Route) -> torch.Tensor:
 def combine(answers: torch.Tensor, route: Route, fill: int) -> torch.Tensor:
     """Inverse of :func:`dispatch` for one answer per row (one exchange call).
 
-    ``answers`` is laid out like the received buffers ``(D, D*capacity)``;
+    ``answers`` is laid out like the received buffers ``(local, D*capacity)``;
     dropped rows get ``fill``.
     """
     d, cap = route.num_dest, route.capacity
+    local = answers.shape[0]
     _count_call(answers)
-    back = all_to_all(answers.reshape(d, d, cap)).reshape(d, d * cap)
+    back = route.group.all_to_all(answers.reshape(local, d, cap)).reshape(local, d * cap)
     ans_sorted = torch.where(route.keep, torch.gather(back, 1, route.slot), fill)
     return _unsort(ans_sorted, route)
 
@@ -189,55 +405,57 @@ def combine_ragged(
 ):
     """Inverse of :func:`dispatch` for variable-fanout answers (retrieval).
 
-    ``seg_values`` is ``(D_owner, D_src, seg_capacity[, C])``: owner ``o``'s
-    packed answer runs for source ``s`` (a row's C value columns together);
-    ``slot_counts`` ``(D_owner, D_src*capacity)`` the per-slot run lengths.
-    Values and counts go home as transposes that count as **one** exchange
-    call (the reference packs both into one buffer, an interconnect
-    optimisation with the same outputs).
+    ``seg_values`` is ``(local_owner, D_src, seg_capacity[, C])``: owner
+    ``o``'s packed answer runs for source ``s`` (a row's C value columns
+    together); ``slot_counts`` ``(local_owner, D_src*capacity)`` the
+    per-slot run lengths.  Values and counts go home in **one** exchange
+    call (stacked, transposes counted once; over a process group one
+    all-to-all of both, as the reference packs them into one buffer).
 
-    ``layer_counts`` ``(L, D_owner, D_src*capacity)``, the per-layer run
+    ``layer_counts`` ``(L, local_owner, D_src*capacity)``, the per-layer run
     lengths of a fused layered retrieval laid out like ``slot_counts``, rides
     the same call (the reference bitcasts the L planes into that buffer) and
-    adds a fourth output: ``(D, N, L)`` each row's count split by layer (0
-    for dropped rows).
+    adds a fourth output: ``(local, N, L)`` each row's count split by layer
+    (0 for dropped rows).
 
     Returns ``(counts, starts, values[, per_layer])`` in each querier's row
-    order: ``(D, N)`` counts (0 for dropped rows), ``(D, N)`` starts into
-    ``values`` ``(D, D*seg_capacity[, C])`` (row-major by owner).
+    order: ``(local, N)`` counts (0 for dropped rows), ``(local, N)`` starts
+    into ``values`` ``(local, D*seg_capacity[, C])`` (row-major by owner).
     """
     d, cap = route.num_dest, route.capacity
+    group = route.group
+    local = seg_values.shape[0]
     seg_cap = seg_values.shape[2]
-    counts_i32 = slot_counts.to(torch.int32).reshape(d, d, cap)
-    planes = None
+    counts_i32 = slot_counts.to(torch.int32).reshape(local, d, cap)
+    sent = [seg_values, counts_i32]
     if layer_counts is not None:
         nl = layer_counts.shape[0]
-        planes = layer_counts.to(torch.int32).reshape(nl, d, d, cap)
-        _count_call(seg_values, counts_i32, planes.transpose(0, 1))
-    else:
-        _count_call(seg_values, counts_i32)
-    back_vals = all_to_all(seg_values)  # (D_src, D_owner, seg_cap[, C])
-    back_counts = all_to_all(counts_i32)
+        # (L, owner, src, cap) -> (owner, src, L, cap): each source's planes
+        # in its block, so they ride the same all-to-all.
+        sent.append(layer_counts.to(torch.int32).reshape(nl, local, d, cap).permute(1, 2, 0, 3))
+    _count_call(*sent)
+    back = group.all_to_all_many(sent)
+    back_vals, back_counts = back[0], back[1]  # (local_src, D_owner, ...)
     # Owner o packed my block by the exclusive cumsum of my slots' counts;
     # recompute the identical offsets from the returned counts.
     block_off = torch.cumsum(back_counts, dim=2, dtype=torch.int32) - back_counts
-    flat_counts = back_counts.reshape(d, d * cap)
-    flat_off = block_off.reshape(d, d * cap)
+    flat_counts = back_counts.reshape(local, d * cap)
+    flat_off = block_off.reshape(local, d * cap)
     owner = torch.div(route.slot, cap, rounding_mode="floor")
     starts_packed = owner * seg_cap + torch.gather(flat_off, 1, route.slot)
     counts_sorted = torch.where(route.keep, torch.gather(flat_counts, 1, route.slot), 0)
     starts_sorted = torch.where(route.keep, starts_packed, 0)
     counts = _unsort(counts_sorted.to(torch.int32), route)
     starts = _unsort(starts_sorted.to(torch.int32), route)
-    values = back_vals.reshape(d, d * seg_cap, *seg_values.shape[3:])
-    if planes is None:
+    values = back_vals.reshape(local, d * seg_cap, *seg_values.shape[3:])
+    if layer_counts is None:
         return counts, starts, values
-    # (L, D_owner, D_src, cap) -> (D_src, L, D_owner * cap): each querier's
-    # planes, addressed by the route's slots like the counts.
-    back_planes = planes.permute(2, 0, 1, 3).reshape(d, nl, d * cap)
+    # (local_src, D_owner, L, cap) -> (local_src, L, D_owner * cap): each
+    # querier's planes, addressed by the route's slots like the counts.
+    back_planes = back[2].permute(0, 2, 1, 3).reshape(local, nl, d * cap)
     n = route.slot.shape[1]
-    slot = route.slot.unsqueeze(1).expand(d, nl, n)
+    slot = route.slot.unsqueeze(1).expand(local, nl, n)
     per_sorted = torch.where(route.keep.unsqueeze(1), torch.gather(back_planes, 2, slot), 0)
     per_layer = torch.empty_like(per_sorted).scatter_(
-        2, route.perm.unsqueeze(1).expand(d, nl, n), per_sorted)
+        2, route.perm.unsqueeze(1).expand(local, nl, n), per_sorted)
     return counts, starts, values, per_layer.permute(0, 2, 1).contiguous()

@@ -56,12 +56,16 @@ class TableStats:
 
 
 def _rows(graph) -> int:
-    """CSR rows of a graph over all shards (keys are ``(D, M[, L])``)."""
-    return int(graph.local.keys.shape[0] * graph.local.keys.shape[1])
+    """CSR rows of a graph over all shards (keys are ``(local, M[, L])``,
+    every shard of the same M)."""
+    return int(graph.group.size * graph.local.keys.shape[1])
 
 
 def collect_stats(state: TableState) -> TableStats:
-    """Read a :class:`TableStats` snapshot off ``state``."""
+    """Read a :class:`TableStats` snapshot off ``state``: global numbers, the
+    same on every rank of a process group (the tombstones are replicated
+    and ``num_dropped`` was summed over the group), so a policy decides
+    alike everywhere."""
     ts = state.tombstones
     expired = 0
     if ts.capacity:
@@ -79,7 +83,8 @@ def collect_stats(state: TableState) -> TableStats:
 
 
 def collect_layer_live(state: TableState) -> tuple:
-    """Per-layer ``(live_rows, allocated_rows)`` pairs, base first."""
+    """Per-layer ``(live_rows, allocated_rows)`` pairs over every shard,
+    base first."""
     live = [int(x) for x in plans.exec_layer_live(state.table, state)]
     alloc = [_rows(layer) for layer in state.layers]
     return tuple(zip(live, alloc))

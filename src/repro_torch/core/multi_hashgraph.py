@@ -1,14 +1,17 @@
-"""Multi-shard HashGraph — Alg. 2 of the paper on stacked shards (port of
+"""Multi-shard HashGraph — Alg. 2 of the paper over a shard group (port of
 ``repro.core.multi_hashgraph``).
 
 Where the reference runs one program per device under ``shard_map``, the
-port runs every shard at once: arrays carry a leading shard axis ``D``, the
-all-to-all is the transpose in ``exchange``, ``psum`` a sum over that axis
-and ``my_rank`` ``arange(D)``.  Hashing, histogram, the CSR gathers and the
-linear bucket probe run in the port's CUDA kernels on the card.
+port runs a process's shards at once: arrays carry a leading axis of the
+``local`` shards this process holds, and every cross-shard step goes
+through the graph's shard group (``exchange.StackedGroup``: all D shards on
+one device, the all-to-all a transpose; ``exchange.ProcessGroup``: one
+shard per ``torch.distributed`` rank).  Hashing, histogram, the CSR gathers
+and the linear bucket probe run in the port's CUDA kernels on the card, on
+the local rows.
 
-Keys are ``(D, N)`` int32 or ``(D, N, 2)`` int32 lanes and values ``(D,
-N)`` or ``(D, N, C)`` (``repro_torch.core.schema``); the lanes and columns
+Keys are ``(local, N)`` int32 or ``(local, N, 2)`` int32 lanes and values
+``(local, N)`` or ``(local, N, C)`` (``repro_torch.core.schema``); the lanes and columns
 ride every exchange as trailing dims of one call.  A graph with the
 fingerprint lane is probed with the routed batch's fingerprints, computed
 once per routing round with its hashes (one kernel 1 launch) and shared by
@@ -41,10 +44,14 @@ from repro_torch.utils import cdiv
 
 @dataclasses.dataclass(frozen=True)
 class DistributedHashGraph:
-    """All D shards of the distributed table, stacked on one device.
+    """The shards of the distributed table this process holds.
 
-    ``local`` holds one CSR per shard (leading axis D).  ``bucket_stride``
-    coarsens the rebased-hash → local-bucket map exactly as in the reference.
+    ``local`` holds one CSR per local shard (leading axis ``group.local``:
+    every shard when stacked, one over a process group).  ``hash_splits``
+    and ``num_dropped`` are global, the same in every process.
+    ``bucket_stride`` coarsens the rebased-hash → local-bucket map exactly
+    as in the reference.  ``group=None`` is the stacked group of the
+    ``local`` shards.
     """
 
     local: HashGraph
@@ -54,6 +61,11 @@ class DistributedHashGraph:
     seed: int
     local_range_cap: int
     bucket_stride: int = 1
+    group: object = None
+
+    def __post_init__(self):
+        if self.group is None:
+            object.__setattr__(self, "group", exchange.StackedGroup(self.local.keys.shape[0]))
 
 
 def default_capacity(n_local: int, num_devices: int, slack: float) -> int:
@@ -63,9 +75,10 @@ def default_capacity(n_local: int, num_devices: int, slack: float) -> int:
     return cdiv(cap, 8) * 8
 
 
-def _shard_lo(hash_splits: torch.Tensor) -> torch.Tensor:
-    """Each shard's split base ``splits[rank]`` as a ``(D, 1)`` column."""
-    return hash_splits[:-1].to(torch.int32).unsqueeze(1)
+def _shard_lo(hash_splits: torch.Tensor, group) -> torch.Tensor:
+    """Each local shard's split base ``splits[rank]`` as a ``(local, 1)``
+    column."""
+    return group.rows(hash_splits[:-1]).to(torch.int32).unsqueeze(1)
 
 
 def _rebase_buckets(
@@ -131,10 +144,12 @@ def build_sharded(
     bucket_stride: int = 1,
     fingerprint: Optional[bool] = None,
     dest_offsets: Optional[torch.Tensor] = None,
+    group=None,
 ) -> DistributedHashGraph:
-    """Build the distributed HashGraph from ``keys`` ``(D, n_local[, L])``.
+    """Build the distributed HashGraph from ``keys`` ``(local, n_local[, L])``
+    over ``group`` (``None``: the stacked group of ``keys.shape[0]`` shards).
 
-    ``values`` ``(D, n_local[, C])`` ride along through the exchange
+    ``values`` ``(local, n_local[, C])`` ride along through the exchange
     (default: the global row id ``rank * n_local + i``).  EMPTY sentinels
     are left out of the histogram and the overflow count, routed
     round-robin, and land in the owner's trash bucket.  ``capacity`` overrides the per-destination
@@ -148,28 +163,29 @@ def build_sharded(
     exactly for multi-lane keys), computed owner-side from the received
     keys with their hashes.
 
-    ``dest_offsets`` ``(D, n_local)`` (hot-key replication) send each row to
+    ``dest_offsets`` ``(local, n_local)`` (hot-key replication) send each row to
     ``(hash owner + offset) % D``, so one hot key's rows spread over R
     owners.  An off-owner row lands in the receiver's clamped edge bucket
     (``_rebase_buckets``), where the exact key compare still finds it;
     readers sum one query round per offset (``query_layers_sharded``).
     """
-    d, n_local = keys.shape[:2]
+    group = exchange.as_group(group, keys.shape[0])
+    d, n_local = group.size, keys.shape[1]
     dev = keys.device
     lanes = hashgraph.shard_lanes(keys)
     if fingerprint is None:
         fingerprint = lanes > 1
     if values is None:
-        rank = torch.arange(d, dtype=torch.int32, device=dev).unsqueeze(1)
+        rank = group.ranks(dev).unsqueeze(1)
         values = rank * n_local + torch.arange(n_local, dtype=torch.int32, device=dev)
     is_pad = hashgraph.is_empty_key(keys, lanes)
 
-    # ---- Phase 1: partitioning.  psum of the per-shard histograms is one
+    # ---- Phase 1: partitioning.  psum of the local rows' histogram is one
     # histogram over every shard's keys (integer counts commute).
     h = hashing.hash_to_buckets(keys, hash_range, seed, lanes)
     if hash_splits is None:
         bins_g = num_bins or partition.choose_num_bins(hash_range, d)
-        ghist = partition.local_bin_histogram(h, bins_g, hash_range, valid=~is_pad)
+        ghist = group.psum(partition.local_bin_histogram(h, bins_g, hash_range, valid=~is_pad))
         splits = partition.balanced_hash_splits(ghist, d, hash_range)
     else:
         splits = hash_splits.to(torch.int32)  # frozen: no histogram round
@@ -180,14 +196,15 @@ def build_sharded(
     del h
     if dest_offsets is not None:
         dest = (dest + dest_offsets.to(torch.int32)) % d
-    round_robin = (torch.arange(n_local, dtype=torch.int32, device=dev) % d).expand(d, -1)
+    round_robin = (torch.arange(n_local, dtype=torch.int32, device=dev) % d).expand(
+        keys.shape[0], -1)
     dest = torch.where(is_pad, round_robin, dest)
 
     # ---- Phase 3: movement.
     if capacity is None:
         capacity = default_capacity(n_local, d, capacity_slack)
     (rkeys, rvalues), route = exchange.dispatch(
-        (keys, values), dest, capacity, fills=(EMPTY_BITS, -1), count_mask=~is_pad
+        (keys, values), dest, capacity, fills=(EMPTY_BITS, -1), count_mask=~is_pad, group=group
     )
     del dest, is_pad
 
@@ -197,7 +214,7 @@ def build_sharded(
     else:
         local_cap = int(local_range_cap)
     buckets, fp = _local_buckets(
-        rkeys, _shard_lo(splits), hash_range, local_cap, seed, bucket_stride, fingerprint
+        rkeys, _shard_lo(splits, group), hash_range, local_cap, seed, bucket_stride, fingerprint
     )
     local = hashgraph.build_from_buckets(
         rkeys, buckets, local_cap, rvalues, seed=seed, fingerprints=fp
@@ -205,11 +222,12 @@ def build_sharded(
     return DistributedHashGraph(
         local=local,
         hash_splits=splits,
-        num_dropped=route.num_dropped.sum(),
+        num_dropped=group.psum(route.num_dropped.sum()),
         hash_range=hash_range,
         seed=seed,
         local_range_cap=local_cap,
         bucket_stride=bucket_stride,
+        group=group,
     )
 
 
@@ -217,16 +235,16 @@ def build_sharded(
 class RoutedQueries:
     """One dispatch round of a query batch, seen from the owners."""
 
-    rq: torch.Tensor  # (D, D*capacity[, L]) received keys, EMPTY-padded
+    rq: torch.Tensor  # (local, D*capacity[, L]) received keys, EMPTY-padded
     route: exchange.Route
-    rh: torch.Tensor  # (D, D*capacity) owner-side hash values
-    lo: torch.Tensor  # (D, 1) each owner's split base
+    rh: torch.Tensor  # (local, D*capacity) owner-side hash values
+    lo: torch.Tensor  # (local, 1) each local owner's split base
     capacity: int
-    rfp: Optional[torch.Tensor] = None  # (D, D*capacity) fingerprints, or None
+    rfp: Optional[torch.Tensor] = None  # (local, D*capacity) fingerprints, or None
 
     @property
     def is_pad(self) -> torch.Tensor:
-        """``(D, D*capacity)`` bool: the padding slots (the probe kernel
+        """``(local, D*capacity)`` bool: the padding slots (the probe kernel
         finds them itself, so only the other paths compute this)."""
         return hashgraph.is_empty_key(self.rq, hashgraph.shard_lanes(self.rq))
 
@@ -251,7 +269,8 @@ def _route_queries_once(
     padding fills a shard overflows there).  Real keys precede a batch's
     padding in the stable dispatch order, so padding never displaces them.
     """
-    d, n_local = queries.shape[:2]
+    group = dhg.group
+    d, n_local = group.size, queries.shape[1]
     lanes = hashgraph.shard_lanes(queries)
     h = hashing.hash_to_buckets(queries, dhg.hash_range, dhg.seed, lanes)
     dest = partition.destination_of(h, dhg.hash_splits)
@@ -260,13 +279,14 @@ def _route_queries_once(
         dest = (dest + dest_offset) % d
     capacity = default_capacity(n_local, d, capacity_slack)
     (rq,), route = exchange.dispatch((queries,), dest, capacity, fills=(EMPTY_BITS,),
-                                     count_mask=~hashgraph.is_empty_key(queries, lanes))
+                                     count_mask=~hashgraph.is_empty_key(queries, lanes),
+                                     group=group)
     rh, rfp = _hash_routed(rq, dhg.hash_range, dhg.seed, fingerprint)
     return RoutedQueries(
         rq=rq,
         route=route,
         rh=rh,
-        lo=_shard_lo(dhg.hash_splits),
+        lo=_shard_lo(dhg.hash_splits, group),
         capacity=capacity,
         rfp=rfp,
     )
@@ -362,7 +382,7 @@ def query_sharded(
     layer_epoch: int = 0,
     dest_offset: int = 0,
 ) -> torch.Tensor:
-    """Multiplicity ``(D, n_local)`` int32 of each query key: route by the
+    """Multiplicity ``(local, n_local)`` int32 of each query key: route by the
     build splits, count against the owner's shard, route counts back.
     ``tombstones`` / ``layer_epoch`` mask rows deleted from this layer;
     ``dest_offset`` counts replica ``r`` of hot-key rows."""
@@ -432,8 +452,9 @@ def query_layers_sharded(
 def join_size_layers_sharded(
     layers: Sequence[DistributedHashGraph], queries: torch.Tensor, **kw
 ) -> torch.Tensor:
-    """Global inner-join cardinality against a versioned stack (int64 scalar)."""
-    return query_layers_sharded(layers, queries, **kw).sum()
+    """Global inner-join cardinality against a versioned stack (int64 scalar,
+    the same in every process)."""
+    return layers[0].group.psum(query_layers_sharded(layers, queries, **kw).sum())
 
 
 @dataclasses.dataclass(frozen=True)
@@ -448,11 +469,11 @@ class ShardRetrieval:
     counts[s, i]``.  On the fused path it rides the values' return call.
     """
 
-    offsets: torch.Tensor  # (D, n_local + 1) int32
-    values: torch.Tensor  # (D, out_capacity[, C]) int32
-    counts: torch.Tensor  # (D, n_local) int32
-    num_dropped: torch.Tensor  # () int64
-    layer_counts: Optional[torch.Tensor] = None  # (D, n_local, L) int32
+    offsets: torch.Tensor  # (local, n_local + 1) int32
+    values: torch.Tensor  # (local, out_capacity[, C]) int32
+    counts: torch.Tensor  # (local, n_local) int32
+    num_dropped: torch.Tensor  # () int64, over every shard
+    layer_counts: Optional[torch.Tensor] = None  # (local, n_local, L) int32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -460,10 +481,10 @@ class ShardJoin:
     """Per-shard join pairs ``(query_idx[s, j], values[s, j])`` for
     ``j < num_results[s]``; ``query_idx`` is the global query row id."""
 
-    query_idx: torch.Tensor  # (D, out_capacity) int32, -1 beyond num_results
-    values: torch.Tensor  # (D, out_capacity[, C]) int32
-    num_results: torch.Tensor  # (D,) int32
-    num_dropped: torch.Tensor  # () int64
+    query_idx: torch.Tensor  # (local, out_capacity) int32, -1 beyond num_results
+    values: torch.Tensor  # (local, out_capacity[, C]) int32
+    num_results: torch.Tensor  # (local,) int32
+    num_dropped: torch.Tensor  # () int64, over every shard
 
 
 def _layer_run_descriptors(
@@ -473,9 +494,9 @@ def _layer_run_descriptors(
 ) -> tuple[torch.Tensor, torch.Tensor, tuple]:
     """Owner-side locate of the routed batch in every layer (no exchange).
 
-    Returns ``(starts, counts, tables)``: ``(L, D, R)`` run descriptors
+    Returns ``(starts, counts, tables)``: ``(L, local, R)`` run descriptors
     (``R`` routed slots per owner), each start indexing its own layer's
-    values table, and the per-layer ``(D, M_l[, C])`` tables.  Tombstone
+    values table, and the per-layer ``(local, M_l[, C])`` tables.  Tombstone
     epochs are resolved once for the batch and mask every layer (and the
     fingerprints, where the routing computed them, serve every layer).
     """
@@ -493,17 +514,17 @@ def _layer_run_descriptors(
 
 
 def _owner_gather(starts, counts, tables, seg_capacity, d, cap):
-    """Every owner packs every source's runs of every layer (slot-major,
-    epoch order) into one segment per (owner, source): one launch of
-    ``csr_gather_owners``.  ``starts``/``counts`` are ``(L, D, D*cap)``.
-    Returns ``(segments (D, D, seg_capacity[, C]), slot totals (D, D*cap),
-    num_dropped)``."""
-    nl = counts.shape[0]
+    """Every local owner packs every source's runs of every layer
+    (slot-major, epoch order) into one segment per (owner, source): one
+    launch of ``csr_gather_owners``.  ``starts``/``counts`` are ``(L, local,
+    d*cap)``.  Returns ``(segments (local, d, seg_capacity[, C]), slot totals
+    (local, d*cap), num_dropped)``, the drops of the local owners."""
+    nl, local = counts.shape[:2]
     seg, dropped, slot_counts = ops.csr_gather_owners(
-        starts.reshape(nl, d, d, cap), counts.reshape(nl, d, d, cap), tables,
+        starts.reshape(nl, local, d, cap), counts.reshape(nl, local, d, cap), tables,
         capacity=seg_capacity,
     )
-    return seg, slot_counts.reshape(d, d * cap), dropped
+    return seg, slot_counts.reshape(local, d * cap), dropped
 
 
 def _retrieve_parts_fused(
@@ -524,8 +545,9 @@ def _retrieve_parts_fused(
     return ships segments and per-slot totals home (with ``per_layer`` also
     the L per-layer count planes, in the same call); each querier compacts
     its runs (one querier-side gather launch for all queriers).
+    ``num_dropped`` is the local rows' (the caller sums it over the group).
     """
-    d = queries.shape[0]
+    d = layers[0].group.size
     routed = _route_queries_once(layers[0], queries, capacity_slack, _wants_fingerprints(layers))
     starts_lr, counts_lr, tables = _layer_run_descriptors(layers, routed, tombstones)
     seg, slot_counts, owner_dropped = _owner_gather(
@@ -560,7 +582,7 @@ def _retrieve_runs(
     trip (two exchange calls).  Returns ``(counts, starts, seg_flat,
     dropped)`` in the querier's row order: row ``i``'s values are
     ``seg_flat[s, starts[s, i] : starts[s, i] + counts[s, i]]``."""
-    d = queries.shape[0]
+    d = dhg.group.size
     routed, rbuckets = _route_queries(dhg, queries, capacity_slack)
     run_starts, run_counts = hashgraph.query_locate(dhg.local, routed.rq, rbuckets, routed.rfp)
     run_counts = _mask_counts(run_counts, routed.rq, tombstones, layer_epoch)
@@ -584,8 +606,9 @@ def _retrieve_parts(
     per_layer: bool = False,
 ):
     """Merged retrieval over a layer stack: ``(offsets, query_rows, values,
-    counts, num_dropped, layer_counts)`` per querier shard (``layer_counts``
-    ``(D, n_local, L)`` with ``per_layer``, else None).
+    counts, num_dropped, layer_counts)`` per local querier shard
+    (``layer_counts`` ``(local, n_local, L)`` with ``per_layer``, else None;
+    ``num_dropped`` summed over the group: one ``psum``).
 
     ``fused`` (coherent stacks only) takes :func:`_retrieve_parts_fused`.
     Otherwise each layer runs :func:`_retrieve_runs` on its own splits, and
@@ -598,8 +621,9 @@ def _retrieve_parts(
     nlayers = len(layers)
     if fused is None:
         fused = nlayers == 1
+    group = layers[0].group
     if fused:
-        return _retrieve_parts_fused(
+        parts = _retrieve_parts_fused(
             layers,
             queries,
             seg_capacity=seg_capacity,
@@ -608,6 +632,7 @@ def _retrieve_parts(
             tombstones=tombstones,
             per_layer=per_layer,
         )
+        return parts[:4] + (group.psum(parts[4]),) + parts[5:]
     d, n_local = queries.shape[:2]
     counts_l, starts_l, segs_l, dropped = [], [], [], 0
     for epoch, layer in enumerate(layers):
@@ -635,7 +660,7 @@ def _retrieve_parts(
         slot_rows >= 0, torch.div(slot_rows, nlayers, rounding_mode="floor"), -1
     ).to(torch.int32)
     layer_counts = torch.stack(counts_l, dim=2).to(torch.int32) if per_layer else None
-    return offsets, query_rows, values, counts, dropped + out_dropped, layer_counts
+    return offsets, query_rows, values, counts, group.psum(dropped + out_dropped), layer_counts
 
 
 def retrieve_layers_sharded(
@@ -678,7 +703,7 @@ def inner_join_layers_sharded(
     fused: Optional[bool] = None,
 ) -> ShardJoin:
     """Materialized inner join against a versioned stack, as global-row pairs."""
-    d, n_local = queries.shape[:2]
+    n_local = queries.shape[1]
     _, query_rows, values, counts, num_dropped, _ = _retrieve_parts(
         layers,
         queries,
@@ -688,7 +713,7 @@ def inner_join_layers_sharded(
         tombstones=tombstones,
         fused=fused,
     )
-    rank = torch.arange(d, dtype=torch.int32, device=queries.device).unsqueeze(1)
+    rank = layers[0].group.ranks(queries.device).unsqueeze(1)
     query_idx = torch.where(query_rows >= 0, rank * n_local + query_rows, -1)
     num_results = torch.clamp(counts.sum(1), max=out_capacity).to(torch.int32)
     return ShardJoin(
@@ -707,13 +732,13 @@ def _plan_block_totals(
     tombstones: Optional[tuple[torch.Tensor, torch.Tensor]],
     layer_epoch: int,
 ) -> torch.Tensor:
-    """``(D_owner, D_src)`` values one layer's owners return to each source,
-    routed exactly like :func:`_retrieve_runs` (one dispatch)."""
-    d = queries.shape[0]
+    """``(local_owner, D_src)`` values one layer's local owners return to
+    each source, routed exactly like :func:`_retrieve_runs` (one dispatch)."""
+    d = dhg.group.size
     routed, rbuckets = _route_queries(dhg, queries, capacity_slack)
     _, run_counts = hashgraph.query_locate(dhg.local, routed.rq, rbuckets, routed.rfp)
     run_counts = _mask_counts(run_counts, routed.rq, tombstones, layer_epoch)
-    return run_counts.to(torch.int64).reshape(d, d, routed.capacity).sum(2)
+    return run_counts.to(torch.int64).reshape(-1, d, routed.capacity).sum(2)
 
 
 def plan_caps_sharded(
@@ -728,13 +753,15 @@ def plan_caps_sharded(
 
     Returns ``(seg_capacity, out_capacity)``: the largest per-(owner, source)
     segment and the largest per-querier total (the reference's ``pmax`` and
-    ``max(psum)``).  ``fused`` must match the path being planned: the fused
-    path packs every layer into one segment (one routing round), the
-    per-layer path one segment per layer (one round per layer).  Its
-    dispatches count under the ``"plan_caps"`` label.
+    ``max(psum)``, over the group before they reach the host, so every
+    process sizes the same buffers).  ``fused`` must match the path being
+    planned: the fused path packs every layer into one segment (one routing
+    round), the per-layer path one segment per layer (one round per layer).
+    Its dispatches count under the ``"plan_caps"`` label.
     """
     layers = tuple(layers)
-    d = queries.shape[0]
+    group = layers[0].group
+    d = group.size
     if fused is None:
         fused = len(layers) == 1
     with exchange.counting_as("plan_caps"):
@@ -743,22 +770,24 @@ def plan_caps_sharded(
                 layers[0], queries, capacity_slack, _wants_fingerprints(layers)
             )
             _, counts_lr, _ = _layer_run_descriptors(layers, routed, tombstones)
-            # block_totals[o, s]: values owner o returns to source s.
-            block_totals = counts_lr.to(torch.int64).reshape(len(layers), d, d, routed.capacity)
+            # block_totals[o, s]: values local owner o returns to source s.
+            block_totals = counts_lr.to(torch.int64).reshape(len(layers), -1, d, routed.capacity)
             block_totals = block_totals.sum(dim=(0, 3))
-            return int(block_totals.max()), int(block_totals.sum(0).max())
-        seg_need, out_vec = 0, 0
-        for epoch, layer in enumerate(layers):
-            block_totals = _plan_block_totals(
-                layer,
-                queries,
-                capacity_slack=capacity_slack,
-                tombstones=tombstones,
-                layer_epoch=epoch,
-            )
-            seg_need = max(seg_need, int(block_totals.max()))
-            out_vec = out_vec + block_totals
-    return seg_need, int(out_vec.sum(0).max())
+            seg_local = block_totals.max()
+        else:
+            seg_local, block_totals = None, 0
+            for epoch, layer in enumerate(layers):
+                layer_totals = _plan_block_totals(
+                    layer,
+                    queries,
+                    capacity_slack=capacity_slack,
+                    tombstones=tombstones,
+                    layer_epoch=epoch,
+                )
+                top = layer_totals.max()
+                seg_local = top if seg_local is None else torch.maximum(seg_local, top)
+                block_totals = block_totals + layer_totals
+    return int(group.pmax(seg_local)), int(group.psum(block_totals.sum(0)).max())
 
 
 def fold_layers_local(
@@ -797,7 +826,7 @@ def fold_layers_local(
     del keys_parts, vals_parts
     buckets, fp = _local_buckets(
         keys_cat,
-        _shard_lo(base.hash_splits),
+        _shard_lo(base.hash_splits, base.group),
         base.hash_range,
         base.local_range_cap,
         base.seed,

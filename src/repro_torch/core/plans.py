@@ -2,8 +2,9 @@
 ``repro.core.plans``).
 
 The executors (``exec_*``) take the table (for its settings), a
-:class:`TableState` and a ``(D, n_local[, L])`` query tensor, and run the
-sharded path at once over ``base + deltas - tombstones``.  A *plan* binds a
+:class:`TableState` and a ``(local, n_local[, L])`` query tensor (every
+shard stacked, or a rank's one), and run the sharded path at once over
+``base + deltas - tombstones``.  A *plan* binds a
 table to its resolved statics (query count, capacities) and returns global
 layouts, as the table's read methods do:
 
@@ -51,7 +52,7 @@ def _read_kw(table, state: TableState) -> dict:
 def exec_query(
     table, state: TableState, queries: torch.Tensor, *, dest_offset: int = 0
 ) -> torch.Tensor:
-    """Merged multiplicity per query, ``(D, n_local)`` int32.
+    """Merged multiplicity per query, ``(local, n_local)`` int32.
 
     ``dest_offset`` counts replica ``r`` of hot-key rows; ``table.query``
     sums the rounds ``r = 0..R-1`` (a key that was not replicated counts 0
@@ -137,13 +138,15 @@ def _layer_live(state: TableState) -> list[torch.Tensor]:
 
 def exec_live_count(table, state: TableState) -> torch.Tensor:
     """Live (non-tombstoned, non-sentinel) rows over every layer and shard:
-    the count behind compaction sizing (a sum, no exchange)."""
-    return torch.stack(_layer_live(state)).sum()
+    the count behind compaction sizing (a sum, no exchange; the local
+    rows' count ``psum``'d over a process group, as the reference's)."""
+    return state.base.group.psum(torch.stack(_layer_live(state)).sum())
 
 
 def exec_layer_live(table, state: TableState) -> torch.Tensor:
-    """Per-layer live row counts ``(num_layers,)``, base first."""
-    return torch.stack(_layer_live(state))
+    """Per-layer live row counts ``(num_layers,)`` over every shard, base
+    first."""
+    return state.base.group.psum(torch.stack(_layer_live(state)))
 
 
 def _leaf(t: Optional[torch.Tensor]):
@@ -209,9 +212,10 @@ def global_join(j: ShardJoin) -> ShardJoin:
 
 def _proto_queries(table, num_queries: int) -> torch.Tensor:
     """An all-sentinel query batch with the schema's packed shape, on the
-    table's device."""
+    table's device: ``num_queries`` global keys, this caller's rows of them."""
     lanes = table.schema.key_lanes
-    shape = (num_queries,) if lanes == 1 else (num_queries, lanes)
+    rows = num_queries * table.group.local // table.num_shards
+    shape = (rows,) if lanes == 1 else (rows, lanes)
     return torch.full(shape, EMPTY_BITS, dtype=torch.int32, device=table.device)
 
 
@@ -222,7 +226,9 @@ class CompiledPlan:
     Built by ``plan.compile(state)``, which ran the executor once against
     ``state``.  Calls require the exact structure it was built for: a state
     matching :func:`state_signature` and a batch of ``num_queries`` keys;
-    anything else raises ``ValueError`` and is never run.
+    anything else raises ``ValueError`` and is never run.  ``num_queries``
+    is the global batch length, as in the reference (over a process group a
+    rank passes ``num_queries / D`` keys).
     """
 
     plan: object  # the QueryPlan / RetrievePlan / JoinPlan it runs
@@ -237,7 +243,7 @@ class CompiledPlan:
                 f"compiled {self.kind} plan got a state of another structure "
                 f"(depth {len(st.deltas)}); compile a plan for it"
             )
-        n = len(queries)
+        n = self.plan.table._global_len(len(queries))
         if n != self.num_queries:
             raise ValueError(f"compiled {self.kind} plan takes {self.num_queries} queries, got {n}")
         return self.plan(st, queries)
@@ -257,7 +263,7 @@ class _Lowered:
         return CompiledPlan(
             plan=self.plan,
             kind=self.plan.kind,
-            num_queries=int(self.queries.shape[0]),
+            num_queries=self.plan.table._global_len(self.queries.shape[0]),
             signature=state_signature(self.state),
         )
 
@@ -273,7 +279,7 @@ class _PlanBase:
     def _prep(self, state, queries):
         st = as_state(self.table, state)
         q = self.table._pack_queries(queries)
-        n = q.shape[0] * q.shape[1]
+        n = q.shape[1] * self.table.num_shards  # the global batch length
         if self.num_queries is not None and n != self.num_queries:
             raise ValueError(f"plan was built for {self.num_queries} queries, got {n}")
         return st, q

@@ -17,7 +17,11 @@
 States are immutable: every mutation returns a new state and the old one
 stays valid.  The tombstone buffer's ``count``, ``num_dropped`` and ``now``
 are host integers (the port runs eagerly, so they never need a device
-read); its arrays live on the table's device.
+read); its arrays live on the table's device.  Over a process group the
+buffer is replicated: deletes and upserts take the same batch on every
+rank (``DistributedHashTable`` checks a checksum of it), so the buffer and
+its host integers are the same everywhere and no branch on them can split
+the ranks.
 """
 from __future__ import annotations
 
@@ -42,7 +46,8 @@ NEVER_EXPIRES = 0x7FFFFFFF
 
 @dataclasses.dataclass(frozen=True)
 class Tombstones:
-    """Fixed-capacity delete/TTL buffer, shared by every shard.
+    """Fixed-capacity delete/TTL buffer, shared by every shard (replicated
+    on every rank of a process group).
 
     Unused slots hold EMPTY with epoch -1 (matched by nothing).
     ``num_dropped`` counts deletes that overflowed the buffer.

@@ -15,10 +15,25 @@
     compiled = plan.compile(state)            # bound to state's structure
     state = state.compact()                   # fold deltas + tombstones
 
-The D shards live on one device (see ``repro_torch.core.exchange``).
+By default the D shards live on one device (``exchange.StackedGroup``).
 Results keep the reference's global layout: shard blocks stacked along dim
 0, e.g. ``offsets`` of shape ``(D * (n_local + 1),)``, so they compare
 directly with the JAX package's arrays.
+
+With ``group=`` a ``torch.distributed`` process group (or
+``exchange.ProcessGroup``), each rank holds one shard and the same calls
+run on every rank, the reference's ``shard_map`` program:
+
+    group = launch.mesh.init_shard_group()    # torchrun's RANK / WORLD_SIZE
+    table = DistributedHashTable(hash_range=1 << 20, group=group)
+    state = table.init(my_keys)               # this rank's block of the keys
+    counts = table.query(state, my_queries)   # this rank's block of counts
+
+Keys, values and queries are then the rank's own block (the same length on
+every rank), results its block of the global layout (rank ``r``'s equal
+row ``r`` of a stacked run), and scalars (``num_dropped``, ``join_size``,
+``plan_caps``) global.  ``delete`` and ``upsert`` take the same replicated
+batch on every rank, as the reference's ``P()`` in-spec does.
 """
 from __future__ import annotations
 
@@ -43,7 +58,8 @@ from repro_torch.utils import cdiv, take_rows
 
 @dataclasses.dataclass(kw_only=True, eq=False)
 class DistributedHashTable:
-    """The distributed HashGraph of ``num_shards`` shards on one device.
+    """The distributed HashGraph of ``num_shards`` shards on one device, or
+    of one shard per rank of ``group`` (``num_shards`` is then its size).
 
     ``device=None`` takes the CUDA card and raises when there is none; the
     plain PyTorch path runs only when the caller asks for ``device="cpu"``.
@@ -66,7 +82,13 @@ class DistributedHashTable:
     ``hot_keys``; ``query`` (and ``contains``) then sum one routed round
     per replica rank.  As in the reference, ``retrieve``, ``inner_join``
     and ``join_size`` see only replica 0, and ``compact()`` gathers the
-    rows back onto their hash owner.
+    rows back onto their hash owner.  Over a process group it raises
+    ``NotImplementedError`` (ROADMAP item 7c).
+
+    ``group``: ``None`` stacks ``num_shards`` shards on ``device``; a
+    ``torch.distributed`` process group, ``"world"`` or an
+    ``exchange.ProcessGroup`` puts one shard on each rank, on the rank's
+    current CUDA device unless ``device`` says otherwise.
     """
 
     hash_range: int
@@ -86,15 +108,27 @@ class DistributedHashTable:
     skew_guard: bool = True
     fingerprint: Optional[bool] = None
     replicate_hot_keys: int = 0
+    group: object = None
 
     def __post_init__(self):
+        if self.group is None:
+            self.group = exchange.StackedGroup(max(1, self.num_shards))
+        else:
+            self.group = exchange.as_group(self.group)
+            self.num_shards = self.group.size
+        if self.group.is_process and self.replicate_hot_keys > 1:
+            raise NotImplementedError(
+                "replicate_hot_keys over a process group is ROADMAP item 7c: its "
+                "occurrence ranks need the whole batch on every rank"
+            )
         if self.device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
                     "DistributedHashTable runs on the CUDA card by default and "
                     "none is available; pass device='cpu' for the plain path"
                 )
-            self.device = "cuda"
+            self.device = torch.device("cuda", torch.cuda.current_device()) \
+                if self.group.is_process else "cuda"
         self.device = torch.device(self.device)
         if self.schema is None:
             self.schema = TableSchema()
@@ -120,12 +154,69 @@ class DistributedHashTable:
         return self.num_shards
 
     def _shard(self, flat: torch.Tensor, what: str) -> torch.Tensor:
+        """A caller's batch as ``(local, n_local[, W])`` rows: the global
+        batch cut into the shards, or over a process group this rank's block
+        (checked to be as long on every rank: one ``agree``)."""
         n = flat.shape[0]
+        if self.group.is_process:
+            if not self.group.same([n]):
+                raise ValueError(
+                    f"{what}: ranks passed blocks of different lengths (this rank {n}); "
+                    "every rank passes the same number of rows"
+                )
+            return flat.unsqueeze(0)
         if n % self.num_shards:
             raise ValueError(
                 f"{what} length {n} is not divisible by num_shards={self.num_shards}"
             )
         return flat.reshape(self.num_shards, n // self.num_shards, *flat.shape[1:])
+
+    def _shard_rows(self, flat: torch.Tensor, vals: torch.Tensor) -> tuple:
+        """:meth:`_shard` of a key batch and its values together (one
+        ``agree`` of both lengths over a process group)."""
+        if not self.group.is_process:
+            return self._shard(flat, "keys"), self._shard(vals, "values")
+        n, m = flat.shape[0], vals.shape[0]
+        if not self.group.same([n, m]) or n != m:
+            raise ValueError(
+                f"keys/values: ranks passed blocks of different lengths (this rank {n} keys, "
+                f"{m} values); every rank passes the same number of rows"
+            )
+        return flat.unsqueeze(0), vals.unsqueeze(0)
+
+    def _row_ids(self, n: int) -> torch.Tensor:
+        """The default payload of a caller's ``n`` rows: their row ids in the
+        global batch (over a process group, rank ``r``'s block starts at
+        ``r * n``)."""
+        ids = self.schema.default_values(n, self.device)
+        offset = self.group.rank * n
+        return ids + offset if offset else ids
+
+    def _deal(self, flat: torch.Tensor) -> torch.Tensor:
+        """The local rows of a replicated batch (length divisible by D) cut
+        into the shards: every shard stacked, or this rank's block."""
+        return self.group.rows(flat.reshape(self.num_shards, -1, *flat.shape[1:]))
+
+    def _global_len(self, n_local_rows: int) -> int:
+        """Global batch length of a caller's ``n_local_rows``-row batch (a
+        stacked caller passes the global batch, a rank its block)."""
+        return int(n_local_rows) * (self.num_shards // self.group.local)
+
+    def _check_replicated(self, what: str, *batches) -> None:
+        """Over a process group, raise ``ValueError`` on every rank unless
+        every rank passed the same batches: one ``agree`` of each batch's
+        length and 64-bit checksum."""
+        if not self.group.is_process:
+            return
+        marks = []
+        for b in batches:
+            t = b if isinstance(b, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(b))
+            marks += [t.shape[0], exchange.checksum64(t)]
+        if not self.group.same(marks):
+            raise ValueError(
+                f"{what}: the batch differs between ranks; {what} takes the same "
+                "(replicated) batch on every rank"
+            )
 
     def _pack_queries(self, queries) -> torch.Tensor:
         return self._shard(self.schema.pack_keys(queries, self.device), "queries")
@@ -148,6 +239,7 @@ class DistributedHashTable:
             seed=self.seed,
             capacity=capacity,
             fingerprint=self.use_fingerprint,
+            group=self.group,
             **kw,
         )
 
@@ -160,10 +252,10 @@ class DistributedHashTable:
         """
         flat = self.schema.pack_keys(keys, self.device)
         if values is None:
-            vals = self.schema.default_values(flat.shape[0], self.device)
+            vals = self._row_ids(flat.shape[0])
         else:
             vals = self.schema.pack_values(values, self.device)
-        k, v = self._shard(flat, "keys"), self._shard(vals, "values")
+        k, v = self._shard_rows(flat, vals)
         return self._build(k, v, hash_range=self.hash_range, num_bins=self.num_bins)
 
     def init(self, keys, values=None) -> TableState:
@@ -225,12 +317,13 @@ class DistributedHashTable:
     def _coherent_dispatch_overflows(
         self, keys: torch.Tensor, splits: torch.Tensor, offsets: Optional[torch.Tensor] = None
     ) -> bool:
-        """Would a frozen-splits delta build of ``(D, n_local)`` keys overflow
-        a per-(source, destination) dispatch slot?  Replays the build's
-        routing (the hot-key ``offsets`` ``(D, n_local)`` added, EMPTY rows
-        round-robin) and histograms it per pair on the device; only the
-        verdict comes to the host."""
-        d, n_local = keys.shape[:2]
+        """Would a frozen-splits delta build of ``(local, n_local)`` keys
+        overflow a per-(source, destination) dispatch slot?  Replays the
+        build's routing (the hot-key ``offsets`` ``(local, n_local)`` added,
+        EMPTY rows round-robin) and histograms the local sources' pairs on
+        the device; only the verdict comes to the host, agreed by MAX over
+        the group."""
+        d, n_local = self.num_shards, keys.shape[1]
         lanes = self.schema.key_lanes
         capacity = multi_hashgraph.default_capacity(n_local, d, self.capacity_slack)
         h = hashing.hash_to_buckets(keys, self.hash_range, self.seed, lanes)
@@ -239,15 +332,17 @@ class DistributedHashTable:
             dest = (dest + offsets) % d
         round_robin = torch.arange(n_local, dtype=torch.int32, device=keys.device) % d
         dest = torch.where(hashgraph.is_empty_key(keys, lanes), round_robin, dest)
-        src = torch.arange(d, dtype=torch.int32, device=keys.device).unsqueeze(1)
+        src = self.group.ranks(keys.device).unsqueeze(1)
         per_pair = histogram.bin_histogram((src * d + dest).to(torch.int32), d * d)
-        return bool((per_pair > capacity).any())
+        over = bool((per_pair > capacity).any())
+        return bool(self.group.agree([int(over)])[0])
 
     def insert(self, state, keys, values=None, *, auto_compact: bool = False) -> TableState:
         """Functional insert: a new state with one more delta graph.
 
-        ``keys``/``values`` follow :meth:`build` (``N % num_shards == 0``);
-        ``values=None`` gives the row id within the batch.  Raises when the
+        ``keys``/``values`` follow :meth:`build` (``N % num_shards == 0``;
+        over a process group this rank's block); ``values=None`` gives the
+        row id within the batch.  Raises when the
         ring is full unless ``auto_compact`` compacts first (whenever
         :meth:`TableState.should_compact` fires).  With ``coherent_deltas``
         the delta is built on the base's frozen splits; a batch that would
@@ -258,24 +353,28 @@ class DistributedHashTable:
         st = as_state(self, state)
         if auto_compact and st.should_compact():
             st = self.compact(st)
+        flat = self.schema.pack_keys(keys, self.device)
+        if values is None:
+            vals = self._row_ids(flat.shape[0])
+        else:
+            vals = self.schema.pack_values(values, self.device)
+        return self._insert_rows(st, *self._shard_rows(flat, vals))
+
+    def _insert_rows(self, st: TableState, k: torch.Tensor, v: torch.Tensor) -> TableState:
+        """:meth:`insert` of ``(local, n_local[, W])`` key and value rows."""
         if len(st.deltas) >= self.max_deltas:
             raise RuntimeError(
                 f"delta ring full ({self.max_deltas} deltas); call compact() "
                 "to fold deltas into the base before inserting more"
             )
-        flat = self.schema.pack_keys(keys, self.device)
-        if values is None:
-            vals = self.schema.default_values(flat.shape[0], self.device)
-        else:
-            vals = self.schema.pack_values(values, self.device)
-        k = self._shard(flat, "keys")
-        v = self._shard(vals, "values")
+        num_keys = k.shape[1] * self.num_shards
         coherent_build = self.coherent_deltas
         offsets = None
         if coherent_build and self.replicate_hot_keys > 1:
             # One-key skew no split fixes: spread each hot key's rows over R
-            # consecutive owners before the guard checks the batch.
-            offsets = self._hot_key_offsets(flat)
+            # consecutive owners before the guard checks the batch (stacked
+            # only, so the local rows are the whole batch).
+            offsets = self._hot_key_offsets(k.reshape(num_keys, *k.shape[2:]))
             if offsets is not None:
                 offsets = self._shard(offsets, "offsets")
         if coherent_build and self.skew_guard:
@@ -283,7 +382,7 @@ class DistributedHashTable:
                 coherent_build = False
                 self.skew_fallbacks += 1
         if coherent_build:
-            local_cap, stride = self._delta_bucket_geometry(flat.shape[0])
+            local_cap, stride = self._delta_bucket_geometry(num_keys)
             delta = self._build(
                 k,
                 v,
@@ -296,7 +395,7 @@ class DistributedHashTable:
             )
             coherent = st.coherent
         else:
-            hr = self._delta_hash_range(flat.shape[0])
+            hr = self._delta_hash_range(num_keys)
             delta = self._build(k, v, hash_range=hr, num_bins=self._num_bins_for(hr))
             coherent = False  # mixed-split stack: per-layer routing from now on
         return dataclasses.replace(st, deltas=st.deltas + (delta,), coherent=coherent)
@@ -304,16 +403,21 @@ class DistributedHashTable:
     def delete(self, state, keys) -> TableState:
         """Functional delete: tombstone every current occurrence of ``keys``
         at the current epoch (later inserts stay visible).  ``keys`` is one
-        unsharded array of any length; overflow past ``tombstone_capacity``
-        is counted in ``state.num_dropped``."""
-        st = as_state(self, state)
+        unsharded array of any length (over a process group the same on every
+        rank, checked); overflow past ``tombstone_capacity`` is counted in
+        ``state.num_dropped``."""
+        packed = self.schema.pack_keys(keys, self.device)
+        self._check_replicated("delete", packed)
+        return self._tombstone(as_state(self, state), packed)
+
+    def _tombstone(self, st: TableState, packed: torch.Tensor) -> TableState:
+        """Push packed replicated keys as deletes at the current epoch."""
         ts = st.tombstones
         if ts.capacity == 0:
             # A zero-capacity buffer grows on the first delete.  It keeps the
             # clock (the reference restarts it at 0; ROADMAP.md, faults).
             ts = empty_tombstones(self.tombstone_capacity, ts.now, device=self.device,
                                   key_lanes=self.schema.key_lanes)
-        packed = self.schema.pack_keys(keys, self.device)
         return dataclasses.replace(st, tombstones=ts.push(packed, epoch=len(st.deltas)))
 
     def upsert(
@@ -334,15 +438,18 @@ class DistributedHashTable:
         pushes a pending tombstone at the new epoch that takes effect when
         the clock reaches ``now + ttl``.  ``keys`` need not divide into the
         shards: the batch is EMPTY-padded (padding is never tombstoned).
+        Over a process group the batch is replicated, as for :meth:`delete`
+        (checked), and each rank inserts its block of the padded batch.
         """
         st = as_state(self, state)
-        if auto_compact and st.should_compact():
-            st = self.compact(st)
         kn = self.schema.pack_keys(keys, "cpu").numpy()
         if values is None:
             vn = self.schema.default_values(kn.shape[0], "cpu").numpy()
         else:
             vn = self.schema.pack_values(values, "cpu").numpy()
+        self._check_replicated("upsert", kn, vn)
+        if auto_compact and st.should_compact():
+            st = self.compact(st)
         # Keep-last dedup: one winner per key, EMPTY rows dropped (one word a
         # key: the int64 view of a 2-lane key, EMPTY -1 either way).
         words = kn if kn.ndim == 1 else np.ascontiguousarray(kn).view(np.int64)[:, 0]
@@ -356,8 +463,8 @@ class DistributedHashTable:
         pad = (-real.shape[0]) % self.num_shards
         padded_keys = torch.cat([real, real.new_full((pad,) + real.shape[1:], EMPTY_BITS)])
         padded_vals = torch.cat([vals, vals.new_full((pad,) + vals.shape[1:], -1)])
-        st = self.delete(st, real)  # hide prior versions: epoch d
-        st = self.insert(st, padded_keys, padded_vals)  # the new version: d + 1
+        st = self._tombstone(st, real)  # hide prior versions: epoch d
+        st = self._insert_rows(st, self._deal(padded_keys), self._deal(padded_vals))  # d + 1
         if ttl is not None:
             ts = st.tombstones
             ts = ts.push(real, epoch=len(st.deltas), expires=ts.now + int(ttl))
@@ -370,10 +477,11 @@ class DistributedHashTable:
         Every layer's rows are masked to EMPTY where tombstoned, concatenated
         per shard, dealt round-robin across the shards (one exchange call)
         and rebuilt (the build's one dispatch).  With ``capacity=None`` the
-        live row count (a sum, no exchange) sizes the rebuild, so steady
+        live row count (a sum, no exchange; a ``psum`` over a process group)
+        sizes the rebuild, so steady
         insert/delete/compact cycles keep the base flat; the sizing is
-        memoised per state signature.  ``capacity`` pins the rebuild's
-        per-destination slot size.
+        memoised per state signature (shapes, the same on every rank).
+        ``capacity`` pins the rebuild's per-destination slot size.
         """
         st = as_state(self, state)
         d = self.num_shards
@@ -413,8 +521,8 @@ class DistributedHashTable:
 
     def _compact_rows(self, st: TableState, rebuild_rows: Optional[int]):
         """The rows a compaction rebuilds: ``(keys, values, truncated_live)``,
-        keys ``(D, rows[, L])`` and values ``(D, rows[, C])``, live rows first
-        on every shard."""
+        keys ``(local, rows[, L])`` and values ``(local, rows[, C])``, live
+        rows first on every shard; ``truncated_live`` is the local rows'."""
         ts_keys, ts_epochs = st.tombstones.index()
         lanes, cols = self.schema.key_lanes, self.schema.value_cols
         keys_parts, vals_parts = [], []
@@ -424,10 +532,10 @@ class DistributedHashTable:
             dead = hashgraph.is_empty_key(k, lanes) | hidden
             keys_parts.append(torch.where(dead.unsqueeze(-1) if lanes > 1 else dead, EMPTY_BITS, k))
             vals_parts.append(layer.local.values)
-        d = keys_parts[0].shape[0]
+        local, d = keys_parts[0].shape[0], self.num_shards
         # One row of L key lanes and C value columns.
-        rows = torch.cat([torch.cat(keys_parts, 1).reshape(d, -1, lanes),
-                          torch.cat(vals_parts, 1).reshape(d, -1, cols)], dim=-1)
+        rows = torch.cat([torch.cat(keys_parts, 1).reshape(local, -1, lanes),
+                          torch.cat(vals_parts, 1).reshape(local, -1, cols)], dim=-1)
         del keys_parts, vals_parts
         width = lanes + cols
         # Strided deal: row i of every shard goes to shard i % D (the base is
@@ -436,10 +544,11 @@ class DistributedHashTable:
         m = rows.shape[1]
         chunk = cdiv(m, d)
         if chunk * d != m:
-            pad = rows.new_full((d, chunk * d - m, width), -1)
+            pad = rows.new_full((local, chunk * d - m, width), -1)
             rows = torch.cat([rows, pad], dim=1)
-        stripes = rows.reshape(d, chunk, d, width).transpose(1, 2)  # (D_src, D_dst, chunk, W)
-        rows = exchange.all_to_all_hierarchical(stripes).reshape(d, d * chunk, width)
+        stripes = rows.reshape(local, chunk, d, width).transpose(1, 2)  # (src, D_dst, chunk, W)
+        rows = exchange.all_to_all_hierarchical(stripes, self.group).reshape(
+            local, d * chunk, width)
         del stripes
         # Live rows first: dispatch drops hit sentinels before any real key.
         empty = (rows[..., :lanes] == EMPTY_BITS).all(-1)
@@ -463,7 +572,10 @@ class DistributedHashTable:
         built = self._build(
             keys, values, hash_range=self.hash_range, num_bins=self.num_bins, capacity=capacity
         )
-        # Live rows cut by the live-count sizing are counted, never silent.
+        # Live rows cut by the live-count sizing are counted, never silent
+        # (the cut is taken on every rank alike: the shapes agree).
+        if isinstance(trunc_live, torch.Tensor):
+            trunc_live = self.group.psum(trunc_live)
         return dataclasses.replace(built, num_dropped=built.num_dropped + trunc_live)
 
     # -- reads ----------------------------------------------------------------
@@ -536,7 +648,7 @@ class DistributedHashTable:
             out_capacity = max(8, cdiv(out_capacity, 8) * 8)
             seg_capacity = max(8, cdiv(seg_capacity, 8) * 8)
         if num_queries is None and queries is not None:
-            num_queries = len(queries)
+            num_queries = self._global_len(len(queries))
         return num_queries, out_capacity, seg_capacity
 
     def plan_retrieve(
@@ -621,7 +733,8 @@ class DistributedHashTable:
 
     # -- capacity-doubling retries ------------------------------------------------
     def _auto_retry(self, exec_fn, state, queries, out_capacity, seg_capacity, max_retries):
-        """Re-run ``exec_fn`` with doubled caps while ``num_dropped > 0``.
+        """Re-run ``exec_fn`` with doubled caps while ``num_dropped > 0``
+        (global over the group, so every rank retries alike).
 
         Stops early when doubling no longer shrinks ``num_dropped``: drops
         of the dispatch stage depend on ``capacity_slack``, not on the

@@ -11,6 +11,10 @@ enclosing scope of the same thread), and nothing another thread does is.
     with counting.scoped() as scope:
         plans.exec_query(table, state, queries)
     assert scope.exchange_rounds == 2
+
+Over a process group (``exchange.ProcessGroup``) the scope holds this
+rank's own rounds, and its reductions apart in ``collectives`` (``"psum"``,
+``"pmax"``, ``"agree"``), which a stacked run never makes.
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ class Scope:
     rounds: collections.Counter = dataclasses.field(default_factory=collections.Counter)
     round_bytes: collections.Counter = dataclasses.field(default_factory=collections.Counter)
     launches: collections.Counter = dataclasses.field(default_factory=collections.Counter)
+    collectives: collections.Counter = dataclasses.field(default_factory=collections.Counter)
 
     @property
     def exchange_rounds(self) -> int:
@@ -65,6 +70,12 @@ def record_round(label: str, nbytes: int) -> None:
     for scope in _scopes():
         scope.rounds[label] += 1
         scope.round_bytes[label] += int(nbytes)
+
+
+def record_collective(kind: str) -> None:
+    """One reduction of a process group (``"psum"``, ``"pmax"``, ``"agree"``)."""
+    for scope in _scopes():
+        scope.collectives[kind] += 1
 
 
 def record_launch(name: str) -> None:

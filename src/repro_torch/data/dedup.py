@@ -9,7 +9,9 @@ fingerprints go into a HashGraph:
   fingerprints is its own;
 * distributed: :func:`dedup_mask_distributed` builds a
   ``DistributedHashTable`` over the fingerprints (Alg. 2), counts them and
-  reads the smallest row id owner-side in one more routed round.
+  reads the smallest row id owner-side in one more routed round; over a
+  process group each rank passes its block of rows and gets its block of
+  the mask.
 
 32-bit fingerprints collide at about N²/2³³ pairs; both masks, and the
 reference's, dedup by fingerprint.
@@ -94,15 +96,19 @@ def _min_value_per_key(hg: HashGraph, queries: torch.Tensor) -> torch.Tensor:
 
 def dedup_mask_distributed(table, tokens: torch.Tensor, seed: Optional[int] = None) -> torch.Tensor:
     """Exact dedup of a ``(B, S)`` token batch through ``table`` (a
-    ``DistributedHashTable``; ``B`` divisible by its shard count).
+    ``DistributedHashTable``; ``B`` divisible by its shard count, or over a
+    process group this rank's block of ``B / D`` rows).
 
     Builds the distributed graph of the row fingerprints with global row
     ids as values, counts each fingerprint and reads its smallest row id
-    owner-side.  Returns the global ``(B,)`` keep-mask on the table's
-    device: a row is kept when its content occurs once or it is the first.
+    owner-side.  Returns the ``(B,)`` keep-mask (a rank's block) on the
+    table's device: a row is kept when its content occurs once or it is
+    the first.
     """
     fp = sequence_fingerprints(tokens, seed=seed or table.seed).to(table.device)
-    rows = torch.arange(fp.shape[0], dtype=torch.int32, device=table.device)
+    n = fp.shape[0]
+    first = table.group.rank * n
+    rows = torch.arange(first, first + n, dtype=torch.int32, device=table.device)
     state = table.build(fp, values=rows)
     counts = table.query(state, fp)
     firsts = _min_value_sharded(state, table._pack_queries(fp)).reshape(-1)
@@ -110,19 +116,21 @@ def dedup_mask_distributed(table, tokens: torch.Tensor, seed: Optional[int] = No
 
 
 def _min_value_sharded(dhg, queries: torch.Tensor) -> torch.Tensor:
-    """Route ``(D, n_local)`` queries to their owners by the build splits,
-    take the smallest matching value owner-side, route it back (one
-    dispatch and one combine; INT32_MAX where nothing matched or a query
-    overflowed the reference's 1.25 slack)."""
-    d, n_local = queries.shape
+    """Route ``(local, n_local)`` queries to their owners by the build
+    splits, take the smallest matching value owner-side, route it back (one
+    dispatch and one combine over the graph's group; INT32_MAX where nothing
+    matched or a query overflowed the reference's 1.25 slack)."""
+    group = dhg.group
+    d, n_local = group.size, queries.shape[1]
     h = hashing.hash_to_buckets(queries, dhg.hash_range, dhg.seed)
     dest = partition.destination_of(h, dhg.hash_splits)
     del h
     capacity = multi_hashgraph.default_capacity(n_local, d, 1.25)
-    (rq,), route = exchange.dispatch((queries,), dest, capacity, fills=(EMPTY_BITS,))
+    (rq,), route = exchange.dispatch((queries,), dest, capacity, fills=(EMPTY_BITS,),
+                                     group=group)
     rbuckets, _ = multi_hashgraph._local_buckets(
-        rq, multi_hashgraph._shard_lo(dhg.hash_splits), dhg.hash_range, dhg.local_range_cap,
-        dhg.seed,
+        rq, multi_hashgraph._shard_lo(dhg.hash_splits, group), dhg.hash_range,
+        dhg.local_range_cap, dhg.seed,
     )
     hg = dhg.local
     b = rbuckets.to(torch.int64)

@@ -125,6 +125,10 @@ class TableServer:
         write_bucket: Optional[int] = None,
         metrics: Optional[MetricsRegistry] = None,
     ):
+        if table.group.is_process:
+            raise NotImplementedError(
+                "TableServer over a process group is ROADMAP item 7c: its threads would "
+                "issue collectives in no fixed order")
         self.table = table
         self.write_bucket: Optional[int] = None
         if write_bucket is not None:

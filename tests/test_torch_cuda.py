@@ -1157,3 +1157,65 @@ def test_distributed_dedup_on_card_matches_cpu(card):
         assert torch.equal(dedup_mask_distributed(tables[0], t.to(card)).cpu(),
                            dedup_mask_distributed(tables[1], t))
     assert torch.equal(dedup_mask(t.to(card)).cpu(), dedup_mask(t))
+
+
+# ---------------------------------------------------------------------------
+# The table across processes on the card (one card: NCCL at world 1, gloo
+# for two ranks on cuda:0)
+# ---------------------------------------------------------------------------
+
+
+def _slice_on_card(group, cfg, shards: int = 1) -> dict:
+    """One ``table_run`` pass on cuda:0, stacked (``group=None``) or as
+    this rank of ``group``."""
+    from repro_torch.launch import table_run
+
+    sink = table_run.Sink()
+    dev = torch.device("cuda", 0)
+    if group is None:
+        steps = table_run.run_slice(cfg, sink, num_shards=shards, device=dev)["steps"]
+    else:
+        steps = table_run.run_slice(cfg, sink, group=group, device=dev)["steps"]
+    return {"blocks": sink.blocks, "scalars": sink.scalars, "steps": steps,
+            "rank": group.rank if group is not None else 0}
+
+
+def _assert_rows(ranks, want):
+    for res in ranks:
+        r = res["rank"]
+        assert set(res["blocks"]) == set(want["blocks"])
+        for key, arr in want["blocks"].items():
+            np.testing.assert_array_equal(res["blocks"][key][0], arr[r], err_msg=f"rank {r} {key}")
+        assert res["scalars"] == want["scalars"], r
+        for step, w in want["steps"].items():
+            g = res["steps"][step]
+            assert (g["rounds"], g["launches"]) == (w["rounds"], w["launches"]), (r, step)
+
+
+def test_procs_nccl_world1_equals_stacked_on_card(card, tmp_path):
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh, table_run
+
+    cfg = table_run.SliceConfig(n_keys=1 << 16)
+    group = mesh.init_shard_group("nccl", "file://" + str(tmp_path / "store"), timeout_s=120,
+                                  rank=0, world_size=1, device=torch.device("cuda", 0))
+    try:
+        got = _slice_on_card(group, cfg)
+    finally:
+        dist.destroy_process_group()
+    want = _slice_on_card(None, cfg, 1)
+    _assert_rows([got], want)
+    assert want["steps"]["init"]["launches"]["murmur_bucket"] >= 1
+    assert want["steps"]["r0.retrieve"]["launches"]["csr_gather_owners"] == 1
+
+
+def test_procs_gloo_world2_on_one_card_equals_stacked(card, tmp_path):
+    from repro_torch.launch import mesh, table_run
+
+    cfg = table_run.SliceConfig(n_keys=1 << 16)
+    ranks = mesh.spawn(_slice_on_card, 2, "gloo", "cuda:0", args=(cfg,), timeout_s=120,
+                       store_dir=str(tmp_path))
+    want = _slice_on_card(None, cfg, 2)
+    _assert_rows(ranks, want)
+    assert want["scalars"]["skew.fallback"] == 1
