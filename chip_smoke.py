@@ -133,7 +133,24 @@ Run from the root of a checkout: it builds the port's CUDA kernels from
    depth-3 probe query (4); it prints each rank's wall, rounds, bytes and
    ``agree`` all-reduces per entry point and peak bytes, and rank 0 holds
    kernels 1, 2, 3-4 and 5 against their twins on its own inputs (rows
-   ``procs-gloo-4``);
+   ``procs-gloo-4``).  Then, in the same ranks, the table's users:
+   ``launch/users_run.py`` (a zipfian hot-key insert of 2^20 at theta 1.2
+   with R = 4, its offsets, the sorted and probe queries, fold, compaction
+   and the hot keys' retrieve; a ``KVCache`` through YCSB A and F, 2^17
+   ops a letter in 2^13-op batches, then 2^14 TTL puts read through their
+   expiry and two evictions), every output equal to its row of the stacked
+   run at D = 4 (and D = 1) with its rounds and launches per call, the
+   probe query one kernel 5 launch a layer a replica round, a get one
+   querier launch; and ``launch/serve_run.py``: the serve-table phase's
+   server on every rank, warmed alike, rank 0's front end answering 4
+   readers x 128 requests of 4-256 keys and 8 retrieve groups while 4
+   inserts of 2^16, a background fold, a delete, an upsert with a TTL and
+   the clock past it apply; every response equal to the numpy oracle at
+   its seqno, 2 exchange rounds a read batch, no grid miss, every follower
+   at rank 0's seqno with its read batches, writes and folds, every rank's
+   shadow equal to its row of a stacked server replaying rank 0's log;
+   rank 0 holds kernels 1, 2, 3-4 and 5 against their twins on its
+   hot-key inputs (rows ``procs-users-gloo-4``);
 3. serves qwen3-4b at full width (36 layers, d_model 2560, 32 query heads
    over 8 kv heads, vocab 151,936; random bf16 weights drawn on the card
    from ``--seed``) through the public API: ``build_model``, a
@@ -2789,6 +2806,17 @@ PROCS_WORLD = 4
 PROCS_TIMEOUT_S = 300.0
 PROCS_CHUNK = 4096  # elements a digest covers
 PROCS_SAMPLES = 4096  # query rows a rank holds against the numpy oracle
+# The table's users on the same ranks (launch/users_run.py, launch/serve_run.py):
+# one zipfian hot-key insert of 2^20 at theta 1.2 with R = 4, YCSB A and F
+# (theta 0.99, 2^13-op batches, 2^17 ops a letter) then 2^14 TTL puts with
+# capacity_slack 2.5 as the kv-cache phase at D = 8, and the serve-table
+# phase's server (its defaults) under 4 readers x 128 requests, each fold
+# held 0.25 s first so that the gate sees read batches run while a fold is in
+# flight (a fold of the pass takes 8-210 ms alone on an H100, under one read
+# batch).
+PROCS_USERS = {"hot_batch": 1 << 20, "kv_batch": 1 << 13, "kv_ops": 1 << 17,
+               "kv_ttl_keys": 1 << 14}
+PROCS_SERVE = {"fold_pause_s": 0.25}  # else ServeConfig's own sizes
 
 
 def procs_config(seed: int, n_keys: int = PROCS_KEYS):
@@ -2863,7 +2891,273 @@ def procs_kernel_inputs(run: dict) -> dict:
 
 
 
-def procs_rank(group, cfg, ref: dict, path: str, check_kernels_here: bool) -> dict:
+def users_configs(seed: int, n_keys: int):
+    """The users' pass and the server pass of the procs phase at ``n_keys``."""
+    from repro_torch.launch import serve_run, users_run
+
+    return (users_run.UsersConfig(n_keys=n_keys, seed=seed, **PROCS_USERS),
+            serve_run.ServeConfig(n_keys=n_keys, seed=seed, **PROCS_SERVE))
+
+
+class DigestOnlySink(DigestSink):
+    """A sink that keeps the digests only (a mismatch names its chunk)."""
+
+    def put(self, name, blocks):
+        self.digests[name] = chunk_digests(blocks).cpu().numpy()
+
+
+def first_digest_mismatch(digests: dict, want: dict, rank: int):
+    """The first output whose digests differ from row ``rank`` of ``want``."""
+    import numpy as np
+
+    for name, w in want.items():
+        got = digests.get(name)
+        if got is None or got.shape[1:] != w.shape[1:]:
+            return {"name": name, "why": "missing or of another shape"}
+        diff = np.nonzero(got[0] != w[rank])[0]
+        if diff.shape[0]:
+            return {"name": name, "chunk": int(diff[0])}
+    if set(digests) != set(want):
+        return {"name": sorted(set(digests) ^ set(want))[0], "why": "not in both"}
+    return None
+
+
+def users_kernel_inputs(run: dict) -> dict:
+    """A rank's kernel inputs from its hot-key part (built on every rank: the
+    routing needs the exchange): its block of the hot batch to kernels 1-2,
+    the hot keys' retrieve to 3-4, replica round 1 of the probe query on the
+    delta layer to kernel 5's layer entry."""
+    from repro_torch.core import multi_hashgraph as mh
+
+    table, state = run["hot_table"], run["hot_state"]
+    d, local, rank = table.num_shards, table.group.local, table.group.rank
+
+    def mine(a):
+        m = a.shape[0] // d
+        return table.schema.pack_keys(a[rank * m: (rank + local) * m], table.device)
+
+    inputs = gather_inputs(table, state, mine(run["hot_retrieve"]))
+    for name in PALLAS_GATHERS:
+        inputs.pop(name)
+    inputs.update(hash_inputs(table, mine(run["hot_batch"]).reshape(local, -1)))
+    routed = mh._route_queries_once(state.base, mine(run["hot_queries"]).reshape(local, -1),
+                                    table.capacity_slack, False, 1)
+    layer = state.deltas[0]
+    inputs["bucket_probe_layer"] = dict(
+        rq=routed.rq, rh=routed.rh, lo=routed.lo,
+        match_e=mh._tombstone_epochs(routed.rq, state.tombstones.index()),
+        offsets=layer.local.offsets, keys=layer.local.keys, table_size=layer.local_range_cap,
+        stride=layer.bucket_stride, epoch=1, max_probe=table.max_probe, accumulate=False,
+        what="replica round 1 of the hot batch's probe query, its delta layer",
+    )
+    return inputs
+
+
+def procs_users_rank(group, ucfg, scfg, uref: dict, path: str, check_kernels_here: bool,
+                     device) -> dict:
+    """A rank's users' part: the hot-key and KV pass (digests against row
+    ``rank`` of the stacked run, steps, kernel inputs; rank 0's kernels
+    against their twins), then the server pass (its result and its final
+    shadow's digests)."""
+    import torch
+
+    from repro_torch.launch import serve_run, users_run
+
+    card = device.type == "cuda"
+    rank = group.rank
+    if card:
+        torch.cuda.reset_peak_memory_stats(device)
+    sink = DigestOnlySink()
+    t0 = time.perf_counter()
+    run = users_run.run_users(ucfg, sink, group=group, device=device, keep_state=True)
+    run["hot_batch"] = users_run.hot_data(ucfg)["batch"]
+    users_s = time.perf_counter() - t0
+    inputs = users_kernel_inputs(run)
+    launches = {}
+    for st in run["steps"].values():
+        for k, n in st["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    rows = []
+    if check_kernels_here and rank == 0:
+        rows = check_kernels({"inputs": lambda: inputs, "result": {
+            "path": path, "shards": group.size, "launches": launches}}, device,
+            lambda m: print(m, flush=True))
+    steps = run["steps"]
+    del inputs, run
+    gc.collect()
+    if card:
+        torch.cuda.empty_cache()
+    users_peak = torch.cuda.max_memory_allocated(device) if card else None
+    if card:
+        torch.cuda.reset_peak_memory_stats(device)
+    ssink = DigestOnlySink()
+    t1 = time.perf_counter()
+    serve = serve_run.run_server(scfg, ssink, group=group, device=device)
+    serve_s = time.perf_counter() - t1
+    gc.collect()
+    if card:
+        torch.cuda.empty_cache()
+    return {"rank": rank, "users_steps": steps, "users_s": users_s, "users_peak": users_peak,
+            "users_mismatch": first_digest_mismatch(sink.digests, uref["digests"], rank),
+            "users_scalars": sink.scalars, "users_launches": launches, "users_rows": rows,
+            "serve": serve, "serve_s": serve_s, "shadow": ssink.digests,
+            "shadow_scalars": ssink.scalars,
+            "serve_peak": torch.cuda.max_memory_allocated(device) if card else None}
+
+
+def procs_users_reference(ucfg, shards: int, device, log) -> dict:
+    """The users' pass stacked at ``shards``: digests, scalars, steps."""
+    import torch
+
+    from repro_torch.launch import users_run
+
+    sink = DigestOnlySink()
+    t0 = time.perf_counter()
+    out = users_run.run_users(ucfg, sink, num_shards=shards, device=device)
+    secs = time.perf_counter() - t0
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    walls = {k: round(v["wall_s"] * 1e3, 3) for k, v in out["steps"].items()
+             if not k.startswith("kv.") or k.endswith((".load", ".evict"))}
+    log(f"procs-users stacked D={shards}: the pass in {secs:.1f} s, {len(sink.digests)} outputs; "
+        "wall ms per step (the KV gets and puts summed below) " + json.dumps(walls))
+    return {"digests": sink.digests, "scalars": sink.scalars, "steps": out["steps"],
+            "seconds": secs}
+
+
+def procs_users_check(label: str, ranks: list, uref: dict, scfg, device, log, card: bool) -> dict:
+    """The users' part of every rank: the hot-key and KV outputs and
+    scalars bit for bit its stacked row, its rounds per call the stacked
+    run's, kernel gates; the server: rank 0's responses equal the oracle at
+    their seqno with zero budget misses and drops, every follower ran rank
+    0's read batches, writes and folds and ends at its seqno, and every
+    rank's shadow equals its row of a stacked server replaying rank 0's
+    log.  Returns the figures reported."""
+    import torch
+
+    from repro_torch.launch import serve_run
+
+    world = len(ranks)
+    for res in ranks:
+        r, mm = res["rank"], res["users_mismatch"]
+        check(mm is None, f"{label} rank {r}: users' output {mm} differs from the stacked row")
+        diff = {k: (v, uref["scalars"].get(k)) for k, v in res["users_scalars"].items()
+                if uref["scalars"].get(k) != v}
+        check(not diff and set(res["users_scalars"]) == set(uref["scalars"]),
+              f"{label} rank {r}: users' scalars differ: " + str(diff)[:2000])
+        for step, w in uref["steps"].items():
+            g = res["users_steps"][step]
+            check(g["rounds"] == w["rounds"] and g["launches"] == w["launches"],
+                  f"{label} rank {r} {step}: rounds {g['rounds']} / launches {g['launches']}, "
+                  f"the stacked run's {w['rounds']} / {w['launches']}")
+        if card:
+            st = res["users_steps"]
+            # The coherent delta build hashes (kernel 1); the skew guard
+            # histograms the batch's (source, owner) pairs (kernel 2).
+            check(st["hot.insert"]["launches"].get("murmur_bucket", 0) >= 1
+                  and st["hot.insert"]["launches"].get("bin_histogram", 0) >= 1,
+                  f"{label} rank {r}: the hot insert launched {st['hot.insert']['launches']}")
+            check_gather_launches(st["hot.retrieve"]["launches"],
+                                  {"csr_gather_owners": 1, "csr_gather_queriers": 1},
+                                  f"{label} rank {r} hot.retrieve")
+            probe = st["hot.probe_query"]["launches"].get("bucket_probe_layer", 0)
+            rounds = max((k[1] for k in uref["scalars"]["hot.keys"]), default=1)
+            check(probe == 2 * rounds, f"{label} rank {r}: the probe query launched kernel 5 "
+                  f"{probe} times, want {2 * rounds} (2 layers x {rounds} replica rounds)")
+            for step, v in st.items():
+                if step.endswith(".get"):
+                    check(v["launches"].get("csr_gather_queriers", 0) == 1,
+                          f"{label} rank {r} {step}: a get launched {v['launches']}")
+    s = uref["scalars"]
+    # At D = 1 no key exceeds a dispatch slot: nothing is replicated.
+    check(s["hot.num_dropped"] == 0 and s["hot.skew_fallbacks"] == 0
+          and bool(s["hot.keys"]) == (world > 1),
+          f"{label}: hot keys {s['hot.keys'][:4]}, {s['hot.num_dropped']} dropped")
+    check(s["kv.skew_fallbacks"] == 0, f"{label}: the KV cache took a skew fallback")
+    lead = ranks[0]["serve"]
+    check(not lead["errors"], f"{label}: server pass errors {lead['errors'][:3]}")
+    check(lead["responses"] == lead["requests"] == lead["completed"] and lead["failed"] == 0,
+          f"{label}: {lead['responses']} responses, {lead['failed']} failed")
+    for res in ranks[1:]:  # every rank read the same states in the same order
+        f = res["serve"]["reads"]
+        at = next((i for i, (a, b) in enumerate(zip(f, lead["reads"])) if a != b), None)
+        check(at is None and len(f) == len(lead["reads"]),
+              f"{label} rank {res['rank']}: its {len(f)} read executions differ from rank 0's "
+              f"{len(lead['reads'])}" + ("" if at is None else
+                                         f" first at {at}: {f[at]} against {lead['reads'][at]}"))
+    check(lead["bad"] == 0, f"{label}: {lead['bad']} responses differ from the oracle: "
+          + json.dumps(lead["bad_samples"]))
+    check(lead["applied_final"] == lead["writes"], f"{label}: {lead['applied_final']} of "
+          f"{lead['writes']} writes applied")
+    check(lead["rounds"] == [(2, 2)] and lead["budget_misses"] == 0
+          and lead["fold_budget_misses"] == 0,
+          f"{label}: read rounds {lead['rounds']}, budget misses {lead['budget_misses']} / "
+          f"{lead['fold_budget_misses']}")
+    check(lead["reads_during_folds"] > 0,
+          f"{label}: no read batch ran while the background fold was in flight")
+    check(lead["num_dropped"] == 0 and lead["last_error"] is None and lead["aot_misses"] == 0,
+          f"{label}: server dropped {lead['num_dropped']}, error {lead['last_error']}, "
+          f"{lead['aot_misses']} grid misses")
+    kinds = [rec["kind"] for rec in lead["log"]]
+    for res in ranks[1:]:
+        f = res["serve"]
+        for field in ("seqno", "read_batches", "writes_applied", "folds", "full_compacts"):
+            check(f[field] == lead[field], f"{label} rank {res['rank']}: {field} {f[field]}, "
+                  f"rank 0's {lead[field]}")
+        check([rec["kind"] for rec in f["log"]] == kinds and f["last_error"] is None,
+              f"{label} rank {res['rank']}: applied {[rec['kind'] for rec in f['log']]}, "
+              f"rank 0 sent {kinds} ({f['last_error']})")
+    sink = DigestOnlySink()
+    t0 = time.perf_counter()
+    serve_run.replay(scfg, lead["log"], world, device, sink)
+    replay_s = time.perf_counter() - t0
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    for res in ranks:
+        mm = first_digest_mismatch(res["shadow"], sink.digests, res["rank"])
+        check(mm is None, f"{label} rank {res['rank']}: shadow {mm} differs from the replay's row")
+        check(res["shadow_scalars"] == sink.scalars,
+              f"{label} rank {res['rank']}: shadow scalars differ from the replay's")
+    return {"replay_s": replay_s, "log": kinds}
+
+
+def procs_users_report(label: str, ranks: list, uref: dict, extra: dict, smi: str, log) -> dict:
+    """Per rank: the users' pass and the server pass walls, their rounds and
+    reductions, peak bytes; rank 0's server latency, rounds and folds."""
+    for res in ranks:
+        st = res["users_steps"]
+        kv = [v for k, v in st.items() if k.startswith("kv.")]
+        red = {}
+        for v in st.values():
+            for k, n in v["collectives"].items():
+                red[k] = red.get(k, 0) + n
+        hot = {k: [round(v["wall_s"] * 1e3, 3), v["rounds"], v["collectives"]]
+               for k, v in st.items() if k.startswith("hot.")}
+        f = res["serve"]
+        log(f"{label} rank {res['rank']}: users' pass {res['users_s']:.2f} s (hot keys "
+            f"[wall_ms, rounds, reductions] " + json.dumps(hot) + f"; KV {len(kv)} calls in "
+            f"{sum(v['wall_s'] for v in kv):.3f} s, {sum(v['rounds'] for v in kv)} rounds), "
+            f"reductions {json.dumps(red)}, peak {res['users_peak']} bytes; server pass "
+            f"{res['serve_s']:.2f} s (build {f['build_s']:.2f}, warm {f['warm_s']:.2f} for "
+            f"{f['grid_entries']} entries), {f['read_batches']} read batches, "
+            f"{f['writes_applied']} writes, {f['folds']} folds, seqno {f['seqno']}, reductions "
+            f"{json.dumps(f['reductions'])}, peak {res['serve_peak']} bytes ({smi})")
+    lead = ranks[0]["serve"]
+    out = {"users_s": [r["users_s"] for r in ranks], "serve_s": [r["serve_s"] for r in ranks],
+           "users_peak_bytes": [r["users_peak"] for r in ranks],
+           "serve_peak_bytes": [r["serve_peak"] for r in ranks],
+           "stacked_users_s": uref["seconds"],
+           **{k: lead[k] for k in ("latency_ms", "traffic_s", "fold_s", "reads_during_folds",
+                                   "keys_served", "responses", "retrieved", "read_batches",
+                                   "fold_rounds")}, **extra}
+    log(f"{label} server (rank 0): " + json.dumps(out) + f" ({smi})")
+    return out
+
+
+def procs_rank(group, cfg, ref: dict, path: str, check_kernels_here: bool,
+               users=None) -> dict:
     """One rank of a procs run: the pass on its shard, every output's
     digests against the stacked run's row ``rank`` (the first differing
     chunk sent back raw), its steps (wall, rounds, bytes, launches,
@@ -2916,10 +3210,19 @@ def procs_rank(group, cfg, ref: dict, path: str, check_kernels_here: bool) -> di
             "path": path, "shards": group.size, "launches": launches}}, device,
             lambda m: print(m, flush=True))
     del inputs, run
+    t4 = time.perf_counter()
+    out = {}
+    if users is not None:  # the table's users on the same ranks, after the table pass
+        gc.collect()
+        if card:
+            torch.cuda.empty_cache()
+        ucfg, scfg, uref, upath = users
+        out = procs_users_rank(group, ucfg, scfg, uref, upath, check_kernels_here, device)
     seconds = {"pass": pass_s, "compare": t1 - t0 - pass_s, "oracle": t2 - t1,
-               "kernel_inputs": t3 - t2, "kernel_checks": time.perf_counter() - t3,
+               "kernel_inputs": t3 - t2, "kernel_checks": t4 - t3,
+               "users": time.perf_counter() - t4,
                "started_at": started, "ended_at": time.time()}
-    return {"rank": rank, "steps": steps, "pass_s": pass_s, "seconds": seconds,
+    return {**out, "rank": rank, "steps": steps, "pass_s": pass_s, "seconds": seconds,
             "peak_bytes": peak,
             "mismatch": mismatch, "scalars": sink.scalars, "oracle": oracle, "rows": rows,
             "launches": launches}
@@ -3040,12 +3343,16 @@ def run_procs(seed: int, device, log, n_keys: int = PROCS_KEYS) -> dict:
     card = device.type == "cuda"
     smi = card_line() if card else "cpu"
     cfg = procs_config(seed, n_keys)
+    ucfg, scfg = users_configs(seed, n_keys)
     result = {"path": "procs", "shards": PROCS_WORLD, "keys": n_keys, "queries": cfg.queries}
     ref4 = procs_reference(cfg, PROCS_WORLD, device, log)
+    uref4 = procs_users_reference(ucfg, PROCS_WORLD, device, log)
     t0, wall0 = time.perf_counter(), time.time()
     ranks = mesh.spawn(procs_rank, PROCS_WORLD, "gloo", str(device),
                        args=(cfg, {"digests": ref4["digests"], "scalars": ref4["scalars"]},
-                             "procs-gloo-4", card), timeout_s=PROCS_TIMEOUT_S)
+                             "procs-gloo-4", card,
+                             (ucfg, scfg, {"digests": uref4["digests"]}, "procs-users-gloo-4")),
+                       timeout_s=PROCS_TIMEOUT_S)
     result["gloo4_s"] = time.perf_counter() - t0
     wall1 = time.time()
     for res in ranks:  # start-up (spawn to the rank's job) and wind-down, on the host clock
@@ -3059,11 +3366,15 @@ def run_procs(seed: int, device, log, n_keys: int = PROCS_KEYS) -> dict:
                        "peak_bytes": [r["peak_bytes"] for r in ranks],
                        "stacked_s": ref4["seconds"], "stacked_walls_ms": ref4["walls_ms"],
                        "oracle_rows": sum(r["oracle"]["rows"] for r in ranks)}
+    extra = procs_users_check("procs-users-gloo-4", ranks, uref4, scfg, device, log, card)
+    result["users_gloo4"] = procs_users_report("procs-users-gloo-4", ranks, uref4, extra, smi, log)
     result["launches"] = ranks[0]["launches"]
-    rows = ranks[0]["rows"]
-    del ranks, ref4
+    result["users_launches"] = ranks[0]["users_launches"]
+    rows = ranks[0]["rows"] + ranks[0]["users_rows"]
+    del ranks, ref4, uref4
     gc.collect()
     ref1 = procs_reference(cfg, 1, device, log)
+    uref1 = procs_users_reference(ucfg, 1, device, log)
     backend = "nccl" if card else "gloo"
     store = tempfile.mkdtemp(prefix="procs_world1_")
     t0 = time.perf_counter()
@@ -3072,7 +3383,8 @@ def run_procs(seed: int, device, log, n_keys: int = PROCS_KEYS) -> dict:
     t_init = time.perf_counter() - t0
     try:
         one = procs_rank(group, cfg, {"digests": ref1["digests"], "scalars": ref1["scalars"]},
-                         f"procs-{backend}-1", False)
+                         f"procs-{backend}-1", False,
+                         (ucfg, scfg, {"digests": uref1["digests"]}, f"procs-users-{backend}-1"))
     finally:
         t1 = time.perf_counter()
         dist.destroy_process_group()
@@ -3089,12 +3401,15 @@ def run_procs(seed: int, device, log, n_keys: int = PROCS_KEYS) -> dict:
     result["world1"] = {"backend": backend, "peak_bytes": one["peak_bytes"],
                         "stacked_s": ref1["seconds"], "stacked_walls_ms": ref1["walls_ms"],
                         "walls_ms": procs_report(f"procs-{backend}-1", [one], smi, log)}
-    del one, ref1
+    extra = procs_users_check(f"procs-users-{backend}-1", [one], uref1, scfg, device, log, card)
+    result[f"users_{backend}1"] = procs_users_report(f"procs-users-{backend}-1", [one], uref1,
+                                                     extra, smi, log)
+    del one, ref1, uref1
     gc.collect()
     if card:
         torch.cuda.empty_cache()
     log("path procs: " + json.dumps({k: v for k, v in result.items()
-                                     if k not in ("gloo4", "world1")}))
+                                     if k not in ("gloo4", "world1") and not k.startswith("users_")}))
     return {"result": result, "rows": rows}
 
 

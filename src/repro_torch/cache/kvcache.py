@@ -23,6 +23,17 @@ counterpart of ``repro_torch.serve_table``.  The cache lives on its table's
 device.  :meth:`get` builds its answer from the retrieve's CSR with tensor
 operations (the reference loops over per-key Python lists); the array it
 returns is the reference's.
+
+Over a process group (a table built with ``group=``) the cache runs SPMD,
+as a ``torchrun`` program would: every rank calls the same methods in the
+same order.  ``keys``/``values`` at construction are the rank's block of
+the initial table; :meth:`get` / :meth:`contains` take the rank's own keys
+(blocks of different lengths are EMPTY-padded to the group's longest: one
+``agree``) and answer them; :meth:`put` / :meth:`delete` take the same
+(replicated) batch on every rank, and the clock is replicated too.  Every
+policy decision reads global numbers (the stats, the ``psum``'d live
+counts), so every rank folds and evicts alike; each rank keeps its own
+metrics registry.
 """
 from __future__ import annotations
 
@@ -63,9 +74,6 @@ class KVCache:
         policy: Optional[CompactionPolicy] = None,
         metrics: Optional[MetricsRegistry] = None,
     ):
-        if table.group.is_process:
-            raise NotImplementedError(
-                "KVCache over a process group is ROADMAP item 7c; use a stacked table")
         self.table = table
         self.default_ttl = default_ttl
         self.metrics_registry = metrics if metrics is not None else MetricsRegistry()
@@ -87,8 +95,9 @@ class KVCache:
             expired_load=0.25,
         )
         if keys is None:
-            # Empty cache: a base of EMPTY sentinel rows (zero live keys).
-            n = 8 * table.num_devices
+            # Empty cache: a base of EMPTY sentinel rows (zero live keys),
+            # 8 a shard (a rank passes its own shard's).
+            n = 8 * table.group.local
             lanes = table.schema.key_lanes
             keys = np.full((n,) if lanes == 1 else (n, lanes), EMPTY_KEY, np.uint32)
             values = np.full((n,), -1, np.int32)
@@ -142,10 +151,12 @@ class KVCache:
     # -- reads ---------------------------------------------------------------
     def _pad_queries(self, keys) -> tuple[torch.Tensor, int]:
         """Keys on the table's device, EMPTY-padded to a multiple of the
-        shard count; and the real count."""
+        shard count (over a process group: to the longest rank's block, one
+        ``agree``); and the real count."""
         q = self.table.schema.pack_keys(keys, self.table.device)
         n = q.shape[0]
-        pad = (-n) % self.table.num_devices
+        group = self.table.group
+        pad = group.agree([n])[0] - n if group.is_process else (-n) % self.table.num_devices
         if pad:
             q = torch.cat([q, q.new_full((pad,) + tuple(q.shape[1:]), EMPTY_BITS)])
         return q, n
@@ -167,7 +178,7 @@ class KVCache:
         t0 = time.perf_counter()
         q, n = self._pad_queries(keys)
         res = self.table.retrieve(self.state, q)
-        d = self.table.num_devices
+        d = self.table.group.local  # the shard blocks this caller holds
         n_local = q.shape[0] // d
         out_cap = res.values.shape[0] // d
         off = res.offsets.reshape(d, n_local + 1)

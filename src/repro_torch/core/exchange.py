@@ -28,8 +28,16 @@ otherwise), and in the thread's open ``counting.scoped`` blocks with the
 bytes one shard sends: the port's routing-budget check in place of the
 reference's jaxpr collective count.  A process group's reductions count
 apart, in :data:`REDUCTIONS` and ``Scope.collectives`` (``"psum"``,
-``"pmax"``, and ``"agree"`` for the host agreements), so a rank's rounds
-equal the stacked run's.
+``"pmax"``, ``"agree"`` for the host agreements, ``"all_gather"`` and
+``"broadcast"``), so a rank's rounds equal the stacked run's.
+
+*Roles.*  A server issues collectives from several threads at once (reads,
+writes, folds).  Over a process group each rank must issue one
+communicator's collectives in one order, so :meth:`ProcessGroup.add_roles`
+creates one ``torch.distributed`` group per role over the same ranks, and a
+thread that enters :func:`role` sends every collective of every
+``ProcessGroup`` it touches over that role's communicator.  The stacked
+group has no communicator and ignores roles.
 """
 from __future__ import annotations
 
@@ -46,10 +54,28 @@ from repro_torch.utils import take_rows
 
 # Label -> all-to-all rounds made under it in this process (every thread).
 CALLS: collections.Counter = collections.Counter()
-# Kind ("psum", "pmax", "agree") -> a process group's reductions in this process.
+# Kind ("psum", "pmax", "agree", "all_gather", "broadcast") -> a process
+# group's reductions in this process.
 REDUCTIONS: collections.Counter = collections.Counter()
 _calls_lock = threading.Lock()
 _local = threading.local()
+
+
+def _role() -> Optional[str]:
+    return getattr(_local, "role", None)
+
+
+@contextlib.contextmanager
+def role(name: Optional[str]):
+    """Send this thread's collectives over the ``name`` communicator of every
+    process group that has one (:meth:`ProcessGroup.add_roles`); other
+    threads keep their own role.  ``None`` is the group's own communicator."""
+    prev = _role()
+    _local.role = name
+    try:
+        yield
+    finally:
+        _local.role = prev
 
 
 def _labels() -> list:
@@ -140,6 +166,11 @@ class StackedGroup:
         """Did every process pass the same host integers?"""
         return True
 
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """``(local, ...)`` rows of every process → ``(size, ...)``; the
+        stacked rows are every shard's already."""
+        return x
+
 
 _REDUCE_OPS = {"sum": "SUM", "max": "MAX"}
 
@@ -157,7 +188,7 @@ class ProcessGroup:
     is_process = True
     local = 1
 
-    def __init__(self, pg=None):
+    def __init__(self, pg=None, timeout_s: Optional[float] = None):
         import torch.distributed as dist
 
         self._dist = dist
@@ -165,6 +196,8 @@ class ProcessGroup:
         self.size = dist.get_world_size(pg)
         self.rank = dist.get_rank(pg)
         self.backend = str(dist.get_backend(pg)).lower()
+        self.timeout_s = timeout_s  # the role communicators' (None: torch's default)
+        self._roles = {}  # role -> torch.distributed group over the same ranks
         # Host agreements travel on the transport's own device.
         if self.backend == "nccl":
             self.host_device = torch.device("cuda", torch.cuda.current_device())
@@ -173,6 +206,24 @@ class ProcessGroup:
 
     def __repr__(self) -> str:
         return f"ProcessGroup(size={self.size}, rank={self.rank}, backend={self.backend!r})"
+
+    def add_roles(self, names: Sequence[str]) -> None:
+        """One communicator per role over this group's ranks, created in the
+        order given (a collective: every rank calls it alike); roles that
+        exist are kept."""
+        import datetime
+
+        ranks = self._dist.get_process_group_ranks(self.pg or self._dist.group.WORLD)
+        kw = {} if self.timeout_s is None else {
+            "timeout": datetime.timedelta(seconds=float(self.timeout_s))}
+        for name in names:
+            if name not in self._roles:
+                self._roles[name] = self._dist.new_group(ranks, backend=self.backend, **kw)
+
+    def _comm(self):
+        """The communicator of the calling thread's role (else the group's)."""
+        name = _role()
+        return self.pg if name is None else self._roles.get(name, self.pg)
 
     def ranks(self, device) -> torch.Tensor:
         return torch.tensor([self.rank], dtype=torch.int32, device=device)
@@ -194,7 +245,7 @@ class ProcessGroup:
         """``(D, B)`` uint8 rows by destination → ``(D, B)`` rows by source."""
         wire = self._to_wire(send.contiguous())
         out = torch.empty_like(wire)
-        self._dist.all_to_all_single(out, wire, group=self.pg)
+        self._dist.all_to_all_single(out, wire, group=self._comm())
         return out.to(send.device, non_blocking=False) if self._staged(send) else out
 
     def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
@@ -229,7 +280,7 @@ class ProcessGroup:
     def _all_reduce(self, t: torch.Tensor, op: str) -> torch.Tensor:
         wire = self._to_wire(t.clone())
         self._dist.all_reduce(wire, op=getattr(self._dist.ReduceOp, _REDUCE_OPS[op]),
-                              group=self.pg)
+                              group=self._comm())
         return wire.to(t.device) if self._staged(t) else wire
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
@@ -251,6 +302,28 @@ class ProcessGroup:
         got = self.agree(vals + [-v for v in vals])
         k = len(vals)
         return all(got[i] == -got[k + i] for i in range(k))
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's ``(1, ...)`` rows → every rank's, ``(size, ...)`` in
+        rank order (one ``all_gather``, counted as ``"all_gather"``)."""
+        _count_reduction("all_gather")
+        if x.shape[0] != 1:
+            raise ValueError(f"all_gather takes (1, ...) rows, got {tuple(x.shape)}")
+        wire = self._to_wire(x.contiguous())
+        parts = [torch.empty_like(wire) for _ in range(self.size)]
+        self._dist.all_gather(parts, wire, group=self._comm())
+        out = torch.cat(parts)
+        return out.to(x.device) if self._staged(x) else out
+
+    def broadcast_object(self, obj):
+        """Rank 0's picklable ``obj`` on every rank (the others pass
+        anything; one ``broadcast_object_list``, counted as ``"broadcast"``)."""
+        _count_reduction("broadcast")
+        box = [obj]
+        self._dist.broadcast_object_list(box, src=self._dist.get_global_rank(
+            self._comm() or self._dist.group.WORLD, 0), group=self._comm(),
+            device=self.host_device)
+        return box[0]
 
 
 def as_group(group, size: Optional[int] = None):

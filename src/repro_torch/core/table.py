@@ -82,8 +82,11 @@ class DistributedHashTable:
     ``hot_keys``; ``query`` (and ``contains``) then sum one routed round
     per replica rank.  As in the reference, ``retrieve``, ``inner_join``
     and ``join_size`` see only replica 0, and ``compact()`` gathers the
-    rows back onto their hash owner.  Over a process group it raises
-    ``NotImplementedError`` (ROADMAP item 7c).
+    rows back onto their hash owner.  Over a process group the occurrence
+    ranks are taken over the whole batch (rank 0's block, then rank 1's, ...):
+    one ``all_gather`` of the batch's keys (counted with the reductions), so
+    ``hot_keys`` and R come out the same on every rank and each rank's
+    offsets are its row of the stacked run's.
 
     ``group``: ``None`` stacks ``num_shards`` shards on ``device``; a
     ``torch.distributed`` process group, ``"world"`` or an
@@ -116,11 +119,6 @@ class DistributedHashTable:
         else:
             self.group = exchange.as_group(self.group)
             self.num_shards = self.group.size
-        if self.group.is_process and self.replicate_hot_keys > 1:
-            raise NotImplementedError(
-                "replicate_hot_keys over a process group is ROADMAP item 7c: its "
-                "occurrence ranks need the whole batch on every rank"
-            )
         if self.device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -314,6 +312,15 @@ class DistributedHashTable:
             self.hot_keys[tuple((w >> (32 * i)) & 0xFFFFFFFF for i in range(lanes))] = r
         return offsets
 
+    def _replica_offsets(self, k: torch.Tensor) -> Optional[torch.Tensor]:
+        """:meth:`_hot_key_offsets` of ``(local, n_local[, L])`` key rows:
+        the local rows' ``(local, n_local)`` offsets, ranked over every
+        shard's rows (stacked already; one ``all_gather`` over a process
+        group), or None when no key of the batch is hot."""
+        whole = self.group.all_gather(k)
+        offsets = self._hot_key_offsets(whole.reshape(-1, *k.shape[2:]))
+        return None if offsets is None else self._deal(offsets)
+
     def _coherent_dispatch_overflows(
         self, keys: torch.Tensor, splits: torch.Tensor, offsets: Optional[torch.Tensor] = None
     ) -> bool:
@@ -372,11 +379,10 @@ class DistributedHashTable:
         offsets = None
         if coherent_build and self.replicate_hot_keys > 1:
             # One-key skew no split fixes: spread each hot key's rows over R
-            # consecutive owners before the guard checks the batch (stacked
-            # only, so the local rows are the whole batch).
-            offsets = self._hot_key_offsets(k.reshape(num_keys, *k.shape[2:]))
-            if offsets is not None:
-                offsets = self._shard(offsets, "offsets")
+            # consecutive owners before the guard checks the batch.  The
+            # ranks are over the whole batch: every shard's rows (stacked
+            # already; one all_gather over a process group).
+            offsets = self._replica_offsets(k)
         if coherent_build and self.skew_guard:
             if self._coherent_dispatch_overflows(k, st.base.hash_splits, offsets):
                 coherent_build = False

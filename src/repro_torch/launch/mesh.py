@@ -98,7 +98,7 @@ def init_shard_group(
             world_size=world_size,
             timeout=datetime.timedelta(seconds=float(timeout_s)),
         )
-    return exchange.ProcessGroup()
+    return exchange.ProcessGroup(timeout_s=timeout_s)
 
 
 def _rank_main(fn, rank, world, backend, device, init_method, timeout_s, args, results):

@@ -20,6 +20,12 @@ Prototype states carry no real data: a **sentinel delta** (one insert of
 bucket, so depth-``d`` prototypes are the base plus ``d`` references to it,
 and fold-``f`` prototypes fold the sentinel stack ``f`` times.  The
 reference compiles on a thread pool; the port warms the grid in order.
+
+Across processes every rank calls :func:`warm_server` alike, before rank 0
+takes traffic and the others :meth:`~TableServer.follow`: the sentinel
+delta is built with the write role's collectives, the prototype folds with
+the fold role's and each executor runs once with the read role's, so the
+ranks warm the same grid in lock-step.
 """
 from __future__ import annotations
 
@@ -30,7 +36,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from repro_torch.core import maintenance
+from repro_torch.core import exchange, maintenance
 from repro_torch.core.hashgraph import EMPTY_BITS
 from repro_torch.core.plans import CompiledPlan, state_signature
 from repro_torch.core.state import TableState
@@ -163,6 +169,7 @@ def _sentinel_batch(table, n: int):
     """An all-EMPTY insert batch: real geometry, no visible rows."""
     schema = table.schema
     lanes = schema.key_lanes
+    n = n * table.group.local // table.num_shards  # this caller's rows of it
     kshape = (n,) if lanes == 1 else (n, lanes)
     vshape = (n,) if schema.value_cols == 1 else (n, schema.value_cols)
     keys = torch.full(kshape, EMPTY_BITS, dtype=torch.int32, device=table.device)
@@ -199,8 +206,15 @@ def warm_server(
       one run, on ``grid.cost_profile()`` and as registry gauges.
 
     Attaches the :class:`ExecutorGrid` to the server's batcher and returns
-    its :class:`WarmupStats`.
+    its :class:`WarmupStats`.  Holds the server's writer mutex and batch
+    lock throughout (no write, fold or read interleaves).
     """
+    with server._writer_mutex, server.batcher._batch_lock:
+        return _warm(server, buckets, depths, fold_horizon, retrieve_caps, per_layer_counts,
+                     profile)
+
+
+def _warm(server, buckets, depths, fold_horizon, retrieve_caps, per_layer_counts, profile):
     table = server.table
     if server.write_bucket is None:
         raise ValueError(
@@ -238,7 +252,7 @@ def warm_server(
     # serialises with the streams' work) while reads flow.
     write_stream, fold_stream = server._write_stream, server._fold_stream
 
-    with on_stream(write_stream):
+    with on_stream(write_stream), exchange.role("write"):
         keys, values = _sentinel_batch(table, server.write_bucket)
         delta = table.insert(state0, keys, values).deltas[-1]
     if write_stream is not None:
@@ -255,14 +269,14 @@ def warm_server(
             protos.append((f, d, proto(base, d)))
         if f < fold_horizon:
             # The next fold step's base: fold fold_k sentinel deltas in.
-            with on_stream(fold_stream):
+            with on_stream(fold_stream), exchange.role("fold"):
                 base = maintenance.fold_oldest(proto(base, fold_k), fold_k).base
             if fold_stream is not None:
                 fold_stream.synchronize()
 
     # The executors run on the read stream, like live reads.
     stream = server.batcher.stream
-    with on_stream(stream):
+    with on_stream(stream), exchange.role("read"):
         grid = ExecutorGrid()
         for _, _, st in protos:
             for b in buckets:

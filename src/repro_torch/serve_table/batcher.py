@@ -26,6 +26,15 @@ the calling thread only) are held against the read budget — two on a
 partition-coherent stack, two a layer on a mixed-split one — and it is
 logged in :attr:`MicroBatcher.timeline` with its launches and its start
 and end events.
+
+Over a process group (a table built with ``group=``) every rank holds the
+same requests: each executes its block of the padded batch (``bucket / D``
+rows) and one ``all_gather`` returns every rank's answers, so each rank
+scatters the whole batch.  The batch's collectives go over the group's
+``"read"`` communicator (``exchange.role``).  A :class:`TableServer` across
+processes sets :attr:`MicroBatcher.announce`: rank 0 then broadcasts each
+batch (kind, padded keys, seqno, capacities) under the batch lock before
+running it, and the followers run it through :meth:`MicroBatcher.follow`.
 """
 from __future__ import annotations
 
@@ -39,8 +48,9 @@ import numpy as np
 import torch
 
 from repro_torch import counting
-from repro_torch.core import plans
+from repro_torch.core import exchange, plans
 from repro_torch.core.hashgraph import EMPTY_BITS
+from repro_torch.core.multi_hashgraph import ShardRetrieval
 from repro_torch.core.state import as_state
 from repro_torch.core.table import retrieval_to_lists
 from repro_torch.obs.registry import MetricsRegistry, RegistrySnapshot
@@ -156,6 +166,9 @@ class MicroBatcher:
         # AOT executor grid (repro_torch.serve_table.aot.ExecutorGrid),
         # attached by warm_server() and consulted before the plan caches.
         self.executors = None
+        # Called with each batch's header under the batch lock before it runs
+        # (a server across processes broadcasts it to the followers).
+        self.announce = None
         self._batch_lock = threading.Lock()
         self._qplans = {}  # bucket -> QueryPlan
         self._rplans = {}  # (bucket, out_cap, seg_cap, per_layer) -> RetrievePlan
@@ -205,8 +218,7 @@ class MicroBatcher:
 
     def _coalesce(self, requests: Sequence):
         """Pack, concatenate and EMPTY-pad the request keys; returns the
-        padded batch on the table's device and each request's ``(start,
-        stop)`` in it."""
+        padded host batch and each request's ``(start, stop)`` in it."""
         packed = [self.table.schema.pack_keys(r, "cpu").numpy() for r in requests]
         bounds = []
         off = 0
@@ -220,7 +232,47 @@ class MicroBatcher:
             flat[:off] = np.concatenate(packed, axis=0)
         self._counters["batch_keys_served_total"].inc(off)
         self._counters["batch_keys_padded_total"].inc(bucket - off)
-        return torch.from_numpy(flat).to(self.table.device), bounds
+        return flat, bounds
+
+    def _on_device(self, flat: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(flat).to(self.table.device)
+
+    def _mine(self, q: torch.Tensor) -> torch.Tensor:
+        """This caller's rows of a padded batch: all of it stacked, a rank's
+        block over a process group."""
+        return self.table._deal(q).flatten(0, 1)
+
+    def _gather(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's answers of a batch, in rank order (one ``all_gather``
+        over a process group; stacked, ``t`` is the whole batch's)."""
+        group = self.table.group
+        if not group.is_process:
+            return t
+        return group.all_gather(t.unsqueeze(0)).reshape(-1, *t.shape[1:])
+
+    def _gather_retrieval(self, res: ShardRetrieval) -> ShardRetrieval:
+        """A rank's block of a retrieve (its offsets, values, counts and
+        per-layer counts) and every other rank's, as the stacked run's global
+        layout: one ``all_gather`` of the blocks side by side.  On the card
+        the read stream is synchronised before it returns: the caller slices
+        the result on the host, outside the stream."""
+        if not self.table.group.is_process:
+            return res
+        parts = [res.offsets, res.values, res.counts]
+        if res.layer_counts is not None:
+            parts.append(res.layer_counts)
+        flat = torch.cat([p.reshape(-1).to(torch.int32) for p in parts])
+        got = self._gather(flat).reshape(self.table.group.size, -1)
+        out, at = [], 0
+        for p in parts:
+            n = p.numel()
+            out.append(got[:, at: at + n].reshape(-1, *p.shape[1:]).to(p.dtype))
+            at += n
+        if self.stream is not None:
+            self.stream.synchronize()
+        return ShardRetrieval(offsets=out[0], values=out[1], counts=out[2],
+                              num_dropped=res.num_dropped,
+                              layer_counts=out[3] if len(out) > 3 else None)
 
     # -- execution ------------------------------------------------------------
     def _caller_stream(self):
@@ -276,25 +328,13 @@ class MicroBatcher:
         st = as_state(self.table, state)
         caller = self._caller_stream()
         with on_stream(self.stream):
-            q, bounds = self._coalesce(requests)
-        with self._batch_lock, on_stream(self.stream):
+            flat, bounds = self._coalesce(requests)
+            q = self._on_device(flat)
+        with self._batch_lock, on_stream(self.stream), exchange.role("read"):
             self._wait_ready(ready, caller)
-            bucket = q.shape[0]
-            grid = self.executors
-            handle = grid.query_handle(st, bucket) if grid is not None else None
-            if handle is not None:
-                self._counters["batch_cache_hits_total"].inc()
-                run = handle
-            else:
-                plan = self._qplans.get(bucket)
-                if plan is None:
-                    plan = self.table.plan_query(num_queries=bucket)
-                    self._qplans[bucket] = plan
-                    self._counters["batch_cache_misses_total"].inc()
-                else:
-                    self._counters["batch_cache_hits_total"].inc()
-                run = plan
-            counts = self._execute("query", st, bucket, lambda: run(st, q))
+            if self.announce is not None:
+                self.announce({"kind": "query", "q": flat, "seqno": seqno})
+            counts, hit = self._query_batch(st, q)
             event = None
             if self.stream is not None:
                 event = torch.cuda.Event()
@@ -302,19 +342,61 @@ class MicroBatcher:
                 if ready is None:  # the caller may free the state once we return
                     caller.wait_event(event)
             self._counters["batch_requests_total"].inc(len(requests))
-            self._counters["batch_executions_total"].inc()
-            return PendingBatch(counts=counts, bounds=bounds, seqno=seqno,
-                                aot=handle is not None, event=event)
+            return PendingBatch(counts=counts, bounds=bounds, seqno=seqno, aot=hit, event=event)
 
-    def query_many(self, state, requests: Sequence, ready=None) -> list:
+    def _query_batch(self, st, q: torch.Tensor) -> tuple:
+        """One query execution of the padded batch ``q`` (this caller's rows
+        of it, then every rank's answers): ``(counts, served by the grid)``.
+        Call under the batch lock on the read stream."""
+        bucket = q.shape[0]
+        grid = self.executors
+        handle = grid.query_handle(st, bucket) if grid is not None else None
+        if handle is not None:
+            self._counters["batch_cache_hits_total"].inc()
+            run = handle
+        else:
+            plan = self._qplans.get(bucket)
+            if plan is None:
+                plan = self.table.plan_query(num_queries=bucket)
+                self._qplans[bucket] = plan
+                self._counters["batch_cache_misses_total"].inc()
+            else:
+                self._counters["batch_cache_hits_total"].inc()
+            run = plan
+        mine = self._mine(q)
+        counts = self._gather(self._execute("query", st, bucket, lambda: run(st, mine)))
+        self._counters["batch_executions_total"].inc()
+        return counts, handle is not None
+
+    def query_many(self, state, requests: Sequence, ready=None, seqno: int = -1) -> list:
         """Merged multiplicities for each request, one fused execution: one
         ``np.int32`` array per request, aligned with its keys."""
         if not requests:
             return []
-        return self.dispatch_query(state, requests, ready=ready).scatter()
+        return self.dispatch_query(state, requests, seqno=seqno, ready=ready).scatter()
+
+    def follow(self, header: dict, state, ready=None) -> None:
+        """Run one batch rank 0 announced (:attr:`announce`) on this rank's
+        block: the same execution, retries and ``all_gather`` as rank 0's,
+        against ``state`` (the snapshot at the header's seqno)."""
+        st = as_state(self.table, state)
+        caller = self._caller_stream()
+        with on_stream(self.stream):
+            q = self._on_device(header["q"])
+        with self._batch_lock, on_stream(self.stream), exchange.role("read"):
+            self._wait_ready(ready, caller)
+            if header["kind"] == "query":
+                self._query_batch(st, q)
+            else:
+                caps = header["caps"]
+                if caps is None:
+                    self._caps.pop(q.shape[0], None)
+                else:
+                    self._caps[q.shape[0]] = tuple(caps)
+                self._retrieve_batch(st, q, header["per_layer"])
 
     def retrieve_many(self, state, requests: Sequence, *, per_layer_counts: bool = False,
-                      ready=None):
+                      ready=None, seqno: int = -1):
         """All stored values for each request's keys, one fused execution.
 
         Returns one list per request with one value array per key.  With
@@ -331,44 +413,60 @@ class MicroBatcher:
         st = as_state(self.table, state)
         caller = self._caller_stream()
         with on_stream(self.stream):
-            q, bounds = self._coalesce(requests)
-        with self._batch_lock, on_stream(self.stream):
+            flat, bounds = self._coalesce(requests)
+            q = self._on_device(flat)
+        with self._batch_lock, on_stream(self.stream), exchange.role("read"):
             self._wait_ready(ready, caller)
-            bucket = q.shape[0]
-            caps = self._caps.get(bucket)
-            if caps is None:
-                seg_need, out_need = self.table.plan_caps(st, q)
-                caps = (_pow2(out_need), _pow2(seg_need))
-                self._caps[bucket] = caps
-            res, hit = self._exec_retrieve(st, q, bucket, caps, per_layer_counts)
-            for _ in range(self.max_retries):
-                if int(res.num_dropped) == 0:
-                    break
-                caps = (caps[0] * 2, caps[1] * 2)
-                self._caps[bucket] = caps
-                self._counters["batch_overflow_retries_total"].inc()
-                res, hit = self._exec_retrieve(st, q, bucket, caps, per_layer_counts)
-            if int(res.num_dropped) != 0:
-                raise RuntimeError(
-                    f"retrieve batch still overflows after {self.max_retries} "
-                    f"capacity doublings (bucket {bucket}, out/seg caps {caps}, "
-                    f"num_dropped {int(res.num_dropped)}); raise max_retries or "
-                    "pre-warm the bucket with representative traffic"
-                )
-            if hit:
-                self._counters["batch_cache_hits_total"].inc()
-            else:
-                self._counters["batch_cache_misses_total"].inc()
+            if self.announce is not None:
+                self.announce({"kind": "retrieve", "q": flat, "seqno": seqno,
+                               "caps": self._caps.get(q.shape[0]),
+                               "per_layer": per_layer_counts})
+            res = self._retrieve_batch(st, q, per_layer_counts)
             self._counters["batch_requests_total"].inc(len(requests))
-            self._counters["batch_executions_total"].inc()
-        # The result is complete (num_dropped was read on the read stream):
-        # the host-side slicing needs neither the lock nor the stream.
+        # The result is complete (num_dropped was read on the read stream;
+        # across processes the gather synchronised it): the host-side
+        # slicing needs neither the lock nor the stream.
         per_key = retrieval_to_lists(res)
         out = [per_key[a:b] for a, b in bounds]
         if not per_layer_counts:
             return out
         lc = res.layer_counts.cpu().numpy()
         return [(vals, lc[a:b]) for vals, (a, b) in zip(out, bounds)]
+
+    def _retrieve_batch(self, st, q: torch.Tensor, per_layer: bool) -> ShardRetrieval:
+        """One retrieve of the padded batch ``q`` with the bucket's working
+        capacities (the exact counts round first if it has none, doubled on
+        overflow): every rank's blocks in the global layout.  Every decision
+        reads global numbers, so the ranks run the same rounds.  Call under
+        the batch lock on the read stream."""
+        bucket = q.shape[0]
+        mine = self._mine(q)
+        caps = self._caps.get(bucket)
+        if caps is None:
+            seg_need, out_need = self.table.plan_caps(st, mine)
+            caps = (_pow2(out_need), _pow2(seg_need))
+            self._caps[bucket] = caps
+        res, hit = self._exec_retrieve(st, mine, bucket, caps, per_layer)
+        for _ in range(self.max_retries):
+            if int(res.num_dropped) == 0:
+                break
+            caps = (caps[0] * 2, caps[1] * 2)
+            self._caps[bucket] = caps
+            self._counters["batch_overflow_retries_total"].inc()
+            res, hit = self._exec_retrieve(st, mine, bucket, caps, per_layer)
+        if int(res.num_dropped) != 0:
+            raise RuntimeError(
+                f"retrieve batch still overflows after {self.max_retries} "
+                f"capacity doublings (bucket {bucket}, out/seg caps {caps}, "
+                f"num_dropped {int(res.num_dropped)}); raise max_retries or "
+                "pre-warm the bucket with representative traffic"
+            )
+        if hit:
+            self._counters["batch_cache_hits_total"].inc()
+        else:
+            self._counters["batch_cache_misses_total"].inc()
+        self._counters["batch_executions_total"].inc()
+        return self._gather_retrieval(res)
 
     def _exec_retrieve(self, st, q, bucket, caps, per_layer):
         grid = self.executors

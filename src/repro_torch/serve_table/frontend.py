@@ -34,6 +34,10 @@ after admission (writes); no live request ever traces or compiles when the
 server was warmed (:meth:`TableServer.warm`) — the dispatcher rides the
 AOT executor grid like every other read.
 
+Across processes the front end runs on rank 0, the server's leader: its
+batches go to the followers through :meth:`TableServer.dispatch_query`,
+which also gathers every rank's answers before it returns.
+
 The batcher takes an injectable ``clock`` so the deadline logic is testable
 under a fake clock (drive :meth:`DeadlineBatcher.poll` manually) as well as
 the real timer (:meth:`DeadlineBatcher.next_batch` blocks on a Condition
@@ -509,10 +513,7 @@ class AsyncFrontend:
                 if r.trace is not None:
                     r.trace.mark("linger", now)
             try:
-                snap = self.server.current()
-                pending = self.server.batcher.dispatch_query(
-                    snap.state, [r.keys for r in batch], seqno=snap.seqno, ready=snap.ready
-                )
+                pending = self.server.dispatch_query([r.keys for r in batch])
             except Exception as e:  # dispatch failed: fail this batch, keep serving
                 self._fail_batch(batch, e)
                 continue
@@ -520,7 +521,7 @@ class AsyncFrontend:
             for r in batch:
                 if r.trace is not None:
                     r.trace.mark("dispatch", done)
-                    r.trace.seqno = snap.seqno
+                    r.trace.seqno = pending.seqno
                     r.trace.bucket = pending.bucket
             with self._handoff_cond:
                 self._handoff_cond.wait_for(

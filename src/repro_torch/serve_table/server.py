@@ -29,10 +29,48 @@ Threading contract: one writer (the embedded ``start()`` thread or
 an external caller of ``step()``/``maintain()``) plus any number of reader
 threads.  Writer state (shadow, queue) is mutex-guarded; while a background
 fold is in flight the writer defers new applications (writes queue up).
+
+**Across processes** (a table built with ``group=``: one shard a rank) the
+server runs on every rank, built alike (``keys`` / ``values`` are the
+rank's block of the initial table, the ``table.init`` contract), warmed
+alike, and rank 0 leads:
+
+* *One communicator per role.*  Reads, writes and folds each get their own
+  ``torch.distributed`` group over the same ranks (``ProcessGroup.
+  add_roles``, created in that order when the server is built); each role's
+  thread enters ``exchange.role``, so within a role the ranks issue their
+  collectives in one order and across roles nothing needs ordering: a read
+  never waits on a fold.
+* *A leader and followers.*  Rank 0 holds the request queues, the batching
+  decisions and the compaction policy, as the reference's single controller
+  does.  Each decision goes out on its role's communicator before rank 0
+  runs it: a read batch (kind, padded keys, seqno, capacities, per-layer
+  flag), a window of writes (kind, keys, values, TTL), a ``maintain``, a
+  background fold (its ``k``), an ``advance``, and stop.  Every rank runs
+  the same code on its block (``bucket / D`` read rows, its block of an
+  insert); a read's answers come back to every rank in one ``all_gather``.
+  Followers run :meth:`TableServer.follow`, one thread a role, until rank 0
+  sends stop; a follower never decides from its own clock or queue.
+* *The same snapshot everywhere.*  A read runs against rank 0's seqno on
+  every rank.  A follower keeps every published snapshot until rank 0's
+  writes report that no read can ask for it (the oldest seqno a read in
+  flight holds); mutations carry rank 0's sequence number and apply in that
+  order on every rank.  Rank 0 holds a read's seqno until the read's
+  gathered answers are complete on its read stream, not merely until its
+  call returns: a collective may return once queued (NCCL), but its
+  ``all_gather`` completes on rank 0 only after every follower has joined
+  it, and a follower joins only after it has taken the snapshot.  Within
+  one communicator the ranks' collectives run in the order they were issued.
+* *Agreed failures.*  A mutation fails on every rank when it fails on any
+  (one ``agree`` after it), so the shadows never diverge; rank 0 requeues
+  and surfaces the write as the stacked server does.  Every wait is bounded
+  by the group's timeout (idle roles get a heartbeat), so a dead rank makes
+  the others raise.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import threading
 import time
@@ -43,7 +81,7 @@ import numpy as np
 import torch
 
 from repro_torch import counting
-from repro_torch.core import maintenance
+from repro_torch.core import exchange, maintenance
 from repro_torch.core.hashgraph import EMPTY_BITS
 from repro_torch.core.maintenance import CompactionPolicy, TableStats
 from repro_torch.core.state import TableState, empty_tombstones
@@ -54,6 +92,7 @@ from repro_torch.utils import on_stream
 
 
 FOLD_LOG = 256  # folds kept in TableServer.fold_log
+ROLES = ("read", "write", "fold")  # a server's communicators across processes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,6 +150,9 @@ class TableServer:
     batches the writer applies per publish.  ``write_bucket`` (a power of
     two, a multiple of the shard count) pads every insert to one geometry,
     which is what lets :meth:`warm` enumerate every state structure.
+
+    Over a process group (module docstring) every rank builds the server
+    alike; rank 0 takes the traffic and the others call :meth:`follow`.
     """
 
     def __init__(
@@ -125,11 +167,24 @@ class TableServer:
         write_bucket: Optional[int] = None,
         metrics: Optional[MetricsRegistry] = None,
     ):
-        if table.group.is_process:
-            raise NotImplementedError(
-                "TableServer over a process group is ROADMAP item 7c: its threads would "
-                "issue collectives in no fixed order")
         self.table = table
+        group = table.group
+        self.leader = group.rank == 0
+        # Across processes: the role communicators (created alike on every
+        # rank), rank 0's mutation sequence number, and the reads in flight
+        # by the seqno they pinned (the followers keep those snapshots).
+        self._lanes = group.is_process
+        if self._lanes:
+            group.add_roles(ROLES)
+        self._mseq = 0
+        self._turn = threading.Condition()
+        self._lane_failed = False  # a follower's role failed: the others stop waiting
+        self._pins: collections.Counter = collections.Counter()
+        self._dispatched: list = []  # (seqno, event) of reads not yet gathered
+        self._pin_lock = threading.Lock()
+        self._closed = False
+        self._last_sent = {lane: time.monotonic() for lane in ROLES}
+        self._heartbeat: Optional[threading.Thread] = None
         self.write_bucket: Optional[int] = None
         if write_bucket is not None:
             wb = int(write_bucket)
@@ -149,13 +204,22 @@ class TableServer:
             self._fold_stream = torch.cuda.Stream(dev)
             self._streams = (self.batcher.stream, self._write_stream, self._fold_stream)
         with on_stream(self._write_stream):
-            state = table.init(*self._pad_insert(*self._admit(keys, values)))
+            if self._lanes:  # the rank's block: row ids global, no padding
+                k, v = self._admit(keys, values)
+                if values is None:
+                    v = v + group.rank * k.shape[0]
+                state = table.init(torch.from_numpy(k), torch.from_numpy(v))
+            else:
+                state = table.init(*self._pad_insert(*self._admit(keys, values)))
             if self.write_bucket is not None:
                 # Shape-stable serving pre-grows the tombstone buffer (init
                 # leaves it at zero capacity until the first delete): one
                 # tombstone structure for the state's whole life.
                 state = dataclasses.replace(state, tombstones=self._empty_tombstones())
-        self.registry = SnapshotRegistry(state, ready=self._hand_over(state, self._write_stream))
+        # A follower keeps every snapshot until rank 0 releases it.
+        self.registry = SnapshotRegistry(
+            state, ready=self._hand_over(state, self._write_stream),
+            history=None if self._lanes and not self.leader else 8)
         self.policy = policy or CompactionPolicy(max_delta_depth=table.max_deltas)
         self.window = max(1, int(window))
         self._shadow = state
@@ -191,6 +255,201 @@ class TableServer:
             "maintenance_fold_budget_misses_total",
             help="Incremental folds that made an exchange round (want 0).",
         )
+        if self._lanes and self.leader:
+            self.batcher.announce = lambda header: self._announce("read", header)
+            self._heartbeat = threading.Thread(target=self._heartbeat_loop,
+                                               name="serve-table-heartbeat", daemon=True)
+            self._heartbeat.start()
+
+    # -- lanes (across processes) -------------------------------------------------
+    def _timeout(self) -> float:
+        t = getattr(self.table.group, "timeout_s", None)
+        return float(t) if t else 120.0
+
+    def _bind_device(self) -> None:
+        """A new thread's current card: the table's, where it names one."""
+        dev = self.table.device
+        if dev.type == "cuda" and dev.index is not None:
+            torch.cuda.set_device(dev)
+
+    def _check_leader(self) -> None:
+        if self._lanes and not self.leader:
+            raise RuntimeError("a follower takes its work from rank 0: call follow()")
+        if self._closed:
+            raise RuntimeError("the server was stopped: its followers have left")
+
+    def _floor(self) -> int:
+        """The oldest seqno a read may still ask for (a read in flight's,
+        else the current).  A dispatched batch holds its seqno until its
+        gathered answers are complete on the read stream."""
+        with self._pin_lock:
+            self._dispatched = [(s, e) for s, e in self._dispatched if not e.query()]
+            return min([self.registry.seqno, *self._pins, *(s for s, _ in self._dispatched)])
+
+    @contextlib.contextmanager
+    def _read_snapshot(self):
+        """The current snapshot, pinned until the read on it returns (so the
+        followers keep it)."""
+        with self._pin_lock:
+            snap = self.registry.current()
+            self._pins[snap.seqno] += 1
+        try:
+            yield snap
+        finally:
+            with self._pin_lock:
+                self._pins[snap.seqno] -= 1
+                if not self._pins[snap.seqno]:
+                    del self._pins[snap.seqno]
+
+    def _announce(self, lane: str, record: dict) -> None:
+        """Rank 0: send ``record`` to the followers on ``lane``'s
+        communicator.  A mutation gets the next sequence number and the
+        oldest seqno a read may still ask for.  Call holding the lane's lock
+        (the batch lock for reads, the writer mutex otherwise)."""
+        if not self._lanes:
+            return
+        if record["kind"] not in ("tick", "stop", "query", "retrieve"):
+            self._mseq += 1
+            record = {**record, "mseq": self._mseq, "floor": self._floor()}
+        with exchange.role(lane):
+            self.table.group.broadcast_object(record)
+        self._last_sent[lane] = time.monotonic()
+
+    def _heartbeat_loop(self) -> None:
+        """Rank 0: a tick on every role idle for a quarter of the group's
+        timeout, so an idle follower's wait never runs out."""
+        period = self._timeout() / 4
+        locks = {"read": self.batcher._batch_lock, "write": self._writer_mutex,
+                 "fold": self._writer_mutex}
+        while not self._closed:
+            time.sleep(min(1.0, period / 4))
+            for lane in ROLES:
+                if self._closed or time.monotonic() - self._last_sent[lane] < period:
+                    continue
+                if not locks[lane].acquire(blocking=False):
+                    continue
+                try:
+                    if not self._closed:
+                        self._announce(lane, {"kind": "tick"})
+                except Exception as e:  # noqa: BLE001 - a dead group: surfaced
+                    self._last_error = f"{type(e).__name__}: {e}"
+                    return
+                finally:
+                    locks[lane].release()
+
+    def _agreed(self, fn):
+        """``fn()``, its failure agreed over a process group: every rank
+        raises when any rank's ``fn`` raised (one ``agree``), so a mutation
+        lands everywhere or nowhere.  Stacked, ``fn()``."""
+        group = self.table.group
+        if not group.is_process:
+            return fn()
+        out, err = None, None
+        try:
+            out = fn()
+        except Exception as e:  # noqa: BLE001 - re-raised after the verdict
+            err = e
+        if group.agree([int(err is not None)])[0]:
+            raise err if err is not None else RuntimeError(
+                "the mutation failed on another rank (agreed: no rank applied it)")
+        return out
+
+    def _block(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's block of a replicated batch (the whole of it stacked)."""
+        return self.table._deal(t).flatten(0, 1)
+
+    @contextlib.contextmanager
+    def _in_turn(self, mseq: int):
+        """A follower: wait until every earlier mutation of rank 0's order
+        has applied here, run this one, then let the next go."""
+        with self._turn:
+            if not self._turn.wait_for(lambda: self._lane_failed or self._mseq == mseq - 1,
+                                       timeout=self._timeout()):
+                raise TimeoutError(f"mutation {mseq} waited for {mseq - 1} past the timeout")
+            if self._lane_failed:
+                raise RuntimeError(f"mutation {mseq}: another role of this rank failed")
+        try:
+            yield
+        finally:
+            with self._turn:
+                self._mseq = mseq
+                self._turn.notify_all()
+
+    def follow(self) -> None:
+        """A follower's serve loop: one thread a role, each running the
+        records rank 0 sends on its communicator, until rank 0 sends stop.
+        Raises ``RuntimeError`` when a role failed (a dead or diverged rank:
+        a collective raised or ran out of the group's timeout)."""
+        if not self._lanes or self.leader:
+            raise RuntimeError("follow() is for ranks other than 0 of a process group")
+        errors = []
+
+        def lane_loop(lane):
+            try:
+                self._bind_device()
+                with exchange.role(lane):
+                    while True:
+                        rec = self.table.group.broadcast_object(None)
+                        kind = rec["kind"]
+                        if kind == "stop":
+                            return
+                        if kind == "tick":
+                            continue
+                        if lane == "read":
+                            self._follow_read(rec)
+                        else:
+                            with self._in_turn(rec["mseq"]):
+                                self.registry.release_below(rec["floor"])
+                                self._apply_record(rec)
+            except Exception as e:  # noqa: BLE001 - reported by follow()
+                errors.append(f"{lane}: {type(e).__name__}: {e}")
+                with self._turn:
+                    self._lane_failed = True
+                    self._turn.notify_all()
+
+        threads = [threading.Thread(target=lane_loop, args=(lane,), daemon=True,
+                                    name=f"serve-table-follow-{lane}") for lane in ROLES]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        self._closed = True
+        if errors:
+            raise RuntimeError("follower lanes failed: " + "; ".join(errors))
+
+    def _follow_read(self, rec: dict) -> None:
+        """A follower: one of rank 0's read batches, against its seqno."""
+        self.registry.wait_for(rec["seqno"], timeout=self._timeout())
+        snap = self.registry.recent(rec["seqno"])
+        if snap is None:
+            raise RuntimeError(f"snapshot {rec['seqno']} was released before its read")
+        try:
+            self.batcher.follow(rec, snap.state, ready=snap.ready)
+        except Exception as e:  # noqa: BLE001 - rank 0's batch failed alike
+            self._last_error = f"{type(e).__name__}: {e}"
+
+    def _apply_record(self, rec: dict) -> None:
+        """One of rank 0's mutations, as a follower (or a stacked replay of
+        rank 0's log) applies it; an error, agreed with rank 0, which
+        surfaces it, is kept in ``last_error``."""
+        kind = rec["kind"]
+        try:
+            if kind == "ops":
+                with on_stream(self._write_stream), self._writer_mutex:
+                    self._apply_ops(list(rec["ops"]))
+            elif kind == "maintain":
+                with self._writer_mutex:
+                    self._maintain_body()
+            elif kind == "fold":
+                with self._writer_mutex:
+                    self._fold_body(rec["k"])
+            elif kind == "advance":
+                with self._writer_mutex:
+                    self._advance_body(rec["now"])
+            else:
+                raise ValueError(f"unknown record {kind!r}")
+        except Exception as e:  # noqa: BLE001 - agreed with rank 0
+            self._last_error = f"{type(e).__name__}: {e}"
 
     # -- streams ---------------------------------------------------------------
     def _hand_over(self, state: TableState, stream, mark: bool = True):
@@ -250,6 +509,7 @@ class TableServer:
     def submit_insert(self, keys, values=None) -> None:
         """Queue one insert batch (applied by the writer loop); with
         ``write_bucket`` chunked to the bucket and each chunk padded to it."""
+        self._check_leader()
         keys, values = self._admit(keys, values)
         wb = self.write_bucket
         if wb is None:
@@ -267,6 +527,7 @@ class TableServer:
         """Queue one delete batch, chunked to at most half the tombstone
         capacity so the per-op policy check can escalate before a chunk
         could overflow the buffer."""
+        self._check_leader()
         keys = torch.from_numpy(self.table.schema.pack_keys(keys, "cpu").numpy())
         chunk = max(1, self.table.tombstone_capacity // 2)
         with self._lock:
@@ -278,6 +539,7 @@ class TableServer:
         admission and chunked like inserts; each chunk applies as one delete
         of prior versions plus one bucket-padded delta.  ``ttl`` schedules
         expiry at ``now + ttl`` on the server's logical clock."""
+        self._check_leader()
         kn, vn = self._admit(keys, values)
         rows = kn if kn.ndim == 2 else kn[:, None]
         _, first = np.unique(rows[::-1], axis=0, return_index=True)
@@ -296,8 +558,13 @@ class TableServer:
         """Advance the serving logical clock to ``now`` and publish (a data
         field of the state: no structure change)."""
         with self._writer_mutex:
-            self._shadow = self._shadow.advance(now)
-            self._publish()
+            self._check_leader()
+            self._announce("write", {"kind": "advance", "now": int(now)})
+            self._advance_body(now)
+
+    def _advance_body(self, now) -> None:
+        self._shadow = self._shadow.advance(now)
+        self._publish()
 
     def pending(self) -> int:
         return len(self._writes)
@@ -306,71 +573,86 @@ class TableServer:
         """Apply up to ``window`` queued mutations to the shadow; publish.
 
         Returns the number of batches applied (0 while a background fold is
-        in flight).  Runs the compaction policy before every mutation.
+        in flight).  Runs the compaction policy before every mutation.  A
+        window is popped at once and announced to the followers (across
+        processes) before it applies; a failed write and those after it go
+        back to the front of the queue and the error is re-raised.
         """
         if self.fold_in_flight or not self._writer_mutex.acquire(blocking=False):
             return 0
         try:
-            with on_stream(self._write_stream):
-                return self._apply_window()
+            self._check_leader()
+            with self._lock:
+                ops = [self._writes.popleft() for _ in range(min(self.window, len(self._writes)))]
+            if not ops:
+                return 0
+            applied, err = 0, None
+            with on_stream(self._write_stream), exchange.role("write"):
+                try:
+                    self._announce("write", {"kind": "ops", "ops": ops})
+                except Exception as e:  # noqa: BLE001 - nothing applied: requeued below
+                    err = e
+                else:
+                    applied, err = self._apply_ops(ops)
+            if err is not None:
+                # An acknowledged write never vanishes.
+                with self._lock:
+                    self._writes.extendleft(reversed(ops[applied:]))
+                raise err
+            return applied
         finally:
             self._writer_mutex.release()
 
-    def _apply_window(self) -> int:
-        applied = 0
+    def _apply_ops(self, ops: list) -> tuple:
+        """Apply a window of writes to the shadow, each after the policy's
+        check, and publish.  Stops at the first failure (kept in
+        ``last_error``): returns ``(applied, error or None)``, the applied
+        prefix published."""
+        applied, err = 0, None
         stats = None
-        while applied < self.window:
-            with self._lock:
-                if not self._writes:
-                    break
-                op = self._writes.popleft()
+        for kind, keys, values, ttl in ops:
             try:
                 if stats is None:
                     stats = self._shadow.stats()
                 if self.policy.due(stats):
                     self._fold_shadow()
                     stats = self._shadow.stats()
-                kind, keys, values, ttl = op
                 if kind == "insert":
-                    self._shadow = self.table.insert(self._shadow, keys, values)
+                    self._shadow = self._agreed(lambda: self.table.insert(
+                        self._shadow, self._block(keys), self._block(values)))
                     stats = dataclasses.replace(stats, delta_depth=len(self._shadow.deltas))
                 elif kind == "upsert":
-                    self._apply_upsert(keys, values, ttl)
+                    self._shadow = self._agreed(lambda: self._upserted(keys, values, ttl))
                     stats = None  # delta depth and tombstones moved
                 else:
-                    self._shadow = self.table.delete(self._shadow, keys)
+                    self._shadow = self._agreed(lambda: self.table.delete(self._shadow, keys))
                     stats = None  # tombstone signals moved: re-read
-            except Exception as e:
-                # An acknowledged write never vanishes: requeue it at the
-                # front, surface the error and re-raise.
-                with self._lock:
-                    self._writes.appendleft(op)
+            except Exception as e:  # noqa: BLE001 - returned to the caller
                 self._last_error = f"{type(e).__name__}: {e}"
-                if applied:
-                    self._shadow_ready = self._hand_over(self._shadow, self._write_stream)
-                    self._publish()
-                raise
+                err = e
+                break
             self._c_writes_applied.inc()
             applied += 1
         if applied:
             self._shadow_ready = self._hand_over(self._shadow, self._write_stream)
             self._publish()
-        return applied
+        return applied, err
 
-    def _apply_upsert(self, keys: np.ndarray, values: np.ndarray, ttl) -> None:
-        """One deduplicated upsert chunk: tombstone the real keys, insert the
-        chunk padded to ``write_bucket`` (the warmed insert geometry)."""
+    def _upserted(self, keys: np.ndarray, values: np.ndarray, ttl) -> TableState:
+        """The shadow after one deduplicated upsert chunk: tombstone the real
+        keys, insert the chunk padded to ``write_bucket`` (the warmed insert
+        geometry; a rank inserts its block of it)."""
         real = torch.from_numpy(keys).to(self.table.device)
         shadow = self.table.delete(self._shadow, real)  # epoch d
         k_pad, v_pad = self._pad_insert(keys, values, bucket=self.write_bucket)
-        shadow = self.table.insert(shadow, k_pad, v_pad)  # epoch d + 1
+        shadow = self.table.insert(shadow, self._block(k_pad), self._block(v_pad))  # epoch d + 1
         if ttl is not None:
             ts = shadow.tombstones
             shadow = dataclasses.replace(
                 shadow,
                 tombstones=ts.push(real, epoch=len(shadow.deltas), expires=ts.now + int(ttl)),
             )
-        self._shadow = shadow
+        return shadow
 
     # -- maintenance (off the read path) --------------------------------------
     def maintain(self) -> bool:
@@ -379,16 +661,22 @@ class TableServer:
         if self.fold_in_flight or not self._writer_mutex.acquire(blocking=False):
             return False
         try:
+            self._check_leader()
             if not self.policy.due(self._shadow_stats()):
                 return False
-            ran = self._fold_counts()
-            self._fold_shadow()
-            if self._fold_counts() == ran:
-                return False  # due but nothing actionable: no phantom publish
-            self._publish()
-            return True
+            self._announce("write", {"kind": "maintain"})
+            with exchange.role("write"):
+                return self._maintain_body()
         finally:
             self._writer_mutex.release()
+
+    def _maintain_body(self) -> bool:
+        ran = self._fold_counts()
+        self._fold_shadow()
+        if self._fold_counts() == ran:
+            return False  # due but nothing actionable: no phantom publish
+        self._publish()
+        return True
 
     def _shadow_stats(self) -> TableStats:
         with on_stream(self._write_stream):
@@ -430,7 +718,7 @@ class TableServer:
             t0 = time.perf_counter()
             rows_before = maintenance.allocated_rows(self._shadow)
             with counting.scoped() as scope:
-                shadow = fold_fn(self._shadow)
+                shadow = self._agreed(lambda: fold_fn(self._shadow))
             if full and self.write_bucket is not None:
                 # compact() resets the tombstone buffer to zero capacity when
                 # nothing was pending; shape-stable serving re-grows it
@@ -469,24 +757,15 @@ class TableServer:
         the thread."""
         if self.fold_in_flight:
             raise RuntimeError("a background fold is already in flight")
+        self._check_leader()
 
         def run():
             try:
-                with self._writer_mutex:
-                    ran_before = self._fold_counts()
-                    if k is None:
-                        self._fold_shadow(background=True)
-                    else:
-                        kk = min(k, len(self._shadow.deltas))
-                        if kk <= 0:
-                            return
-                        if self._shadow.coherent and kk < len(self._shadow.deltas):
-                            self._apply_fold(lambda s: maintenance.fold_oldest(s, kk),
-                                             full=False, background=True)
-                        else:  # fold-all or incoherent: full rebuild either way
-                            self._apply_fold(self.table.compact, full=True, background=True)
-                    if self._fold_counts() != ran_before:
-                        self._publish()
+                self._bind_device()
+                with self._writer_mutex, exchange.role("fold"):
+                    self._check_leader()
+                    self._announce("fold", {"kind": "fold", "k": k})
+                    self._fold_body(k)
             except Exception as e:
                 # Never silent: surfaced on stats().last_error and re-raised
                 # by drain(); the read path keeps serving the last snapshot.
@@ -498,6 +777,22 @@ class TableServer:
         t.start()
         return t
 
+    def _fold_body(self, k: Optional[int]) -> None:
+        ran_before = self._fold_counts()
+        if k is None:
+            self._fold_shadow(background=True)
+        else:
+            kk = min(k, len(self._shadow.deltas))
+            if kk <= 0:
+                return
+            if self._shadow.coherent and kk < len(self._shadow.deltas):
+                self._apply_fold(lambda s: maintenance.fold_oldest(s, kk),
+                                 full=False, background=True)
+            else:  # fold-all or incoherent: full rebuild either way
+                self._apply_fold(self.table.compact, full=True, background=True)
+        if self._fold_counts() != ran_before:
+            self._publish()
+
     @property
     def fold_in_flight(self) -> bool:
         t = self._fold_thread
@@ -508,11 +803,26 @@ class TableServer:
         """The snapshot reads execute against right now."""
         return self.registry.current()
 
+    def dispatch_query(self, requests):
+        """Enqueue one fused query of ``requests`` against the current
+        snapshot (:meth:`MicroBatcher.dispatch_query`); the front end's
+        dispatcher calls this.  Returns the ``PendingBatch``."""
+        self._check_leader()
+        with self._read_snapshot() as snap:
+            pending = self.batcher.dispatch_query(snap.state, requests, seqno=snap.seqno,
+                                                  ready=snap.ready)
+            if self._lanes and pending.event is not None:
+                with self._pin_lock:  # held past the return: see the module docstring
+                    self._dispatched.append((snap.seqno, pending.event))
+            return pending
+
     def query_many(self, requests) -> tuple[list, int]:
         """Merged multiplicities per request against the current snapshot:
         ``(results, seqno)``, every key of the batch read at that seqno."""
-        snap = self.registry.current()
-        out = self.batcher.query_many(snap.state, requests, ready=snap.ready)
+        self._check_leader()
+        with self._read_snapshot() as snap:
+            out = self.batcher.query_many(snap.state, requests, ready=snap.ready,
+                                          seqno=snap.seqno)
         self._c_reads.inc(len(requests))
         self._c_read_batches.inc()
         return out, snap.seqno
@@ -520,10 +830,11 @@ class TableServer:
     def retrieve_many(self, requests, *, per_layer_counts: bool = False):
         """Stored values per request key against the current snapshot:
         ``(results, seqno)``; see :meth:`MicroBatcher.retrieve_many`."""
-        snap = self.registry.current()
-        out = self.batcher.retrieve_many(
-            snap.state, requests, per_layer_counts=per_layer_counts, ready=snap.ready
-        )
+        self._check_leader()
+        with self._read_snapshot() as snap:
+            out = self.batcher.retrieve_many(
+                snap.state, requests, per_layer_counts=per_layer_counts, ready=snap.ready,
+                seqno=snap.seqno)
         self._c_reads.inc(len(requests))
         self._c_read_batches.inc()
         return out, snap.seqno
@@ -546,9 +857,11 @@ class TableServer:
         that fails stops the loop and surfaces as ``stats().last_error``."""
         if self._writer_thread is not None and self._writer_thread.is_alive():
             raise RuntimeError("writer loop already running")
+        self._check_leader()
         self._stop.clear()
 
         def loop():
+            self._bind_device()
             while not self._stop.is_set():
                 try:
                     applied = self.step()
@@ -562,11 +875,26 @@ class TableServer:
         self._writer_thread.start()
 
     def stop(self) -> None:
-        """Stop the writer loop (queued writes stay queued)."""
+        """Stop the writer loop (queued writes stay queued).  Across
+        processes rank 0 then sends stop on every role (after a fold in
+        flight), the followers' :meth:`follow` returns and the server serves
+        no more."""
         self._stop.set()
         if self._writer_thread is not None:
             self._writer_thread.join()
             self._writer_thread = None
+        if not (self._lanes and self.leader) or self._closed:
+            return
+        if self._fold_thread is not None:
+            self._fold_thread.join(timeout=self._timeout())
+        try:
+            with self._writer_mutex:
+                for lane in ("write", "fold"):
+                    self._announce(lane, {"kind": "stop"})
+            with self.batcher._batch_lock:
+                self._announce("read", {"kind": "stop"})
+        finally:
+            self._closed = True
 
     def drain(self, timeout: float = 60.0) -> None:
         """Block until every queued write has been applied and published.

@@ -16,7 +16,10 @@ monotonically increasing ``seqno`` and swaps the current reference under a
 lock; ``current`` is a plain reference read (atomic in CPython, lock-free)
 — the read path never waits on a writer or a background compaction.  A
 small history ring keeps recent seqnos inspectable for debugging and
-consistency tests.
+consistency tests.  A follower of a server across processes keeps every
+snapshot instead (``history=None``) until the leader says no read can ask
+for it any more (:meth:`SnapshotRegistry.release_below`): its reads run
+against the leader's seqno, and its writes may publish ahead of them.
 
 On the card a snapshot also carries ``ready``, the CUDA event recorded on
 the publishing stream after the state's last kernel: a reader makes its own
@@ -57,11 +60,12 @@ class SnapshotRegistry:
     attribute load of an immutable :class:`Snapshot`.
     """
 
-    def __init__(self, state: TableState, *, history: int = 8, ready=None):
+    def __init__(self, state: TableState, *, history: Optional[int] = 8, ready=None):
         self._lock = threading.Lock()
         self._published = threading.Condition(self._lock)
         self._current = Snapshot(0, state, ready)
-        self._history: deque = deque([self._current], maxlen=max(1, history))
+        self._history: deque = deque(
+            [self._current], maxlen=None if history is None else max(1, history))
 
     def current(self) -> Snapshot:
         """The last published snapshot (wait-free reference read)."""
@@ -103,7 +107,14 @@ class SnapshotRegistry:
 
     def recent(self, seqno: int) -> Optional[Snapshot]:
         """A recently published snapshot by seqno, if still in the ring."""
-        for snap in self._history:
-            if snap.seqno == seqno:
-                return snap
+        with self._lock:
+            for snap in self._history:
+                if snap.seqno == seqno:
+                    return snap
         return None
+
+    def release_below(self, seqno: int) -> None:
+        """Drop the kept snapshots older than ``seqno`` (never the current)."""
+        with self._lock:
+            while len(self._history) > 1 and self._history[0].seqno < seqno:
+                self._history.popleft()

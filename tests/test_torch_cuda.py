@@ -1219,3 +1219,85 @@ def test_procs_gloo_world2_on_one_card_equals_stacked(card, tmp_path):
     want = _slice_on_card(None, cfg, 2)
     _assert_rows(ranks, want)
     assert want["scalars"]["skew.fallback"] == 1
+
+
+# ---------------------------------------------------------------------------
+# The table's users across processes on the card: hot keys and the KV cache
+# against the stacked run, the server against its oracle and a stacked
+# replay of rank 0's log
+# ---------------------------------------------------------------------------
+
+
+def _users_configs():
+    from repro_torch.launch import serve_run, users_run
+
+    return (users_run.UsersConfig(n_keys=1 << 14, hot_batch=1 << 12, kv_batch=512, kv_ops=2048,
+                                  kv_ttl_keys=1024),
+            serve_run.ServeConfig(n_keys=1 << 14, write_bucket=1024, tombstones=4096,
+                                  buckets=(256, 512, 1024), requests=32, req_sizes=(4, 64),
+                                  retrieves=4, hot_repeats=32, deletes=512, upserts=512))
+
+
+def _users_on_card(group, shards: int = 1) -> dict:
+    """The users' pass and the server pass on cuda:0, stacked
+    (``group=None``) or as this rank of ``group``."""
+    from repro_torch.launch import serve_run, table_run, users_run
+
+    ucfg, scfg = _users_configs()
+    dev = torch.device("cuda", 0)
+    kw = {"num_shards": shards} if group is None else {"group": group}
+    sink = table_run.Sink()
+    steps = users_run.run_users(ucfg, sink, device=dev, **kw)["steps"]
+    out = {"blocks": sink.blocks, "scalars": sink.scalars, "steps": steps,
+           "rank": group.rank if group is not None else 0}
+    if group is not None:
+        shadow = table_run.Sink()
+        out["serve"] = serve_run.run_server(scfg, shadow, group=group, device=dev)
+        out["shadow"] = {"blocks": shadow.blocks, "scalars": shadow.scalars}
+    return out
+
+
+def _assert_users(ranks, card):
+    from repro_torch.launch import serve_run, table_run
+
+    _, scfg = _users_configs()
+    _assert_rows(ranks, _users_on_card(None, len(ranks)))
+    lead = ranks[0]["serve"]
+    assert not lead["errors"] and lead["bad"] == 0 and lead["failed"] == 0
+    assert lead["responses"] == lead["requests"] and lead["applied_final"] == lead["writes"]
+    assert lead["rounds"] == [(2, 2)] and lead["budget_misses"] == 0
+    assert lead["num_dropped"] == 0 and lead["aot_misses"] == 0
+    replay = table_run.Sink()
+    serve_run.replay(scfg, lead["log"], len(ranks), card, replay)
+    for res in ranks:
+        f = res["serve"]
+        for field in ("seqno", "read_batches", "writes_applied", "folds"):
+            assert f[field] == lead[field], (res["rank"], field)
+        for key, w in replay.blocks.items():
+            np.testing.assert_array_equal(res["shadow"]["blocks"][key][0], w[res["rank"]],
+                                          err_msg=f"rank {res['rank']} {key}")
+        assert res["shadow"]["scalars"] == replay.scalars
+
+
+def test_procs_users_nccl_world1_on_card(card, tmp_path):
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh
+
+    group = mesh.init_shard_group("nccl", "file://" + str(tmp_path / "store"), timeout_s=120,
+                                  rank=0, world_size=1, device=torch.device("cuda", 0))
+    try:
+        got = _users_on_card(group)
+    finally:
+        dist.destroy_process_group()
+    _assert_users([got], card)
+    assert got["steps"]["hot.retrieve"]["launches"]["csr_gather_queriers"] == 1
+    assert got["steps"]["hot.probe_query"]["launches"]["bucket_probe_layer"] > 0
+
+
+def test_procs_users_gloo_world2_on_one_card(card, tmp_path):
+    from repro_torch.launch import mesh
+
+    ranks = mesh.spawn(_users_on_card, 2, "gloo", "cuda:0", timeout_s=120,
+                       store_dir=str(tmp_path))
+    _assert_users(ranks, card)

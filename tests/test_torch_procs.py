@@ -105,13 +105,6 @@ def _guards(group) -> dict:
     out["delete_differs"] = _timed_error(lambda: table.delete(state, batch))
     out["upsert_differs"] = _timed_error(
         lambda: table.upsert(state, batch, np.zeros(16, np.int32)))
-    out["hot_keys"] = _timed_error(lambda: DistributedHashTable(
-        hash_range=1 << 10, group=group, device="cpu", replicate_hot_keys=4))
-    from repro_torch.cache import KVCache
-    from repro_torch.serve_table import TableServer
-
-    out["kv_cache"] = _timed_error(lambda: KVCache(table))
-    out["table_server"] = _timed_error(lambda: TableServer(table, keys))
     # The ranks stay in step after the guards: a read still agrees.
     out["after"] = table.query(state, keys).numpy()
     return out
@@ -465,12 +458,6 @@ def test_world4_divergence_guards_raise_on_every_rank(world4, guard):
         kind, seconds = res["guards"][guard]
         assert kind == "ValueError", (res["rank"], guard, kind)
         assert seconds < GUARD_TIMEOUT_S, (res["rank"], guard, seconds)
-
-
-@pytest.mark.parametrize("user", ["hot_keys", "kv_cache", "table_server"])
-def test_world4_table_users_are_a_later_slice(world4, user):
-    for res in world4["ranks"]:
-        assert res["guards"][user][0] == "NotImplementedError"
 
 
 def test_world4_ranks_stay_in_step_after_the_guards(world4):
