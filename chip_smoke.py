@@ -220,6 +220,39 @@ Run from the root of a checkout: it builds the port's CUDA kernels from
    operations over the card's rate for them (int32 lanes for the table
    kernels, bf16 tensor cores for kernel 6, f32 units for kernel 7).
 
+7. runs language-model parallelism across processes last (the ``lm-procs``
+   phase; ``launch/lm_run.py``, the pass every rank runs), after freeing
+   the card: (a) granite-20b (bf16, full width and depth, 28.2 B
+   parameters) on a (data, model) = (1, 4) mesh with ``production_parallel``'s
+   defaults (sequence-parallel prefill where the prompt divides by 4, a
+   sequence-sharded KV cache of 1,024 positions a rank), 4 requests through
+   2 slots of 4,096, 16 new tokens; (b) qwen3-4b (bf16, full width, 12 of
+   its 36 layers) on (2, 2) (FSDP gathers over ``data``, a head-sharded
+   cache), 4 requests, 8 new tokens; (c) xlstm-1.3b (f32, full width and
+   depth) on (1, 4), 2 requests, 8 new tokens; (a)-(c) in one spawn of four
+   gloo ranks on this card, every collective staged through host memory;
+   (d) qwen3-4b (bf16, full width and depth) on one NCCL rank in this
+   process with (a)'s traffic.  Prompts are drawn from ``--seed`` in
+   [1000, 3000] tokens, the first rounded down to a multiple of 4, and
+   weights by the reference's rule from ``--seed``.  Each run goes first
+   unsharded on this card (its logits to host memory, its model freed) and
+   the sharded run is fed its tokens.  Gates: every rank's tokens and
+   logits the same bits; the logits at every generated position within
+   ``LM_PROCS_LOGIT_TOL`` of the unsharded run's ((d): bit for bit) and the
+   argmax equal to the unsharded token wherever its top-1 beats its top-2
+   by twice that; each rank's parameter bytes equal to
+   ``shard_bytes_per_device``; each call's collectives equal to
+   ``lm_run.design_collectives``; kernel 6 once per attention layer per
+   prefill and kernel 7 once per sLSTM layer per prefill and decode step,
+   on each rank.  It prints, per rank and run, prefill tokens/s, TTFT,
+   decode step ms, collectives and bytes a call, parameter and peak bytes
+   and each request's prefill path, beside the unsharded run's, the
+   unsharded run's own plain-attention replay ((a), (b)) and its logits'
+   movement under a 1e-7 change of one weight ((c)); rank 0 holds kernel 6
+   (granite's 12 query heads over its one kv head) and kernel 7's cluster
+   variant (one head, the bf16 serving copy's r) against their twins on
+   the inputs its own path gave them (rows ``lm-procs-gloo-4``).
+
 It prints the seconds each run took, the card's name and power limit, a
 ``{"kernels": [...]}`` line (one row per kernel and run, ``path`` and
 ``shards`` naming the run) and, last,
@@ -4061,6 +4094,424 @@ def lm_path_phases(run: dict) -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# LM parallelism across processes (the lm-procs phase)
+# ---------------------------------------------------------------------------
+LM_PROCS_WORLD = 4
+LM_PROCS_TIMEOUT_S = 600.0
+# Run (b)'s depth: qwen3-4b's 36 layers would gather every layer's FSDP
+# blocks over `data` through gloo (host memory) at every prefill and decode
+# step, minutes of staging on one card; 12 layers keep the widths.
+LM_PROCS_QWEN_LAYERS = 12
+# Logits of the sharded runs against the unsharded run's (absolute).
+# (a) granite-20b, bf16: its untied head gives logits up to ~4.5, where one
+# bf16 step is 2^-6 ~ 0.016 (qwen3's tied head stays under 0.7, so
+# LM_LOGIT_TOL holds (b)); the card measured at most 0.0938 over 64
+# positions, and the unsharded run's own replay through forward_train with
+# plain attention differs from it by 0.0781: the gate is twice the sharded
+# maximum.  (c) xlstm-1.3b, f32: the split row-parallel sums and out_norm's
+# mean over tp round in another order, and the random-weight recurrence
+# amplifies a rounding over the prompt: the unsharded model's own logits
+# move by 0.0989 (2,672 tokens) and 0.0159 (1,523) when one norm weight of
+# layer 0 changes by 1e-7 relative (``lm_procs_sensitivity``, reported every
+# run), and the card measured at most 0.176: the gate is twice that maximum.
+# Kernel 7 adds nothing: a rank's one-head launches are bit for bit the
+# whole launch's heads (tests/test_torch_cuda.py -k slstm_head_slices).
+LM_PROCS_LOGIT_TOL = {"a": 0.2, "b": LM_LOGIT_TOL, "c": 0.36}
+
+
+def lm_procs_configs(seed: int) -> dict:
+    """The phase's four runs: (a) granite-20b bf16 at full width and depth
+    on (1, 4) with production_parallel's defaults; (b) qwen3-4b bf16 at full
+    width, LM_PROCS_QWEN_LAYERS layers, on (2, 2); (c) xlstm-1.3b f32 at full
+    width and depth on (1, 4); (d) qwen3-4b bf16 at full width and depth on
+    one NCCL rank.  Prompts from ``seed`` in LM_PROMPT_LENS, the first
+    rounded down to a multiple of 4; slots of LM_CACHE_LEN."""
+    from repro_torch.launch.lm_run import LMRunConfig
+
+    common = dict(slots=2, cache_len=LM_CACHE_LEN, prompt_lens=LM_PROMPT_LENS,
+                  first_multiple=4, seed=seed)
+    return {
+        "a": LMRunConfig(arch="granite_20b", mesh=(1, 4), requests=4, max_new=(16,), **common),
+        "b": LMRunConfig(arch="qwen3_4b", num_layers=LM_PROCS_QWEN_LAYERS, mesh=(2, 2),
+                         requests=4, max_new=(8,), **common),
+        "c": LMRunConfig(arch="xlstm_1_3b", dtype="float32", mesh=(1, 4), requests=2,
+                         max_new=(8,), **common),
+        "d": LMRunConfig(arch="qwen3_4b", mesh=(1, 1), requests=4, max_new=(16,), **common),
+    }
+
+
+class KernelCapture:
+    """Copies of the inputs kernels 6 and 7 get for request 0's first layer
+    on this rank (calls of a sequence of ``length``), for the kernel checks
+    after the run; the launches themselves go through unchanged."""
+
+    def __init__(self, length: int):
+        self.length, self.flash, self.slstm = length, None, None
+
+    def __enter__(self):
+        from repro_torch.kernels import ops, slstm
+
+        self._ops, self._slstm = ops, slstm
+        self._flash_fn, self._slstm_fn = ops.flash_attention, slstm.slstm_sequence
+
+        def flash(q, k, v, **kw):
+            if self.flash is None and q.shape[2] == self.length:
+                self.flash = tuple(t.detach().clone() for t in (q, k, v))
+            return self._flash_fn(q, k, v, **kw)
+
+        def recurrence(pre, r, *states):
+            if self.slstm is None and pre.shape[2] == self.length:
+                self.slstm = (pre.detach().clone(), r.detach().clone(),
+                              tuple(t.detach().clone() for t in states))
+            return self._slstm_fn(pre, r, *states)
+
+        ops.flash_attention, slstm.slstm_sequence = flash, recurrence
+        return self
+
+    def __exit__(self, *exc):
+        self._ops.flash_attention, self._slstm.slstm_sequence = self._flash_fn, self._slstm_fn
+        return False
+
+
+def lm_procs_flash_row(q, k, v, launches: int, device, label: str, log) -> dict:
+    """Kernel 6 on rank 0's own heads of request 0's first layer (q (1, Hq,
+    S, D) over k/v (1, Hkv, S, D)) against its twin, timed beside the twin
+    and SDPA."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as flash
+
+    _, hq, s, d = q.shape
+    hkv = k.shape[1]
+    args = dict(causal=True, q_heads_per_kv=hq // hkv)
+    tol = FLASH_TOL[str(q.dtype).split(".")[-1]]
+    err = twin_error("flash_attention", flash.flash_attention_bhsd(q, k, v, **args),
+                     flash.flash_attention_plain(q, k, v, **args), tol, device)
+    fns = {"kernel": lambda: flash.flash_attention_bhsd(q, k, v, **args),
+           "plain": lambda: flash.flash_attention_plain(q, k, v, **args),
+           "library": lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                             enable_gqa=True)}
+    times = spread_ms(fns, device, FLASH_TIMING["groups"], FLASH_TIMING["launches"])
+    live = s * (s + 1) // 2
+    bounds = attention_bounds(hq, hkv, s, s, d, str(q.dtype).split(".")[-1], live)
+    bound_by = max(bounds, key=bounds.get)
+    row = {"name": "flash_attention", "path": label, "shards": LM_PROCS_WORLD,
+           "launches": launches, "route": "cuda", "source": KERNELS["flash_attention"][0],
+           "replaces": KERNELS["flash_attention"][1], "max_abs_err": err,
+           "ms": times["kernel"][1], "plain_ms": times["plain"][1],
+           "bound_ms": bounds[bound_by], "bound_by": bound_by, "library_ms": times["library"][1],
+           "shapes": f"q=(1, {hq}, {s}, {d}) k/v=(1, {hkv}, {s}, {d}) {q.dtype} causal "
+                     "(rank 0's heads, request 0, layer 0)", "spread_ms": times}
+    log(f"kernel flash_attention {label} {row['shapes']}: max_abs_err={err} (tol {tol}) "
+        f"[min, median, max] ms: {json.dumps(times)} bound_ms={row['bound_ms']} ({bound_by}) "
+        f"launches={launches}")
+    return row
+
+
+def lm_procs_slstm_row(pre, r, states, launches: int, device, label: str, log) -> dict:
+    """Kernel 7 on rank 0's head of request 0's first sLSTM layer (the bf16
+    serving copy's r: the cluster variant) against its twin in
+    SLSTM_CHUNK-step chunks, timed."""
+    from repro_torch.kernels import slstm
+
+    b, h, s, _, hd = pre.shape
+    err, _ = slstm_chunks_against_twin(pre, r, states, device)
+    times = spread_ms({"kernel": lambda: slstm.slstm_sequence(pre, r, *states)}, device,
+                      SLSTM_TIMING["groups"], SLSTM_TIMING["launches"])
+    bounds = slstm_bounds(b, h, s, hd, r.element_size())
+    bound_by = max(bounds, key=bounds.get)
+    plan = slstm.card_plan(hd, r.dtype, b, h) if device.type == "cuda" else \
+        slstm.launch_plan(hd, r.dtype, b)
+    row = {"name": "slstm_sequence", "path": label, "shards": LM_PROCS_WORLD,
+           "launches": launches, "route": "cuda", "source": KERNELS["slstm_sequence"][0],
+           "replaces": KERNELS["slstm_sequence"][1], "max_abs_err": err,
+           "ms": times["kernel"][1],
+           "plain_ms": mean_ms(lambda: slstm.slstm_sequence_plain(pre, r, *states), 3, device),
+           "bound_ms": bounds[bound_by], "bound_by": bound_by, "library_ms": None,
+           "shapes": f"pre=({b}, {h}, {s}, 4, {hd}) f32 r=({h}, 4, {hd}, {hd}) {r.dtype} "
+                     "(rank 0's head, request 0, first sLSTM layer)",
+           "variant": plan["variant"], "spread_ms": times}
+    log(f"kernel slstm_sequence {label} {row['shapes']}: variant={plan['variant']} "
+        f"max_abs_err={err} (tol {SLSTM_TOL['main']}, {SLSTM_CHUNK}-step chunks) [min, median, "
+        f"max] ms: {json.dumps(times)} plain_ms={row['plain_ms']} bound_ms={row['bound_ms']} "
+        f"({bound_by}) launches={launches}")
+    return row
+
+
+def lm_procs_rank(group, cfgs: dict, forced: dict, device_name: str) -> dict:
+    """One rank of the spawned group: runs (a)-(c) in turn, each teacher-
+    forced with the unsharded run's tokens; rank 0 keeps the logits and
+    holds kernels 6 and 7 against their twins on the inputs its own path
+    gave them (rows ``lm-procs-gloo-4``)."""
+    import torch
+
+    from repro_torch.launch import lm_run
+
+    device = torch.device(device_name)
+    lm_settings()
+    label = f"lm-procs-gloo-{LM_PROCS_WORLD}"
+    out = {"rank": group.rank, "runs": {}, "rows": []}
+    for key, cfg in cfgs.items():
+        first = len(lm_run.draw_prompts(cfg, lm_run.model_config(cfg).vocab_size)[0])
+        capture = KernelCapture(first if group.rank == 0 else -1)
+        with capture:
+            res = lm_run.run_lm(cfg, device=device, forced=forced[key],
+                                keep_logits=group.rank == 0, timeout_s=LM_PROCS_TIMEOUT_S)
+        if group.rank == 0 and capture.flash is not None and key == "a":
+            out["rows"].append(lm_procs_flash_row(*capture.flash,
+                                                  res["launches"].get("flash_attention", 0),
+                                                  device, f"{label} (a)", print))
+        if group.rank == 0 and capture.slstm is not None and key == "c":
+            out["rows"].append(lm_procs_slstm_row(*capture.slstm,
+                                                  res["launches"].get("slstm_sequence", 0),
+                                                  device, f"{label} (c)", print))
+        out["runs"][key] = res
+        del capture, res
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def lm_procs_check(label: str, cfg, ranks: list, ref: dict, tol, card: bool, log) -> dict:
+    """Gates of one run: every rank's tokens and logits the same bits; rank
+    0's logits at every generated position within ``tol`` of the unsharded
+    run's (``tol`` None: equal bit for bit) and its argmax the unsharded
+    token wherever that run's top-1 beats its top-2 by more than 2 * tol;
+    each rank's parameter bytes ``shard_bytes_per_device``; each call's
+    collectives ``lm_run.design_collectives``; kernel 6 once per attention
+    layer per prefill, kernel 7 once per sLSTM layer per prefill and decode
+    step (on the card)."""
+    import numpy as np
+
+    from repro_torch.launch import lm_run
+
+    mcfg = lm_run.model_config(cfg)
+    first = ranks[0]
+    worst, sure, positions = 0.0, 0, 0
+    for res in ranks:
+        check(res["tokens"] == first["tokens"] and res["logit_digests"] == first["logit_digests"],
+              f"{label}: rank {res['rank']}'s tokens or logits differ from rank 0's")
+        check(res["param_bytes"] == res["shard_bytes"],
+              f"{label}: rank {res['rank']} holds {res['param_bytes']} parameter bytes, "
+              f"shard_bytes_per_device says {res['shard_bytes']}")
+        for call in res["prefill"]:
+            want = lm_run.design_collectives(mcfg, cfg.mesh, "prefill", call["len"], 1,
+                                             cfg.cache_len)
+            check(call["collectives"] == want, f"{label}: rank {res['rank']} prefill of "
+                  f"{call['len']}: collectives {call['collectives']}, the design {want}")
+        for call in res["decode"]:
+            want = lm_run.design_collectives(mcfg, cfg.mesh, "decode", 1, cfg.slots,
+                                             cfg.cache_len)
+            check(call["collectives"] == want, f"{label}: rank {res['rank']} decode step: "
+                  f"collectives {call['collectives']}, the design {want}")
+        if card:
+            want = expected_launches(mcfg, cfg.requests, len(res["decode"]))
+            check(res["launches"] == want, f"{label}: rank {res['rank']} launches "
+                  f"{res['launches']}, want {want}")
+    for uid, want in ref["logits"].items():
+        got = first["logits"][uid]
+        check(got.shape == want.shape and bool(np.isfinite(got).all()),
+              f"{label}: request {uid}: logits {got.shape} against {want.shape}")
+        if tol is None:
+            check(np.array_equal(got, want), f"{label}: request {uid}: logits differ from the "
+                  "unsharded run's (want bit for bit)")
+            clear = np.ones(len(want), bool)
+        else:
+            per_pos = np.abs(got - want).max(axis=-1)
+            err = float(per_pos.max())
+            worst = max(worst, err)
+            check(err <= tol, f"{label}: request {uid}: logits differ from the unsharded run's "
+                  f"by {err} > {tol} (per position: {per_pos.tolist()}; |logits| up to "
+                  f"{float(np.abs(want).max())})")
+            top2 = np.sort(want, axis=-1)[:, -2:]
+            clear = top2[:, 1] - top2[:, 0] > 2 * tol
+        mine = np.argmax(got, axis=-1)
+        check(np.array_equal(mine[clear], np.asarray(ref["tokens"][uid])[clear]),
+              f"{label}: request {uid}: a token differs from the unsharded run's clear argmax")
+        sure, positions = sure + int(clear.sum()), positions + len(clear)
+    gate = {"logit_tol": tol, "max_abs_err": worst if tol is not None else 0.0,
+            "positions": positions, "tokens_compared": sure}
+    log(f"{label} gates held: " + json.dumps(gate))
+    return gate
+
+
+def lm_procs_report(label: str, cfg, ranks: list, ref: dict, smi: str, log) -> dict:
+    """Per rank: prefill tokens/s, TTFT, decode step ms, collectives and
+    bytes a call, parameter and peak bytes, each request's prefill path;
+    beside the unsharded run's."""
+
+    def figures(res):
+        pre = res["prefill"]
+        full = [c["s"] for c in res["decode"] if c["live"] == cfg.slots]
+        return {
+            "prefill_tokens_per_s": sum(c["len"] for c in pre) / sum(c["s"] for c in pre),
+            "ttft_s": [c["ttft_s"] for c in pre],
+            "prefill_s": [c["s"] for c in pre],
+            "prefill_paths": [c["path"] for c in pre],
+            "decode_step_ms_all_live": 1e3 * sum(full) / len(full) if full else None,
+            "decode_steps": len(res["decode"]),
+            "collectives_prefill": [c["collectives"] for c in pre],
+            "bytes_prefill": [sum(c["bytes"].values()) for c in pre],
+            "collectives_decode": res["decode"][0]["collectives"] if res["decode"] else {},
+            "bytes_decode": sum(res["decode"][0]["bytes"].values()) if res["decode"] else 0,
+            "param_bytes": res["param_bytes"], "peak_bytes": res["peak_bytes"],
+            "init_s": res["init_s"], "total_s": res["total_s"], "launches": res["launches"],
+        }
+
+    out = {"arch": ref["arch"], "layers": ref["layers"], "dtype": ref["dtype"],
+           "mesh": cfg.mesh, "prompt_lens": ref["prompt_lens"],
+           "replay": ref.get("replay"), "sensitivity": ref.get("sensitivity"),
+           "unsharded": figures(ref),
+           "ranks": [figures(r) for r in ranks]}
+    log(f"{label} unsharded ({smi}): " + json.dumps(out["unsharded"]))
+    for res, fig in zip(ranks, out["ranks"]):
+        log(f"{label} rank {res['rank']} of {len(ranks)} mesh {cfg.mesh} ({smi}): "
+            + json.dumps(fig))
+    log(f"{label}: " + json.dumps({k: v for k, v in out.items() if k not in ("unsharded",
+                                                                           "ranks")}))
+    return out
+
+
+def lm_procs_replay(ref: dict) -> dict:
+    """How far the unsharded run's logits lie from its own teacher-forced
+    replay through ``forward_train`` with plain attention, on the device:
+    the bf16 noise of an equally valid computation, reported beside the
+    sharded run's gate (not gated)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.models.api import build_model
+
+    bundle, params = ref["bundle"], ref["params"]
+    plain = build_model(dataclasses.replace(bundle.cfg, attention_impl="plain"),
+                        device=bundle.device)
+    worst, scale = 0.0, 0.0
+    for uid, prompt in enumerate(ref["prompts"]):
+        toks = np.concatenate([prompt, np.asarray(ref["tokens"][uid][:-1], np.int32)])
+        logits, _ = plain.forward_train(params, np.concatenate([toks, [0]])[None].astype(np.int32))
+        replay = logits[0, len(prompt) - 1:].float().cpu().numpy()
+        worst = max(worst, float(np.abs(replay - ref["logits"][uid]).max()))
+        scale = max(scale, float(np.abs(replay).max()))
+        del logits
+    return {"max_abs_err": worst, "max_abs_logit": scale}
+
+
+def lm_procs_sensitivity(ref: dict) -> dict:
+    """How far the unsharded model's own prefill logits move when one norm
+    weight of its first layer changes by 1e-7 relative (normal noise), per
+    request: the scale at which the recurrence amplifies a rounding
+    (reported beside the gate of the xLSTM run, not gated)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serve import make_prefill_step
+
+    bundle, params = ref["bundle"], ref["params"]
+    prefill = make_prefill_step(bundle, cache_len=max(len(p) for p in ref["prompts"]))
+    w = params.layers[0].b0.mixer.norm
+    keep = w.detach().clone()
+    gen = torch.Generator(device=w.device).manual_seed(5)
+    noise = 1 + 1e-7 * torch.randn(w.shape, generator=gen, device=w.device)
+    out = {}
+    for uid, prompt in enumerate(ref["prompts"]):
+        with torch.no_grad():
+            w.mul_(noise)
+            moved = prefill(params, {"tokens": prompt[None]})[0][0].float().cpu().numpy()
+            w.copy_(keep)
+        out[uid] = float(np.abs(moved - ref["logits"][uid][0]).max())
+    return out
+
+
+def run_lm_procs(seed: int, device, log) -> dict:
+    """The ``lm-procs`` phase: LM parallelism across processes.  Each run
+    (``lm_procs_configs``) goes first unsharded on this card (its logits to
+    host memory, its model freed), then (a)-(c) run in one spawn of four
+    gloo ranks on this card, teacher-forced with the unsharded tokens, and
+    (d) on one NCCL rank in this process, bit for bit."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import lm_run, mesh
+
+    card = device.type == "cuda"
+    smi = card_line() if card else "cpu"
+    t_phase = time.perf_counter()
+    cfgs = lm_procs_configs(seed)
+    tols = {**LM_PROCS_LOGIT_TOL, "d": None}
+
+    def unsharded(key):
+        gc.collect()
+        if card:
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ref = lm_run.run_lm(cfgs[key], sharded=False, device=device, keep_model=True)
+        if key in "ab":
+            ref["replay"] = lm_procs_replay(ref)
+        if key == "c":
+            ref["sensitivity"] = lm_procs_sensitivity(ref)
+        for name in ("bundle", "params", "prompts"):
+            ref.pop(name)
+        log(f"lm-procs ({key}) unsharded {ref['arch']} ({ref['layers']} layers, {ref['dtype']}): "
+            f"{time.perf_counter() - t0:.1f} s; its own replay {ref.get('replay')}, its "
+            f"sensitivity {ref.get('sensitivity')}")
+        gc.collect()
+        if card:
+            torch.cuda.empty_cache()
+        return ref
+
+    refs = {key: unsharded(key) for key in "abc"}
+    label = f"lm-procs-gloo-{LM_PROCS_WORLD}"
+    t0 = time.perf_counter()
+    ranks = mesh.spawn(lm_procs_rank, LM_PROCS_WORLD, "gloo", str(device),
+                       args=({k: cfgs[k] for k in "abc"},
+                             {k: refs[k]["tokens"] for k in "abc"}, str(device)),
+                       timeout_s=LM_PROCS_TIMEOUT_S)
+    result = {"path": "lm-procs", "gloo4_s": time.perf_counter() - t0, "runs": {}}
+    log(f"{label}: {result['gloo4_s']:.1f} s from spawn to the last result")
+    for key in "abc":
+        runs = [r["runs"][key] for r in ranks]
+        result["runs"][key] = lm_procs_report(f"{label} ({key})", cfgs[key], runs, refs[key],
+                                              smi, log)
+    for key in "abc":
+        runs = [r["runs"][key] for r in ranks]
+        result["runs"][key]["gate"] = lm_procs_check(f"{label} ({key})", cfgs[key], runs,
+                                                     refs[key], tols[key], card, log)
+    rows = ranks[0]["rows"]
+    if card:
+        check({row["name"] for row in rows} == {"flash_attention", "slstm_sequence"},
+              f"{label}: rank 0 checked {[row['name'] for row in rows]}")
+    del ranks, refs
+    ref = unsharded("d")
+    backend = "nccl" if card else "gloo"
+    store = tempfile.mkdtemp(prefix="lm_procs_world1_")
+    mesh.init_shard_group(backend, "file://" + os.path.join(store, "store"),
+                          timeout_s=LM_PROCS_TIMEOUT_S, rank=0, world_size=1, device=device)
+    try:
+        one = lm_run.run_lm(cfgs["d"], device=device, forced=ref["tokens"],
+                            timeout_s=LM_PROCS_TIMEOUT_S)
+    finally:
+        dist.destroy_process_group()
+        for name in os.listdir(store):
+            os.remove(os.path.join(store, name))
+        os.rmdir(store)
+    label1 = f"lm-procs-{backend}-1 (d)"
+    result["runs"]["d"] = lm_procs_report(label1, cfgs["d"], [one], ref, smi, log)
+    result["runs"]["d"]["gate"] = lm_procs_check(label1, cfgs["d"], [one], ref, None, card, log)
+    del one, ref
+    gc.collect()
+    if card:
+        torch.cuda.empty_cache()
+    result["run_s"] = time.perf_counter() - t_phase
+    log(f"run lm-procs: {result['run_s']:.1f} s (four unsharded runs, four gloo ranks on one "
+        f"card, one {backend} rank, gates and rank 0's kernel checks; {smi})")
+    return {"result": result, "rows": rows}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--keys", type=int, default=1 << 27,
@@ -4226,6 +4677,12 @@ def main(argv=None) -> int:
     log(f"run serve-xlstm-f32: {time.perf_counter() - t_run:.1f} s")
     paths.append(xf["result"])
     del xf
+    gc.collect()
+    torch.cuda.empty_cache()  # the card is free for the ranks of the last phase
+    lm = run_lm_procs(args.seed, device, log)
+    rows += lm["rows"]
+    paths.append(lm["result"])
+    del lm
     kernels = {"kernels": [{k: row[k] for k in (
         "name", "path", "shards", "route", "source", "replaces", "launches", "max_abs_err", "ms",
         "plain_ms", "bound_ms", "bound_by", "library_ms")} for row in rows]}

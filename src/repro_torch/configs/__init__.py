@@ -1,4 +1,4 @@
-"""Architecture configs of the port (qwen3-4b and xlstm-1.3b so far) and the shape suite."""
+"""Architecture configs of the port (granite-20b, qwen3-4b and xlstm-1.3b so far) and the shape suite."""
 from repro_torch.configs.base import (
     ARCH_IDS,
     SHAPE_SUITE,

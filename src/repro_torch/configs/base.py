@@ -8,8 +8,8 @@ deliberate difference: ``attention_impl`` takes ``"flash"`` (kernel 6,
 card is the port's target.  They stand for the reference's
 ``"flash_pallas"`` and ``"xla"``.
 
-qwen3-4b and xlstm-1.3b are ported so far; every other arch id raises
-``NotImplementedError`` naming the slice that brings it.
+granite-20b, qwen3-4b and xlstm-1.3b are ported so far; every other arch
+id raises ``NotImplementedError`` naming the slice that brings it.
 """
 from __future__ import annotations
 
@@ -151,10 +151,9 @@ ARCH_IDS = (
     "pixtral_12b",
     "whisper_base",
 )
-PORTED_ARCHS = ("qwen3_4b", "xlstm_1_3b")
+PORTED_ARCHS = ("granite_20b", "qwen3_4b", "xlstm_1_3b")
 # The slice of the port that brings each arch not ported yet.
 LATER_ARCH_SLICE = {
-    "granite_20b": "the dense-LM slice after qwen3 (MQA, kv_heads = 1)",
     "llama3_405b": "the multi-card LM slice (sharded weights)",
     "qwen3_14b": "the dense-LM slice after qwen3",
     "grok_1_314b": "the MoE slice",

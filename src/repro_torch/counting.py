@@ -14,7 +14,10 @@ enclosing scope of the same thread), and nothing another thread does is.
 
 Over a process group (``exchange.ProcessGroup``) the scope holds this
 rank's own rounds, and its reductions apart in ``collectives`` (``"psum"``,
-``"pmax"``, ``"agree"``), which a stacked run never makes.
+``"pmax"``, ``"agree"``), which a stacked run never makes.  The language
+models' collectives over a mesh axis (``distributed/collectives.py``) are
+counted there too, with the bytes of each rank's input in
+``collective_bytes``.
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ class Scope:
     round_bytes: collections.Counter = dataclasses.field(default_factory=collections.Counter)
     launches: collections.Counter = dataclasses.field(default_factory=collections.Counter)
     collectives: collections.Counter = dataclasses.field(default_factory=collections.Counter)
+    collective_bytes: collections.Counter = dataclasses.field(default_factory=collections.Counter)
 
     @property
     def exchange_rounds(self) -> int:
@@ -72,10 +76,12 @@ def record_round(label: str, nbytes: int) -> None:
         scope.round_bytes[label] += int(nbytes)
 
 
-def record_collective(kind: str) -> None:
-    """One reduction of a process group (``"psum"``, ``"pmax"``, ``"agree"``)."""
+def record_collective(kind: str, nbytes: int = 0) -> None:
+    """One collective of a process group (``"psum"``, ``"pmax"``, ``"agree"``,
+    ...) whose input on this rank is ``nbytes`` long."""
     for scope in _scopes():
         scope.collectives[kind] += 1
+        scope.collective_bytes[kind] += int(nbytes)
 
 
 def record_launch(name: str) -> None:

@@ -6,8 +6,14 @@
 resuming from a checkpoint is setting the step counter.  With
 ``dedup="local"`` / ``"distributed"`` each batch goes through the HashGraph
 dedup, and duplicate rows are re-drawn from a generator seeded by the step
-(not dropped), so the batch keeps its shape.  Placing batches over several
-cards (``mesh``) belongs to the several-cards slice and raises.
+(not dropped), so the batch keeps its shape.
+
+Over a mesh (``mesh``, a ``DeviceMesh`` or ``AbstractMesh`` over the
+process group) every rank draws the same global batch and keeps its rows of
+the ``dp_axes`` block, as the reference's ``P(dp_axes, None)`` placement.
+``dedup="distributed"`` over a process-group table dedups the global batch
+with each rank passing its block of rows to the table and the masks
+all-gathered over the table's group.
 """
 from __future__ import annotations
 
@@ -19,7 +25,6 @@ import torch
 from repro_torch.data import dedup as dedup_mod
 from repro_torch.data.synthetic import SyntheticCorpus, stream_seed
 
-SEVERAL_CARDS_SLICE = "the port's several-cards slice (torch.distributed meshes)"
 # The refill stream's seed is the corpus seed with these bits flipped.
 REFILL_SEED_XOR = 0x5EED
 
@@ -46,9 +51,21 @@ class ShardedLoader:
     dedup_table: Optional[object] = None  # DistributedHashTable for "distributed"
 
     def __post_init__(self):
-        if self.mesh is not None:
-            raise NotImplementedError(f"a loader over a mesh belongs to {SEVERAL_CARDS_SLICE}")
         self.state = LoaderState(step=0)
+
+    def _rows(self) -> slice:
+        """This rank's rows of the global batch."""
+        if self.mesh is None:
+            return slice(None)
+        from repro_torch.distributed import sharding
+        from repro_torch.distributed.parallel import mesh_shape
+
+        shape = mesh_shape(self.mesh)
+        n = sharding._axis_size(shape, self.dp_axes)
+        if self.batch_size % n:
+            raise ValueError(f"batch of {self.batch_size} does not divide over {self.dp_axes} "
+                             f"({n})")
+        return sharding.block_slices((self.batch_size,), (tuple(self.dp_axes),), self.mesh)[0]
 
     def next_batch(self) -> dict:
         step = self.state.step
@@ -56,11 +73,11 @@ class ShardedLoader:
         if self.dedup is not None:
             toks = self._dedup(toks, step)
         self.state.step += 1
-        return {"tokens": toks}
+        return {"tokens": toks[self._rows()]}
 
     def _dedup(self, toks: torch.Tensor, step: int) -> torch.Tensor:
         if self.dedup == "distributed" and self.dedup_table is not None:
-            keep = dedup_mod.dedup_mask_distributed(self.dedup_table, toks[:, :-1])
+            keep = self._distributed_mask(toks[:, :-1])
         else:
             keep = dedup_mod.dedup_mask(toks[:, :-1])
         # Re-draw the dropped rows from the step's own stream: static shapes.
@@ -70,6 +87,18 @@ class ShardedLoader:
         fresh = torch.randint(0, self.corpus.vocab_size, toks.shape, generator=g,
                               device=toks.device, dtype=torch.int32)
         return torch.where(keep.to(toks.device)[:, None], toks, fresh)
+
+    def _distributed_mask(self, rows: torch.Tensor) -> torch.Tensor:
+        """The global batch's keep-mask through the table: over a process
+        group each rank passes its block of rows and the blocks are
+        all-gathered."""
+        table = self.dedup_table
+        group = table.group
+        if not getattr(group, "is_process", False):
+            return dedup_mod.dedup_mask_distributed(table, rows)
+        n = rows.shape[0] // group.size
+        mine = dedup_mod.dedup_mask_distributed(table, rows[group.rank * n:(group.rank + 1) * n])
+        return group.all_gather(mine[None]).reshape(-1)
 
     # -- resume ----------------------------------------------------------------
     def skip_to(self, step: int) -> None:

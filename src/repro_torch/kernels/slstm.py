@@ -182,6 +182,8 @@ def slstm_sequence(pre, r, c0, n0, h0, m0):
                          f"got {hd}")
     if pre.stride(4) != 1:
         raise ValueError(f"{NAME}: pre's last axis must be contiguous")
+    if not all(t.is_contiguous() for t in (r, *states)):
+        raise ValueError(f"{NAME}: r and the states must be contiguous")
     build.require_cuda(NAME, r, *states)
     if pre.device != r.device:
         raise ValueError(f"{NAME}: tensors on {pre.device} and {r.device}")

@@ -24,8 +24,11 @@ stops, unless ``--device cpu`` asks for the plain path.  NCCL refuses two
 ranks on one card; ``--backend gloo --device cuda:0`` runs several ranks on
 one card, with every exchange staged through host memory.
 
-The reference's language-model meshes (``make_production_mesh``,
-``production_parallel``) are ROADMAP item 7b and raise here.
+The reference's language-model meshes are here too:
+:func:`make_production_mesh` and :func:`make_smoke_mesh` are
+``torch.distributed`` ``DeviceMesh``es over the group and
+:func:`production_parallel` wires a ``ParallelConfig`` to one
+(``launch/lm_run.py`` serves a model over them).
 """
 from __future__ import annotations
 
@@ -222,18 +225,84 @@ def spawn(
     return [got[r] for r in range(world)]
 
 
-def make_production_mesh(*args, **kwargs):
-    """The reference's language-model mesh: ROADMAP item 7b."""
-    raise NotImplementedError(
-        "LM tensor/data parallelism (make_production_mesh) is ROADMAP item 7b; "
-        "the port's process groups cover the hash table (init_shard_group)"
-    )
+def device_mesh(shape: Sequence[int], names: Sequence[str]):
+    """A ``DeviceMesh`` of ``shape`` with axis ``names`` over the whole
+    process group (its ranks row-major); raises ``ValueError`` when the
+    group's size differs.  Its device type follows the backend (NCCL: cuda,
+    gloo: cpu): the mesh only lays out ranks, the groups the models use are
+    made by ``distributed.collectives.bind``."""
+    import math
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if math.prod(shape) != world:
+        raise ValueError(f"a mesh of shape {tuple(shape)} needs a group of {math.prod(shape)} "
+                         f"ranks; this one has {world}")
+    backend = str(dist.get_backend()).lower() if dist.is_initialized() else "gloo"
+    return init_device_mesh("cuda" if backend == "nccl" else "cpu", tuple(shape),
+                            mesh_dim_names=tuple(names))
 
 
-def production_parallel(*args, **kwargs):
-    """The reference's language-model parallel layout: ROADMAP item 7b."""
-    raise NotImplementedError(
-        "LM tensor/data parallelism (production_parallel) is ROADMAP item 7b"
+def production_mesh_shape(multi_pod: bool = False) -> tuple:
+    """``(shape, axis names)`` of the reference's production mesh."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The production mesh: one pod is ``("data", "model") = (16, 16)``;
+    multi-pod ``("pod", "data", "model") = (2, 16, 16)``, the ``pod`` axis
+    composing with ``data`` for DP/FSDP.  Needs a group of 256 (512) ranks."""
+    return device_mesh(*production_mesh_shape(multi_pod))
+
+
+def smoke_mesh_shape(n: int) -> tuple:
+    """``(shape, axis names)`` of the reference's small mesh over n devices."""
+    if n >= 4:
+        return (n // 2, 2), ("data", "model")
+    return (n,), ("data",)
+
+
+def make_smoke_mesh(devices: Optional[int] = None):
+    """A small mesh over the group: ``(n // 2, 2)`` for n >= 4 ranks, else
+    ``(n,)``; n defaults to the group's size."""
+    import torch.distributed as dist
+
+    n = devices or (dist.get_world_size() if dist.is_initialized() else 1)
+    return device_mesh(*smoke_mesh_shape(n))
+
+
+def production_parallel(
+    mesh,
+    *,
+    moe_impl: str = "ep",
+    microbatches: int = 8,
+    grad_compression: bool = False,
+    seq_parallel: bool = True,
+    act_barrier: bool = False,
+):
+    """ParallelConfig wired for the mesh's axes: ``pod`` and ``data`` are the
+    dp axes, ``model`` the tp axis.  ``seq_parallel`` defaults on: the
+    residual stream is sequence-sharded over ``model``, turning each
+    layer's activation all-reduces into reduce-scatter / all-gather pairs."""
+    from repro_torch.distributed.parallel import ParallelConfig, mesh_shape
+
+    names = tuple(mesh_shape(mesh))
+    dp_axes = tuple(a for a in names if a in ("pod", "data"))
+    tp_axis = "model" if "model" in names else None
+    return ParallelConfig(
+        mesh=mesh,
+        dp_axes=dp_axes,
+        tp_axis=tp_axis,
+        moe_impl=moe_impl,
+        microbatches=microbatches,
+        remat=True,
+        grad_compression=grad_compression,
+        seq_parallel=seq_parallel,
+        act_barrier=act_barrier,
     )
 
 

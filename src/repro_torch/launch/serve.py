@@ -3,8 +3,9 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_4b --requests 12 \\
         --slots 4 --prompt-len 32 --max-new 16 [--device cpu]
 
-``--arch`` takes a ported arch (``qwen3_4b``, ``xlstm_1_3b``) and serves
-its smoke config.  Runs on the CUDA card unless ``--device cpu`` is given (there every kernel
+``--arch`` takes a ported arch (``granite_20b``, ``qwen3_4b``,
+``xlstm_1_3b``) and serves its smoke config on one device
+(``single_device_parallel()``, as the reference's launcher passes it).  Runs on the CUDA card unless ``--device cpu`` is given (there every kernel
 takes its plain twin); without a card and without ``--device cpu`` it
 raises.
 """
@@ -28,11 +29,12 @@ def main(argv=None) -> None:
     import numpy as np
 
     from repro_torch.configs.base import get_smoke_config
+    from repro_torch.distributed.parallel import single_device_parallel
     from repro_torch.models.api import build_model
     from repro_torch.serve import ContinuousBatcher, Request, make_prefill_step, make_serve_step
 
     cfg = get_smoke_config(args.arch)
-    bundle = build_model(cfg, device=args.device)
+    bundle = build_model(cfg, single_device_parallel(), device=args.device)
     params = bundle.init(args.seed)
     caches = bundle.init_cache(args.slots, args.cache_len)
     prefill = make_prefill_step(bundle, cache_len=args.cache_len)

@@ -15,6 +15,14 @@ Unlike the reference, which returns a new cache, decode writes the new
 token into the cache it is given, in place (the reference donates that
 buffer), and returns the same tensors.
 
+Over a mesh (:class:`~repro_torch.models.layers.Layout`) the projections
+are tensor-parallel: a rank computes its own query heads with their kv
+heads (kernel 6 runs on them in prefill) and holds its kv heads of the
+cache, or, where the kv heads do not divide over tp, ``cache_len / tp``
+positions of every kv head; decode then combines each rank's partial
+softmax by log-sum-exp (``_partial_attention_decode``,
+``_combine_partials``), the combine GSPMD makes in the reference.
+
 Ring caches (``swa``/``local``), cross-attention and ``encoder_kv`` belong
 to later slices.
 """
@@ -59,22 +67,58 @@ class Attention(nn.Module):
             self.k_norm = _param((hd,), torch.float32, device)
 
 
-def _project_qkv(p: Attention, x: torch.Tensor, cfg: ArchConfig, positions):
-    """x (B,S,d) → q (B,KV,G,S,hd), k/v (B,KV,S,hd) with qk_norm, then rope."""
+def _compute_heads(lay: layers.Layout, p: Attention, cfg: ArchConfig) -> tuple[int, int]:
+    """The query heads ``[h0, h1)`` a rank computes: those of its tp block of
+    ``wq`` when the block holds whole heads over whole kv groups, or part of
+    one group; else every head."""
+    hd, h, g = cfg.head_dim_, cfg.num_heads, cfg.q_per_kv
+    lo, hi, n = lay.cols(p.wq)
+    if (lo, hi) == (0, n) or lo % hd or hi % hd:
+        return 0, h
+    h0, h1 = lo // hd, hi // hd
+    whole_groups = h0 % g == 0 and (h1 - h0) % g == 0
+    in_one_group = g % (h1 - h0) == 0 and h0 // g == (h1 - 1) // g
+    return (h0, h1) if whole_groups or in_one_group else (0, h)
+
+
+def _kv_of(h0: int, h1: int, g: int) -> tuple[int, int, int]:
+    """``(kv0, kv1, group)``: the kv heads of query heads [h0, h1) and the
+    query heads a kv head serves among them."""
+    if h0 % g == 0 and (h1 - h0) % g == 0:
+        return h0 // g, h1 // g, g
+    return h0 // g, h0 // g + 1, h1 - h0
+
+
+def _project_qkv(p: Attention, x: torch.Tensor, cfg: ArchConfig, positions,
+                 lay: layers.Layout = layers.SINGLE, heads=None, kv=None):
+    """x (B,S,d) → q (B,KV',G',S,hd), k/v (B,KV'',S,hd) with qk_norm, then rope.
+
+    ``heads`` = (h0, h1) are the query heads kept (grouped over their kv
+    heads, ``_kv_of``) and ``kv`` = (kv0, kv1) the kv heads kept; default
+    all.  A rank's column blocks of the products that do not hold them are
+    gathered over tp in one call."""
     b, s, _ = x.shape
-    hd, kv, g = cfg.head_dim_, cfg.num_kv_heads, cfg.q_per_kv
+    hd, g = cfg.head_dim_, cfg.q_per_kv
+    h0, h1 = heads or (0, cfg.num_heads)
+    kv0, kv1 = kv or (0, cfg.num_kv_heads)
     dtype = x.dtype
-    q = (x @ p.wq.to(dtype)).reshape(b, s, kv, g, hd)
-    k = (x @ p.wk.to(dtype)).reshape(b, s, kv, hd)
-    v = (x @ p.wv.to(dtype)).reshape(b, s, kv, hd)
+    q, k, v = layers.take_cols(lay, [
+        (x @ lay.w(p.wq).to(dtype), lay.cols(p.wq), (h0 * hd, h1 * hd)),
+        (x @ lay.w(p.wk).to(dtype), lay.cols(p.wk), (kv0 * hd, kv1 * hd)),
+        (x @ lay.w(p.wv).to(dtype), lay.cols(p.wv), (kv0 * hd, kv1 * hd)),
+    ])
+    qkv0, qkv1, qg = _kv_of(h0, h1, g)
+    q = q.reshape(b, s, qkv1 - qkv0, qg, hd)
+    k = k.reshape(b, s, kv1 - kv0, hd)
+    v = v.reshape(b, s, kv1 - kv0, hd)
     if cfg.qk_norm:
         q = layers.rmsnorm(q, p.q_norm)
         k = layers.rmsnorm(k, p.k_norm)
     if positions is not None:
         q = layers.apply_rope(q, positions[:, :, None, None], cfg.rope_theta)
         k = layers.apply_rope(k, positions[:, :, None], cfg.rope_theta)
-    q = q.permute(0, 2, 3, 1, 4)  # (B, KV, G, S, hd)
-    k = k.permute(0, 2, 1, 3)  # (B, KV, S, hd)
+    q = q.permute(0, 2, 3, 1, 4)  # (B, KV', G', S, hd)
+    k = k.permute(0, 2, 1, 3)  # (B, KV'', S, hd)
     v = v.permute(0, 2, 1, 3)
     return q, k, v
 
@@ -124,6 +168,15 @@ def _merge_heads(out):
     return out.permute(0, 3, 1, 2, 4).reshape(b, s, kv * g * hd)
 
 
+def _cache_heads(lay: layers.Layout, cfg: ArchConfig, kv_layout: Optional[str]):
+    """The kv heads ``[c0, c1)`` a rank's cache block holds."""
+    kv = cfg.num_kv_heads
+    if kv_layout != "heads":
+        return 0, kv
+    n = kv // lay.tp.size
+    return lay.tp.index * n, (lay.tp.index + 1) * n
+
+
 def attention(
     p: Attention,
     x: torch.Tensor,
@@ -136,6 +189,9 @@ def attention(
     cache_pos: Optional[torch.Tensor] = None,
     return_cache: bool = False,
     cache_len: Optional[int] = None,
+    lay: layers.Layout = layers.SINGLE,
+    sp: bool = False,
+    kv_layout: Optional[str] = None,
 ) -> tuple[torch.Tensor, Optional[KVCache]]:
     """Self-attention over ``x`` (B, S, d).
 
@@ -144,37 +200,112 @@ def attention(
       * prefill:          cache=None, return_cache=True (cache_len sizes it)
       * decode (S == 1):  cache=KVCache, cache_pos = absolute position (B,);
                           the new token is written into ``cache`` in place
-    """
-    b, s, _ = x.shape
-    q, k_new, v_new = _project_qkv(p, x, cfg, positions)
 
-    if cache is not None:
+    Over a mesh (``lay``): ``wq``/``wk``/``wv`` are column-parallel over
+    heads and ``wo`` row-parallel; ``x`` arrives sequence-sharded under
+    ``sp`` and is gathered first, and the output leaves as the rank's
+    sequence block.  ``kv_layout`` is the cache's tp layout: ``"heads"``
+    (a rank holds its kv heads), ``"seq"`` (a rank holds ``cache_len / tp``
+    positions of every kv head; decode combines partial softmaxes across tp)
+    or None (whole).
+    """
+    if sp:
+        x = lay.tp.all_gather(x, 1)
+    b, s, _ = x.shape
+    hd, g = cfg.head_dim_, cfg.q_per_kv
+    seq_cache = kv_layout == "seq"
+    decode = cache is not None
+    h0, h1 = (0, cfg.num_heads) if decode and seq_cache else _compute_heads(lay, p, cfg)
+    kv0, kv1, _ = _kv_of(h0, h1, g)
+    c0, c1 = _cache_heads(lay, cfg, kv_layout)
+    n0, n1 = (min(kv0, c0), max(kv1, c1)) if decode or return_cache else (kv0, kv1)
+    q, k_new, v_new = _project_qkv(p, x, cfg, positions, lay, (h0, h1), (n0, n1))
+    k_att, v_att = k_new[:, kv0 - n0:kv1 - n0], v_new[:, kv0 - n0:kv1 - n0]
+
+    if decode:
         k_all, v_all = cache
         pos = cache_pos.reshape(b).to(torch.long)
         rows = torch.arange(b, device=x.device)
-        k_all[rows, :, pos] = k_new[:, :, 0]
-        v_all[rows, :, pos] = v_new[:, :, 0]
-        kv_len_mask = torch.arange(k_all.shape[2], device=x.device)[None, :] <= pos[:, None]
-        merged = _merge_heads(_masked_attention_decode(
-            q, k_all, v_all, pos, window=window, kv_len_mask=kv_len_mask))
+        k_put, v_put = k_new[:, c0 - n0:c1 - n0, 0], v_new[:, c0 - n0:c1 - n0, 0]
+        if seq_cache:
+            span = k_all.shape[2]
+            offset = lay.tp.index * span
+            local = pos - offset
+            mine = (local >= 0) & (local < span)
+            k_all[rows[mine], :, local[mine]] = k_put[mine]
+            v_all[rows[mine], :, local[mine]] = v_put[mine]
+            merged = _merge_heads(_combine_partials(lay, *_partial_attention_decode(
+                q, k_all, v_all, pos, window=window, offset=offset)).to(q.dtype))
+        else:
+            k_all[rows, :, pos] = k_put
+            v_all[rows, :, pos] = v_put
+            kv_len_mask = torch.arange(k_all.shape[2], device=x.device)[None, :] <= pos[:, None]
+            merged = _merge_heads(_masked_attention_decode(
+                q, k_all[:, kv0 - c0:kv1 - c0], v_all[:, kv0 - c0:kv1 - c0], pos,
+                window=window, kv_len_mask=kv_len_mask))
         new_cache = cache
     else:
         if cfg.attention_impl == "flash" and s > 1:
-            merged = _flash_attention(q, k_new, v_new, causal=causal, window=window)
+            merged = _flash_attention(q, k_att, v_att, causal=causal, window=window)
         else:
             merged = _merge_heads(_masked_attention(
-                q, k_new, v_new, causal=causal, window=window, q_offset=0))
+                q, k_att, v_att, causal=causal, window=window, q_offset=0))
         new_cache = None
         if return_cache:
             smax = cache_len or s
-            shape = (b, k_new.shape[1], smax, k_new.shape[3])
-            k_c = torch.zeros(shape, dtype=k_new.dtype, device=x.device)
-            v_c = torch.zeros(shape, dtype=v_new.dtype, device=x.device)
-            k_c[:, :, :s] = k_new
-            v_c[:, :, :s] = v_new
-            new_cache = KVCache(k_c, v_c)
+            k_c, v_c = k_new[:, c0 - n0:c1 - n0], v_new[:, c0 - n0:c1 - n0]
+            span, offset = smax, 0
+            if seq_cache:
+                span = smax // lay.tp.size
+                offset = lay.tp.index * span
+            shape = (b, c1 - c0, span, hd)
+            k_cache = torch.zeros(shape, dtype=k_new.dtype, device=x.device)
+            v_cache = torch.zeros(shape, dtype=v_new.dtype, device=x.device)
+            n = max(0, min(s - offset, span))
+            k_cache[:, :, :n] = k_c[:, :, offset:offset + n]
+            v_cache[:, :, :n] = v_c[:, :, offset:offset + n]
+            new_cache = KVCache(k_cache, v_cache)
 
-    return merged @ p.wo.to(x.dtype), new_cache
+    r0, r1, _ = lay.rows(p.wo)
+    partial = (r0, r1) != (0, cfg.num_heads * hd)
+    (merged,) = layers.take_cols(lay, [(merged, (h0 * hd, h1 * hd, cfg.num_heads * hd), (r0, r1))])
+    out = merged @ lay.w(p.wo).to(x.dtype)
+    return layers.reduce_rows(lay, out, partial, sp), new_cache
+
+
+def _partial_attention_decode(q, k, v, pos, *, window, offset: int):
+    """One rank's part of decode attention over a sequence-sharded cache:
+    q (B,KV,G,1,hd) against its positions [offset, offset + S) of k/v
+    (B,KV,S,hd).  Returns f32 (m, l, o): each query row's max over its live
+    scores, the sum of exp(score - m) and the unnormalised output (a rank
+    with no live position gives m = -1e30, l = 0, o = 0)."""
+    hd = q.shape[-1]
+    skv = k.shape[2]
+    scale = 1.0 / math.sqrt(hd)
+    s = torch.einsum("bkgsd,bktd->bkgst", q.float() * scale, k.float())
+    k_pos = offset + torch.arange(skv, device=q.device)[None, :]
+    live = k_pos <= pos[:, None]
+    if window is not None:
+        live = live & (k_pos > pos[:, None] - window)
+    live = live[:, None, None, None, :]
+    s = torch.where(live, s, _NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(live, torch.exp(s - m), 0.0)
+    return m, p.sum(dim=-1, keepdim=True), torch.einsum("bkgst,bktd->bkgsd", p, v.float())
+
+
+def _combine_partials(lay: layers.Layout, m, l, o) -> torch.Tensor:
+    """The flash-decode combine: every rank's (m, l, o) in one all-gather
+    over tp, then log-sum-exp weights summed in rank order (the same bits on
+    every rank); f32."""
+    packed = torch.cat([m, l, o], dim=-1)
+    every = lay.tp.all_gather(packed[None], 0)
+    ms, ls, os_ = every[..., :1], every[..., 1:2], every[..., 2:]
+    top = ms.amax(dim=0)
+    w = torch.exp(ms - top)
+    num = (w * os_).sum(dim=0)
+    den = (w * ls).sum(dim=0)
+    return num / den
 
 
 def _masked_attention_decode(q, k, v, pos, *, window, kv_len_mask):

@@ -8,7 +8,10 @@ port keeps the reference's matrix layout (``x @ w`` with ``w`` of shape
 ``(d_in, d_out)``), so nothing is transposed: the period axis is unstacked
 into ``layers.<i>`` and each matrix is cast to the compute type (f32 → bf16
 rounds to nearest even, as the reference's ``.astype(bfloat16)`` does);
-norm vectors stay f32.
+norm vectors stay f32.  With a ``parallel`` mesh over the process group the
+module holds this rank's block of every parameter
+(``distributed.sharding.param_pspecs``), as ``build_model(cfg,
+parallel).init`` makes them.
 """
 from __future__ import annotations
 
@@ -41,15 +44,21 @@ def _as_f32(arr) -> np.ndarray:
 
 
 def params_from_numpy(
-    tree: dict, cfg: ArchConfig, *, device, dtype: Optional[torch.dtype] = None
+    tree: dict, cfg: ArchConfig, *, device, dtype: Optional[torch.dtype] = None, parallel=None,
 ) -> transformer.Transformer:
-    """The port's parameters from the reference's pytree, on ``device``.
+    """The port's parameters from the reference's pytree, on ``device``
+    (with ``parallel``: this rank's blocks).
 
     Matrices are stored in ``dtype`` (default: the config's compute type),
     norm vectors in f32.  Raises on a missing, extra or misshapen leaf."""
     dtype = dtype or transformer.compute_dtype(cfg)
     model = transformer.Transformer(cfg, dtype=dtype, device="meta")
     want = dict(model.named_parameters())
+    specs = None
+    if parallel is not None and parallel.mesh is not None:
+        from repro_torch.distributed import sharding
+
+        specs = sharding.param_pspecs(model, parallel)
     state = {}
     for name, arr in _flatten(tree).items():
         arr = _as_f32(arr)
@@ -67,10 +76,14 @@ def params_from_numpy(
             if tuple(a.shape) != tuple(want[key].shape):
                 raise ValueError(f"{key}: shape {a.shape} != {tuple(want[key].shape)}")
             t = torch.from_numpy(np.array(a, dtype=np.float32))
+            if specs is not None:
+                t = sharding.block(t, specs[key], parallel.mesh).contiguous()
             state[key] = t.to(device=device, dtype=want[key].dtype)
     missing = sorted(set(want) - set(state))
     if missing:
         raise KeyError(f"parameters missing from the pytree: {missing}")
+    if specs is not None:
+        return transformer.set_params(model, state)
     model.load_state_dict(state, assign=True)
     return model
 

@@ -112,6 +112,38 @@ def _mlstm_chunk(q, k, v, log_f, i_gate, state: MLSTMState):
     return h, MLSTMState(c_new, n_new)
 
 
+def _rank_heads(lay: layers.Layout, have: tuple, n_heads: int, width: int) -> tuple[int, int]:
+    """The heads ``[h0, h1)`` a rank runs: those of a tp block ``have = (lo,
+    hi, n)`` of a head-major dim (``width`` entries a head) when it holds
+    whole heads; else every head."""
+    lo, hi, n = have
+    if (lo, hi) == (0, n) or lo % width or hi % width:
+        return 0, n_heads
+    return lo // width, hi // width
+
+
+def state_tp_dims(lay: layers.Layout, cfg: ArchConfig, bt: str) -> tuple:
+    """For each field of a block's state, the dim of its per-layer ``(B,
+    ...)`` tensor that the cache spec (``sharding.cache_leaf_spec``) puts on
+    tp, or None."""
+    n_fields = 2 if bt == "mlstm" else 4
+    if lay.tp.size == 1:
+        return (None,) * n_fields
+    from repro_torch.distributed import sharding
+
+    if bt == "mlstm":
+        h, dk, dv = mlstm_dims(cfg)
+        shapes = ((1, 1, h, dk, dv), (1, 1, h, dk))
+    else:
+        shapes = ((1, 1, cfg.d_model),) * 4
+    out = []
+    for shape in shapes:
+        spec = sharding.cache_leaf_spec(shape, lay.parallel)
+        dims = [i - 1 for i, e in enumerate(spec) if e is not None and e == lay.parallel.tp_axis]
+        out.append(dims[0] if dims else None)
+    return tuple(out)
+
+
 def mlstm_block(
     p: MLSTM,
     x: torch.Tensor,
@@ -120,21 +152,37 @@ def mlstm_block(
     *,
     chunk: int = 256,
     return_state: bool = False,
+    lay: layers.Layout = layers.SINGLE,
 ):
-    """Full mLSTM residual block. x (B,S,d) → (out, new_state or None)."""
+    """Full mLSTM residual block. x (B,S,d) → (out, new_state or None).
+
+    Over a mesh a rank runs the heads of its tp block of ``wq``: ``u`` and
+    the gate pre-activations are gathered over tp (their blocks do not line
+    up with the heads), ``out_norm`` takes its mean over tp and ``w_down``
+    is row-parallel; ``state`` and the returned state are the rank's cache
+    spec blocks (``state_tp_dims``)."""
     b, s, d = x.shape
     h, dk, dv = mlstm_dims(cfg)
     d_inner = h * dv
     dtype = x.dtype
+    h0, h1 = _rank_heads(lay, lay.cols(p.wq), h, dk)
+    hl = h1 - h0
+    tp_c, tp_n = state_tp_dims(lay, cfg, "mlstm")
     xin = layers.rmsnorm(x, p.norm)
-    z = F.silu(xin @ p.w_gate.to(dtype))
-    u = xin @ p.w_up.to(dtype)
-    q = (u @ p.wq.to(dtype)).reshape(b, s, h, dk)
+    z = F.silu(xin @ lay.w(p.w_gate).to(dtype))
+    (u,) = layers.take_cols(lay, [(xin @ lay.w(p.w_up).to(dtype), lay.cols(p.w_up), (0, d_inner))])
+    q, k, v, gates = layers.take_cols(lay, [
+        (u @ lay.w(p.wq).to(dtype), lay.cols(p.wq), (h0 * dk, h1 * dk)),
+        (u @ lay.w(p.wk).to(dtype), lay.cols(p.wk), (h0 * dk, h1 * dk)),
+        (u @ lay.w(p.wv).to(dtype), lay.cols(p.wv), (h0 * dv, h1 * dv)),
+        (u @ lay.w(p.w_if).to(dtype), lay.cols(p.w_if), (0, 2 * h)),
+    ])
+    q = q.reshape(b, s, hl, dk)
     # the reference divides by sqrt(dk) rounded to the compute type
-    k = (u @ p.wk.to(dtype)).reshape(b, s, h, dk) / torch.tensor(
+    k = k.reshape(b, s, hl, dk) / torch.tensor(
         math.sqrt(dk), dtype=torch.float32).to(dtype)
-    v = (u @ p.wv.to(dtype)).reshape(b, s, h, dv)
-    gates = (u @ p.w_if.to(dtype)).reshape(b, s, 2, h)
+    v = v.reshape(b, s, hl, dv)
+    gates = gates.reshape(b, s, 2, h)[..., h0:h1]
     i_gate = torch.sigmoid(gates[:, :, 0].float())  # (B,S,H)
     f_gate = torch.sigmoid(gates[:, :, 1].float())
     log_f = torch.log(torch.clamp(f_gate, min=1e-6))
@@ -148,9 +196,12 @@ def mlstm_block(
 
     if state is None:
         state = MLSTMState(
-            c=torch.zeros((b, h, dk, dv), dtype=torch.float32, device=x.device),
-            n=torch.zeros((b, h, dk), dtype=torch.float32, device=x.device),
+            c=torch.zeros((b, hl, dk, dv), dtype=torch.float32, device=x.device),
+            n=torch.zeros((b, hl, dk), dtype=torch.float32, device=x.device),
         )
+    else:
+        state = MLSTMState(layers.from_block(lay, state.c, tp_c, 1, (h0, h1)),
+                           layers.from_block(lay, state.n, tp_n, 1, (h0, h1)))
 
     chunk = min(chunk, s)
     if s % chunk:
@@ -165,15 +216,24 @@ def mlstm_block(
                                  ig[:, :, sl], state)
         outs.append(hc)
     hs = torch.cat(outs, dim=2)[:, :, :s]
-    hs = hs.transpose(1, 2).reshape(b, s, d_inner).to(dtype)
-    hs = layers.rmsnorm(hs, p.out_norm) * z
-    out = x + hs @ p.w_down.to(dtype)
-    return out, (state if return_state else None)
+    hs = hs.transpose(1, 2).reshape(b, s, hl * dv).to(dtype)
+    have = (h0 * dv, h1 * dv, d_inner)
+    (z,) = layers.take_cols(lay, [(z, lay.cols(p.w_gate), have[:2])])
+    hs = layers.rmsnorm_cols(lay, hs, p.out_norm, have) * z
+    r0, r1, _ = lay.rows(p.w_down)
+    (hs,) = layers.take_cols(lay, [(hs, have, (r0, r1))])
+    out = layers.reduce_rows(lay, hs @ lay.w(p.w_down).to(dtype), (r0, r1) != (0, d_inner), False)
+    if not return_state:
+        return x + out, None
+    hv = (h0, h1, h)
+    return x + out, MLSTMState(layers.to_block(lay, state.c, 1, hv, tp_c),
+                               layers.to_block(lay, state.n, 1, hv, tp_n))
 
 
-def mlstm_decode_step(p: MLSTM, x, cfg: ArchConfig, state: MLSTMState):
+def mlstm_decode_step(p: MLSTM, x, cfg: ArchConfig, state: MLSTMState,
+                      lay: layers.Layout = layers.SINGLE):
     """Single-token mLSTM step. x (B,1,d)."""
-    return mlstm_block(p, x, cfg, state, chunk=1, return_state=True)
+    return mlstm_block(p, x, cfg, state, chunk=1, return_state=True, lay=lay)
 
 
 # ---------------------------------------------------------------------------
@@ -238,28 +298,53 @@ def slstm_block(
     state: Optional[SLSTMState] = None,
     *,
     return_state: bool = False,
+    lay: layers.Layout = layers.SINGLE,
 ):
     """Recurrent sLSTM residual block. x (B,S,d) → (out, new_state or None).
 
     The recurrence is one call of kernel 7 over the whole sequence; its
     input is the projection viewed as ``(B, H, S, 4, hd)`` (no copy) and its
-    ``hs`` comes back in the ``(B, S, d)`` layout."""
+    ``hs`` comes back in the ``(B, S, d)`` layout.
+
+    Over a mesh a rank runs the heads of its tp block of ``w_down``'s rows:
+    ``w_in``'s column block is one gate of every head (gate-major, i | f | z
+    | o), so the projection is gathered over tp and kernel 7 takes the
+    rank's heads of it; ``out_norm`` takes its mean over tp and ``w_down`` is
+    row-parallel; states are the rank's cache spec blocks."""
     b, s, d = x.shape
     h = cfg.num_heads
     hd = d // h
     dtype = x.dtype
+    r0, r1, _ = lay.rows(p.w_down)
+    h0, h1 = _rank_heads(lay, (r0, r1, d), h, hd)
+    hl = h1 - h0
+    tp_dims = state_tp_dims(lay, cfg, "slstm")
     xin = layers.rmsnorm(x, p.norm)
-    pre = (xin @ p.w_in.to(dtype)).float() + p.b  # (B,S,4d)
+    (proj,) = layers.take_cols(lay, [(xin @ lay.w(p.w_in).to(dtype), lay.cols(p.w_in),
+                                      (0, 4 * d))])
+    pre = proj.float() + p.b  # (B,S,4d)
     if state is None:
         state = slstm_init_state(cfg, b, x.device)
-    pre5 = pre.view(b, s, 4, h, hd).permute(0, 3, 1, 2, 4)  # (B,H,S,4,hd)
-    hs, finals = kslstm.slstm_sequence(pre5, p.r, *(t.reshape(b, h, hd) for t in state))
-    hs = hs.permute(0, 2, 1, 3).reshape(b, s, d).to(dtype)  # (B,S,d)
-    hs = layers.rmsnorm(hs, p.out_norm)
-    out = x + hs @ p.w_down.to(dtype)
-    new = SLSTMState(*(t.reshape(b, d) for t in finals))
-    return out, (new if return_state else None)
+        if hl != h:
+            state = SLSTMState(*(t[:, h0 * hd:h1 * hd] for t in state))
+    else:
+        state = SLSTMState(*(layers.from_block(lay, t, dim, 1, (h0 * hd, h1 * hd))
+                             for t, dim in zip(state, tp_dims)))
+    pre5 = pre.view(b, s, 4, h, hd).permute(0, 3, 1, 2, 4)[:, h0:h1]  # (B,H',S,4,hd)
+    hs, finals = kslstm.slstm_sequence(pre5, p.r[h0:h1],
+                                       *(t.reshape(b, hl, hd).contiguous() for t in state))
+    hs = hs.permute(0, 2, 1, 3).reshape(b, s, hl * hd).to(dtype)  # (B,S,d')
+    have = (h0 * hd, h1 * hd, d)
+    hs = layers.rmsnorm_cols(lay, hs, p.out_norm, have)
+    (hs,) = layers.take_cols(lay, [(hs, have, (r0, r1))])
+    out = layers.reduce_rows(lay, hs @ lay.w(p.w_down).to(dtype), (r0, r1) != (0, d), False)
+    if not return_state:
+        return x + out, None
+    new = SLSTMState(*(layers.to_block(lay, t.reshape(b, hl * hd), 1, have, dim)
+                       for t, dim in zip(finals, tp_dims)))
+    return x + out, new
 
 
-def slstm_decode_step(p: SLSTM, x, cfg: ArchConfig, state: SLSTMState):
-    return slstm_block(p, x, cfg, state, return_state=True)
+def slstm_decode_step(p: SLSTM, x, cfg: ArchConfig, state: SLSTMState,
+                      lay: layers.Layout = layers.SINGLE):
+    return slstm_block(p, x, cfg, state, return_state=True, lay=lay)

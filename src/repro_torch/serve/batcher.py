@@ -3,10 +3,14 @@
 The engine keeps ``num_slots`` decode lanes hot; finished or empty lanes
 are refilled from the request queue between decode steps (prefill writes
 the new sequence's KV, or its recurrent state, into the lane's cache
-region).  Shapes are static;
-admission is host-side bookkeeping.  Unlike the reference, which returns a
-new cache pytree, the slot write and the decode step update the batched
-caches in place (JAX donates those buffers).
+region).  Shapes are static; admission is host-side bookkeeping.  Unlike
+the reference, which returns a new cache pytree, the slot write and the
+decode step update the batched caches in place (JAX donates those buffers).
+
+Over a mesh the batcher runs unchanged on every rank: its admissions and
+argmaxes are host decisions made from logits that are the same bits on
+every rank (gathered over tp and dp), and each rank holds its slots of the
+caches.
 """
 from __future__ import annotations
 
@@ -124,8 +128,13 @@ def _write_slot(batched_caches, one_cache, slot: int) -> None:
     """Copy a single-sequence cache into slot ``slot``, in place.
 
     Cache tensors (every field of a KVCache, MLSTMState or SLSTMState) are
-    stacks ``(num_periods, B, ...)``: the batch dim is axis 1.  The whole slot is overwritten, the entries past the new prompt
-    with the prefill cache's zeros."""
+    stacks ``(num_periods, B, ...)``: the batch dim is axis 1.  The whole
+    slot is overwritten, the entries past the new prompt with the prefill
+    cache's zeros.  A rank's caches over a mesh hold the slots
+    ``batched_caches.slots``; another rank writes the others."""
+    lo, hi = getattr(batched_caches, "slots", (0, None))
+    if slot < lo or (hi is not None and slot >= hi):
+        return
     for dst, src in zip(_cache_tensors(batched_caches), _cache_tensors(one_cache)):
         if dst.ndim >= 2:
-            dst[:, slot] = src[:, 0]
+            dst[:, slot - lo] = src[:, 0]

@@ -1301,3 +1301,114 @@ def test_procs_users_gloo_world2_on_one_card(card, tmp_path):
     ranks = mesh.spawn(_users_on_card, 2, "gloo", "cuda:0", timeout_s=120,
                        store_dir=str(tmp_path))
     _assert_users(ranks, card)
+
+
+# ---------------------------------------------------------------------------
+# LM parallelism across processes on the card: gloo ranks on one card and
+# NCCL at world 1 against the unsharded run; kernel 6 at granite's groups
+# ---------------------------------------------------------------------------
+
+
+def _lm_card_configs():
+    from repro_torch.launch import lm_run
+
+    common = dict(smoke=True, dtype="float32", requests=3, slots=2, cache_len=96,
+                  prompt_lens=(40, 80), first_multiple=2, max_new=(3, 5))
+    return [lm_run.LMRunConfig(arch="qwen3_4b", mesh=(1, 2), **common),
+            lm_run.LMRunConfig(arch="xlstm_1_3b", mesh=(1, 2), **common)]
+
+
+def _lm_on_card(group, cfgs, forced) -> list:
+    """``lm_run.run_lm`` of each config on cuda:0 as this rank of ``group``,
+    teacher-forced with ``forced`` tokens."""
+    from repro_torch.launch import lm_run
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    return [lm_run.run_lm(cfg, device=torch.device("cuda", 0), forced=tokens, timeout_s=120)
+            for cfg, tokens in zip(cfgs, forced)]
+
+
+def test_lm_procs_gloo_world2_on_one_card_equals_unsharded(card, tmp_path):
+    """Two gloo ranks on one card (qwen3-4b and xlstm-1.3b smoke in f32 over
+    (1, 2)) against the unsharded run on the card, fed the same tokens: the
+    logits within the CPU test's 2e-5, every rank the same bits, kernels 6
+    and 7 launched by each rank on its own heads."""
+    from repro_torch.launch import lm_run, mesh
+
+    cfgs = _lm_card_configs()
+    refs = [lm_run.run_lm(cfg, sharded=False, device=card) for cfg in cfgs]
+    ranks = mesh.spawn(_lm_on_card, 2, "gloo", "cuda:0",
+                       args=(cfgs, [ref["tokens"] for ref in refs]), timeout_s=180,
+                       store_dir=str(tmp_path))
+    for i, (cfg, ref) in enumerate(zip(cfgs, refs)):
+        mcfg = lm_run.model_config(cfg)
+        for rank in ranks:
+            got = rank[i]
+            assert got["logit_digests"] == ranks[0][i]["logit_digests"]
+            assert got["param_bytes"] == got["shard_bytes"]
+            for uid, want in ref["logits"].items():
+                np.testing.assert_allclose(got["logits"][uid], want, rtol=2e-5, atol=2e-5)
+            layers = {bt: mcfg.num_periods * mcfg.block_pattern.count(bt)
+                      for bt in ("attn", "slstm")}
+            want_launches = {}
+            if layers["attn"]:
+                want_launches["flash_attention"] = layers["attn"] * cfg.requests
+            if layers["slstm"]:
+                want_launches["slstm_sequence"] = layers["slstm"] * (cfg.requests
+                                                                     + len(got["decode"]))
+            assert got["launches"] == want_launches
+
+
+def test_lm_procs_nccl_world1_is_the_unsharded_run_bit_for_bit(card, tmp_path):
+    import torch.distributed as dist
+
+    from repro_torch.launch import lm_run, mesh
+
+    cfgs = [dataclasses.replace(cfg, dtype=None, mesh=(1, 1)) for cfg in _lm_card_configs()]
+    refs = [lm_run.run_lm(cfg, sharded=False, device=card) for cfg in cfgs]
+    mesh.init_shard_group("nccl", "file://" + str(tmp_path / "store"), timeout_s=120, rank=0,
+                          world_size=1, device=torch.device("cuda", 0))
+    try:
+        got = _lm_on_card(None, cfgs, [ref["tokens"] for ref in refs])
+    finally:
+        dist.destroy_process_group()
+    for g, ref in zip(got, refs):
+        for uid, want in ref["logits"].items():
+            assert np.array_equal(g["logits"][uid], want)
+        assert g["tokens"] == ref["tokens"] and g["launches"] == ref["launches"]
+        assert all(not call["collectives"] for call in g["prefill"] + g["decode"])
+
+
+@pytest.mark.parametrize("hq", [48, 12])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_lm_procs_flash_kernel_at_granite_groups(card, hq, dtype):
+    """Kernel 6 with every query head over granite's single kv head: 48
+    (unsharded) and 12 (a rank of tp 4), hd 128."""
+    gen = torch.Generator(device=card).manual_seed(hq)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    for s in (129, 700):
+        q = torch.randn((hq, s, 128), generator=gen, device=card).to(dtype)
+        k, v = (torch.randn((1, s, 128), generator=gen, device=card).to(dtype) for _ in range(2))
+        got = flash.flash_attention_fhsd(q, k, v, q_heads_per_kv=hq)
+        want = flash.flash_attention_plain(q, k, v, q_heads_per_kv=hq)
+        diff = (got.float() - want.float()).abs()
+        assert bool((diff <= tol * (1 + want.float().abs())).all()), float(diff.max())
+
+
+@pytest.mark.parametrize("r_dtype", [torch.bfloat16, torch.float32])
+def test_lm_procs_slstm_head_slices_are_the_whole_launch(card, r_dtype):
+    """A rank of tp 4 launches kernel 7 on its own head of the projection
+    (a strided view) and of r: each head's outputs are bit for bit the
+    whole launch's (the cluster and cooperative variants alike)."""
+    gen = torch.Generator(device=card).manual_seed(3)
+    pre = 0.5 * torch.randn((1, 4, 300, 4, 512), generator=gen, device=card)
+    r = (torch.randn((4, 4, 512, 512), generator=gen, device=card) / 512 ** 0.5).to(r_dtype)
+    z = torch.zeros((1, 4, 512), device=card)
+    states = (z, z, z, torch.full_like(z, -1e30))
+    hs, finals = slstm.slstm_sequence(pre, r, *states)
+    for h in range(4):
+        one = tuple(t[:, h:h + 1].contiguous() for t in states)
+        hs1, fin1 = slstm.slstm_sequence(pre[:, h:h + 1], r[h:h + 1], *one)
+        assert torch.equal(hs1, hs[:, h:h + 1])
+        assert all(torch.equal(a, b[:, h:h + 1]) for a, b in zip(fin1, finals))

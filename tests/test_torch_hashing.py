@@ -153,17 +153,19 @@ def test_table_without_device_raises_on_a_host_without_cuda(monkeypatch):
 
 
 def test_later_slices_raise_not_implemented():
-    # Key widths, value columns, the fingerprint lane and hot-key
-    # replication are ported; the several-cards slice still raises (a
-    # loader over a mesh), and bad schemas are refused.
+    # Key widths, value columns, the fingerprint lane, hot-key replication
+    # and a loader over a mesh are ported; a mesh whose dp axes do not
+    # divide the batch and bad schemas are refused.
     from repro_torch.data import ShardedLoader, SyntheticCorpus
+    from repro_torch.distributed import AbstractMesh
 
     assert TableSchema("uint64").key_lanes == 2
     assert TableSchema("uint32", 3).value_cols == 3
     assert DistributedHashTable(hash_range=1 << 10, device="cpu", fingerprint=True).use_fingerprint
     assert DistributedHashTable(hash_range=1 << 10, device="cpu", replicate_hot_keys=2).hot_keys == {}
-    with pytest.raises(NotImplementedError, match="slice"):
-        ShardedLoader(SyntheticCorpus(100, 8, device="cpu"), 4, mesh=object())
+    with pytest.raises(ValueError, match="does not divide"):
+        ShardedLoader(SyntheticCorpus(100, 8, device="cpu"), 6,
+                      mesh=AbstractMesh((4,), ("data",))).next_batch()
     with pytest.raises(ValueError):
         TableSchema("int8")
     with pytest.raises(ValueError):

@@ -39,6 +39,7 @@ from repro.serve import Request as JaxRequest
 from repro.serve import make_prefill_step as jax_prefill_step
 from repro.serve import make_serve_step as jax_serve_step
 from repro_torch.configs.base import ARCH_IDS, get_config, get_smoke_config
+from repro_torch.distributed.parallel import ParallelConfig
 from repro_torch.kernels import build
 from repro_torch.launch import serve as serve_cli
 from repro_torch.models import attention as attn
@@ -266,7 +267,7 @@ def test_convert_round_trip(jax_params):
 
 
 def test_other_archs_and_block_types_raise_not_implemented():
-    ported = {"qwen3_4b": 36, "xlstm_1_3b": 48}
+    ported = {"qwen3_4b": 36, "xlstm_1_3b": 48, "granite_20b": 52}
     for arch in ARCH_IDS:
         if arch in ported:
             assert get_config(arch).num_layers == ported[arch]
@@ -285,8 +286,9 @@ def test_other_archs_and_block_types_raise_not_implemented():
                    dict(num_experts=4, experts_per_token=2)):
         with pytest.raises(NotImplementedError, match="slice"):
             build_model(dataclasses.replace(base, **change), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice"):
-        build_model(base, parallel=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="MoE slice"):
+        build_model(dataclasses.replace(base, num_experts=4, experts_per_token=2),
+                    parallel=ParallelConfig(mesh=None, moe_impl="ep"), device="cpu")
     with pytest.raises(ValueError, match="attention_impl"):
         build_model(dataclasses.replace(base, attention_impl="xla"), device="cpu")
 

@@ -32,6 +32,7 @@ torch = pytest.importorskip("torch")
 from repro_torch import DistributedHashTable, TableSchema  # noqa: E402
 from repro_torch.core import convert, exchange  # noqa: E402
 from repro_torch.data import dedup  # noqa: E402
+from repro_torch.distributed import AbstractMesh  # noqa: E402
 from repro_torch.launch import mesh, table_run  # noqa: E402
 
 TIMEOUT_S = 120.0
@@ -545,7 +546,7 @@ def test_groups_share_one_vocabulary():
     t = torch.tensor(7)
     assert g.psum(t) is t and g.pmax(t) is t and g.agree([3, 5]) == (3, 5) and g.same([1])
     assert exchange.as_group(None, 3) == exchange.StackedGroup(3)
-    with pytest.raises(NotImplementedError, match="7b"):
-        mesh.make_production_mesh()
-    with pytest.raises(NotImplementedError, match="7b"):
-        mesh.production_parallel()
+    with pytest.raises(ValueError, match="256"):
+        mesh.make_production_mesh()  # a DeviceMesh over a group of 256 ranks
+    par = mesh.production_parallel(AbstractMesh((16, 16), ("data", "model")))
+    assert (par.dp_axes, par.tp_axis, par.seq_parallel) == (("data",), "model", True)

@@ -395,14 +395,17 @@ def test_clock_survives_the_first_delete_after_compact():
 
 
 def test_later_slices_raise_not_implemented():
-    # A loader over a mesh (several cards) still raises; hot-key
-    # replication, the plan entry points and fold_oldest(metrics=) are
-    # ported now (tests/test_torch_hot_keys.py, tests/test_torch_plans.py
-    # and tests/test_torch_obs.py hold them against the reference).
+    # A loader over a mesh, hot-key replication, the plan entry points and
+    # fold_oldest(metrics=) are ported now (tests/test_torch_procs_lm.py,
+    # tests/test_torch_hot_keys.py, tests/test_torch_plans.py and
+    # tests/test_torch_obs.py hold them against the reference); a mesh whose
+    # dp axes do not divide the batch is refused.
     from repro_torch.data import ShardedLoader, SyntheticCorpus
+    from repro_torch.distributed import AbstractMesh
 
-    with pytest.raises(NotImplementedError, match="slice"):
-        ShardedLoader(SyntheticCorpus(100, 8, device="cpu"), 4, mesh=object())
+    with pytest.raises(ValueError, match="does not divide"):
+        ShardedLoader(SyntheticCorpus(100, 8, device="cpu"), 6,
+                      mesh=AbstractMesh((4,), ("data",))).next_batch()
     assert DistributedHashTable(hash_range=1 << 10, device="cpu", replicate_hot_keys=2).hot_keys == {}
     pt = DistributedHashTable(hash_range=1 << 10, device="cpu")
     state = pt.init(np.arange(16, dtype=np.uint32))
