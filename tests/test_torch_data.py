@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # one intra-op thread a worker: xdist runs several on the cores
 pytest.importorskip("hypothesis", reason="property tests need hypothesis (requirements-dev.txt)")
 from hypothesis import given, settings, strategies as st
 
@@ -40,6 +41,7 @@ from repro_torch.data import (
 from repro_torch.data.packing import packing_efficiency
 from repro_torch.data.synthetic import zipf_tokens
 from test_torch_state import _mesh, _np
+from jax_reference import cheap_reference_compiles  # noqa: F401  (an autouse fixture)
 
 MESHES = pytest.mark.parametrize("d", [1, 8], ids=["mesh1", "mesh8"])
 

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # one intra-op thread a worker: xdist runs several on the cores
 
 import jax
 import jax.numpy as jnp
@@ -32,6 +33,7 @@ from repro.core.maintenance import fold_oldest as jfold_oldest
 from repro_torch import DistributedHashTable, TableSchema, retrieval_to_lists
 from repro_torch.core import convert, hashing, schema
 from repro_torch.core.maintenance import fold_oldest
+from jax_reference import cheap_reference_compiles  # noqa: F401  (an autouse fixture)
 
 KEY_DTYPES = pytest.mark.parametrize("key_dtype", ["uint32", "uint64"], ids=["u32x1", "u64x2"])
 MESHES = pytest.mark.parametrize("d", [1, 8], ids=["mesh1", "mesh8"])

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # one intra-op thread a worker: xdist runs several on the cores
 
 import jax.numpy as jnp
 
@@ -23,6 +24,7 @@ from repro.kernels import ref as jref
 from repro_torch.kernels import build, ops
 from repro_torch.kernels import flash_attention as flash
 from repro_torch.kernels import ref
+from jax_reference import cheap_reference_compiles  # noqa: F401  (an autouse fixture)
 
 # (b, hq, hkv, sq, skv, d, causal, window) — tests/test_kernels.py ATTN_CASES
 ATTN_CASES = [

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # one intra-op thread a worker: xdist runs several on the cores
 
 import jax.numpy as jnp
 
@@ -24,6 +25,7 @@ from repro.core import multi_hashgraph as jmhg
 from repro.kernels import ops as jops
 from repro_torch.core import hashgraph
 from repro_torch.kernels import build, csr_gather, ops
+from jax_reference import cheap_reference_compiles  # noqa: F401  (an autouse fixture)
 
 
 def _runs(rng, n_rows: int, table_len: int, zero_every: int = 3, max_count: int = 5):

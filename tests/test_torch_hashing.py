@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # one intra-op thread a worker: xdist runs several on the cores
 
 import jax.numpy as jnp
 
@@ -21,6 +22,7 @@ from repro_torch import DistributedHashTable, TableSchema
 from repro_torch.core import hashing, partition
 from repro_torch.core.schema import u32_bits
 from repro_torch.kernels import build, histogram, murmur
+from jax_reference import cheap_reference_compiles  # noqa: F401  (an autouse fixture)
 
 SEEDS = (jhashing.DEFAULT_SEED, jhashing.FINGERPRINT_SEED)
 SPECIAL = np.array([0, 1, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFE, 0xFFFFFFFF], np.uint32)

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # one intra-op thread a worker: xdist runs several on the cores
 
 import jax.numpy as jnp
 
@@ -31,6 +32,7 @@ from repro_torch.cache import ZipfianGenerator
 from repro_torch.core.maintenance import fold_oldest
 from repro_torch.core.schema import pack_u64
 from test_torch_state import HASH_RANGE, Pair, _mesh, _np, assert_same_reads, assert_same_state
+from jax_reference import cheap_reference_compiles  # noqa: F401  (an autouse fixture)
 
 EMPTY = np.uint32(0xFFFFFFFF)
 

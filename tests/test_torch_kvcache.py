@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # one intra-op thread a worker: xdist runs several on the cores
 
 import jax.numpy as jnp
 
@@ -43,6 +44,7 @@ from repro_torch.core import maintenance
 from repro_torch.core.schema import pack_u64
 from test_table_state import _keys_for, _value_rows, _values_for
 from test_torch_state import _mesh, _np
+from jax_reference import cheap_reference_compiles  # noqa: F401  (an autouse fixture)
 
 HASH_RANGE = 1 << 12
 MESHES = pytest.mark.parametrize("d", [1, 8], ids=["mesh1", "mesh8"])

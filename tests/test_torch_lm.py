@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # one intra-op thread a worker: xdist runs several on the cores
 
 import jax
 import jax.numpy as jnp
@@ -47,6 +48,7 @@ from repro_torch.models import convert, layers
 from repro_torch.models import transformer as tfm
 from repro_torch.models.api import build_model
 from repro_torch.serve import ContinuousBatcher, Request, make_prefill_step, make_serve_step
+from jax_reference import cheap_reference_compiles  # noqa: F401  (an autouse fixture)
 
 TOL = {"float32": dict(rtol=2e-4, atol=2e-4), "bfloat16": dict(rtol=2e-2, atol=6e-2)}
 DECODE_TOL = {"float32": dict(rtol=3e-4, atol=3e-4), "bfloat16": TOL["bfloat16"]}

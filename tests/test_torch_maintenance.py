@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # one intra-op thread a worker: xdist runs several on the cores
 
 import jax.numpy as jnp
 
@@ -23,6 +24,7 @@ from repro_torch.core import exchange, maintenance
 from repro_torch.core.maintenance import CompactionPolicy, TableStats, fold_oldest
 from repro_torch.core.state import Tombstones
 from test_torch_state import Pair, _mesh, assert_same_reads, assert_same_state
+from jax_reference import cheap_reference_compiles  # noqa: F401  (an autouse fixture)
 
 
 def _deep(p, d, rng):

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # one intra-op thread a worker: xdist runs several on the cores
 
 import jax
 import jax.numpy as jnp
@@ -31,6 +32,7 @@ import repro_torch.obs as pobs
 from repro_torch import DistributedHashTable, counting
 from repro_torch.core import exchange, maintenance, multi_hashgraph, plans
 from repro_torch.kernels import build
+from jax_reference import cheap_reference_compiles  # noqa: F401  (an autouse fixture)
 
 OBS = pytest.mark.parametrize("obs", [jobs, pobs], ids=["repro", "repro_torch"])
 

@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # one intra-op thread a worker: xdist runs several on the cores
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -48,6 +49,7 @@ from repro_torch.launch import lm_run  # noqa: E402
 from repro_torch.launch import mesh as lmesh  # noqa: E402
 from repro_torch.models import convert, transformer  # noqa: E402
 from repro_torch.models.api import build_model  # noqa: E402
+from jax_reference import cheap_reference_compiles  # noqa: F401  (an autouse fixture)
 
 MESHES = {
     "16x16": ((16, 16), ("data", "model"), ("data",)),

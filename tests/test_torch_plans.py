@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # one intra-op thread a worker: xdist runs several on the cores
 
 import jax
 import jax.numpy as jnp
@@ -32,6 +33,7 @@ from repro.core import table as jtable
 from repro_torch import DistributedHashTable, TableSchema, join_to_pairs, retrieval_to_lists
 from repro_torch import counting
 from repro_torch.core import exchange, multi_hashgraph, plans
+from jax_reference import cheap_reference_compiles  # noqa: F401  (an autouse fixture)
 
 HASH_RANGE = 1 << 10
 LAYOUTS = [

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # one intra-op thread a worker: xdist runs several on the cores
 
 import jax.numpy as jnp
 
@@ -30,6 +31,7 @@ from repro_torch.core import hashgraph, hashing
 from repro_torch.core import multi_hashgraph as mh
 from repro_torch.core.schema import u32_bits
 from repro_torch.kernels import bucket_probe, build, ops
+from jax_reference import cheap_reference_compiles  # noqa: F401  (an autouse fixture)
 
 
 def _windows(rng, n_q: int, table_len: int, max_len: int):

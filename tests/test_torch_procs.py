@@ -28,12 +28,14 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # one intra-op thread a worker: xdist runs several on the cores
 
 from repro_torch import DistributedHashTable, TableSchema  # noqa: E402
 from repro_torch.core import convert, exchange  # noqa: E402
 from repro_torch.data import dedup  # noqa: E402
 from repro_torch.distributed import AbstractMesh  # noqa: E402
 from repro_torch.launch import mesh, table_run  # noqa: E402
+from jax_reference import cheap_reference_compiles  # noqa: F401  (an autouse fixture)
 
 TIMEOUT_S = 120.0
 GUARD_TIMEOUT_S = 30.0

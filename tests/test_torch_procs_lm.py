@@ -41,9 +41,11 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # one intra-op thread a worker: xdist runs several on the cores
 
 from repro_torch.launch import lm_run  # noqa: E402
 from repro_torch.launch import mesh as lmesh  # noqa: E402
+from jax_reference import cheap_reference_compiles  # noqa: F401  (an autouse fixture)
 
 TIMEOUT_S = 60.0
 DEAD_TIMEOUT_S = 5.0

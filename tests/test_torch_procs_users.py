@@ -36,8 +36,10 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # one intra-op thread a worker: xdist runs several on the cores
 
 from repro_torch.launch import mesh, serve_run, table_run, users_run  # noqa: E402
+from jax_reference import cheap_reference_compiles  # noqa: F401  (an autouse fixture)
 
 TIMEOUT_S = 60.0
 ROLE_TIMEOUT_S = 2.0  # the idle case's role communicators

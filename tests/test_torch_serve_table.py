@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # one intra-op thread a worker: xdist runs several on the cores
 
 import jax
 
@@ -38,6 +39,7 @@ from repro_torch import DistributedHashTable
 import repro_torch.serve_table as pserve
 from repro_torch.serve_table import CompactionPolicy, MicroBatcher, TableServer
 from test_table_state import Oracle, _value_rows
+from jax_reference import cheap_reference_compiles  # noqa: F401  (an autouse fixture)
 
 MESHES = pytest.mark.parametrize("d", [1, 8], ids=["mesh1", "mesh8"])
 

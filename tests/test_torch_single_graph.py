@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # one intra-op thread a worker: xdist runs several on the cores
 
 import jax.numpy as jnp
 
@@ -21,6 +22,7 @@ from repro.core import hashgraph as jhg
 from repro_torch.core import hashgraph
 from repro_torch.core.schema import pack_u64
 from test_torch_widths import _pool_full
+from jax_reference import cheap_reference_compiles  # noqa: F401  (an autouse fixture)
 
 TABLE_SIZE = 64
 SEED = 0x1234

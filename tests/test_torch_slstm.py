@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # one intra-op thread a worker: xdist runs several on the cores
 
 import jax
 import jax.numpy as jnp
@@ -33,6 +34,7 @@ from repro_torch.configs.base import get_smoke_config
 from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels import slstm
 from repro_torch.models import ssm
+from jax_reference import cheap_reference_compiles  # noqa: F401  (an autouse fixture)
 
 KERNEL_TOL = dict(rtol=2e-5, atol=2e-5)
 BLOCK_TOL = dict(rtol=3e-5, atol=3e-5)

@@ -7,14 +7,18 @@ mutation the two states must hold the same arrays (base, every delta, every
 tombstone field, ``coherent``) and give the same reads (query, plan_caps,
 retrieve, inner_join, join_size).  Also: upsert keep-last dedup and TTL with
 ``advance``, the ring-full error and ``auto_compact``, tombstone overflow,
-flat compact sizing, ``fused_routing=False``, the skew-guard fallback, the
-exchange-call budgets by depth, and a JAX-built stack carried across by
-``convert``.  Tolerance: none; every output is an integer.
+flat compact sizing and the exchange-call budgets by depth.  The routing
+variants and the skew guard are in ``test_torch_state_routing.py``, the
+depth-6 gathers and a JAX-built stack in ``test_torch_state_gather.py``
+(split for the test runner's workers: each file runs whole on one).  The
+helpers here are shared by those files and by the other table files.
+Tolerance: none; every output is an integer.
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # one intra-op thread a worker: xdist runs several on the cores
 
 import jax.numpy as jnp
 
@@ -22,6 +26,7 @@ from repro.core import hashing as jhashing
 from repro.core import table as jtable
 from repro_torch import DistributedHashTable, join_to_pairs
 from repro_torch.core import convert, exchange, maintenance
+from jax_reference import cheap_reference_compiles  # noqa: F401  (an autouse fixture)
 
 HASH_RANGE = 1 << 12
 
@@ -249,35 +254,6 @@ def test_compact_sizing_stays_flat(mesh8):
     p.check(np.array(live[:64], np.uint32))
 
 
-def _four_layer(p, rng):
-    keys = rng.integers(0, 1 << 14, 512, dtype=np.uint32)
-    p.init(keys)
-    for _ in range(3):
-        p.apply("insert", rng.integers(0, 1 << 14, 64, dtype=np.uint32))
-    return p.apply("delete", keys[:16])
-
-
-@MESHES
-@pytest.mark.parametrize(
-    "variant", ["fused", "forced-per-layer", "mixed-splits"]
-)
-def test_routing_variants_match_reference_and_each_other(d, variant, request):
-    """The fused path, ``fused_routing=False`` on the same coherent stack and
-    a mixed-split stack (``coherent_deltas=False``) give the reference's
-    results, and the same results as each other."""
-    kw = {"fused": {}, "forced-per-layer": {"fused_routing": False},
-          "mixed-splits": {"coherent_deltas": False}}[variant]
-    p = _four_layer(Pair(_mesh(request, d), d, **kw), np.random.default_rng(29))
-    assert p.ps.coherent == (variant != "mixed-splits")
-    q = np.random.default_rng(30).integers(0, 1 << 14, 256, dtype=np.uint32)
-    p.check(q)
-    fused = _four_layer(Pair(_mesh(request, d), d), np.random.default_rng(29))
-    np.testing.assert_array_equal(_np(p.pt.query(p.ps, q)), _np(fused.pt.query(fused.ps, q)))
-    got, want = p.pt.retrieve(p.ps, q), fused.pt.retrieve(fused.ps, q)
-    for name in ("offsets", "values", "counts"):
-        np.testing.assert_array_equal(_np(getattr(got, name)), _np(getattr(want, name)))
-
-
 def _narrow_batch(state, hash_range, seed, n):
     """Distinct keys whose hash lands in shard 0's range of ``state``'s base."""
     splits = np.asarray(state.base.hash_splits)
@@ -286,26 +262,6 @@ def _narrow_batch(state, hash_range, seed, n):
     narrow = cand[h < splits[1]][:n]
     assert len(narrow) == n
     return narrow
-
-
-@pytest.mark.parametrize("guard", [True, False], ids=["guard", "no-guard"])
-def test_skew_guard_fallback(mesh8, guard):
-    """A batch skewed onto one owner would overflow the frozen-splits
-    dispatch: the guard builds it on its own splits (incoherent, no drops);
-    without the guard both packages drop the same rows."""
-    p = Pair(mesh8, 8, skew_guard=guard)
-    keys = np.random.default_rng(23).integers(0, 1 << 14, 512, dtype=np.uint32)
-    p.init(keys)
-    narrow = _narrow_batch(p.js, HASH_RANGE, p.jt.seed, 512)
-    p.apply("insert", narrow)
-    assert p.pt.skew_fallbacks == p.jt.skew_fallbacks == int(guard)
-    assert p.ps.coherent == (not guard)
-    assert (int(p.ps.num_dropped) == 0) == guard
-    p.check(np.concatenate([narrow[:64], keys[:64]]))
-    if guard:  # a well-spread batch keeps the stack's routing
-        spread = np.random.default_rng(24).integers(0, 1 << 14, 512, dtype=np.uint32)
-        p.apply("insert", spread)
-        assert p.pt.skew_fallbacks == 1 and not p.ps.coherent
 
 
 def _calls(fn):
@@ -347,32 +303,6 @@ def test_exchange_call_budgets_by_depth(d):
     assert not ms.coherent
     assert _calls(lambda: mixed.query(ms, q))[0] == {"exchange": 2 * 4}
     assert _calls(lambda: mixed.retrieve(ms, q))[0] == {"exchange": 2 * 4, "plan_caps": 4}
-
-
-@MESHES
-def test_jax_built_stack_reads_the_same_in_the_port(d, request):
-    """A stack built and mutated by the JAX package, carried across by
-    ``convert.state_from_numpy``, reads the same in the port, and
-    ``state_to_numpy`` gives the arrays back."""
-    mesh = _mesh(request, d)
-    jt = jtable.DistributedHashTable(mesh, ("d",), hash_range=HASH_RANGE, tombstone_capacity=64)
-    rng = np.random.default_rng(61)
-    keys = rng.integers(0, 1 << 14, 512, dtype=np.uint32)
-    js = jt.init(jnp.asarray(keys))
-    js = js.insert(jnp.asarray(rng.integers(0, 1 << 14, 16 * d, dtype=np.uint32)))
-    js = js.delete(jnp.asarray(keys[:10]))
-    js = js.upsert(jnp.asarray(keys[20:25]), jnp.arange(5, dtype=jnp.int32), ttl=4)
-    js = js.advance(2)
-    for pt in (
-        DistributedHashTable(num_shards=d, hash_range=HASH_RANGE, device="cpu"),
-        DistributedHashTable(num_shards=d, hash_range=HASH_RANGE, device="cpu",
-                             paper_faithful_probe=True),
-    ):
-        ps = convert.state_from_numpy(**jax_state(js), table=pt, device="cpu")
-        assert_same_state(ps, js)
-        assert ps.now == 2 and ps.epoch == 2
-        queries = np.concatenate([keys[:120], rng.integers(0, 1 << 14, 8, dtype=np.uint32)])
-        assert_same_reads(pt, ps, jt, js, queries)
 
 
 def test_clock_survives_the_first_delete_after_compact():
@@ -438,46 +368,3 @@ def test_query_dispatch_overflow_zeroes_counts_silently_in_both(mesh8):
     np.testing.assert_array_equal(got, np.asarray(p.jt.query(p.js, jnp.asarray(queries))))
     assert (got[: 7 * 128] >= 1).all()
     assert (got[7 * 128 :] == 0).sum() >= 16  # present keys counted 0, silently
-
-
-def _depth6(p, rng):
-    """Base, four inserts, a delete, a fifth insert and an upsert: depth 6
-    with tombstones; one key of the base holds 40 duplicates."""
-    keys = rng.integers(0, 1 << 13, 512, dtype=np.uint32)
-    keys[100:140] = keys[60]
-    p.init(keys)
-    for i in range(5):
-        if i == 4:
-            p.apply("delete", keys[:24])
-        p.apply("insert", rng.integers(0, 1 << 13, 96, dtype=np.uint32),
-                np.arange(1000 * (i + 1), 1000 * (i + 1) + 96, dtype=np.int32))
-    p.apply("upsert", keys[30:46], np.arange(9000, 9016, dtype=np.int32))
-    assert p.ps.epoch == 6
-    return keys
-
-
-@MESHES
-@pytest.mark.parametrize("stack", ["coherent", "mixed-splits"])
-def test_retrieve_and_join_through_one_gather_launch_a_side_match_reference(d, stack, request):
-    """Retrieve and inner join of a depth-6 stack with tombstones and a
-    40-fold duplicate key, through the owner and querier gathers (one launch
-    per side per routing round on the card), equal the reference's: at the
-    planned capacities, and with capacities too small (truncated segments
-    and results, the same ``num_dropped``)."""
-    kw = {} if stack == "coherent" else {"coherent_deltas": False}
-    p = Pair(_mesh(request, d), d, **kw)
-    keys = _depth6(p, np.random.default_rng(61 + d))
-    assert p.ps.coherent == (stack == "coherent")
-    rng = np.random.default_rng(62)
-    q = np.concatenate([keys[:64], rng.integers(0, 1 << 13, 136, dtype=np.uint32)])
-    p.check(q)
-    jq = jnp.asarray(q)
-    for caps in ({"out_capacity": 6, "seg_capacity": 3}, {"out_capacity": 8}):
-        got, want = p.pt.retrieve(p.ps, q, **caps), p.jt.retrieve(p.js, jq, **caps)
-        for name in ("offsets", "values", "counts"):
-            np.testing.assert_array_equal(_np(getattr(got, name)), np.asarray(getattr(want, name)))
-        assert int(got.num_dropped) == int(want.num_dropped) > 0
-        gj, wj = p.pt.inner_join(p.ps, q, **caps), p.jt.inner_join(p.js, jq, **caps)
-        for name in ("query_idx", "values", "num_results"):
-            np.testing.assert_array_equal(_np(getattr(gj, name)), np.asarray(getattr(wj, name)))
-        assert int(gj.num_dropped) == int(wj.num_dropped) > 0

@@ -10,12 +10,14 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # one intra-op thread a worker: xdist runs several on the cores
 
 import jax.numpy as jnp
 
 from repro.core import table as jtable
 from repro_torch import DistributedHashTable, join_to_pairs, retrieval_to_lists
 from repro_torch.core import convert, exchange
+from jax_reference import cheap_reference_compiles  # noqa: F401  (an autouse fixture)
 
 HASH_RANGE = 1 << 12
 N_KEYS = 1024

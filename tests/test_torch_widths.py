@@ -9,13 +9,17 @@ included), query, contains, retrieve CSR arrays and lists, join pairs and
 join_size, then delete, upsert with TTL, the sorted and the probe query at
 depth 4, ``fold_oldest(3)`` and ``compact()``; overflow is reported at
 every width; a JAX-built u64×4 state with deltas and 2-lane tombstones
-carried across by ``convert`` reads the same in the port.  Tolerance:
-none.
+carried across by ``convert`` reads the same in the port.  The lifecycles
+are in ``test_torch_widths_lifecycle.py`` and the full-range keys in
+``test_torch_widths_full_range.py`` (split for the test runner's workers:
+each file runs whole on one); the helpers and fixtures here serve them.
+Tolerance: none.
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # one intra-op thread a worker: xdist runs several on the cores
 
 import jax
 import jax.numpy as jnp
@@ -23,12 +27,12 @@ import jax.numpy as jnp
 from repro.core import hashing as jhashing
 from repro.core import schema as jschema
 from repro.core import table as jtable
-from repro.core.maintenance import fold_oldest as jfold_oldest
 from repro_torch import DistributedHashTable, TableSchema, join_to_pairs, retrieval_to_lists
 from repro_torch.core import convert, exchange, hashing, schema
 from repro_torch.core.maintenance import fold_oldest
 from repro_torch.kernels import murmur
 from test_torch_state import assert_same_state, jax_state
+from jax_reference import cheap_reference_compiles  # noqa: F401  (an autouse fixture)
 
 HASH_RANGE = 1 << 10
 EMPTY64 = np.uint64(2**64 - 1)
@@ -238,72 +242,6 @@ def test_build_and_reads_match(layout, d, tables):
     assert_same_reads(pt, ps, jt, js, queries)
 
 
-def _multisets(pt, ps, queries):
-    """Counts and each query's sorted value rows: what a fold or a
-    compaction must leave as it was."""
-    r = pt.retrieve(ps, queries)
-    cols = pt.schema.value_cols
-    lists = [sorted(map(tuple, np.asarray(v).reshape(len(v), cols).tolist()))
-             for v in retrieval_to_lists(r)]
-    return _np(pt.query(ps, queries)), _np(r.counts), lists
-
-
-# Each layout once against the reference's whole lifecycle, u64×4 on both
-# meshes (the reference compiles a program per state and read, ~15 s a case).
-LIFECYCLES = [
-    pytest.param(("uint32", 1, True), 8, id="mesh8-u32x1fp"),
-    pytest.param(("uint32", 4, None), 1, id="mesh1-u32x4"),
-    pytest.param(("uint64", 1, None), 8, id="mesh8-u64x1"),
-    pytest.param(("uint64", 2, None), 1, id="mesh1-u64x2"),
-    pytest.param(("uint64", 4, None), 1, id="mesh1-u64x4"),
-    pytest.param(("uint64", 4, None), 8, id="mesh8-u64x4"),
-]
-
-
-@pytest.mark.parametrize("layout, d", LIFECYCLES)
-def test_lifecycle_matches(layout, d, tables):
-    """delete, upsert with TTL, inserts to depth 4 read by the sorted and the
-    probe query, ``fold_oldest(3)`` and ``compact()``: the same state arrays
-    after every step, the same reads at depth 4, and after the fold and the
-    compaction the same counts and value multisets as at depth 4."""
-    keys, vals, queries, pool = _inputs(layout, d, seed=1)
-    jt, pt = tables(layout, d, tombstone_capacity=64)
-    jp, pp = tables(layout, d, paper_faithful_probe=True)
-    js, ps = jt.init(_jq(keys), jnp.asarray(vals)), pt.init(keys, vals)
-    rng = np.random.default_rng(5 + d)
-    cols = layout[1]
-
-    def both(op, *args, **kw):
-        nonlocal js, ps
-        jargs = [_jq(a) if isinstance(a, np.ndarray) and a.dtype.kind == "u" else
-                 jnp.asarray(a) if isinstance(a, np.ndarray) else a for a in args]
-        js = getattr(js, op)(*jargs, **kw)
-        ps = getattr(ps, op)(*args, **kw)
-        assert_same_state(ps, js)
-
-    both("insert", rng.choice(pool, 8 * d), _values(rng, 8 * d, cols))
-    both("delete", pool[:6])
-    both("upsert", pool[6:11], _values(rng, 5, cols), ttl=3)
-    both("insert", pool[:2].repeat(4 * d), _values(rng, 8 * d, cols))  # reinsert deleted keys
-    both("advance", 3)  # the TTL entries take effect
-    both("insert", rng.choice(pool, 8 * d), _values(rng, 8 * d, cols))
-    assert ps.epoch == js.epoch == 4
-    assert_same_reads(pt, ps, jt, js, queries, pp, jp)
-    live = _multisets(pt, ps, queries)
-    probe_counts = _np(pp.query(ps, queries))
-    jf, pf = jfold_oldest(js, 3), fold_oldest(ps, 3)
-    assert pf.epoch == jf.epoch == 1
-    assert_same_state(pf, jf)
-    pc = pf.compact()
-    assert_same_state(pc, jf.compact())
-    for st in (pf, pc):
-        got = _multisets(pt, st, queries)
-        np.testing.assert_array_equal(got[0], live[0])
-        np.testing.assert_array_equal(got[1], live[1])
-        assert got[2] == live[2]
-        np.testing.assert_array_equal(_np(pp.query(st, queries)), probe_counts)
-
-
 @pytest.mark.parametrize("layout", LAYOUTS)
 @MESHES
 def test_overflow_reported_every_width(layout, d, tables):
@@ -360,61 +298,3 @@ def test_convert_round_trip_u64x4(d, tables):
     for g, w in zip([back["base"], *back["deltas"]], [arrays["base"], *arrays["deltas"]]):
         for name in w:
             np.testing.assert_array_equal(g[name], w[name], err_msg=name)
-
-
-# ---------------------------------------------------------------------------
-# full-range keys
-# ---------------------------------------------------------------------------
-
-FULL_RANGE = [
-    pytest.param(("uint32", 1, True), 1, id="mesh1-u32x1fp"),
-    pytest.param(("uint32", 1, True), 8, id="mesh8-u32x1fp"),
-    pytest.param(("uint64", 2, None), 1, id="mesh1-u64x2"),
-    pytest.param(("uint64", 2, None), 8, id="mesh8-u64x2"),
-]
-
-
-@pytest.mark.parametrize("layout, d", FULL_RANGE)
-def test_full_range_keys_match(layout, d, tables):
-    """Keys from ``_pool_full`` (the top bit of the key or of its high lane
-    set, and the edge keys): the build, the reads (every edge key among the
-    queries), delete, upsert with TTL, inserts to depth 4 read by the sorted
-    and the probe query, ``fold_oldest(3)`` and ``compact()`` give the
-    reference's arrays and reads."""
-    key_dtype, cols, _ = layout
-    rng = np.random.default_rng(6 + d)
-    pool = _pool_full(rng, key_dtype, 96)
-    edges = U32_EDGES if key_dtype == "uint32" else U64_EDGES
-    keys = np.concatenate([rng.choice(pool, 256 - edges.shape[0]), edges])
-    vals = _values(rng, keys.shape[0], cols)
-    absent = _pool_full(np.random.default_rng(99), key_dtype, 16)
-    absent = absent[~np.isin(absent, pool)]
-    queries = np.concatenate([rng.choice(pool, 40), absent[:16], edges])
-    queries = np.concatenate([queries, pool[: 64 - queries.shape[0]]])
-    jt, pt = tables(layout, d, tombstone_capacity=64)
-    jp, pp = tables(layout, d, paper_faithful_probe=True)
-    js, ps = jt.init(_jq(keys), jnp.asarray(vals)), pt.init(keys, vals)
-    assert_same_state(ps, js)
-    assert_same_reads(pt, ps, jt, js, queries)
-
-    def both(op, *args, **kw):
-        nonlocal js, ps
-        jargs = [_jq(a) if isinstance(a, np.ndarray) and a.dtype.kind == "u" else
-                 jnp.asarray(a) if isinstance(a, np.ndarray) else a for a in args]
-        js = getattr(js, op)(*jargs, **kw)
-        ps = getattr(ps, op)(*args, **kw)
-        assert_same_state(ps, js)
-
-    both("insert", rng.choice(pool, 8 * d), _values(rng, 8 * d, cols))
-    both("delete", np.concatenate([edges[:1], pool[:5]]))
-    both("upsert", np.concatenate([edges[1:], pool[6:9]]), _values(rng, edges.shape[0] + 2, cols),
-         ttl=3)
-    both("insert", edges[:1].repeat(8 * d), _values(rng, 8 * d, cols))  # reinsert a deleted edge
-    both("advance", 3)
-    both("insert", rng.choice(pool, 8 * d), _values(rng, 8 * d, cols))
-    assert ps.epoch == js.epoch == 4
-    assert_same_reads(pt, ps, jt, js, queries, pp, jp, join=False)
-    pf = fold_oldest(ps, 3)
-    jf = jfold_oldest(js, 3)
-    assert_same_state(pf, jf)
-    assert_same_state(pf.compact(), jf.compact())

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # one intra-op thread a worker: xdist runs several on the cores
 
 import jax
 import jax.numpy as jnp
@@ -46,6 +47,7 @@ from repro_torch.models.api import build_model
 from repro_torch.serve import (ContinuousBatcher, Request, make_prefill_step, make_serve_step,
                                serving_compute_copy)
 from repro_torch.serve.batcher import _write_slot
+from jax_reference import cheap_reference_compiles  # noqa: F401  (an autouse fixture)
 
 ARCH = "xlstm_1_3b"
 MLSTM_TOL = dict(rtol=3e-5, atol=3e-5)
