@@ -68,6 +68,16 @@ def is_empty_key(keys: torch.Tensor, lanes: int = 1) -> torch.Tensor:
     return empty.all(-1) if lanes > 1 else empty
 
 
+def rows_equal(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Row equality of 1-D keys or of multi-lane key rows (last dim the
+    lanes; broadcasting).  A 1-lane array against a multi-lane one raises."""
+    if a.ndim == 1 and b.ndim == 1:
+        return a == b
+    if a.ndim == 1 or b.ndim == 1:
+        raise ValueError("cannot compare 1-lane with multi-lane keys")
+    return (a == b).all(dim=-1)
+
+
 @dataclasses.dataclass(frozen=True)
 class HashGraph:
     """Stacked CSR hash tables, one per shard: ``offsets`` ``(D, V+2)``.

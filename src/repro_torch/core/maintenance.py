@@ -222,6 +222,18 @@ def _remap_tombstones(ts: Tombstones, k: int) -> Tombstones:
     )
 
 
+def exec_fold(table, state: TableState, *, k: int):
+    """The layer-local fold of the ``k`` oldest deltas of a coherent stack as
+    one executor: ``(new_base, remapped_tombstones)``, no exchange call
+    (``fold_layers_local`` never leaves the shard).  ``table`` is accepted
+    for the reference's signature; the state carries its own."""
+    del table
+    new_base = multi_hashgraph.fold_layers_local(
+        state.layers[: k + 1], tombstones=state.tombstones.index()
+    )
+    return new_base, _remap_tombstones(state.tombstones, k)
+
+
 def fold_oldest(state: TableState, k: int, *, metrics=None) -> TableState:
     """Merge the ``k`` oldest delta layers into the base; keep the rest.
 
@@ -242,13 +254,11 @@ def fold_oldest(state: TableState, k: int, *, metrics=None) -> TableState:
         out = state.table.compact(state)
         kind = "full"
     else:
-        new_base = multi_hashgraph.fold_layers_local(
-            state.layers[: k + 1], tombstones=state.tombstones.index()
-        )
+        new_base, new_ts = exec_fold(state.table, state, k=k)
         out = TableState(
             base=new_base,
             deltas=state.deltas[k:],
-            tombstones=_remap_tombstones(state.tombstones, k),
+            tombstones=new_ts,
             table=state.table,
             coherent=True,
         )

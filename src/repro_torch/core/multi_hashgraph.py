@@ -398,6 +398,19 @@ def query_sharded(
     return exchange.combine(counts, routed.route, fill=0)
 
 
+def contains_sharded(dhg: DistributedHashGraph, queries: torch.Tensor, **kw) -> torch.Tensor:
+    """Membership of each query key, ``(local, n_local)`` bool: one layer's
+    :func:`query_sharded` counts above 0."""
+    return query_sharded(dhg, queries, **kw) > 0
+
+
+def join_size_sharded(dhg: DistributedHashGraph, queries: torch.Tensor, **kw) -> torch.Tensor:
+    """Global inner-join cardinality |build ⋈ queries| of one layer (the
+    paper's intersection): the counts summed over the group, an int64
+    scalar, the same in every process."""
+    return dhg.group.psum(query_sharded(dhg, queries, **kw).sum())
+
+
 def query_layers_sharded(
     layers: Sequence[DistributedHashGraph],
     queries: torch.Tensor,
@@ -692,6 +705,20 @@ def retrieve_layers_sharded(
                           layer_counts=layer_counts)
 
 
+def retrieve_sharded(
+    dhg: DistributedHashGraph,
+    queries: torch.Tensor,
+    *,
+    seg_capacity: int,
+    out_capacity: int,
+    capacity_slack: float = 1.25,
+) -> ShardRetrieval:
+    """All stored values of every query key in one layer: the one-layer
+    stack of :func:`retrieve_layers_sharded`."""
+    return retrieve_layers_sharded((dhg,), queries, seg_capacity=seg_capacity,
+                                   out_capacity=out_capacity, capacity_slack=capacity_slack)
+
+
 def inner_join_layers_sharded(
     layers: Sequence[DistributedHashGraph],
     queries: torch.Tensor,
@@ -724,6 +751,20 @@ def inner_join_layers_sharded(
     )
 
 
+def inner_join_sharded(
+    dhg: DistributedHashGraph,
+    queries: torch.Tensor,
+    *,
+    seg_capacity: int,
+    out_capacity: int,
+    capacity_slack: float = 1.25,
+) -> ShardJoin:
+    """Materialized inner join ``build ⋈ queries`` of one layer as
+    global-row pairs: the one-layer stack of :func:`inner_join_layers_sharded`."""
+    return inner_join_layers_sharded((dhg,), queries, seg_capacity=seg_capacity,
+                                     out_capacity=out_capacity, capacity_slack=capacity_slack)
+
+
 def _plan_block_totals(
     dhg: DistributedHashGraph,
     queries: torch.Tensor,
@@ -739,6 +780,41 @@ def _plan_block_totals(
     _, run_counts = hashgraph.query_locate(dhg.local, routed.rq, rbuckets, routed.rfp)
     run_counts = _mask_counts(run_counts, routed.rq, tombstones, layer_epoch)
     return run_counts.to(torch.int64).reshape(-1, d, routed.capacity).sum(2)
+
+
+def plan_seg_capacity_sharded(
+    dhg: DistributedHashGraph,
+    queries: torch.Tensor,
+    *,
+    capacity_slack: float = 1.25,
+    tombstones: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
+    layer_epoch: int = 0,
+) -> int:
+    """The exact ``seg_capacity`` one layer's retrieval needs: the largest
+    per-(owner, source) total over the group (the reference's ``pmax``).
+    One counts round, counted under ``"plan_caps"``."""
+    with exchange.counting_as("plan_caps"):
+        totals = _plan_block_totals(dhg, queries, capacity_slack=capacity_slack,
+                                    tombstones=tombstones, layer_epoch=layer_epoch)
+    return int(dhg.group.pmax(totals.max()))
+
+
+def plan_out_capacity_sharded(
+    dhg: DistributedHashGraph,
+    queries: torch.Tensor,
+    *,
+    capacity_slack: float = 1.25,
+    tombstones: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
+    layer_epoch: int = 0,
+) -> int:
+    """The exact ``out_capacity`` one layer's retrieval needs: the largest
+    per-querier total, the owners' per-source totals summed over the group
+    (the reference's ``max(psum)``).  One counts round, counted under
+    ``"plan_caps"``."""
+    with exchange.counting_as("plan_caps"):
+        totals = _plan_block_totals(dhg, queries, capacity_slack=capacity_slack,
+                                    tombstones=tombstones, layer_epoch=layer_epoch)
+    return int(dhg.group.psum(totals.sum(0)).max())
 
 
 def plan_caps_sharded(
@@ -788,6 +864,27 @@ def plan_caps_sharded(
                 seg_local = top if seg_local is None else torch.maximum(seg_local, top)
                 block_totals = block_totals + layer_totals
     return int(group.pmax(seg_local)), int(group.psum(block_totals.sum(0)).max())
+
+
+def build_query_hashgraph_sharded(
+    dhg: DistributedHashGraph,
+    queries: torch.Tensor,
+    *,
+    capacity_slack: float = 1.25,
+) -> HashGraph:
+    """The paper's query phase 1: a second HashGraph built from the query
+    set, routed by the build's splits and bucketed by its map (one dispatch;
+    kernel 1 hashes before and after it, kernel 2 does not run).  Each local
+    owner's CSR holds the queries it received, values their slot in the
+    routed batch, sorted within each bucket, with the fingerprint lane
+    where ``dhg`` has it."""
+    routed, rbuckets = _route_queries(dhg, queries, capacity_slack)
+    local, m = routed.rq.shape[:2]
+    slots = torch.arange(m, dtype=torch.int32, device=queries.device).expand(local, m)
+    return hashgraph.build_from_buckets(
+        routed.rq, rbuckets, dhg.local_range_cap, slots.contiguous(), seed=dhg.seed,
+        fingerprints=routed.rfp if dhg.local.fingerprints is not None else None,
+    )
 
 
 def fold_layers_local(
