@@ -173,6 +173,25 @@ Run from the root of a checkout: it builds the port's CUDA kernels from
    2 requests (3e-4); the whole-sequence replay through ``forward_train``
    is reported (the random-weight recurrence amplifies other roundings of
    the prefix over thousands of steps, so no fixed tolerance holds it);
+4b. trains qwen3-4b at full width on the card (the ``train`` phase, after
+   ``serve-xlstm-f32``): ``python -m repro_torch.launch.train``'s
+   ``make_trainer`` with ``--layers 12 --seq 2048 --batch 4 --microbatches
+   2 --steps 4 --dedup local --lr 1e-3`` (12 of 36 layers, bf16 compute
+   over f32 masters and moments, random weights from ``--seed``, the
+   loader's HashGraph dedup); it prints each step's loss, ce, grad norm,
+   lr, step ms, tokens/s and peak bytes beside the card's name and power
+   limit, and gates the first step's ce against the plain-attention
+   model's on the same batch and weights (``TRAIN_CE_TOL``), finite
+   metrics, a lower loss of the first batch after the 4 steps, kernel 6
+   launched ``2 x 12 x 2 x 4`` times (each forward and its recomputation
+   under remat), kernel 6's twin only in the backward and kernel 1 twice a
+   batch (the dedup's build and lookup); then the gradients of the
+   kernel-backed autograd Functions against the plain path's at the smoke
+   configs (qwen3-4b and xlstm-1.3b, f32 and bf16) and at one full-width
+   pattern period on 256 tokens (``TRAIN_GRAD_TOL``), each Function's
+   gradients equal to its twin's, and a smoke run that crashes at step 4
+   and resumes from its step-3 checkpoint to the straight run's final loss
+   and weights bit for bit (deterministic algorithms);
 5. counts the kernel launches of each run (every count is set to 0 just
    before a run and read just after it) and requires each kernel of the run
    > 0 (the update path runs all five table kernels; the u64x4 runs kernel
@@ -262,6 +281,7 @@ checkout, it exits non-zero before printing any result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -1107,7 +1127,8 @@ def profile_phases(phases: dict, device, window: str = None) -> dict:
     the busy time split by ``kernel_class``.  With ``window``, the name of
     ``record_function`` ranges the phase opens, each phase also reports the
     kernels and copies that ran on the card inside those ranges' device
-    windows (one stream, so a window holds exactly the range's work)."""
+    windows (one stream, so a window holds exactly the range's work); a
+    tuple of names reports each under ``windows``."""
     from torch.profiler import ProfilerActivity, profile
 
     out = {}
@@ -1115,9 +1136,12 @@ def profile_phases(phases: dict, device, window: str = None) -> dict:
         sync(device)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             _, seconds = wall(fn, device)
-        # Kernel rows only: operator rows repeat the device time of their kernels.
+        # Kernel rows only: operator rows repeat the device time of their kernels,
+        # and the windows' own ranges (device-side annotations) span them.
+        ranges = {window} if isinstance(window, str) else set(window or ())
         events = [e for e in prof.key_averages()
-                  if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0]
+                  if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0
+                  and e.key not in ranges]
         busy_ms = sum(e.self_device_time_total for e in events) / 1e3
         top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:15]
         out[phase] = {
@@ -1127,24 +1151,31 @@ def profile_phases(phases: dict, device, window: str = None) -> dict:
                 (e.key, e.self_device_time_total / 1e3, e.count) for e in events),
             "top": [[e.key, e.self_device_time_total / 1e3, e.count] for e in top],
         }
-        if window is not None:
+        if isinstance(window, str):
+            out[phase]["window"] = _window_split(prof.events(), window)
+        elif window is not None:
             trace = prof.events()
-            on_card = [e for e in trace if not str(e.device_type).endswith("CPU")]
-            spans = [e.time_range for e in on_card if e.name == window]
-            inside = [e for e in on_card if e.name != window and any(
-                w.start <= e.time_range.start and e.time_range.end <= w.end for w in spans)]
-            ms = [(e.name, e.time_range.elapsed_us() / 1e3, 1) for e in inside]
-            out[phase]["window"] = {
-                "name": window,
-                "calls": sum(1 for e in trace if e.name == window
-                             and str(e.device_type).endswith("CPU")),
-                "device_windows": len(spans),
-                "device_ms": sum(m for _, m, _ in ms),
-                "launches": len(inside),
-                "by_class": _split_by_class(ms),
-                "top": [[n[:110], m] for n, m, _ in sorted(ms, key=lambda r: -r[1])[:12]],
-            }
+            out[phase]["windows"] = {name: _window_split(trace, name) for name in window}
     return out
+
+
+def _window_split(trace, window: str) -> dict:
+    """The kernels and copies that ran on the card inside the device windows
+    of the ``record_function`` ranges named ``window``."""
+    on_card = [e for e in trace if not str(e.device_type).endswith("CPU")]
+    spans = [e.time_range for e in on_card if e.name == window]
+    inside = [e for e in on_card if e.name != window and any(
+        w.start <= e.time_range.start and e.time_range.end <= w.end for w in spans)]
+    ms = [(e.name, e.time_range.elapsed_us() / 1e3, 1) for e in inside]
+    return {
+        "name": window,
+        "calls": sum(1 for e in trace if e.name == window and str(e.device_type).endswith("CPU")),
+        "device_windows": len(spans),
+        "device_ms": sum(m for _, m, _ in ms),
+        "launches": len(inside),
+        "by_class": _split_by_class(ms),
+        "top": [[n[:110], m] for n, m, _ in sorted(ms, key=lambda r: -r[1])[:12]],
+    }
 
 
 def read_path_phases(run: dict) -> dict:
@@ -2211,12 +2242,14 @@ def run_hashgraph_single(n_keys: int, seed: int, device, log) -> dict:
     ``retrieve`` and ``inner_join`` (capacity from one counts call), then
     ``intersect_join_size`` against a graph of 2^22 keys from [0, 2N).
     Every output against the numpy oracle, and the counts and value
-    multisets against a D = 1 ``DistributedHashTable`` on the same keys."""
+    multisets against a D = 1 ``DistributedHashTable`` on the same keys;
+    that table's ``build_query_hashgraph_sharded`` of the 2^22 keys holds
+    each once and joins with the graph to the oracle's size."""
     import numpy as np
     import torch
 
     from repro_torch import DistributedHashTable
-    from repro_torch.core import hashgraph
+    from repro_torch.core import hashgraph, multi_hashgraph
 
     rng = np.random.default_rng(seed)
     keys = rng.integers(0, n_keys, size=n_keys, dtype=np.uint32)
@@ -2275,7 +2308,16 @@ def run_hashgraph_single(n_keys: int, seed: int, device, log) -> dict:
           f"{label}: the D = 1 table's counts differ from the single-card graph's")
     check(np.array_equal(retrieval_pairs(table.retrieve(state, batch_dev)), got_pairs),
           f"{label}: the D = 1 table's value multisets differ from the single-card graph's")
-    del state, table, counts
+    # The paper's query phase 1 through the table: a second graph of the
+    # 2^22 keys routed and bucketed by the build's splits (kernel 1 hashes
+    # them), holding each once, joined with the single-card graph.
+    qg = multi_hashgraph.build_query_hashgraph_sharded(state.base, table._pack_queries(second_dev))
+    held = qg.keys[~hashgraph.is_empty_key(qg.keys)].cpu().numpy().view(np.uint32)
+    check(np.array_equal(np.sort(held), np.sort(second)),
+          f"{label}: the query graph does not hold each of the {INTERSECT_KEYS} keys once")
+    check(int(hashgraph.intersect_join_size(hg, qg)) == size,
+          f"{label}: the query graph's join size differs from the oracle's {size}")
+    del state, table, counts, qg, held
     if device.type == "cuda":
         for name in ("murmur_bucket", "csr_gather"):
             check(launches.get(name, 0) > 0, f"{label}: kernel {name} never launched")
@@ -4095,6 +4137,435 @@ def lm_path_phases(run: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Training on one card (the train phase)
+# ---------------------------------------------------------------------------
+# qwen3-4b at full width, TRAIN_LAYERS of its 36 layers: f32 masters, their
+# gradients and two f32 moments take 16 bytes a parameter, 64.3 GB at 36
+# layers before any activation; 12 layers hold 1.60 B parameters (25.6 GB).
+TRAIN_LAYERS = 12
+TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICROBATCHES = 4, 2048, 4, 2
+TRAIN_LR = 1e-3  # peak; the schedule's 10 warm-up steps give 1e-4 .. 4e-4
+# The first step's ce (kernel 6 in every attention forward) against the
+# plain-attention model's on the same batch and weights, relative: one bf16
+# step of the value (2^-8).  The two round to bf16 at other points (kernel 6
+# rounds p before p.v), and the mean over 8,192 positions averages out.
+TRAIN_CE_TOL = 2.0 ** -8
+# Gradients of a loss through the kernel-backed autograd Functions against
+# the plain path's, per leaf: max |difference| over the leaf's largest
+# |plain| entry.  f32: the forwards differ by f32 summation order
+# (FLASH_TOL, SLSTM_TOL); bf16 compute: they round to bf16 at other points,
+# one bf16 step (2^-8) of an activation carried back through the layers.
+TRAIN_GRAD_TOL = {"float32": 1e-3, "bfloat16": 5e-2}
+TRAIN_GRAD_SEQ = 256  # the full-width single-layer cases
+TRAIN_RESUME = {"steps": 6, "every": 3, "crash": 4, "seq": 64, "batch": 4}
+
+
+def train_args(seed: int) -> list:
+    """The train phase's command line of ``repro_torch.launch.train``."""
+    return ["--arch", "qwen3_4b", "--layers", str(TRAIN_LAYERS), "--seq", str(TRAIN_SEQ),
+            "--batch", str(TRAIN_BATCH), "--microbatches", str(TRAIN_MICROBATCHES),
+            "--steps", str(TRAIN_STEPS), "--dedup", "local", "--lr", str(TRAIN_LR),
+            "--seed", str(seed)]
+
+
+class PlainCalls:
+    """Counts the plain attention's calls while the train steps run:
+    ``masked`` (the einsum path, which must not run where kernel 6 should)
+    and ``flash_plain`` (kernel 6's twin, which runs in each backward)."""
+
+    def __enter__(self):
+        from repro_torch.kernels import flash_attention as kflash
+        from repro_torch.models import attention
+
+        self.masked = self.flash_plain = 0
+        self._mods = (attention, kflash)
+        self._fns = (attention._masked_attention, kflash.flash_attention_plain)
+
+        def masked(*a, **kw):
+            self.masked += 1
+            return self._fns[0](*a, **kw)
+
+        def flash_plain(*a, **kw):
+            self.flash_plain += 1
+            return self._fns[1](*a, **kw)
+
+        attention._masked_attention, kflash.flash_attention_plain = masked, flash_plain
+        return self
+
+    def __exit__(self, *exc):
+        self._mods[0]._masked_attention, self._mods[1].flash_attention_plain = self._fns
+        return False
+
+
+def batch_ce(params, tokens, cfg, k: int) -> float:
+    """Mean ce of ``tokens`` over ``k`` microbatches (as the train step takes
+    them), no gradients."""
+    import torch
+
+    from repro_torch.models import transformer
+
+    with torch.no_grad():
+        parts = [transformer.loss_fn(params, {"tokens": mb}, cfg)[1]["ce"]
+                 for mb in tokens.reshape(k, -1, tokens.shape[1])]
+    return float(sum(float(c) for c in parts) / k)
+
+
+def train_flash_row(trainer, tokens, launches: int, device, log) -> dict:
+    """Kernel 6 at the train step's shape (microbatch 0's layer-0 q, k, v
+    of the trained weights) against its twin, timed in turns with the twin
+    and SDPA, with the backward its autograd Function runs (the twin
+    recomputed and differentiated) timed beside."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.models import attention, layers, transformer
+
+    cfg = trainer.bundle.cfg
+    mb = tokens.reshape(TRAIN_MICROBATCHES, -1, tokens.shape[1])[0][:, :-1]
+    with torch.no_grad():
+        x = transformer._embed(trainer.params, mb, cfg)
+        block = trainer.params.layers[0].b0
+        b, s = mb.shape
+        positions = torch.arange(s, device=device, dtype=torch.int32).expand(b, s)
+        q, k, v = attention._project_qkv(block.attn, layers.rmsnorm(x, block.norm1), cfg,
+                                         positions)
+    kvh, g, hd = q.shape[1], q.shape[2], q.shape[4]
+    q = q.reshape(b, kvh * g, s, hd)
+    live = int(flash.live_mask(s, s, causal=True, window=None, device=device).sum())
+    bounds = attention_bounds(b * kvh * g, b * kvh, s, s, hd, "bfloat16", live)
+    bound_by = max(bounds, key=bounds.get)
+    fns = {
+        "kernel": lambda: flash.flash_attention_bhsd(q, k, v, q_heads_per_kv=g),
+        "plain": lambda: flash.flash_attention_plain(q, k, v, q_heads_per_kv=g),
+        "library": lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                          enable_gqa=True),
+    }
+    err = twin_error("flash_attention", fns["kernel"](), fns["plain"](), FLASH_TOL["bfloat16"],
+                     device)
+    times = spread_ms(fns, device, FLASH_TIMING["groups"], FLASH_TIMING["launches"])
+    grad_out = torch.randn((b, s, kvh * g, hd), device=device,
+                           generator=torch.Generator(device=device).manual_seed(3)).to(q.dtype)
+    qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+
+    def backward():
+        out = flash.FlashAttention.apply(qg, kg, vg, True, None, None, g)
+        return torch.autograd.grad(out, (qg, kg, vg), grad_out)
+
+    row = {
+        "name": "flash_attention", "path": "train", "shards": None, "launches": launches,
+        "route": "cuda", "source": KERNELS["flash_attention"][0],
+        "replaces": KERNELS["flash_attention"][1], "max_abs_err": err,
+        "ms": times["kernel"][1], "plain_ms": times["plain"][1],
+        "bound_ms": bounds[bound_by], "bound_by": bound_by, "library_ms": times["library"][1],
+        "shapes": f"q=({b}, {kvh * g}, {s}, {hd}) k/v=({b}, {kvh}, {s}, {hd}) bf16 causal "
+                  "(microbatch 0, layer 0, strided views of the projections)",
+        "spread_ms": times,
+        "forward_and_plain_backward_ms": mean_ms(backward, 3, device),
+    }
+    log(f"kernel flash_attention train {row['shapes']}: max_abs_err={err} (tol "
+        f"{FLASH_TOL['bfloat16']}) [min, median, max] ms: {json.dumps(times)} bound_ms="
+        f"{row['bound_ms']} ({bound_by}) forward+plain backward ms="
+        f"{row['forward_and_plain_backward_ms']} launches={launches}")
+    return row
+
+
+def run_train(seed: int, device, log) -> dict:
+    """The train phase's main run: ``repro_torch.launch.train`` with
+    ``train_args`` (qwen3-4b, TRAIN_LAYERS layers at full width, bf16
+    compute over f32 masters, seq 2048, batch 4 in 2 microbatches, the
+    loader's HashGraph dedup, 4 steps), its weights drawn on the card from
+    ``seed``.  Gates: the first step's ce within TRAIN_CE_TOL of the
+    plain-attention model's on the same batch and weights; every metric
+    finite; after the steps, the first batch's loss below step 1's; kernel 6
+    launched ``2 x layers x microbatches x steps`` times (each forward, and
+    its recomputation under remat in the backward), the plain attention
+    never in a forward and kernel 6's twin once per layer per microbatch
+    per step (the backward); kernel 1 twice per batch (the dedup's build and
+    its lookup) and nothing else.  Returns the result and the phase's
+    kernel rows (kernel 6 at the step's shape, kernel 1 on the dedup's
+    keys)."""
+    import dataclasses
+    import math
+
+    from repro_torch.core.hashing import DEFAULT_SEED
+    from repro_torch.data import ShardedLoader, sequence_fingerprints
+    from repro_torch.kernels import build
+    from repro_torch.launch import train as train_cli
+    from repro_torch.utils import tree_param_count, tree_size_bytes
+
+    label = "train"
+    reset_peak(device)
+    args = train_cli.parse(train_args(seed))
+    trainer, init_s = wall(lambda: train_cli.make_trainer(args, log), device)
+    cfg, k = trainer.bundle.cfg, args.microbatches
+    params_n = tree_param_count(trainer.params)
+    state_bytes = tree_size_bytes(trainer.params) + tree_size_bytes(trainer.opt_state)
+    first = ShardedLoader(trainer.loader.corpus, batch_size=args.batch,
+                          dedup=args.dedup).next_batch()["tokens"]
+    plain_ce = batch_ce(trainer.params, first, dataclasses.replace(cfg, attention_impl="plain"),
+                        k)
+    build.LAUNCHES.clear()
+    with PlainCalls() as calls:
+        out, run_s = wall(trainer.run, device)
+    launches = dict(build.LAUNCHES)
+    hist = out["history"]
+    check(out["final_step"] == args.steps and len(hist) == args.steps,
+          f"{label}: {len(hist)} logged steps of {args.steps}")
+    for h in hist:
+        check(all(math.isfinite(h[m]) for m in ("loss", "ce", "moe_aux", "grad_norm", "lr")),
+              f"{label}: step {h['step']} has a non-finite metric: {h}")
+    first_ce = hist[0]["ce"]
+    check(abs(first_ce - plain_ce) <= TRAIN_CE_TOL * abs(plain_ce),
+          f"{label}: step 1 ce {first_ce} against the plain-attention model's {plain_ce}")
+    after = batch_ce(trainer.params, first, cfg, k)
+    check(after < hist[0]["loss"], f"{label}: batch 0's loss {after} after {args.steps} steps "
+          f"is not below step 1's {hist[0]['loss']}")
+    attn_layers = cfg.num_periods * cfg.block_pattern.count("attn")
+    fwd = attn_layers * k * args.steps
+    if device.type == "cuda":
+        want = {"flash_attention": 2 * fwd, "murmur_bucket": 2 * args.steps}
+        check(launches == want, f"{label}: launches {launches}, want {want} (kernel 6: 2 x "
+              f"{attn_layers} layers x {k} microbatches x {args.steps} steps)")
+    check(calls.masked == 0, f"{label}: {calls.masked} plain-attention forwards")
+    if device.type == "cuda":  # on the CPU the twin is kernel 6's forward too
+        check(calls.flash_plain == fwd, f"{label}: {calls.flash_plain} calls of kernel 6's "
+              f"twin, want {fwd} (one backward a layer, microbatch and step)")
+    smi = card_line() if device.type == "cuda" else "cpu"
+    res = {
+        "path": label, "arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
+        "params": params_n, "state_bytes": state_bytes, "seq": args.seq, "batch": args.batch,
+        "microbatches": k, "dedup": args.dedup, "init_s": init_s, "run_s": run_s,
+        "steps": [{"step": h["step"], "loss": h["loss"], "ce": h["ce"],
+                   "grad_norm": h["grad_norm"], "lr": h["lr"], "step_ms": 1e3 * h["step_time_s"],
+                   "tokens_per_s": h["tokens_per_s"], "peak_bytes": h.get("peak_bytes")}
+                  for h in hist],
+        "plain_ce_step1": plain_ce, "ce_step1": first_ce, "ce_tol": TRAIN_CE_TOL,
+        "batch0_loss_after": after, "stragglers": out["stragglers"], "launches": launches,
+        "plain_calls": {"masked_attention": calls.masked, "flash_plain_backward": calls.flash_plain},
+        "card": smi,
+    }
+    for h in res["steps"]:
+        log(f"train step {h['step']}: loss={h['loss']:.6f} grad_norm={h['grad_norm']:.6f} "
+            f"lr={h['lr']:.3e} step_ms={h['step_ms']:.1f} tokens/s={h['tokens_per_s']:.1f} "
+            f"peak_bytes={h['peak_bytes']} ({smi})")
+    rows = [train_flash_row(trainer, first, launches.get("flash_attention", 0), device, log)]
+    fp = sequence_fingerprints(first[:, :-1])
+    run = {"result": {"path": label, "shards": 1, "launches": launches},
+           "inputs": lambda: {"murmur_bucket": dict(keys=fp, table_size=max(8, fp.numel()),
+                                                    seed=DEFAULT_SEED, n=fp.numel(), lanes=1)}}
+    rows += check_kernels(run, device, log)
+    res["peak_bytes"] = phase_peak(device)
+    log("path train: " + json.dumps(res))
+    return {"result": res, "rows": rows, "trainer": trainer, "first": first}
+
+
+def train_phases(run: dict) -> dict:
+    """One more train step on the first batch, for ``profile_phases``."""
+    trainer, batch = run["trainer"], {"tokens": run["first"]}
+    return {"train step": lambda: trainer._step_fn(trainer.params, trainer.opt_state, batch)}
+
+
+@contextlib.contextmanager
+def plain_twins():
+    """Kernels 6 and 7 replaced by their plain twins in the models' forward
+    (the autograd Functions' backward is the twins' already)."""
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import slstm as kslstm
+
+    bhsd, seq = kflash.flash_attention_bhsd, kslstm.slstm_sequence
+
+    def plain_bhsd(q, k, v, *, out=None, **kw):
+        got = kflash.flash_attention_plain(q, k, v, **kw)
+        return got if out is None else out.copy_(got)
+
+    kflash.flash_attention_bhsd, kslstm.slstm_sequence = plain_bhsd, kslstm.slstm_sequence_plain
+    try:
+        yield
+    finally:
+        kflash.flash_attention_bhsd, kslstm.slstm_sequence = bhsd, seq
+
+
+def leaf_grads(cfg, seed: int, tokens, device) -> tuple:
+    """``(loss, {name: gradient})`` of one loss on ``tokens`` of a model
+    drawn from ``seed`` (f32 masters)."""
+    import torch
+
+    from repro_torch.models.api import build_model
+
+    bundle = build_model(cfg, device=device)
+    params = bundle.init_train(seed)
+    loss, _ = bundle.loss(params, {"tokens": tokens})
+    names = [n for n, _ in params.named_parameters()]
+    grads = torch.autograd.grad(loss, list(params.parameters()))
+    return loss.item(), dict(zip(names, grads))
+
+
+def train_grad_cases() -> list:
+    """``(name, config, batch, sequence)`` of the whole-model gradient
+    checks: the smoke configs in f32 and bf16, then one pattern period at
+    full width."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config, get_smoke_config
+
+    cases = []
+    for arch in ("qwen3_4b", "xlstm_1_3b"):
+        for dtype in ("float32", "bfloat16"):
+            cases.append((f"{arch} smoke {dtype}",
+                          dataclasses.replace(get_smoke_config(arch), dtype=dtype), 2, 64))
+        full = get_config(arch)
+        cases.append((f"{arch} full width, one period, bf16",
+                      dataclasses.replace(full, num_layers=len(full.block_pattern)), 1,
+                      TRAIN_GRAD_SEQ))
+    return cases
+
+
+def check_train_grads(seed: int, device, log) -> dict:
+    """Gradients through the kernel-backed autograd Functions against the
+    plain path's autograd on the card: whole models at the smoke configs
+    (qwen3-4b and xlstm-1.3b, f32 and bf16) and at full width with one
+    pattern period (qwen3-4b's one layer, xlstm-1.3b's mLSTM and sLSTM) on
+    a sequence of TRAIN_GRAD_SEQ, per leaf within TRAIN_GRAD_TOL; then each
+    Function alone at the full-width shapes (kernel 6: 32 query heads over
+    8 of 128, bf16; kernel 7: 4 heads of 512, f32 and bf16 r): outputs
+    within the kernels' twin tolerances and gradients equal bit for bit to
+    the twin's (the backward is the twin's)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import slstm as kslstm
+
+    gen = torch.Generator(device=device).manual_seed(seed + 11)
+    out = {"cases": {}, "functions": {}, "tol": TRAIN_GRAD_TOL}
+    for name, cfg, b, s in train_grad_cases():
+        toks = torch.randint(0, cfg.vocab_size, (b, s + 1), generator=gen, device=device,
+                             dtype=torch.int32)
+        loss_k, got = leaf_grads(cfg, seed, toks, device)
+        with plain_twins():
+            loss_p, want = leaf_grads(dataclasses.replace(cfg, attention_impl="plain"), seed,
+                                      toks, device)
+        worst = max((float((got[n].float() - w.float()).abs().max())
+                     / max(float(w.float().abs().max()), 1e-30), n) for n, w in want.items())
+        tol = TRAIN_GRAD_TOL[cfg.dtype]
+        out["cases"][name] = {"loss": loss_k, "plain_loss": loss_p, "worst_leaf": worst[1],
+                              "worst_ratio": worst[0], "tol": tol}
+        log(f"train grads {name}: loss {loss_k} (plain {loss_p}), worst leaf {worst[1]} at "
+            f"{worst[0]:.3e} of its scale (tol {tol})")
+        check(worst[0] <= tol, f"train grads {name}: leaf {worst[1]} differs by {worst[0]} of "
+              f"its scale from the plain path's")
+        del got, want
+    q = torch.randn((1, 32, TRAIN_GRAD_SEQ, 128), generator=gen, device=device).bfloat16()
+    k, v = (torch.randn((1, 8, TRAIN_GRAD_SEQ, 128), generator=gen, device=device).bfloat16()
+            for _ in range(2))
+    go = torch.randn((1, TRAIN_GRAD_SEQ, 32, 128), generator=gen, device=device).bfloat16()
+    ins = [t.requires_grad_(True) for t in (q, k, v)]
+    o = kflash.FlashAttention.apply(*ins, True, None, None, 4)
+    gk = torch.autograd.grad(o, ins, go)
+    po = kflash.flash_attention_plain(*ins, q_heads_per_kv=4)
+    gp = torch.autograd.grad(po, ins, go.permute(0, 2, 1, 3))
+    err = twin_error("flash_attention", o.permute(0, 2, 1, 3), po, FLASH_TOL["bfloat16"], device)
+    check(all(torch.equal(a, b) for a, b in zip(gk, gp)),
+          "FlashAttention's gradients differ from its twin's")
+    out["functions"]["FlashAttention"] = {"max_abs_err": err, "grads_equal": True}
+    hd, h, s = 512, 4, TRAIN_GRAD_SEQ
+    pre = torch.randn((1, h, s, 4, hd), generator=gen, device=device)
+    states = [torch.zeros((1, h, hd), device=device) for _ in range(3)]
+    states.append(torch.full((1, h, hd), -1e30, device=device))
+    for rdt in (torch.float32, torch.bfloat16):
+        r = (torch.randn((h, 4, hd, hd), generator=gen, device=device) / hd ** 0.5).to(rdt)
+        ins = [t.clone().requires_grad_(True) for t in (pre, r, *states)]
+        outs = kslstm.SlstmSequence.apply(*ins)
+        ghs = torch.randn(outs[0].shape, generator=gen, device=device)
+        gk = torch.autograd.grad(outs[0], ins, ghs)
+        hs_p, _ = kslstm.slstm_sequence_plain(*ins)
+        gp = torch.autograd.grad(hs_p, ins, ghs)
+        err = twin_error("slstm_sequence", outs[0], hs_p, SLSTM_TOL["main"], device)
+        check(all(torch.equal(a, b) for a, b in zip(gk, gp)),
+              f"SlstmSequence's gradients differ from its twin's (r {rdt})")
+        out["functions"][f"SlstmSequence r {str(rdt)[6:]}"] = {"max_abs_err": err,
+                                                              "grads_equal": True}
+    log("train grads functions: " + json.dumps(out["functions"]))
+    return out
+
+
+def check_train_resume(seed: int, device, log) -> dict:
+    """Crash and resume at the smoke config on the card: 6 steps straight
+    (run A); 6 steps with a checkpoint every 3 and a crash before step 4,
+    then a new Trainer on the same directory (run B).  B resumes at step 3
+    and reaches A's final loss and weights bit for bit under
+    ``torch.use_deterministic_algorithms(True)``; where an operation has no
+    deterministic implementation (it raises), the runs repeat without and
+    the final losses must agree within 1e-6 relative (the reason is
+    reported)."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.data import ShardedLoader, SyntheticCorpus
+    from repro_torch.models.api import build_model
+    from repro_torch.train import SimulatedFailure, Trainer, TrainerConfig, TrainStepConfig
+
+    r = TRAIN_RESUME
+    tcfg = TrainStepConfig(peak_lr=1e-3, warmup_steps=2, total_steps=r["steps"])
+
+    def trainer(directory=None, crash=None):
+        cfg = get_smoke_config("qwen3_4b")
+        corpus = SyntheticCorpus(vocab_size=cfg.vocab_size, seq_len=r["seq"], seed=seed,
+                                 device=device)
+        return Trainer(build_model(cfg, device=device), ShardedLoader(corpus, r["batch"]), tcfg,
+                       TrainerConfig(total_steps=r["steps"], log_every=1, seed=seed,
+                                     checkpoint_every=r["every"] if directory else 0,
+                                     checkpoint_dir=directory, crash_at_step=crash),
+                       log_fn=lambda m: None)
+
+    def runs():
+        a = trainer()
+        loss_a = a.run()["history"][-1]["loss"]
+        with tempfile.TemporaryDirectory() as d:
+            try:
+                trainer(d, crash=r["crash"]).run()
+                crashed = False
+            except SimulatedFailure:
+                crashed = True
+            b = trainer(d)
+            resumed_at = b.step
+            loss_b = b.run()["history"][-1]["loss"]
+        same = all(torch.equal(x, y) for x, y in zip(a.params.parameters(), b.params.parameters()))
+        return {"crashed": crashed, "resumed_at": resumed_at, "loss_a": loss_a,
+                "loss_b": loss_b, "weights_equal": same}
+
+    prev = torch.are_deterministic_algorithms_enabled()
+    reason = None
+    try:
+        torch.use_deterministic_algorithms(True)
+        res = runs()
+    except RuntimeError as err:
+        if "determinis" not in str(err):
+            raise
+        reason = str(err).splitlines()[0]
+        torch.use_deterministic_algorithms(False)
+        res = runs()
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    res.update(deterministic=reason is None, reason=reason)
+    log("train resume: " + json.dumps(res))
+    check(res["crashed"] and res["resumed_at"] == r["every"],
+          f"train resume: crashed={res['crashed']} resumed at {res['resumed_at']}")
+    if reason is None:
+        check(res["loss_b"] == res["loss_a"] and res["weights_equal"],
+              f"train resume: the resumed run ends at {res['loss_b']}, the straight run at "
+              f"{res['loss_a']} (weights equal: {res['weights_equal']})")
+    else:
+        check(abs(res["loss_b"] - res["loss_a"]) <= 1e-6 * abs(res["loss_a"]),
+              f"train resume: {res['loss_b']} against {res['loss_a']} ({reason})")
+    return res
+
+
+# ---------------------------------------------------------------------------
 # LM parallelism across processes (the lm-procs phase)
 # ---------------------------------------------------------------------------
 LM_PROCS_WORLD = 4
@@ -4150,10 +4621,10 @@ class KernelCapture:
         self.length, self.flash, self.slstm = length, None, None
 
     def __enter__(self):
-        from repro_torch.kernels import ops, slstm
+        from repro_torch.kernels import flash_attention, slstm
 
-        self._ops, self._slstm = ops, slstm
-        self._flash_fn, self._slstm_fn = ops.flash_attention, slstm.slstm_sequence
+        self._flash, self._slstm = flash_attention, slstm
+        self._flash_fn, self._slstm_fn = flash_attention.flash_attention_bhsd, slstm.slstm_sequence
 
         def flash(q, k, v, **kw):
             if self.flash is None and q.shape[2] == self.length:
@@ -4166,11 +4637,12 @@ class KernelCapture:
                               tuple(t.detach().clone() for t in states))
             return self._slstm_fn(pre, r, *states)
 
-        ops.flash_attention, slstm.slstm_sequence = flash, recurrence
+        flash_attention.flash_attention_bhsd, slstm.slstm_sequence = flash, recurrence
         return self
 
     def __exit__(self, *exc):
-        self._ops.flash_attention, self._slstm.slstm_sequence = self._flash_fn, self._slstm_fn
+        self._flash.flash_attention_bhsd = self._flash_fn
+        self._slstm.slstm_sequence = self._slstm_fn
         return False
 
 
@@ -4524,12 +4996,16 @@ def main(argv=None) -> int:
                         help="also profile one more build, query and retrieve of the D = 1 read "
                         "run, one more depth-6 probe query and compact of the D = 1 update run, "
                         "one get and one put of each kind of the D = 1 KV-cache run, "
-                        "and one more prefill and decode step of each LM serving run")
+                        "and one more prefill and decode step of each LM serving run "
+                        "and one more train step")
     args = parser.parse_args(argv)
 
     if not os.path.isdir(os.path.join(SRC, "repro_torch", "csrc")):
         print("chip_smoke: run from the root of a checkout (src/repro_torch is missing)", file=sys.stderr)
         return 2
+    # cuBLAS reads its workspace setting once; the train phase's crash and
+    # resume runs under torch.use_deterministic_algorithms, which needs it.
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -4679,6 +5155,35 @@ def main(argv=None) -> int:
     del xf
     gc.collect()
     torch.cuda.empty_cache()  # the card is free for the ranks of the last phase
+    # Training on one card: qwen3-4b at full width, then the gradient checks
+    # of the kernel-backed autograd Functions and a crash and resume.
+    t_run = time.perf_counter()
+    tr = run_train(args.seed, device, log)
+    rows += tr["rows"]
+    if args.profile:
+        from repro_torch.kernels.flash_attention import BACKWARD_RANGE
+        from repro_torch.train.step import OPTIMIZER_RANGE
+
+        profiled["train"] = profile_phases(train_phases(tr), device,
+                                           window=(BACKWARD_RANGE, OPTIMIZER_RANGE))
+        log("profile train: " + json.dumps({phase: {
+            "wall_ms": v["wall_ms"], "device_busy_ms": v["device_busy_ms"],
+            "by_class": v["by_class"], "top": [[k[:60], ms, n] for k, ms, n in v["top"][:8]],
+            "windows": {w: {"device_ms": x["device_ms"], "launches": x["launches"],
+                            "by_class": x["by_class"]} for w, x in v["windows"].items()},
+        } for phase, v in profiled["train"].items()}))
+    train_res = tr["result"]
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_res["grads"] = check_train_grads(args.seed, device, log)
+    train_res["resume"] = check_train_resume(args.seed, device, log)
+    train_res["run_s"] = time.perf_counter() - t_run
+    log(f"run train: {train_res['run_s']:.1f} s (the 4 steps, their gates, the gradient checks "
+        f"and the crash and resume; {smi})")
+    paths.append(train_res)
+    gc.collect()
+    torch.cuda.empty_cache()
     lm = run_lm_procs(args.seed, device, log)
     rows += lm["rows"]
     paths.append(lm["result"])

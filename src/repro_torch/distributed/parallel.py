@@ -35,6 +35,9 @@ from typing import Optional, Tuple
 import torch
 
 MOE_SLICE = "the MoE slice"
+# The slice that trains over a mesh: ZeRO-3 over dp, manual data parallelism,
+# the pipeline and the int8 all-reduce.
+TRAIN_MESH_SLICE = "the training-over-a-mesh slice"
 
 
 @dataclasses.dataclass(frozen=True)

@@ -15,6 +15,12 @@ The kernel reads q, k, v and writes o through strides (see
 views of a model's projections, with a batch dimension, and an output
 buffer in the model's own layout.  On CUDA tensors the wrappers launch the
 kernel or raise; on CPU tensors they run :func:`flash_attention_plain`.
+
+:class:`FlashAttention` is the differentiable form a model calls: its
+forward is the kernel (the twin on the CPU); its backward recomputes
+:func:`flash_attention_plain` from the saved q, k, v under autograd and
+returns that function's vector-Jacobian product.  The reference has no
+backward kernel either: it trains through the einsum attention.
 """
 from __future__ import annotations
 
@@ -29,6 +35,8 @@ NAME = "flash_attention"
 HEAD_DIMS = (32, 64, 128)
 DTYPES = (torch.bfloat16, torch.float32)
 NEG_INF = -1e30
+# The profiler range around the plain twin's recomputation and gradient.
+BACKWARD_RANGE = "flash_attention.backward"
 
 
 def live_mask(sq: int, skv: int, *, causal: bool, window: Optional[int], device) -> torch.Tensor:
@@ -189,3 +197,41 @@ def flash_attention_fhsd(
         q[None], k[None], v[None], causal=causal, window=window, scale=scale,
         q_heads_per_kv=q_heads_per_kv,
     )[0]
+
+
+class FlashAttention(torch.autograd.Function):
+    """``FlashAttention.apply(q, k, v, causal, window, scale, q_heads_per_kv)``:
+    attention of q ``(B, Hq, Sq, D)`` over k/v ``(B, Hkv, Skv, D)``, any views
+    :func:`card_strides` takes, returned as ``(B, Sq, Hq, D)`` (the layout
+    whose last two dims merge into a model's heads without a copy) in q's
+    type.
+
+    Forward: one launch of the kernel through :func:`flash_attention_bhsd`
+    (the plain twin on CPU tensors).  Backward: the plain twin recomputed
+    from the saved inputs in f32, differentiated by autograd; its gradients
+    come back in the inputs' types."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: Optional[int], scale: Optional[float],
+                q_heads_per_kv: int):
+        b, hq, sq, d = q.shape
+        out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
+        flash_attention_bhsd(q, k, v, causal=causal, window=window, scale=scale,
+                             q_heads_per_kv=q_heads_per_kv, out=out.permute(0, 2, 1, 3))
+        if any(ctx.needs_input_grad[:3]):
+            ctx.save_for_backward(q, k, v)
+        ctx.opts = dict(causal=causal, window=window, scale=scale,
+                        q_heads_per_kv=q_heads_per_kv)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad(), torch.profiler.record_function(BACKWARD_RANGE):
+            inputs = [t.detach().requires_grad_(need)
+                      for t, need in zip((q, k, v), ctx.needs_input_grad[:3])]
+            out = flash_attention_plain(*inputs, **ctx.opts)
+            wanted = [t for t in inputs if t.requires_grad]
+            grads = iter(torch.autograd.grad(out, wanted, grad_out.permute(0, 2, 1, 3)))
+        return (*(next(grads) if t.requires_grad else None for t in inputs),
+                None, None, None, None)

@@ -28,6 +28,12 @@ permuted, without a copy); ``hs`` is returned as a ``(B, H, S, hd)`` view
 of a ``(B, S, H, hd)`` buffer, the block's layout.  On CUDA tensors the
 wrapper launches the kernel or raises; on CPU tensors it runs
 :func:`slstm_sequence_plain`.
+
+:class:`SlstmSequence` is the differentiable form the sLSTM block calls:
+its forward is the kernel (the twin on the CPU); its backward recomputes
+:func:`slstm_sequence_plain` from the saved inputs under autograd and
+returns that function's vector-Jacobian product.  The reference trains
+through its scan, with no backward kernel.
 """
 from __future__ import annotations
 
@@ -36,6 +42,8 @@ import torch
 from repro_torch.kernels import build
 
 NAME = "slstm_sequence"
+# The profiler range around the plain twin's recomputation and gradient.
+BACKWARD_RANGE = "slstm_sequence.backward"
 R_DTYPES = (torch.float32, torch.bfloat16)
 
 # The cluster kernel's limits (``csrc/slstm.cu``): cluster size, head dim,
@@ -211,3 +219,33 @@ def slstm_sequence(pre, r, c0, n0, h0, m0):
     except RuntimeError as err:
         raise RuntimeError(f"{err}; plan on this card: {card_plan(hd, r.dtype, b, hh)}") from err
     return hs, finals
+
+
+class SlstmSequence(torch.autograd.Function):
+    """``SlstmSequence.apply(pre, r, c0, n0, h0, m0)`` → ``(hs, c, n, h, m)``,
+    :func:`slstm_sequence`'s results as a flat tuple.
+
+    Forward: one launch of kernel 7 (the plain twin on CPU tensors).
+    Backward: :func:`slstm_sequence_plain` recomputed from the saved
+    inputs, one step of tensor ops a time step, differentiated by autograd
+    (a final state with no gradient counts as zeros)."""
+
+    @staticmethod
+    def forward(ctx, pre, r, c0, n0, h0, m0):
+        hs, finals = slstm_sequence(pre, r, c0, n0, h0, m0)
+        if any(ctx.needs_input_grad):
+            ctx.save_for_backward(pre, r, c0, n0, h0, m0)
+        return (hs, *finals)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        saved = ctx.saved_tensors
+        with torch.enable_grad(), torch.profiler.record_function(BACKWARD_RANGE):
+            inputs = [t.detach().requires_grad_(need)
+                      for t, need in zip(saved, ctx.needs_input_grad)]
+            hs, finals = slstm_sequence_plain(*inputs)
+            live = [(o, g) for o, g in zip((hs, *finals), grads) if o.requires_grad]
+            wanted = [t for t in inputs if t.requires_grad]
+            got = iter(torch.autograd.grad([o for o, _ in live], wanted, [g for _, g in live],
+                                           allow_unused=True))
+        return tuple(next(got) if t.requires_grad else None for t in inputs)

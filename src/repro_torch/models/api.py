@@ -2,8 +2,10 @@
 ``repro.models.api``).
 
 ``build_model(cfg, parallel, device=...)`` returns a :class:`ModelBundle`
-whose members are functions over a parameter module.  Decoder-only models;
-the loss and the dry-run input specs come with the training slice.
+whose members are functions over a parameter module.  Decoder-only models.
+``init`` draws the serving copy (compute type, no gradients);
+``init_train`` the f32 masters a trainer updates, and ``loss`` is the
+reference's ``loss_fn`` over either.
 ``device=None`` means the CUDA card and raises without one; ``"cpu"`` runs
 every kernel's plain twin.
 
@@ -23,7 +25,7 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.parallel import MOE_SLICE, ParallelConfig
+from repro_torch.distributed.parallel import MOE_SLICE, TRAIN_MESH_SLICE, ParallelConfig
 from repro_torch.models import layers, transformer
 
 
@@ -48,6 +50,8 @@ class ModelBundle:
     decode_step: Callable[..., tuple]
     init_cache: Callable[[int, int], dict]
     forward_train: Callable[..., tuple]
+    loss: Callable[..., tuple]
+    init_train: Callable[[int], transformer.Transformer]
     parallel: Optional[ParallelConfig] = None
     layout: layers.Layout = layers.SINGLE
 
@@ -66,7 +70,12 @@ def build_model(cfg: ArchConfig, parallel: Optional[ParallelConfig] = None, *, d
     (B, L)}, cache_len)`` → (logits (B, V), caches); ``decode_step(params,
     caches, token (B, 1), pos (B,))`` → (logits, caches) with the caches
     updated in place; ``init_cache(batch, cache_len)``; ``forward_train(params,
-    tokens (B, S+1))`` → (logits (B, S, V), aux), a forward pass only.
+    tokens (B, S+1))`` → (logits (B, S, V), aux), differentiable;
+    ``loss(params, {"tokens": (B, S+1)})`` → (loss, metrics);
+    ``init_train(seed)`` the same draws as ``init`` kept in f32 with
+    ``requires_grad=True`` (training over a mesh raises
+    ``NotImplementedError``).  ``parallel.remat`` (default True) recomputes
+    each period in the backward pass.
 
     A ``parallel`` mesh must span the ``torch.distributed`` group
     (``ValueError`` otherwise); building binds the rank's tp and dp groups
@@ -106,8 +115,22 @@ def build_model(cfg: ArchConfig, parallel: Optional[ParallelConfig] = None, *, d
     def init_cache(batch, cache_len):
         return transformer.init_cache(cfg, batch, cache_len, device=dev, layout=layout)
 
+    remat = parallel.remat if parallel is not None else True
+
     def forward_fn(params, tokens):
-        return transformer.forward_train(params, as_tokens(tokens), cfg, layout=layout)
+        return transformer.forward_train(params, as_tokens(tokens), cfg, layout=layout,
+                                         remat=remat)
+
+    def loss_fn(params, batch):
+        return transformer.loss_fn(params, {"tokens": as_tokens(batch["tokens"])}, cfg,
+                                   layout=layout, remat=remat)
+
+    def init_train(seed: int) -> transformer.Transformer:
+        if layout.sharded:
+            raise NotImplementedError(f"training over a mesh belongs to {TRAIN_MESH_SLICE}")
+        gen = torch.Generator(device=dev).manual_seed(int(seed))
+        return transformer.trainable_params(
+            transformer.init_params(cfg, gen, device=dev, dtype=torch.float32))
 
     return ModelBundle(
         cfg=cfg,
@@ -117,6 +140,8 @@ def build_model(cfg: ArchConfig, parallel: Optional[ParallelConfig] = None, *, d
         decode_step=decode_fn,
         init_cache=init_cache,
         forward_train=forward_fn,
+        loss=loss_fn,
+        init_train=init_train,
         parallel=parallel,
         layout=layout,
     )

@@ -35,7 +35,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.kernels import ops as kops
+from repro_torch.kernels import flash_attention as kflash
 from repro_torch.models import layers
 
 _NEG_INF = -1e30
@@ -154,11 +154,10 @@ def _masked_attention(q, k, v, *, causal, window, q_offset, kv_len_mask=None):
 def _flash_attention(q, k, v, *, causal, window):
     """Kernel 6 path. q (B,KV,G,S,hd), k/v (B,KV,S,hd), the views
     ``_project_qkv`` returns, go to the kernel as they are; it writes o into
-    a (B, S, H, hd) buffer, returned as the merged (B, S, H·hd) view."""
+    a (B, S, H, hd) buffer, returned as the merged (B, S, H·hd) view.  Under
+    autograd the backward is the plain twin's (``kflash.FlashAttention``)."""
     b, kvh, g, s, hd = q.shape
-    o = torch.empty((b, s, kvh * g, hd), dtype=q.dtype, device=q.device)
-    kops.flash_attention(q.reshape(b, kvh * g, s, hd), k, v, causal=causal, window=window,
-                         out=o.permute(0, 2, 1, 3))
+    o = kflash.FlashAttention.apply(q.reshape(b, kvh * g, s, hd), k, v, causal, window, None, g)
     return o.reshape(b, s, kvh * g * hd)
 
 

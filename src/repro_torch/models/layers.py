@@ -67,6 +67,22 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0)
     return out.to(x.dtype)
 
 
+def softmax_cross_entropy_logits(logits: torch.Tensor, labels: torch.Tensor,
+                                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token CE in f32: ``logsumexp(logits) - logits[label]`` over
+    (..., V) logits and (...) integer labels, averaged, or with ``mask``
+    summed over the masked positions and divided by their count (at least
+    1)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.float()
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()
+
+
 # ---------------------------------------------------------------------------
 # tensor and data parallelism (a rank's view of a sharded model)
 # ---------------------------------------------------------------------------

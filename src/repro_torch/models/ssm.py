@@ -93,9 +93,12 @@ def _mlstm_chunk(q, k, v, log_f, i_gate, state: MLSTMState):
     h_inter = (q @ state.c) * decay_to_t
     n_inter = torch.einsum("bhqk,bhk->bhq", q, state.n) * decay_to_t[..., 0]
     # intra-chunk: decay-weighted causal attention.
-    # ratio[t,s] = exp(logF_t - logF_s) for s <= t  (in (0,1], stable)
-    ratio = torch.exp(cum[..., :, None] - cum[..., None, :])  # (B,H,Q,Q)
+    # ratio[t,s] = exp(logF_t - logF_s) for s <= t  (in (0,1], stable).  The
+    # exponent is masked before exp: above the diagonal it can overflow to
+    # inf, and the masked inf would make the gradient 0 * inf = NaN (the
+    # reference exponentiates first; its forward values are the same).
     causal = torch.ones((bq, bq), dtype=torch.bool, device=q.device).tril()
+    ratio = torch.exp(torch.where(causal, cum[..., :, None] - cum[..., None, :], -torch.inf))
     gate = torch.where(causal, ratio * i_gate[..., None, :], 0.0)
     scores = (q @ k.transpose(-1, -2)) * gate
     h_intra = scores @ v
@@ -331,8 +334,8 @@ def slstm_block(
         state = SLSTMState(*(layers.from_block(lay, t, dim, 1, (h0 * hd, h1 * hd))
                              for t, dim in zip(state, tp_dims)))
     pre5 = pre.view(b, s, 4, h, hd).permute(0, 3, 1, 2, 4)[:, h0:h1]  # (B,H',S,4,hd)
-    hs, finals = kslstm.slstm_sequence(pre5, p.r[h0:h1],
-                                       *(t.reshape(b, hl, hd).contiguous() for t in state))
+    hs, *finals = kslstm.SlstmSequence.apply(pre5, p.r[h0:h1],
+                                             *(t.reshape(b, hl, hd).contiguous() for t in state))
     hs = hs.permute(0, 2, 1, 3).reshape(b, s, hl * hd).to(dtype)  # (B,S,d')
     have = (h0 * hd, h1 * hd, d)
     hs = layers.rmsnorm_cols(lay, hs, p.out_norm, have)

@@ -12,8 +12,9 @@ KV, S_max, hd)`` for ``attn``, an :class:`~repro_torch.models.ssm.MLSTMState`
 or :class:`~repro_torch.models.ssm.SLSTMState` for the xLSTM blocks (their
 size does not depend on ``cache_len``).
 
-Three modes share the block code: ``forward_train`` (no caches; a forward
-pass only, the teacher-forced oracle), ``prefill`` (returns caches) and
+Three modes share the block code: ``forward_train`` (no caches; the
+teacher-forced pass, differentiable, and :func:`loss_fn` over it),
+``prefill`` (returns caches) and
 ``decode_step`` (one token against the caches, written in place).  Each
 takes a ``layout`` (:class:`~repro_torch.models.layers.Layout`): over a mesh
 the parameters are a rank's blocks, the batch is sharded over dp where it
@@ -24,8 +25,9 @@ on every rank; the caches are a rank's blocks, as :class:`Caches`.
 ``attn`` blocks with the SwiGLU MLP and the self-contained ``mlstm`` and
 ``slstm`` blocks (no MLP, as in the reference) are ported; ``swa``/``local``
 (ring caches), ``rglru``, MoE, encoder-decoder and frontend models raise
-``NotImplementedError`` naming their slice, as do the loss and the backward
-pass (the training slice).
+``NotImplementedError`` naming their slice.  Parameters are made with
+``requires_grad=False`` in the compute type (the serving copy);
+:func:`trainable_params` turns f32 masters into a trainer's parameters.
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
@@ -177,6 +180,15 @@ def init_params(
             del full
     if sharded:
         set_params(model, blocks)
+    return model
+
+
+def trainable_params(model: Transformer) -> Transformer:
+    """Mark every parameter of ``model`` as requiring a gradient, in place:
+    the f32 masters a trainer builds (``init_params(..., dtype=torch.float32)``,
+    the reference's ``dense_init`` type).  Returns ``model``."""
+    for p in model.parameters():
+        p.requires_grad_(True)
     return model
 
 
@@ -383,13 +395,25 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
 
 
-@torch.no_grad()
+def _period_train(period: Period, x, positions, cfg: ArchConfig, lay: layers.Layout, sp: bool):
+    for j, bt in enumerate(cfg.block_pattern):
+        x = apply_block_train(bt, getattr(period, f"b{j}"), x, positions, cfg, lay, sp)
+    return x
+
+
 def forward_train(params: Transformer, tokens: torch.Tensor, cfg: ArchConfig,
-                  layout: Optional[layers.Layout] = None):
-    """Full teacher-forced forward pass.  tokens (B, S+1) → (logits (B,S,V), aux).
+                  layout: Optional[layers.Layout] = None, remat: bool = True):
+    """Full teacher-forced pass.  tokens (B, S+1) → (logits (B,S,V), aux).
 
     ``aux`` is the reference's MoE load-balance term, 0 for dense stacks.
-    Over a mesh (``layout``) every rank returns the whole logits."""
+    Over a mesh (``layout``) every rank returns the whole logits.
+
+    Differentiable: gradients reach every parameter that requires one
+    (:func:`trainable_params`; each matrix is cast to the compute type at
+    its use).  Where autograd records on one device, ``remat`` (the
+    reference's ``parallel.remat``, on by default) runs each period under
+    one ``torch.utils.checkpoint``: its activations are recomputed in the
+    backward pass, kernels included."""
     check_supported(cfg)
     lay = _layout(params, layout)
     batch_sharded, sp = lay.act(cfg, (tokens.shape[0], tokens.shape[1] - 1))
@@ -397,14 +421,31 @@ def forward_train(params: Transformer, tokens: torch.Tensor, cfg: ArchConfig,
     b, s = inputs.shape
     x = _embed(params, inputs, cfg, lay, sp)
     positions = _positions(b, s, x.device)
+    remat = (remat and torch.is_grad_enabled() and not lay.sharded
+             and any(p.requires_grad for p in params.parameters()))
     for period in params.layers:
         with lay.gathered(period):
-            for j, bt in enumerate(cfg.block_pattern):
-                x = apply_block_train(bt, getattr(period, f"b{j}"), x, positions, cfg, lay, sp)
+            if remat:
+                x = checkpoint(_period_train, period, x, positions, cfg, lay, sp,
+                               use_reentrant=False, preserve_rng_state=False)
+            else:
+                x = _period_train(period, x, positions, cfg, lay, sp)
     if sp:
         x = lay.tp.all_gather(x, 1)
     logits = lay.gather_batch(_head(params, x, cfg, lay), batch_sharded)
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def loss_fn(params: Transformer, batch: dict, cfg: ArchConfig,
+            layout: Optional[layers.Layout] = None, aux_coef: float = 0.01,
+            remat: bool = True):
+    """Next-token CE (+ the MoE load-balance aux, 0 here) of ``batch["tokens"]``
+    (B, S+1).  Returns ``(loss, {"loss", "ce", "moe_aux"})``, f32 scalars."""
+    tokens = batch["tokens"]
+    logits, aux = forward_train(params, tokens, cfg, layout, remat)
+    ce = layers.softmax_cross_entropy_logits(logits, tokens[:, 1:])
+    loss = ce + aux_coef * aux
+    return loss, {"loss": loss, "ce": ce, "moe_aux": aux}
 
 
 @torch.no_grad()

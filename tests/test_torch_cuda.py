@@ -1412,3 +1412,131 @@ def test_lm_procs_slstm_head_slices_are_the_whole_launch(card, r_dtype):
         hs1, fin1 = slstm.slstm_sequence(pre[:, h:h + 1], r[h:h + 1], *one)
         assert torch.equal(hs1, hs[:, h:h + 1])
         assert all(torch.equal(a, b[:, h:h + 1]) for a, b in zip(fin1, finals))
+
+
+# ---------------------------------------------------------------------------
+# training: the kernel-backed autograd Functions (forward on the card,
+# backward the plain twin's)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_function_grads_are_the_twins(card, dtype):
+    """``FlashAttention``: one kernel 6 launch forward, within FLASH's
+    tolerance of the twin; its gradients are the twin's autograd bit for
+    bit (the backward recomputes the twin from the saved inputs)."""
+    gen = torch.Generator(device=card).manual_seed(4)
+    q = torch.randn((2, 32, 256, 128), generator=gen, device=card).to(dtype).requires_grad_(True)
+    k, v = (torch.randn((2, 8, 256, 128), generator=gen, device=card).to(dtype)
+            .requires_grad_(True) for _ in range(2))
+    go = torch.randn((2, 256, 32, 128), generator=gen, device=card).to(dtype)
+    before = build.LAUNCHES["flash_attention"]
+    out = flash.FlashAttention.apply(q, k, v, True, None, None, 4)
+    assert build.LAUNCHES["flash_attention"] == before + 1
+    got = torch.autograd.grad(out, (q, k, v), go)
+    assert build.LAUNCHES["flash_attention"] == before + 1  # the backward launches nothing
+    want_out = flash.flash_attention_plain(q, k, v, q_heads_per_kv=4)
+    want = torch.autograd.grad(want_out, (q, k, v), go.permute(0, 2, 1, 3))
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    diff = (out.permute(0, 2, 1, 3).float() - want_out.float()).abs()
+    assert bool((diff <= tol * (1 + want_out.float().abs())).all())
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("r_dtype", [torch.bfloat16, torch.float32])
+def test_slstm_function_grads_are_the_twins(card, r_dtype):
+    gen = torch.Generator(device=card).manual_seed(5)
+    b, h, s, hd = 1, 4, 96, 512
+    pre = torch.randn((b, h, s, 4, hd), generator=gen, device=card).requires_grad_(True)
+    r = (torch.randn((h, 4, hd, hd), generator=gen, device=card) / hd ** 0.5).to(r_dtype)
+    r.requires_grad_(True)
+    states = [torch.zeros((b, h, hd), device=card) for _ in range(3)]
+    states.append(torch.full((b, h, hd), -1e30, device=card))
+    ins = [pre, r, *(t.requires_grad_(True) for t in states)]
+    before = build.LAUNCHES["slstm_sequence"]
+    outs = slstm.SlstmSequence.apply(*ins)
+    assert build.LAUNCHES["slstm_sequence"] == before + 1
+    ghs = torch.randn(outs[0].shape, generator=gen, device=card)
+    got = torch.autograd.grad(outs[0], ins, ghs)
+    hs, _ = slstm.slstm_sequence_plain(*ins)
+    want = torch.autograd.grad(hs, ins, ghs)
+    assert bool(((outs[0] - hs).abs() <= 1e-4 * (1 + hs.abs())).all())
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("arch", ["qwen3_4b", "xlstm_1_3b"])
+def test_smoke_gradients_on_card_match_the_plain_path(card, arch):
+    """A loss's gradients through the kernels (f32 config) against the same
+    model with the plain attention and the sLSTM twin, per leaf within 1e-3
+    of the leaf's scale."""
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    toks = torch.randint(0, cfg.vocab_size, (2, 65), device=card, dtype=torch.int32,
+                         generator=torch.Generator(device=card).manual_seed(6))
+    grads = {}
+    for impl in ("flash", "plain"):
+        bundle = build_model(dataclasses.replace(cfg, attention_impl=impl), device=card)
+        params = bundle.init_train(0)
+        twin = slstm.slstm_sequence
+        if impl == "plain":
+            slstm.slstm_sequence = slstm.slstm_sequence_plain
+        try:
+            loss, _ = bundle.loss(params, {"tokens": toks})
+            grads[impl] = dict(zip([n for n, _ in params.named_parameters()],
+                                   torch.autograd.grad(loss, list(params.parameters()))))
+        finally:
+            slstm.slstm_sequence = twin
+    for name, w in grads["plain"].items():
+        err = float((grads["flash"][name] - w).abs().max())
+        assert err <= 1e-3 * float(w.abs().max()), name
+
+
+def test_train_step_on_card_decreases_the_loss_and_launches_kernel_6(card):
+    from repro_torch.data import ShardedLoader, SyntheticCorpus
+    from repro_torch.distributed.parallel import single_device_parallel
+    from repro_torch.train import Trainer, TrainerConfig, TrainStepConfig
+
+    cfg = get_smoke_config("qwen3_4b")
+    bundle = build_model(cfg, dataclasses.replace(single_device_parallel(), microbatches=2),
+                         device=card)
+    loader = ShardedLoader(SyntheticCorpus(cfg.vocab_size, 64, seed=2, device=card), 4)
+    tr = Trainer(bundle, loader, TrainStepConfig(peak_lr=1e-3, warmup_steps=2, total_steps=6),
+                 TrainerConfig(total_steps=6, log_every=1), log_fn=lambda m: None)
+    before = build.LAUNCHES["flash_attention"]
+    hist = tr.run()["history"]
+    # each forward and its recomputation under remat: 2 x layers x microbatches x steps
+    assert build.LAUNCHES["flash_attention"] - before == 2 * cfg.num_layers * 2 * 6
+    assert hist[-1]["loss"] < hist[0]["loss"]
+    assert all(np.isfinite(h["grad_norm"]) and h["peak_bytes"] > 0 for h in hist)
+
+
+@pytest.mark.parametrize("schema", ["uint32", "uint64"])
+def test_query_graph_on_card_matches_cpu(card, schema):
+    """The paper's query phase 1 (``build_query_hashgraph_sharded``) at
+    D = 8 on the card: kernel 1 hashes the routed queries, and the graph's
+    offsets, keys, values and fingerprints equal the CPU path's."""
+    from repro_torch import TableSchema
+
+    rng = np.random.default_rng(12)
+    if schema == "uint32":
+        keys = rng.integers(0, 1 << 20, size=1 << 16, dtype=np.uint32)
+        queries = rng.integers(0, 1 << 21, size=1 << 14, dtype=np.uint32)
+    else:
+        keys = rng.integers(0, 2**63, size=1 << 16, dtype=np.uint64)
+        queries = np.concatenate([keys[: 1 << 13], rng.integers(0, 2**63, size=1 << 13,
+                                                                 dtype=np.uint64)])
+    graphs = {}
+    for dev in ("cpu", card):
+        table = DistributedHashTable(num_shards=8, hash_range=1 << 18, device=dev,
+                                     schema=TableSchema(schema))
+        state = table.init(keys)
+        before = build.LAUNCHES["murmur_bucket"] + build.LAUNCHES["murmur_hash"]
+        graphs[str(dev)] = mh.build_query_hashgraph_sharded(state.base,
+                                                            table._pack_queries(queries))
+        if dev == card:
+            assert build.LAUNCHES["murmur_bucket"] + build.LAUNCHES["murmur_hash"] > before
+    want, got = graphs["cpu"], graphs[str(card)]
+    for f in ("offsets", "keys", "values", "fingerprints"):
+        w, g = getattr(want, f), getattr(got, f)
+        assert (w is None) == (g is None), f
+        if w is not None:
+            assert torch.equal(g.cpu(), w), f

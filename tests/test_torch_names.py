@@ -144,8 +144,13 @@ def runs(mesh1, mesh8):
         assert_same_state(ps, js)
         dhg, jq = js.base, jt._pack_queries(_jq(queries))
         sh, rep = P("d"), P()
-        seg = int(_sharded(mesh, jmhg.plan_seg_capacity_sharded, dhg, jq, rep))
-        out = int(_sharded(mesh, jmhg.plan_out_capacity_sharded, dhg, jq, rep))
+        # The count-only entry points in one program (fewer compiles).
+        seg, out, contains, size = _sharded(
+            mesh, lambda g, q: (jmhg.plan_seg_capacity_sharded(g, q),
+                                jmhg.plan_out_capacity_sharded(g, q),
+                                jmhg.contains_sharded(g, q), jmhg.join_size_sharded(g, q)),
+            dhg, jq, (rep, rep, sh, rep))
+        seg, out = int(seg), int(out)
         caps = dict(seg_capacity=max(seg, 1), out_capacity=max(out, 1))
         qg_spec = jhashgraph.HashGraph(
             offsets=sh, keys=sh, values=sh, table_size=dhg.local_range_cap, seed=dhg.seed,
@@ -154,18 +159,17 @@ def runs(mesh1, mesh8):
         ref = {
             "plan_seg_capacity_sharded": seg,
             "plan_out_capacity_sharded": out,
-            "contains_sharded": _sharded(mesh, jmhg.contains_sharded, dhg, jq, sh),
-            "join_size_sharded": _sharded(mesh, jmhg.join_size_sharded, dhg, jq, rep),
-            "retrieve_sharded": _sharded(
-                mesh, lambda g, q: jmhg.retrieve_sharded(g, q, **caps), dhg, jq,
-                jmhg.ShardRetrieval(offsets=sh, values=sh, counts=sh, num_dropped=rep,
-                                    layer_counts=None)),
-            "inner_join_sharded": _sharded(
-                mesh, lambda g, q: jmhg.inner_join_sharded(g, q, **caps), dhg, jq,
-                jmhg.ShardJoin(query_idx=sh, values=sh, num_results=sh, num_dropped=rep)),
-            "build_query_hashgraph_sharded": _sharded(
-                mesh, jmhg.build_query_hashgraph_sharded, dhg, jq, qg_spec),
+            "contains_sharded": contains,
+            "join_size_sharded": size,
         }
+        ref["retrieve_sharded"], ref["inner_join_sharded"], ref["build_query_hashgraph_sharded"] = (
+            _sharded(mesh, lambda g, q: (jmhg.retrieve_sharded(g, q, **caps),
+                                         jmhg.inner_join_sharded(g, q, **caps),
+                                         jmhg.build_query_hashgraph_sharded(g, q)), dhg, jq,
+                     (jmhg.ShardRetrieval(offsets=sh, values=sh, counts=sh, num_dropped=rep,
+                                          layer_counts=None),
+                      jmhg.ShardJoin(query_idx=sh, values=sh, num_results=sh, num_dropped=rep),
+                      qg_spec)))
         made[layout, d] = (ref, caps, ps.base, pt._pack_queries(queries), d)
         return made[layout, d]
 
