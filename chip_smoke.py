@@ -239,6 +239,32 @@ Run from the root of a checkout: it builds the port's CUDA kernels from
    operations over the card's rate for them (int32 lanes for the table
    kernels, bf16 tensor cores for kernel 6, f32 units for kernel 7).
 
+6b. trains over a mesh (the ``train-procs`` phase, after ``train``;
+   ``launch/train_run.py``, the pass every rank runs): qwen3-4b at its
+   published widths, bf16 compute over f32 masters, seq TRAIN_PROCS_SEQ,
+   global batch 4 drawn by every rank with the loader's dedup over the
+   group's table (kernel 1), depth cut per run (TRAIN_PROCS_LAYERS): (a)
+   the GSPMD step, ZeRO-3 + TP on (data, model) = (2, 2), 2 microbatches;
+   (b) manual DP with the int8 all-reduce on (data,) = (4,); (c) the GPipe
+   pipeline on (stage,) = (4,), 4 microbatches; (a)-(c) in one spawn of
+   four gloo ranks on this card; (d) (a)'s configuration on one NCCL rank.
+   Each goes first unsharded on this card on the same weights and batches.
+   Gates: (a) and (c) step 1's ce within TRAIN_CE_TOL of the unsharded
+   run's; (a) every parameter after step 1 within 2 lr_1 of the unsharded
+   run's and at most TRAIN_PROCS_FLIP_FRACTION of them beyond lr_1 / 2; (c)
+   the grad norm within TRAIN_PROCS_GNORM_TOL; (b) step 1's loss within
+   2^-8 and the all-reduce's bytes one a gradient element a hop plus the
+   scales; (d) bit for bit; every rank's replicated blocks the same bits
+   and its metrics rank 0's; collectives a step as
+   ``train_run.design_collectives``; parameter and state bytes as
+   ``shard_bytes_per_device``; kernel 6 launched on every attention layer
+   a rank runs, forward and recomputation; finite metrics.  Rank 0 holds
+   kernel 6 (its 16 of 32 q heads) and kernels 1 and 2 (its rows'
+   fingerprints, as the dedup table's build hashes and bins them) against
+   their twins (rows ``train-procs-gloo-4``); ``--profile``
+   profiles one more step of each run on rank 0 (the card's busy time and
+   the host time inside each kind of collective).
+
 7. runs language-model parallelism across processes last (the ``lm-procs``
    phase; ``launch/lm_run.py``, the pass every rank runs), after freeing
    the card: (a) granite-20b (bf16, full width and depth, 28.2 B
@@ -4566,6 +4592,486 @@ def check_train_resume(seed: int, device, log) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Training over a mesh (the train-procs phase)
+# ---------------------------------------------------------------------------
+TRAIN_PROCS_WORLD = 4
+TRAIN_PROCS_TIMEOUT_S = 600.0
+# Depth cuts (qwen3-4b's widths stay; seq TRAIN_PROCS_SEQ, global batch 4):
+# (a) on (2, 2) holds a quarter of each layer's f32 masters and moments a
+# rank; (b) replicates the whole model on four ranks at 16 bytes a
+# parameter plus the bf16 error (the tied embedding alone is 7.0 GB a
+# rank); (c) gives each of four stages TRAIN_PROCS_LAYERS["c"] / 4 layers
+# beside a replicated embedding.
+TRAIN_PROCS_LAYERS = {"a": 4, "b": 1, "c": 4}
+TRAIN_PROCS_SEQ = 1024
+TRAIN_PROCS_STEPS = {"a": 2, "b": 2, "c": 2}
+# (a)'s parameters after step 1 against the unsharded run's: AdamW's first
+# step moves a weight by lr_1 g / (|g| + eps), so where both runs agree on
+# the sign of g they agree to the f32 rounding of the update, and where the
+# bf16 reductions flip it (g within a bf16 rounding of 0) they differ by
+# 2 lr_1.  Gates: every entry within 2 lr_1 (+ 1e-6 |p|), and at most
+# TRAIN_PROCS_FLIP_FRACTION of the entries beyond lr_1 / 2.
+TRAIN_PROCS_FLIP_FRACTION = 1e-2
+# (c)'s grad norm against the unsharded run's (relative): the same bf16
+# forward, the microbatches' gradients summed in autograd on each stage
+# and over stages in f32 against the one-card step's f32 accumulation.
+TRAIN_PROCS_GNORM_TOL = 1e-2
+
+
+def train_procs_configs(seed: int) -> dict:
+    """The phase's runs, qwen3-4b at its published widths (bf16 compute over
+    f32 masters), global batch 4 of TRAIN_PROCS_SEQ tokens, the loader's
+    dedup over the group's table: (a) the GSPMD step (ZeRO-3 + TP) on
+    (data, model) = (2, 2), 2 microbatches; (b) manual DP with the int8
+    all-reduce on (data,) = (4,); (c) the pipeline on (stage,) = (4,), 4
+    microbatches; (d) (a)'s configuration on one rank."""
+    from repro_torch.launch.train_run import TrainRunConfig
+
+    common = dict(arch="qwen3_4b", seq=TRAIN_PROCS_SEQ, batch=4, lr=TRAIN_LR, warmup_steps=10,
+                  total_steps=100, dedup="distributed", seed=seed)
+    return {
+        "a": TrainRunConfig(kind="gspmd", mesh=(2, 2), microbatches=2,
+                            num_layers=TRAIN_PROCS_LAYERS["a"], steps=TRAIN_PROCS_STEPS["a"],
+                            **common),
+        "b": TrainRunConfig(kind="manual_dp", mesh=(4,), grad_compression=True,
+                            num_layers=TRAIN_PROCS_LAYERS["b"], steps=TRAIN_PROCS_STEPS["b"],
+                            **common),
+        "c": TrainRunConfig(kind="pipeline", mesh=(4,), microbatches=4,
+                            num_layers=TRAIN_PROCS_LAYERS["c"], steps=TRAIN_PROCS_STEPS["c"],
+                            **common),
+        "d": TrainRunConfig(kind="gspmd", mesh=(1, 1), microbatches=2,
+                            num_layers=TRAIN_PROCS_LAYERS["a"], steps=TRAIN_PROCS_STEPS["a"],
+                            **common),
+    }
+
+
+def save_params_hook(path: str):
+    """An ``on_step`` hook that writes the parameters after step 1 (whole,
+    by name, on the host) to ``path``."""
+    import torch
+
+    def hook(i, params, opt, bundle):
+        if i == 0:
+            torch.save({n: p.detach().cpu() for n, p in params.named_parameters()}, path)
+        return None
+
+    return hook
+
+
+def compare_params_hook(path: str):
+    """An ``on_step`` hook that holds a rank's blocks after step 1 against
+    the whole parameters at ``path``: the max |difference|, the largest
+    |parameter|, and the count of entries beyond each threshold of the lr
+    it is given later (returned as the differences' sorted quantiles)."""
+    import torch
+
+    from repro_torch.distributed import sharding
+
+    def hook(i, params, opt, bundle):
+        if i != 0:
+            return None
+        whole = torch.load(path, mmap=True)
+        lay = bundle.layout
+        worst, big, name_worst = 0.0, 0.0, None
+        over = {}
+        n = 0
+        for name, p in params.named_parameters():
+            want = whole[name][sharding.block_slices(lay.full_shapes[name], lay.specs[name],
+                                                     lay.parallel.mesh, lay.coord)]
+            want = want.to(p.device)
+            diff = (p.detach().float() - want).abs()
+            d = float(diff.max())
+            if d > worst:
+                worst, name_worst = d, name
+            big = max(big, float(want.abs().max()))
+            for k in (1e-6, 5e-5, 1e-4, 2e-4):
+                over[k] = over.get(k, 0) + int((diff > k).sum())
+            n += diff.numel()
+        return {"max_abs": worst, "worst_leaf": name_worst, "max_param": big, "entries": n,
+                "over": {str(k): v for k, v in over.items()}}
+
+    return hook
+
+
+def train_procs_rank(group, cfgs: dict, whole_path: str, device_name: str,
+                     profile: bool = False) -> dict:
+    """One rank of the spawned group: runs (a)-(c) in turn on the global
+    batches it draws itself (the loader's dedup over the group's table);
+    (a) holds its blocks after step 1 against the unsharded run's
+    parameters at ``whole_path``; rank 0 captures kernel 6's inputs in
+    (a) and keeps its rows of the first batch's fingerprints for kernel 1;
+    with ``profile`` every run takes one more step, which rank 0 profiles
+    (``train_procs_profile``)."""
+    import torch
+
+    from repro_torch.data import sequence_fingerprints
+    from repro_torch.launch import train_run
+
+    device = torch.device(device_name)
+    lm_settings()
+    out = {"rank": group.rank, "runs": {}}
+    for key, cfg in cfgs.items():
+        capture = KernelCapture(cfg.seq if group.rank == 0 and key == "a" else -1)
+        hook = compare_params_hook(whole_path) if key == "a" else None
+        extra = train_procs_profile(group.rank, device) if profile else None
+        t0 = time.perf_counter()
+        with capture:
+            res = train_run.run_train(cfg, device=device, group=group, on_step=hook,
+                                      extra_step=extra, timeout_s=TRAIN_PROCS_TIMEOUT_S)
+        if group.rank == 0:
+            print(f"train-procs ({key}) rank 0: {time.perf_counter() - t0:.1f} s, steps "
+                  f"{[round(s['s'], 3) for s in res['steps']]} s, peak {res['peak_bytes']}",
+                  flush=True)
+        if group.rank == 0 and key == "a":
+            out["flash"] = capture.flash
+            # the first batch again through the local dedup (the same mask, no collective)
+            first = train_run.draw_batches(dataclasses.replace(cfg, steps=1, dedup="local"),
+                                           device)[0]
+            n = first.shape[0] // group.size
+            out["fingerprints"] = sequence_fingerprints(first[:n, :-1]).reshape(1, -1)
+        out["runs"][key] = res
+        del capture, res
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    if group.rank == 0 and out.get("flash") is not None:
+        a = out["runs"]["a"]
+        out["rows"] = [train_procs_flash_row(*out.pop("flash"), a["launches"].get(
+            "flash_attention", 0), device, print)]
+        fp = out.pop("fingerprints")
+        from types import SimpleNamespace
+
+        from repro_torch.core.hashing import DEFAULT_SEED
+
+        # The group's dedup table (DistributedHashTable's defaults): kernel 1
+        # hashes rank 0's rows, kernel 2 bins them, as its build does.
+        table = SimpleNamespace(num_shards=group.size, hash_range=train_run.DEDUP_HASH_RANGE,
+                                seed=DEFAULT_SEED, num_bins=None)
+        run = {"result": {"path": f"train-procs-gloo-{TRAIN_PROCS_WORLD} (a) loader",
+                          "shards": TRAIN_PROCS_WORLD, "launches": a["data_launches"]},
+               "inputs": lambda: hash_inputs(table, fp)}
+        out["rows"] += check_kernels(run, device, print)
+    else:
+        out.pop("flash", None)
+        out.pop("fingerprints", None)
+    return out
+
+
+class CollectiveClock:
+    """Host seconds spent inside each kind of collective call of an
+    ``Axis`` (the outermost call; under gloo a CUDA tensor's staging to
+    host memory and back is inside), while the block runs."""
+
+    KINDS = ("all_reduce", "all_gather", "all_gather_cols", "all_gather_bytes",
+             "reduce_scatter", "broadcast", "all_to_all", "ppermute")
+
+    def __enter__(self):
+        from repro_torch.distributed import collectives
+
+        self.seconds, self._depth = {}, 0
+        self._axis = collectives.Axis
+        self._orig = {k: getattr(self._axis, k) for k in self.KINDS}
+
+        def wrap(kind, fn):
+            def timed(axis, *a, **kw):
+                if self._depth or axis.size == 1:
+                    return fn(axis, *a, **kw)
+                self._depth += 1
+                t0 = time.perf_counter()
+                try:
+                    return fn(axis, *a, **kw)
+                finally:
+                    self._depth -= 1
+                    self.seconds[kind] = self.seconds.get(kind, 0.0) + time.perf_counter() - t0
+            return timed
+
+        for k, fn in self._orig.items():
+            setattr(self._axis, k, wrap(k, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for k, fn in self._orig.items():
+            setattr(self._axis, k, fn)
+        return False
+
+
+def train_procs_profile(rank: int, device):
+    """An ``extra_step`` for ``run_train``: every rank runs one more step;
+    rank 0 profiles it (``profile_phases``, with kernel 6's backward and the
+    optimizer as windows) and times its collectives on the host
+    (``CollectiveClock``)."""
+    from repro_torch.kernels.flash_attention import BACKWARD_RANGE
+    from repro_torch.train.step import OPTIMIZER_RANGE
+
+    def extra(step, params, opt, batch):
+        run = lambda: step(params, opt, batch)  # noqa: E731
+        if rank != 0:
+            run()
+            return None
+        with CollectiveClock() as clock:
+            prof = profile_phases({"step": run}, device,
+                                  window=(BACKWARD_RANGE, OPTIMIZER_RANGE))["step"]
+        wall_ms = prof["wall_ms"]
+        return {"wall_ms": wall_ms, "device_busy_ms": prof["device_busy_ms"],
+                "device_busy_share": prof["device_busy_ms"] / wall_ms,
+                "collectives_host_ms": {k: 1e3 * v for k, v in clock.seconds.items()},
+                "collectives_share": 1e3 * sum(clock.seconds.values()) / wall_ms,
+                "by_class": prof["by_class"],
+                "top": [[k[:60], ms, n] for k, ms, n in prof["top"][:8]],
+                "windows": {w: {"device_ms": x["device_ms"], "launches": x["launches"]}
+                            for w, x in prof["windows"].items()}}
+
+    return extra
+
+
+def train_procs_flash_row(q, k, v, launches: int, device, log) -> dict:
+    """Kernel 6 on rank 0's heads of (a)'s first attention call (its row of
+    microbatch 0, layer 0) against its twin, timed beside the twin and
+    SDPA."""
+    row = lm_procs_flash_row(q, k, v, launches, device, f"train-procs-gloo-{TRAIN_PROCS_WORLD} "
+                             "(a)", lambda m: None)
+    _, hq, s, d = q.shape
+    row["shapes"] = (f"q=(1, {hq}, {s}, {d}) k/v=(1, {k.shape[1]}, {s}, {d}) {q.dtype} causal "
+                     "(rank 0's heads and row, microbatch 0, layer 0)")
+    log(f"kernel flash_attention {row['path']} {row['shapes']}: max_abs_err={row['max_abs_err']}"
+        f" [min, median, max] ms: {json.dumps(row['spread_ms'])} bound_ms={row['bound_ms']} "
+        f"({row['bound_by']}) launches={launches}")
+    return row
+
+
+def train_procs_expected_launches(cfg) -> int:
+    """Kernel 6's launches on one rank of a run: every attention layer the
+    rank runs, forward and recomputation, per microbatch (gspmd), per step
+    on the rank's rows (manual DP), per tick on the stage's layers
+    (pipeline)."""
+    from repro_torch.launch import train_run
+
+    mcfg = train_run.model_config(cfg)
+    layers = mcfg.num_periods * mcfg.block_pattern.count("attn")
+    if cfg.kind == "gspmd":
+        return 2 * layers * cfg.microbatches * cfg.steps
+    if cfg.kind == "manual_dp":
+        return 2 * layers * cfg.steps
+    stages = cfg.mesh[0]
+    return 2 * (layers // stages) * (cfg.microbatches + stages - 1) * cfg.steps
+
+
+def train_procs_check(label: str, key: str, cfg, ranks: list, ref: dict, card: bool,
+                      log) -> dict:
+    """Gates of one run (module docstring, item 6b)."""
+    import math
+
+    from repro_torch.launch import train_run
+
+    mcfg = train_run.model_config(cfg)
+    first = ranks[0]
+    gate = {}
+    for res in ranks:
+        r = res["rank"]
+        check(res["batch_digests"] == ref["batch_digests"],
+              f"{label}: rank {r}'s batches differ from the unsharded run's")
+        check(res["param_bytes"] == res["expected_param_bytes"]
+              and res["state_bytes"] == res["expected_state_bytes"],
+              f"{label}: rank {r} holds {res['param_bytes']} parameter and {res['state_bytes']} "
+              f"state bytes; shard_bytes_per_device says {res['expected_param_bytes']} and "
+              f"{res['expected_state_bytes']}")
+        want = train_run.design_collectives(mcfg, cfg.mesh, cfg.kind, cfg.seq, cfg.batch,
+                                            cfg.microbatches,
+                                            grad_compression=cfg.grad_compression,
+                                            seq_parallel=cfg.seq_parallel)
+        for st in res["steps"]:
+            check(st["collectives"] == want, f"{label}: rank {r} step {st['step']}: collectives "
+                  f"{st['collectives']}, the design {want}")
+            check(all(math.isfinite(v) for v in st["metrics"].values()),
+                  f"{label}: rank {r} step {st['step']}: a metric is not finite: {st['metrics']}")
+            check(st["metrics"] == first["steps"][st["step"] - 1]["metrics"],
+                  f"{label}: rank {r}'s metrics differ from rank 0's at step {st['step']}")
+        if card:
+            n6 = train_procs_expected_launches(cfg)
+            check(res["launches"] == {"flash_attention": n6}, f"{label}: rank {r} launches "
+                  f"{res['launches']}, want kernel 6 {n6} times")
+            check(res["data_launches"].get("murmur_bucket", 0) > 0,
+                  f"{label}: rank {r}'s loader launched {res['data_launches']}, no kernel 1")
+    # replicated leaves: the same bits wherever a rank holds the same block
+    for st in range(len(first["steps"])):
+        seen = {}
+        for res in ranks:
+            for name, dig in res["steps"][st]["digests"].items():
+                where = (name, tuple(res["block_slices"].get(name, ())))
+                check(seen.setdefault(where, dig) == dig,
+                      f"{label}: rank {res['rank']}'s block {where} differs from another rank's "
+                      f"copy after step {st + 1}")
+    m1, w1 = first["steps"][0]["metrics"], ref["steps"][0]["metrics"]
+    gate["ce_step1"], gate["unsharded_ce_step1"] = m1["ce"], w1["ce"]
+    if key in "ac":
+        check(abs(m1["ce"] - w1["ce"]) <= TRAIN_CE_TOL * abs(w1["ce"]),
+              f"{label}: step 1 ce {m1['ce']} against the unsharded run's {w1['ce']}")
+    if key == "b":
+        check(abs(m1["loss"] - w1["loss"]) <= TRAIN_CE_TOL * abs(w1["loss"]),
+              f"{label}: step 1 loss {m1['loss']} against the unsharded run's {w1['loss']}")
+        import torch
+
+        from repro_torch.models import transformer
+
+        numels = [p.numel() for p in transformer.Transformer(mcfg, dtype=torch.float32,
+                                                             device="meta").parameters()]
+        want_bytes = train_run.int8_wire_bytes(numels, cfg.mesh[0])
+        for res in ranks:
+            for st in res["steps"]:
+                got = {k: st["bytes"].get(k, 0) for k in want_bytes}
+                check(got == want_bytes, f"{label}: rank {res['rank']} step {st['step']}: the "
+                      f"int8 all-reduce moved {got} bytes, one a gradient element a hop and "
+                      f"the scales make {want_bytes}")
+        gate["int8_wire_bytes"] = want_bytes
+        gate["f32_all_reduce_bytes"] = 4 * sum(numels)
+    if key == "c":
+        g, gw = m1["grad_norm"], w1["grad_norm"]
+        check(abs(g - gw) <= TRAIN_PROCS_GNORM_TOL * gw,
+              f"{label}: step 1 grad norm {g} against the unsharded run's {gw}")
+        gate["grad_norm_step1"], gate["unsharded_grad_norm_step1"] = g, gw
+    if key == "a":
+        lr1 = w1["lr"]
+        worst = max(r["steps"][0]["check"]["max_abs"] for r in ranks)
+        entries = sum(r["steps"][0]["check"]["entries"] for r in ranks)
+        flips = sum(r["steps"][0]["check"]["over"]["5e-05"] for r in ranks)
+        big = max(r["steps"][0]["check"]["max_param"] for r in ranks)
+        check(worst <= 2 * lr1 + 1e-6 * big, f"{label}: a parameter after step 1 differs from "
+              f"the unsharded run's by {worst} > 2 lr_1 = {2 * lr1}")
+        check(flips <= TRAIN_PROCS_FLIP_FRACTION * entries,
+              f"{label}: {flips} of {entries} parameter entries differ by more than lr_1 / 2")
+        gate.update(params_max_abs=worst, lr1=lr1, entries_beyond_half_lr=flips, entries=entries,
+                    over=[r["steps"][0]["check"]["over"] for r in ranks])
+    log(f"{label} gates held: " + json.dumps(gate))
+    return gate
+
+
+def train_procs_report(label: str, cfg, ranks: list, ref: dict, smi: str, log) -> dict:
+    """Per rank: each step's loss, ce, grad norm, wall and tokens/s, the
+    collectives and bytes a step, parameter, state and peak bytes; beside
+    the unsharded run's."""
+
+    def figures(res):
+        return {"steps": [{"step": s["step"], **{k: s["metrics"][k] for k in
+                                                ("loss", "ce", "grad_norm", "lr")},
+                           "step_ms": 1e3 * s["s"],
+                           "tokens_per_s": cfg.batch * cfg.seq / s["s"]} for s in res["steps"]],
+                "collectives": res["steps"][0]["collectives"],
+                "bytes": res["steps"][0]["bytes"],
+                "param_bytes": res["param_bytes"], "state_bytes": res["state_bytes"],
+                "peak_bytes": res["peak_bytes"], "init_s": res["init_s"],
+                "data_s": res["data_s"], "launches": res["launches"],
+                "data_launches": res["data_launches"]}
+
+    out = {"kind": cfg.kind, "mesh": cfg.mesh, "layers": ref["layers"], "seq": cfg.seq,
+           "batch": cfg.batch, "microbatches": cfg.microbatches,
+           "unsharded": figures(ref), "ranks": [figures(r) for r in ranks]}
+    log(f"{label} unsharded ({smi}): " + json.dumps(out["unsharded"]))
+    for res, fig in zip(ranks, out["ranks"]):
+        log(f"{label} rank {res['rank']} of {len(ranks)} mesh {cfg.mesh} ({smi}): "
+            + json.dumps(fig))
+    return out
+
+
+def run_train_procs(seed: int, device, log, profile: bool = False) -> dict:
+    """The ``train-procs`` phase: training over a mesh.  Each run
+    (``train_procs_configs``) goes first unsharded on this card, in this
+    process, on the same weights and batches (its figures to host memory,
+    (a)'s parameters after step 1 to a file, its model freed); then (a)-(c)
+    run in one spawn of four gloo ranks on this card and (d) on one NCCL
+    rank in this process, bit for bit the unsharded step.  ``profile``: rank
+    0 profiles one more step of each run (``train_procs_profile``)."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh, train_run
+
+    card = device.type == "cuda"
+    smi = card_line() if card else "cpu"
+    t_phase = time.perf_counter()
+    cfgs = train_procs_configs(seed)
+    scratch = tempfile.mkdtemp(prefix="train_procs_")
+    whole_path = os.path.join(scratch, "a_step1.pt")
+
+    def unsharded(key, hook=None):
+        gc.collect()
+        if card:
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ref = train_run.run_train(cfgs[key], sharded=False, device=device, on_step=hook)
+        log(f"train-procs ({key}) unsharded {ref['arch']} ({ref['layers']} layers, "
+            f"{cfgs[key].kind} reference): {time.perf_counter() - t0:.1f} s")
+        gc.collect()
+        if card:
+            torch.cuda.empty_cache()
+        return ref
+
+    try:
+        refs = {"a": unsharded("a", save_params_hook(whole_path)),
+                "b": unsharded("b"), "c": unsharded("c")}
+        label = f"train-procs-gloo-{TRAIN_PROCS_WORLD}"
+        t0 = time.perf_counter()
+        ranks = mesh.spawn(train_procs_rank, TRAIN_PROCS_WORLD, "gloo", str(device),
+                           args=({k: cfgs[k] for k in "abc"}, whole_path, str(device),
+                                 profile), timeout_s=TRAIN_PROCS_TIMEOUT_S)
+        result = {"path": "train-procs", "gloo4_s": time.perf_counter() - t0, "runs": {}}
+        log(f"{label}: {result['gloo4_s']:.1f} s from spawn to the last result")
+        for key in "abc":
+            runs = [r["runs"][key] for r in ranks]
+            result["runs"][key] = train_procs_report(f"{label} ({key})", cfgs[key], runs,
+                                                     refs[key], smi, log)
+            result["runs"][key]["gate"] = train_procs_check(f"{label} ({key})", key, cfgs[key],
+                                                            runs, refs[key], card, log)
+            if runs[0]["extra"] is not None:
+                result["runs"][key]["profile"] = runs[0]["extra"]
+                log(f"profile {label} ({key}) rank 0 ({smi}): " + json.dumps(runs[0]["extra"]))
+        rows = ranks[0].get("rows", [])
+        if card:
+            check({row["name"] for row in rows} == {"flash_attention", "murmur_bucket",
+                                                    "bin_histogram"},
+                  f"{label}: rank 0 checked {[row['name'] for row in rows]}")
+        del ranks
+    finally:
+        for name in os.listdir(scratch):
+            os.remove(os.path.join(scratch, name))
+        os.rmdir(scratch)
+    backend = "nccl" if card else "gloo"
+    store = tempfile.mkdtemp(prefix="train_procs_world1_")
+    mesh.init_shard_group(backend, "file://" + os.path.join(store, "store"),
+                          timeout_s=TRAIN_PROCS_TIMEOUT_S, rank=0, world_size=1, device=device)
+    try:
+        one = train_run.run_train(cfgs["d"], device=device, timeout_s=TRAIN_PROCS_TIMEOUT_S)
+    finally:
+        dist.destroy_process_group()
+        for name in os.listdir(store):
+            os.remove(os.path.join(store, name))
+        os.rmdir(store)
+    label1 = f"train-procs-{backend}-1 (d)"
+    ref = refs["a"]
+    same = ([s["metrics"] for s in one["steps"]] == [s["metrics"] for s in ref["steps"]]
+            and [s["digests"] for s in one["steps"]] == [s["digests"] for s in ref["steps"]])
+    check(same, f"{label1}: the steps differ from the unsharded run's (want bit for bit)")
+    check(one["batch_digests"] == ref["batch_digests"], f"{label1}: other batches")
+    check(one["launches"] == ref["launches"], f"{label1}: launches {one['launches']}, the "
+          f"unsharded run's {ref['launches']}")
+    if card:
+        n6 = train_procs_expected_launches(cfgs["d"])
+        check(one["launches"] == {"flash_attention": n6},
+              f"{label1}: launches {one['launches']}, want kernel 6 {n6} times")
+    result["runs"]["d"] = train_procs_report(label1, cfgs["d"], [one], ref, smi, log)
+    result["runs"]["d"]["gate"] = {"bit_for_bit": same}
+    del one, refs
+    gc.collect()
+    if card:
+        torch.cuda.empty_cache()
+    result["run_s"] = time.perf_counter() - t_phase
+    log(f"run train-procs: {result['run_s']:.1f} s (three unsharded runs, four gloo ranks on one "
+        f"card, one {backend} rank, gates and rank 0's kernel checks; {smi})")
+    return {"result": result, "rows": rows}
+
+
+# ---------------------------------------------------------------------------
 # LM parallelism across processes (the lm-procs phase)
 # ---------------------------------------------------------------------------
 LM_PROCS_WORLD = 4
@@ -5182,6 +5688,13 @@ def main(argv=None) -> int:
     log(f"run train: {train_res['run_s']:.1f} s (the 4 steps, their gates, the gradient checks "
         f"and the crash and resume; {smi})")
     paths.append(train_res)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # Training over a mesh: four gloo ranks on this card and one NCCL rank.
+    tp = run_train_procs(args.seed, device, log, profile=args.profile)
+    rows += tp["rows"]
+    paths.append(tp["result"])
+    del tp
     gc.collect()
     torch.cuda.empty_cache()
     lm = run_lm_procs(args.seed, device, log)

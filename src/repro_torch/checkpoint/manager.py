@@ -21,6 +21,13 @@ Layout (one directory per step)::
   16-bit patterns and the manifest names their type.
 * **Retention**: the newest ``keep`` checkpoints stay; older ones are
   deleted after each successful save.
+* **Over a mesh** (``sharding``, a ``distributed.sharding.TreeSharding``):
+  every rank calls ``save`` alike, each leaf is gathered whole from the
+  ranks' blocks and the group's rank 0 alone writes it, so the layout on
+  disk is the unsharded one; ``wait()`` returns on every rank once the
+  write has landed.  ``restore`` gives each rank exactly its block of every
+  leaf under the sharding it is given, whatever mesh wrote the checkpoint
+  (the reference's elastic restore).
 
 A tree is an ``nn.Module`` (its named parameters), a tensor, or a nested
 dict of trees (``repro_torch.utils.named_leaves``).
@@ -65,6 +72,7 @@ class CheckpointManager:
         os.makedirs(directory, exist_ok=True)
         self._q: "queue.Queue" = queue.Queue()
         self._errors: list = []
+        self._sharding = None  # the last save's, whose group wait() joins
         self._thread: Optional[threading.Thread] = None
         if async_write:
             self._thread = threading.Thread(target=self._worker, daemon=True)
@@ -89,10 +97,18 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     # -- save ----------------------------------------------------------------
-    def save(self, step: int, tree: Any, extra: Optional[dict] = None) -> None:
+    def save(self, step: int, tree: Any, extra: Optional[dict] = None,
+             sharding=None) -> None:
         """Snapshot ``tree`` at ``step``.  Returns once the data is on the
-        host; the write happens on the writer thread (``async_write``)."""
+        host; the write happens on the writer thread (``async_write``).
+        With ``sharding`` the leaves are the rank's blocks: every rank
+        gathers them whole and the group's rank 0 writes."""
         leaves = named_leaves(tree)
+        if sharding is not None:
+            self._sharding = sharding
+            leaves = {name: sharding.whole(name, t.detach()) for name, t in leaves.items()}
+            if not sharding.writer:
+                return
         host = [_to_host(t) for t in leaves.values()]
         manifest = {
             "step": int(step),
@@ -138,9 +154,13 @@ class CheckpointManager:
             shutil.rmtree(self._step_dir(s), ignore_errors=True)
 
     def wait(self) -> None:
-        """Drain pending writes; re-raise the first writer error."""
+        """Drain pending writes; re-raise the first writer error.  After a
+        save over a mesh every rank of the group waits here until rank 0's
+        write has landed."""
         if self.async_write:
             self._q.join()
+        if self._sharding is not None:
+            self._sharding.barrier()
         if self._errors:
             raise self._errors[0]
 
@@ -153,12 +173,14 @@ class CheckpointManager:
 
     # -- restore -------------------------------------------------------------
     @torch.no_grad()
-    def restore(self, like: Any, step: Optional[int] = None) -> tuple[int, Any, dict]:
+    def restore(self, like: Any, step: Optional[int] = None,
+                sharding=None) -> tuple[int, Any, dict]:
         """Load a checkpoint (the latest, or ``step``) into the tensors of
         ``like``, in place, on their devices.  Returns ``(step, like,
         extra)``.  Raises ``FileNotFoundError`` without a checkpoint and
         ``ValueError`` when the stored tree's paths, shapes or types differ
-        from ``like``'s."""
+        from ``like``'s.  With ``sharding`` ``like`` holds the rank's blocks,
+        and each gets its block of the stored whole leaf."""
         if step is None:
             step = self.latest_step()
             if step is None:
@@ -174,11 +196,14 @@ class CheckpointManager:
         with np.load(os.path.join(d, "arrays.npz")) as data:
             for i, (path, t) in enumerate(leaves.items()):
                 shape, dtype = manifest["shapes"][i], manifest["dtypes"][i]
-                if shape != list(t.shape) or dtype != _dtype_name(t):
-                    raise ValueError(f"checkpoint leaf {path}: stored {dtype}{shape}, wanted "
-                                     f"{_dtype_name(t)}{list(t.shape)}")
                 src = torch.from_numpy(data[str(i)])
                 if _DTYPES[dtype] in _BITS:
                     src = src.view(_DTYPES[dtype])
+                if sharding is not None:
+                    src = sharding.block(path, src)
+                    shape = list(src.shape)
+                if shape != list(t.shape) or dtype != _dtype_name(t):
+                    raise ValueError(f"checkpoint leaf {path}: stored {dtype}{shape}, wanted "
+                                     f"{_dtype_name(t)}{list(t.shape)}")
                 t.copy_(src)
         return step, like, manifest["extra"]

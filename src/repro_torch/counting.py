@@ -18,6 +18,11 @@ rank's own rounds, and its reductions apart in ``collectives`` (``"psum"``,
 models' collectives over a mesh axis (``distributed/collectives.py``) are
 counted there too, with the bytes of each rank's input in
 ``collective_bytes``.
+
+A backward pass on the card runs on autograd's own thread, which no scope
+of the caller sees: :data:`PROCESS` counts every thread's collectives
+(under a lock), as ``kernels.build.LAUNCHES`` counts every launch; a train
+step reads it (``launch/train_run.py``).
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ import dataclasses
 import threading
 
 _local = threading.local()
+_lock = threading.Lock()
 
 
 @dataclasses.dataclass
@@ -48,6 +54,10 @@ class Scope:
     def exchange_bytes(self) -> int:
         """Bytes one shard sent through those rounds."""
         return sum(self.round_bytes.values())
+
+
+# Every thread's collectives (``record_collective``), process-wide.
+PROCESS = Scope()
 
 
 def _scopes() -> list:
@@ -79,6 +89,9 @@ def record_round(label: str, nbytes: int) -> None:
 def record_collective(kind: str, nbytes: int = 0) -> None:
     """One collective of a process group (``"psum"``, ``"pmax"``, ``"agree"``,
     ...) whose input on this rank is ``nbytes`` long."""
+    with _lock:
+        PROCESS.collectives[kind] += 1
+        PROCESS.collective_bytes[kind] += int(nbytes)
     for scope in _scopes():
         scope.collectives[kind] += 1
         scope.collective_bytes[kind] += int(nbytes)

@@ -23,8 +23,8 @@ row-major order.
 :meth:`ParallelConfig.shard_act` is the residual stream's layout per rank.
 ``act_barrier`` (the reference's ``optimization_barrier``, an XLA scheduling
 hint) has no counterpart in eager PyTorch: it is accepted and does nothing.
-``microbatches``, ``remat`` and ``grad_compression`` are carried for the
-training slice.
+``microbatches``, ``remat`` and ``grad_compression`` are the train step's
+(``train.step``).
 """
 from __future__ import annotations
 
@@ -35,9 +35,6 @@ from typing import Optional, Tuple
 import torch
 
 MOE_SLICE = "the MoE slice"
-# The slice that trains over a mesh: ZeRO-3 over dp, manual data parallelism,
-# the pipeline and the int8 all-reduce.
-TRAIN_MESH_SLICE = "the training-over-a-mesh slice"
 
 
 @dataclasses.dataclass(frozen=True)

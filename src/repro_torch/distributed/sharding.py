@@ -280,3 +280,68 @@ def gather(local: torch.Tensor, spec: tuple, parallel: ParallelConfig, axes) -> 
         else:
             raise ValueError(f"spec entry {entry} is neither the tp axis nor the dp axes")
     return out
+
+
+def opt_state_pspecs(param_specs: dict, grad_compression: bool = False) -> dict:
+    """The AdamW state's specs (ZeRO): ``m`` and ``v``, and ``ef_error``
+    under ``grad_compression``, take each parameter's spec; ``step`` is
+    replicated (the reference's ``Trainer._shardings``)."""
+    out = {"step": (), "m": dict(param_specs), "v": dict(param_specs)}
+    if grad_compression:
+        out["ef_error"] = dict(param_specs)
+    return out
+
+
+def flat_pspecs(tree: dict, prefix: str = "") -> dict:
+    """Dotted name → spec of a nested dict of specs, by the names
+    ``repro_torch.utils.named_leaves`` gives the matching tree of tensors."""
+    out = {}
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            out.update(flat_pspecs(val, f"{prefix}{key}."))
+        else:
+            out[f"{prefix}{key}"] = tuple(val)
+    return out
+
+
+class TreeSharding:
+    """Where each leaf of a flattened tree lies over a mesh: ``specs`` (dotted
+    name → spec) and this rank's axes of ``layout`` (a
+    ``models.layers.Layout`` of the bundle).  :meth:`whole` gathers a leaf
+    from every rank's block, :meth:`block` cuts this rank's block of a
+    whole leaf; ``writer`` is the group's rank 0, :meth:`barrier` waits for
+    every rank of the group.  A checkpoint written under one mesh restores
+    under another (``CheckpointManager``)."""
+
+    def __init__(self, specs: dict, layout):
+        from repro_torch.distributed import collectives
+
+        self.specs = dict(specs)
+        self.parallel = layout.parallel
+        self.axes = (layout.dp, layout.tp)
+        self.coord = layout.coord
+        self._world = collectives.world()
+
+    @property
+    def writer(self) -> bool:
+        return self._world.index == 0
+
+    def whole(self, name: str, local: torch.Tensor) -> torch.Tensor:
+        return gather(local, self.specs[name], self.parallel, self.axes)
+
+    def block(self, name: str, full: torch.Tensor) -> torch.Tensor:
+        return block(full, self.specs[name], self.parallel.mesh, self.coord)
+
+    def barrier(self) -> None:
+        self._world.barrier()
+
+
+def counts_block(spec: tuple, mesh, coord: dict) -> bool:
+    """Whether this rank counts its block of a leaf of ``spec`` in a sum over
+    the group's distinct blocks: it does at index 0 of every mesh axis the
+    spec leaves the leaf whole over (one copy of each block)."""
+    used = set()
+    for entry in spec:
+        if entry is not None:
+            used.update((entry,) if isinstance(entry, str) else entry)
+    return all(coord.get(a, 0) == 0 for a in mesh_shape(mesh) if a not in used)

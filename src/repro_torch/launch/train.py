@@ -1,4 +1,4 @@
-"""End-to-end training on one card.
+"""End-to-end training, on one card or over a mesh of ranks.
 
     # qwen3-family smoke model on the CPU (every kernel's plain twin)
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3_4b --smoke \\
@@ -8,17 +8,28 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3_4b --layers 12 \\
         --seq 2048 --batch 4 --microbatches 2 --steps 4 --dedup local
 
+    # over a (2, 2) mesh of four gloo ranks on the CPU
+    PYTHONPATH=src python -m repro_torch.launch.train --smoke --fake-devices 4 \
+        --steps 4 --batch 8 --seq 32 --microbatches 2 --device cpu
+
 The reference's flags, plus ``--device`` (default: the CUDA card; raises
 ``RuntimeError`` without one, ``cpu`` asks for the plain path).  The data
 is ``ShardedLoader`` over ``SyntheticCorpus(dup_rate=0.05)`` drawn on the
-device, with the HashGraph dedup under ``--dedup local``.  Training over a
-mesh (``--fake-devices``) belongs to a later slice and raises
-``NotImplementedError``.
+device, with the HashGraph dedup under ``--dedup local``.
+
+``--fake-devices N`` (N > 1) keeps the reference's meaning, N devices under
+``make_smoke_mesh()`` with ``data`` the dp axis and ``model`` tp where
+present: here N ranks (``launch.mesh.spawn``, gloo) on ``--device`` (a
+named card puts every rank on it; the default gives rank r card r), each
+training its blocks (``train.step`` over the mesh), every rank drawing the
+global batch.  ``--grad-compression`` is error feedback on that step.
+Rank 0 logs, and ``main`` returns its result.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import sys
 
 
 def parse(argv=None) -> argparse.Namespace:
@@ -48,14 +59,9 @@ def parse(argv=None) -> argparse.Namespace:
 def make_trainer(args: argparse.Namespace, log=print):
     """The trainer ``main`` runs: the config with the flags' overrides, its
     bundle on the device, the loader and the train-step settings."""
-    if args.fake_devices:
-        from repro_torch.distributed.parallel import TRAIN_MESH_SLICE
-
-        raise NotImplementedError(f"--fake-devices (training over a mesh) belongs to "
-                                  f"{TRAIN_MESH_SLICE}")
     from repro_torch.configs.base import get_config, get_smoke_config
     from repro_torch.data import ShardedLoader, SyntheticCorpus
-    from repro_torch.distributed.parallel import single_device_parallel
+    from repro_torch.distributed.parallel import ParallelConfig, single_device_parallel
     from repro_torch.models.api import build_model
     from repro_torch.train import Trainer, TrainerConfig, TrainStepConfig
     from repro_torch.utils import tree_param_count
@@ -70,12 +76,23 @@ def make_trainer(args: argparse.Namespace, log=print):
         overrides["vocab_size"] = args.vocab
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
-    parallel = dataclasses.replace(single_device_parallel(), microbatches=args.microbatches,
-                                   grad_compression=args.grad_compression)
+    if args.fake_devices > 1:
+        from repro_torch.launch.mesh import make_smoke_mesh
+
+        mesh = make_smoke_mesh()
+        parallel = ParallelConfig(
+            mesh=mesh, dp_axes=("data",),
+            tp_axis="model" if "model" in mesh.mesh_dim_names else None,
+            moe_impl="ep" if cfg.is_moe else "dense", microbatches=args.microbatches,
+            grad_compression=args.grad_compression)
+    else:
+        parallel = dataclasses.replace(single_device_parallel(), microbatches=args.microbatches,
+                                       grad_compression=args.grad_compression)
     bundle = build_model(cfg, parallel, device=args.device)
     n = tree_param_count(bundle.param_shapes())
+    mesh = dict(zip(parallel.mesh.mesh_dim_names, parallel.mesh.shape)) if parallel.mesh else None
     log(f"[train] arch={cfg.name} layers={cfg.num_layers} params={n / 1e6:.1f}M "
-        f"device={bundle.device}")
+        f"device={bundle.device} mesh={mesh}")
     corpus = SyntheticCorpus(vocab_size=cfg.vocab_size, seq_len=args.seq, seed=args.seed,
                              dup_rate=0.05, device=bundle.device)
     loader = ShardedLoader(corpus, batch_size=args.batch, dedup=args.dedup)
@@ -95,14 +112,32 @@ def make_trainer(args: argparse.Namespace, log=print):
     )
 
 
-def main(argv=None) -> dict:
-    trainer = make_trainer(parse(argv))
+def _train(args, log=print) -> dict:
+    trainer = make_trainer(args, log)
     out = trainer.run()
+    mesh = trainer.bundle.parallel.mesh
+    out["mesh"] = dict(zip(mesh.mesh_dim_names, mesh.shape)) if mesh is not None else None
     hist = out["history"]
     if hist:
-        print(f"[train] done: step={out['final_step']} loss {hist[0]['loss']:.3f} -> "
-              f"{hist[-1]['loss']:.3f} stragglers={out['stragglers']}")
+        log(f"[train] done: step={out['final_step']} loss {hist[0]['loss']:.3f} -> "
+            f"{hist[-1]['loss']:.3f} stragglers={out['stragglers']}")
     return out
+
+
+def _rank(group, argv) -> dict:
+    """One spawned rank of ``--fake-devices``: rank 0 logs."""
+    return _train(parse(argv), print if group.rank == 0 else (lambda msg: None))
+
+
+def main(argv=None) -> dict:
+    args = parse(argv)
+    if args.fake_devices > 1:
+        from repro_torch.launch.mesh import spawn
+
+        argv = list(sys.argv[1:] if argv is None else argv)
+        return spawn(_rank, args.fake_devices, "gloo", args.device, args=(argv,),
+                     timeout_s=600.0)[0]
+    return _train(args)
 
 
 if __name__ == "__main__":

@@ -25,7 +25,7 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.parallel import MOE_SLICE, TRAIN_MESH_SLICE, ParallelConfig
+from repro_torch.distributed.parallel import MOE_SLICE, ParallelConfig
 from repro_torch.models import layers, transformer
 
 
@@ -73,9 +73,9 @@ def build_model(cfg: ArchConfig, parallel: Optional[ParallelConfig] = None, *, d
     tokens (B, S+1))`` → (logits (B, S, V), aux), differentiable;
     ``loss(params, {"tokens": (B, S+1)})`` → (loss, metrics);
     ``init_train(seed)`` the same draws as ``init`` kept in f32 with
-    ``requires_grad=True`` (training over a mesh raises
-    ``NotImplementedError``).  ``parallel.remat`` (default True) recomputes
-    each period in the backward pass.
+    ``requires_grad=True`` (over a mesh the rank's f32 master blocks of the
+    whole draw).  ``parallel.remat`` (default True) recomputes each period
+    in the backward pass.
 
     A ``parallel`` mesh must span the ``torch.distributed`` group
     (``ValueError`` otherwise); building binds the rank's tp and dp groups
@@ -126,11 +126,9 @@ def build_model(cfg: ArchConfig, parallel: Optional[ParallelConfig] = None, *, d
                                    layout=layout, remat=remat)
 
     def init_train(seed: int) -> transformer.Transformer:
-        if layout.sharded:
-            raise NotImplementedError(f"training over a mesh belongs to {TRAIN_MESH_SLICE}")
         gen = torch.Generator(device=dev).manual_seed(int(seed))
         return transformer.trainable_params(
-            transformer.init_params(cfg, gen, device=dev, dtype=torch.float32))
+            transformer.init_params(cfg, gen, device=dev, dtype=torch.float32, layout=layout))
 
     return ModelBundle(
         cfg=cfg,

@@ -90,13 +90,15 @@ def _kv_of(h0: int, h1: int, g: int) -> tuple[int, int, int]:
 
 
 def _project_qkv(p: Attention, x: torch.Tensor, cfg: ArchConfig, positions,
-                 lay: layers.Layout = layers.SINGLE, heads=None, kv=None):
+                 lay: layers.Layout = layers.SINGLE, heads=None, kv=None, partial: bool = False):
     """x (B,S,d) → q (B,KV',G',S,hd), k/v (B,KV'',S,hd) with qk_norm, then rope.
 
     ``heads`` = (h0, h1) are the query heads kept (grouped over their kv
     heads, ``_kv_of``) and ``kv`` = (kv0, kv1) the kv heads kept; default
     all.  A rank's column blocks of the products that do not hold them are
-    gathered over tp in one call."""
+    gathered over tp in one call.  ``partial``: the attention's output is a
+    partial sum over tp, so the qk norms act on each rank's own part (their
+    gradients are summed over tp)."""
     b, s, _ = x.shape
     hd, g = cfg.head_dim_, cfg.q_per_kv
     h0, h1 = heads or (0, cfg.num_heads)
@@ -112,8 +114,8 @@ def _project_qkv(p: Attention, x: torch.Tensor, cfg: ArchConfig, positions,
     k = k.reshape(b, s, kv1 - kv0, hd)
     v = v.reshape(b, s, kv1 - kv0, hd)
     if cfg.qk_norm:
-        q = layers.rmsnorm(q, p.q_norm)
-        k = layers.rmsnorm(k, p.k_norm)
+        q = layers.rmsnorm(q, lay.tp_shared(p.q_norm, partial))
+        k = layers.rmsnorm(k, lay.tp_shared(p.k_norm, partial))
     if positions is not None:
         q = layers.apply_rope(q, positions[:, :, None, None], cfg.rope_theta)
         k = layers.apply_rope(k, positions[:, :, None], cfg.rope_theta)
@@ -208,8 +210,9 @@ def attention(
     positions of every kv head; decode combines partial softmaxes across tp)
     or None (whole).
     """
-    if sp:
-        x = lay.tp.all_gather(x, 1)
+    r0, r1, _ = lay.rows(p.wo)
+    partial = (r0, r1) != (0, cfg.num_heads * cfg.head_dim_)
+    x = lay.tp_input(x, sp, partial)
     b, s, _ = x.shape
     hd, g = cfg.head_dim_, cfg.q_per_kv
     seq_cache = kv_layout == "seq"
@@ -218,7 +221,7 @@ def attention(
     kv0, kv1, _ = _kv_of(h0, h1, g)
     c0, c1 = _cache_heads(lay, cfg, kv_layout)
     n0, n1 = (min(kv0, c0), max(kv1, c1)) if decode or return_cache else (kv0, kv1)
-    q, k_new, v_new = _project_qkv(p, x, cfg, positions, lay, (h0, h1), (n0, n1))
+    q, k_new, v_new = _project_qkv(p, x, cfg, positions, lay, (h0, h1), (n0, n1), partial)
     k_att, v_att = k_new[:, kv0 - n0:kv1 - n0], v_new[:, kv0 - n0:kv1 - n0]
 
     if decode:
@@ -265,8 +268,6 @@ def attention(
             v_cache[:, :, :n] = v_c[:, :, offset:offset + n]
             new_cache = KVCache(k_cache, v_cache)
 
-    r0, r1, _ = lay.rows(p.wo)
-    partial = (r0, r1) != (0, cfg.num_heads * hd)
     (merged,) = layers.take_cols(lay, [(merged, (h0 * hd, h1 * hd, cfg.num_heads * hd), (r0, r1))])
     out = merged @ lay.w(p.wo).to(x.dtype)
     return layers.reduce_rows(lay, out, partial, sp), new_cache

@@ -7,7 +7,12 @@ activation type.
 :class:`Layout` is a rank's view of a model sharded over a mesh, and the
 helpers after it are the pieces its blocks share: column blocks gathered
 where they do not hold the heads a rank computes, row-parallel sums, the
-RMSNorm of a column block and the vocab-parallel embedding.
+RMSNorm of a column block and the vocab-parallel embedding.  Their
+collectives carry gradients (``distributed.collectives``, Megatron's
+convention), so a pass over a mesh with trainable weights is
+differentiable; a block whose output is a partial sum over tp
+(``partial``) sums over tp the gradients of the replicated weights it
+applies to each rank's part.
 """
 from __future__ import annotations
 
@@ -155,13 +160,17 @@ class Layout:
         return self._gather_dp([p])[id(p)]
 
     def _gather_dp(self, params) -> dict:
-        parts = self.dp.all_gather_bytes([p.detach() for p in params])
-        return {id(p): torch.cat(ps, dim=self._dim_of(p, "dp")) for p, ps in zip(params, parts)}
+        from repro_torch.distributed import collectives
+
+        whole = collectives.gather_blocks(self.dp, params, [self._dim_of(p, "dp") for p in params])
+        return {id(p): w for p, w in zip(params, whole)}
 
     @contextlib.contextmanager
     def gathered(self, module):
         """Gather every dp-sharded weight of ``module`` in one all-gather for
-        the block inside; the gathered copies are dropped after it."""
+        the block inside; the gathered copies are dropped after it.  Where
+        the weights require gradients the gather is part of the graph: its
+        backward reduce-scatters their gradients over dp into the blocks."""
         if self.dp.size == 1:
             yield
             return
@@ -188,6 +197,28 @@ class Layout:
         """``(lo, hi, n)`` of ``p``'s rows (dim -2)."""
         return self._block(p, p.ndim - 2)
 
+    def tp_shared(self, p: torch.Tensor, sharded_use: bool = True) -> torch.Tensor:
+        """A weight every tp rank holds whole, read where each rank applies it
+        to its own heads or positions (``sharded_use``): its gradient is
+        then summed over tp (``collectives.enter_sharded``)."""
+        from repro_torch.distributed import collectives
+
+        return collectives.enter_sharded(self.tp, p) if sharded_use else p
+
+    def tp_input(self, x: torch.Tensor, sp: bool, sharded: bool = True) -> torch.Tensor:
+        """A block's input entering its products: under sequence parallelism
+        the sequence blocks gathered, else the replicated activation.  Where
+        the products are tp-sharded (``sharded``: their sum is partial) the
+        gradient that comes back is partial too, so the gather's backward
+        reduce-scatters and the replicated input's all-reduces; otherwise
+        every rank computes the whole alike and the gather's backward keeps
+        the rank's block."""
+        from repro_torch.distributed import collectives
+
+        if sp:
+            return (collectives.gather if sharded else collectives.gather_whole)(self.tp, x, 1)
+        return collectives.enter_sharded(self.tp, x) if sharded else x
+
     # -- activations --------------------------------------------------------------
     def act(self, cfg, shape, seq: bool = True) -> tuple[bool, bool]:
         """``(batch over dp, sequence over tp)`` of a ``(B, S, ...)``
@@ -207,9 +238,11 @@ class Layout:
     def gather_batch(self, x: torch.Tensor, sharded: bool) -> torch.Tensor:
         """Every rank's rows back (a sharded batch), or dp index 0's copy (a
         batch every dp rank computed): the same bits on every rank."""
+        from repro_torch.distributed import collectives
+
         if self.dp.size == 1:
             return x
-        return self.dp.all_gather(x, 0) if sharded else self.dp.broadcast(x, 0)
+        return collectives.gather_whole(self.dp, x, 0) if sharded else self.dp.broadcast(x, 0)
 
 
 SINGLE = Layout()
@@ -228,7 +261,9 @@ def take_cols(lay: Layout, items) -> list:
             out.append(None)
             need.append(i)
     if need:
-        full = lay.tp.all_gather_cols([items[i][0] for i in need])
+        from repro_torch.distributed import collectives
+
+        full = collectives.gather_cols(lay.tp, [items[i][0] for i in need])
         for i, f in zip(need, full):
             a, b = items[i][2]
             out[i] = f if (a, b) == (0, f.shape[-1]) else f[..., a:b]
@@ -239,21 +274,30 @@ def reduce_rows(lay: Layout, out: torch.Tensor, partial: bool, sp: bool) -> torc
     """A row-parallel product's result: ``partial`` sums are all-reduced over
     tp, or reduce-scattered along the sequence (dim 1) under sequence
     parallelism; a whole result keeps the rank's sequence block then."""
+    from repro_torch.distributed import collectives
+
     if partial:
-        return lay.tp.reduce_scatter(out, 1) if sp else lay.tp.all_reduce(out)
-    return lay.tp.block(out, 1) if sp else out
+        return collectives.scatter_sum(lay.tp, out, 1) if sp else \
+            collectives.sum_partials(lay.tp, out)
+    return collectives.split(lay.tp, out, 1) if sp else out
 
 
 def rmsnorm_cols(lay: Layout, x: torch.Tensor, w: torch.Tensor, have: tuple,
-                 eps: float = 1e-6) -> torch.Tensor:
+                 eps: float = 1e-6, partial: bool = False) -> torch.Tensor:
     """RMSNorm over a dim of which ``x`` holds columns ``have = (lo, hi, n)``;
     ``w`` is the whole (n,) weight.  A block takes the mean of squares over
-    tp (one all-reduce of the sums)."""
+    tp (one all-reduce of the sums).  ``partial``: the block's output is a
+    partial sum over tp, so the gradients that reach the norm are each
+    rank's part (its weight's are summed over tp, and so are the mean's)."""
+    from repro_torch.distributed import collectives
+
     lo, hi, n = have
+    w = lay.tp_shared(w, partial)
     if (lo, hi) == (0, n):
         return rmsnorm(x, w, eps)
     xf = x.float()
-    var = lay.tp.all_reduce(xf.square().sum(dim=-1, keepdim=True)) / n
+    sums = collectives.sum_partials(lay.tp, xf.square().sum(dim=-1, keepdim=True))
+    var = collectives.enter_sharded(lay.tp, sums) / n
     out = xf * torch.rsqrt(var + eps) * w[lo:hi].float()
     return out.to(x.dtype)
 
@@ -264,15 +308,17 @@ def embed_tokens(lay: Layout, embed: torch.Tensor, tokens: torch.Tensor, dtype,
     the ids in its range and zeros the others, then the ranks' rows are
     summed over tp (reduce-scattered along the sequence under sequence
     parallelism): one rank holds each id, so the sum is exact."""
+    from repro_torch.distributed import collectives
+
     lo, hi, v = lay.rows(embed)
     ids = tokens.to(torch.long)
     if (lo, hi) == (0, v):
         x = embed[ids].to(dtype)
-        return lay.tp.block(x, 1) if sp else x
+        return collectives.split(lay.tp, x, 1) if sp else x
     local = ids - lo
     ok = (local >= 0) & (local < hi - lo)
     x = torch.where(ok[..., None], embed[local.clamp(0, hi - lo - 1)], 0).to(dtype)
-    return lay.tp.reduce_scatter(x, 1) if sp else lay.tp.all_reduce(x)
+    return collectives.scatter_sum(lay.tp, x, 1) if sp else collectives.sum_partials(lay.tp, x)
 
 
 def tp_range(lay: Layout, n: int) -> tuple[int, int, int]:

@@ -171,7 +171,9 @@ def mlstm_block(
     h0, h1 = _rank_heads(lay, lay.cols(p.wq), h, dk)
     hl = h1 - h0
     tp_c, tp_n = state_tp_dims(lay, cfg, "mlstm")
-    xin = layers.rmsnorm(x, p.norm)
+    r0, r1, _ = lay.rows(p.w_down)
+    partial = (r0, r1) != (0, d_inner)
+    xin = lay.tp_input(layers.rmsnorm(x, p.norm), False, partial)
     z = F.silu(xin @ lay.w(p.w_gate).to(dtype))
     (u,) = layers.take_cols(lay, [(xin @ lay.w(p.w_up).to(dtype), lay.cols(p.w_up), (0, d_inner))])
     q, k, v, gates = layers.take_cols(lay, [
@@ -222,10 +224,9 @@ def mlstm_block(
     hs = hs.transpose(1, 2).reshape(b, s, hl * dv).to(dtype)
     have = (h0 * dv, h1 * dv, d_inner)
     (z,) = layers.take_cols(lay, [(z, lay.cols(p.w_gate), have[:2])])
-    hs = layers.rmsnorm_cols(lay, hs, p.out_norm, have) * z
-    r0, r1, _ = lay.rows(p.w_down)
+    hs = layers.rmsnorm_cols(lay, hs, p.out_norm, have, partial=partial) * z
     (hs,) = layers.take_cols(lay, [(hs, have, (r0, r1))])
-    out = layers.reduce_rows(lay, hs @ lay.w(p.w_down).to(dtype), (r0, r1) != (0, d_inner), False)
+    out = layers.reduce_rows(lay, hs @ lay.w(p.w_down).to(dtype), partial, False)
     if not return_state:
         return x + out, None
     hv = (h0, h1, h)
@@ -319,13 +320,14 @@ def slstm_block(
     hd = d // h
     dtype = x.dtype
     r0, r1, _ = lay.rows(p.w_down)
+    partial = (r0, r1) != (0, d)
     h0, h1 = _rank_heads(lay, (r0, r1, d), h, hd)
     hl = h1 - h0
     tp_dims = state_tp_dims(lay, cfg, "slstm")
-    xin = layers.rmsnorm(x, p.norm)
+    xin = lay.tp_input(layers.rmsnorm(x, p.norm), False, partial)
     (proj,) = layers.take_cols(lay, [(xin @ lay.w(p.w_in).to(dtype), lay.cols(p.w_in),
                                       (0, 4 * d))])
-    pre = proj.float() + p.b  # (B,S,4d)
+    pre = proj.float() + lay.tp_shared(p.b, partial)  # (B,S,4d)
     if state is None:
         state = slstm_init_state(cfg, b, x.device)
         if hl != h:
@@ -334,13 +336,13 @@ def slstm_block(
         state = SLSTMState(*(layers.from_block(lay, t, dim, 1, (h0 * hd, h1 * hd))
                              for t, dim in zip(state, tp_dims)))
     pre5 = pre.view(b, s, 4, h, hd).permute(0, 3, 1, 2, 4)[:, h0:h1]  # (B,H',S,4,hd)
-    hs, *finals = kslstm.SlstmSequence.apply(pre5, p.r[h0:h1],
+    hs, *finals = kslstm.SlstmSequence.apply(pre5, lay.tp_shared(p.r, partial)[h0:h1],
                                              *(t.reshape(b, hl, hd).contiguous() for t in state))
     hs = hs.permute(0, 2, 1, 3).reshape(b, s, hl * hd).to(dtype)  # (B,S,d')
     have = (h0 * hd, h1 * hd, d)
-    hs = layers.rmsnorm_cols(lay, hs, p.out_norm, have)
+    hs = layers.rmsnorm_cols(lay, hs, p.out_norm, have, partial=partial)
     (hs,) = layers.take_cols(lay, [(hs, have, (r0, r1))])
-    out = layers.reduce_rows(lay, hs @ lay.w(p.w_down).to(dtype), (r0, r1) != (0, d), False)
+    out = layers.reduce_rows(lay, hs @ lay.w(p.w_down).to(dtype), partial, False)
     if not return_state:
         return x + out, None
     new = SLSTMState(*(layers.to_block(lay, t.reshape(b, hl * hd), 1, have, dim)

@@ -192,6 +192,23 @@ def trainable_params(model: Transformer) -> Transformer:
     return model
 
 
+def compute_copy(params: Transformer) -> Transformer:
+    """The reference's compute copy of f32 masters on a mesh (its train
+    step's ``_compute_copy``, made once a step): a module over the same
+    blocks whose f32 matrices (``ndim >= 2``) are cast to bf16, so that the
+    FSDP gathers and the gradient reductions move bf16; the norm vectors are
+    the masters' tensors.  Every parameter is a new leaf requiring a
+    gradient, of which the step takes the gradients."""
+    model = Transformer(params.cfg, dtype=torch.bfloat16, device="meta")
+    for name, p in params.named_parameters():
+        t = p.detach()
+        if t.dtype == torch.float32 and t.ndim >= 2:
+            t = t.to(torch.bfloat16)
+        owner, _, leaf = name.rpartition(".")
+        setattr(model.get_submodule(owner), leaf, nn.Parameter(t, requires_grad=True))
+    return model
+
+
 def set_params(model: nn.Module, tensors: dict) -> nn.Module:
     """Put ``tensors`` (name → tensor, any shape: a rank's blocks) in place
     of ``model``'s parameters."""
@@ -310,13 +327,12 @@ def _apply_mlp(p: Block, x: torch.Tensor, lay: layers.Layout = layers.SINGLE,
     """The SwiGLU residual: ``w_gate`` / ``w_up`` column-parallel and
     ``w_down`` row-parallel over a mesh (``x`` the rank's sequence block
     under ``sp``)."""
-    xin = layers.rmsnorm(x, p.norm2)
-    if sp:
-        xin = lay.tp.all_gather(xin, 1)
     m = p.mlp
-    out = layers.swiglu(xin, lay.w(m.w_gate), lay.w(m.w_up), lay.w(m.w_down))
     r0, r1, n = lay.rows(m.w_down)
-    return x + layers.reduce_rows(lay, out, (r0, r1) != (0, n), sp)
+    partial = (r0, r1) != (0, n)
+    xin = lay.tp_input(layers.rmsnorm(x, lay.tp_shared(p.norm2, sp)), sp, partial)
+    out = layers.swiglu(xin, lay.w(m.w_gate), lay.w(m.w_up), lay.w(m.w_down))
+    return x + layers.reduce_rows(lay, out, partial, sp)
 
 
 def apply_block_train(bt: str, p, x, positions, cfg: ArchConfig,
@@ -325,7 +341,7 @@ def apply_block_train(bt: str, p, x, positions, cfg: ArchConfig,
         return ssm.mlstm_block(p.mixer, x, cfg, lay=lay)[0]
     if bt == "slstm":
         return ssm.slstm_block(p.mixer, x, cfg, lay=lay)[0]
-    xin = layers.rmsnorm(x, p.norm1)
+    xin = layers.rmsnorm(x, lay.tp_shared(p.norm1, sp))
     out, _ = attn.attention(p.attn, xin, cfg, positions, causal=True, window=None, lay=lay,
                             sp=sp)
     return _apply_mlp(p, x + out, lay, sp)
@@ -382,13 +398,17 @@ def _head(params: Transformer, x: torch.Tensor, cfg: ArchConfig,
     """Logits over the whole vocab: the head is column-parallel over a mesh
     (``lm_head``, or the vocab-parallel ``embed`` when tied) and the blocks
     are all-gathered over tp."""
+    from repro_torch.distributed import collectives
+
     xf = layers.rmsnorm(x, params.final_norm)
     if cfg.tie_embeddings:
         w, (lo, hi, n) = lay.w(params.embed).T, lay.rows(params.embed)
     else:
         w, (lo, hi, n) = lay.w(params.lm_head), lay.cols(params.lm_head)
-    logits = xf @ w.to(xf.dtype)
-    return logits if (lo, hi) == (0, n) else lay.tp.all_gather(logits, -1)
+    if (lo, hi) == (0, n):
+        return xf @ w.to(xf.dtype)
+    logits = collectives.enter_sharded(lay.tp, xf) @ w.to(xf.dtype)
+    return collectives.gather_whole(lay.tp, logits, -1)
 
 
 def _positions(b: int, s: int, device) -> torch.Tensor:
@@ -396,9 +416,29 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
 
 
 def _period_train(period: Period, x, positions, cfg: ArchConfig, lay: layers.Layout, sp: bool):
-    for j, bt in enumerate(cfg.block_pattern):
-        x = apply_block_train(bt, getattr(period, f"b{j}"), x, positions, cfg, lay, sp)
+    with lay.gathered(period):
+        for j, bt in enumerate(cfg.block_pattern):
+            x = apply_block_train(bt, getattr(period, f"b{j}"), x, positions, cfg, lay, sp)
     return x
+
+
+def _trunk(params: Transformer, inputs: torch.Tensor, cfg: ArchConfig, lay: layers.Layout,
+           sp: bool, remat: bool) -> torch.Tensor:
+    """The residual stream after the last period for ``inputs`` (the rank's
+    rows; its sequence block under ``sp``)."""
+    from repro_torch.distributed import collectives
+
+    b, s = inputs.shape
+    x = _embed(params, inputs, cfg, lay, sp)
+    positions = _positions(b, s, x.device)
+    remat = remat and torch.is_grad_enabled() and any(p.requires_grad for p in params.parameters())
+    for period in params.layers:
+        if remat:  # the FSDP gather runs again in the recomputation
+            x = checkpoint(_period_train, period, x, positions, cfg, lay, sp,
+                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = _period_train(period, x, positions, cfg, lay, sp)
+    return collectives.gather_whole(lay.tp, x, 1) if sp else x
 
 
 def forward_train(params: Transformer, tokens: torch.Tensor, cfg: ArchConfig,
@@ -410,28 +450,15 @@ def forward_train(params: Transformer, tokens: torch.Tensor, cfg: ArchConfig,
 
     Differentiable: gradients reach every parameter that requires one
     (:func:`trainable_params`; each matrix is cast to the compute type at
-    its use).  Where autograd records on one device, ``remat`` (the
-    reference's ``parallel.remat``, on by default) runs each period under
-    one ``torch.utils.checkpoint``: its activations are recomputed in the
+    its use), over a mesh too (the collectives carry gradients).  While
+    autograd records, ``remat`` (the reference's ``parallel.remat``, on by
+    default) runs each period under one ``torch.utils.checkpoint``: its
+    activations, and over a mesh its FSDP gather, are recomputed in the
     backward pass, kernels included."""
     check_supported(cfg)
     lay = _layout(params, layout)
     batch_sharded, sp = lay.act(cfg, (tokens.shape[0], tokens.shape[1] - 1))
-    inputs = lay.batch_rows(tokens[:, :-1], batch_sharded)
-    b, s = inputs.shape
-    x = _embed(params, inputs, cfg, lay, sp)
-    positions = _positions(b, s, x.device)
-    remat = (remat and torch.is_grad_enabled() and not lay.sharded
-             and any(p.requires_grad for p in params.parameters()))
-    for period in params.layers:
-        with lay.gathered(period):
-            if remat:
-                x = checkpoint(_period_train, period, x, positions, cfg, lay, sp,
-                               use_reentrant=False, preserve_rng_state=False)
-            else:
-                x = _period_train(period, x, positions, cfg, lay, sp)
-    if sp:
-        x = lay.tp.all_gather(x, 1)
+    x = _trunk(params, lay.batch_rows(tokens[:, :-1], batch_sharded), cfg, lay, sp, remat)
     logits = lay.gather_batch(_head(params, x, cfg, lay), batch_sharded)
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -440,10 +467,27 @@ def loss_fn(params: Transformer, batch: dict, cfg: ArchConfig,
             layout: Optional[layers.Layout] = None, aux_coef: float = 0.01,
             remat: bool = True):
     """Next-token CE (+ the MoE load-balance aux, 0 here) of ``batch["tokens"]``
-    (B, S+1).  Returns ``(loss, {"loss", "ce", "moe_aux"})``, f32 scalars."""
+    (B, S+1).  Returns ``(loss, {"loss", "ce", "moe_aux"})``, f32 scalars.
+
+    Over a mesh with dp > 1 each rank takes its rows of the batch (they must
+    divide over dp, ``ValueError`` otherwise), and ``ce`` is the mean over
+    the whole batch: each rank's mean summed over dp and divided by its
+    size (the sum's gradient passes through), the same bits on every
+    rank."""
+    from repro_torch.distributed import collectives
+
+    check_supported(cfg)
     tokens = batch["tokens"]
-    logits, aux = forward_train(params, tokens, cfg, layout, remat)
-    ce = layers.softmax_cross_entropy_logits(logits, tokens[:, 1:])
+    lay = _layout(params, layout)
+    batch_sharded, sp = lay.act(cfg, (tokens.shape[0], tokens.shape[1] - 1))
+    if lay.dp.size > 1 and not batch_sharded:
+        raise ValueError(f"a loss over a mesh takes rows that divide over dp: {tokens.shape[0]} "
+                         f"rows over {lay.dp.size} ranks")
+    rows = lay.batch_rows(tokens, batch_sharded)
+    logits = _head(params, _trunk(params, rows[:, :-1], cfg, lay, sp, remat), cfg, lay)
+    mine = layers.softmax_cross_entropy_logits(logits, rows[:, 1:])
+    ce = collectives.sum_partials(lay.dp, mine) / lay.dp.size
+    aux = torch.zeros((), dtype=torch.float32, device=ce.device)  # MoE's, 0 for dense stacks
     loss = ce + aux_coef * aux
     return loss, {"loss": loss, "ce": ce, "moe_aux": aux}
 

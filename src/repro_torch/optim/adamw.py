@@ -6,7 +6,8 @@ tensor}``, see ``repro_torch.utils.named_leaves``); the state holds the step
 and one moment pair a parameter, by name.  The update runs in f32 leaf by
 leaf with the reference's arithmetic, and writes the parameters and the
 moments in place (the moments in ``moment_dtype``): the PyTorch optimizer's
-idiom, one leaf's temporaries at a time.
+idiom, one leaf's temporaries at a time (two leaf-sized f32 temporaries
+where everything is f32).
 """
 from __future__ import annotations
 
@@ -53,6 +54,17 @@ def adamw_update(params, grads: dict, state: dict, lr, cfg: AdamWConfig):
     for name, p in named_leaves(params).items():
         m, v = state["m"][name], state["v"][name]
         g = grads[name].float()
+        wd = cfg.weight_decay if p.ndim >= 2 else 0.0
+        if m.dtype == v.dtype == p.dtype == torch.float32:
+            # The same arithmetic in place: two leaf-sized temporaries at most.
+            m.mul_(cfg.b1).add_(g * (1.0 - cfg.b1))
+            v.mul_(cfg.b2).add_(g.square().mul_(1.0 - cfg.b2))
+            del g
+            den = (v / c2).sqrt_().add_(cfg.eps)
+            update = (m / c1).div_(den)
+            del den
+            p.sub_(update.add_(p * wd).mul_(lr))
+            continue
         mf = m.float() * cfg.b1 + (1.0 - cfg.b1) * g
         vf = v.float() * cfg.b2 + (1.0 - cfg.b2) * g.square()
         del g
@@ -60,7 +72,6 @@ def adamw_update(params, grads: dict, state: dict, lr, cfg: AdamWConfig):
         m.copy_(mf)
         v.copy_(vf)
         del mf, vf
-        wd = cfg.weight_decay if p.ndim >= 2 else 0.0
         pf = p.float()
         p.copy_(pf - lr * (update + wd * pf))
     return params, {"step": step, "m": state["m"], "v": state["v"]}

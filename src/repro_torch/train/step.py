@@ -1,6 +1,6 @@
 """The train step (port of ``repro.train.step``): gradient accumulation
 over microbatches, remat, optional int8 error feedback, clipping, the
-schedule and AdamW, on one card.
+schedule and AdamW, on one card or over a mesh of ranks.
 
 ``make_train_step(bundle, tcfg)`` returns
 
@@ -19,19 +19,41 @@ updated in place, and ``opt_state`` the AdamW state (``adamw_init``):
 * global-norm clip, the learning rate of step ``opt_state["step"] + 1``
   (the schedule counts from 1) and AdamW.
 
-Metrics are f32 scalar tensors on the card: ``loss``, ``ce``, ``moe_aux``,
-``grad_norm``, ``lr`` and ``tokens``.  The optimizer's part runs inside the
-profiler range ``OPTIMIZER_RANGE``.  A ``parallel`` with a mesh raises
-``NotImplementedError``: training over a mesh is a later slice.
+Over a mesh (a bundle built with a ``ParallelConfig`` whose mesh spans the
+process group) the step is the reference's GSPMD step, written out: every
+rank takes the same global batch, and
+
+* the masters, their gradients' accumulator and the AdamW moments are the
+  rank's blocks of each parameter's spec (ZeRO-3 with tensor parallelism;
+  ``make_train_state`` builds them);
+* once a step the f32 matrices are cast to a bf16 compute copy
+  (``transformer.compute_copy``, the reference's ``_compute_copy``): the
+  FSDP gathers and the gradient reductions move bf16;
+* microbatch j is rows [j b/k, (j+1) b/k) of the global batch, of which
+  each rank takes its dp block (the reference's ``_split_microbatches``);
+* each microbatch's gradients come back reduced over dp into the rank's
+  blocks: the FSDP gather's backward reduce-scatters the dp-sharded
+  leaves, and the leaves whole over dp are all-reduced (one call a dtype);
+  tp's reductions are the model's collectives' backward passes;
+* error feedback quantizes each block with its whole leaf's scale, the
+  clip's norm counts each distinct block once over the group, and AdamW
+  updates the rank's blocks.
+
+A mesh of one rank runs the one-card step.
+
+Metrics are f32 scalar tensors on the card, the same on every rank:
+``loss``, ``ce``, ``moe_aux``, ``grad_norm``, ``lr`` and ``tokens``.  The
+optimizer's part runs inside the profiler range ``OPTIMIZER_RANGE``.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable
 
 import torch
 
-from repro_torch.distributed.parallel import TRAIN_MESH_SLICE
+from repro_torch.distributed.parallel import mesh_shape
 from repro_torch.optim import (
     AdamWConfig,
     adamw_init,
@@ -59,17 +81,39 @@ class TrainStepConfig:
                              total_steps=self.total_steps)
 
 
-def _check_single_card(bundle) -> None:
-    parallel = bundle.parallel
-    if parallel is not None and parallel.mesh is not None:
-        raise NotImplementedError(f"training over a mesh belongs to {TRAIN_MESH_SLICE}")
+def on_mesh(bundle) -> bool:
+    """Whether ``bundle`` is one rank's part of a model sharded over a mesh
+    of more than one rank.  Raises ``ValueError`` for a mesh of several
+    devices the bundle was not built over (``build_model(cfg, parallel)`` on
+    every rank binds it)."""
+    parallel, lay = bundle.parallel, bundle.layout
+    if parallel is None or parallel.mesh is None:
+        return False
+    size = math.prod(mesh_shape(parallel.mesh).values())
+    if size > 1 and not lay.sharded:
+        raise ValueError(f"the bundle's mesh of {size} devices is not bound to a process group: "
+                         "build it with build_model(cfg, parallel) on every rank of the group")
+    return lay.sharded
+
+
+def train_state_specs(bundle) -> dict:
+    """Dotted name → spec of every leaf of ``{"params": params, "opt":
+    opt_state}`` as ``make_train_state`` builds them over the bundle's mesh
+    (``sharding.opt_state_pspecs``)."""
+    from repro_torch.distributed import sharding
+
+    pspecs = bundle.layout.specs
+    compress = bool(bundle.parallel is not None and bundle.parallel.grad_compression)
+    return sharding.flat_pspecs({"params": pspecs,
+                                 "opt": sharding.opt_state_pspecs(pspecs, compress)})
 
 
 def make_train_state(bundle, tcfg: TrainStepConfig, seed: int) -> tuple[Any, dict]:
     """``(params, opt_state)`` on the bundle's device: f32 masters drawn from
-    ``seed`` (``bundle.init_train``) and the AdamW state, with the
-    error-feedback residual where ``parallel.grad_compression``."""
-    _check_single_card(bundle)
+    ``seed`` (``bundle.init_train``; over a mesh the rank's blocks) and the
+    AdamW state of the same blocks, with the error-feedback residual where
+    ``parallel.grad_compression``."""
+    on_mesh(bundle)
     params = bundle.init_train(seed)
     opt_state = adamw_init(params, tcfg.adamw)
     if bundle.parallel is not None and bundle.parallel.grad_compression:
@@ -78,8 +122,21 @@ def make_train_state(bundle, tcfg: TrainStepConfig, seed: int) -> tuple[Any, dic
     return params, opt_state
 
 
+def _microbatches(tokens: torch.Tensor, k: int) -> list:
+    b = tokens.shape[0]
+    if b % k:
+        raise ValueError(f"batch {b} not divisible by microbatches {k}")
+    return list(tokens.reshape(k, b // k, *tokens.shape[1:]))
+
+
+def _tokens_metric(tokens: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(float(tokens.shape[0] * (tokens.shape[1] - 1)), dtype=torch.float32,
+                        device=tokens.device)
+
+
 def make_train_step(bundle, tcfg: TrainStepConfig) -> Callable[[Any, dict, dict], tuple]:
-    _check_single_card(bundle)
+    if on_mesh(bundle):
+        return _make_mesh_step(bundle, tcfg)
     parallel = bundle.parallel
     k = parallel.microbatches if parallel is not None else 1
     compress = parallel is not None and parallel.grad_compression
@@ -94,14 +151,11 @@ def make_train_step(bundle, tcfg: TrainStepConfig) -> Callable[[Any, dict, dict]
         named = {n: p for n, p in params.named_parameters() if p.requires_grad}
         names, leaves = list(named), list(named.values())
         if k > 1:
-            b = tokens.shape[0]
-            if b % k:
-                raise ValueError(f"batch {b} not divisible by microbatches {k}")
             grads = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                      for n, p in named.items()}
             metrics = {m: torch.zeros((), dtype=torch.float32, device=tokens.device)
                        for m in METRICS}
-            for mb in tokens.reshape(k, b // k, *tokens.shape[1:]):
+            for mb in _microbatches(tokens, k):
                 mb_metrics, mb_grads = value_and_grad(params, names, leaves, mb)
                 for n, g in mb_grads.items():
                     grads[n].add_(g.float() / k)
@@ -122,9 +176,77 @@ def make_train_step(bundle, tcfg: TrainStepConfig) -> Callable[[Any, dict, dict]
             del grads
         if compress:
             new_opt["ef_error"] = new_err
-        metrics.update(grad_norm=gnorm, lr=lr,
-                       tokens=torch.tensor(float(tokens.shape[0] * (tokens.shape[1] - 1)),
-                                           dtype=torch.float32, device=tokens.device))
+        metrics.update(grad_norm=gnorm, lr=lr, tokens=_tokens_metric(tokens))
+        return params, new_opt, metrics
+
+    return train_step
+
+
+def reduce_whole_over_dp(lay, grads: dict) -> dict:
+    """All-reduce over dp the gradients of the leaves whole over dp (each dp
+    rank's holds its rows' part), one call a dtype; the dp-sharded leaves'
+    come back reduced from the FSDP gather's backward."""
+    if lay.dp.size == 1:
+        return grads
+    dp = tuple(lay.parallel.dp_axes)
+    whole = [n for n in grads if all(e is None or tuple((e,) if isinstance(e, str) else e) != dp
+                                     for e in lay.specs[n])]
+    by_dtype: dict = {}
+    for n in whole:
+        by_dtype.setdefault(grads[n].dtype, []).append(n)
+    out = dict(grads)
+    for names in by_dtype.values():
+        summed = lay.dp.all_reduce(torch.cat([grads[n].reshape(-1) for n in names]))
+        at = 0
+        for n in names:
+            size = grads[n].numel()
+            out[n] = summed[at:at + size].reshape(grads[n].shape)
+            at += size
+    return out
+
+
+def _make_mesh_step(bundle, tcfg: TrainStepConfig):
+    from repro_torch.distributed import collectives, sharding
+    from repro_torch.models import transformer
+
+    cfg, lay, parallel = bundle.cfg, bundle.layout, bundle.parallel
+    k = parallel.microbatches
+    compress = parallel.grad_compression
+    group = collectives.world()
+    counted = {n: sharding.counts_block(spec, parallel.mesh, lay.coord)
+               for n, spec in lay.specs.items()}
+
+    def train_step(params, opt_state, batch):
+        tokens = torch.as_tensor(batch["tokens"], device=bundle.device)
+        named = dict(params.named_parameters())
+        copy = transformer.compute_copy(params)
+        leaves = dict(copy.named_parameters())
+        names = list(leaves)
+        grads = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                 for n, p in named.items()}
+        metrics = {m: torch.zeros((), dtype=torch.float32, device=tokens.device) for m in METRICS}
+        for mb in _microbatches(tokens, k):
+            loss, mb_metrics = transformer.loss_fn(copy, {"tokens": mb}, cfg, layout=lay,
+                                                   remat=parallel.remat)
+            mb_grads = dict(zip(names, torch.autograd.grad(loss, [leaves[n] for n in names])))
+            for n, g in reduce_whole_over_dp(lay, mb_grads).items():
+                grads[n].add_(g.float() / k)
+            del mb_grads, loss
+            for m in METRICS:
+                metrics[m] = metrics[m] + mb_metrics[m].detach().float() / k
+        del copy, leaves
+        with torch.profiler.record_function(OPTIMIZER_RANGE):
+            if compress:
+                grads, new_err = error_feedback_compress(grads, opt_state["ef_error"], axis=group)
+            grads, gnorm = clip_by_global_norm(grads, tcfg.clip_norm, counted=counted, axis=group)
+            lr = tcfg.lr_at(opt_state["step"] + 1)
+            _, new_opt = adamw_update(named, grads,
+                                      {kk: opt_state[kk] for kk in ("step", "m", "v")}, lr,
+                                      tcfg.adamw)
+            del grads
+        if compress:
+            new_opt["ef_error"] = new_err
+        metrics.update(grad_norm=gnorm, lr=lr, tokens=_tokens_metric(tokens))
         return params, new_opt, metrics
 
     return train_step

@@ -1,4 +1,5 @@
-"""Fault-tolerant training loop on one card (port of ``repro.train.trainer``).
+"""Fault-tolerant training loop (port of ``repro.train.trainer``), on one
+card or over a mesh of ranks.
 
 * **checkpoint/restart**: asynchronous snapshots every
   ``checkpoint_every`` steps; on construction the trainer restores the
@@ -10,6 +11,13 @@
   is counted and logged;
 * **failure injection**: ``crash_at_step`` raises :class:`SimulatedFailure`
   before that step, after flushing pending snapshots.
+
+Over a mesh (a bundle built over the process group) every rank runs the
+loop alike: the state is the rank's blocks (``make_train_state``), a
+checkpoint holds every leaf whole, written by rank 0 (``TreeSharding``),
+and restores onto any mesh; a step's wall is the slowest rank's (an
+all-reduce of the maximum), so every rank counts the same stragglers.  The
+loader gives every rank the global batch.
 
 Each logged step's history entry holds the step's metrics as floats, its
 wall ``step_time_s``, ``tokens_per_s`` and, on the card, the peak bytes
@@ -24,7 +32,8 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.checkpoint import CheckpointManager
-from repro_torch.train.step import TrainStepConfig, make_train_state, make_train_step
+from repro_torch.train.step import (TrainStepConfig, make_train_state, make_train_step, on_mesh,
+                                    train_state_specs)
 
 
 @dataclasses.dataclass
@@ -58,6 +67,12 @@ class Trainer:
         self.straggler_steps = 0
         self._ewma: Optional[float] = None
         self._ckpt = CheckpointManager(run_cfg.checkpoint_dir) if run_cfg.checkpoint_dir else None
+        self._sharding, self._group = None, None
+        if on_mesh(bundle):
+            from repro_torch.distributed import collectives, sharding
+
+            self._sharding = sharding.TreeSharding(train_state_specs(bundle), bundle.layout)
+            self._group = collectives.world()
         self.params, self.opt_state = make_train_state(bundle, tcfg, run_cfg.seed)
         self._step_fn = make_train_step(bundle, tcfg)
         if self._ckpt is not None and self._ckpt.latest_step() is not None:
@@ -68,10 +83,11 @@ class Trainer:
         if self._ckpt is None:
             return
         self._ckpt.save(self.step, {"params": self.params, "opt": self.opt_state},
-                        extra={"loader_step": self.loader.state.step})
+                        extra={"loader_step": self.loader.state.step}, sharding=self._sharding)
 
     def _restore(self) -> None:
-        step, tree, extra = self._ckpt.restore({"params": self.params, "opt": self.opt_state})
+        step, tree, extra = self._ckpt.restore({"params": self.params, "opt": self.opt_state},
+                                               sharding=self._sharding)
         self.params, self.opt_state = tree["params"], tree["opt"]
         self.step = step
         self.loader.skip_to(int(extra.get("loader_step", step)))
@@ -96,7 +112,7 @@ class Trainer:
             self.params, self.opt_state, metrics = self._step_fn(
                 self.params, self.opt_state, batch)
             self._sync()
-            dt = time.perf_counter() - t0
+            dt = self._agreed(time.perf_counter() - t0)
             self._track_stragglers(dt)
             self.step += 1
             if self.cfg.log_every and self.step % self.cfg.log_every == 0:
@@ -114,6 +130,13 @@ class Trainer:
             self._ckpt.wait()
         return {"final_step": self.step, "stragglers": self.straggler_steps,
                 "history": self.metrics_history}
+
+    def _agreed(self, dt: float) -> float:
+        """The step's wall over the group: the slowest rank's."""
+        if self._group is None:
+            return dt
+        t = torch.tensor([dt], dtype=torch.float64, device=self.device)
+        return float(self._group.all_reduce(t, op="max"))
 
     def _track_stragglers(self, dt: float) -> None:
         if self._ewma is None:

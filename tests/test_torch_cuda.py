@@ -1540,3 +1540,89 @@ def test_query_graph_on_card_matches_cpu(card, schema):
         assert (w is None) == (g is None), f
         if w is not None:
             assert torch.equal(g.cpu(), w), f
+
+
+# ---------------------------------------------------------------------------
+# training over a mesh
+# ---------------------------------------------------------------------------
+def _train_card_configs():
+    from repro_torch.launch.train_run import TrainRunConfig
+
+    base = dict(arch="qwen3_4b", smoke=True, seq=64, batch=4, steps=2, lr=1e-3,
+                warmup_steps=1, total_steps=10)
+    return [TrainRunConfig(kind="gspmd", mesh=(1, 2), microbatches=2, **base),
+            TrainRunConfig(kind="gspmd", mesh=(2, 1), **base),
+            TrainRunConfig(kind="manual_dp", mesh=(2,), grad_compression=True, **base),
+            TrainRunConfig(kind="pipeline", mesh=(2,), microbatches=2, **base),
+            TrainRunConfig(**{**base, "arch": "xlstm_1_3b"}, kind="gspmd", mesh=(1, 2))]
+
+
+def _train_on_card(group, cfgs) -> dict:
+    from repro_torch.distributed import collectives
+    from repro_torch.launch import train_run
+
+    axis = collectives.world()
+    x = torch.full((3, 4), float(axis.index + 1), device="cuda:0", requires_grad=True)
+    y = collectives.gather(axis, x, 0)
+    (g,) = torch.autograd.grad((y * torch.arange(y.numel(), device=y.device).reshape(y.shape)
+                                ).sum(), [x])
+    return {"grad": g.cpu(), "y": y.detach().cpu(),
+            "runs": [train_run.run_train(c, device="cuda:0", timeout_s=180) for c in cfgs]}
+
+
+def test_train_procs_gloo_world2_on_one_card(card, tmp_path):
+    """Two gloo ranks on one card: the GSPMD step on (1, 2) and (2, 1), manual
+    DP with the int8 all-reduce and the pipeline on (2,), xlstm-1.3b's GSPMD
+    step on (1, 2) (kernel 7 on each rank's heads), each against the
+    unsharded step on the card (step 1's ce within 2^-8, as chip_smoke's
+    gate), every rank the same metrics, collectives per step as designed,
+    kernels 6 and 7 launched on every layer's forward and recomputation; a
+    gradient-carrying all-gather of CUDA tensors staged through gloo."""
+    from repro_torch.launch import mesh, train_run
+
+    cfgs = _train_card_configs()
+    refs = [train_run.run_train(c, sharded=False, device=card) for c in cfgs]
+    ranks = mesh.spawn(_train_on_card, 2, "gloo", "cuda:0", args=(cfgs,), timeout_s=240,
+                       store_dir=str(tmp_path))
+    for r, rank in enumerate(ranks):
+        assert torch.equal(rank["y"], torch.cat([torch.full((3, 4), 1.0), torch.full((3, 4), 2.0)]))
+        assert torch.equal(rank["grad"], 2 * torch.arange(12 * r, 12 * r + 12.0).reshape(3, 4))
+    for i, (cfg, ref) in enumerate(zip(cfgs, refs)):
+        mcfg = train_run.model_config(cfg)
+        want = train_run.design_collectives(mcfg, cfg.mesh, cfg.kind, cfg.seq, cfg.batch,
+                                            cfg.microbatches,
+                                            grad_compression=cfg.grad_compression)
+        layers = mcfg.num_periods
+        runs = {"gspmd": 2 * layers * cfg.microbatches, "manual_dp": 2 * layers,
+                "pipeline": 2 * (layers // 2) * (cfg.microbatches + 1)}[cfg.kind] * cfg.steps
+        want_launches = {name: runs * mcfg.block_pattern.count(bt) for name, bt in
+                         (("flash_attention", "attn"), ("slstm_sequence", "slstm"))
+                         if bt in mcfg.block_pattern}
+        for rank in ranks:
+            got = rank["runs"][i]
+            assert [s["metrics"] for s in got["steps"]] == \
+                [s["metrics"] for s in ranks[0]["runs"][i]["steps"]]
+            ce, want_ce = got["steps"][0]["metrics"]["ce"], ref["steps"][0]["metrics"]["ce"]
+            assert abs(ce - want_ce) <= 2.0 ** -8 * abs(want_ce), (cfg, ce, want_ce)
+            assert all(s["collectives"] == want for s in got["steps"]), cfg
+            assert got["param_bytes"] == got["expected_param_bytes"]
+            assert got["launches"] == want_launches, (cfg, got["launches"])
+
+
+def test_train_procs_nccl_world1_is_the_unsharded_step_bit_for_bit(card, tmp_path):
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh, train_run
+
+    cfg = dataclasses.replace(_train_card_configs()[0], mesh=(1, 1))
+    ref = train_run.run_train(cfg, sharded=False, device=card)
+    mesh.init_shard_group("nccl", "file://" + str(tmp_path / "store"), timeout_s=120, rank=0,
+                          world_size=1, device=torch.device("cuda", 0))
+    try:
+        got = train_run.run_train(cfg, device=card)
+    finally:
+        dist.destroy_process_group()
+    assert [s["metrics"] for s in got["steps"]] == [s["metrics"] for s in ref["steps"]]
+    assert [s["digests"] for s in got["steps"]] == [s["digests"] for s in ref["steps"]]
+    assert got["launches"] == ref["launches"]
+    assert all(not s["collectives"] for s in got["steps"])

@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Run ``chip_smoke.py``'s train phase alone on the card.
+"""Run ``chip_smoke.py``'s train phase, or its train-procs phase, alone on
+the card.
 
     python3 tools/train_probe.py [--seed 0] [--profile] [--skip-checks] [--out FILE]
+    python3 tools/train_probe.py --procs [--seed 0] [--profile] [--out FILE]
 
 From the root of a checkout: builds the port's kernels, then runs the train
 phase's main run (``chip_smoke.run_train``: qwen3-4b at full width,
@@ -11,9 +13,14 @@ the loader's dedup, 4 steps, every gate of the phase), and, unless
 crash and resume (``check_train_resume``).  ``--profile`` profiles one more
 train step (``torch.profiler``): device time by kernel class, and inside
 the ranges of kernel 6's plain backward (``flash_attention.backward``) and
-of the optimizer (``train.optimizer``).  It prints the card's name and
-power limit and one JSON object with the phase's result, its kernel rows
-and the profile; ``--out`` also writes it to a file.
+of the optimizer (``train.optimizer``).  ``--procs`` runs the
+train-procs phase instead (``chip_smoke.run_train_procs``: training over a
+mesh, four gloo ranks on the card and one NCCL rank, every gate of the
+phase); with ``--profile`` rank 0 profiles one more step of each run
+(device busy time and the host time inside each kind of collective).  It
+prints the card's name and power limit and one JSON object with the
+phase's result, its kernel rows and the profile; ``--out`` also writes it
+to a file.
 """
 from __future__ import annotations
 
@@ -31,6 +38,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--skip-checks", action="store_true")
+    ap.add_argument("--procs", action="store_true", help="the train-procs phase instead")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -54,6 +62,10 @@ def main(argv=None) -> int:
     build.library()
     torch.zeros(1, device=device)  # the context, before the phase resets its peak
     out = {"card": smi}
+    if args.procs:
+        run = chip_smoke.run_train_procs(args.seed, device, log, profile=args.profile)
+        out["result"], out["rows"] = run["result"], run["rows"]
+        return _finish(out, t0, args.out)
     run = chip_smoke.run_train(args.seed, device, log)
     out["result"], out["rows"] = run["result"], run["rows"]
     if args.profile:
@@ -64,11 +76,15 @@ def main(argv=None) -> int:
     if not args.skip_checks:
         out["grads"] = chip_smoke.check_train_grads(args.seed, device, log)
         out["resume"] = chip_smoke.check_train_resume(args.seed, device, log)
+    return _finish(out, t0, args.out)
+
+
+def _finish(out: dict, t0: float, path) -> int:
     out["seconds"] = time.perf_counter() - t0
-    text = json.dumps(out)
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-        with open(args.out, "w") as f:
+    text = json.dumps(out, default=str)
+    if path:
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        with open(path, "w") as f:
             f.write(text)
     print(text, flush=True)
     return 0
