@@ -298,6 +298,43 @@ Run from the root of a checkout: it builds the port's CUDA kernels from
    variant (one head, the bf16 serving copy's r) against their twins on
    the inputs its own path gave them (rows ``lm-procs-gloo-4``).
 
+8. runs MoE and the sliding-window ring cache last (the ``moe`` phase):
+   (a) serves mixtral-8x22b at its published widths (d_model 6144, 48 q /
+   8 kv heads, hd 128, 8 experts of d_ff 16384 top-2, vocab 32768, window
+   4096; random bf16 weights from ``--seed``), MOE_LAYERS of its 56 layers,
+   4 requests of 3,000 / 4,080 / 5,000 / 6,144 tokens (drawn from
+   ``--seed``) through 2 slots of 8,192, 32 new tokens each: every ``swa``
+   prefill runs kernel 6 with the window and cuts a 4,096-slot ring, the
+   second request's decode crosses the window edge and the last two wrap
+   the ring in prefill.  Gates: kernel 6 once a layer a prefill (32); each
+   ring's ``kpos`` after prefill and after the last decode step equal to a
+   numpy oracle; the batcher's logits at every generated position against
+   a teacher-forced pass of prompt + generated tokens through the
+   kernel-backed ``forward_train`` (kernel 6 once a layer), and each
+   prefill's logits against the plain path's (masked-einsum attention with
+   the window), within MOE_LOGIT_TOL where both passes chose the same
+   experts (a position whose experts differ must sit at a router tie,
+   MOE_TIE; they are counted and printed); kernel 6 at the longest
+   request's layer-0 q, k, v with the window against its twin
+   (FLASH_TOL), timed beside the twin and SDPA with the window as a
+   boolean mask; one MoE layer's routing ids equal to the plain form's and
+   its output within MOE_LAYER_TOL of the all-experts form's.  (b) runs
+   its forward loss at full width, MOE_EP_LAYERS layers, a global batch of
+   4 x 2,048 tokens from ``--seed``, with ``moe_impl="ep"`` on (data,
+   model) = (4, 1): stacked on this card (``StackedGroup(4)``), then on four
+   gloo ranks of this card (one row each), then dense on this card and on
+   one NCCL rank.  Gates: each rank's row CE, loss and ``moe_aux`` bit for
+   bit the stacked run's, ``moe_dropped`` equal (printed with its share of
+   the routed rows); 2 exchange rounds a MoE layer under ``"moe"``, their
+   bytes ``4 x capacity`` token rows of 6144 bf16 plus their ids out and
+   the rows back, the loss's collectives as ``design_loss_collectives``
+   (none inside the MoE); each rank holding its 2 experts a layer, its
+   parameter bytes ``shard_bytes_per_device``; the NCCL rank's loss bit
+   for bit the one-card dense run's.  It prints prefill tokens/s, TTFT,
+   decode step ms, peak bytes and the phase's seconds, and with
+   ``--profile`` a prefill's and a decode step's split by kernel class and
+   by the MoE's ranges (routing, the experts).
+
 It prints the seconds each run took, the card's name and power limit, a
 ``{"kernels": [...]}`` line (one row per kernel and run, ``path`` and
 ``shards`` naming the run) and, last,
@@ -3529,12 +3566,12 @@ def lm_settings() -> None:
 
 def expected_launches(cfg, prefills: int, decode_steps: int) -> dict:
     """Kernel launches of a serving run: kernel 6 once per attention layer
-    per prefill (decode attention is plain), kernel 7 once per sLSTM layer
-    per prefill and per decode step."""
-    layers = {bt: cfg.num_periods * cfg.block_pattern.count(bt) for bt in ("attn", "slstm")}
+    (``attn`` or ``swa``) per prefill (decode attention is plain), kernel 7
+    once per sLSTM layer per prefill and per decode step."""
+    layers = {bt: cfg.num_periods * cfg.block_pattern.count(bt) for bt in ("attn", "swa", "slstm")}
     want = {}
-    if layers["attn"] and cfg.attention_impl == "flash":
-        want["flash_attention"] = layers["attn"] * prefills
+    if layers["attn"] + layers["swa"] and cfg.attention_impl == "flash":
+        want["flash_attention"] = (layers["attn"] + layers["swa"]) * prefills
     if layers["slstm"]:
         want["slstm_sequence"] = layers["slstm"] * (prefills + decode_steps)
     return want
@@ -3543,14 +3580,18 @@ def expected_launches(cfg, prefills: int, decode_steps: int) -> dict:
 def run_lm_path(seed: int, device, log, cfg=None, requests: int = LM_REQUESTS,
                 slots: int = LM_SLOTS, cache_len: int = LM_CACHE_LEN,
                 prompt_lens: tuple = LM_PROMPT_LENS, max_new: int = LM_MAX_NEW,
-                path: str = "serve") -> dict:
+                path: str = "serve", lens=None, routes: bool = False) -> dict:
     """Serve ``requests`` ragged prompts through the public API: build_model
     with seeded random bf16 weights on the device, a ContinuousBatcher of
     ``slots`` lanes of ``cache_len`` tokens, greedy decoding until drained.
     The run's launches must be ``expected_launches``; the batcher's logits
     are kept for the replay check and, for an xLSTM stack (whose states do
     not grow with the prompt), each request's own prefill caches for the
-    continuation check."""
+    continuation check; for ring caches (``swa``), each request's ``kpos``
+    after its prefill and after its last decode step.  ``lens`` fixes the
+    prompts' lengths (their tokens still drawn from ``seed``); ``routes``
+    keeps the experts each MoE layer chose at every generated position, with
+    the router's tie gap (``RouteCapture``)."""
     import numpy as np
     import torch
 
@@ -3563,7 +3604,8 @@ def run_lm_path(seed: int, device, log, cfg=None, requests: int = LM_REQUESTS,
     bundle = build_model(cfg, device=device)
     params, init_s = wall(lambda: bundle.init(seed), device)
     rng = np.random.default_rng(seed + 2)
-    lens = rng.integers(prompt_lens[0], prompt_lens[1] + 1, size=requests)
+    drawn = rng.integers(prompt_lens[0], prompt_lens[1] + 1, size=requests)
+    lens = drawn if lens is None else np.asarray(lens)
     prompts = [rng.integers(1, cfg.vocab_size, size=int(n), dtype=np.int32) for n in lens]
     # Warm-up outside the counted run: cuBLAS handles, the kernel's first launch.
     _, warm = bundle.prefill(params, {"tokens": prompts[0][None, :64]}, cache_len=80)
@@ -3572,26 +3614,38 @@ def run_lm_path(seed: int, device, log, cfg=None, requests: int = LM_REQUESTS,
 
     prefill, decode = make_prefill_step(bundle, cache_len=cache_len), make_serve_step(bundle)
     rec = {"prefill_s": [], "ttft_s": [], "decode": [], "logits": {i: [] for i in range(requests)},
-           "caches": {}}
+           "caches": {}, "ring_prefill": {}, "ring_final": {}, "routes": {}}
     recurrent = all(bt in ("mlstm", "slstm") for bt in cfg.block_pattern)
+
+    def rings(caches, slot):
+        return {name: c.kpos[:, slot].clone() for name, c in caches.items() if hasattr(c, "kpos")}
 
     def timed_prefill(p, batch):
         uid = len(rec["prefill_s"])  # the batcher admits in submission order
         check(batch["tokens"].shape == (1, len(prompts[uid])), f"prefill {uid}: wrong prompt")
-        (logits, cache), secs = wall(lambda: prefill(p, batch), device)
+        with RouteCapture() if routes else contextlib.nullcontext() as cap:
+            (logits, cache), secs = wall(lambda: prefill(p, batch), device)
+        if routes:
+            rec["routes"][uid] = [cap.at(len(prompts[uid]) - 1)]
         rec["prefill_s"].append(secs)
         rec["ttft_s"].append(time.perf_counter() - rec["start"])
         rec["logits"][uid].append(logits[0])
         if recurrent:
             rec["caches"][uid] = cache  # _write_slot copies from it and never writes it
+        rec["ring_prefill"][uid] = rings(cache, 0)
         return logits, cache
 
     def timed_decode(p, caches, token, pos):
         live = [(i, r.uid) for i, r in enumerate(batcher.slots) if r is not None]
-        (logits, caches), secs = wall(lambda: decode(p, caches, token, pos), device)
+        with RouteCapture() if routes else contextlib.nullcontext() as cap:
+            (logits, caches), secs = wall(lambda: decode(p, caches, token, pos), device)
         rec["decode"].append((len(live), secs))
         for i, uid in live:
             rec["logits"][uid].append(logits[i])
+            if routes:
+                rec["routes"][uid].append(cap.at(i))
+            if len(batcher.slots[i].out_tokens) == max_new - 1:  # its last step
+                rec["ring_final"][uid] = rings(caches, i)
         return logits, caches
 
     batcher = ContinuousBatcher(params, bundle.init_cache(slots, cache_len), timed_prefill,
@@ -3638,7 +3692,8 @@ def run_lm_path(seed: int, device, log, cfg=None, requests: int = LM_REQUESTS,
     log(f"serve {cfg.name}: " + json.dumps(res))
     return {"result": res, "cfg": cfg, "bundle": bundle, "params": params, "prompts": prompts,
             "done": done, "logits": rec["logits"], "batcher": batcher,
-            "prefill_caches": rec["caches"]}
+            "prefill_caches": rec["caches"], "ring_prefill": rec["ring_prefill"],
+            "ring_final": rec["ring_final"], "routes": rec["routes"]}
 
 
 def check_lm_replay(run: dict, device, log, tol=LM_LOGIT_TOL) -> dict:
@@ -5490,6 +5545,512 @@ def run_lm_procs(seed: int, device, log) -> dict:
     return {"result": result, "rows": rows}
 
 
+# ---------------------------------------------------------------------------
+# MoE and the sliding-window ring cache (the moe phase)
+# ---------------------------------------------------------------------------
+MOE_ARCH = "mixtral_8x22b"
+# (a) mixtral-8x22b at its published widths, 8 of its 56 layers: 2.504e9
+# parameters a layer (5.01 GB in bf16) and 0.81 GB of embedding and head;
+# 56 layers would take ~281 GB, 8 take ~40.9 GB of the card's 80.
+MOE_LAYERS = 8
+MOE_PROMPT_LENS = (3000, 4080, 5000, 6144)  # the second crosses the window while it decodes
+MOE_SLOTS, MOE_CACHE_LEN, MOE_MAX_NEW = 2, 8192, 32
+# Logits of the kernel-backed path (kernel 6 with the window, the grouped
+# MoE) against the plain path and the teacher-forced pass: bf16 rounding in
+# another order; the tests' bf16 logit tolerance, |a - b| <= atol + rtol |b|
+# (tests/test_torch_lm.py: one bf16 step at |logit| ~ 4-8 is 2^-5).
+MOE_LOGIT_TOL = {"atol": 6e-2, "rtol": 2e-2}
+# A position whose experts differ between two passes is a router tie that
+# rounding flipped only where the first differing layer's top-k gap (k-th
+# minus (k+1)-th probability) is below this: bf16 rounding of the router's
+# input (d = 6144, |x_i| ~ 1 after the norm, weights ~ 1/sqrt(d)) moves a
+# logit by ~2^-9, a probability by ~1e-3 at most.
+MOE_TIE = 1e-2
+# One MoE layer's output against the all-experts form on the same input
+# (relative and absolute: the experts' products at other row counts).
+MOE_LAYER_TOL = 2e-2
+# (b) expert parallelism across processes: 2 of 56 layers at full width,
+# one row of MOE_EP_SEQ tokens a rank on (data, model) = (MOE_EP_WORLD, 1).
+MOE_EP_LAYERS, MOE_EP_WORLD, MOE_EP_SEQ = 2, 4, 2048
+MOE_EP_TIMEOUT_S = 300.0
+
+
+def moe_serve_config():
+    """(a)'s model: mixtral-8x22b at its published widths, MOE_LAYERS layers."""
+    from repro_torch.configs.base import get_config
+
+    return dataclasses.replace(get_config(MOE_ARCH), num_layers=MOE_LAYERS)
+
+
+def moe_ep_config(seed: int):
+    """(b)'s run: mixtral-8x22b at full width, MOE_EP_LAYERS layers, EP on
+    (data, model) = (MOE_EP_WORLD, 1)."""
+    from repro_torch.launch import lm_run
+
+    return lm_run.LMRunConfig(arch=MOE_ARCH, num_layers=MOE_EP_LAYERS,
+                              mesh=(MOE_EP_WORLD, 1), moe_impl="ep", seed=seed)
+
+
+def ring_oracle(length: int, width: int) -> "np.ndarray":
+    """kpos of a ring of ``width`` slots after positions 0..length-1: the
+    last ``width`` at ``pos % width``, -1 elsewhere (numpy)."""
+    import numpy as np
+
+    out = np.full(width, -1, np.int32)
+    pos = np.arange(max(0, length - width), length, dtype=np.int32)
+    out[pos % width] = pos
+    return out
+
+
+def check_ring_kpos(run: dict, log) -> dict:
+    """Every request's ring ``kpos`` (each swa layer) after its prefill and
+    after its last decode step equal to :func:`ring_oracle`."""
+    import numpy as np
+
+    cfg = run["cfg"]
+    width = min(cfg.sliding_window, run["result"]["cache_len"])
+    new = run["result"]["max_new_tokens"]
+    checked = 0
+    for uid, prompt in enumerate(run["prompts"]):
+        n = len(prompt)
+        for when, got, length in (("prefill", run["ring_prefill"][uid], n),
+                                  ("decode", run["ring_final"][uid], n + new - 1)):
+            want = ring_oracle(length, width)
+            for name, kpos in got.items():
+                k = kpos.cpu().numpy()
+                check(k.shape == (cfg.num_periods, width) and (k == want[None]).all(),
+                      f"moe ring {name} of request {uid} after {when}: kpos differs from the "
+                      f"oracle of positions 0..{length - 1} ({int((k != want[None]).sum())} slots)")
+                checked += 1
+    out = {"width": width, "rings_checked": checked,
+           "wrapped_in_prefill": [len(p) > width for p in run["prompts"]],
+           "crossed_in_decode": [len(p) <= width < len(p) + new - 1 for p in run["prompts"]]}
+    log("moe ring kpos against the oracle: " + json.dumps(out))
+    return out
+
+
+class RouteCapture:
+    """The experts every MoE layer of a pass chose (``ids`` (T, k), sorted
+    per token) and each token's tie gap there (``gaps`` (T,): the router's
+    k-th minus its (k+1)-th probability), in layer order."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self._moe, self._route, self.ids, self.gaps = moe, moe.route, [], []
+
+        def route(router, x2d, cfg):
+            r = self._route(router, x2d, cfg)
+            top = r.probs.topk(cfg.experts_per_token + 1, dim=-1).values
+            self.ids.append(r.ids.sort(dim=-1).values)
+            self.gaps.append(top[:, -2] - top[:, -1])
+            return r
+
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.route = self._route
+        return False
+
+    def at(self, row: int) -> tuple:
+        """``(ids (L, k), gaps (L,))`` of one token over the layers."""
+        import torch
+
+        return (torch.stack([i[row] for i in self.ids]), torch.stack([g[row] for g in self.gaps]))
+
+
+def route_flips(got: tuple, want: tuple) -> tuple:
+    """Whether one token's experts differ between two passes at any layer,
+    and, where they do, the first such layer's tie gap (the smaller of the
+    two passes'): below MOE_TIE rounding alone can flip the choice."""
+    (ids_a, gap_a), (ids_b, gap_b) = got, want
+    differ = (ids_a != ids_b).any(dim=-1)
+    if not bool(differ.any()):
+        return False, None
+    first = int(differ.nonzero()[0, 0])
+    return True, float(min(gap_a[first], gap_b[first]))
+
+
+def check_moe_serve(run: dict, device, log) -> dict:
+    """The moe phase's model gates.  The batcher's logits at every
+    generated position against a teacher-forced pass of prompt + generated
+    tokens through the kernel-backed ``forward_train`` (kernel 6 once a
+    layer), and each request's prefill logits against the plain path's
+    (masked-einsum attention with the window), within MOE_LOGIT_TOL, each
+    token the pass's argmax where its top-1 beats its top-2 by more than
+    twice its atol.  A position whose experts differ between the two passes at
+    some layer (a router tie that rounding flipped) is reported, not held
+    to the tolerance, and the first differing layer's tie gap must lie
+    below MOE_TIE; the prompt tokens whose experts differ between the
+    kernel and the plain path are counted per layer."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.models.api import build_model
+
+    cfg, bundle, params = run["cfg"], run["bundle"], run["params"]
+    plain = build_model(dataclasses.replace(cfg, attention_impl="plain"), device=device)
+    out = {"logit_tol": MOE_LOGIT_TOL, "tie": MOE_TIE, "prefill_max_abs_err": 0.0,
+           "decode_max_abs_err": 0.0, "flipped_positions": [], "prompt_routes_differing": [],
+           "routed_prompt_tokens": 0, "tokens_compared": 0, "positions": 0}
+
+    def gate(label, got, want, flip, gap):
+        err = float((got - want).abs().max())
+        if flip:
+            check(gap < MOE_TIE, f"{label}: experts differ at a router gap of {gap} >= {MOE_TIE}")
+            out["flipped_positions"].append({"at": label, "max_abs_err": err, "gap": gap})
+            return None
+        ok = bool(((got - want).abs() <= MOE_LOGIT_TOL["atol"]
+                   + MOE_LOGIT_TOL["rtol"] * want.abs()).all())
+        check(ok, f"{label}: logits differ by up to {err} (tolerance {MOE_LOGIT_TOL})")
+        return err
+
+    build.LAUNCHES.clear()
+    for req in run["done"]:
+        n = len(req.prompt)
+        toks = np.concatenate([req.prompt, np.asarray(req.out_tokens, np.int32)])[None]
+        with RouteCapture() as forced:
+            logits, _ = bundle.forward_train(params, toks)
+        ref = logits[0, n - 1:].float()
+        got = torch.stack(run["logits"][req.uid]).float()
+        check(got.shape == ref.shape and bool(torch.isfinite(ref).all()),
+              f"moe request {req.uid}: {tuple(got.shape)} against {tuple(ref.shape)}")
+        kept = []
+        for j in range(ref.shape[0]):
+            flip, gap = route_flips(run["routes"][req.uid][j], forced.at(n - 1 + j))
+            err = gate(f"moe request {req.uid} position {n - 1 + j} (teacher-forced)", got[j],
+                       ref[j], flip, gap)
+            if err is not None:
+                kept.append(j)
+                out["decode_max_abs_err"] = max(out["decode_max_abs_err"], err)
+        top2 = ref.topk(2, dim=-1).values
+        sure = ((top2[:, 0] - top2[:, 1]) > 2 * MOE_LOGIT_TOL["atol"]).cpu()
+        sure &= torch.isin(torch.arange(ref.shape[0]), torch.as_tensor(kept, dtype=torch.long))
+        tokens = torch.as_tensor(req.out_tokens)
+        check(bool((tokens[sure] == ref.argmax(-1).cpu()[sure]).all()),
+              f"moe request {req.uid}: a generated token differs from the pass's clear argmax")
+        with RouteCapture() as flat:
+            plain_logits, _ = plain.prefill(params, {"tokens": req.prompt[None]}, cache_len=n)
+        flip, gap = route_flips(run["routes"][req.uid][0], flat.at(n - 1))
+        pre = gate(f"moe request {req.uid} prefill (plain path)", got[0],
+                   plain_logits[0].float(), flip, gap)
+        if pre is not None:
+            out["prefill_max_abs_err"] = max(out["prefill_max_abs_err"], pre)
+        check(len(forced.ids) == len(flat.ids) == cfg.num_layers,
+              f"moe: {len(forced.ids)} / {len(flat.ids)} routed layers, want {cfg.num_layers}")
+        out["prompt_routes_differing"].append(
+            [int((a[:n] != b).any(dim=-1).sum()) for a, b in zip(forced.ids, flat.ids)])
+        out["routed_prompt_tokens"] += n * cfg.num_layers
+        out["tokens_compared"] += int(sure.sum())
+        out["positions"] += ref.shape[0]
+        del logits, plain_logits, ref, got
+    out["launches"] = dict(build.LAUNCHES)
+    want = cfg.num_layers * len(run["done"])
+    if device.type == "cuda":
+        check(out["launches"] == {"flash_attention": want},
+              f"moe teacher-forced passes: launches {out['launches']}, want {want} of kernel 6")
+    log("moe serve gates held (teacher-forced pass through kernel 6, plain path): "
+        + json.dumps(out))
+    return out
+
+
+def moe_layer_input(params, prompt, cfg, device):
+    """Layer 0's MoE input in a prefill of ``prompt`` (the normed residual
+    after its windowed attention)."""
+    import torch
+
+    from repro_torch.models import layers, transformer
+
+    tokens = torch.as_tensor(prompt[None], device=device)
+    with torch.no_grad():
+        x = transformer._embed(params, tokens, cfg)
+        block = params.layers[0].b0
+        positions = torch.arange(x.shape[1], device=device, dtype=torch.int32)[None]
+        x = transformer._mix_train("swa", block, x, positions, cfg)
+        return layers.rmsnorm(x, block.norm2)
+
+
+def check_moe_kernels(run: dict, device, log) -> list:
+    """Kernel 6 at mixtral's windowed shape (request 3's layer-0 q, k, v:
+    48 q heads over 8 kv heads, 6,144 tokens, window 4,096) against its
+    twin (FLASH_TOL), timed beside the twin and SDPA with the window as an
+    explicit boolean mask; one MoE layer (layer 0 on request 0's prompt):
+    the grouped form's routing ids and output against the all-experts form,
+    both timed."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.models import moe
+
+    cfg, params = run["cfg"], run["params"]
+    window = cfg.sliding_window
+    prompt = max(run["prompts"], key=len)
+    q, k, v = layer0_qkv(params, prompt, cfg, device)
+    hq, s, d = q.shape
+    hkv, group = k.shape[0], cfg.q_per_kv
+    args = dict(causal=True, window=window, q_heads_per_kv=group)
+    mask = flash.live_mask(s, s, causal=True, window=window, device=device)
+    live = int(mask.sum())
+    bounds = attention_bounds(hq, hkv, s, s, d, "bfloat16", live)
+    bound_by = max(bounds, key=bounds.get)
+    tol = FLASH_TOL["bfloat16"]
+    err = twin_error("flash_attention", flash.flash_attention_fhsd(q, k, v, **args),
+                     flash.flash_attention_plain(q, k, v, **args), tol, device)
+    fns = {"kernel": lambda: flash.flash_attention_fhsd(q, k, v, **args),
+           "library": lambda: F.scaled_dot_product_attention(
+               q[None], k[None], v[None], attn_mask=mask, enable_gqa=True)[0]}
+    times = spread_ms(fns, device, FLASH_TIMING["groups"], FLASH_TIMING["launches"])
+    row = {
+        "name": "flash_attention", "path": "moe-serve", "shards": None,
+        "launches": run["result"]["launches"].get("flash_attention", 0),
+        "route": "cuda", "source": KERNELS["flash_attention"][0],
+        "replaces": KERNELS["flash_attention"][1], "max_abs_err": err,
+        "ms": times["kernel"][1],
+        "plain_ms": mean_ms(lambda: flash.flash_attention_plain(q, k, v, **args), 3, device),
+        "bound_ms": bounds[bound_by], "bound_by": bound_by, "library_ms": times["library"][1],
+        "shapes": f"q=({hq}, {s}, {d}) k/v=({hkv}, {s}, {d}) bf16 causal window={window} "
+                  "(the longest request, layer 0, strided views of the projections)",
+        "spread_ms": times, "bounds_ms": bounds, "live_pairs": live,
+        "tflops": 4 * d * live * hq / times["kernel"][1] / 1e9,
+    }
+    log(f"kernel flash_attention moe-serve {row['shapes']}: max_abs_err={err} (tol {tol}) "
+        f"[min, median, max] ms over {FLASH_TIMING['groups']} groups of "
+        f"{FLASH_TIMING['launches']}: {json.dumps(times)} plain_ms={row['plain_ms']} "
+        f"bound_ms={row['bound_ms']} ({bound_by}, {live} live pairs) = "
+        f"{row['bound_ms'] / row['ms']:.3f} of the kernel's median, {row['tflops']:.1f} "
+        f"TFLOP/s, launches={row['launches']}")
+    del q, k, v, mask
+    x = moe_layer_input(params, run["prompts"][0], cfg, device)
+    m = params.layers[0].b0.mlp.moe
+    x2 = x.reshape(-1, cfg.d_model)
+    got, want = moe.route(m.router, x2, cfg).ids, torch.topk(
+        torch.softmax(x2.float() @ m.router.float(), dim=-1), cfg.experts_per_token).indices
+    check(torch.equal(got, want), "moe layer 0: routing ids differ from the plain form's")
+    out, _ = moe.moe_dense(m, x, cfg)
+    ref, _ = moe.moe_dense_all(m, x, cfg)
+    diff = (out.float() - ref.float()).abs()
+    bad = int((diff > MOE_LAYER_TOL * (1 + ref.float().abs())).sum())
+    check(bad == 0, f"moe layer 0: {bad} outputs differ from the all-experts form by more than "
+          f"{MOE_LAYER_TOL}")
+    ms = {"grouped": mean_ms(lambda: moe.moe_dense(m, x, cfg), 3, device),
+          "all_experts": mean_ms(lambda: moe.moe_dense_all(m, x, cfg), 3, device)}
+    t = x2.shape[0]
+    flops = 2 * 3 * cfg.d_model * cfg.d_ff * t * cfg.experts_per_token
+    layer = {"tokens": t, "max_abs_err": float(diff.max()), "tol": MOE_LAYER_TOL, "ms": ms,
+             "expert_flops": flops, "expert_bound_ms": flops / BF16_FLOPS_PER_S * 1e3}
+    log("moe layer 0 (request 0): routing ids equal, grouped against all-experts: "
+        + json.dumps(layer))
+    run["result"]["moe_layer"] = layer
+    return [row]
+
+
+def moe_serve_phases(run: dict) -> dict:
+    """One more prefill of the longest request (its ranges: routing, the
+    experts' grouped products) and one more decode step of both slots."""
+    import numpy as np
+
+    bundle, params, batcher = run["bundle"], run["params"], run["batcher"]
+    prompt = max(run["prompts"], key=len)
+    token = np.ones((batcher.num_slots, 1), np.int32)
+    pos = np.full((batcher.num_slots,), len(prompt), np.int32)
+    return {
+        "prefill (longest request)": lambda: bundle.prefill(
+            params, {"tokens": prompt[None]}, cache_len=run["result"]["cache_len"]),
+        "decode step (all slots)": lambda: bundle.decode_step(params, batcher.caches, token, pos),
+    }
+
+
+def moe_ep_check(label: str, ranks: list, ref: dict, cfg, log) -> dict:
+    """(b)'s gates on each rank against the stacked run: loss and row CE
+    (``loss_rows``, ``ce_rows``) and ``moe_aux`` bit for bit, ``moe_dropped``
+    equal per layer; exactly 2 exchange rounds a MoE layer under the MoE's
+    label and nothing under another; a round's bytes those of the design
+    (dispatch: ``D · capacity`` token rows of d bf16 plus their int64 ids;
+    combine: the rows back); the loss's collectives those of
+    ``design_loss_collectives`` (none inside the MoE); the rank's experts
+    those it owns, its parameter bytes ``shard_bytes_per_device``."""
+    import numpy as np
+
+    from repro_torch.launch import lm_run
+    from repro_torch.models import moe
+
+    mcfg = lm_run.model_config(cfg)
+    world = len(ranks)
+    seq = ref["seq"]
+    cap = moe.ep_capacity(seq, mcfg)
+    row_bytes = mcfg.d_model * 2
+    want_bytes = mcfg.num_layers * (world * cap * (row_bytes + 8) + world * cap * row_bytes)
+    owned = len(moe.owned_experts(0, world, mcfg.num_experts))
+    m0 = ranks[0]["metrics"]
+    for res in ranks:
+        r, m = res["rank"], res["metrics"]
+        for key in ("loss_rows", "ce_rows"):
+            check(np.array_equal(m[key], ref["metrics"][key][r]),
+                  f"{label}: rank {r}'s {key} {m[key]} differs from the stacked run's "
+                  f"{ref['metrics'][key][r]}")
+        check(np.array_equal(m["moe_aux"], ref["metrics"]["moe_aux"]),
+              f"{label}: rank {r}'s moe_aux {m['moe_aux']} differs from the stacked run's "
+              f"{ref['metrics']['moe_aux']}")
+        check(np.array_equal(m["moe_dropped"], ref["metrics"]["moe_dropped"]),
+              f"{label}: rank {r}'s drops {m['moe_dropped']} against the stacked "
+              f"{ref['metrics']['moe_dropped']}")
+        check(np.array_equal(m["loss"], m0["loss"]), f"{label}: rank {r}'s loss differs")
+        check(res["rounds"] == {moe.LABEL: 2 * mcfg.num_layers},
+              f"{label}: rank {r} made rounds {res['rounds']}, want 2 a MoE layer under "
+              f"{moe.LABEL!r}")
+        check(res["round_bytes"] == {moe.LABEL: want_bytes},
+              f"{label}: rank {r} sent {res['round_bytes']} bytes, want {want_bytes}")
+        want = lm_run.design_loss_collectives(mcfg, cfg.mesh, world, seq, cfg.moe_impl)
+        check(res["collectives"] == want, f"{label}: rank {r} collectives "
+              f"{res['collectives']}, the design {want}")
+        check(res["expert_shapes"] == [(owned, mcfg.d_model, mcfg.d_ff)],
+              f"{label}: rank {r} holds experts {res['expert_shapes']}, owns {owned}")
+        check(res["param_bytes"] == res["shard_bytes"], f"{label}: rank {r} holds "
+              f"{res['param_bytes']} parameter bytes, shard_bytes_per_device "
+              f"{res['shard_bytes']}")
+    routed = world * seq * mcfg.experts_per_token
+    dropped = [int(x) for x in ref["metrics"]["moe_dropped"]]
+    out = {"capacity": cap, "round_bytes": want_bytes // (2 * mcfg.num_layers),
+           "dropped_per_layer": dropped, "routed_rows_per_layer": routed,
+           "dropped_share": [x / routed for x in dropped],
+           "experts_a_rank": owned, "loss": float(m0["loss"]),
+           "moe_aux": float(m0["moe_aux"])}
+    log(f"{label} gates held (every rank its stacked row bit for bit): " + json.dumps(out))
+    return out
+
+
+def moe_ep_rank(group, cfg, batch: int, seq: int, device_name: str) -> dict:
+    """One rank of (b)'s gloo group: the forward loss with this script's
+    matrix-product settings (``lm_settings``), as the stacked run had."""
+    from repro_torch.launch import lm_run
+
+    lm_settings()
+    return lm_run.run_loss(cfg, batch, seq, device=device_name, timeout_s=MOE_EP_TIMEOUT_S)
+
+
+def run_moe_ep(seed: int, device, log) -> dict:
+    """(b): mixtral-8x22b at full width, MOE_EP_LAYERS layers, a forward
+    loss over a global batch of MOE_EP_WORLD rows of MOE_EP_SEQ tokens with
+    ``moe_impl="ep"`` on (data, model) = (MOE_EP_WORLD, 1): first stacked
+    on this card (``StackedGroup``), then on four gloo ranks of this card
+    (one row each), then dense on this card and on one NCCL rank (where the
+    reference's ``moe`` takes dense), bit for bit."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import lm_run, mesh
+
+    card = device.type == "cuda"
+    cfg = moe_ep_config(seed)
+    t0 = time.perf_counter()
+    ref = lm_run.run_loss(cfg, MOE_EP_WORLD, MOE_EP_SEQ, sharded=False, stacked=MOE_EP_WORLD,
+                          device=device)
+    gc.collect()
+    if card:
+        torch.cuda.empty_cache()
+    log(f"moe-ep stacked D={MOE_EP_WORLD}: {ref['s']:.3f} s, rounds {ref['rounds']}, "
+        f"peak {ref['peak_bytes']}, {json.dumps({k: np.asarray(v).tolist() for k, v in ref['metrics'].items()})}")
+    label = f"moe-ep-gloo-{MOE_EP_WORLD}"
+    t1 = time.perf_counter()
+    ranks = mesh.spawn(moe_ep_rank, MOE_EP_WORLD, "gloo", str(device),
+                       args=(cfg, MOE_EP_WORLD, MOE_EP_SEQ, str(device)),
+                       timeout_s=MOE_EP_TIMEOUT_S)
+    gloo_s = time.perf_counter() - t1
+    for res in ranks:
+        log(f"{label} rank {res['rank']}: loss {float(res['metrics']['loss'])} "
+            f"{res['s']:.3f} s, rounds {res['rounds']} bytes {res['round_bytes']}, "
+            f"collectives {res['collectives']} bytes {res['collective_bytes']}, "
+            f"experts {res['expert_shapes']}, parameter bytes {res['param_bytes']}, "
+            f"peak {res['peak_bytes']}")
+    gate = moe_ep_check(label, ranks, ref, cfg, log)
+    one = dataclasses.replace(cfg, mesh=(1, 1))
+    dense = lm_run.run_loss(one, MOE_EP_WORLD, MOE_EP_SEQ, sharded=False, device=device)
+    gc.collect()
+    backend = "nccl" if card else "gloo"
+    store = tempfile.mkdtemp(prefix="moe_world1_")
+    mesh.init_shard_group(backend, "file://" + os.path.join(store, "store"),
+                          timeout_s=MOE_EP_TIMEOUT_S, rank=0, world_size=1, device=device)
+    try:
+        nccl = lm_run.run_loss(one, MOE_EP_WORLD, MOE_EP_SEQ, device=device,
+                               timeout_s=MOE_EP_TIMEOUT_S)
+    finally:
+        dist.destroy_process_group()
+        for name in os.listdir(store):
+            os.remove(os.path.join(store, name))
+        os.rmdir(store)
+    for key in ("loss", "ce", "moe_aux"):
+        check(np.array_equal(nccl["metrics"][key], dense["metrics"][key]),
+              f"moe-ep {backend}-1: {key} {nccl['metrics'][key]} differs from the one-card "
+              f"dense run's {dense['metrics'][key]}")
+    check(nccl["rounds"] == {} and dense["rounds"] == {},
+          f"moe-ep {backend}-1 took the exchange: {nccl['rounds']}")
+    log(f"moe-ep {backend}-1: dense, bit for bit the one-card run: loss "
+        f"{float(nccl['metrics']['loss'])} ({nccl['s']:.3f} s; one card {dense['s']:.3f} s)")
+    del dense
+    gc.collect()
+    if card:
+        torch.cuda.empty_cache()
+    return {"path": "moe-ep", "layers": MOE_EP_LAYERS, "world": MOE_EP_WORLD, "seq": MOE_EP_SEQ,
+            "stacked_s": ref["s"], "gloo4_s": gloo_s, "gate": gate,
+            "ranks": [{k: res[k] for k in ("rank", "s", "rounds", "round_bytes", "collectives",
+                                           "collective_bytes", "param_bytes", "peak_bytes")}
+                      for res in ranks],
+            "nccl1_loss": float(nccl["metrics"]["loss"]),
+            "run_s": time.perf_counter() - t0}
+
+
+def run_moe(seed: int, device, log, profile: bool = False) -> dict:
+    """The ``moe`` phase: (a) mixtral-8x22b served at full width on the card
+    (MOE_LAYERS layers, a 4,096-slot ring a layer, the MoE in every block)
+    with its gates and kernel 6 at its windowed shape; (b) its forward loss
+    with expert parallelism across processes (:func:`run_moe_ep`)."""
+    import torch
+
+    card = device.type == "cuda"
+    smi = card_line() if card else "cpu"
+    t0 = time.perf_counter()
+    cfg = moe_serve_config()
+    run = run_lm_path(seed, device, log, cfg=cfg, requests=len(MOE_PROMPT_LENS),
+                      slots=MOE_SLOTS, cache_len=MOE_CACHE_LEN, max_new=MOE_MAX_NEW,
+                      path="moe-serve", lens=MOE_PROMPT_LENS, routes=True)
+    serve_s = time.perf_counter() - t0
+    result = {"serve": run["result"]}
+    result["serve"]["rings"] = check_ring_kpos(run, log)
+    result["serve"]["gates"] = check_moe_serve(run, device, log)
+    rows = check_moe_kernels(run, device, log)
+    profiled = None
+    if profile:
+        from repro_torch.models import moe
+
+        profiled = profile_phases(moe_serve_phases(run), device,
+                                  window=(moe.ROUTE_RANGE, moe.EXPERTS_RANGE))
+        log("profile moe-serve: " + json.dumps({phase: {
+            "wall_ms": v["wall_ms"], "device_busy_ms": v["device_busy_ms"],
+            "by_class": v["by_class"], "top": [[k[:60], ms, n] for k, ms, n in v["top"][:8]],
+            "windows": {w: {"device_ms": x["device_ms"], "launches": x["launches"],
+                            "by_class": x["by_class"]} for w, x in v["windows"].items()},
+        } for phase, v in profiled.items()}))
+    a_s = time.perf_counter() - t0
+    log(f"run moe (a) serve: {a_s:.1f} s ({serve_s:.1f} s serving; {smi})")
+    del run
+    gc.collect()
+    if card:
+        torch.cuda.empty_cache()
+    result["ep"] = run_moe_ep(seed, device, log)
+    result.update(path="moe", a_s=a_s, profile=profiled, run_s=time.perf_counter() - t0)
+    log(f"run moe: {result['run_s']:.1f} s ((a) {a_s:.1f} s, (b) {result['ep']['run_s']:.1f} s; "
+        f"{smi})")
+    return {"result": result, "rows": rows}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--keys", type=int, default=1 << 27,
@@ -5503,6 +6064,7 @@ def main(argv=None) -> int:
                         "run, one more depth-6 probe query and compact of the D = 1 update run, "
                         "one get and one put of each kind of the D = 1 KV-cache run, "
                         "and one more prefill and decode step of each LM serving run "
+                        "(the moe phase's split by its routing and expert ranges) "
                         "and one more train step")
     args = parser.parse_args(argv)
 
@@ -5701,6 +6263,14 @@ def main(argv=None) -> int:
     rows += lm["rows"]
     paths.append(lm["result"])
     del lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    # MoE and the ring cache: mixtral-8x22b served on the card, then expert
+    # parallelism through the exchange across processes.
+    moe_run = run_moe(args.seed, device, log, profile=args.profile)
+    rows += moe_run["rows"]
+    paths.append(moe_run["result"])
+    del moe_run
     kernels = {"kernels": [{k: row[k] for k in (
         "name", "path", "shards", "route", "source", "replaces", "launches", "max_abs_err", "ms",
         "plain_ms", "bound_ms", "bound_by", "library_ms")} for row in rows]}

@@ -1,4 +1,5 @@
-"""Architecture configs of the port (granite-20b, qwen3-4b and xlstm-1.3b so far) and the shape suite."""
+"""Architecture configs of the port (granite-20b, qwen3-4b, xlstm-1.3b,
+mixtral-8x22b and grok-1-314b so far) and the shape suite."""
 from repro_torch.configs.base import (
     ARCH_IDS,
     SHAPE_SUITE,

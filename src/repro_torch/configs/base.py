@@ -8,7 +8,8 @@ deliberate difference: ``attention_impl`` takes ``"flash"`` (kernel 6,
 card is the port's target.  They stand for the reference's
 ``"flash_pallas"`` and ``"xla"``.
 
-granite-20b, qwen3-4b and xlstm-1.3b are ported so far; every other arch
+granite-20b, qwen3-4b, xlstm-1.3b, mixtral-8x22b and grok-1-314b are
+ported so far; every other arch
 id raises ``NotImplementedError`` naming the slice that brings it.
 """
 from __future__ import annotations
@@ -151,13 +152,11 @@ ARCH_IDS = (
     "pixtral_12b",
     "whisper_base",
 )
-PORTED_ARCHS = ("granite_20b", "qwen3_4b", "xlstm_1_3b")
+PORTED_ARCHS = ("granite_20b", "qwen3_4b", "xlstm_1_3b", "mixtral_8x22b", "grok_1_314b")
 # The slice of the port that brings each arch not ported yet.
 LATER_ARCH_SLICE = {
     "llama3_405b": "the multi-card LM slice (sharded weights)",
     "qwen3_14b": "the dense-LM slice after qwen3",
-    "grok_1_314b": "the MoE slice",
-    "mixtral_8x22b": "the MoE and swa ring-cache slices",
     "recurrentgemma_9b": "the Griffin slice (rglru blocks, local ring caches)",
     "pixtral_12b": "the VLM slice (patch-embedding prefix)",
     "whisper_base": "the encoder-decoder slice",

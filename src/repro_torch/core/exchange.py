@@ -456,18 +456,28 @@ def _unsort(sorted_rows: torch.Tensor, route: Route) -> torch.Tensor:
     return out.scatter_(1, route.perm, sorted_rows)
 
 
-def combine(answers: torch.Tensor, route: Route, fill: int) -> torch.Tensor:
+def combine(answers: torch.Tensor, route: Route, fill) -> torch.Tensor:
     """Inverse of :func:`dispatch` for one answer per row (one exchange call).
 
-    ``answers`` is laid out like the received buffers ``(local, D*capacity)``;
+    ``answers`` is laid out like the received buffers ``(local,
+    D*capacity[, ...])``: one answer a slot, with any trailing dims (an MoE
+    expert's output row, as :func:`pack_by_destination` carries them out);
     dropped rows get ``fill``.
     """
     d, cap = route.num_dest, route.capacity
-    local = answers.shape[0]
+    local, rest = answers.shape[0], tuple(answers.shape[2:])
     _count_call(answers)
-    back = route.group.all_to_all(answers.reshape(local, d, cap)).reshape(local, d * cap)
-    ans_sorted = torch.where(route.keep, torch.gather(back, 1, route.slot), fill)
-    return _unsort(ans_sorted, route)
+    back = route.group.all_to_all(answers.reshape(local, d, cap, *rest))
+    back = back.reshape(local, d * cap, *rest)
+    if not rest:
+        ans_sorted = torch.where(route.keep, torch.gather(back, 1, route.slot), fill)
+        return _unsort(ans_sorted, route)
+    n = route.slot.shape[1]
+    rows = take_rows(back.reshape(local, d * cap, -1), route.slot)  # (local, n, W)
+    ans_sorted = torch.where(route.keep[..., None], rows, fill)
+    out = torch.empty_like(ans_sorted)
+    out.scatter_(1, route.perm[..., None].expand_as(out), ans_sorted)
+    return out.reshape(local, n, *rest)
 
 
 def combine_ragged(

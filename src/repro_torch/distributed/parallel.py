@@ -34,8 +34,6 @@ from typing import Optional, Tuple
 
 import torch
 
-MOE_SLICE = "the MoE slice"
-
 
 @dataclasses.dataclass(frozen=True)
 class AbstractMesh:

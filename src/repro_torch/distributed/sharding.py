@@ -21,7 +21,17 @@ Roles (trailing-dim logic; the reference's scanned stacks carry a leading
 FSDP assigns the ``dp`` axes to the largest still-unsharded dim.  KV caches
 shard batch on ``dp`` and heads on ``tp`` when the head count divides;
 otherwise the *sequence* dim goes on ``tp`` (sequence-sharded cache —
-required for kv_heads=1 archs).
+required for kv_heads=1 archs).  A ring cache's ``kpos`` (P, B, W) follows
+its ``k``: whole over tp where ``k`` is split by heads, split along W where
+``k`` is split along its slots (the reference's rule alone would put W on
+tp in both cases).
+
+Expert parallelism (``moe_impl="ep"`` where the reference takes EP): an
+MoE layer's expert stacks (E, d, f) are dealt by owner over the ep axes
+(:class:`Owners`): a rank holds only the experts it runs, not an FSDP
+block, and its tp block of their ``f`` as the MLP's.  The reference
+replicates the stacks into its ``shard_map`` (GSPMD gathers them); the
+values a rank computes with are the same.
 
 :func:`block` is the counterpart of the reference's ``to_named``: it cuts a
 whole tensor into this rank's block; :func:`gather` is its inverse over the
@@ -29,6 +39,7 @@ group.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Optional, Tuple
 
@@ -49,6 +60,22 @@ _REPLICATED = {
     "dec_norm", "q_norm", "k_norm", "b", "b_in", "b_out", "b_a", "b_x",
     "conv_b", "lambda", "r", "conv_w", "pos_emb",
 }
+_EXPERT_STACKS = {"w_gate", "w_up", "w_down"}  # (E, d_in, d_out) under an MoE
+
+
+@dataclasses.dataclass(frozen=True)
+class Owners:
+    """A spec entry for the expert axis (of ``experts``) under expert
+    parallelism: each rank of the ep ``axes`` (row-major index r of D) holds
+    the experts it owns, ``r, r + D, ...`` when D < E and expert ``r % E``
+    when D >= E (``models.moe.owned_experts``), not a contiguous block."""
+
+    axes: tuple
+    experts: int
+
+    def count(self, size: int) -> int:
+        """Experts a rank holds over ``size`` ranks."""
+        return 1 if size >= self.experts else self.experts // size
 
 
 def _path(path) -> Tuple[str, ...]:
@@ -65,6 +92,8 @@ def _leaf_name(path) -> str:
 
 
 def _axis_size(mesh_shape: dict, axes) -> int:
+    if isinstance(axes, Owners):
+        axes = axes.axes
     if axes is None:
         return 1
     if isinstance(axes, str):
@@ -83,9 +112,11 @@ def param_spec(
     tp_axis: Optional[str],
     mesh_shape: dict,
     scanned: bool = False,
+    ep_axes: Optional[Tuple[str, ...]] = None,
 ) -> tuple:
     """The spec of one parameter leaf (``path``: a dotted name or a tuple of
-    names; ``scanned``: a leading period dim, as the reference's stacks)."""
+    names; ``scanned``: a leading period dim, as the reference's stacks;
+    ``ep_axes``: expert parallelism over them, :class:`Owners`)."""
     name = _leaf_name(path)
     ndim = len(shape)
     spec: list = [None] * ndim
@@ -101,6 +132,12 @@ def param_spec(
             return True
         return False
 
+    owners = False
+    if ep_axes and name in _EXPERT_STACKS and ndim - first == 3:
+        dvs, e = _axis_size(mesh_shape, tuple(ep_axes)), shape[first]
+        if dvs > 1 and (dvs % e == 0 or e % dvs == 0):
+            spec[first] = Owners(tuple(ep_axes), e)
+            owners = True
     if ndim - first >= 2 and name not in _REPLICATED:
         if name in _EMBED:
             # vocab over tp only (the reference measured FSDP of d_model
@@ -112,7 +149,7 @@ def param_spec(
         elif name in _ROW_PARALLEL and tp_axis and tp_size > 1:
             try_assign(ndim - 2, tp_axis)
         # FSDP: dp axes on the largest remaining unsharded dim.
-        if dp_size > 1 and name not in _EMBED:
+        if dp_size > 1 and name not in _EMBED and not owners:
             order = sorted(range(first, ndim), key=lambda d: shape[d], reverse=True)
             for d in order:
                 if try_assign(d, dp_axes):
@@ -136,11 +173,19 @@ def _leaves(tree) -> dict:
 
 def param_pspecs(params_shapes: Any, parallel: ParallelConfig) -> dict:
     """Name → spec of every parameter of the port's module (or a name →
-    shape-carrier dict).  The port's layers are unscanned leaves."""
+    shape-carrier dict).  The port's layers are unscanned leaves.  Under
+    ``moe_impl="ep"`` the expert stacks are dealt by owner over the ep axes,
+    which must then be the dp axes (the exchange runs over the dp group)."""
     shape = mesh_shape(parallel.mesh)
+    ep_axes = None
+    if parallel.moe_impl == "ep":
+        ep_axes = tuple(parallel.ep_axes_)
+        if ep_axes != tuple(parallel.dp_axes) and _axis_size(shape, ep_axes) > 1:
+            raise ValueError(f"expert parallelism runs over the dp axes {parallel.dp_axes}, "
+                             f"not {ep_axes}")
     return {
         name: param_spec(name, tuple(leaf.shape), dp_axes=parallel.dp_axes,
-                         tp_axis=parallel.tp_axis, mesh_shape=shape)
+                         tp_axis=parallel.tp_axis, mesh_shape=shape, ep_axes=ep_axes)
         for name, leaf in _leaves(params_shapes).items()
     }
 
@@ -177,11 +222,16 @@ def cache_leaf_spec(shape: Tuple[int, ...], parallel: ParallelConfig) -> tuple:
 
 def cache_pspecs(cache_shapes: Any, parallel: ParallelConfig) -> dict:
     """Specs of a decode-cache dict ``{"b<j>": NamedTuple of stacked
-    leaves}``, in the same structure."""
-    return {
-        name: type(c)(*(cache_leaf_spec(tuple(getattr(t, "shape", t)), parallel) for t in c))
-        for name, c in cache_shapes.items()
-    }
+    leaves}``, in the same structure; a ring's ``kpos`` (P, B, W) takes its
+    ``k``'s batch and slot entries."""
+    out = {}
+    for name, c in cache_shapes.items():
+        specs = [cache_leaf_spec(tuple(getattr(t, "shape", t)), parallel) for t in c]
+        if getattr(c, "_fields", ())[-1:] == ("kpos",):
+            k = specs[0]
+            specs[-1] = (k[0], k[1], k[3]) if k else ()
+        out[name] = type(c)(*specs)
+    return out
 
 
 def batch_pspec(shape_len: int, parallel: ParallelConfig) -> tuple:
@@ -212,16 +262,19 @@ def shard_bytes_per_device(shapes: Any, specs: dict, mesh_shape: dict) -> int:
     total = 0
     for name, leaf in _leaves(shapes).items():
         n = math.prod(leaf.shape) if len(leaf.shape) else 1
-        denom = 1
-        for entry in specs[name]:
-            if entry is not None:
-                denom *= _axis_size(mesh_shape, entry)
-        total += -(-n // denom) * _itemsize(leaf.dtype)
+        for dim, entry in enumerate(specs[name]):
+            if isinstance(entry, Owners):
+                n = n // leaf.shape[dim] * entry.count(_axis_size(mesh_shape, entry))
+            elif entry is not None:
+                n = -(-n // _axis_size(mesh_shape, entry))
+        total += n * _itemsize(leaf.dtype)
     return total
 
 
 def _entry_index(entry, coord: dict, shape: dict) -> tuple[int, int]:
     """(this rank's index, the entry's size) of one spec entry."""
+    if isinstance(entry, Owners):
+        entry = entry.axes
     axes = (entry,) if isinstance(entry, str) else tuple(entry)
     idx, size = 0, 1
     for a in axes:
@@ -243,6 +296,9 @@ def block_slices(full_shape, spec: tuple, mesh, coord: Optional[dict] = None) ->
             out.append(slice(None))
             continue
         idx, size = _entry_index(entry, coord, shape)
+        if isinstance(entry, Owners):
+            out.append(slice(idx % n, None, size))
+            continue
         if n % size:
             raise ValueError(f"dim of {n} does not divide over {entry} ({size})")
         b = n // size
@@ -259,7 +315,10 @@ def local_shape(full_shape, spec: tuple, mesh_shape_: dict) -> tuple:
     """The shape of a rank's block of ``full_shape`` under ``spec``."""
     out = []
     for n, entry in zip(full_shape, tuple(spec) + (None,) * (len(full_shape) - len(spec))):
-        out.append(n if entry is None else n // _axis_size(mesh_shape_, entry))
+        if isinstance(entry, Owners):
+            out.append(entry.count(_axis_size(mesh_shape_, entry)))
+        else:
+            out.append(n if entry is None else n // _axis_size(mesh_shape_, entry))
     return tuple(out)
 
 
@@ -271,6 +330,15 @@ def gather(local: torch.Tensor, spec: tuple, parallel: ParallelConfig, axes) -> 
     out = local
     for dim, entry in enumerate(spec):
         if entry is None:
+            continue
+        if isinstance(entry, Owners):  # every rank's experts, back in expert order
+            every = dp.all_gather(out, dim).movedim(dim, 0)
+            if dp.size >= entry.experts:  # expert r % E on rank r: the first E ranks
+                whole = every[:entry.experts]
+            else:  # rank r's j-th expert is r + j·D
+                whole = every.reshape(dp.size, -1, *every.shape[1:]).transpose(0, 1)
+                whole = whole.reshape(entry.experts, *every.shape[1:])
+            out = whole.movedim(0, dim)
             continue
         names = (entry,) if isinstance(entry, str) else tuple(entry)
         if names == ((parallel.tp_axis,) if parallel.tp_axis else ()):
@@ -342,6 +410,8 @@ def counts_block(spec: tuple, mesh, coord: dict) -> bool:
     spec leaves the leaf whole over (one copy of each block)."""
     used = set()
     for entry in spec:
+        if isinstance(entry, Owners):
+            entry = entry.axes
         if entry is not None:
             used.update((entry,) if isinstance(entry, str) else entry)
     return all(coord.get(a, 0) == 0 for a in mesh_shape(mesh) if a not in used)

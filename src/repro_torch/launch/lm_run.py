@@ -12,13 +12,25 @@ the collectives and their bytes per prefill and per decode step
 ``sharding.shard_bytes_per_device``, the kernel launches, walls and peak
 bytes.  :func:`design_collectives` is the count the design gives per call.
 
+:func:`run_loss` is the forward-loss run beside them: the model's
+``loss`` over a global batch drawn from the seed, each rank taking its
+rows (an MoE stack under ``moe_impl="ep"`` exchanges its (token, expert)
+rows through the paper's all-to-all), with the rank's row CE, aux, drops,
+exchange rounds and bytes per label, collectives and parameter bytes;
+``stacked=D`` runs the same on one device over ``StackedGroup(D)``
+(``transformer.loss_ep_stacked``), the twin every rank is held to bit for
+bit.  :func:`design_loss_collectives` is its design count.
+
 Several cards, one NCCL rank a card::
 
     torchrun --nproc-per-node=K -m repro_torch.launch.lm_run --arch granite_20b \\
         --mesh 1,K --requests 4 --slots 2 --max-new 16
 
 prints each rank's figures and checks that every rank generated the same
-tokens.  Each rank runs on card ``LOCAL_RANK``; without a card it stops,
+tokens; ``--loss B,S`` runs one forward loss of B rows of S tokens instead
+(e.g. ``--arch mixtral_8x22b --layers 2 --mesh K,1 --moe-impl ep --loss
+K,2048``: expert parallelism through the exchange) and checks that every
+rank has the same loss.  Each rank runs on card ``LOCAL_RANK``; without a card it stops,
 unless ``--device cpu`` asks for the plain path (gloo).
 """
 from __future__ import annotations
@@ -47,6 +59,7 @@ class LMRunConfig:
     dtype: Optional[str] = None  # None: the config's
     num_layers: Optional[int] = None  # None: the config's (a cut of depth)
     mesh: tuple = (1, 1)  # (data, model)
+    moe_impl: str = "ep"  # an MoE stack's dispatch over the mesh ("dense" | "ep")
     requests: int = 4
     slots: int = 2
     cache_len: int = 4096
@@ -84,11 +97,17 @@ def parallel_of(cfg: LMRunConfig):
     the live group."""
     from repro_torch.launch import mesh as lmesh
 
-    return lmesh.production_parallel(lmesh.device_mesh(cfg.mesh, AXES))
+    return lmesh.production_parallel(lmesh.device_mesh(cfg.mesh, AXES), moe_impl=cfg.moe_impl)
+
+
+def _ep_owners(mcfg, d: int, moe_impl: str) -> bool:
+    """Whether the layout deals the experts by owner over ``d`` dp ranks."""
+    e = mcfg.num_experts
+    return moe_impl == "ep" and e > 0 and d > 1 and (d % e == 0 or e % d == 0)
 
 
 def design_collectives(mcfg, mesh: Sequence[int], kind: str, seq_len: int, batch: int,
-                       cache_len: int) -> dict:
+                       cache_len: int, moe_impl: str = "ep") -> dict:
     """The collectives one call makes by the design, ``{kind: count}``
     (``kind`` "prefill" of ``batch`` prompts of ``seq_len``, or "decode" of
     ``batch`` slots), on a ``(data, model) = mesh`` layout with
@@ -106,7 +125,11 @@ def design_collectives(mcfg, mesh: Sequence[int], kind: str, seq_len: int, batch
       ``out_norm`` and the ``w_down`` sum, and an all-gather of each state
       whose cache block is not the rank's heads, once into the step and once
       out; sLSTM: the all-gather of the gate-major projection and the two
-      sums;
+      sums; an ``swa`` block as ``attn`` (its ring split as a cache is);
+      an MoE where the experts are dealt by owner (``moe_impl="ep"``) and
+      the rows do not divide over dp: the sum of the owners' parts over dp
+      (where they divide, its rows travel through the exchange's rounds,
+      counted apart);
     * the head: the all-gather of the vocab blocks, the FSDP gather of an
       untied ``lm_head``, and over dp the all-gather of a sharded batch's
       rows or the broadcast of a replicated one; a sequence-parallel
@@ -121,8 +144,10 @@ def design_collectives(mcfg, mesh: Sequence[int], kind: str, seq_len: int, batch
             out[k] = out.get(k, 0) + n
 
     h, kv, hd = mcfg.num_heads, mcfg.num_kv_heads, mcfg.head_dim_
+    attn_types = ("attn", "swa")
     sp = (kind == "prefill" and t > 1 and seq_len % t == 0
-          and all(bt == "attn" for bt in mcfg.block_pattern))
+          and all(bt in attn_types for bt in mcfg.block_pattern))
+    owner_sum = _ep_owners(mcfg, d, moe_impl) and batch % d != 0
     tp_sum = "reduce_scatter" if sp else "all_reduce"
     vocab_split = t > 1 and mcfg.vocab_size % t == 0
     if vocab_split:
@@ -131,9 +156,11 @@ def design_collectives(mcfg, mesh: Sequence[int], kind: str, seq_len: int, batch
         if d > 1:
             add("all_gather")  # the layer's FSDP blocks
         for bt in mcfg.block_pattern:
+            if bt in attn_types and owner_sum:
+                add("all_reduce")
             if t == 1:
                 continue
-            if bt == "attn":
+            if bt in attn_types:
                 add(tp_sum, 2)
                 if sp:
                     add("all_gather", 2)
@@ -163,6 +190,41 @@ def design_collectives(mcfg, mesh: Sequence[int], kind: str, seq_len: int, batch
         add("all_gather" if batch % d == 0 else "broadcast")
     if sp:
         add("broadcast")
+    return out
+
+
+def design_loss_collectives(mcfg, mesh: Sequence[int], batch: int, seq_len: int,
+                            moe_impl: str = "ep") -> dict:
+    """The collectives one ``loss`` of ``batch`` rows of ``seq_len`` tokens
+    makes by the design: a prefill's trunk (:func:`design_collectives`)
+    with the rows split over dp where they divide, then the head over every
+    position (the sequence blocks gathered under sequence parallelism, the
+    vocab blocks gathered), the CE's sum over dp, and over dp the aux's
+    one all-gather (EP: every rank's aux and drops) or one all-reduce of
+    the routing sums (dense MoE on split rows).  The MoE's exchange rounds
+    count apart."""
+    d, t = mesh
+    split = d > 1 and batch % d == 0
+    out = design_collectives(mcfg, mesh, "prefill", seq_len, batch, seq_len, moe_impl)
+    sp = t > 1 and seq_len % t == 0 and all(bt in ("attn", "swa") for bt in mcfg.block_pattern)
+
+    def add(k, n):
+        out[k] = out.get(k, 0) + n
+        if not out[k]:
+            del out[k]
+
+    if d > 1:  # the prefill's logits over dp, not made by a loss
+        add("all_gather" if batch % d == 0 else "broadcast", -1)
+    if sp:  # the prefill's last row from the last tp rank; the loss gathers the sequence
+        add("broadcast", -1)
+        add("all_gather", 1)
+    if d > 1:
+        add("all_reduce", 1)  # the CE
+    if mcfg.is_moe and d > 1:
+        if _ep_owners(mcfg, d, moe_impl) and split:
+            add("all_gather", 1)
+        elif split:
+            add("all_reduce", 1)
     return out
 
 
@@ -316,6 +378,88 @@ def run_lm(cfg: LMRunConfig, *, sharded: bool = True, device=None,
     return out
 
 
+def draw_loss_tokens(cfg: LMRunConfig, vocab_size: int, batch: int, seq: int) -> np.ndarray:
+    """A loss run's global batch (batch, seq + 1) from its seed: token ids
+    uniform in [1, vocab)."""
+    rng = np.random.default_rng(cfg.seed + 3)
+    return rng.integers(1, vocab_size, size=(batch, seq + 1), dtype=np.int32)
+
+
+def run_loss(cfg: LMRunConfig, batch: int, seq: int, *, sharded: bool = True,
+             stacked: Optional[int] = None, device=None, aux_coef: float = 0.01,
+             timeout_s: Optional[float] = None) -> dict:
+    """One forward loss of ``batch`` rows of ``seq`` tokens (drawn from the
+    seed, the same on every rank) through the model's ``loss`` on this rank
+    (``sharded``: over the live group's mesh, each rank its rows), the
+    weights drawn from ``cfg.seed``; ``stacked=D``: unsharded on this device
+    through ``transformer.loss_ep_stacked`` over D shards.  Returns the
+    metrics (``loss_rows``: the rank's row CE plus ``aux_coef`` times the
+    aux; per shard when stacked), the exchange rounds and bytes a rank by
+    label, the collectives, the parameter bytes beside
+    ``shard_bytes_per_device`` and the experts a rank holds, wall and peak."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.parallel import mesh_shape, single_device_parallel
+    from repro_torch.kernels import build
+    from repro_torch.models import transformer
+    from repro_torch.models.api import build_model, resolve_device
+
+    dev = resolve_device(device)
+    mcfg = model_config(cfg)
+    parallel = parallel_of(cfg) if sharded else single_device_parallel()
+    bundle = build_model(mcfg, parallel, device=dev, timeout_s=timeout_s)
+    params = bundle.init(cfg.seed)
+    tokens = torch.as_tensor(draw_loss_tokens(cfg, mcfg.vocab_size, batch, seq), device=dev)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    build.LAUNCHES.clear()
+    sync()
+    t0 = time.perf_counter()
+    with counting.scoped() as scope:
+        if stacked is not None:
+            metrics = transformer.loss_ep_stacked(params, tokens, mcfg, stacked, aux_coef)
+        else:
+            _, metrics = bundle.loss(params, {"tokens": tokens})
+            metrics["loss_rows"] = metrics["ce_rows"] + aux_coef * metrics["moe_aux"]
+        sync()
+    secs = time.perf_counter() - t0
+    shapes = bundle.param_shapes()
+    if sharded:
+        specs = sharding.param_pspecs(shapes, parallel)
+        expect = sharding.shard_bytes_per_device(shapes, specs, mesh_shape(parallel.mesh))
+    else:
+        expect = sum(t.numel() * t.element_size() for t in shapes.parameters())
+    experts = [tuple(t.shape) for name, t in params.named_parameters() if ".moe.w_gate" in name]
+    return {
+        "rank": dist.get_rank() if sharded and dist.is_initialized() else 0,
+        "mesh": tuple(cfg.mesh) if sharded else None,
+        "stacked": stacked,
+        "arch": mcfg.name,
+        "layers": mcfg.num_layers,
+        "moe_layers": mcfg.num_layers if mcfg.is_moe else 0,
+        "batch": batch,
+        "seq": seq,
+        "device": str(dev),
+        "metrics": {k: v.detach().cpu().numpy() for k, v in metrics.items()},
+        "rounds": dict(scope.rounds),
+        "round_bytes": dict(scope.round_bytes),
+        "collectives": dict(scope.collectives),
+        "collective_bytes": dict(scope.collective_bytes),
+        "param_bytes": sum(t.numel() * t.element_size() for t in params.parameters()),
+        "shard_bytes": expect,
+        "expert_shapes": experts[:1],
+        "launches": dict(build.LAUNCHES),
+        "s": secs,
+        "peak_bytes": torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None,
+    }
+
+
 def rank_job(group, configs: Sequence[LMRunConfig], device=None,
              timeout_s: Optional[float] = None) -> list:
     """A rank's runs of ``configs`` in turn over the group (a ``spawn``
@@ -349,6 +493,9 @@ def main(argv=None) -> int:
     parser.add_argument("--prompt-lens", type=_ints, default=(1000, 3000))
     parser.add_argument("--max-new", type=int, default=16)
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--moe-impl", default="ep", choices=("ep", "dense"))
+    parser.add_argument("--loss", type=_ints, default=None,
+                        help="batch,seq: one forward loss instead of serving")
     parser.add_argument("--backend", default=None, help="nccl (default on a card) or gloo")
     parser.add_argument("--device", default=None,
                         help="the rank's device (default: card LOCAL_RANK; 'cpu' for the "
@@ -368,9 +515,19 @@ def main(argv=None) -> int:
         mesh=args.mesh or (1, group.size),
         requests=args.requests, slots=args.slots, cache_len=args.cache_len,
         prompt_lens=args.prompt_lens, first_multiple=(args.mesh or (1, group.size))[1],
-        max_new=(args.max_new,), seed=args.seed,
+        max_new=(args.max_new,), seed=args.seed, moe_impl=args.moe_impl,
     )
     try:
+        if args.loss is not None:
+            out = run_loss(cfg, *args.loss, device=device, timeout_s=args.timeout)
+            loss = out["metrics"]["loss"]
+            same = group.same([int(np.asarray(loss, np.float32).view(np.int32))])
+            print(json.dumps({"backend": group.backend, "loss_equal_on_every_rank": same, **out},
+                             default=lambda v: v.tolist() if hasattr(v, "tolist") else str(v)),
+                  flush=True)
+            if not same:
+                raise RuntimeError("the ranks computed different losses")
+            return 0
         out = run_lm(cfg, device=device, keep_logits=False, timeout_s=args.timeout)
         tokens = [t for uid in sorted(out["tokens"]) for t in out["tokens"][uid]]
         same = group.same([len(tokens), int(_digest(np.asarray(tokens, np.int64))[:12], 16)])

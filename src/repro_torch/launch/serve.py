@@ -4,7 +4,8 @@
         --slots 4 --prompt-len 32 --max-new 16 [--device cpu]
 
 ``--arch`` takes a ported arch (``granite_20b``, ``qwen3_4b``,
-``xlstm_1_3b``) and serves its smoke config on one device
+``xlstm_1_3b``, ``mixtral_8x22b``, ``grok_1_314b``) and serves its smoke
+config on one device
 (``single_device_parallel()``, as the reference's launcher passes it).  Runs on the CUDA card unless ``--device cpu`` is given (there every kernel
 takes its plain twin); without a card and without ``--device cpu`` it
 raises.

@@ -25,7 +25,7 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.parallel import MOE_SLICE, ParallelConfig
+from repro_torch.distributed.parallel import ParallelConfig
 from repro_torch.models import layers, transformer
 
 
@@ -80,9 +80,10 @@ def build_model(cfg: ArchConfig, parallel: Optional[ParallelConfig] = None, *, d
     A ``parallel`` mesh must span the ``torch.distributed`` group
     (``ValueError`` otherwise); building binds the rank's tp and dp groups
     (a collective, with ``timeout_s``), so every rank builds alike.
-    ``moe_impl="ep"`` on a MoE config raises ``NotImplementedError``."""
-    if parallel is not None and parallel.moe_impl == "ep" and cfg.is_moe:
-        raise NotImplementedError(f"expert-parallel MoE (moe_impl='ep') belongs to {MOE_SLICE}")
+    ``moe_impl="ep"`` on an MoE config deals each layer's experts to the
+    ranks that own them and runs the MoE through the exchange where the
+    reference's condition holds and the batch rows divide over the ep ranks
+    (``models.moe``); elsewhere it runs dense."""
     transformer.check_supported(cfg)
     dev = resolve_device(device)
     layout = layers.SINGLE

@@ -23,8 +23,14 @@ positions of every kv head; decode then combines each rank's partial
 softmax by log-sum-exp (``_partial_attention_decode``,
 ``_combine_partials``), the combine GSPMD makes in the reference.
 
-Ring caches (``swa``/``local``), cross-attention and ``encoder_kv`` belong
-to later slices.
+Windowed blocks (``swa``) keep a :class:`RingKVCache` of ``W = min(window,
+cache_len)`` positions: prefill runs kernel 6 with the window and cuts the
+last ``W`` positions into the ring (:func:`ring_prefill_cache`), decode
+writes the new token at ``pos % window`` and attends over the positions its
+``kpos`` marks live (:func:`ring_decode_attention`), in place.  Where the
+reference's ``dynamic_update_slice`` clamps a slot past the ring's end (a
+ring shorter than the window, only past ``cache_len``), the port clamps
+too.  Cross-attention and ``encoder_kv`` belong to a later slice.
 """
 from __future__ import annotations
 
@@ -44,6 +50,15 @@ _NEG_INF = -1e30
 class KVCache(NamedTuple):
     k: torch.Tensor  # (B, KV, S_max, hd)
     v: torch.Tensor  # (B, KV, S_max, hd)
+
+
+class RingKVCache(NamedTuple):
+    """Fixed-window ring buffer for windowed decode: O(window) instead of
+    O(seq_len)."""
+
+    k: torch.Tensor  # (B, KV, W, hd)
+    v: torch.Tensor  # (B, KV, W, hd)
+    kpos: torch.Tensor  # (B, W) int32 absolute positions, -1 = empty
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
@@ -193,6 +208,7 @@ def attention(
     lay: layers.Layout = layers.SINGLE,
     sp: bool = False,
     kv_layout: Optional[str] = None,
+    ring: Optional[int] = None,
 ) -> tuple[torch.Tensor, Optional[KVCache]]:
     """Self-attention over ``x`` (B, S, d).
 
@@ -201,6 +217,10 @@ def attention(
       * prefill:          cache=None, return_cache=True (cache_len sizes it)
       * decode (S == 1):  cache=KVCache, cache_pos = absolute position (B,);
                           the new token is written into ``cache`` in place
+
+    Windowed blocks: ``ring`` (prefill) returns a :class:`RingKVCache` of
+    that width instead of a KVCache; decode against a RingKVCache writes at
+    ``pos % window`` and masks by its ``kpos``.
 
     Over a mesh (``lay``): ``wq``/``wk``/``wv`` are column-parallel over
     heads and ``wo`` row-parallel; ``x`` arrives sequence-sharded under
@@ -225,26 +245,36 @@ def attention(
     k_att, v_att = k_new[:, kv0 - n0:kv1 - n0], v_new[:, kv0 - n0:kv1 - n0]
 
     if decode:
-        k_all, v_all = cache
+        k_all, v_all = cache.k, cache.v
+        kpos = cache.kpos if isinstance(cache, RingKVCache) else None
         pos = cache_pos.reshape(b).to(torch.long)
         rows = torch.arange(b, device=x.device)
         k_put, v_put = k_new[:, c0 - n0:c1 - n0, 0], v_new[:, c0 - n0:c1 - n0, 0]
+        span = k_all.shape[2]
+        at = pos
+        if kpos is not None:  # the ring's slot, clamped to its end as the reference's update
+            at = (pos % window).clamp(max=span * (lay.tp.size if seq_cache else 1) - 1)
         if seq_cache:
-            span = k_all.shape[2]
             offset = lay.tp.index * span
-            local = pos - offset
+            local = at - offset
             mine = (local >= 0) & (local < span)
             k_all[rows[mine], :, local[mine]] = k_put[mine]
             v_all[rows[mine], :, local[mine]] = v_put[mine]
+            if kpos is not None:
+                kpos[rows[mine], local[mine]] = pos[mine].to(kpos.dtype)
             merged = _merge_heads(_combine_partials(lay, *_partial_attention_decode(
-                q, k_all, v_all, pos, window=window, offset=offset)).to(q.dtype))
+                q, k_all, v_all, pos, window=window, offset=offset, kpos=kpos)).to(q.dtype))
         else:
-            k_all[rows, :, pos] = k_put
-            v_all[rows, :, pos] = v_put
-            kv_len_mask = torch.arange(k_all.shape[2], device=x.device)[None, :] <= pos[:, None]
+            k_all[rows, :, at] = k_put
+            v_all[rows, :, at] = v_put
+            if kpos is not None:
+                kpos[rows, at] = pos.to(kpos.dtype)
+                live, win = ring_live(kpos, pos, window), None
+            else:
+                live, win = torch.arange(span, device=x.device)[None, :] <= pos[:, None], window
             merged = _merge_heads(_masked_attention_decode(
                 q, k_all[:, kv0 - c0:kv1 - c0], v_all[:, kv0 - c0:kv1 - c0], pos,
-                window=window, kv_len_mask=kv_len_mask))
+                window=win, kv_len_mask=live))
         new_cache = cache
     else:
         if cfg.attention_impl == "flash" and s > 1:
@@ -253,7 +283,17 @@ def attention(
             merged = _merge_heads(_masked_attention(
                 q, k_att, v_att, causal=causal, window=window, q_offset=0))
         new_cache = None
-        if return_cache:
+        if return_cache and ring is not None:
+            whole = ring_prefill_cache(k_new[:, c0 - n0:c1 - n0], v_new[:, c0 - n0:c1 - n0],
+                                       s, ring)
+            new_cache = whole
+            if seq_cache:  # the rank's span of the ring's slots
+                span = ring // lay.tp.size
+                cut = slice(lay.tp.index * span, (lay.tp.index + 1) * span)
+                new_cache = RingKVCache(whole.k[:, :, cut].contiguous(),
+                                        whole.v[:, :, cut].contiguous(),
+                                        whole.kpos[:, cut].contiguous())
+        elif return_cache:
             smax = cache_len or s
             k_c, v_c = k_new[:, c0 - n0:c1 - n0], v_new[:, c0 - n0:c1 - n0]
             span, offset = smax, 0
@@ -273,20 +313,24 @@ def attention(
     return layers.reduce_rows(lay, out, partial, sp), new_cache
 
 
-def _partial_attention_decode(q, k, v, pos, *, window, offset: int):
+def _partial_attention_decode(q, k, v, pos, *, window, offset: int, kpos=None):
     """One rank's part of decode attention over a sequence-sharded cache:
     q (B,KV,G,1,hd) against its positions [offset, offset + S) of k/v
-    (B,KV,S,hd).  Returns f32 (m, l, o): each query row's max over its live
+    (B,KV,S,hd), or, for a ring, the positions its slots' ``kpos`` (B, S)
+    hold.  Returns f32 (m, l, o): each query row's max over its live
     scores, the sum of exp(score - m) and the unnormalised output (a rank
     with no live position gives m = -1e30, l = 0, o = 0)."""
     hd = q.shape[-1]
     skv = k.shape[2]
     scale = 1.0 / math.sqrt(hd)
     s = torch.einsum("bkgsd,bktd->bkgst", q.float() * scale, k.float())
-    k_pos = offset + torch.arange(skv, device=q.device)[None, :]
-    live = k_pos <= pos[:, None]
-    if window is not None:
-        live = live & (k_pos > pos[:, None] - window)
+    if kpos is not None:
+        live = ring_live(kpos, pos, window)
+    else:
+        k_pos = offset + torch.arange(skv, device=q.device)[None, :]
+        live = k_pos <= pos[:, None]
+        if window is not None:
+            live = live & (k_pos > pos[:, None] - window)
     live = live[:, None, None, None, :]
     s = torch.where(live, s, _NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
@@ -322,3 +366,40 @@ def _masked_attention_decode(q, k, v, pos, *, window, kv_len_mask):
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgst,bktd->bkgsd", p, v.float())
     return out.to(q.dtype)
+
+
+def ring_live(kpos: torch.Tensor, pos: torch.Tensor, window: int) -> torch.Tensor:
+    """(B, W) bool: the ring slots a query at ``pos`` (B,) attends to —
+    filled, not after it and inside its window."""
+    p = pos[:, None]
+    return (kpos >= 0) & (kpos <= p) & (kpos > p - window)
+
+
+def ring_prefill_cache(k: torch.Tensor, v: torch.Tensor, seq_len: int, window: int) -> RingKVCache:
+    """A ring of ``window`` slots from a prefill's k/v (B, KV, S, hd): the
+    last ``window`` positions at ``pos % window`` (all of them, from slot
+    0, when the prompt is shorter), the other slots zero with ``kpos`` -1."""
+    b, kvh, _, hd = k.shape
+    w = window
+    rk = torch.zeros((b, kvh, w, hd), dtype=k.dtype, device=k.device)
+    rv = torch.zeros_like(rk)
+    kpos = torch.full((b, w), -1, dtype=torch.int32, device=k.device)
+    if seq_len >= w:
+        pos = torch.arange(seq_len - w, seq_len, device=k.device)
+        slots = pos % w
+        rk[:, :, slots] = k[:, :, seq_len - w:seq_len]
+        rv[:, :, slots] = v[:, :, seq_len - w:seq_len]
+        kpos[:, slots] = pos.to(torch.int32)
+    else:
+        rk[:, :, :seq_len] = k[:, :, :seq_len]
+        rv[:, :, :seq_len] = v[:, :, :seq_len]
+        kpos[:, :seq_len] = torch.arange(seq_len, dtype=torch.int32, device=k.device)
+    return RingKVCache(rk, rv, kpos)
+
+
+def ring_decode_attention(p: Attention, x: torch.Tensor, cfg: ArchConfig, cache: RingKVCache,
+                          pos: torch.Tensor, window: int):
+    """One-token decode against a ring cache (x (B, 1, d), pos (B,)), the
+    reference's function: :func:`attention` with the ring, written in place."""
+    return attention(p, x, cfg, pos.reshape(-1, 1), causal=True, window=window, cache=cache,
+                     cache_pos=pos)

@@ -1,5 +1,6 @@
-"""Decoder-only LM assembly for dense ``attn`` stacks and xLSTM
-(``mlstm``/``slstm``) stacks (port of ``repro.models.transformer``).
+"""Decoder-only LM assembly for ``attn`` and ``swa`` stacks (with the SwiGLU
+MLP or the MoE) and xLSTM (``mlstm``/``slstm``) stacks (port of
+``repro.models.transformer``).
 
 Parameters are ``nn.Module``s in the reference's layout: ``embed``
 (V, d), ``layers`` (one :class:`Period` per pattern period, each holding
@@ -8,7 +9,9 @@ its blocks ``b0``, ``b1``, ...), ``final_norm`` (d,) and, untied,
 loop over ``layers``.  Caches keep the reference's stacked layout: one
 cache per block position whose tensors carry a leading ``num_periods``
 axis: a :class:`~repro_torch.models.attention.KVCache` ``(num_periods, B,
-KV, S_max, hd)`` for ``attn``, an :class:`~repro_torch.models.ssm.MLSTMState`
+KV, S_max, hd)`` for ``attn``, a
+:class:`~repro_torch.models.attention.RingKVCache` of ``min(window,
+cache_len)`` slots for ``swa``, an :class:`~repro_torch.models.ssm.MLSTMState`
 or :class:`~repro_torch.models.ssm.SLSTMState` for the xLSTM blocks (their
 size does not depend on ``cache_len``).
 
@@ -22,10 +25,12 @@ divides, the residual stream over tp in a sequence-parallel prefill, each
 layer's FSDP blocks are gathered before it, and the logits come back whole
 on every rank; the caches are a rank's blocks, as :class:`Caches`.
 
-``attn`` blocks with the SwiGLU MLP and the self-contained ``mlstm`` and
-``slstm`` blocks (no MLP, as in the reference) are ported; ``swa``/``local``
-(ring caches), ``rglru``, MoE, encoder-decoder and frontend models raise
-``NotImplementedError`` naming their slice.  Parameters are made with
+``attn`` and ``swa`` blocks with the SwiGLU MLP or the MoE
+(``models/moe.py``; its load-balance aux is ``forward_train``'s second
+output and ``loss_fn``'s ``moe_aux``) and the self-contained ``mlstm`` and
+``slstm`` blocks (no MLP, as in the reference) are ported; ``local`` (its
+ring cache stays with its only user), ``rglru``, encoder-decoder and
+frontend models raise ``NotImplementedError`` naming their slice.  Parameters are made with
 ``requires_grad=False`` in the compute type (the serving copy);
 :func:`trainable_params` turns f32 masters into a trainer's parameters.
 """
@@ -40,17 +45,15 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
-from repro_torch.models import layers, ssm
+from repro_torch.models import layers, moe, ssm
 
-ATTN_TYPES = ("attn",)
+ATTN_TYPES = ("attn", "swa")
 XLSTM_TYPES = ("mlstm", "slstm")
 # The slice of the port that brings each block type or feature not ported yet.
 LATER_BLOCK_SLICE = {
-    "swa": "the ring-cache slice (swa/local windows)",
-    "local": "the ring-cache slice (swa/local windows)",
-    "rglru": "the Griffin slice (rglru blocks)",
+    "local": "the Griffin slice (rglru blocks and their local ring caches)",
+    "rglru": "the Griffin slice (rglru blocks and their local ring caches)",
 }
-MOE_SLICE = "the MoE slice"
 ENCDEC_SLICE = "the encoder-decoder slice"
 FRONTEND_SLICE = "the VLM/audio frontend slice"
 
@@ -65,14 +68,21 @@ def check_supported(cfg: ArchConfig) -> None:
             raise NotImplementedError(
                 f"block type {bt!r} is not ported yet: it belongs to {LATER_BLOCK_SLICE[bt]}"
             )
-    if cfg.is_moe:
-        raise NotImplementedError(f"MoE layers are not ported yet: they belong to {MOE_SLICE}")
     if cfg.is_encoder_decoder:
         raise NotImplementedError(f"encoder-decoder models belong to {ENCDEC_SLICE}")
     if cfg.frontend is not None:
         raise NotImplementedError(f"frontend {cfg.frontend!r} belongs to {FRONTEND_SLICE}")
     if cfg.d_ff <= 0 and any(bt in ATTN_TYPES for bt in cfg.block_pattern):
         raise NotImplementedError("attn blocks without an MLP are not ported yet")
+
+
+def block_window(cfg: ArchConfig, bt: str) -> Optional[int]:
+    """The attention window of block type ``bt`` (None: full causal)."""
+    if bt == "swa":
+        return cfg.sliding_window
+    if bt == "local":
+        return cfg.local_window
+    return None
 
 
 def compute_dtype(cfg: ArchConfig) -> torch.dtype:
@@ -91,15 +101,24 @@ class MLP(nn.Module):
         self.w_down = _param((cfg.d_ff, cfg.d_model), dtype, device)
 
 
+class MoEMLP(nn.Module):
+    """The MoE in the MLP's place (the reference's ``{"moe": ...}``)."""
+
+    def __init__(self, cfg: ArchConfig, *, dtype, device):
+        super().__init__()
+        self.moe = moe.MoE(cfg, dtype=dtype, device=device)
+
+
 class Block(nn.Module):
-    """Pre-norm attention block with the SwiGLU MLP (norms in f32)."""
+    """Pre-norm attention block with the SwiGLU MLP or the MoE (norms in f32)."""
 
     def __init__(self, cfg: ArchConfig, *, dtype, device):
         super().__init__()
         self.norm1 = _param((cfg.d_model,), torch.float32, device)
         self.attn = attn.Attention(cfg, dtype=dtype, device=device)
         self.norm2 = _param((cfg.d_model,), torch.float32, device)
-        self.mlp = MLP(cfg, dtype=dtype, device=device)
+        mlp = MoEMLP if cfg.is_moe else MLP
+        self.mlp = mlp(cfg, dtype=dtype, device=device)
 
 
 class MixerBlock(nn.Module):
@@ -149,7 +168,9 @@ def init_params(
     """Random parameters by the reference's rule, drawn on ``device`` (the
     generator's device) from ``generator``: every matrix truncated-normal
     with std ``1 / sqrt(fan_in)`` (the embedding's fan-in is its vocab axis,
-    as in the reference), every norm vector ones; the sLSTM's recurrent
+    as in the reference; each expert of an MoE stack (E, d_in, d_out) is
+    its own matrix, of fan-in ``d_in``, as the reference ``vmap``s its
+    init over experts), every norm vector ones; the sLSTM's recurrent
     ``r`` (H, 4, hd, hd) a plain normal over ``sqrt(hd)`` and its bias ``b``
     zeros (``ssm.init_slstm``).  Matrices are stored in ``dtype`` (default:
     the config's compute type), one matrix drawn in f32 at a time.  The
@@ -171,6 +192,9 @@ def init_params(
                 full.copy_(draw.div_(math.sqrt(full.shape[-1])))
             elif name.endswith(".mixer.b"):
                 full.zero_()
+            elif ".moe.w_" in name:
+                for expert in full:
+                    layers.truncated_normal_(expert, 1.0, generator)
             elif full.ndim >= 2:
                 layers.truncated_normal_(full, 1.0, generator)
             else:
@@ -236,6 +260,10 @@ def block_cache_shapes(cfg: ArchConfig, bt: str, batch: int, cache_len: int) -> 
     """The whole shapes of one block position's cache (its NamedTuple's
     fields, leading ``num_periods`` axis)."""
     p = cfg.num_periods
+    if bt == "swa":
+        w = min(block_window(cfg, bt), cache_len)
+        shape = (p, batch, cfg.num_kv_heads, w, cfg.head_dim_)
+        return attn.RingKVCache(shape, shape, (p, batch, w))
     if bt in ATTN_TYPES:
         shape = (p, batch, cfg.num_kv_heads, cache_len, cfg.head_dim_)
         return attn.KVCache(shape, shape)
@@ -248,7 +276,8 @@ def block_cache_shapes(cfg: ArchConfig, bt: str, batch: int, cache_len: int) -> 
 def init_block_cache(cfg: ArchConfig, bt: str, batch: int, cache_len: int, device,
                      specs=None, mesh_shape: Optional[dict] = None):
     """One block position's cache for all periods (leading ``num_periods``
-    axis): zero KV for ``attn``; for ``mlstm`` zero ``c`` (B, H, dk, dv) and
+    axis): zero KV for ``attn``; for ``swa`` a zero ring with ``kpos`` -1
+    (B, W) int32; for ``mlstm`` zero ``c`` (B, H, dk, dv) and
     ``n`` (B, H, dk) f32; for ``slstm`` zero ``c, n, h`` and ``m = -1e30``,
     (B, d) f32 each.  With ``specs`` (the fields' specs over a mesh of
     ``mesh_shape``) a rank's blocks."""
@@ -258,6 +287,11 @@ def init_block_cache(cfg: ArchConfig, bt: str, batch: int, cache_len: int, devic
     if specs is not None:
         shapes = type(shapes)(*(sharding.local_shape(sh, sp, mesh_shape)
                                 for sh, sp in zip(shapes, specs)))
+    if bt == "swa":
+        dt = compute_dtype(cfg)
+        return attn.RingKVCache(torch.zeros(shapes.k, dtype=dt, device=device),
+                                torch.zeros(shapes.v, dtype=dt, device=device),
+                                torch.full(shapes.kpos, -1, dtype=torch.int32, device=device))
     if bt in ATTN_TYPES:
         dt = compute_dtype(cfg)
         return attn.KVCache(*(torch.zeros(sh, dtype=dt, device=device) for sh in shapes))
@@ -322,51 +356,70 @@ def kv_layout(lay: layers.Layout, spec) -> Optional[str]:
 # ---------------------------------------------------------------------------
 # block application
 # ---------------------------------------------------------------------------
-def _apply_mlp(p: Block, x: torch.Tensor, lay: layers.Layout = layers.SINGLE,
-               sp: bool = False) -> torch.Tensor:
-    """The SwiGLU residual: ``w_gate`` / ``w_up`` column-parallel and
-    ``w_down`` row-parallel over a mesh (``x`` the rank's sequence block
-    under ``sp``)."""
+def _apply_mlp(p: Block, x: torch.Tensor, cfg: ArchConfig, lay: layers.Layout = layers.SINGLE,
+               sp: bool = False, ctx: Optional[moe.Context] = None) -> torch.Tensor:
+    """The MLP residual: the SwiGLU with ``w_gate`` / ``w_up`` column-parallel
+    and ``w_down`` row-parallel over a mesh (``x`` the rank's sequence block
+    under ``sp``), or the MoE (``moe.apply``; its experts' ``f`` split over
+    tp alike), which records its aux in ``ctx``."""
     m = p.mlp
-    r0, r1, n = lay.rows(m.w_down)
+    down = m.moe.w_down if cfg.is_moe else m.w_down
+    r0, r1, n = lay.rows(down)
     partial = (r0, r1) != (0, n)
     xin = lay.tp_input(layers.rmsnorm(x, lay.tp_shared(p.norm2, sp)), sp, partial)
-    out = layers.swiglu(xin, lay.w(m.w_gate), lay.w(m.w_up), lay.w(m.w_down))
+    if cfg.is_moe:
+        out = moe.apply(m.moe, xin, cfg, lay, ctx)
+    else:
+        out = layers.swiglu(xin, lay.w(m.w_gate), lay.w(m.w_up), lay.w(m.w_down))
     return x + layers.reduce_rows(lay, out, partial, sp)
 
 
-def apply_block_train(bt: str, p, x, positions, cfg: ArchConfig,
-                      lay: layers.Layout = layers.SINGLE, sp: bool = False):
+def _mix_train(bt: str, p, x, positions, cfg: ArchConfig, lay: layers.Layout = layers.SINGLE,
+               sp: bool = False) -> torch.Tensor:
+    """A block's mixer residual in a teacher-forced pass (an xLSTM block is
+    its mixer alone)."""
     if bt == "mlstm":
         return ssm.mlstm_block(p.mixer, x, cfg, lay=lay)[0]
     if bt == "slstm":
         return ssm.slstm_block(p.mixer, x, cfg, lay=lay)[0]
     xin = layers.rmsnorm(x, lay.tp_shared(p.norm1, sp))
-    out, _ = attn.attention(p.attn, xin, cfg, positions, causal=True, window=None, lay=lay,
-                            sp=sp)
-    return _apply_mlp(p, x + out, lay, sp)
+    out, _ = attn.attention(p.attn, xin, cfg, positions, causal=True,
+                            window=block_window(cfg, bt), lay=lay, sp=sp)
+    return x + out
+
+
+def apply_block_train(bt: str, p, x, positions, cfg: ArchConfig,
+                      lay: layers.Layout = layers.SINGLE, sp: bool = False,
+                      ctx: Optional[moe.Context] = None):
+    x = _mix_train(bt, p, x, positions, cfg, lay, sp)
+    return x if bt in XLSTM_TYPES else _apply_mlp(p, x, cfg, lay, sp, ctx)
 
 
 def apply_block_prefill(bt: str, p, x, positions, cfg: ArchConfig, cache_len: int,
                         lay: layers.Layout = layers.SINGLE, sp: bool = False,
-                        kv: Optional[str] = None):
+                        kv: Optional[str] = None, ctx: Optional[moe.Context] = None):
+    """One block over the prompt: its output and its cache (an ``swa``
+    block's ring of ``min(window, cache_len)`` slots)."""
     if bt == "mlstm":
         return ssm.mlstm_block(p.mixer, x, cfg, return_state=True, lay=lay)
     if bt == "slstm":
         return ssm.slstm_block(p.mixer, x, cfg, return_state=True, lay=lay)
+    w = block_window(cfg, bt)
     xin = layers.rmsnorm(x, p.norm1)
     out, cache = attn.attention(
-        p.attn, xin, cfg, positions, causal=True, window=None,
+        p.attn, xin, cfg, positions, causal=True, window=w,
         return_cache=True, cache_len=cache_len, lay=lay, sp=sp, kv_layout=kv,
+        ring=None if w is None else min(w, cache_len),
     )
-    return _apply_mlp(p, x + out, lay, sp), cache
+    return _apply_mlp(p, x + out, cfg, lay, sp, ctx), cache
 
 
 def apply_block_decode(bt: str, p, x, cache, pos, cfg: ArchConfig,
-                       lay: layers.Layout = layers.SINGLE, kv: Optional[str] = None):
-    """One token through one block.  An ``attn`` block writes its KV cache
-    in place; an xLSTM block copies its new state into ``cache`` (views of
-    the batched state)."""
+                       lay: layers.Layout = layers.SINGLE, kv: Optional[str] = None,
+                       ctx: Optional[moe.Context] = None):
+    """One token through one block.  An attention block writes its KV cache
+    or ring in place; an xLSTM block copies its new state into ``cache``
+    (views of the batched state)."""
     if bt in XLSTM_TYPES:
         step = ssm.mlstm_decode_step if bt == "mlstm" else ssm.slstm_decode_step
         x, new = step(p.mixer, x, cfg, cache, lay)
@@ -375,10 +428,10 @@ def apply_block_decode(bt: str, p, x, cache, pos, cfg: ArchConfig,
         return x, cache
     xin = layers.rmsnorm(x, p.norm1)
     out, cache = attn.attention(
-        p.attn, xin, cfg, pos.reshape(-1, 1), causal=True, cache=cache, cache_pos=pos,
-        lay=lay, kv_layout=kv,
+        p.attn, xin, cfg, pos.reshape(-1, 1), causal=True, window=block_window(cfg, bt),
+        cache=cache, cache_pos=pos, lay=lay, kv_layout=kv,
     )
-    return _apply_mlp(p, x + out, lay), cache
+    return _apply_mlp(p, x + out, cfg, lay, ctx=ctx), cache
 
 
 # ---------------------------------------------------------------------------
@@ -415,17 +468,19 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
 
 
-def _period_train(period: Period, x, positions, cfg: ArchConfig, lay: layers.Layout, sp: bool):
+def _period_train(period: Period, x, positions, cfg: ArchConfig, lay: layers.Layout, sp: bool,
+                  ctx: Optional[moe.Context] = None):
     with lay.gathered(period):
         for j, bt in enumerate(cfg.block_pattern):
-            x = apply_block_train(bt, getattr(period, f"b{j}"), x, positions, cfg, lay, sp)
+            x = apply_block_train(bt, getattr(period, f"b{j}"), x, positions, cfg, lay, sp, ctx)
     return x
 
 
 def _trunk(params: Transformer, inputs: torch.Tensor, cfg: ArchConfig, lay: layers.Layout,
-           sp: bool, remat: bool) -> torch.Tensor:
+           sp: bool, remat: bool, ctx: Optional[moe.Context] = None) -> torch.Tensor:
     """The residual stream after the last period for ``inputs`` (the rank's
-    rows; its sequence block under ``sp``)."""
+    rows; its sequence block under ``sp``); the MoE layers record their aux
+    in ``ctx``."""
     from repro_torch.distributed import collectives
 
     b, s = inputs.shape
@@ -434,10 +489,10 @@ def _trunk(params: Transformer, inputs: torch.Tensor, cfg: ArchConfig, lay: laye
     remat = remat and torch.is_grad_enabled() and any(p.requires_grad for p in params.parameters())
     for period in params.layers:
         if remat:  # the FSDP gather runs again in the recomputation
-            x = checkpoint(_period_train, period, x, positions, cfg, lay, sp,
+            x = checkpoint(_period_train, period, x, positions, cfg, lay, sp, ctx,
                            use_reentrant=False, preserve_rng_state=False)
         else:
-            x = _period_train(period, x, positions, cfg, lay, sp)
+            x = _period_train(period, x, positions, cfg, lay, sp, ctx)
     return collectives.gather_whole(lay.tp, x, 1) if sp else x
 
 
@@ -445,8 +500,10 @@ def forward_train(params: Transformer, tokens: torch.Tensor, cfg: ArchConfig,
                   layout: Optional[layers.Layout] = None, remat: bool = True):
     """Full teacher-forced pass.  tokens (B, S+1) → (logits (B,S,V), aux).
 
-    ``aux`` is the reference's MoE load-balance term, 0 for dense stacks.
-    Over a mesh (``layout``) every rank returns the whole logits.
+    ``aux`` is the reference's MoE load-balance term averaged over the
+    layers (each layer's over the whole batch; under expert parallelism the
+    mean of the ep ranks' own, as the reference's ``pmean``), 0 for dense
+    stacks.  Over a mesh (``layout``) every rank returns the whole logits.
 
     Differentiable: gradients reach every parameter that requires one
     (:func:`trainable_params`; each matrix is cast to the compute type at
@@ -458,22 +515,27 @@ def forward_train(params: Transformer, tokens: torch.Tensor, cfg: ArchConfig,
     check_supported(cfg)
     lay = _layout(params, layout)
     batch_sharded, sp = lay.act(cfg, (tokens.shape[0], tokens.shape[1] - 1))
-    x = _trunk(params, lay.batch_rows(tokens[:, :-1], batch_sharded), cfg, lay, sp, remat)
+    ctx = moe.Context(batch_sharded, moe.AuxParts(cfg.num_experts))
+    x = _trunk(params, lay.batch_rows(tokens[:, :-1], batch_sharded), cfg, lay, sp, remat, ctx)
     logits = lay.gather_batch(_head(params, x, cfg, lay), batch_sharded)
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    aux, _ = ctx.aux.finish(lay, x.device)
+    return logits, aux / cfg.num_layers
 
 
 def loss_fn(params: Transformer, batch: dict, cfg: ArchConfig,
             layout: Optional[layers.Layout] = None, aux_coef: float = 0.01,
             remat: bool = True):
-    """Next-token CE (+ the MoE load-balance aux, 0 here) of ``batch["tokens"]``
-    (B, S+1).  Returns ``(loss, {"loss", "ce", "moe_aux"})``, f32 scalars.
+    """Next-token CE + ``aux_coef`` times the MoE load-balance aux (0 for
+    dense stacks) of ``batch["tokens"]`` (B, S+1).  Returns ``(loss, {"loss",
+    "ce", "moe_aux", "ce_rows"})``, f32 scalars, and for an MoE stack also
+    ``"moe_dropped"``: the (token, expert) rows each EP layer dropped, summed
+    over the ep ranks (int64, one a layer that took EP; empty otherwise).
 
     Over a mesh with dp > 1 each rank takes its rows of the batch (they must
     divide over dp, ``ValueError`` otherwise), and ``ce`` is the mean over
-    the whole batch: each rank's mean summed over dp and divided by its
-    size (the sum's gradient passes through), the same bits on every
-    rank."""
+    the whole batch: each rank's mean (``ce_rows``) summed over dp and
+    divided by its size (the sum's gradient passes through), the same bits
+    on every rank."""
     from repro_torch.distributed import collectives
 
     check_supported(cfg)
@@ -484,12 +546,17 @@ def loss_fn(params: Transformer, batch: dict, cfg: ArchConfig,
         raise ValueError(f"a loss over a mesh takes rows that divide over dp: {tokens.shape[0]} "
                          f"rows over {lay.dp.size} ranks")
     rows = lay.batch_rows(tokens, batch_sharded)
-    logits = _head(params, _trunk(params, rows[:, :-1], cfg, lay, sp, remat), cfg, lay)
+    ctx = moe.Context(batch_sharded, moe.AuxParts(cfg.num_experts))
+    logits = _head(params, _trunk(params, rows[:, :-1], cfg, lay, sp, remat, ctx), cfg, lay)
     mine = layers.softmax_cross_entropy_logits(logits, rows[:, 1:])
     ce = collectives.sum_partials(lay.dp, mine) / lay.dp.size
-    aux = torch.zeros((), dtype=torch.float32, device=ce.device)  # MoE's, 0 for dense stacks
+    aux, dropped = ctx.aux.finish(lay, ce.device)
+    aux = aux / cfg.num_layers
     loss = ce + aux_coef * aux
-    return loss, {"loss": loss, "ce": ce, "moe_aux": aux}
+    metrics = {"loss": loss, "ce": ce, "moe_aux": aux, "ce_rows": mine}
+    if cfg.is_moe:
+        metrics["moe_dropped"] = dropped
+    return loss, metrics
 
 
 @torch.no_grad()
@@ -511,13 +578,14 @@ def prefill(params: Transformer, tokens: torch.Tensor, cfg: ArchConfig,
     cache_len = max(cache_len or s, s)
     specs, slots = cache_specs(cfg, b_full, cache_len, lay) if lay.sharded else (None, None)
     positions = _positions(b, s, x.device)
+    ctx = moe.Context(batch_sharded)
     per_block = {f"b{j}": [] for j, _ in enumerate(cfg.block_pattern)}
     for period in params.layers:
         with lay.gathered(period):
             for j, bt in enumerate(cfg.block_pattern):
                 kv = kv_layout(lay, specs[f"b{j}"][0]) if specs else None
                 x, c = apply_block_prefill(bt, getattr(period, f"b{j}"), x, positions, cfg,
-                                           cache_len, lay, sp, kv)
+                                           cache_len, lay, sp, kv, ctx)
                 per_block[f"b{j}"].append(c)
     caches = {
         name: type(cs[0])(*(torch.stack(leaves) for leaves in zip(*cs)))
@@ -549,6 +617,7 @@ def decode_step(params: Transformer, caches: dict, token: torch.Tensor, pos: tor
     batch_sharded, _ = lay.act(cfg, token.shape, seq=False)
     token, pos = lay.batch_rows(token, batch_sharded), lay.batch_rows(pos, batch_sharded)
     x = _embed(params, token, cfg, lay)
+    ctx = moe.Context(batch_sharded)
     for i, period in enumerate(params.layers):
         with lay.gathered(period):
             for j, bt in enumerate(cfg.block_pattern):
@@ -556,7 +625,45 @@ def decode_step(params: Transformer, caches: dict, token: torch.Tensor, pos: tor
                 kv = kv_layout(lay, specs[f"b{j}"][0]) if specs else None
                 x, _ = apply_block_decode(
                     bt, getattr(period, f"b{j}"), x, type(c)(*(t[i] for t in c)), pos, cfg,
-                    lay, kv,
+                    lay, kv, ctx,
                 )
     logits = lay.gather_batch(_head(params, x, cfg, lay)[:, 0], batch_sharded)
     return logits, caches
+
+
+@torch.no_grad()
+def loss_ep_stacked(params: Transformer, tokens: torch.Tensor, cfg: ArchConfig,
+                    shards: int, aux_coef: float = 0.01) -> dict:
+    """The stacked twin of :func:`loss_fn` under expert parallelism over
+    ``shards`` dp ranks (``moe_impl="ep"`` on a ``(shards, 1)`` mesh), on one
+    device: shard ``i`` takes its rows of ``tokens`` (B, S+1), runs every
+    block but the MoE on them alone, as its rank would, and the MoE layers
+    exchange over ``StackedGroup(shards)``.  Returns per shard the row CE
+    (``ce_rows``), its loss (``ce_rows + aux_coef · moe_aux``), and the aux
+    and drops of the group, as each rank's :func:`loss_fn` gives them."""
+    from repro_torch.core import exchange
+
+    check_supported(cfg)
+    if tokens.shape[0] % shards:
+        raise ValueError(f"{tokens.shape[0]} rows do not divide over {shards} shards")
+    group = exchange.StackedGroup(shards)
+    rows = tokens.chunk(shards, dim=0)
+    xs = [_embed(params, r[:, :-1], cfg) for r in rows]
+    b, s, d = xs[0].shape
+    positions = _positions(b, s, xs[0].device)
+    acc = moe.AuxParts(cfg.num_experts)
+    for period in params.layers:
+        for j, bt in enumerate(cfg.block_pattern):
+            p = getattr(period, f"b{j}")
+            xs = [_mix_train(bt, p, x, positions, cfg) for x in xs]
+            m = p.mlp.moe
+            xin = torch.stack([layers.rmsnorm(x, p.norm2).reshape(b * s, d) for x in xs])
+            out, aux, dropped = moe._ep(m.router, moe._stacks(m), xin, cfg, group)
+            acc.add_ep(aux, dropped)
+            xs = [x + out[i].reshape(b, s, d) for i, x in enumerate(xs)]
+    aux, dropped = acc.finish(layers.SINGLE, xs[0].device)
+    aux = aux / cfg.num_layers
+    ce_rows = torch.stack([layers.softmax_cross_entropy_logits(_head(params, x, cfg), r[:, 1:])
+                           for x, r in zip(xs, rows)])
+    return {"ce_rows": ce_rows, "loss_rows": ce_rows + aux_coef * aux, "moe_aux": aux,
+            "moe_dropped": dropped}

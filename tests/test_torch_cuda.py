@@ -1626,3 +1626,101 @@ def test_train_procs_nccl_world1_is_the_unsharded_step_bit_for_bit(card, tmp_pat
     assert [s["digests"] for s in got["steps"]] == [s["digests"] for s in ref["steps"]]
     assert got["launches"] == ref["launches"]
     assert all(not s["collectives"] for s in got["steps"])
+
+
+# -- MoE and the sliding-window ring cache ---------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_moe_flash_kernel_at_mixtral_window(card, dtype):
+    """Kernel 6 at mixtral-8x22b's windowed shape: 48 q heads over 8 kv
+    heads, hd 128, window 4,096, prompts longer than the window (the window
+    edge's tiles at full width)."""
+    gen = torch.Generator(device=card).manual_seed(4096)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    for s in (4097, 6144):
+        q = torch.randn((48, s, 128), generator=gen, device=card).to(dtype)
+        k, v = (torch.randn((8, s, 128), generator=gen, device=card).to(dtype) for _ in range(2))
+        args = dict(causal=True, window=4096, q_heads_per_kv=6)
+        got = flash.flash_attention_fhsd(q, k, v, **args)
+        want = flash.flash_attention_plain(q, k, v, **args)
+        diff = (got.float() - want.float()).abs()
+        assert bool((diff <= tol * (1 + want.float().abs())).all()), (s, float(diff.max()))
+        del q, k, v, got, want, diff
+
+
+def _routes_of(fn):
+    """``fn()``'s result and the experts each MoE layer chose (sorted per token)."""
+    from repro_torch.models import moe
+
+    seen, route = [], moe.route
+
+    def capture(router, x2d, cfg):
+        r = route(router, x2d, cfg)
+        seen.append(r.ids.sort(dim=-1).values)
+        return r
+
+    moe.route = capture
+    try:
+        return fn(), seen
+    finally:
+        moe.route = route
+
+
+def test_grok_layer_prefill_matches_the_plain_path(card):
+    """One grok-1 layer at full width (d_model 6144, 48 / 8 heads, 8 experts
+    of d_ff 32768, vocab 131072; bf16, random weights): its teacher-forced
+    logits through kernel 6 and the grouped MoE against the plain path
+    (masked-einsum attention) at every position whose experts agree in both
+    (the tests' bf16 logit tolerance; a position whose experts differ is a
+    router tie that rounding flipped, at most 5 %), and its MoE against the
+    all-experts form on the layer's input."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import layers, moe, transformer
+
+    cfg = dataclasses.replace(get_config("grok_1_314b"), num_layers=1)
+    bundle = build_model(cfg, device=card)
+    plain = build_model(dataclasses.replace(cfg, attention_impl="plain"), device=card)
+    params = bundle.init(0)
+    toks = np.random.default_rng(1).integers(1, cfg.vocab_size, (1, 513), np.int32)
+    before = build.LAUNCHES["flash_attention"]
+    (got, _), ids_k = _routes_of(lambda: bundle.forward_train(params, toks))
+    assert build.LAUNCHES["flash_attention"] == before + 1
+    (want, _), ids_p = _routes_of(lambda: plain.forward_train(params, toks))
+    same = ~(ids_k[0] != ids_p[0]).any(dim=-1)
+    assert float(same.float().mean()) >= 0.95
+    g, w = got[0][same].float(), want[0][same].float()
+    assert bool(((g - w).abs() <= 6e-2 + 2e-2 * w.abs()).all()), float((g - w).abs().max())
+    with torch.no_grad():
+        x = transformer._embed(params, torch.as_tensor(toks[:, :-1], device=card), cfg)
+        block = params.layers[0].b0
+        pos = torch.arange(x.shape[1], device=card, dtype=torch.int32)[None]
+        x = layers.rmsnorm(transformer._mix_train("attn", block, x, pos, cfg), block.norm2)
+        out, aux = moe.moe_dense(block.mlp.moe, x, cfg)
+        ref, ref_aux = moe.moe_dense_all(block.mlp.moe, x, cfg)
+    assert bool(((out.float() - ref.float()).abs() <= 2e-2 * (1 + ref.float().abs())).all())
+    torch.testing.assert_close(aux, ref_aux)
+
+
+def test_ring_decode_across_the_window_edge_on_card(card):
+    """mixtral smoke (window 32; head dim 32, one kernel 6 takes) in f32 on
+    the card: a 28-token prefill through kernel 6 into 32-slot rings, then
+    12 decode steps across the window edge, against the same run on the CPU
+    (the plain twins): logits within 2e-4, ``kpos`` equal after every step."""
+    cfg = dataclasses.replace(get_smoke_config("mixtral_8x22b"), dtype="float32", head_dim=32)
+    cpu, gpu = build_model(cfg, device="cpu"), build_model(cfg, device=card)
+    params = cpu.init(0)
+    on_card = copy.deepcopy(params).to(card)
+    toks = np.random.default_rng(3).integers(1, cfg.vocab_size, (2, 40), np.int32)
+    want, wc = cpu.prefill(params, {"tokens": toks[:, :28]}, cache_len=64)
+    before = build.LAUNCHES["flash_attention"]
+    got, gc_ = gpu.prefill(on_card, {"tokens": toks[:, :28]}, cache_len=64)
+    assert build.LAUNCHES["flash_attention"] == before + cfg.num_layers
+    torch.testing.assert_close(got.cpu(), want, atol=2e-4, rtol=2e-4)
+    for t in range(28, 40):
+        tok, pos = toks[:, t:t + 1], np.full((2,), t, np.int32)
+        want, wc = cpu.decode_step(params, wc, tok, pos)
+        got, gc_ = gpu.decode_step(on_card, gc_, tok, pos)
+        torch.testing.assert_close(got.cpu(), want, atol=2e-4, rtol=2e-4)
+        assert torch.equal(gc_["b0"].kpos.cpu(), wc["b0"].kpos)
+    assert int(wc["b0"].kpos.min()) == 39 - 31

@@ -269,7 +269,8 @@ def test_convert_round_trip(jax_params):
 
 
 def test_other_archs_and_block_types_raise_not_implemented():
-    ported = {"qwen3_4b": 36, "xlstm_1_3b": 48, "granite_20b": 52}
+    ported = {"qwen3_4b": 36, "xlstm_1_3b": 48, "granite_20b": 52, "mixtral_8x22b": 56,
+              "grok_1_314b": 64}
     for arch in ARCH_IDS:
         if arch in ported:
             assert get_config(arch).num_layers == ported[arch]
@@ -282,15 +283,17 @@ def test_other_archs_and_block_types_raise_not_implemented():
     with pytest.raises(KeyError):
         get_config("gpt5")
     base = get_smoke_config("qwen3_4b")
+    # swa (the ring cache) and MoE build now, with or without moe_impl="ep";
+    # the local ring and rglru stay with the Griffin slice.
     for change in (dict(block_pattern=("swa",), sliding_window=8),
-                   dict(block_pattern=("local",), local_window=8),
-                   dict(block_pattern=("rglru",), rnn_width=64),
                    dict(num_experts=4, experts_per_token=2)):
-        with pytest.raises(NotImplementedError, match="slice"):
+        build_model(dataclasses.replace(base, **change), device="cpu")
+    build_model(dataclasses.replace(base, num_experts=4, experts_per_token=2),
+                parallel=ParallelConfig(mesh=None, moe_impl="ep"), device="cpu")
+    for change in (dict(block_pattern=("local",), local_window=8),
+                   dict(block_pattern=("rglru",), rnn_width=64)):
+        with pytest.raises(NotImplementedError, match="Griffin slice"):
             build_model(dataclasses.replace(base, **change), device="cpu")
-    with pytest.raises(NotImplementedError, match="MoE slice"):
-        build_model(dataclasses.replace(base, num_experts=4, experts_per_token=2),
-                    parallel=ParallelConfig(mesh=None, moe_impl="ep"), device="cpu")
     with pytest.raises(ValueError, match="attention_impl"):
         build_model(dataclasses.replace(base, attention_impl="xla"), device="cpu")
 

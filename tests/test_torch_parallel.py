@@ -378,11 +378,35 @@ def test_mesh_that_does_not_fit_the_group_raises():
 
 
 def test_moe_ep_raises_naming_the_moe_slice():
+    """EP builds now (one device: dense), its experts are dealt by owner
+    over the ep ranks, ep axes other than dp are refused, and training
+    through the exchange raises naming its later slice."""
+    from repro_torch.core import exchange
+    from repro_torch.models import moe as moe_mod
+
     base = get_smoke_config("qwen3_4b")
-    moe = dataclasses.replace(base, num_experts=4, experts_per_token=2)
-    with pytest.raises(NotImplementedError, match="MoE slice"):
-        build_model(moe, lmesh.production_parallel(AbstractMesh((1, 1), ("data", "model"))),
-                    device="cpu")
+    cfg = dataclasses.replace(base, num_experts=4, experts_per_token=2)
+    bundle = build_model(cfg, lmesh.production_parallel(AbstractMesh((1, 1), ("data", "model"))),
+                         device="cpu")
+    params = bundle.init(0)
+    assert tuple(params.layers[0].b0.mlp.moe.w_gate.shape) == (4, 128, 256)
+    meta = transformer.Transformer(cfg, dtype=torch.float32, device="meta")
+    for world, owned in ((2, 2), (4, 1), (8, 1)):
+        par = lmesh.production_parallel(AbstractMesh((world, 1), ("data", "model")))
+        specs = shd.param_pspecs(meta, par)
+        spec = specs["layers.0.b0.mlp.moe.w_gate"]
+        assert spec[0] == shd.Owners(("data",), 4) and spec[1:] == (None, None)
+        assert shd.local_shape((4, 128, 256), spec, {"data": world, "model": 1})[0] == owned
+        assert specs["layers.0.b0.mlp.moe.router"] == (("data",), None)  # FSDP
+    dense = shd.param_pspecs(meta, dataclasses.replace(par, moe_impl="dense"))
+    assert dense["layers.0.b0.mlp.moe.w_gate"][0] is None
+    with pytest.raises(ValueError, match="dp axes"):
+        shd.param_pspecs(meta, dataclasses.replace(par, ep_axes=("model",),
+                                                   mesh=AbstractMesh((1, 4), ("data", "model"))))
+    m = params.layers[0].b0.mlp.moe
+    x = torch.randn(2, 8, 128, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="expert-parallel training slice"):
+        moe_mod.moe_ep(m, x, cfg, exchange.StackedGroup(2))
 
 
 def test_entry_points_take_the_card_unless_asked(monkeypatch):
