@@ -1,10 +1,11 @@
-"""Architecture configs of the port (granite-20b, qwen3-4b, xlstm-1.3b,
-mixtral-8x22b and grok-1-314b so far) and the shape suite."""
+"""Architecture configs of the port (one module per arch, copies of the
+reference's) and the shape suite."""
 from repro_torch.configs.base import (
     ARCH_IDS,
     SHAPE_SUITE,
     ArchConfig,
     ShapeCell,
+    all_configs,
     get_config,
     get_smoke_config,
     shape_cell,
@@ -15,6 +16,7 @@ __all__ = [
     "SHAPE_SUITE",
     "ArchConfig",
     "ShapeCell",
+    "all_configs",
     "get_config",
     "get_smoke_config",
     "shape_cell",

@@ -8,9 +8,7 @@ deliberate difference: ``attention_impl`` takes ``"flash"`` (kernel 6,
 card is the port's target.  They stand for the reference's
 ``"flash_pallas"`` and ``"xla"``.
 
-granite-20b, qwen3-4b, xlstm-1.3b, mixtral-8x22b and grok-1-314b are
-ported so far; every other arch
-id raises ``NotImplementedError`` naming the slice that brings it.
+Every arch of the reference's registry is ported (``PORTED_ARCHS``).
 """
 from __future__ import annotations
 
@@ -152,25 +150,13 @@ ARCH_IDS = (
     "pixtral_12b",
     "whisper_base",
 )
-PORTED_ARCHS = ("granite_20b", "qwen3_4b", "xlstm_1_3b", "mixtral_8x22b", "grok_1_314b")
-# The slice of the port that brings each arch not ported yet.
-LATER_ARCH_SLICE = {
-    "llama3_405b": "the multi-card LM slice (sharded weights)",
-    "qwen3_14b": "the dense-LM slice after qwen3",
-    "recurrentgemma_9b": "the Griffin slice (rglru blocks, local ring caches)",
-    "pixtral_12b": "the VLM slice (patch-embedding prefix)",
-    "whisper_base": "the encoder-decoder slice",
-}
+PORTED_ARCHS = ARCH_IDS
 
 
 def _module(arch: str):
     arch = arch.replace("-", "_")
     if arch not in ARCH_IDS:
         raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
-    if arch not in PORTED_ARCHS:
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported yet: it belongs to {LATER_ARCH_SLICE[arch]}"
-        )
     return importlib.import_module(f"repro_torch.configs.{arch}")
 
 
@@ -186,3 +172,8 @@ def get_smoke_config(arch: str) -> ArchConfig:
     cfg: ArchConfig = _module(arch).SMOKE_CONFIG
     cfg.validate()
     return cfg
+
+
+def all_configs() -> dict[str, ArchConfig]:
+    """Every arch's full-width CONFIG, by id, in ``ARCH_IDS`` order."""
+    return {a: get_config(a) for a in ARCH_IDS}

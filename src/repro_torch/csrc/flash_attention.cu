@@ -38,9 +38,13 @@
 //   one's last p.v and its stores.  TMA zero-fills rows past Sq and Skv.
 //   Smem rows are swizzled by the tensor map (128-byte swizzle; D = 32 rows
 //   are 64 bytes, so 64-byte swizzle there), and a D = 128 row is two
-//   64-column boxes.  D = 128: q 32 KB + 3 x (k 32 KB + v 32 KB) = 224 KB;
-// * s = q.k^T is `wgmma` m64n128k16 with both operands in shared memory
-//   (K-major, as stored); o += p.v is `wgmma` m64nDk16 with p as the
+//   64-column boxes.  D = 128: q 32 KB + 3 x (k 32 KB + v 32 KB) = 224 KB.
+//   D = 256 (four boxes a row) takes 64-key tiles in 2 stages: q 64 KB +
+//   2 x (k 32 KB + v 32 KB) = 192 KB;
+// * s = q.k^T is `wgmma` m64n128k16 (m64n64k16 at D = 256) with both
+//   operands in shared memory (K-major, as stored); o += p.v is `wgmma`
+//   m64nDk16 (two m64n128k16 halves at D = 256, whose o accumulator is
+//   128 f32 registers a consumer thread) with p as the
 //   register A operand, packed to bf16 from the s accumulator (whose
 //   per-warp layout is the m16n8 accumulator layout), and v read from
 //   shared memory as an MN-major B operand through the descriptor's
@@ -389,6 +393,29 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint6
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// d (64 x 64 f32) = or += a (64 x 16, smem, K-major) . b (64 x 16, smem, K-major)^T
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int accumulate) {
+  if constexpr (N == 128) wgmma_ss_n128(d, da, db, accumulate);
+  else wgmma_ss_n64(d, da, db, accumulate);
+}
+
 // d (64 x 32 f32) += a (64 x 16 bf16, registers) . b (16 x 32, smem, MN-major)
 __device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
   asm volatile(
@@ -471,8 +498,8 @@ __device__ __forceinline__ void qk_tile(float (&sc)[BN / 2], uint32_t q_base, ui
 #pragma unroll
   for (int ks = 0; ks < D / 16; ++ks) {
     const int box = ks * 16 / BOX_COLS, within = (ks * 16 % BOX_COLS) * 2;
-    wgmma_ss_n128(sc, smem_desc(q_base + box * q_box + within, 16, 8 * SW, layout),
-                  smem_desc(k_base + box * kv_box + within, 16, 8 * SW, layout), ks > 0);
+    wgmma_ss<BN>(sc, smem_desc(q_base + box * q_box + within, 16, 8 * SW, layout),
+                 smem_desc(k_base + box * kv_box + within, 16, 8 * SW, layout), ks > 0);
   }
   wgmma_commit();
   reg_fence(sc);
@@ -488,8 +515,16 @@ __device__ __forceinline__ void pv_tile(float (&acc)[D / 2], uint32_t (&pa)[BN /
   reg_fence(acc);
   reg_fence_u32(pa);
 #pragma unroll
-  for (int kk = 0; kk < BN / 16; ++kk)
-    wgmma_rs<D>(acc, pa[kk], smem_desc(v_base + kk * 16 * SW, kv_box, 8 * SW, layout));
+  for (int kk = 0; kk < BN / 16; ++kk) {
+    if constexpr (D == 256) {  // two n128 halves: columns [0, 128) are boxes 0-1, [128, 256) 2-3
+      float(&lo)[64] = *reinterpret_cast<float(*)[64]>(&acc[0]);
+      float(&hi)[64] = *reinterpret_cast<float(*)[64]>(&acc[64]);
+      wgmma_rs_n128(lo, pa[kk], smem_desc(v_base + kk * 16 * SW, kv_box, 8 * SW, layout));
+      wgmma_rs_n128(hi, pa[kk], smem_desc(v_base + 2 * kv_box + kk * 16 * SW, kv_box, 8 * SW, layout));
+    } else {
+      wgmma_rs<D>(acc, pa[kk], smem_desc(v_base + kk * 16 * SW, kv_box, 8 * SW, layout));
+    }
+  }
   wgmma_commit();
   reg_fence(acc);
 }
@@ -585,8 +620,10 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[BN / 2], float (&m)[2],
 template <int D>
 struct Tiles {
   static constexpr int BM = 128;              // query rows per item: two consumer warpgroups of 64
-  static constexpr int BN = 128;              // keys per kv tile
-  static constexpr int STAGES = 3;            // depth of the k/v ring
+  // D = 256: 128-key tiles in 3 stages would need 448 KB; 64-key tiles in 2
+  // stages take q 64 KB + 2 x (k 32 KB + v 32 KB) = 192 KB.
+  static constexpr int BN = D > 128 ? 64 : 128;  // keys per kv tile
+  static constexpr int STAGES = D > 128 ? 2 : 3;  // depth of the k/v ring
   static constexpr int SW = D >= 64 ? 128 : 2 * D;  // swizzle span = bytes of one box row
   static constexpr int BOX_COLS = SW / 2;     // bf16 columns of one TMA box
   static constexpr int NBOX = D / BOX_COLS;   // boxes per tile row (2 at D = 128)
@@ -920,7 +957,7 @@ cudaError_t launch_typed(const Args& a, int is_bf16, cudaStream_t stream) {
 // needs the strides in multiples of 16 bytes and 16-byte aligned bases (the
 // wrapper checks).  window < 0 means none.  Returns the launch's
 // cudaGetLastError() (cudaErrorInvalidValue for a head dim other than 32,
-// 64, 128 or a view no tensor map takes).
+// 64, 128, 256 or a view no tensor map takes).
 extern "C" int flash_attention(const void* q, const void* k, const void* v, void* o,
                                long long qsb, long long qsh, long long qss, long long ksb,
                                long long ksh, long long kss, long long vsb, long long vsh,
@@ -936,6 +973,7 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v, void
     case 32: err = launch_typed<32>(a, is_bf16, st); break;
     case 64: err = launch_typed<64>(a, is_bf16, st); break;
     case 128: err = launch_typed<128>(a, is_bf16, st); break;
+    case 256: err = launch_typed<256>(a, is_bf16, st); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
@@ -948,6 +986,7 @@ extern "C" int flash_attention_smem_bytes(int d, int is_bf16) {
     case 32: return static_cast<int>(is_bf16 ? Tiles<32>::SMEM : Smem<32>::BYTES);
     case 64: return static_cast<int>(is_bf16 ? Tiles<64>::SMEM : Smem<64>::BYTES);
     case 128: return static_cast<int>(is_bf16 ? Tiles<128>::SMEM : Smem<128>::BYTES);
+    case 256: return static_cast<int>(is_bf16 ? Tiles<256>::SMEM : Smem<256>::BYTES);
     default: return -1;
   }
 }

@@ -8,7 +8,8 @@ reading kv head ``h // q_heads_per_kv``; causal (aligned to the end of the
 kv axis, offset ``Skv - Sq``), sliding-window or full; f32 scores, softmax
 and accumulator; a row with no live key gives 0; the result in q's type.
 The TPU kernel's ``block_q``/``block_kv`` have no counterpart: the CUDA
-kernel's tiles are fixed (128 x 128 in bf16, 64 x 64 in f32).
+kernel's tiles are fixed (128 x 128 in bf16, 128 x 64 at D = 256; 64 x 64
+in f32).
 
 The kernel reads q, k, v and writes o through strides (see
 :func:`card_strides`), so :func:`flash_attention_bhsd` takes the permuted
@@ -32,7 +33,7 @@ import torch
 from repro_torch.kernels import build
 
 NAME = "flash_attention"
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 DTYPES = (torch.bfloat16, torch.float32)
 NEG_INF = -1e30
 # The profiler range around the plain twin's recomputation and gradient.
@@ -141,7 +142,7 @@ def flash_attention_bhsd(
     """Attention of q ``(B, Hq, Sq, D)`` over k/v ``(B, Hkv, Skv, D)``, any
     views :func:`card_strides` takes; returns ``out`` (allocated
     ``(B, Hq, Sq, D)`` when None, else written in place through its
-    strides) in q's type.  One launch on the card (D in 32/64/128)."""
+    strides) in q's type.  One launch on the card (D in 32/64/128/256)."""
     _check(q, k, v, q_heads_per_kv)
     if q.ndim != 4:
         raise ValueError(f"{NAME}: flash_attention_bhsd takes (B, H, S, D) tensors")

@@ -3,9 +3,10 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_4b --requests 12 \\
         --slots 4 --prompt-len 32 --max-new 16 [--device cpu]
 
-``--arch`` takes a ported arch (``granite_20b``, ``qwen3_4b``,
-``xlstm_1_3b``, ``mixtral_8x22b``, ``grok_1_314b``) and serves its smoke
-config on one device
+``--arch`` takes an arch id and serves its smoke config on one device
+(the batcher is tokens-only, as the reference's: the frontend models,
+whisper-base and pixtral-12b, are served through the bundle's ``prefill``
+/ ``decode_step``)
 (``single_device_parallel()``, as the reference's launcher passes it).  Runs on the CUDA card unless ``--device cpu`` is given (there every kernel
 takes its plain twin); without a card and without ``--device cpu`` it
 raises.

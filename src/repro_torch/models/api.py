@@ -2,7 +2,10 @@
 ``repro.models.api``).
 
 ``build_model(cfg, parallel, device=...)`` returns a :class:`ModelBundle`
-whose members are functions over a parameter module.  Decoder-only models.
+whose members are functions over a parameter module: decoder-only models
+(``models/transformer.py``, a VLM's patch embeddings in ``batch["patch_emb"]``)
+and, where ``cfg.is_encoder_decoder``, ``models/encdec.py`` (the audio
+frames in ``batch["frames"]``), as the reference dispatches.
 ``init`` draws the serving copy (compute type, no gradients);
 ``init_train`` the f32 masters a trainer updates, and ``loss`` is the
 reference's ``loss_fn`` over either.
@@ -20,13 +23,31 @@ logits the unsharded model's, whole on every rank.  ``parallel=None`` or
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+import math
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeCell
 from repro_torch.distributed.parallel import ParallelConfig
-from repro_torch.models import layers, transformer
+from repro_torch.models import encdec, layers, transformer
+
+
+class TensorSpec(NamedTuple):
+    """The shape and type of one model input (the reference's
+    ``ShapeDtypeStruct``): nothing is allocated."""
+
+    shape: torch.Size
+    dtype: torch.dtype
+
+
+def _specs_of(tree):
+    """The :class:`TensorSpec` of every tensor of a (nested) cache tree."""
+    if isinstance(tree, torch.Tensor):
+        return TensorSpec(tree.shape, tree.dtype)
+    if isinstance(tree, dict):
+        return {k: _specs_of(v) for k, v in tree.items()}
+    return type(tree)(*(_specs_of(t) for t in tree))
 
 
 def resolve_device(device) -> torch.device:
@@ -41,29 +62,67 @@ def resolve_device(device) -> torch.device:
     return torch.device(device)
 
 
+def model_class(cfg: ArchConfig):
+    """The parameter module of ``cfg``'s model."""
+    return encdec.EncoderDecoder if cfg.is_encoder_decoder else transformer.Transformer
+
+
 @dataclasses.dataclass(frozen=True)
 class ModelBundle:
     cfg: ArchConfig
     device: torch.device
-    init: Callable[[int], transformer.Transformer]
+    init: Callable[[int], torch.nn.Module]
     prefill: Callable[..., tuple]
     decode_step: Callable[..., tuple]
     init_cache: Callable[[int, int], dict]
     forward_train: Callable[..., tuple]
     loss: Callable[..., tuple]
-    init_train: Callable[[int], transformer.Transformer]
+    init_train: Callable[[int], torch.nn.Module]
     parallel: Optional[ParallelConfig] = None
     layout: layers.Layout = layers.SINGLE
 
-    def param_shapes(self) -> transformer.Transformer:
+    def param_shapes(self) -> torch.nn.Module:
         """The whole parameters on the meta device (the port's dtypes)."""
-        return transformer.Transformer(self.cfg, dtype=transformer.compute_dtype(self.cfg),
-                                       device="meta")
+        return model_class(self.cfg)(self.cfg, dtype=transformer.compute_dtype(self.cfg),
+                                     device="meta")
+
+    # -- model inputs, as shapes and types (nothing allocated) ---------------------
+    def train_input_specs(self, cell: ShapeCell) -> dict:
+        b, s = cell.global_batch, cell.seq_len
+        return {"tokens": TensorSpec(torch.Size((b, s + 1)), torch.int32),
+                **self._frontend_specs(b)}
+
+    def prefill_input_specs(self, cell: ShapeCell) -> dict:
+        b, s = cell.global_batch, cell.seq_len
+        return {"tokens": TensorSpec(torch.Size((b, s)), torch.int32), **self._frontend_specs(b)}
+
+    def decode_input_specs(self, cell: ShapeCell) -> dict:
+        """The token, its position and the caches of ``cell``'s batch and
+        length (the caches' specs from ``init_cache`` on the meta device)."""
+        b, s = cell.global_batch, cell.seq_len
+        cfg = self.cfg
+        if cfg.is_encoder_decoder:
+            caches = encdec.init_cache(cfg, b, s, device="meta")
+        else:
+            caches = transformer.init_cache(cfg, b, s, device="meta")
+        return {"token": TensorSpec(torch.Size((b, 1)), torch.int32),
+                "pos": TensorSpec(torch.Size((b,)), torch.int32), "caches": _specs_of(caches)}
+
+    def _frontend_specs(self, b: int) -> dict:
+        cfg = self.cfg
+        shape = TensorSpec(torch.Size((b, cfg.frontend_len, cfg.d_model)),
+                           transformer.compute_dtype(cfg))
+        if cfg.frontend == "patch_stub":
+            return {"patch_emb": shape}
+        if cfg.frontend == "audio_stub":
+            return {"frames": shape}
+        return {}
 
 
 def build_model(cfg: ArchConfig, parallel: Optional[ParallelConfig] = None, *, device=None,
                 timeout_s: Optional[float] = None) -> ModelBundle:
-    """Closures of a decoder-only model on ``device``.
+    """Closures of ``cfg``'s model on ``device`` (an encoder-decoder where
+    ``cfg.is_encoder_decoder``: :func:`_build_encdec`).
 
     ``init(seed)`` draws the parameters on the device from a
     ``torch.Generator`` seeded with ``seed``; ``prefill(params, {"tokens":
@@ -83,10 +142,19 @@ def build_model(cfg: ArchConfig, parallel: Optional[ParallelConfig] = None, *, d
     ``moe_impl="ep"`` on an MoE config deals each layer's experts to the
     ranks that own them and runs the MoE through the exchange where the
     reference's condition holds and the batch rows divide over the ep ranks
-    (``models.moe``); elsewhere it runs dense."""
+    (``models.moe``); elsewhere it runs dense.
+
+    A VLM's (``frontend="patch_stub"``) ``prefill``, ``forward_train`` and
+    ``loss`` take the patch embeddings (B, P, d) as ``batch["patch_emb"]``
+    (``forward_train(params, tokens, patch_emb=...)``) before the tokens.
+    Griffin (``rglru``) and encoder-decoder models over a mesh of more than
+    one rank raise ``NotImplementedError`` (``transformer.MESH_SLICE``)."""
+    if cfg.is_encoder_decoder:
+        return _build_encdec(cfg, parallel, device)
     transformer.check_supported(cfg)
     dev = resolve_device(device)
     layout = layers.SINGLE
+    transformer.check_mesh(cfg, _mesh_world(parallel) > 1)
     if parallel is not None and parallel.mesh is not None:
         from repro_torch.distributed import collectives, sharding
 
@@ -105,9 +173,12 @@ def build_model(cfg: ArchConfig, parallel: Optional[ParallelConfig] = None, *, d
         gen = torch.Generator(device=dev).manual_seed(int(seed))
         return transformer.init_params(cfg, gen, device=dev, layout=layout)
 
+    def as_prefix(t) -> Optional[torch.Tensor]:
+        return None if t is None else torch.as_tensor(t, device=dev)
+
     def prefill_fn(params, batch, cache_len=None):
         return transformer.prefill(params, as_tokens(batch["tokens"]), cfg, cache_len=cache_len,
-                                   layout=layout)
+                                   layout=layout, prefix_emb=as_prefix(batch.get("patch_emb")))
 
     def decode_fn(params, caches, token, pos):
         return transformer.decode_step(params, caches, as_tokens(token), as_tokens(pos), cfg,
@@ -118,13 +189,14 @@ def build_model(cfg: ArchConfig, parallel: Optional[ParallelConfig] = None, *, d
 
     remat = parallel.remat if parallel is not None else True
 
-    def forward_fn(params, tokens):
+    def forward_fn(params, tokens, patch_emb=None):
         return transformer.forward_train(params, as_tokens(tokens), cfg, layout=layout,
-                                         remat=remat)
+                                         remat=remat, prefix_emb=as_prefix(patch_emb))
 
     def loss_fn(params, batch):
-        return transformer.loss_fn(params, {"tokens": as_tokens(batch["tokens"])}, cfg,
-                                   layout=layout, remat=remat)
+        inputs = {"tokens": as_tokens(batch["tokens"]),
+                  "patch_emb": as_prefix(batch.get("patch_emb"))}
+        return transformer.loss_fn(params, inputs, cfg, layout=layout, remat=remat)
 
     def init_train(seed: int) -> transformer.Transformer:
         gen = torch.Generator(device=dev).manual_seed(int(seed))
@@ -144,3 +216,55 @@ def build_model(cfg: ArchConfig, parallel: Optional[ParallelConfig] = None, *, d
         parallel=parallel,
         layout=layout,
     )
+
+
+def _mesh_world(parallel: Optional[ParallelConfig]) -> int:
+    """The ranks ``parallel``'s mesh spans (1 without a mesh)."""
+    from repro_torch.distributed.parallel import mesh_shape
+
+    return math.prod(mesh_shape(None if parallel is None else parallel.mesh).values())
+
+
+def _build_encdec(cfg: ArchConfig, parallel: Optional[ParallelConfig], device) -> ModelBundle:
+    """The encoder-decoder's closures (the reference's ``build_model`` for
+    ``cfg.is_encoder_decoder``): ``prefill(params, {"tokens", "frames"},
+    cache_len)``, ``decode_step(params, caches, token, pos)``,
+    ``forward_train(params, tokens, frames)`` → (logits, 0), ``loss(params,
+    {"tokens", "frames"})``, ``init_cache(batch, cache_len)``."""
+    encdec.check_supported(cfg)
+    transformer.check_mesh(cfg, _mesh_world(parallel) > 1)
+    dev = resolve_device(device)
+
+    def as_tensor(t) -> torch.Tensor:
+        return torch.as_tensor(t, device=dev)
+
+    def init(seed: int) -> encdec.EncoderDecoder:
+        gen = torch.Generator(device=dev).manual_seed(int(seed))
+        return encdec.init_params(cfg, gen, device=dev)
+
+    def prefill_fn(params, batch, cache_len=None):
+        return encdec.prefill(params, as_tensor(batch["tokens"]), as_tensor(batch["frames"]), cfg,
+                              cache_len=cache_len)
+
+    def decode_fn(params, caches, token, pos):
+        return encdec.decode_step(params, caches, as_tensor(token), as_tensor(pos), cfg)
+
+    def init_cache(batch, cache_len):
+        return encdec.init_cache(cfg, batch, cache_len, device=dev)
+
+    def forward_fn(params, tokens, frames):
+        logits = encdec.forward_train(params, as_tensor(tokens), as_tensor(frames), cfg)
+        return logits, torch.zeros((), dtype=torch.float32, device=dev)
+
+    def loss_fn(params, batch):
+        return encdec.loss_fn(params, {"tokens": as_tensor(batch["tokens"]),
+                                       "frames": as_tensor(batch["frames"])}, cfg)
+
+    def init_train(seed: int) -> encdec.EncoderDecoder:
+        gen = torch.Generator(device=dev).manual_seed(int(seed))
+        return transformer.trainable_params(
+            encdec.init_params(cfg, gen, device=dev, dtype=torch.float32))
+
+    return ModelBundle(cfg=cfg, device=dev, init=init, prefill=prefill_fn, decode_step=decode_fn,
+                       init_cache=init_cache, forward_train=forward_fn, loss=loss_fn,
+                       init_train=init_train, parallel=parallel)

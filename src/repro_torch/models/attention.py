@@ -23,14 +23,17 @@ positions of every kv head; decode then combines each rank's partial
 softmax by log-sum-exp (``_partial_attention_decode``,
 ``_combine_partials``), the combine GSPMD makes in the reference.
 
-Windowed blocks (``swa``) keep a :class:`RingKVCache` of ``W = min(window,
+Windowed blocks (``swa``, ``local``) keep a :class:`RingKVCache` of ``W = min(window,
 cache_len)`` positions: prefill runs kernel 6 with the window and cuts the
 last ``W`` positions into the ring (:func:`ring_prefill_cache`), decode
 writes the new token at ``pos % window`` and attends over the positions its
 ``kpos`` marks live (:func:`ring_decode_attention`), in place.  Where the
 reference's ``dynamic_update_slice`` clamps a slot past the ring's end (a
 ring shorter than the window, only past ``cache_len``), the port clamps
-too.  Cross-attention and ``encoder_kv`` belong to a later slice.
+too.  ``local`` blocks (recurrentgemma) take the same ring with their
+window.  :func:`cross_attention` (whisper's decoder over :func:`encoder_kv`)
+is the plain einsum, as the reference's (it never runs its Pallas kernel
+there).
 """
 from __future__ import annotations
 
@@ -395,6 +398,29 @@ def ring_prefill_cache(k: torch.Tensor, v: torch.Tensor, seq_len: int, window: i
         rv[:, :, :seq_len] = v[:, :, :seq_len]
         kpos[:, :seq_len] = torch.arange(seq_len, dtype=torch.int32, device=k.device)
     return RingKVCache(rk, rv, kpos)
+
+
+def cross_attention(p: Attention, x: torch.Tensor, cfg: ArchConfig, enc_k: torch.Tensor,
+                    enc_v: torch.Tensor) -> torch.Tensor:
+    """Cross-attention (whisper's decoder) of x (B, S, d) over the encoder's
+    precomputed k/v (B, KV, T_enc, hd): no rope, no mask, the grouped masked
+    einsum in f32 as the reference computes it (never its Pallas kernel)."""
+    b, s, _ = x.shape
+    hd, kv, g = cfg.head_dim_, cfg.num_kv_heads, cfg.q_per_kv
+    dtype = x.dtype
+    q = (x @ p.wq.to(dtype)).reshape(b, s, kv, g, hd).permute(0, 2, 3, 1, 4)
+    out = _masked_attention(q, enc_k, enc_v, causal=False, window=None, q_offset=0)
+    return _merge_heads(out) @ p.wo.to(dtype)
+
+
+def encoder_kv(p: Attention, enc_out: torch.Tensor, cfg: ArchConfig):
+    """Cross-attention k/v (B, KV, T, hd) of the encoder's output (B, T, d)."""
+    b, t, _ = enc_out.shape
+    hd, kv = cfg.head_dim_, cfg.num_kv_heads
+    dtype = enc_out.dtype
+    k = (enc_out @ p.wk.to(dtype)).reshape(b, t, kv, hd).permute(0, 2, 1, 3)
+    v = (enc_out @ p.wv.to(dtype)).reshape(b, t, kv, hd).permute(0, 2, 1, 3)
+    return k, v
 
 
 def ring_decode_attention(p: Attention, x: torch.Tensor, cfg: ArchConfig, cache: RingKVCache,

@@ -2,10 +2,13 @@
 
 :func:`params_from_numpy` takes the reference's parameter pytree (nested
 dicts of numpy arrays, the ``layers`` leaves with their leading
-``num_periods`` axis) to the port's :class:`~repro_torch.models.transformer.Transformer`
-on a device; :func:`params_to_numpy` reads it back in that layout.  The
+``num_periods`` axis; an encoder-decoder's ``enc_layers`` / ``dec_layers``
+leaves with their leading ``encoder_layers`` / ``num_layers`` axis) to the
+port's :class:`~repro_torch.models.transformer.Transformer` or
+:class:`~repro_torch.models.encdec.EncoderDecoder` on a device;
+:func:`params_to_numpy` reads it back in that layout.  The
 port keeps the reference's matrix layout (``x @ w`` with ``w`` of shape
-``(d_in, d_out)``), so nothing is transposed: the period axis is unstacked
+``(d_in, d_out)``), so nothing is transposed: the stacked axis is unstacked
 into ``layers.<i>`` and each matrix is cast to the compute type (f32 → bf16
 rounds to nearest even, as the reference's ``.astype(bfloat16)`` does);
 norm vectors stay f32.  With a ``parallel`` mesh over the process group the
@@ -22,6 +25,16 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import transformer
+from repro_torch.models.api import model_class
+
+
+def stacked_groups(cfg: ArchConfig) -> dict:
+    """The stacked groups of the reference's pytree and their leading axis:
+    ``{"layers": num_periods}``, or an encoder-decoder's ``{"enc_layers":
+    encoder_layers, "dec_layers": num_layers}``."""
+    if cfg.is_encoder_decoder:
+        return {"enc_layers": cfg.encoder_layers, "dec_layers": cfg.num_layers}
+    return {"layers": cfg.num_periods}
 
 
 def _flatten(tree, prefix: str = "") -> dict:
@@ -45,14 +58,15 @@ def _as_f32(arr) -> np.ndarray:
 
 def params_from_numpy(
     tree: dict, cfg: ArchConfig, *, device, dtype: Optional[torch.dtype] = None, parallel=None,
-) -> transformer.Transformer:
+) -> torch.nn.Module:
     """The port's parameters from the reference's pytree, on ``device``
     (with ``parallel``: this rank's blocks).
 
     Matrices are stored in ``dtype`` (default: the config's compute type),
     norm vectors in f32.  Raises on a missing, extra or misshapen leaf."""
     dtype = dtype or transformer.compute_dtype(cfg)
-    model = transformer.Transformer(cfg, dtype=dtype, device="meta")
+    model = model_class(cfg)(cfg, dtype=dtype, device="meta")
+    groups = stacked_groups(cfg)
     want = dict(model.named_parameters())
     specs = None
     if parallel is not None and parallel.mesh is not None:
@@ -62,12 +76,12 @@ def params_from_numpy(
     state = {}
     for name, arr in _flatten(tree).items():
         arr = _as_f32(arr)
-        if name.startswith("layers."):
-            rest = name[len("layers."):]
-            if arr.shape[0] != cfg.num_periods:
-                raise ValueError(f"{name}: leading axis {arr.shape[0]} != num_periods "
-                                 f"{cfg.num_periods}")
-            items = [(f"layers.{i}.{rest}", arr[i]) for i in range(cfg.num_periods)]
+        group, _, rest = name.partition(".")
+        if group in groups and rest:
+            n = groups[group]
+            if arr.shape[0] != n:
+                raise ValueError(f"{name}: leading axis {arr.shape[0]} != {n} stacked {group}")
+            items = [(f"{group}.{i}.{rest}", arr[i]) for i in range(n)]
         else:
             items = [(name, arr)]
         for key, a in items:
@@ -88,15 +102,17 @@ def params_from_numpy(
     return model
 
 
-def params_to_numpy(model: transformer.Transformer) -> dict:
-    """The reference's pytree layout (f32 numpy, periods stacked on axis 0)."""
-    cfg = model.cfg
+def params_to_numpy(model: torch.nn.Module) -> dict:
+    """The reference's pytree layout (f32 numpy, periods or layers stacked
+    on axis 0)."""
+    groups = stacked_groups(model.cfg)
     flat: dict = {}
     for name, t in model.state_dict().items():
         arr = t.detach().float().cpu().numpy()
-        if name.startswith("layers."):
+        group = name.partition(".")[0]
+        if group in groups:
             _, i, rest = name.split(".", 2)
-            flat.setdefault(f"layers.{rest}", [None] * cfg.num_periods)[int(i)] = arr
+            flat.setdefault(f"{group}.{rest}", [None] * groups[group])[int(i)] = arr
         else:
             flat[name] = arr
     tree: dict = {}

@@ -55,6 +55,40 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     return (F.silu(g) * u) @ w_down.to(dtype)
 
 
+def gelu_mlp(x: torch.Tensor, w_in: torch.Tensor, b_in: torch.Tensor, w_out: torch.Tensor,
+             b_out: torch.Tensor) -> torch.Tensor:
+    """GELU MLP with biases (whisper-style): gelu(x·W_in + b_in)·W_out + b_out,
+    the tanh approximation as ``jax.nn.gelu``'s default; weights and biases
+    cast to x's type."""
+    dtype = x.dtype
+    h = F.gelu(x @ w_in.to(dtype) + b_in.to(dtype), approximate="tanh")
+    return h @ w_out.to(dtype) + b_out.to(dtype)
+
+
+def _sin_cos(angle: torch.Tensor, d_model: int) -> torch.Tensor:
+    """(..., d/2) angles → (..., d) f32 with sin at even and cos at odd channels."""
+    out = torch.zeros(angle.shape[:-1] + (d_model,), dtype=torch.float32, device=angle.device)
+    out[..., 0::2] = torch.sin(angle)
+    out[..., 1::2] = torch.cos(angle)
+    return out
+
+
+def _inv_timescales(d_model: int, device) -> torch.Tensor:
+    dim = torch.arange(0, d_model, 2, dtype=torch.float32, device=device)
+    return torch.pow(torch.tensor(10000.0, dtype=torch.float32, device=device), dim / d_model)
+
+
+def sinusoidal_at(pos: torch.Tensor, d_model: int) -> torch.Tensor:
+    """Sinusoidal embedding of integer positions: pos (...,) → (..., d) f32."""
+    return _sin_cos(pos.float()[..., None] / _inv_timescales(d_model, pos.device), d_model)
+
+
+def sinusoidal_positions(length: int, d_model: int, device=None) -> torch.Tensor:
+    """The fixed (length, d) f32 sin/cos table (whisper's positions)."""
+    pos = torch.arange(length, dtype=torch.float32, device=device)[:, None]
+    return _sin_cos(pos / _inv_timescales(d_model, device)[None, :], d_model)
+
+
 def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
     exponent = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
     return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32, device=device), exponent)

@@ -1,6 +1,6 @@
-"""Decoder-only LM assembly for ``attn`` and ``swa`` stacks (with the SwiGLU
-MLP or the MoE) and xLSTM (``mlstm``/``slstm``) stacks (port of
-``repro.models.transformer``).
+"""Decoder-only LM assembly for ``attn``, ``swa`` and ``local`` stacks (with
+the SwiGLU MLP or the MoE), xLSTM (``mlstm``/``slstm``) stacks and Griffin
+(``rglru`` + ``local``) stacks (port of ``repro.models.transformer``).
 
 Parameters are ``nn.Module``s in the reference's layout: ``embed``
 (V, d), ``layers`` (one :class:`Period` per pattern period, each holding
@@ -11,9 +11,11 @@ cache per block position whose tensors carry a leading ``num_periods``
 axis: a :class:`~repro_torch.models.attention.KVCache` ``(num_periods, B,
 KV, S_max, hd)`` for ``attn``, a
 :class:`~repro_torch.models.attention.RingKVCache` of ``min(window,
-cache_len)`` slots for ``swa``, an :class:`~repro_torch.models.ssm.MLSTMState`
-or :class:`~repro_torch.models.ssm.SLSTMState` for the xLSTM blocks (their
-size does not depend on ``cache_len``).
+cache_len)`` slots for ``swa`` and ``local``, an
+:class:`~repro_torch.models.ssm.MLSTMState` or
+:class:`~repro_torch.models.ssm.SLSTMState` for the xLSTM blocks and an
+:class:`~repro_torch.models.rglru.RGLRUState` for ``rglru`` (their size
+does not depend on ``cache_len``).
 
 Three modes share the block code: ``forward_train`` (no caches; the
 teacher-forced pass, differentiable, and :func:`loss_fn` over it),
@@ -25,12 +27,16 @@ divides, the residual stream over tp in a sequence-parallel prefill, each
 layer's FSDP blocks are gathered before it, and the logits come back whole
 on every rank; the caches are a rank's blocks, as :class:`Caches`.
 
-``attn`` and ``swa`` blocks with the SwiGLU MLP or the MoE
-(``models/moe.py``; its load-balance aux is ``forward_train``'s second
-output and ``loss_fn``'s ``moe_aux``) and the self-contained ``mlstm`` and
-``slstm`` blocks (no MLP, as in the reference) are ported; ``local`` (its
-ring cache stays with its only user), ``rglru``, encoder-decoder and
-frontend models raise ``NotImplementedError`` naming their slice.  Parameters are made with
+Attention blocks carry the SwiGLU MLP or the MoE (``models/moe.py``; its
+load-balance aux is ``forward_train``'s second output and ``loss_fn``'s
+``moe_aux``); the xLSTM blocks are self-contained (no MLP, as in the
+reference); an ``rglru`` block (``models/rglru.py``) is followed by the MLP
+when ``d_ff > 0``.  A VLM's precomputed patch embeddings (``prefix_emb``,
+the reference's stub frontend) go before the tokens in ``forward_train``
+and ``prefill``; the positions cover them, and ``forward_train`` drops them
+before the head.  Encoder-decoder models are ``models/encdec.py``'s.  Over a
+mesh, stacks with ``rglru`` blocks raise ``NotImplementedError`` naming
+their slice (:data:`MESH_SLICE`).  Parameters are made with
 ``requires_grad=False`` in the compute type (the serving copy);
 :func:`trainable_params` turns f32 masters into a trainer's parameters.
 """
@@ -45,35 +51,35 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
-from repro_torch.models import layers, moe, ssm
+from repro_torch.models import layers, moe, rglru, ssm
 
-ATTN_TYPES = ("attn", "swa")
-XLSTM_TYPES = ("mlstm", "slstm")
-# The slice of the port that brings each block type or feature not ported yet.
-LATER_BLOCK_SLICE = {
-    "local": "the Griffin slice (rglru blocks and their local ring caches)",
-    "rglru": "the Griffin slice (rglru blocks and their local ring caches)",
-}
-ENCDEC_SLICE = "the encoder-decoder slice"
-FRONTEND_SLICE = "the VLM/audio frontend slice"
+ATTN_TYPES = ("attn", "swa", "local")
+# The slice of the port that runs Griffin and encoder-decoder models over a mesh.
+MESH_SLICE = "the slice that runs these models over a mesh"
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for what this slice does not port."""
+    """Raise for a config this module does not build: an unknown block
+    type or frontend, an encoder-decoder (``models.encdec``'s), attention
+    blocks without an MLP (``NotImplementedError``)."""
     cfg.validate()
     for bt in cfg.block_pattern:
-        if bt not in ATTN_TYPES + XLSTM_TYPES:
-            if bt not in LATER_BLOCK_SLICE:
-                raise ValueError(f"unknown block type {bt}")
-            raise NotImplementedError(
-                f"block type {bt!r} is not ported yet: it belongs to {LATER_BLOCK_SLICE[bt]}"
-            )
+        if bt not in ATTN_TYPES + layers.RECURRENT_TYPES:
+            raise ValueError(f"unknown block type {bt}")
     if cfg.is_encoder_decoder:
-        raise NotImplementedError(f"encoder-decoder models belong to {ENCDEC_SLICE}")
-    if cfg.frontend is not None:
-        raise NotImplementedError(f"frontend {cfg.frontend!r} belongs to {FRONTEND_SLICE}")
+        raise ValueError(f"{cfg.name}: encoder-decoder models are built by models.encdec")
+    if cfg.frontend not in (None, "patch_stub"):
+        raise ValueError(f"{cfg.name}: frontend {cfg.frontend!r} belongs to an encoder-decoder")
     if cfg.d_ff <= 0 and any(bt in ATTN_TYPES for bt in cfg.block_pattern):
         raise NotImplementedError("attn blocks without an MLP are not ported yet")
+
+
+def check_mesh(cfg: ArchConfig, sharded: bool) -> None:
+    """Raise ``NotImplementedError`` for a Griffin (``rglru``) or
+    encoder-decoder model over a mesh of more than one rank (``sharded``):
+    :data:`MESH_SLICE`."""
+    if sharded and ("rglru" in cfg.block_pattern or cfg.is_encoder_decoder):
+        raise NotImplementedError(f"{cfg.name} over a mesh belongs to {MESH_SLICE}")
 
 
 def block_window(cfg: ArchConfig, bt: str) -> Optional[int]:
@@ -122,12 +128,16 @@ class Block(nn.Module):
 
 
 class MixerBlock(nn.Module):
-    """An xLSTM block: the self-contained mixer alone (never an MLP)."""
+    """A recurrent block: an xLSTM mixer alone (never an MLP), or the RG-LRU
+    mixer followed by the MLP or the MoE (norm ``norm2``) when ``d_ff > 0``."""
 
     def __init__(self, cfg: ArchConfig, bt: str, *, dtype, device):
         super().__init__()
-        mixer = ssm.MLSTM if bt == "mlstm" else ssm.SLSTM
+        mixer = {"mlstm": ssm.MLSTM, "slstm": ssm.SLSTM, "rglru": rglru.RGLRU}[bt]
         self.mixer = mixer(cfg, dtype=dtype, device=device)
+        if bt == "rglru" and cfg.d_ff > 0:
+            self.norm2 = _param((cfg.d_model,), torch.float32, device)
+            self.mlp = (MoEMLP if cfg.is_moe else MLP)(cfg, dtype=dtype, device=device)
 
 
 class Period(nn.Module):
@@ -172,7 +182,8 @@ def init_params(
     its own matrix, of fan-in ``d_in``, as the reference ``vmap``s its
     init over experts), every norm vector ones; the sLSTM's recurrent
     ``r`` (H, 4, hd, hd) a plain normal over ``sqrt(hd)`` and its bias ``b``
-    zeros (``ssm.init_slstm``).  Matrices are stored in ``dtype`` (default:
+    zeros (``ssm.init_slstm``); the RG-LRU's conv, biases and ``lambda`` by
+    ``rglru.init_rglru_param``.  Matrices are stored in ``dtype`` (default:
     the config's compute type), one matrix drawn in f32 at a time.  The
     draws differ from ``jax.random``'s for the same seed.
 
@@ -192,6 +203,8 @@ def init_params(
                 full.copy_(draw.div_(math.sqrt(full.shape[-1])))
             elif name.endswith(".mixer.b"):
                 full.zero_()
+            elif ".mixer." in name and rglru.init_rglru_param(name, full, cfg, generator):
+                pass
             elif ".moe.w_" in name:
                 for expert in full:
                     layers.truncated_normal_(expert, 1.0, generator)
@@ -260,7 +273,7 @@ def block_cache_shapes(cfg: ArchConfig, bt: str, batch: int, cache_len: int) -> 
     """The whole shapes of one block position's cache (its NamedTuple's
     fields, leading ``num_periods`` axis)."""
     p = cfg.num_periods
-    if bt == "swa":
+    if bt in ("swa", "local"):
         w = min(block_window(cfg, bt), cache_len)
         shape = (p, batch, cfg.num_kv_heads, w, cfg.head_dim_)
         return attn.RingKVCache(shape, shape, (p, batch, w))
@@ -270,16 +283,19 @@ def block_cache_shapes(cfg: ArchConfig, bt: str, batch: int, cache_len: int) -> 
     if bt == "mlstm":
         h, dk, dv = ssm.mlstm_dims(cfg)
         return ssm.MLSTMState((p, batch, h, dk, dv), (p, batch, h, dk))
+    if bt == "rglru":
+        return rglru.RGLRUState(*((p,) + sh for sh in rglru.rglru_state_shapes(cfg, batch)))
     return ssm.SLSTMState(*((p, batch, cfg.d_model),) * 4)
 
 
 def init_block_cache(cfg: ArchConfig, bt: str, batch: int, cache_len: int, device,
                      specs=None, mesh_shape: Optional[dict] = None):
     """One block position's cache for all periods (leading ``num_periods``
-    axis): zero KV for ``attn``; for ``swa`` a zero ring with ``kpos`` -1
-    (B, W) int32; for ``mlstm`` zero ``c`` (B, H, dk, dv) and
+    axis): zero KV for ``attn``; for ``swa`` and ``local`` a zero ring with
+    ``kpos`` -1 (B, W) int32; for ``mlstm`` zero ``c`` (B, H, dk, dv) and
     ``n`` (B, H, dk) f32; for ``slstm`` zero ``c, n, h`` and ``m = -1e30``,
-    (B, d) f32 each.  With ``specs`` (the fields' specs over a mesh of
+    (B, d) f32 each; for ``rglru`` zero ``h`` (B, d_rnn) and ``conv``
+    (B, cw-1, d_rnn), f32 (``rglru_init_state``).  With ``specs`` (the fields' specs over a mesh of
     ``mesh_shape``) a rank's blocks."""
     from repro_torch.distributed import sharding
 
@@ -287,7 +303,7 @@ def init_block_cache(cfg: ArchConfig, bt: str, batch: int, cache_len: int, devic
     if specs is not None:
         shapes = type(shapes)(*(sharding.local_shape(sh, sp, mesh_shape)
                                 for sh, sp in zip(shapes, specs)))
-    if bt == "swa":
+    if bt in ("swa", "local"):
         dt = compute_dtype(cfg)
         return attn.RingKVCache(torch.zeros(shapes.k, dtype=dt, device=device),
                                 torch.zeros(shapes.v, dtype=dt, device=device),
@@ -295,9 +311,9 @@ def init_block_cache(cfg: ArchConfig, bt: str, batch: int, cache_len: int, devic
     if bt in ATTN_TYPES:
         dt = compute_dtype(cfg)
         return attn.KVCache(*(torch.zeros(sh, dtype=dt, device=device) for sh in shapes))
-    if bt == "mlstm":
-        return ssm.MLSTMState(*(torch.zeros(sh, dtype=torch.float32, device=device)
-                                for sh in shapes))
+    if bt in ("mlstm", "rglru"):
+        return type(shapes)(*(torch.zeros(sh, dtype=torch.float32, device=device)
+                              for sh in shapes))
     return ssm.SLSTMState(
         *(torch.zeros(sh, dtype=torch.float32, device=device) for sh in shapes[:3]),
         torch.full(shapes[3], ssm.NEG_INIT_M, dtype=torch.float32, device=device),
@@ -325,6 +341,7 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int, *, device,
     leading ``num_periods`` axis (``init_block_cache``); over a sharded
     ``layout`` the rank's blocks, as :class:`Caches`."""
     check_supported(cfg)
+    check_mesh(cfg, layout is not None and layout.sharded)
     if layout is None or not layout.sharded:
         return {
             f"b{j}": init_block_cache(cfg, bt, batch, cache_len, device)
@@ -382,6 +399,8 @@ def _mix_train(bt: str, p, x, positions, cfg: ArchConfig, lay: layers.Layout = l
         return ssm.mlstm_block(p.mixer, x, cfg, lay=lay)[0]
     if bt == "slstm":
         return ssm.slstm_block(p.mixer, x, cfg, lay=lay)[0]
+    if bt == "rglru":
+        return rglru.rglru_block(p.mixer, x, cfg)[0]
     xin = layers.rmsnorm(x, lay.tp_shared(p.norm1, sp))
     out, _ = attn.attention(p.attn, xin, cfg, positions, causal=True,
                             window=block_window(cfg, bt), lay=lay, sp=sp)
@@ -392,18 +411,21 @@ def apply_block_train(bt: str, p, x, positions, cfg: ArchConfig,
                       lay: layers.Layout = layers.SINGLE, sp: bool = False,
                       ctx: Optional[moe.Context] = None):
     x = _mix_train(bt, p, x, positions, cfg, lay, sp)
-    return x if bt in XLSTM_TYPES else _apply_mlp(p, x, cfg, lay, sp, ctx)
+    return _apply_mlp(p, x, cfg, lay, sp, ctx) if hasattr(p, "mlp") else x
 
 
 def apply_block_prefill(bt: str, p, x, positions, cfg: ArchConfig, cache_len: int,
                         lay: layers.Layout = layers.SINGLE, sp: bool = False,
                         kv: Optional[str] = None, ctx: Optional[moe.Context] = None):
-    """One block over the prompt: its output and its cache (an ``swa``
-    block's ring of ``min(window, cache_len)`` slots)."""
+    """One block over the prompt: its output and its cache (an ``swa`` or
+    ``local`` block's ring of ``min(window, cache_len)`` slots)."""
     if bt == "mlstm":
         return ssm.mlstm_block(p.mixer, x, cfg, return_state=True, lay=lay)
     if bt == "slstm":
         return ssm.slstm_block(p.mixer, x, cfg, return_state=True, lay=lay)
+    if bt == "rglru":
+        x, state = rglru.rglru_block(p.mixer, x, cfg, return_state=True)
+        return (_apply_mlp(p, x, cfg, lay, sp, ctx) if hasattr(p, "mlp") else x), state
     w = block_window(cfg, bt)
     xin = layers.rmsnorm(x, p.norm1)
     out, cache = attn.attention(
@@ -418,14 +440,18 @@ def apply_block_decode(bt: str, p, x, cache, pos, cfg: ArchConfig,
                        lay: layers.Layout = layers.SINGLE, kv: Optional[str] = None,
                        ctx: Optional[moe.Context] = None):
     """One token through one block.  An attention block writes its KV cache
-    or ring in place; an xLSTM block copies its new state into ``cache``
-    (views of the batched state)."""
-    if bt in XLSTM_TYPES:
-        step = ssm.mlstm_decode_step if bt == "mlstm" else ssm.slstm_decode_step
-        x, new = step(p.mixer, x, cfg, cache, lay)
+    or ring in place; a recurrent block copies its new state into ``cache``
+    (views of the batched state; the RG-LRU's conv tail is cast to the
+    cache's f32)."""
+    if bt in layers.RECURRENT_TYPES:
+        if bt == "rglru":
+            x, new = rglru.rglru_decode_step(p.mixer, x, cfg, cache)
+        else:
+            step = ssm.mlstm_decode_step if bt == "mlstm" else ssm.slstm_decode_step
+            x, new = step(p.mixer, x, cfg, cache, lay)
         for dst, src in zip(cache, new):
             dst.copy_(src)
-        return x, cache
+        return (_apply_mlp(p, x, cfg, lay, ctx=ctx) if hasattr(p, "mlp") else x), cache
     xin = layers.rmsnorm(x, p.norm1)
     out, cache = attn.attention(
         p.attn, xin, cfg, pos.reshape(-1, 1), causal=True, window=block_window(cfg, bt),
@@ -442,8 +468,22 @@ def _layout(params: Transformer, layout: Optional[layers.Layout]) -> layers.Layo
 
 
 def _embed(params: Transformer, tokens: torch.Tensor, cfg: ArchConfig,
-           lay: layers.Layout = layers.SINGLE, sp: bool = False) -> torch.Tensor:
-    return layers.embed_tokens(lay, params.embed, tokens, compute_dtype(cfg), sp)
+           lay: layers.Layout = layers.SINGLE, sp: bool = False,
+           prefix: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The token embeddings, after ``prefix`` (B, P, d) where given (a VLM's
+    patch embeddings, cast to the compute type); under ``sp`` the rank's
+    sequence block of the whole."""
+    if prefix is None:
+        return layers.embed_tokens(lay, params.embed, tokens, compute_dtype(cfg), sp)
+    from repro_torch.distributed import collectives
+
+    x = layers.embed_tokens(lay, params.embed, tokens, compute_dtype(cfg), False)
+    x = torch.cat([prefix.to(device=x.device, dtype=x.dtype), x], dim=1)
+    return collectives.split(lay.tp, x, 1) if sp else x
+
+
+def _prefix_len(prefix: Optional[torch.Tensor]) -> int:
+    return 0 if prefix is None else prefix.shape[1]
 
 
 def _head(params: Transformer, x: torch.Tensor, cfg: ArchConfig,
@@ -477,15 +517,17 @@ def _period_train(period: Period, x, positions, cfg: ArchConfig, lay: layers.Lay
 
 
 def _trunk(params: Transformer, inputs: torch.Tensor, cfg: ArchConfig, lay: layers.Layout,
-           sp: bool, remat: bool, ctx: Optional[moe.Context] = None) -> torch.Tensor:
+           sp: bool, remat: bool, ctx: Optional[moe.Context] = None,
+           prefix: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The residual stream after the last period for ``inputs`` (the rank's
-    rows; its sequence block under ``sp``); the MoE layers record their aux
-    in ``ctx``."""
+    rows; its sequence block under ``sp``) after ``prefix`` (the rank's rows
+    of the patch embeddings, or None), whole along the sequence; the MoE
+    layers record their aux in ``ctx``."""
     from repro_torch.distributed import collectives
 
     b, s = inputs.shape
-    x = _embed(params, inputs, cfg, lay, sp)
-    positions = _positions(b, s, x.device)
+    x = _embed(params, inputs, cfg, lay, sp, prefix)
+    positions = _positions(b, s + _prefix_len(prefix), x.device)
     remat = remat and torch.is_grad_enabled() and any(p.requires_grad for p in params.parameters())
     for period in params.layers:
         if remat:  # the FSDP gather runs again in the recomputation
@@ -497,8 +539,11 @@ def _trunk(params: Transformer, inputs: torch.Tensor, cfg: ArchConfig, lay: laye
 
 
 def forward_train(params: Transformer, tokens: torch.Tensor, cfg: ArchConfig,
-                  layout: Optional[layers.Layout] = None, remat: bool = True):
+                  layout: Optional[layers.Layout] = None, remat: bool = True,
+                  prefix_emb: Optional[torch.Tensor] = None):
     """Full teacher-forced pass.  tokens (B, S+1) → (logits (B,S,V), aux).
+    ``prefix_emb`` (B, P, d): a VLM's patch embeddings before the tokens;
+    the logits are the tokens' alone.
 
     ``aux`` is the reference's MoE load-balance term averaged over the
     layers (each layer's over the whole batch; under expert parallelism the
@@ -514,10 +559,14 @@ def forward_train(params: Transformer, tokens: torch.Tensor, cfg: ArchConfig,
     backward pass, kernels included."""
     check_supported(cfg)
     lay = _layout(params, layout)
-    batch_sharded, sp = lay.act(cfg, (tokens.shape[0], tokens.shape[1] - 1))
+    check_mesh(cfg, lay.sharded)
+    p_len = _prefix_len(prefix_emb)
+    batch_sharded, sp = lay.act(cfg, (tokens.shape[0], p_len + tokens.shape[1] - 1))
     ctx = moe.Context(batch_sharded, moe.AuxParts(cfg.num_experts))
-    x = _trunk(params, lay.batch_rows(tokens[:, :-1], batch_sharded), cfg, lay, sp, remat, ctx)
-    logits = lay.gather_batch(_head(params, x, cfg, lay), batch_sharded)
+    prefix = None if prefix_emb is None else lay.batch_rows(prefix_emb, batch_sharded)
+    x = _trunk(params, lay.batch_rows(tokens[:, :-1], batch_sharded), cfg, lay, sp, remat, ctx,
+               prefix)
+    logits = lay.gather_batch(_head(params, x[:, p_len:], cfg, lay), batch_sharded)
     aux, _ = ctx.aux.finish(lay, x.device)
     return logits, aux / cfg.num_layers
 
@@ -526,7 +575,8 @@ def loss_fn(params: Transformer, batch: dict, cfg: ArchConfig,
             layout: Optional[layers.Layout] = None, aux_coef: float = 0.01,
             remat: bool = True):
     """Next-token CE + ``aux_coef`` times the MoE load-balance aux (0 for
-    dense stacks) of ``batch["tokens"]`` (B, S+1).  Returns ``(loss, {"loss",
+    dense stacks) of ``batch["tokens"]`` (B, S+1) after
+    ``batch.get("patch_emb")`` (a VLM's prefix).  Returns ``(loss, {"loss",
     "ce", "moe_aux", "ce_rows"})``, f32 scalars, and for an MoE stack also
     ``"moe_dropped"``: the (token, expert) rows each EP layer dropped, summed
     over the ep ranks (int64, one a layer that took EP; empty otherwise).
@@ -539,15 +589,20 @@ def loss_fn(params: Transformer, batch: dict, cfg: ArchConfig,
     from repro_torch.distributed import collectives
 
     check_supported(cfg)
-    tokens = batch["tokens"]
+    tokens, prefix = batch["tokens"], batch.get("patch_emb")
     lay = _layout(params, layout)
-    batch_sharded, sp = lay.act(cfg, (tokens.shape[0], tokens.shape[1] - 1))
+    check_mesh(cfg, lay.sharded)
+    p_len = _prefix_len(prefix)
+    batch_sharded, sp = lay.act(cfg, (tokens.shape[0], p_len + tokens.shape[1] - 1))
     if lay.dp.size > 1 and not batch_sharded:
         raise ValueError(f"a loss over a mesh takes rows that divide over dp: {tokens.shape[0]} "
                          f"rows over {lay.dp.size} ranks")
     rows = lay.batch_rows(tokens, batch_sharded)
+    if prefix is not None:
+        prefix = lay.batch_rows(prefix, batch_sharded)
     ctx = moe.Context(batch_sharded, moe.AuxParts(cfg.num_experts))
-    logits = _head(params, _trunk(params, rows[:, :-1], cfg, lay, sp, remat, ctx), cfg, lay)
+    x = _trunk(params, rows[:, :-1], cfg, lay, sp, remat, ctx, prefix)
+    logits = _head(params, x[:, p_len:], cfg, lay)
     mine = layers.softmax_cross_entropy_logits(logits, rows[:, 1:])
     ce = collectives.sum_partials(lay.dp, mine) / lay.dp.size
     aux, dropped = ctx.aux.finish(lay, ce.device)
@@ -561,20 +616,26 @@ def loss_fn(params: Transformer, batch: dict, cfg: ArchConfig,
 
 @torch.no_grad()
 def prefill(params: Transformer, tokens: torch.Tensor, cfg: ArchConfig,
-            cache_len: Optional[int] = None, layout: Optional[layers.Layout] = None):
+            cache_len: Optional[int] = None, layout: Optional[layers.Layout] = None,
+            prefix_emb: Optional[torch.Tensor] = None):
     """Process the prompt, return (last-token logits (B, V), caches).
 
-    ``cache_len`` sizes the decode KV caches (≥ prompt length).  Over a
-    mesh (``layout``) the logits are whole on every rank (the same bits) and
-    the caches are the rank's blocks, as :class:`Caches`; the residual
-    stream is sequence-sharded where ``layout.act`` says."""
+    ``cache_len`` sizes the decode KV caches (≥ the processed length:
+    ``prefix_emb``'s P patch embeddings, a VLM's, and then the prompt; the
+    next token's position is P + L).  Over a mesh (``layout``) the logits
+    are whole on every rank (the same bits) and the caches are the rank's
+    blocks, as :class:`Caches`; the residual stream is sequence-sharded
+    where ``layout.act`` says."""
     check_supported(cfg)
     lay = _layout(params, layout)
-    b_full, s = tokens.shape
-    batch_sharded, sp = lay.act(cfg, tokens.shape)
+    check_mesh(cfg, lay.sharded)
+    b_full, s = tokens.shape[0], _prefix_len(prefix_emb) + tokens.shape[1]
+    batch_sharded, sp = lay.act(cfg, (b_full, s))
     tokens = lay.batch_rows(tokens, batch_sharded)
+    if prefix_emb is not None:
+        prefix_emb = lay.batch_rows(prefix_emb, batch_sharded)
     b = tokens.shape[0]
-    x = _embed(params, tokens, cfg, lay, sp)
+    x = _embed(params, tokens, cfg, lay, sp, prefix_emb)
     cache_len = max(cache_len or s, s)
     specs, slots = cache_specs(cfg, b_full, cache_len, lay) if lay.sharded else (None, None)
     positions = _positions(b, s, x.device)
@@ -611,6 +672,7 @@ def decode_step(params: Transformer, caches: dict, token: torch.Tensor, pos: tor
     whole on every rank."""
     check_supported(cfg)
     lay = _layout(params, layout)
+    check_mesh(cfg, lay.sharded)
     specs = getattr(caches, "specs", None)
     if lay.sharded and specs is None:
         raise ValueError("a sharded decode step takes the rank's Caches (init_cache or prefill)")

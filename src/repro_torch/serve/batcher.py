@@ -127,10 +127,12 @@ def _cache_device(caches) -> torch.device:
 def _write_slot(batched_caches, one_cache, slot: int) -> None:
     """Copy a single-sequence cache into slot ``slot``, in place.
 
-    Cache tensors (every field of a KVCache, MLSTMState or SLSTMState) are
-    stacks ``(num_periods, B, ...)``: the batch dim is axis 1.  The whole
-    slot is overwritten, the entries past the new prompt with the prefill
-    cache's zeros.  A rank's caches over a mesh hold the slots
+    Cache tensors (every field of a KVCache, RingKVCache, MLSTMState,
+    SLSTMState or RGLRUState) are stacks ``(num_periods, B, ...)``: the
+    batch dim is axis 1.  The whole slot is overwritten, the entries past
+    the new prompt with the prefill cache's zeros; a value is cast to the
+    slot's type (an RG-LRU conv tail comes out of prefill in the activation
+    type into an f32 slot, as the reference's ``.at[].set`` casts).  A rank's caches over a mesh hold the slots
     ``batched_caches.slots``; another rank writes the others."""
     lo, hi = getattr(batched_caches, "slots", (0, None))
     if slot < lo or (hi is not None and slot >= hi):

@@ -680,6 +680,15 @@ FLASH_CASES = [
     (4, 2, 1, 129, 128, True, None),    # Sq = 1 (a decode-shaped call)
     (2, 2, 1, 127, 32, True, None),
     (32, 8, 1000, 1000, 128, True, None),
+    # head dim 256 (recurrentgemma-9b's local attention: 16 q heads over one
+    # kv head, window 2048; the bf16 kernel's 64-key tiles): ragged prompts
+    # inside the window and across its edge, then the small edges
+    (16, 1, 1500, 1500, 256, True, 2048),
+    (16, 1, 3000, 3000, 256, True, 2048),
+    (4, 1, 65, 65, 256, True, None),
+    (2, 2, 129, 191, 256, True, 40),
+    (2, 2, 130, 190, 256, False, 17),
+    (2, 1, 1, 127, 256, True, None),
 ]
 
 
@@ -716,7 +725,7 @@ def test_flash_kernel_matches_plain(card, case, dtype, layout):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
 def test_flash_kernel_reads_projection_views_and_writes_the_output_buffer(card, d, dtype):
     """B = 2, GQA 4:1: q, k, v as views of one fused (B, S, heads, D)
     projection, o written into a (B, S, Hq, D) buffer, one launch."""
@@ -734,6 +743,24 @@ def test_flash_kernel_reads_projection_views_and_writes_the_output_buffer(card, 
     want = flash.flash_attention_plain(q, k, v, q_heads_per_kv=hq // hkv)
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(buf.permute(0, 2, 1, 3).float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_at_whisper_encoder(card, dtype):
+    """Kernel 6 at whisper-base's encoder shape: a batch of 4 clips of 1,500
+    frames, 8 heads of 64, non-causal (1,500 is no multiple of a tile), q,
+    k, v the permuted views of one (B, S, heads, D) projection, one launch."""
+    b, h, s, d = 4, 8, 1500, 64
+    gen = torch.Generator(device=card).manual_seed(1500)
+    qkv = torch.randn((b, s, 3 * h, d), generator=gen, device=card).to(dtype)
+    q, k, v = (qkv[:, :, i * h:(i + 1) * h].permute(0, 2, 1, 3) for i in range(3))
+    before = build.LAUNCHES["flash_attention"]
+    got = flash.flash_attention_bhsd(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["flash_attention"] == before + 1
+    want = flash.flash_attention_plain(q, k, v, causal=False)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
 def test_flash_kernel_refuses_what_it_does_not_take(card):
@@ -794,6 +821,42 @@ def test_smoke_model_on_card_matches_cpu(card, dtype):
             done = batcher.run_until_drained(max_steps=200)
             streams[name] = {r.uid: r.out_tokens for r in done}
         assert streams["card"] == streams["cpu"]
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma_9b", "whisper_base", "pixtral_12b"])
+def test_last_model_families_on_card_match_cpu(card, arch):
+    """The smoke Griffin (rglru and local blocks, a 40-token prompt over the
+    32-token window), encoder-decoder and patch-prefix models in f32: prefill
+    (kernel 6 on the card, its twin on the CPU) and 6 decode steps, card
+    against CPU on weights drawn once on the CPU, 2e-4 (another summation
+    order in f32).  The smoke heads of 16 are widened to 32, the kernel's
+    least head dim."""
+    cfg = get_smoke_config(arch)
+    cfg = dataclasses.replace(cfg, dtype="float32", head_dim=max(cfg.head_dim_, 32))
+    cpu, gpu = build_model(cfg, device="cpu"), build_model(cfg, device=card)
+    params_cpu = cpu.init(3)
+    params_gpu = copy.deepcopy(params_cpu).to(card)
+    rng = np.random.default_rng(5)
+    tokens = rng.integers(1, cfg.vocab_size, size=(2, 46), dtype=np.int32)
+    extra, offset = {}, 0
+    if cfg.frontend is not None:
+        key = "frames" if cfg.is_encoder_decoder else "patch_emb"
+        extra[key] = rng.standard_normal((2, cfg.frontend_len, cfg.d_model)).astype(np.float32)
+        offset = 0 if cfg.is_encoder_decoder else cfg.frontend_len
+    before = build.LAUNCHES["flash_attention"]
+    (lc, cc), (lg, cg) = (
+        b.prefill(p, {"tokens": tokens[:, :40], **{k: torch.as_tensor(v, device=b.device)
+                                                   for k, v in extra.items()}}, cache_len=64)
+        for b, p in ((cpu, params_cpu), (gpu, params_gpu)))
+    layers = cfg.encoder_layers + cfg.num_layers if cfg.is_encoder_decoder else \
+        cfg.num_periods * sum(cfg.block_pattern.count(bt) for bt in ("attn", "local"))
+    assert build.LAUNCHES["flash_attention"] == before + layers
+    torch.testing.assert_close(lg.cpu(), lc, atol=2e-4, rtol=2e-4)
+    for t in range(40, 46):
+        tok, pos = tokens[:, t:t + 1], np.full((2,), offset + t, np.int32)
+        lc, cc = cpu.decode_step(params_cpu, cc, tok, pos)
+        lg, cg = gpu.decode_step(params_gpu, cg, tok, pos)
+        torch.testing.assert_close(lg.cpu(), lc, atol=2e-4, rtol=2e-4)
 
 
 # Kernel 7 (b, h, s, hd): the JAX kernel tests' shapes, a head dim of 48

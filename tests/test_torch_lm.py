@@ -40,7 +40,7 @@ from repro.serve import Request as JaxRequest
 from repro.serve import make_prefill_step as jax_prefill_step
 from repro.serve import make_serve_step as jax_serve_step
 from repro_torch.configs.base import ARCH_IDS, get_config, get_smoke_config
-from repro_torch.distributed.parallel import ParallelConfig
+from repro_torch.distributed.parallel import AbstractMesh, ParallelConfig
 from repro_torch.kernels import build
 from repro_torch.launch import serve as serve_cli
 from repro_torch.models import attention as attn
@@ -269,33 +269,39 @@ def test_convert_round_trip(jax_params):
 
 
 def test_other_archs_and_block_types_raise_not_implemented():
-    ported = {"qwen3_4b": 36, "xlstm_1_3b": 48, "granite_20b": 52, "mixtral_8x22b": 56,
-              "grok_1_314b": 64}
+    """Every arch of the registry loads with its published layer count (and
+    its smoke config); every block type builds, ``swa`` and MoE with or
+    without ``moe_impl="ep"``, ``local`` and ``rglru`` too; only a Griffin
+    or encoder-decoder model over a mesh of more than one rank still raises
+    ``NotImplementedError``, naming its slice."""
+    published = {"granite_20b": 52, "qwen3_4b": 36, "llama3_405b": 126, "qwen3_14b": 40,
+                 "grok_1_314b": 64, "mixtral_8x22b": 56, "xlstm_1_3b": 48,
+                 "recurrentgemma_9b": 38, "pixtral_12b": 40, "whisper_base": 6}
+    assert set(published) == set(ARCH_IDS)
     for arch in ARCH_IDS:
-        if arch in ported:
-            assert get_config(arch).num_layers == ported[arch]
-            assert get_smoke_config(arch).num_layers == 4
-            continue
-        with pytest.raises(NotImplementedError, match="slice"):
-            get_config(arch)
-        with pytest.raises(NotImplementedError, match="slice"):
-            get_smoke_config(arch)
+        assert get_config(arch).num_layers == published[arch]
+        assert get_smoke_config(arch).num_layers >= 2
+    assert get_config("whisper_base").encoder_layers == 6
     with pytest.raises(KeyError):
         get_config("gpt5")
     base = get_smoke_config("qwen3_4b")
-    # swa (the ring cache) and MoE build now, with or without moe_impl="ep";
-    # the local ring and rglru stay with the Griffin slice.
     for change in (dict(block_pattern=("swa",), sliding_window=8),
-                   dict(num_experts=4, experts_per_token=2)):
-        build_model(dataclasses.replace(base, **change), device="cpu")
+                   dict(num_experts=4, experts_per_token=2),
+                   dict(block_pattern=("local",), local_window=8),
+                   dict(block_pattern=("rglru",), rnn_width=64),
+                   dict(block_pattern=("rglru", "local"), rnn_width=64, local_window=8)):
+        build_model(dataclasses.replace(base, **change), device="cpu").init(0)
     build_model(dataclasses.replace(base, num_experts=4, experts_per_token=2),
                 parallel=ParallelConfig(mesh=None, moe_impl="ep"), device="cpu")
-    for change in (dict(block_pattern=("local",), local_window=8),
-                   dict(block_pattern=("rglru",), rnn_width=64)):
-        with pytest.raises(NotImplementedError, match="Griffin slice"):
-            build_model(dataclasses.replace(base, **change), device="cpu")
+    mesh = ParallelConfig(mesh=AbstractMesh((2, 2), ("data", "model")))
+    for cfg in (dataclasses.replace(base, block_pattern=("rglru",), rnn_width=64),
+                get_smoke_config("recurrentgemma_9b"), get_smoke_config("whisper_base")):
+        with pytest.raises(NotImplementedError, match="over a mesh"):
+            build_model(cfg, mesh, device="cpu")
     with pytest.raises(ValueError, match="attention_impl"):
         build_model(dataclasses.replace(base, attention_impl="xla"), device="cpu")
+    with pytest.raises(ValueError, match="unknown block type"):
+        build_model(dataclasses.replace(base, block_pattern=("conv",)), device="cpu")
 
 
 def test_full_width_config_and_default_attention():

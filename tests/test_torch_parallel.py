@@ -7,7 +7,8 @@ package's, in one process, and granite-20b's smoke model unsharded.
   (2, 4), (2, 2) and (1, 4), and its cache rule on every leaf of their
   decode caches; the port's own qwen3-4b, xlstm-1.3b and granite-20b
   modules (meta device, full and smoke) get the reference's specs with the
-  scan dim dropped;
+  scan dim dropped, and so do pixtral-12b's, qwen3-14b's and llama3-405b's,
+  which run over a mesh through the same code;
   ``cache_pspecs`` and ``shard_bytes_per_device`` agree; every case of
   ``tests/test_sharding_rules.py`` holds for the port's functions.
 * Configs: ``production_parallel``, the smoke mesh shapes and
@@ -58,7 +59,7 @@ MESHES = {
     "2x2": ((2, 2), ("data", "model"), ("data",)),
     "1x4": ((1, 4), ("data", "model"), ("data",)),
 }
-PORT_ARCHS = ("qwen3_4b", "xlstm_1_3b", "granite_20b")
+PORT_ARCHS = ("qwen3_4b", "xlstm_1_3b", "granite_20b", "pixtral_12b", "qwen3_14b", "llama3_405b")
 
 
 def _norm(spec) -> tuple:
