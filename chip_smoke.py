@@ -267,11 +267,11 @@ Run from the root of a checkout: it builds the port's CUDA kernels from
 
 7. runs language-model parallelism across processes last (the ``lm-procs``
    phase; ``launch/lm_run.py``, the pass every rank runs), after freeing
-   the card: (a) granite-20b (bf16, full width and depth, 28.2 B
-   parameters) on a (data, model) = (1, 4) mesh with ``production_parallel``'s
+   the card: (a) granite-20b (bf16, full width, 13 of its 52 layers) on a
+   (data, model) = (1, 4) mesh with ``production_parallel``'s
    defaults (sequence-parallel prefill where the prompt divides by 4, a
    sequence-sharded KV cache of 1,024 positions a rank), 4 requests through
-   2 slots of 4,096, 16 new tokens; (b) qwen3-4b (bf16, full width, 12 of
+   2 slots of 4,096, 16 new tokens; (b) qwen3-4b (bf16, full width, 4 of
    its 36 layers) on (2, 2) (FSDP gathers over ``data``, a head-sharded
    cache), 4 requests, 8 new tokens; (c) xlstm-1.3b (f32, full width and
    depth) on (1, 4), 2 requests, 8 new tokens; (a)-(c) in one spawn of four
@@ -377,6 +377,45 @@ Run from the root of a checkout: it builds the port's CUDA kernels from
    limit, and with ``--profile`` (a)'s prefill and decode step split by
    kernel class and inside the RG-LRU scan's range (``rglru.scan``).
 
+10. runs Griffin and the encoder-decoder over a mesh (the ``archs-procs``
+   phase, after ``archs``; ``launch/lm_run.py``): (a) recurrentgemma-9b at
+   its published widths, 6 of its 38 layers (two periods of rglru, rglru,
+   local), on (data, model) = (1, 4): the RG-LRU on each rank's 1,024 of
+   the 4,096 recurrence channels (``uf`` gathered over tp for the gates),
+   the local ring of 2,048 split by sequence (512 slots a rank, one kv
+   head), archs (a)'s 4 prompts through 2 slots of 8,192, 8 new tokens;
+   (b) whisper-base at full width and depth on (1, 4) (2 of its 8 heads a
+   rank; its vocab of 51,865 stays whole), 4 clips of 1,500 stub frames
+   and 32-token prompts in one batched prefill into caches of 448, 16
+   decode steps; (a) and (b) in one spawn of four gloo ranks on this card;
+   (c) (a) on one NCCL rank in this process.  Each goes first unsharded on
+   this card and the sharded run is fed its tokens.  Gates as ``lm-procs``'
+   (``ARCHS_PROCS_LOGIT_TOL``; (c) bit for bit); (a)'s sensitivity of the
+   unsharded logits to a 1e-7 change of one norm weight is printed; rank 0
+   holds kernel 6 against its twin at its own 4 q heads over the kv head
+   (head dim 256, the window of 2,048), whisper's encoder (2 heads,
+   non-causal over 1,500 frames) and decoder prefill, timed beside SDPA.
+11. trains mixtral-8x22b with expert parallelism through the exchange (the
+   ``moe-train`` phase, last): its published widths, 1 of its 56 layers,
+   f32 masters, a global batch of 4 x 1,024 tokens from ``--seed`` (one
+   row a rank), ``moe_impl="ep"`` on (data, model) = (4, 1), 2 steps,
+   the clip set not to bind (``MOE_TRAIN_CLIP``).  First the stacked EP
+   step on this card (``make_ep_stacked_train_step``), then four gloo
+   ranks of this card, then the dense step on this card and on one NCCL
+   rank.  Gates: each rank's owned experts' first moments and parameters
+   after step 1 bit for bit the stacked step's, its other blocks' moments
+   within ``MOE_TRAIN_REDUCED_TOL`` of each leaf's largest entry; every
+   step's loss, ce and aux within 1e-5 of the stacked step's; exchange
+   rounds a step as ``train_run.design_rounds`` (forward, backward and
+   remat's recomputation: six a MoE layer) and collectives as
+   ``design_collectives``; parameter and state bytes as their specs; kernel
+   6 twice a step (the forward and its recomputation); the NCCL rank's
+   steps bit for bit the one-card dense step's.  It prints per rank the
+   step ms, tokens/s, rounds, collectives and bytes, parameter, state and
+   peak bytes, and the drops' share of the routed rows; rank 0 holds kernel
+   6 against its twin on its own 48 q heads over 8 kv heads at the window
+   of 4,096, timed beside SDPA.
+
 It prints the seconds each run took, the card's name and power limit, a
 ``{"kernels": [...]}`` line (one row per kernel and run, ``path`` and
 ``shards`` naming the run) and, last,
@@ -391,6 +430,7 @@ import dataclasses
 import functools
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -629,26 +669,6 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def raw_of(keys):
-    """Host keys → the oracle's index: uint32 keys as they are; a uint64
-    key ``raw | raw << 32`` (the u64x4 runs' keys) its ``raw``, and any
-    other uint64 key 2^40, which no table row has."""
-    import numpy as np
-
-    if keys.dtype != np.uint64:
-        return keys
-    lo = (keys & np.uint64(0xFFFFFFFF)).astype(np.int64)
-    return np.where((keys >> np.uint64(32)).astype(np.int64) == lo, lo, 1 << 40)
-
-
-def widen(raw):
-    """uint32 ``raw`` → the uint64 keys ``raw | raw << 32``."""
-    import numpy as np
-
-    r = raw.astype(np.uint64)
-    return r | (r << np.uint64(32))
-
-
 def keys_on(raw, device, wide: bool):
     """Host ``raw`` keys as the table takes them on ``device``: int32 bits,
     or for the u64x4 runs the ``(N, 2)`` lanes of ``raw | raw << 32`` (both
@@ -683,8 +703,9 @@ def store_pairs(pairs, store):
 class Oracle:
     """numpy reference of a multiset table: its live ``(key, value)`` rows.
 
-    Keys lie in ``[0, n)`` (``raw_of`` maps the u64x4 runs' uint64 keys
-    there), so per-key counts come from ``np.bincount``; a query outside
+    Keys lie in ``[0, n)`` (a u64x4 run's key ``raw | raw << 32`` is
+    indexed by its ``raw``, the uint32 draw the table's lanes were made
+    from), so per-key counts come from ``np.bincount``; a query outside
     ``[0, n)`` counts 0.  Pairs are read off a stable sort of only the rows
     whose key is queried.  (A binary search per query over 2^27 sorted keys
     would take minutes on the host.)
@@ -720,17 +741,28 @@ class Oracle:
 
 def sort_pairs(qidx, vals):
     """``(query row, value columns...)`` int64 rows, ``vals`` ``(K,)`` or
-    ``(K, C)``, in one canonical order: by the columns' 32-bit patterns,
-    two packed into each uint64 sort key (query rows are below 2^32), so
-    a row of 1 + C columns takes ceil((1 + C) / 2) keys."""
+    ``(K, C)``, in one canonical order, by one argsort of a 64-bit key: the
+    query row and the value's 32-bit pattern (C = 1: the exact order), or
+    the query row in the high bits and a 64-bit mix of the C patterns in the
+    rest (C > 1).  Two sorted arrays hold the same multiset of rows iff
+    they are equal, except where two distinct rows of one query share a
+    key (a chance of ~2^-40 a pair), which can fail an equal pair of
+    multisets but never pass unequal ones."""
     import numpy as np
 
     rows = np.column_stack([qidx, vals.reshape(qidx.shape[0], -1)]).astype(np.int64)
-    words = (rows & 0xFFFFFFFF).astype(np.uint64)
-    if words.shape[1] % 2:
-        words = np.column_stack([words, np.zeros(words.shape[0], np.uint64)])
-    keys = (words[:, 0::2] << np.uint64(32)) | words[:, 1::2]
-    return rows[np.lexsort(keys.T[::-1])]
+    q = rows[:, 0].astype(np.uint64)
+    words = (rows[:, 1:] & 0xFFFFFFFF).astype(np.uint64)
+    if words.shape[1] == 1:
+        key = (q << np.uint64(32)) | words[:, 0]
+    else:
+        qbits = max(1, int(rows[:, 0].max(initial=0)).bit_length())
+        h = np.zeros(rows.shape[0], np.uint64)
+        for c in range(words.shape[1]):
+            h = (h ^ words[:, c]) * np.uint64(0x9E3779B97F4A7C15)
+            h ^= h >> np.uint64(29)
+        key = (q << np.uint64(64 - qbits)) | (h >> np.uint64(qbits))
+    return rows[np.argsort(key)]
 
 
 def retrieval_pairs(result):
@@ -795,8 +827,6 @@ def run_path(n_shards: int, n_keys: int, seed: int, device, log, wide: bool = Fa
     path = "read-u64x4" if wide else "read"
     store = value_store(n_keys, seed, device) if wide else None
     schema = TableSchema("uint64", WIDE_COLS) if wide else None
-    if wide:  # the oracle's keys are the uint64 keys themselves
-        keys, queries, batch = widen(keys), widen(queries), widen(batch)
     table = DistributedHashTable(num_shards=n_shards, hash_range=n_keys, device=device,
                                  schema=schema)
 
@@ -820,15 +850,15 @@ def run_path(n_shards: int, n_keys: int, seed: int, device, log, wide: bool = Fa
     launches = dict(build.LAUNCHES)
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
 
-    oracle = Oracle(raw_of(keys), np.arange(n_keys, dtype=np.int64), n_keys)
-    want_counts = oracle.count(raw_of(queries))
+    oracle = Oracle(keys, np.arange(n_keys, dtype=np.int64), n_keys)
+    want_counts = oracle.count(queries)
     label = f"{path} D={n_shards}"
     check(int(state.num_dropped) == 0, f"{label}: build dropped {int(state.num_dropped)} rows")
     check(np.array_equal(counts.cpu().numpy(), want_counts), f"{label}: query counts differ")
-    want_pairs = store_pairs(oracle.pairs(raw_of(batch)), store)
+    want_pairs = store_pairs(oracle.pairs(batch), store)
     total = want_pairs.shape[0]
     check(int(retrieval.num_dropped) == 0, f"{label}: retrieve dropped {int(retrieval.num_dropped)}")
-    batch_counts = oracle.count(raw_of(batch))
+    batch_counts = oracle.count(batch)
     check(np.array_equal(retrieval.counts.cpu().numpy(), batch_counts), f"{label}: retrieve counts differ")
     check(np.array_equal(retrieval_pairs(retrieval), want_pairs),
           f"{label}: retrieved value multisets differ from the oracle")
@@ -886,24 +916,26 @@ class LiveRows:
     epoch hides every layer that exists), an insert appends rows, an upsert
     keeps the last row of each key in its batch, deletes the keys and
     inserts those rows.  Folds and compactions leave the multiset as it is.
+    The changes are logged and applied when the rows are read: each row
+    chunk once, each delete to the chunks before it, in one pass.
     """
 
     def __init__(self, keys, values, key_range: int):
-        self.keys, self.values, self.key_range = keys, values, key_range
+        self.parts = [(keys, values)]  # row chunks, in insertion order
+        self.deletes = []  # (chunks before it, its keys)
+        self.key_range = key_range
+        self.version = 0  # changes with the multiset (folds and compactions keep it)
+        self._rows = None
 
     def insert(self, keys, values):
         import numpy as np
 
-        self.keys = np.concatenate([self.keys, keys])
-        self.values = np.concatenate([self.values, values.astype(np.int64)])
+        self.parts.append((keys, values.astype(np.int64)))
+        self.version += 1
 
     def delete(self, keys):
-        import numpy as np
-
-        dead = np.zeros(self.key_range, bool)
-        dead[keys] = True
-        keep = ~dead[self.keys]
-        self.keys, self.values = self.keys[keep], self.values[keep]
+        self.deletes.append((len(self.parts), keys))
+        self.version += 1
 
     def upsert(self, keys, values):
         import numpy as np
@@ -913,8 +945,30 @@ class LiveRows:
         self.delete(keys[last])
         self.insert(keys[last], values[last])
 
+    def rows(self) -> tuple:
+        """``(keys, values)`` of the live multiset: a row of chunk ``c`` is dead
+        when a delete logged after ``c`` holds its key."""
+        import numpy as np
+
+        if self._rows is not None and self._rows[0] == self.version:
+            return self._rows[1]
+        keys = np.concatenate([k for k, _ in self.parts])
+        values = np.concatenate([v for _, v in self.parts])
+        if self.deletes:
+            # the last delete that holds each key, as the chunks before it
+            upto = np.zeros(self.key_range, np.int8)
+            for before, dead in self.deletes:
+                upto[dead] = before
+            chunk = np.repeat(np.arange(len(self.parts), dtype=np.int8),
+                              [k.shape[0] for k, _ in self.parts])
+            keep = upto[keys] <= chunk
+            keys, values = keys[keep], values[keep]
+        self.parts, self.deletes = [(keys, values)], []
+        self._rows = (self.version, (keys, values))
+        return keys, values
+
     def oracle(self):
-        return Oracle(self.keys, self.values, self.key_range)
+        return Oracle(*self.rows(), self.key_range)
 
 
 def spread(a, extra, d: int):
@@ -1038,9 +1092,9 @@ def run_update_path(n_shards: int, n_keys: int, seed: int, device, log, skew: bo
     base_keys, batches, batch_vals, dels, ups, ups_vals, queries, batch = (host[k] for k in (
         "keys", "batches", "batch_vals", "dels", "ups", "ups_vals", "queries", "batch"))
     store = dev["store"]
-    # The oracle's keys: the uint64 keys themselves in the u64x4 run (those
-    # of the query set once: it is read at every step).
-    okeys = (lambda a: raw_of(widen(a))) if wide else (lambda a: a)
+    # The oracle's keys: a u64x4 run's key ``raw | raw << 32`` is indexed by
+    # its ``raw`` (as int64), the draw the table's lanes were made from.
+    okeys = (lambda a: a.astype(np.int64)) if wide else (lambda a: a)
     all_queries, oracle_queries = queries, okeys(queries)
     kw = dict(num_shards=d, hash_range=n_keys, device=device,
               tombstone_capacity=WIDE_TOMBSTONE_CAPACITY if wide else TOMBSTONE_CAPACITY,
@@ -1066,14 +1120,29 @@ def run_update_path(n_shards: int, n_keys: int, seed: int, device, log, skew: bo
     def no_drops(state, name):
         check(int(state.num_dropped) == 0, f"{label}: {name} dropped {int(state.num_dropped)} rows")
 
+    wants = {}  # the oracle's answers for one multiset and one pair of query sets
+
+    def oracle_answers(queries, batch):
+        """The live multiset's counts of ``queries``, its counts of ``batch``
+        and its ``(query row, values)`` pairs of ``batch``, sorted; computed
+        once for each multiset (a fold or a compaction keeps it) and reused
+        by every read of it."""
+        key = (live.version, id(queries), id(batch))
+        if wants.get("key") != key:
+            wants.clear()
+            oracle, okb = live.oracle(), okeys(batch)
+            wants.update(key=key, counts=oracle.count(
+                oracle_queries if queries is all_queries else okeys(queries)),
+                batch_counts=oracle.count(okb), pairs=store_pairs(oracle.pairs(okb), store))
+        return wants["counts"], wants["batch_counts"], wants["pairs"]
+
     def read_all(name, state, queries=queries, batch=batch):
         """Sorted and probe query, retrieve, inner_join, join_size of ``state``
         against the oracle and the exchange budgets."""
         rounds = 1 if state.coherent else len(state.layers)
         point, plan = {"exchange": 2 * rounds}, {"exchange": 2 * rounds, "plan_caps": rounds}
         q_dev, b_dev = keys_on(queries, device, wide), keys_on(batch, device, wide)
-        oracle = live.oracle()
-        want_counts = oracle.count(oracle_queries if queries is all_queries else okeys(queries))
+        want_counts, batch_counts, want_pairs = oracle_answers(queries, batch)
         out = {"layers": len(state.layers), "coherent": state.coherent}
         for kind, t in (("sorted", table), ("probe", probe)):
             counts = step(f"{name}: {kind} query", lambda t=t: t.query(state, q_dev), point)
@@ -1085,9 +1154,8 @@ def run_update_path(n_shards: int, n_keys: int, seed: int, device, log, skew: bo
         gathers["csr_gather_owners"] += 2 * rounds
         gathers["csr_gather_queriers"] += 2
         retrieval = step(f"{name}: retrieve", lambda: table.retrieve(state, b_dev), plan)
-        want_pairs = store_pairs(oracle.pairs(okeys(batch)), store)
         check(int(retrieval.num_dropped) == 0, f"{label}: {name}: retrieve dropped")
-        check(np.array_equal(retrieval.counts.cpu().numpy(), oracle.count(okeys(batch))),
+        check(np.array_equal(retrieval.counts.cpu().numpy(), batch_counts),
               f"{label}: {name}: retrieve counts differ from the oracle")
         check(np.array_equal(retrieval_pairs(retrieval), want_pairs),
               f"{label}: {name}: retrieved value multisets differ from the oracle")
@@ -1131,7 +1199,7 @@ def run_update_path(n_shards: int, n_keys: int, seed: int, device, log, skew: bo
     compacted = step("compact", lambda: folded.compact(), {"exchange": 2})
     check(compacted.epoch == 0, f"{label}: compact left depth {compacted.epoch}")
     no_drops(compacted, "compact")
-    compact_live = int(live.keys.shape[0])
+    compact_live = int(live.rows()[0].shape[0])
     read_all("compacted", compacted)
     mixed = None
     if d > 1 and skew:
@@ -3608,11 +3676,14 @@ def lm_settings() -> None:
 
 def expected_launches(cfg, prefills: int, decode_steps: int) -> dict:
     """Kernel launches of a serving run: kernel 6 once per attention layer
-    (``attn``, ``swa`` or ``local``) per prefill (decode attention is
-    plain), kernel 7 once per sLSTM layer per prefill and per decode step."""
+    (``attn``, ``swa`` or ``local``; an encoder-decoder's encoder layers
+    too) per prefill (decode attention is plain), kernel 7 once per sLSTM
+    layer per prefill and per decode step."""
     layers = {bt: cfg.num_periods * cfg.block_pattern.count(bt)
               for bt in ("attn", "swa", "local", "slstm")}
     attention = layers["attn"] + layers["swa"] + layers["local"]
+    if cfg.is_encoder_decoder:  # the encoder's layers too, once a prefill
+        attention += cfg.encoder_layers
     want = {}
     if attention and cfg.attention_impl == "flash":
         want["flash_attention"] = attention * prefills
@@ -5197,17 +5268,23 @@ def run_train_procs(seed: int, device, log, profile: bool = False) -> dict:
 # ---------------------------------------------------------------------------
 LM_PROCS_WORLD = 4
 LM_PROCS_TIMEOUT_S = 600.0
-# Run (b)'s depth: qwen3-4b's 36 layers would gather every layer's FSDP
-# blocks over `data` through gloo (host memory) at every prefill and decode
-# step, minutes of staging on one card; 12 layers keep the widths.
-LM_PROCS_QWEN_LAYERS = 12
+# Run (a)'s depth: granite-20b at 13 of its 52 layers (full width, its one
+# kv head, the sequence-sharded cache and the sequence-parallel prefill as
+# at 52): at 52 it took ≈ 94 of the phase's 194 s on four gloo ranks of an
+# H100, and the script's time limit needs the room.  Run (b)'s: qwen3-4b's
+# 36 layers would gather every layer's FSDP blocks over `data` through gloo
+# (host memory) at every prefill and decode step, minutes of staging on one
+# card; 4 layers keep the widths and every layer's gathers.
+LM_PROCS_GRANITE_LAYERS = 13
+LM_PROCS_QWEN_LAYERS = 4
 # Logits of the sharded runs against the unsharded run's (absolute).
 # (a) granite-20b, bf16: its untied head gives logits up to ~4.5, where one
 # bf16 step is 2^-6 ~ 0.016 (qwen3's tied head stays under 0.7, so
-# LM_LOGIT_TOL holds (b)); the card measured at most 0.0938 over 64
-# positions, and the unsharded run's own replay through forward_train with
-# plain attention differs from it by 0.0781: the gate is twice the sharded
-# maximum.  (c) xlstm-1.3b, f32: the split row-parallel sums and out_norm's
+# LM_LOGIT_TOL holds (b)); at its 52 layers the card measured at most
+# 0.0938 over 64 positions, and the unsharded run's own replay through
+# forward_train with plain attention differs from it by 0.0781: the gate is
+# twice that sharded maximum, kept at 13 layers (measured 0.0625 there, the
+# replay 0.0527).  (c) xlstm-1.3b, f32: the split row-parallel sums and out_norm's
 # mean over tp round in another order, and the random-weight recurrence
 # amplifies a rounding over the prompt: the unsharded model's own logits
 # move by 0.0989 (2,672 tokens) and 0.0159 (1,523) when one norm weight of
@@ -5219,9 +5296,10 @@ LM_PROCS_LOGIT_TOL = {"a": 0.2, "b": LM_LOGIT_TOL, "c": 0.36}
 
 
 def lm_procs_configs(seed: int) -> dict:
-    """The phase's four runs: (a) granite-20b bf16 at full width and depth
-    on (1, 4) with production_parallel's defaults; (b) qwen3-4b bf16 at full
-    width, LM_PROCS_QWEN_LAYERS layers, on (2, 2); (c) xlstm-1.3b f32 at full
+    """The phase's four runs: (a) granite-20b bf16 at full width,
+    LM_PROCS_GRANITE_LAYERS layers, on (1, 4) with production_parallel's
+    defaults; (b) qwen3-4b bf16 at full width, LM_PROCS_QWEN_LAYERS layers,
+    on (2, 2); (c) xlstm-1.3b f32 at full
     width and depth on (1, 4); (d) qwen3-4b bf16 at full width and depth on
     one NCCL rank.  Prompts from ``seed`` in LM_PROMPT_LENS, the first
     rounded down to a multiple of 4; slots of LM_CACHE_LEN."""
@@ -5230,7 +5308,8 @@ def lm_procs_configs(seed: int) -> dict:
     common = dict(slots=2, cache_len=LM_CACHE_LEN, prompt_lens=LM_PROMPT_LENS,
                   first_multiple=4, seed=seed)
     return {
-        "a": LMRunConfig(arch="granite_20b", mesh=(1, 4), requests=4, max_new=(16,), **common),
+        "a": LMRunConfig(arch="granite_20b", num_layers=LM_PROCS_GRANITE_LAYERS, mesh=(1, 4),
+                         requests=4, max_new=(16,), **common),
         "b": LMRunConfig(arch="qwen3_4b", num_layers=LM_PROCS_QWEN_LAYERS, mesh=(2, 2),
                          requests=4, max_new=(8,), **common),
         "c": LMRunConfig(arch="xlstm_1_3b", dtype="float32", mesh=(1, 4), requests=2,
@@ -5240,12 +5319,20 @@ def lm_procs_configs(seed: int) -> dict:
 
 
 class KernelCapture:
-    """Copies of the inputs kernels 6 and 7 get for request 0's first layer
-    on this rank (calls of a sequence of ``length``), for the kernel checks
-    after the run; the launches themselves go through unchanged."""
+    """Copies of the inputs kernels 6 and 7 get on this rank, for the kernel
+    checks after the run: kernel 6's first call at each sequence length of
+    ``lengths`` (q, k, v and its options, in ``calls``; ``flash`` the first
+    length's q, k, v) and kernel 7's first call at the first length
+    (``slstm``).  The launches themselves go through unchanged."""
 
-    def __init__(self, length: int):
-        self.length, self.flash, self.slstm = length, None, None
+    def __init__(self, lengths=()):
+        self.lengths = (lengths,) if isinstance(lengths, int) else tuple(lengths)
+        self.calls, self.slstm = {}, None
+
+    @property
+    def flash(self):
+        got = self.calls.get(self.lengths[0]) if self.lengths else None
+        return None if got is None else got[:3]
 
     def __enter__(self):
         from repro_torch.kernels import flash_attention, slstm
@@ -5254,12 +5341,14 @@ class KernelCapture:
         self._flash_fn, self._slstm_fn = flash_attention.flash_attention_bhsd, slstm.slstm_sequence
 
         def flash(q, k, v, **kw):
-            if self.flash is None and q.shape[2] == self.length:
-                self.flash = tuple(t.detach().clone() for t in (q, k, v))
+            s = q.shape[2]
+            if s in self.lengths and s not in self.calls:
+                self.calls[s] = tuple(t.detach().clone() for t in (q, k, v)) + (
+                    {n: kw[n] for n in ("causal", "window", "q_heads_per_kv") if n in kw},)
             return self._flash_fn(q, k, v, **kw)
 
         def recurrence(pre, r, *states):
-            if self.slstm is None and pre.shape[2] == self.length:
+            if self.slstm is None and self.lengths and pre.shape[2] == self.lengths[0]:
                 self.slstm = (pre.detach().clone(), r.detach().clone(),
                               tuple(t.detach().clone() for t in states))
             return self._slstm_fn(pre, r, *states)
@@ -5376,8 +5465,8 @@ def lm_procs_check(label: str, cfg, ranks: list, ref: dict, tol, card: bool, log
               f"{label}: rank {res['rank']} holds {res['param_bytes']} parameter bytes, "
               f"shard_bytes_per_device says {res['shard_bytes']}")
         for call in res["prefill"]:
-            want = lm_run.design_collectives(mcfg, cfg.mesh, "prefill", call["len"], 1,
-                                             cfg.cache_len)
+            want = lm_run.design_collectives(mcfg, cfg.mesh, "prefill", call["len"],
+                                             call.get("rows", 1), cfg.cache_len)
             check(call["collectives"] == want, f"{label}: rank {res['rank']} prefill of "
                   f"{call['len']}: collectives {call['collectives']}, the design {want}")
         for call in res["decode"]:
@@ -5386,7 +5475,7 @@ def lm_procs_check(label: str, cfg, ranks: list, ref: dict, tol, card: bool, log
             check(call["collectives"] == want, f"{label}: rank {res['rank']} decode step: "
                   f"collectives {call['collectives']}, the design {want}")
         if card:
-            want = expected_launches(mcfg, cfg.requests, len(res["decode"]))
+            want = expected_launches(mcfg, len(res["prefill"]), len(res["decode"]))
             check(res["launches"] == want, f"{label}: rank {res['rank']} launches "
                   f"{res['launches']}, want {want}")
     for uid, want in ref["logits"].items():
@@ -6529,6 +6618,527 @@ def run_archs(seed: int, device, log, profile: bool = False) -> dict:
     return {"result": result, "rows": rows}
 
 
+# ---------------------------------------------------------------------------
+# Griffin and the encoder-decoder over a mesh (the archs-procs phase)
+# ---------------------------------------------------------------------------
+ARCHS_PROCS_WORLD = 4
+ARCHS_PROCS_TIMEOUT_S = 600.0
+# (a) recurrentgemma-9b at its published widths, 6 of its 38 layers: two
+# periods of (rglru, rglru, local), the model's 2:1 mix (its published
+# period of 19 blocks cannot be cut to 6), 1.31e9 parameters in the blocks;
+# (a)'s traffic: archs (a)'s four prompts through 2 slots of 8,192, 8 new
+# tokens each.
+ARCHS_PROCS_GRIFFIN = {"num_layers": 6, "block_pattern": ("rglru", "rglru", "local")}
+ARCHS_PROCS_GRIFFIN_MAX_NEW = 8
+# (b) whisper-base at full width and depth: archs (b)'s 4 clips, 32-token
+# prompts and caches of 448, then 16 decode steps.
+ARCHS_PROCS_WHISPER_STEPS = 16
+# The sharded runs' logits against the unsharded run's (absolute), read
+# from the first run on the card (NVIDIA H100 80GB HBM3, 700 W, seed 0) and
+# set at about twice its maximum.  (a) recurrentgemma, bf16: the split
+# w_out and MLP sums round in another order and the RG-LRU carries each
+# rounding over thousands of steps: the sharded run's logits moved by at
+# most 0.109 over 32 positions, and the unsharded model's own prefill
+# logits move by 0.055-0.075 when one norm weight of its first layer
+# changes by 1e-7 relative (lm_procs_sensitivity, reported every run).
+# (b) whisper, bf16: its tied embedding keeps |logit| under 0.42, where a
+# bf16 step is 2^-9 to 2^-10; the first run moved by at most 0.0040.
+ARCHS_PROCS_LOGIT_TOL = {"a": 0.22, "b": 8e-3}
+
+
+def archs_procs_configs(seed: int) -> dict:
+    """The phase's runs: (a) recurrentgemma-9b (ARCHS_PROCS_GRIFFIN's cut)
+    and (b) whisper-base on (data, model) = (1, 4); (c) (a) on one NCCL
+    rank."""
+    from repro_torch.launch.lm_run import LMRunConfig
+
+    a = LMRunConfig(arch=ARCHS_GRIFFIN, mesh=(1, ARCHS_PROCS_WORLD),
+                    requests=len(ARCHS_GRIFFIN_LENS), slots=ARCHS_GRIFFIN_SLOTS,
+                    cache_len=ARCHS_GRIFFIN_CACHE_LEN, lens=ARCHS_GRIFFIN_LENS,
+                    max_new=(ARCHS_PROCS_GRIFFIN_MAX_NEW,), seed=seed, **ARCHS_PROCS_GRIFFIN)
+    b = LMRunConfig(arch=ARCHS_WHISPER, mesh=(1, ARCHS_PROCS_WORLD),
+                    requests=ARCHS_WHISPER_CLIPS, slots=ARCHS_WHISPER_CLIPS,
+                    cache_len=ARCHS_WHISPER_CACHE_LEN,
+                    lens=(ARCHS_WHISPER_PROMPT,) * ARCHS_WHISPER_CLIPS,
+                    max_new=(ARCHS_PROCS_WHISPER_STEPS + 1,), seed=seed)
+    return {"a": a, "b": b, "c": dataclasses.replace(a, mesh=(1, 1))}
+
+
+def captured_flash_row(q, k, v, kw: dict, launches: int, device, label: str, what: str,
+                       log) -> dict:
+    """Kernel 6 on a rank's own captured call against its twin, timed beside
+    SDPA (``enable_gqa``; a window or a non-causal call as a boolean mask)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as flash
+
+    b, hq, s, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    args = dict(causal=kw.get("causal", True), window=kw.get("window"),
+                q_heads_per_kv=kw.get("q_heads_per_kv", hq // hkv))
+    if args["window"] is None and args["causal"]:
+        sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,  # noqa: E731
+                                                      enable_gqa=True)
+    else:
+        mask = flash.live_mask(s, skv, causal=args["causal"], window=args["window"],
+                               device=device)
+        sdpa = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,  # noqa: E731
+                                                      enable_gqa=True)
+    shapes = (f"q=({b}, {hq}, {s}, {d}) k/v=({b}, {hkv}, {skv}, {d}) {q.dtype} "
+              f"{'causal' if args['causal'] else 'non-causal'}"
+              f"{'' if args['window'] is None else ' window=' + str(args['window'])} ({what})")
+    return flash_row(label, q, k, v, args, launches, shapes, device, log, sdpa,
+                     shards=ARCHS_PROCS_WORLD)
+
+
+def archs_procs_rank(group, cfgs: dict, forced: dict, device_name: str,
+                     profile: bool = False) -> dict:
+    """One rank of the spawned group: runs (a) and (b) in turn, each
+    teacher-forced with the unsharded run's tokens; rank 0 keeps the
+    logits and captures kernel 6's inputs (the longest Griffin request's
+    first ``local`` layer; whisper's encoder and decoder prefills); with
+    ``profile`` rank 0 runs each under ``torch.profiler`` (its card's busy
+    share of the run's wall)."""
+    import torch
+
+    from repro_torch.launch import lm_run
+
+    device = torch.device(device_name)
+    lm_settings()
+    out = {"rank": group.rank, "runs": {}, "flash": {}}
+    for key, cfg in cfgs.items():
+        lengths = ()
+        if group.rank == 0:
+            lengths = (max(cfg.lens),) if key == "a" else (lm_run.model_config(cfg).frontend_len,
+                                                           cfg.lens[0])
+        def run():
+            return lm_run.run_lm(cfg, device=device, forced=forced[key],
+                                 keep_logits=group.rank == 0, timeout_s=ARCHS_PROCS_TIMEOUT_S)
+
+        got = {}
+        with KernelCapture(lengths) as capture:
+            if profile and group.rank == 0:
+                prof = profile_phases({"run": lambda: got.setdefault("res", run())},
+                                      device)["run"]
+                res = got["res"]
+                res["profile"] = {"wall_ms": prof["wall_ms"],
+                                  "device_busy_ms": prof["device_busy_ms"],
+                                  "device_busy_share": prof["device_busy_ms"] / prof["wall_ms"],
+                                  "by_class": prof["by_class"]}
+            else:
+                res = run()
+        out["runs"][key] = res
+        out["flash"][key] = capture.calls
+        del capture, res
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    if group.rank == 0:
+        label = f"archs-procs-gloo-{ARCHS_PROCS_WORLD}"
+        rows = []
+        for key, what in (("a", "rank 0's 4 q heads over the kv head, the longest request's "
+                                "first local layer"),
+                          ("b", "rank 0's 2 heads, the encoder's layer 0"),
+                          ("b", "rank 0's 2 heads, the decoder's layer-0 prefill")):
+            calls = out["flash"][key]
+            length = sorted(calls)[-1] if "encoder" in what or key == "a" else sorted(calls)[0]
+            rows.append(captured_flash_row(*calls[length], out["runs"][key]["launches"].get(
+                "flash_attention", 0), device, f"{label} ({key})", what, print))
+        out["rows"] = rows
+    out.pop("flash")
+    return out
+
+
+def run_archs_procs(seed: int, device, log, profile: bool = False) -> dict:
+    """The ``archs-procs`` phase: Griffin and the encoder-decoder over a mesh
+    (``archs_procs_configs``).  (a) and (b) go first unsharded on this card
+    (their logits to host memory, their models freed; (a)'s sensitivity to a
+    1e-7 change of one norm weight reported), then in one spawn of four gloo
+    ranks on this card, teacher-forced with the unsharded tokens; (c) on one
+    NCCL rank in this process, bit for bit."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import lm_run, mesh
+
+    card = device.type == "cuda"
+    smi = card_line() if card else "cpu"
+    t_phase = time.perf_counter()
+    cfgs = archs_procs_configs(seed)
+
+    def unsharded(key):
+        gc.collect()
+        if card:
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ref = lm_run.run_lm(cfgs[key], sharded=False, device=device, keep_model=key != "b")
+        if key == "a":
+            ref["sensitivity"] = lm_procs_sensitivity(ref)
+        for name in ("bundle", "params", "prompts"):
+            ref.pop(name, None)
+        log(f"archs-procs ({key}) unsharded {ref['arch']} ({ref['layers']} layers): "
+            f"{time.perf_counter() - t0:.1f} s; its sensitivity {ref.get('sensitivity')}")
+        gc.collect()
+        if card:
+            torch.cuda.empty_cache()
+        return ref
+
+    refs = {key: unsharded(key) for key in "ab"}
+    label = f"archs-procs-gloo-{ARCHS_PROCS_WORLD}"
+    t0 = time.perf_counter()
+    ranks = mesh.spawn(archs_procs_rank, ARCHS_PROCS_WORLD, "gloo", str(device),
+                       args=({k: cfgs[k] for k in "ab"}, {k: refs[k]["tokens"] for k in "ab"},
+                             str(device), profile),
+                       timeout_s=ARCHS_PROCS_TIMEOUT_S)
+    result = {"path": "archs-procs", "gloo4_s": time.perf_counter() - t0, "runs": {}}
+    log(f"{label}: {result['gloo4_s']:.1f} s from spawn to the last result")
+    for key in "ab":
+        runs = [r["runs"][key] for r in ranks]
+        result["runs"][key] = lm_procs_report(f"{label} ({key})", cfgs[key], runs, refs[key],
+                                              smi, log)
+        result["runs"][key]["gate"] = lm_procs_check(f"{label} ({key})", cfgs[key], runs,
+                                                     refs[key], ARCHS_PROCS_LOGIT_TOL[key],
+                                                     card, log)
+        if "profile" in runs[0]:
+            result["runs"][key]["profile"] = runs[0]["profile"]
+            log(f"{label} ({key}) rank 0 under the profiler ({smi}): "
+                + json.dumps(runs[0]["profile"]))
+    rows = ranks[0]["rows"]
+    check(len(rows) == 3, f"{label}: rank 0 checked {len(rows)} kernel 6 shapes, want 3")
+    del ranks
+    backend = "nccl" if card else "gloo"
+    store = tempfile.mkdtemp(prefix="archs_procs_world1_")
+    mesh.init_shard_group(backend, "file://" + os.path.join(store, "store"),
+                          timeout_s=ARCHS_PROCS_TIMEOUT_S, rank=0, world_size=1, device=device)
+    try:
+        one = lm_run.run_lm(cfgs["c"], device=device, forced=refs["a"]["tokens"],
+                            timeout_s=ARCHS_PROCS_TIMEOUT_S)
+    finally:
+        dist.destroy_process_group()
+        for name in os.listdir(store):
+            os.remove(os.path.join(store, name))
+        os.rmdir(store)
+    label1 = f"archs-procs-{backend}-1 (c)"
+    result["runs"]["c"] = lm_procs_report(label1, cfgs["c"], [one], refs["a"], smi, log)
+    result["runs"]["c"]["gate"] = lm_procs_check(label1, cfgs["c"], [one], refs["a"], None,
+                                                 card, log)
+    del one, refs
+    gc.collect()
+    if card:
+        torch.cuda.empty_cache()
+    result["run_s"] = time.perf_counter() - t_phase
+    log(f"run archs-procs: {result['run_s']:.1f} s (two unsharded runs, four gloo ranks on one "
+        f"card, one {backend} rank, gates and rank 0's kernel checks; {smi})")
+    return {"result": result, "rows": rows}
+
+
+# ---------------------------------------------------------------------------
+# expert-parallel training through the exchange (the moe-train phase)
+# ---------------------------------------------------------------------------
+MOE_TRAIN_WORLD = 4
+MOE_TRAIN_TIMEOUT_S = 600.0
+# mixtral-8x22b at its published widths, 1 of its 56 layers: f32 masters,
+# their gradients and AdamW's moments take 16 bytes a parameter, and one
+# layer holds 2.42e9 expert parameters beside 0.49e9 of attention, embedding
+# and head.  A global batch of 4 x 1,024 tokens (one row a rank), 2 steps.
+MOE_TRAIN_LAYERS, MOE_TRAIN_SEQ, MOE_TRAIN_STEPS = 1, 1024, 2
+# The clip does not bind (its norm is summed over the ranks in gloo's
+# order, so a binding clip would move every update by its last bit): each
+# rank's owned experts after step 1 are then the stacked step's, bit for bit.
+MOE_TRAIN_CLIP = 1e9
+# The reduced leaves' first moments after step 1 against the stacked step's,
+# as a share of each leaf's largest entry (f32 gradients summed over the
+# ranks in another order; tests/test_torch_moe_train_procs.py holds 1e-6 at
+# smoke size).
+MOE_TRAIN_REDUCED_TOL = 1e-5
+
+
+def moe_train_config(seed: int):
+    from repro_torch.launch.train_run import TrainRunConfig
+
+    return TrainRunConfig(arch=MOE_ARCH, kind="gspmd", num_layers=MOE_TRAIN_LAYERS,
+                          mesh=(MOE_TRAIN_WORLD, 1), batch=MOE_TRAIN_WORLD, seq=MOE_TRAIN_SEQ,
+                          steps=MOE_TRAIN_STEPS, lr=1e-4, warmup_steps=1, total_steps=10,
+                          clip_norm=MOE_TRAIN_CLIP, seed=seed)
+
+
+def moe_train_batches(cfg) -> list:
+    """The phase's global batches (token ids uniform in [1, vocab) from the
+    seed, the same on every rank)."""
+    import numpy as np
+
+    from repro_torch.launch import train_run
+
+    rng = np.random.default_rng(cfg.seed + 9)
+    vocab = train_run.model_config(cfg).vocab_size
+    return [rng.integers(1, vocab, (cfg.batch, cfg.seq + 1), dtype=np.int32)
+            for _ in range(cfg.steps)]
+
+
+def stacked_moments_hook(path: str, digests: dict):
+    """An ``on_step`` hook of the stacked run: after step 1 the digests of
+    every expert's first moments and parameters (``digests``: (leaf, expert)
+    -> (moments, parameters)), and every other leaf's first moments written
+    whole to ``path``."""
+    import torch
+
+    from repro_torch.launch import train_run
+
+    def hook(i, params, opt, bundle):
+        if i != 0:
+            return None
+        rest = {}
+        for name, p in params.named_parameters():
+            m = opt["m"][name]
+            if ".moe.w_" in name:
+                for e in range(p.shape[0]):
+                    digests[(name, e)] = (train_run._digest(m[e]), train_run._digest(p[e]))
+            else:
+                rest[name] = m.detach().cpu()
+        torch.save(rest, path)
+        return None
+
+    return hook
+
+
+def rank_moments_hook(path: str, digests: dict):
+    """An ``on_step`` hook of a rank: after step 1 its owned experts'
+    moments and parameters against the stacked step's digests (bit for
+    bit), its other blocks' moments against the stacked step's at ``path``
+    (the largest |difference| over the leaf's largest entry)."""
+    import torch
+
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import train_run
+    from repro_torch.models import moe
+
+    def hook(i, params, opt, bundle):
+        if i != 0:
+            return None
+        lay = bundle.layout
+        whole = torch.load(path, mmap=True)
+        owned = moe.owned_experts(lay.dp.index, lay.dp.size, bundle.cfg.num_experts)
+        experts, worst = {}, {}
+        for name, p in params.named_parameters():
+            m = opt["m"][name]
+            if ".moe.w_" in name:
+                for j, e in enumerate(owned):
+                    got = (train_run._digest(m[j]), train_run._digest(p[j]))
+                    experts[f"{name}[{e}]"] = got == digests[(name, e)]
+                continue
+            want = whole[name][sharding.block_slices(lay.full_shapes[name], lay.specs[name],
+                                                     lay.parallel.mesh, lay.coord)].to(m.device)
+            scale = max(float(want.abs().max()), 1e-30)
+            worst[name] = float((m - want).abs().max()) / scale
+        return {"experts": experts, "reduced": worst}
+
+    return hook
+
+
+class ExchangeClock:
+    """Host seconds and calls inside the exchange's rounds over a process
+    group (``ProcessGroup._exchange_bytes``: the one ``all_to_all_single``
+    of a round, its staging through host memory under gloo included),
+    forward and backward, on every thread, while the block runs."""
+
+    def __enter__(self):
+        from repro_torch.core import exchange
+
+        self.seconds, self.calls = 0.0, 0
+        self._cls = exchange.ProcessGroup
+        self._orig = self._cls._exchange_bytes
+        orig = self._orig
+
+        def timed(group, send):
+            t0 = time.perf_counter()
+            try:
+                return orig(group, send)
+            finally:
+                self.seconds += time.perf_counter() - t0
+                self.calls += 1
+
+        self._cls._exchange_bytes = timed
+        return self
+
+    def __exit__(self, *exc):
+        self._cls._exchange_bytes = self._orig
+        return False
+
+
+def moe_train_rank(group, cfg, batches, path: str, digests: dict, device_name: str,
+                   profile: bool = False) -> dict:
+    """One rank of the spawned group: the EP train step's 2 steps, held
+    after step 1 against the stacked step (``rank_moments_hook``); rank 0
+    captures kernel 6's inputs in the first forward and holds them against
+    the twin after the run; with ``profile`` every rank takes one more
+    step, which rank 0 profiles (``train_procs_profile``)."""
+    import torch
+
+    from repro_torch.launch import train_run
+
+    device = torch.device(device_name)
+    lm_settings()
+    with KernelCapture((cfg.seq,) if group.rank == 0 else ()) as capture, \
+            CollectiveClock() as clock, ExchangeClock() as rounds:
+        res = train_run.run_train(cfg, device=device, batches=batches,
+                                  on_step=rank_moments_hook(path, digests),
+                                  extra_step=train_procs_profile(group.rank, device)
+                                  if profile else None, timeout_s=MOE_TRAIN_TIMEOUT_S)
+    res["host_s"] = {"exchange": rounds.seconds, "exchange_rounds": rounds.calls,
+                     **clock.seconds}
+    res["rows"] = []
+    if group.rank == 0:
+        q, k, v, kw = capture.calls[cfg.seq]
+        res["rows"].append(captured_flash_row(
+            q, k, v, kw, res["launches"].get("flash_attention", 0), device,
+            f"moe-train-gloo-{MOE_TRAIN_WORLD}", "rank 0's row, the EP train step's forward",
+            print))
+    return res
+
+
+def run_moe_train(seed: int, device, log, profile: bool = False) -> dict:
+    """The ``moe-train`` phase: mixtral-8x22b (MOE_TRAIN_LAYERS layer) trained
+    with ``moe_impl="ep"`` on (data, model) = (4, 1).  First the stacked EP
+    step on this card (``make_ep_stacked_train_step``), its step-1 moments
+    kept (digests of every expert's, the rest on the host), freed; then four
+    gloo ranks of this card (one row each), each held after step 1 against
+    it; then the one-card dense step on this card and the same on one NCCL
+    rank, bit for bit."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh, train_run
+
+    card = device.type == "cuda"
+    smi = card_line() if card else "cpu"
+    t_phase = time.perf_counter()
+    cfg = moe_train_config(seed)
+    mcfg = train_run.model_config(cfg)
+    batches = moe_train_batches(cfg)
+    scratch = tempfile.mkdtemp(prefix="moe_train_")
+    path = os.path.join(scratch, "moments.pt")
+    digests: dict = {}
+    try:
+        t0 = time.perf_counter()
+        ref = train_run.run_train(cfg, sharded=False, stacked=MOE_TRAIN_WORLD, device=device,
+                                  batches=batches, on_step=stacked_moments_hook(path, digests))
+        ref_s = time.perf_counter() - t0
+        gc.collect()
+        if card:
+            torch.cuda.empty_cache()
+        log(f"moe-train stacked D={MOE_TRAIN_WORLD}: {ref_s:.1f} s, steps "
+            f"{[round(s['s'], 3) for s in ref['steps']]} s, rounds "
+            f"{[s['rounds'] for s in ref['steps']]}, peak {ref['peak_bytes']} ({smi}): "
+            + json.dumps([s["metrics"] for s in ref["steps"]]))
+        label = f"moe-train-gloo-{MOE_TRAIN_WORLD}"
+        t0 = time.perf_counter()
+        ranks = mesh.spawn(moe_train_rank, MOE_TRAIN_WORLD, "gloo", str(device),
+                           args=(cfg, batches, path, digests, str(device), profile),
+                           timeout_s=MOE_TRAIN_TIMEOUT_S)
+        gloo_s = time.perf_counter() - t0
+    finally:
+        for name in os.listdir(scratch):
+            os.remove(os.path.join(scratch, name))
+        os.rmdir(scratch)
+    rounds = train_run.design_rounds(mcfg, cfg.mesh, 1)
+    want = train_run.design_collectives(mcfg, cfg.mesh, "gspmd", cfg.seq, cfg.batch, 1)
+    gate = {"reduced_tol": MOE_TRAIN_REDUCED_TOL, "reduced_max": 0.0, "experts_bit_for_bit": 0}
+    tokens = cfg.batch * cfg.seq // MOE_TRAIN_WORLD
+    for res in ranks:
+        r = res["rank"]
+        held = res["steps"][0]["check"]
+        check(all(held["experts"].values()) and held["experts"],
+              f"{label}: rank {r}'s owned experts after step 1 differ from the stacked step's: "
+              f"{held['experts']}")
+        gate["experts_bit_for_bit"] += len(held["experts"])
+        worst = max(held["reduced"].values())
+        check(worst <= MOE_TRAIN_REDUCED_TOL, f"{label}: rank {r}'s reduced leaves differ from "
+              f"the stacked step's by {worst} of their largest entry: {held['reduced']}")
+        gate["reduced_max"] = max(gate["reduced_max"], worst)
+        for got, ref_step in zip(res["steps"], ref["steps"]):
+            for key in ("loss", "ce", "moe_aux"):
+                a, b = got["metrics"][key], ref_step["metrics"][key]
+                check(abs(a - b) <= 1e-5 * abs(b) and math.isfinite(a),
+                      f"{label}: rank {r} step {got['step']} {key} {a} against the stacked {b}")
+            check(got["rounds"] == rounds, f"{label}: rank {r} step {got['step']} rounds "
+                  f"{got['rounds']}, the design {rounds}")
+            check(got["collectives"] == want, f"{label}: rank {r} step {got['step']} "
+                  f"collectives {got['collectives']}, the design {want}")
+        check(res["param_bytes"] == res["expected_param_bytes"]
+              and res["state_bytes"] == res["expected_state_bytes"],
+              f"{label}: rank {r} holds {res['param_bytes']} / {res['state_bytes']} parameter / "
+              f"state bytes, the specs say {res['expected_param_bytes']} / "
+              f"{res['expected_state_bytes']}")
+        if card:
+            want_k6 = {"flash_attention": 2 * MOE_TRAIN_LAYERS * MOE_TRAIN_STEPS}
+            check(res["launches"] == want_k6, f"{label}: rank {r} launches {res['launches']}, "
+                  f"want {want_k6} (each forward and its recomputation)")
+        steps_s = [s["s"] for s in res["steps"]]
+        log(f"{label} rank {r} ({smi}): " + json.dumps({
+            "step_ms": [1e3 * s for s in steps_s],
+            "tokens_per_s": [tokens / s for s in steps_s],
+            "metrics": [s["metrics"] for s in res["steps"]],
+            "rounds": res["steps"][0]["rounds"], "collectives": res["steps"][0]["collectives"],
+            "bytes": res["steps"][0]["bytes"], "host_s_in_calls": res["host_s"],
+            "param_bytes": res["param_bytes"], "state_bytes": res["state_bytes"],
+            "peak_bytes": res["peak_bytes"], "init_s": res["init_s"]}))
+    routed = cfg.batch * cfg.seq * mcfg.experts_per_token * MOE_TRAIN_LAYERS
+    gate["dropped_share"] = [s["metrics"].get("moe_dropped", 0.0) / routed for s in ref["steps"]]
+    log(f"{label} gates held: " + json.dumps(gate))
+    if ranks[0].get("extra"):
+        log(f"{label} rank 0's extra step under the profiler ({smi}): "
+            + json.dumps(ranks[0]["extra"]))
+    rows = ranks[0]["rows"]
+    result = {"path": "moe-train", "layers": MOE_TRAIN_LAYERS, "world": MOE_TRAIN_WORLD,
+              "seq": cfg.seq, "stacked_s": ref_s, "gloo4_s": gloo_s, "gate": gate,
+              "stacked_peak_bytes": ref["peak_bytes"],
+              "ranks": [{"rank": res["rank"], "steps_s": [s["s"] for s in res["steps"]],
+                         "host_s": res["host_s"], "peak_bytes": res["peak_bytes"],
+                         "param_bytes": res["param_bytes"], "state_bytes": res["state_bytes"]}
+                        for res in ranks]}
+    del ranks, ref
+    gc.collect()
+    if card:
+        torch.cuda.empty_cache()
+    # Dense on one card and on one NCCL rank, bit for bit.
+    one = dataclasses.replace(cfg, mesh=(1, 1))
+    dense = train_run.run_train(one, sharded=False, device=device, batches=batches)
+    gc.collect()
+    if card:
+        torch.cuda.empty_cache()
+    backend = "nccl" if card else "gloo"
+    store = tempfile.mkdtemp(prefix="moe_train_world1_")
+    mesh.init_shard_group(backend, "file://" + os.path.join(store, "store"),
+                          timeout_s=MOE_TRAIN_TIMEOUT_S, rank=0, world_size=1, device=device)
+    try:
+        nccl = train_run.run_train(one, device=device, batches=batches,
+                                   timeout_s=MOE_TRAIN_TIMEOUT_S)
+    finally:
+        dist.destroy_process_group()
+        for name in os.listdir(store):
+            os.remove(os.path.join(store, name))
+        os.rmdir(store)
+    for a, b in zip(nccl["steps"], dense["steps"]):
+        check(a["metrics"] == b["metrics"] and a["digests"] == b["digests"] and not a["rounds"],
+              f"moe-train {backend}-1 step {a['step']}: {a['metrics']} against the one-card "
+              f"dense step's {b['metrics']} (rounds {a['rounds']})")
+    log(f"moe-train {backend}-1: dense, bit for bit the one-card step: "
+        + json.dumps([s["metrics"] for s in nccl["steps"]]) + f"; peak {nccl['peak_bytes']}")
+    result["nccl1_metrics"] = [s["metrics"] for s in nccl["steps"]]
+    del dense, nccl
+    gc.collect()
+    if card:
+        torch.cuda.empty_cache()
+    result["run_s"] = time.perf_counter() - t_phase
+    log(f"run moe-train: {result['run_s']:.1f} s (the stacked step, four gloo ranks, the dense "
+        f"step on one card and on one {backend} rank, gates and rank 0's kernel check; {smi})")
+    return {"result": result, "rows": rows}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--keys", type=int, default=1 << 27,
@@ -6757,6 +7367,17 @@ def main(argv=None) -> int:
     rows += archs["rows"]
     paths.append(archs["result"])
     del archs
+    gc.collect()
+    torch.cuda.empty_cache()
+    # The last model paths over a mesh: Griffin and whisper over tp ranks,
+    # then expert-parallel training through the exchange's backward.
+    for runner in (run_archs_procs, run_moe_train):
+        out = runner(args.seed, device, log, profile=args.profile)
+        rows += out["rows"]
+        paths.append(out["result"])
+        del out
+        gc.collect()
+        torch.cuda.empty_cache()
     kernels = {"kernels": [{k: row[k] for k in (
         "name", "path", "shards", "route", "source", "replaces", "launches", "max_abs_err", "ms",
         "plain_ms", "bound_ms", "bound_by", "library_ms")} for row in rows]}

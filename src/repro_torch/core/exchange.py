@@ -31,6 +31,13 @@ apart, in :data:`REDUCTIONS` and ``Scope.collectives`` (``"psum"``,
 ``"pmax"``, ``"agree"`` for the host agreements, ``"all_gather"`` and
 ``"broadcast"``), so a rank's rounds equal the stacked run's.
 
+*Gradients.*  :func:`dispatch` and :func:`combine` are differentiable in
+their float payloads (an MoE trained with expert parallelism): the
+stacked group's transpose is, and over a process group the round goes
+through :func:`exchange_many`, whose backward is the same exchange of the
+incoming gradient (one more round a call, counted in :data:`CALLS` under
+the forward's label whichever thread runs it).
+
 *Roles.*  A server issues collectives from several threads at once (reads,
 writes, folds).  Over a process group each rank must issue one
 communicator's collectives in one order, so :meth:`ProcessGroup.add_roles`
@@ -99,7 +106,12 @@ def counting_as(label: str):
 
 def _count_call(*buffers: torch.Tensor) -> None:
     """One round; ``buffers`` are what it transposes, ``(D, ...)`` each."""
-    label = _labels()[-1]
+    _count_as(_labels()[-1], buffers)
+
+
+def _count_as(label: str, buffers) -> None:
+    """One round under ``label`` (not the calling thread's: a backward pass
+    may run on autograd's own thread)."""
     nbytes = sum(b.numel() * b.element_size() // max(1, b.shape[0]) for b in buffers)
     with _calls_lock:
         CALLS[label] += 1
@@ -326,6 +338,44 @@ class ProcessGroup:
         return box[0]
 
 
+class _AllToAllMany(torch.autograd.Function):
+    """:meth:`ProcessGroup.all_to_all_many` that carries the gradients of its
+    float buffers: an all-to-all of ``(1, D, ...)`` blocks by destination is
+    its own transpose, so the backward sends each gradient's blocks back
+    by the same exchange, one round for all of them, counted under the
+    forward's label.  Integer buffers (ids, masks) ride the forward's one
+    call and have no gradient."""
+
+    @staticmethod
+    def forward(ctx, group, label, *xs):
+        ctx.group, ctx.label = group, label
+        ctx.floats = [x.is_floating_point() for x in xs]
+        out = group.all_to_all_many(xs)
+        ctx.mark_non_differentiable(*[y for y, f in zip(out, ctx.floats) if not f])
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        idx = [i for i, f in enumerate(ctx.floats) if f]
+        sent = [gs[i].contiguous() for i in idx]
+        _count_as(ctx.label, sent)
+        back = ctx.group.all_to_all_many(sent)
+        out: list = [None] * len(gs)
+        for i, g in zip(idx, back):
+            out[i] = g
+        return (None, None, *out)
+
+
+def exchange_many(group, xs: Sequence[torch.Tensor]) -> list:
+    """``group.all_to_all_many(xs)``; over a process group, where autograd
+    records a float buffer that requires a gradient, through
+    :class:`_AllToAllMany` (the stacked group's transpose carries gradients
+    as it is)."""
+    if group.is_process and torch.is_grad_enabled() and any(x.requires_grad for x in xs):
+        return list(_AllToAllMany.apply(group, _labels()[-1], *xs))
+    return group.all_to_all_many(xs)
+
+
 def as_group(group, size: Optional[int] = None):
     """A shard group from ``group``: ``None`` is the stacked group of
     ``size`` shards; a ``torch.distributed`` process group (or ``"world"``
@@ -444,9 +494,8 @@ def dispatch(
     )
     route = dataclasses.replace(route, group=group)
     _count_call(*packed)
-    received = group.all_to_all_many(
-        [buf.reshape(local, num_dest, capacity, *buf.shape[2:]) for buf in packed]
-    )
+    received = exchange_many(
+        group, [buf.reshape(local, num_dest, capacity, *buf.shape[2:]) for buf in packed])
     received = [r.reshape(local, num_dest * capacity, *r.shape[3:]) for r in received]
     return received, route
 
@@ -467,7 +516,7 @@ def combine(answers: torch.Tensor, route: Route, fill) -> torch.Tensor:
     d, cap = route.num_dest, route.capacity
     local, rest = answers.shape[0], tuple(answers.shape[2:])
     _count_call(answers)
-    back = route.group.all_to_all(answers.reshape(local, d, cap, *rest))
+    (back,) = exchange_many(route.group, [answers.reshape(local, d, cap, *rest)])
     back = back.reshape(local, d * cap, *rest)
     if not rest:
         ans_sorted = torch.where(route.keep, torch.gather(back, 1, route.slot), fill)

@@ -407,10 +407,15 @@ class TreeSharding:
 def counts_block(spec: tuple, mesh, coord: dict) -> bool:
     """Whether this rank counts its block of a leaf of ``spec`` in a sum over
     the group's distinct blocks: it does at index 0 of every mesh axis the
-    spec leaves the leaf whole over (one copy of each block)."""
+    spec leaves the leaf whole over (one copy of each block), and for
+    experts dealt by owner on the first E ranks of the ep axes (the others
+    repeat them)."""
     used = set()
+    shape = mesh_shape(mesh)
     for entry in spec:
         if isinstance(entry, Owners):
+            if _entry_index(entry, coord, shape)[0] >= entry.experts:
+                return False
             entry = entry.axes
         if entry is not None:
             used.update((entry,) if isinstance(entry, str) else entry)

@@ -58,12 +58,14 @@ class LMRunConfig:
     smoke: bool = False
     dtype: Optional[str] = None  # None: the config's
     num_layers: Optional[int] = None  # None: the config's (a cut of depth)
+    block_pattern: Optional[tuple] = None  # None: the config's (a shorter period, with a cut)
     mesh: tuple = (1, 1)  # (data, model)
     moe_impl: str = "ep"  # an MoE stack's dispatch over the mesh ("dense" | "ep")
     requests: int = 4
     slots: int = 2
     cache_len: int = 4096
     prompt_lens: tuple = (1000, 3000)  # drawn uniformly in [lo, hi]
+    lens: tuple = ()  # the prompts' lengths, one a request, in place of prompt_lens' draw
     first_multiple: int = 1  # the first prompt's length rounded down to a multiple
     max_new: tuple = (16,)  # new tokens of request i: max_new[i % len]
     seed: int = 0
@@ -79,16 +81,22 @@ def model_config(cfg: LMRunConfig):
         changes["dtype"] = cfg.dtype
     if cfg.num_layers is not None:
         changes["num_layers"] = cfg.num_layers
+    if cfg.block_pattern is not None:
+        changes["block_pattern"] = tuple(cfg.block_pattern)
     return dataclasses.replace(mcfg, **changes) if changes else mcfg
 
 
 def draw_prompts(cfg: LMRunConfig, vocab_size: int) -> list:
-    """The run's prompts from its seed: lengths uniform in ``prompt_lens``,
-    the first rounded down to a multiple of ``first_multiple``; token ids
-    uniform in [1, vocab)."""
+    """The run's prompts from its seed: lengths ``lens`` where given, else
+    uniform in ``prompt_lens`` with the first rounded down to a multiple of
+    ``first_multiple``; token ids uniform in [1, vocab)."""
     rng = np.random.default_rng(cfg.seed + 2)
     lens = rng.integers(cfg.prompt_lens[0], cfg.prompt_lens[1] + 1, size=cfg.requests)
     lens[0] -= lens[0] % cfg.first_multiple
+    if cfg.lens:
+        if len(cfg.lens) != cfg.requests:
+            raise ValueError(f"{len(cfg.lens)} lengths for {cfg.requests} requests")
+        lens = np.asarray(cfg.lens)
     return [rng.integers(1, vocab_size, size=int(n), dtype=np.int32) for n in lens]
 
 
@@ -116,26 +124,30 @@ def design_collectives(mcfg, mesh: Sequence[int], kind: str, seq_len: int, batch
     * the embedding: one sum over tp of the vocab blocks (a reduce-scatter
       under sequence parallelism);
     * a layer: the FSDP all-gather of its weight blocks over dp (one);
-      attention: two sums over tp of the row-parallel products (``wo``,
-      ``w_down``; reduce-scatters under sequence parallelism, which also
-      all-gathers the two blocks' inputs), an all-gather of the q/k/v
-      blocks that do not hold the heads the rank needs, and in decode over
-      a sequence-sharded cache the all-gather of the partial softmaxes;
+      attention (``attn``, ``swa``, ``local``): two sums over tp of the
+      row-parallel products (``wo``, ``w_down``; reduce-scatters under
+      sequence parallelism, which also all-gathers the two blocks'
+      inputs), an all-gather of the q/k/v blocks that do not hold the heads
+      the rank needs, and in decode over a sequence-sharded cache (or
+      ring) the all-gather of the partial softmaxes;
       mLSTM: all-gathers of ``u`` and the gate blocks, the sum of squares of
       ``out_norm`` and the ``w_down`` sum, and an all-gather of each state
       whose cache block is not the rank's heads, once into the step and once
       out; sLSTM: the all-gather of the gate-major projection and the two
-      sums; an ``swa`` block as ``attn`` (its ring split as a cache is);
-      an MoE where the experts are dealt by owner (``moe_impl="ep"``) and
-      the rows do not divide over dp: the sum of the owners' parts over dp
-      (where they divide, its rows travel through the exchange's rounds,
-      counted apart);
+      sums; RG-LRU: the all-gather of ``uf``'s width blocks and the
+      ``w_out`` sum, then its MLP's sum; an MoE where the experts are dealt
+      by owner (``moe_impl="ep"``) and the rows do not divide over dp: the
+      sum of the owners' parts over dp (where they divide, its rows travel
+      through the exchange's rounds, counted apart);
     * the head: the all-gather of the vocab blocks, the FSDP gather of an
       untied ``lm_head``, and over dp the all-gather of a sharded batch's
       rows or the broadcast of a replicated one; a sequence-parallel
       prefill broadcasts the last position's row from the last tp rank.
 
+    An encoder-decoder (:func:`_design_encdec`) has no sequence parallelism.
     Every call over an axis of one rank is absent."""
+    if mcfg.is_encoder_decoder:
+        return _design_encdec(mcfg, mesh, kind, batch)
     d, t = mesh
     out: dict = {}
 
@@ -143,8 +155,7 @@ def design_collectives(mcfg, mesh: Sequence[int], kind: str, seq_len: int, batch
         if n:
             out[k] = out.get(k, 0) + n
 
-    h, kv, hd = mcfg.num_heads, mcfg.num_kv_heads, mcfg.head_dim_
-    attn_types = ("attn", "swa")
+    attn_types = ("attn", "swa", "local")
     sp = (kind == "prefill" and t > 1 and seq_len % t == 0
           and all(bt in attn_types for bt in mcfg.block_pattern))
     owner_sum = _ep_owners(mcfg, d, moe_impl) and batch % d != 0
@@ -164,13 +175,11 @@ def design_collectives(mcfg, mesh: Sequence[int], kind: str, seq_len: int, batch
                 add(tp_sum, 2)
                 if sp:
                     add("all_gather", 2)
-                heads_aligned = kv % t == 0
-                seq_cache = not heads_aligned and cache_len % t == 0 and cache_len >= t
-                kv_split, q_split = (kv * hd) % t == 0, (h * hd) % t == 0
-                if kind == "prefill" or not seq_cache:
-                    add("all_gather", int(not heads_aligned and kv_split))
-                else:  # every q head over the rank's positions, then the combine
-                    add("all_gather", int(q_split or kv_split) + 1)
+                window = {"swa": mcfg.sliding_window, "local": mcfg.local_window}.get(bt)
+                add("all_gather", _attn_gathers(mcfg, t, kind, cache_len, window))
+            elif bt == "rglru":
+                add("all_reduce", 1 + int(mcfg.d_ff > 0))
+                add("all_gather", int(mcfg.rnn_width % t == 0))
             elif bt == "mlstm":
                 from repro_torch.models.ssm import mlstm_dims
 
@@ -193,6 +202,55 @@ def design_collectives(mcfg, mesh: Sequence[int], kind: str, seq_len: int, batch
     return out
 
 
+def _attn_gathers(mcfg, t: int, kind: str, cache_len: int, window: Optional[int]) -> int:
+    """An attention block's all-gathers over tp: the q/k/v blocks that do not
+    hold the rank's heads, and in decode over a cache (or ring of
+    ``min(window, cache_len)`` slots) split by positions every q head and
+    the partial softmaxes."""
+    h, kv, hd = mcfg.num_heads, mcfg.num_kv_heads, mcfg.head_dim_
+    heads_aligned = kv % t == 0
+    span = cache_len if window is None else min(window, cache_len)
+    seq_cache = not heads_aligned and span % t == 0 and span >= t
+    kv_split, q_split = (kv * hd) % t == 0, (h * hd) % t == 0
+    if kind == "prefill" or not seq_cache:
+        return int(not heads_aligned and kv_split)
+    return int(q_split or kv_split) + 1  # every q head over the rank's positions, the combine
+
+
+def _design_encdec(mcfg, mesh: Sequence[int], kind: str, batch: int) -> dict:
+    """``design_collectives`` of an encoder-decoder (``models.encdec``): the
+    embedding's sum over tp where the vocab splits; per encoder layer (a
+    prefill's) and decoder layer the FSDP all-gather over dp; over tp an
+    encoder layer's two row-parallel sums (attention, MLP) and a decoder
+    layer's three (self-attention, cross-attention, MLP), with the q/k/v
+    blocks' all-gathers where the heads do not line up; the head's vocab
+    all-gather and over dp the rows' all-gather or broadcast."""
+    d, t = mesh
+    out: dict = {}
+
+    def add(k, n=1):
+        if n:
+            out[k] = out.get(k, 0) + n
+
+    vocab_split = t > 1 and mcfg.vocab_size % t == 0
+    layers = mcfg.num_layers + (mcfg.encoder_layers if kind == "prefill" else 0)
+    if vocab_split:
+        add("all_reduce")
+    if d > 1:
+        add("all_gather", layers)
+    if t > 1:
+        add("all_reduce", 2 * mcfg.encoder_layers if kind == "prefill" else 0)
+        add("all_reduce", 3 * mcfg.num_layers)
+        gathers = _attn_gathers(mcfg, t, "prefill", 1, None)
+        add("all_gather", gathers * layers)
+        add("all_gather", gathers * mcfg.num_layers * int(kind == "prefill"))  # encoder k/v
+    if vocab_split:
+        add("all_gather")
+    if d > 1:
+        add("all_gather" if batch % d == 0 else "broadcast")
+    return out
+
+
 def design_loss_collectives(mcfg, mesh: Sequence[int], batch: int, seq_len: int,
                             moe_impl: str = "ep") -> dict:
     """The collectives one ``loss`` of ``batch`` rows of ``seq_len`` tokens
@@ -206,7 +264,8 @@ def design_loss_collectives(mcfg, mesh: Sequence[int], batch: int, seq_len: int,
     d, t = mesh
     split = d > 1 and batch % d == 0
     out = design_collectives(mcfg, mesh, "prefill", seq_len, batch, seq_len, moe_impl)
-    sp = t > 1 and seq_len % t == 0 and all(bt in ("attn", "swa") for bt in mcfg.block_pattern)
+    sp = (t > 1 and seq_len % t == 0 and not mcfg.is_encoder_decoder
+          and all(bt in ("attn", "swa", "local") for bt in mcfg.block_pattern))
 
     def add(k, n):
         out[k] = out.get(k, 0) + n
@@ -232,6 +291,16 @@ def _digest(a: np.ndarray) -> str:
     return hashlib.sha1(np.ascontiguousarray(a).tobytes()).hexdigest()
 
 
+def _scoped_wall(fn, sync):
+    """``(fn(), its seconds, its counting scope)``, synchronised on both sides."""
+    sync()
+    start = time.perf_counter()
+    with counting.scoped() as scope:
+        out = fn()
+        sync()
+    return out, time.perf_counter() - start, scope
+
+
 def _forcing(logits: torch.Tensor, tokens) -> torch.Tensor:
     """Rows whose argmax is ``tokens`` (one a row), for the batcher to take."""
     out = torch.zeros_like(logits)
@@ -249,11 +318,12 @@ def run_lm(cfg: LMRunConfig, *, sharded: bool = True, device=None,
     by rounding still feed the same sequences; the logits recorded are the
     model's.  Returns the rank's figures (``logits`` by request only with
     ``keep_logits``; their digests always; ``bundle`` and ``params`` with
-    ``keep_model``)."""
-    import torch.distributed as dist
+    ``keep_model``).
 
-    from repro_torch.distributed import sharding
-    from repro_torch.distributed.parallel import mesh_shape, single_device_parallel
+    An encoder-decoder serves its requests as one batch instead
+    (``_serve_encdec``: the stub frames of ``draw_frames``, prompts of one
+    length)."""
+    from repro_torch.distributed.parallel import single_device_parallel
     from repro_torch.kernels import build
     from repro_torch.models.api import build_model, resolve_device
     from repro_torch.serve import (ContinuousBatcher, Request, make_prefill_step,
@@ -274,6 +344,10 @@ def run_lm(cfg: LMRunConfig, *, sharded: bool = True, device=None,
     sync()
     init_s = time.perf_counter() - t0
     prompts = draw_prompts(cfg, mcfg.vocab_size)
+    if mcfg.is_encoder_decoder:
+        rec = _serve_encdec(cfg, bundle, params, prompts, dev, forced, sync)
+        return _lm_result(cfg, bundle, params, prompts, rec, init_s, sharded, keep_logits,
+                          keep_model)
     # Warm-up outside the counted run (libraries, allocator, the kernels' first launch).
     warm_len = min(64, len(prompts[0]) - 1, cfg.cache_len - 1)
     _, warm = bundle.prefill(params, {"tokens": prompts[0][None, :warm_len]},
@@ -289,18 +363,10 @@ def run_lm(cfg: LMRunConfig, *, sharded: bool = True, device=None,
         decode = make_serve_step(bundle)
     rec = {"prefill": [], "decode": [], "logits": {i: [] for i in range(cfg.requests)}}
 
-    def scoped_wall(fn):
-        sync()
-        start = time.perf_counter()
-        with counting.scoped() as scope:
-            out = fn()
-            sync()
-        return out, time.perf_counter() - start, scope
-
     def timed_prefill(p, batch):
         uid = len(rec["prefill"])  # the batcher admits in submission order
         n = int(batch["tokens"].shape[1])
-        (logits, cache), secs, scope = scoped_wall(lambda: prefill(p, batch))
+        (logits, cache), secs, scope = _scoped_wall(lambda: prefill(p, batch), sync)
         path = ("seq-parallel" if lay.act(mcfg, (1, n))[1]
                 else "all-reduce" if lay.tp.size > 1 else "whole")
         rec["prefill"].append({"uid": uid, "len": n, "s": secs, "path": path,
@@ -314,7 +380,7 @@ def run_lm(cfg: LMRunConfig, *, sharded: bool = True, device=None,
 
     def timed_decode(p, caches, token, pos):
         live = [(i, r.uid) for i, r in enumerate(batcher.slots) if r is not None]
-        (logits, caches), secs, scope = scoped_wall(lambda: decode(p, caches, token, pos))
+        (logits, caches), secs, scope = _scoped_wall(lambda: decode(p, caches, token, pos), sync)
         rec["decode"].append({"live": len(live), "s": secs,
                               "collectives": dict(scope.collectives),
                               "bytes": dict(scope.collective_bytes)})
@@ -339,10 +405,90 @@ def run_lm(cfg: LMRunConfig, *, sharded: bool = True, device=None,
     done = batcher.run_until_drained()
     sync()
     total_s = time.perf_counter() - rec["start"]
-    launches = dict(build.LAUNCHES)
+    rec["launches"] = dict(build.LAUNCHES)
     if len(done) != cfg.requests:
         raise RuntimeError(f"{len(done)} of {cfg.requests} requests finished")
+    rec["tokens"] = {r.uid: list(r.out_tokens) for r in done}
+    rec["total_s"] = total_s
+    return _lm_result(cfg, bundle, params, prompts, rec, init_s, sharded, keep_logits, keep_model)
 
+
+def draw_frames(cfg: LMRunConfig, frames: int, width: int,
+                rows: Optional[int] = None) -> np.ndarray:
+    """An encoder-decoder run's stub frames (rows, frames, width), f32
+    standard normal from its seed; ``rows`` defaults to its requests."""
+    rng = np.random.default_rng(cfg.seed + 4)
+    n = cfg.requests if rows is None else rows
+    return rng.standard_normal((n, frames, width)).astype(np.float32)
+
+
+def _serve_encdec(cfg: LMRunConfig, bundle, params, prompts: list, dev, forced, sync) -> dict:
+    """An encoder-decoder's serving run: every request's clip (``draw_frames``)
+    and prompt (all of one length) in one batched prefill into caches of
+    ``cfg.cache_len``, then ``max_new[0] - 1`` greedy decode steps of the
+    whole batch (``forced``: the given tokens instead of the argmaxes).
+    Each call's wall, collectives and bytes, as the batcher's run records."""
+    from repro_torch.kernels import build
+
+    mcfg = bundle.cfg
+    lens = {len(p) for p in prompts}
+    if len(lens) != 1:
+        raise ValueError(f"an encoder-decoder run takes prompts of one length, got {sorted(lens)}")
+    n = lens.pop()
+    b = cfg.requests
+    tokens = np.stack(prompts).astype(np.int32)
+    frames = torch.as_tensor(draw_frames(cfg, mcfg.frontend_len, mcfg.d_model), device=dev)
+    batch = {"tokens": tokens, "frames": frames}
+    # Warm-up outside the counted run: a short prefill and one decode step.
+    warm_len = min(8, n)
+    _, warm = bundle.prefill(params, {"tokens": tokens[:, :warm_len], "frames": frames},
+                             cache_len=warm_len + 1)
+    bundle.decode_step(params, warm, tokens[:, :1], np.full((b,), warm_len, np.int32))
+    del warm
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    rec = {"prefill": [], "decode": [], "logits": {i: [] for i in range(b)},
+           "tokens": {i: [] for i in range(b)}}
+
+    def take(logits):
+        host = logits.float().cpu().numpy()
+        step = len(rec["tokens"][0])
+        for i in range(b):
+            rec["logits"][i].append(host[i])
+            rec["tokens"][i].append(int(host[i].argmax()) if forced is None
+                                    else int(forced[i][step]))
+        return np.array([[rec["tokens"][i][-1]] for i in range(b)], np.int32)
+
+    build.LAUNCHES.clear()
+    start = time.perf_counter()
+    (logits, caches), secs, scope = _scoped_wall(
+        lambda: bundle.prefill(params, batch, cache_len=cfg.cache_len), sync)
+    rec["prefill"].append({"uid": 0, "rows": b, "len": n, "s": secs, "path": "encoder-decoder",
+                           "ttft_s": time.perf_counter() - start,
+                           "collectives": dict(scope.collectives),
+                           "bytes": dict(scope.collective_bytes)})
+    token = take(logits)
+    for t in range(cfg.max_new[0] - 1):
+        pos = np.full((b,), n + t, np.int32)
+        (logits, caches), secs, scope = _scoped_wall(
+            lambda: bundle.decode_step(params, caches, token, pos), sync)
+        rec["decode"].append({"live": b, "s": secs, "collectives": dict(scope.collectives),
+                              "bytes": dict(scope.collective_bytes)})
+        token = take(logits)
+    rec["total_s"] = time.perf_counter() - start
+    rec["launches"] = dict(build.LAUNCHES)
+    return rec
+
+
+def _lm_result(cfg: LMRunConfig, bundle, params, prompts, rec: dict, init_s: float,
+               sharded: bool, keep_logits: bool, keep_model: bool) -> dict:
+    """A serving run's figures on this rank (``run_lm``'s return)."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.parallel import mesh_shape
+
+    mcfg, dev, parallel = bundle.cfg, bundle.device, bundle.parallel
     shapes = bundle.param_shapes()
     if sharded:
         specs = sharding.param_pspecs(shapes, parallel)
@@ -360,15 +506,15 @@ def run_lm(cfg: LMRunConfig, *, sharded: bool = True, device=None,
         "device": str(dev),
         "device_name": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
         "prompt_lens": [len(p) for p in prompts],
-        "tokens": {r.uid: list(r.out_tokens) for r in done},
+        "tokens": rec["tokens"],
         "logit_digests": {uid: _digest(v) for uid, v in logits.items()},
         "prefill": rec["prefill"],
         "decode": rec["decode"],
         "param_bytes": sum(t.numel() * t.element_size() for t in params.parameters()),
         "shard_bytes": expect,
-        "launches": launches,
+        "launches": rec["launches"],
         "init_s": init_s,
-        "total_s": total_s,
+        "total_s": rec["total_s"],
         "peak_bytes": torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None,
     }
     if keep_logits:
@@ -389,7 +535,8 @@ def run_loss(cfg: LMRunConfig, batch: int, seq: int, *, sharded: bool = True,
              stacked: Optional[int] = None, device=None, aux_coef: float = 0.01,
              timeout_s: Optional[float] = None) -> dict:
     """One forward loss of ``batch`` rows of ``seq`` tokens (drawn from the
-    seed, the same on every rank) through the model's ``loss`` on this rank
+    seed, the same on every rank; an encoder-decoder's with its stub frames,
+    ``draw_frames``) through the model's ``loss`` on this rank
     (``sharded``: over the live group's mesh, each rank its rows), the
     weights drawn from ``cfg.seed``; ``stacked=D``: unsharded on this device
     through ``transformer.loss_ep_stacked`` over D shards.  Returns the
@@ -425,7 +572,11 @@ def run_loss(cfg: LMRunConfig, batch: int, seq: int, *, sharded: bool = True,
         if stacked is not None:
             metrics = transformer.loss_ep_stacked(params, tokens, mcfg, stacked, aux_coef)
         else:
-            _, metrics = bundle.loss(params, {"tokens": tokens})
+            inputs = {"tokens": tokens}
+            if mcfg.is_encoder_decoder:  # its stub frames, one a row
+                inputs["frames"] = torch.as_tensor(
+                    draw_frames(cfg, mcfg.frontend_len, mcfg.d_model, batch), device=dev)
+            _, metrics = bundle.loss(params, inputs)
             metrics["loss_rows"] = metrics["ce_rows"] + aux_coef * metrics["moe_aux"]
         sync()
     secs = time.perf_counter() - t0

@@ -36,6 +36,7 @@ import argparse
 import datetime
 import json
 import os
+import pickle
 import queue as queue_mod
 import tempfile
 import time
@@ -104,9 +105,12 @@ def init_shard_group(
     return exchange.ProcessGroup(timeout_s=timeout_s)
 
 
-def _rank_main(fn, rank, world, backend, device, init_method, timeout_s, args, results):
-    """A spawned rank: join the group, run ``fn(group, *args)``, report."""
+def _rank_main(fn, rank, world, backend, device, init_method, timeout_s, args_path, results):
+    """A spawned rank: load its arguments, join the group, run ``fn(group,
+    *args)``, report."""
     try:
+        with open(args_path, "rb") as f:
+            args = pickle.load(f)
         if device is not None and torch.device(device).type == "cpu":
             torch.set_num_threads(1)
         group = init_shard_group(backend, init_method, timeout_s, rank=rank,
@@ -147,7 +151,10 @@ def spawn(
     The group's timeout is ``timeout_s``; the parent waits at most a little
     longer for all results, and when a rank fails or the wait runs out it
     kills every rank still running and raises ``RuntimeError`` with the
-    failing ranks' tracebacks.
+    failing ranks' tracebacks.  ``args`` are pickled once into a file beside
+    the store, which each rank loads: the process start-up data stays
+    small, so the parent hands it to every rank without waiting for the
+    rank before it to read a large pickle, and the ranks start together.
     """
     import multiprocessing as mp
 
@@ -162,11 +169,14 @@ def spawn(
     store_dir = tempfile.mkdtemp(prefix="shard_group_") if own_dir else store_dir
     store = os.path.join(store_dir, f"store_{os.getpid()}_{time.monotonic_ns()}")
     init_method = "file://" + store
+    args_path = store + ".args"
+    with open(args_path, "wb") as f:
+        pickle.dump(tuple(args), f, protocol=pickle.HIGHEST_PROTOCOL)
     results = ctx.Queue()
     procs = [
         ctx.Process(
             target=_rank_main,
-            args=(fn, r, world, backend, device, init_method, timeout_s, tuple(args), results),
+            args=(fn, r, world, backend, device, init_method, timeout_s, args_path, results),
             daemon=True,
         )
         for r in range(world)
@@ -204,6 +214,10 @@ def spawn(
                 p.kill()
                 p.join(timeout=5)
         results.close()
+        try:
+            os.remove(args_path)
+        except OSError:
+            pass
         if own_dir:
             for name in os.listdir(store_dir):
                 try:

@@ -60,7 +60,7 @@ class ServeConfig:
     hot_repeats: int = 512  # copies of one absent key in every insert
     deletes: int = 1 << 12
     upserts: int = 1 << 12
-    fold_pause_s: float = 0.0  # hold each fold this long first (reads must flow)
+    fold_pause_s: float = 0.0  # hold each fold this long first (reads start in the hold)
 
 
 def make_data(cfg: ServeConfig) -> dict:
@@ -172,17 +172,20 @@ def make_server(cfg: ServeConfig, *, group=None, num_shards: int = 1, device=Non
                        batcher=MicroBatcher(table, min_bucket=cfg.buckets[0]))
 
 
-def _pause_folds(server: TableServer, seconds: float) -> None:
+def _pause_folds(server: TableServer, seconds: float, held: threading.Event) -> None:
+    """Hold each fold ``seconds`` once it has begun (its window open), and
+    set ``held`` then."""
     real = server._apply_fold
 
-    def held(fold_fn, **kw):
+    def paused(fold_fn, **kw):
         def slow(state):
+            held.set()
             time.sleep(seconds)
             return fold_fn(state)
 
         return real(slow, **kw)
 
-    server._apply_fold = held
+    server._apply_fold = paused
 
 
 def _log_reads(server: TableServer) -> list:
@@ -260,8 +263,9 @@ def run_server(cfg: ServeConfig, sink: Sink, *, group=None, num_shards: int = 1,
     warm = server.warm(buckets=cfg.buckets, depths=range(MAX_DELTA_DEPTH + 1),
                        fold_horizon=FOLD_HORIZON, retrieve_caps=caps)
     warm_s = time.perf_counter() - t1
-    if cfg.fold_pause_s:
-        _pause_folds(server, cfg.fold_pause_s)
+    held = threading.Event() if cfg.fold_pause_s else None
+    if held is not None:
+        _pause_folds(server, cfg.fold_pause_s, held)
     reads = _log_reads(server)
     log = []  # the mutations this rank applied, in order
     result = {"rank": rank, "world": d if group is not None else 1, "build_s": build_s,
@@ -278,7 +282,7 @@ def run_server(cfg: ServeConfig, sink: Sink, *, group=None, num_shards: int = 1,
         server.follow()
         result["serve_s"] = time.perf_counter() - t2
     else:
-        result.update(_lead(cfg, server, data, log))
+        result.update(_lead(cfg, server, data, log, held))
     st = server.stats()
     result.update(seqno=server.registry.seqno, read_batches=st.batcher.batches,
                   writes_applied=st.writes_applied, folds=st.folds,
@@ -292,8 +296,11 @@ def run_server(cfg: ServeConfig, sink: Sink, *, group=None, num_shards: int = 1,
     return result
 
 
-def _lead(cfg: ServeConfig, server: TableServer, data: dict, log: list) -> dict:
-    """Rank 0 (or a stacked server): the traffic and its checks."""
+def _lead(cfg: ServeConfig, server: TableServer, data: dict, log: list,
+          held: Optional[threading.Event] = None) -> dict:
+    """Rank 0 (or a stacked server): the traffic and its checks.  With
+    ``held`` (folds paused) the readers' second half starts once the fold
+    is held, so reads run while it is in flight whatever the host's speed."""
     real_announce = server._announce
 
     def announced(lane, rec):
@@ -359,9 +366,14 @@ def _lead(cfg: ServeConfig, server: TableServer, data: dict, log: list) -> dict:
                 if time.monotonic() > deadline or server._last_error is not None:
                     raise RuntimeError(f"the inserts did not publish ({server._last_error})")
                 time.sleep(0.001)
-            phase2.set()
+            if held is None:
+                phase2.set()
             fold_window["t0"] = time.perf_counter()
-            server.fold_async(FOLD_K).join(timeout=300)
+            fold = server.fold_async(FOLD_K)
+            if held is not None:
+                held.wait(300)
+                phase2.set()
+            fold.join(timeout=300)
             fold_window["t1"] = time.perf_counter()
             for kind, k, v in data["writes"][len(inserts):]:
                 if kind == "delete":

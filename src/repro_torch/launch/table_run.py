@@ -294,6 +294,35 @@ def _finish(table, probe, state, q, data, steps, keep_state: bool) -> dict:
     return out
 
 
+def _ragged(values: np.ndarray, starts: np.ndarray, lens: np.ndarray) -> tuple:
+    """``values[starts[j] : starts[j] + lens[j]]`` for every j, concatenated,
+    and the j of each entry."""
+    lens = lens.astype(np.int64)
+    first = np.cumsum(lens) - lens
+    idx = np.repeat(starts.astype(np.int64) - first, lens) + np.arange(int(lens.sum()))
+    return values[idx], np.repeat(np.arange(lens.shape[0]), lens)
+
+
+def _sorted_in_rows(vals: np.ndarray, row: np.ndarray) -> np.ndarray:
+    """``vals`` sorted within each run of equal ``row`` (rows ascending): by
+    the row, then the value's 32-bit pattern, one argsort."""
+    key = (row.astype(np.uint64) << np.uint64(32)) | (vals.astype(np.int64) & 0xFFFFFFFF
+                                                      ).astype(np.uint64)
+    return vals[np.argsort(key, kind="stable")]
+
+
+def _rows_differing(want: np.ndarray, wrow: np.ndarray, got: np.ndarray, grow: np.ndarray,
+                    n: int) -> np.ndarray:
+    """(n,) bool: the rows whose multisets differ (each array sorted within
+    its rows)."""
+    wlen, glen = np.bincount(wrow, minlength=n), np.bincount(grow, minlength=n)
+    bad = wlen != glen
+    keep_w, keep_g = ~bad[wrow], ~bad[grow]
+    neq = want[keep_w] != got[keep_g]
+    bad[wrow[keep_w][neq]] = True
+    return bad
+
+
 def sampled_oracle(data: dict, seed: int, d: int, rank: int, blocks: dict,
                    samples: int) -> dict:
     """Rank ``rank``'s base reads (``blocks``: the ``r0.*`` outputs of its
@@ -301,15 +330,21 @@ def sampled_oracle(data: dict, seed: int, d: int, rank: int, blocks: dict,
     numpy: the query counts, and the retrieve's and the join's value
     multisets, of ``samples`` of its query rows drawn from ``seed`` (the
     base's live rows: every key but EMPTY).  Returns ``{"rows", "bad",
-    "present"}``."""
+    "present"}``.  Every sampled row at once: the base rows of the sampled
+    keys through a membership table over the live keys' range, each row's
+    multisets sorted within rows by one argsort."""
     keys, values = data["keys"], data["values"]
     nq = data["queries"].shape[0] // d
     mine = data["queries"][rank * nq : (rank + 1) * nq]
     rows = np.random.default_rng(seed + 100 + rank).choice(nq, min(nq, samples), replace=False)
+    n = rows.shape[0]
     # The base rows of the sampled keys only, sorted by key.
+    live = keys != EMPTY_U32
+    top = int(keys[live].max()) if live.any() else 0
+    member = np.zeros(top + 1, bool)
     sample = np.unique(mine[rows])
-    pos = np.minimum(np.searchsorted(sample, keys), sample.shape[0] - 1)
-    hit = (sample[pos] == keys) & (keys != EMPTY_U32)
+    member[sample[sample <= top]] = True
+    hit = live & member[np.minimum(keys, top)]
     order = np.argsort(keys[hit], kind="stable")
     skeys, svals = keys[hit][order], values[hit][order]
     counts = blocks["r0.query"].reshape(-1)
@@ -320,15 +355,15 @@ def sampled_oracle(data: dict, seed: int, d: int, rank: int, blocks: dict,
     qidx = blocks["r0.inner_join.query_idx"].reshape(-1)[:nres].astype(np.int64)
     jorder = np.argsort(qidx, kind="stable")
     qidx, jvals = qidx[jorder], blocks["r0.inner_join.values"].reshape(-1)[:nres][jorder]
-    bad = 0
-    for i in rows:
-        lo, hi = np.searchsorted(skeys, mine[i], "left"), np.searchsorted(skeys, mine[i], "right")
-        want = np.sort(svals[lo:hi])
-        got_r = np.sort(rvals[offsets[i] : offsets[i + 1]])
-        jlo, jhi = (np.searchsorted(qidx, rank * nq + i, side) for side in ("left", "right"))
-        got_j = np.sort(jvals[jlo:jhi])
-        bad += int(counts[i] != hi - lo or not np.array_equal(got_r, want)
-                   or not np.array_equal(got_j, want))
-    return {"rows": int(rows.shape[0]), "bad": bad,
-            "present": int(sum(counts[i] > 0 for i in rows))}
-
+    q = mine[rows]
+    lo, hi = np.searchsorted(skeys, q, "left"), np.searchsorted(skeys, q, "right")
+    want, wrow = _ragged(svals, lo, hi - lo)
+    want = _sorted_in_rows(want, wrow)
+    got_r, rrow = _ragged(rvals, offsets[rows], offsets[rows + 1] - offsets[rows])
+    at = rank * nq + rows
+    jlo, jhi = np.searchsorted(qidx, at, "left"), np.searchsorted(qidx, at, "right")
+    got_j, jrow = _ragged(jvals, jlo, jhi - jlo)
+    bad = (counts[rows] != hi - lo) \
+        | _rows_differing(want, wrow, _sorted_in_rows(got_r, rrow), rrow, n) \
+        | _rows_differing(want, wrow, _sorted_in_rows(got_j, jrow), jrow, n)
+    return {"rows": int(n), "bad": int(bad.sum()), "present": int((counts[rows] > 0).sum())}

@@ -55,6 +55,8 @@ class TrainRunConfig:
     warmup_steps: int = 1
     total_steps: int = 10
     dedup: Optional[str] = None  # None | "local" | "distributed" (the group's table)
+    capacity_factor: Optional[float] = None  # None: the config's moe_capacity_factor
+    clip_norm: float = 1.0
     seed: int = 0
 
 
@@ -68,6 +70,8 @@ def model_config(cfg: TrainRunConfig):
         changes["dtype"] = cfg.dtype
     if cfg.num_layers is not None:
         changes["num_layers"] = cfg.num_layers
+    if cfg.capacity_factor is not None:
+        changes["moe_capacity_factor"] = cfg.capacity_factor
     return dataclasses.replace(mcfg, **changes) if changes else mcfg
 
 
@@ -75,7 +79,7 @@ def train_config(cfg: TrainRunConfig):
     from repro_torch.train import TrainStepConfig
 
     return TrainStepConfig(peak_lr=cfg.lr, warmup_steps=cfg.warmup_steps,
-                           total_steps=cfg.total_steps)
+                           total_steps=cfg.total_steps, clip_norm=cfg.clip_norm)
 
 
 def parallel_of(cfg: TrainRunConfig):
@@ -88,7 +92,8 @@ def parallel_of(cfg: TrainRunConfig):
         mesh=mesh, dp_axes=("data",) if cfg.kind != "pipeline" else (),
         tp_axis="model" if cfg.kind == "gspmd" else None,
         microbatches=cfg.microbatches if cfg.kind == "gspmd" else 1,
-        grad_compression=cfg.grad_compression, seq_parallel=cfg.seq_parallel)
+        grad_compression=cfg.grad_compression, seq_parallel=cfg.seq_parallel,
+        moe_impl="ep")  # the reference's production layout: an MoE trains through the exchange
 
 
 def unsharded_microbatches(cfg: TrainRunConfig) -> int:
@@ -120,9 +125,41 @@ def draw_batches(cfg: TrainRunConfig, device, group=None) -> list:
     return [loader.next_batch()["tokens"] for _ in range(cfg.steps)]
 
 
+def draw_frames(cfg: TrainRunConfig, device) -> list:
+    """An encoder-decoder run's stub frames, one (batch, frontend_len,
+    d_model) f32 standard-normal draw a step from the seed (None else)."""
+    mcfg = model_config(cfg)
+    if not mcfg.is_encoder_decoder:
+        return [None] * cfg.steps
+    gen = torch.Generator(device=device).manual_seed(cfg.seed + 7)
+    return [torch.randn((cfg.batch, mcfg.frontend_len, mcfg.d_model), generator=gen,
+                        device=device) for _ in range(cfg.steps)]
+
+
 # ---------------------------------------------------------------------------
 # the design
 # ---------------------------------------------------------------------------
+def _ep_applies(mcfg, d: int) -> bool:
+    """Whether an MoE stack's layers run through the exchange over ``d`` dp
+    ranks (``models.moe.ep_applies``; the train step's rows divide)."""
+    e = mcfg.num_experts
+    return mcfg.is_moe and d > 1 and (d % e == 0 or e % d == 0)
+
+
+def design_rounds(mcfg, mesh: Sequence[int], microbatches: int, *, remat: bool = True) -> dict:
+    """The exchange rounds one ``"gspmd"`` step makes by the design, by
+    label: an MoE layer under expert parallelism dispatches and combines
+    (two rounds) in the forward pass, sends the gradients back the same
+    two ways in the backward pass, and under remat runs its two forward
+    rounds again in the recomputation: six a MoE layer a microbatch."""
+    d = mesh[0]
+    if not _ep_applies(mcfg, d):
+        return {}
+    from repro_torch.models import moe
+
+    return {moe.LABEL: (4 + 2 * int(remat)) * mcfg.num_layers * microbatches}
+
+
 def design_collectives(mcfg, mesh: Sequence[int], kind: str, seq: int, batch: int,
                        microbatches: int, *, grad_compression: bool = False,
                        seq_parallel: bool = False, remat: bool = True) -> dict:
@@ -146,8 +183,10 @@ def design_collectives(mcfg, mesh: Sequence[int], kind: str, seq: int, batch: in
       (``_recurrent_block``); the head's entry (an all-reduce
       backward) and the all-gather of the vocab blocks; over dp the loss's
       all-reduce and, after the backward, one all-reduce a dtype of the
-      leaves whole over dp.  Once a step: the clip's all-reduce over the
-      group, and error feedback's maximum;
+      leaves whole over dp; an MoE stack's aux over dp (EP: one all-gather
+      of every rank's; its exchange rounds count apart, :func:`design_rounds`;
+      dense: one all-reduce of the routing sums).  Once a step: the clip's
+      all-reduce over the group, and error feedback's maximum;
     * ``"manual_dp"`` on ``(d,)``: per parameter leaf an all-to-all and two
       all-gathers (int8 compression) or one all-reduce; the metrics'
       all-reduce;
@@ -202,7 +241,7 @@ def design_collectives(mcfg, mesh: Sequence[int], kind: str, seq: int, batch: in
             for j, bt in enumerate(mcfg.block_pattern):
                 # the period's last row-parallel sum keeps no tensor: not recomputed
                 last = passes if j < len(mcfg.block_pattern) - 1 else 1
-                if bt == "attn":
+                if bt in ("attn", "swa", "local"):
                     _attn_block(add, mcfg, t, sp, passes, last)
                 else:
                     _recurrent_block(add, mcfg, bt, t, passes, last)
@@ -216,7 +255,12 @@ def design_collectives(mcfg, mesh: Sequence[int], kind: str, seq: int, batch: in
                 add("all_gather")  # lm_head's FSDP block
                 add("reduce_scatter")
             add("all_reduce")  # the loss
-            add("all_reduce", 2)  # the leaves whole over dp: bf16 matrices, f32 vectors
+            # the leaves whole over dp, one call a dtype: bf16 matrices and f32
+            # vectors (an MoE stack trains on its f32 masters: one)
+            add("all_reduce", 1 if mcfg.is_moe else 2)
+            if mcfg.is_moe:  # the aux: EP's all-gather of every rank's, dense's routing sums
+                add("all_gather" if _ep_applies(mcfg, d) else "all_reduce")
+                add("all_reduce", int(_ep_applies(mcfg, d) and d > mcfg.num_experts))
     if d * t > 1:
         add("all_reduce", 1 + int(grad_compression))
     return out
@@ -289,16 +333,16 @@ def expected_bytes(cfg: TrainRunConfig, sharded: bool = True) -> tuple[int, int]
     of their specs: f32 masters and moments, a bf16 ``ef_error`` where the
     step keeps one, the 4-byte step."""
     from repro_torch.distributed import sharding
-    from repro_torch.models import transformer
+    from repro_torch.models.api import model_class
 
     mcfg = model_config(cfg)
-    meta = transformer.Transformer(mcfg, dtype=torch.float32, device="meta")
+    meta = model_class(mcfg)(mcfg, dtype=torch.float32, device="meta")
     leaves = dict(meta.named_parameters())
     shape = dict(zip(AXES[cfg.kind], cfg.mesh)) if sharded else {}
     if sharded and cfg.kind == "gspmd":
         from repro_torch.distributed.parallel import AbstractMesh, ParallelConfig
 
-        par = ParallelConfig(mesh=AbstractMesh(tuple(cfg.mesh), AXES["gspmd"]))
+        par = ParallelConfig(mesh=AbstractMesh(tuple(cfg.mesh), AXES["gspmd"]), moe_impl="ep")
         specs = sharding.param_pspecs(meta, par)
     elif sharded and cfg.kind == "pipeline":  # the periods stacked, on the stage axis
         from repro_torch.train.pipeline import pipeline_param_specs
@@ -356,8 +400,10 @@ def _global_name(cfg: TrainRunConfig, name: str, stage: Optional[int]) -> str:
     return f"layers.{stage_periods(model_config(cfg), cfg.mesh[0], stage)[int(i)]}.{rest}"
 
 
-def _state(cfg: TrainRunConfig, bundle, tcfg, sharded: bool, weights):
-    """``(params, opt_state, step_fn, stage)`` of this rank."""
+def _state(cfg: TrainRunConfig, bundle, tcfg, sharded: bool, weights,
+           stacked: Optional[int] = None):
+    """``(params, opt_state, step_fn, stage)`` of this rank (``stacked``: the
+    stacked EP step over that many shards, on one card)."""
     from repro_torch.models import convert, transformer
     from repro_torch.optim import adamw_init
     from repro_torch.train import make_train_state, make_train_step
@@ -396,7 +442,12 @@ def _state(cfg: TrainRunConfig, bundle, tcfg, sharded: bool, weights):
             params = whole_from(weights)
             params, opt = with_ef(params, adamw_init(params, tcfg.adamw))
         return params, opt, step, stage
-    step = make_train_step(bundle, tcfg)
+    if stacked is not None:
+        from repro_torch.train.step import make_ep_stacked_train_step
+
+        step = make_ep_stacked_train_step(bundle, tcfg, stacked)
+    else:
+        step = make_train_step(bundle, tcfg)
     if weights is None:
         params, opt = make_train_state(bundle, tcfg, cfg.seed)
     else:
@@ -407,7 +458,8 @@ def _state(cfg: TrainRunConfig, bundle, tcfg, sharded: bool, weights):
 
 def run_train(cfg: TrainRunConfig, *, sharded: bool = True, device=None, weights=None,
               batches=None, group=None, keep_blocks: bool = False, on_step=None,
-              extra_step=None, timeout_s: Optional[float] = None) -> dict:
+              extra_step=None, stacked: Optional[int] = None,
+              timeout_s: Optional[float] = None) -> dict:
     """Run ``cfg``'s steps on this rank (``sharded``: over the live group's
     mesh; else the one-card step with ``unsharded_microbatches``) on
     ``device`` (``None``: the card, raising without one).  ``weights``: the
@@ -418,12 +470,16 @@ def run_train(cfg: TrainRunConfig, *, sharded: bool = True, device=None, weights
     step's counts and its result is kept as that step's ``"check"``;
     ``extra_step(step, params, opt, batch)`` runs one more step on the first
     batch after the counted ones (a profile), its result kept as
-    ``"extra"``.
+    ``"extra"``.  ``stacked=D`` (with ``sharded=False``) runs the stacked
+    twin of the EP step over D shards (``make_ep_stacked_train_step``)
+    instead of the one-card step.  An encoder-decoder's steps take the stub
+    frames of ``draw_frames``.
     Returns the rank's figures; with ``keep_blocks`` also its parameter
     blocks and first moments after the last step as numpy, by the whole
     model's names."""
     import torch.distributed as dist
 
+    from repro_torch.core import exchange
     from repro_torch.distributed.parallel import single_device_parallel
     from repro_torch.kernels import build
     from repro_torch.models.api import build_model, resolve_device
@@ -444,7 +500,7 @@ def run_train(cfg: TrainRunConfig, *, sharded: bool = True, device=None, weights
             torch.cuda.synchronize(dev)
 
     t0 = time.perf_counter()
-    params, opt, step, stage = _state(cfg, bundle, tcfg, sharded, weights)
+    params, opt, step, stage = _state(cfg, bundle, tcfg, sharded, weights, stacked)
     sync()
     init_s = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -452,6 +508,7 @@ def run_train(cfg: TrainRunConfig, *, sharded: bool = True, device=None, weights
     if batches is None:
         batches = draw_batches(cfg, dev, group if sharded else None)
     batches = [torch.as_tensor(b, device=dev) for b in batches]
+    frames = draw_frames(cfg, dev)
     sync()
     data_s = time.perf_counter() - t0
     data_launches = dict(build.LAUNCHES)
@@ -465,20 +522,23 @@ def run_train(cfg: TrainRunConfig, *, sharded: bool = True, device=None, weights
         scope = counting.PROCESS  # the backward's collectives run on autograd's thread
         scope.collectives.clear()
         scope.collective_bytes.clear()
-        params, opt, metrics = step(params, opt, {"tokens": toks})
+        exchange.CALLS.clear()  # every thread's rounds, by label
+        params, opt, metrics = step(params, opt, {"tokens": toks, "frames": frames[i]})
         sync()
         secs = time.perf_counter() - start
         steps.append({
             "step": i + 1, "s": secs,
             "metrics": {k: float(v) for k, v in metrics.items()},
             "collectives": dict(scope.collectives), "bytes": dict(scope.collective_bytes),
+            "rounds": dict(exchange.CALLS),
             "digests": {_global_name(cfg, n, stage): _digest(p)
                         for n, p in params.named_parameters()},
         })
         if on_step is not None:
             steps[-1]["check"] = on_step(i, params, opt, bundle)
     launches = dict(build.LAUNCHES)
-    extra = None if extra_step is None else extra_step(step, params, opt, {"tokens": batches[0]})
+    extra = None if extra_step is None else extra_step(
+        step, params, opt, {"tokens": batches[0], "frames": frames[0]})
     expect = expected_bytes(cfg, sharded)
     rank = dist.get_rank() if sharded and dist.is_initialized() else 0
     out = {

@@ -23,7 +23,6 @@ logits the unsharded model's, whole on every rank.  ``parallel=None`` or
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -147,24 +146,14 @@ def build_model(cfg: ArchConfig, parallel: Optional[ParallelConfig] = None, *, d
     A VLM's (``frontend="patch_stub"``) ``prefill``, ``forward_train`` and
     ``loss`` take the patch embeddings (B, P, d) as ``batch["patch_emb"]``
     (``forward_train(params, tokens, patch_emb=...)``) before the tokens.
-    Griffin (``rglru``) and encoder-decoder models over a mesh of more than
-    one rank raise ``NotImplementedError`` (``transformer.MESH_SLICE``)."""
+    Every family runs over a mesh: Griffin's recurrent blocks on their
+    width blocks (``rglru.rglru_block``), the encoder-decoder's blocks on
+    their heads (``models.encdec``)."""
     if cfg.is_encoder_decoder:
-        return _build_encdec(cfg, parallel, device)
+        return _build_encdec(cfg, parallel, device, timeout_s)
     transformer.check_supported(cfg)
     dev = resolve_device(device)
-    layout = layers.SINGLE
-    transformer.check_mesh(cfg, _mesh_world(parallel) > 1)
-    if parallel is not None and parallel.mesh is not None:
-        from repro_torch.distributed import collectives, sharding
-
-        dp, tp = collectives.bind(parallel, timeout_s)
-        meta = transformer.Transformer(cfg, dtype=transformer.compute_dtype(cfg), device="meta")
-        layout = layers.Layout(
-            parallel, dp, tp, sharding.param_pspecs(meta, parallel),
-            {name: tuple(t.shape) for name, t in meta.named_parameters()},
-            collectives.coordinate(parallel.mesh),
-        )
+    layout = _bind_layout(cfg, parallel, timeout_s)
 
     def as_tokens(t) -> torch.Tensor:
         return torch.as_tensor(t, device=dev)
@@ -218,53 +207,67 @@ def build_model(cfg: ArchConfig, parallel: Optional[ParallelConfig] = None, *, d
     )
 
 
-def _mesh_world(parallel: Optional[ParallelConfig]) -> int:
-    """The ranks ``parallel``'s mesh spans (1 without a mesh)."""
-    from repro_torch.distributed.parallel import mesh_shape
+def _bind_layout(cfg: ArchConfig, parallel: Optional[ParallelConfig],
+                 timeout_s: Optional[float]) -> layers.Layout:
+    """This rank's :class:`~repro_torch.models.layers.Layout` of ``cfg``'s
+    model over ``parallel``'s mesh (binding its tp and dp groups, a
+    collective), or the unsharded one."""
+    if parallel is None or parallel.mesh is None:
+        return layers.SINGLE
+    from repro_torch.distributed import collectives, sharding
 
-    return math.prod(mesh_shape(None if parallel is None else parallel.mesh).values())
+    dp, tp = collectives.bind(parallel, timeout_s)
+    meta = model_class(cfg)(cfg, dtype=transformer.compute_dtype(cfg), device="meta")
+    return layers.Layout(
+        parallel, dp, tp, sharding.param_pspecs(meta, parallel),
+        {name: tuple(t.shape) for name, t in meta.named_parameters()},
+        collectives.coordinate(parallel.mesh),
+    )
 
 
-def _build_encdec(cfg: ArchConfig, parallel: Optional[ParallelConfig], device) -> ModelBundle:
+def _build_encdec(cfg: ArchConfig, parallel: Optional[ParallelConfig], device,
+                  timeout_s: Optional[float] = None) -> ModelBundle:
     """The encoder-decoder's closures (the reference's ``build_model`` for
     ``cfg.is_encoder_decoder``): ``prefill(params, {"tokens", "frames"},
     cache_len)``, ``decode_step(params, caches, token, pos)``,
     ``forward_train(params, tokens, frames)`` → (logits, 0), ``loss(params,
-    {"tokens", "frames"})``, ``init_cache(batch, cache_len)``."""
+    {"tokens", "frames"})``, ``init_cache(batch, cache_len)``; over a mesh
+    one rank's part, as :func:`build_model`'s."""
     encdec.check_supported(cfg)
-    transformer.check_mesh(cfg, _mesh_world(parallel) > 1)
     dev = resolve_device(device)
+    layout = _bind_layout(cfg, parallel, timeout_s)
 
     def as_tensor(t) -> torch.Tensor:
         return torch.as_tensor(t, device=dev)
 
-    def init(seed: int) -> encdec.EncoderDecoder:
+    def init(seed: int, dtype=None) -> encdec.EncoderDecoder:
         gen = torch.Generator(device=dev).manual_seed(int(seed))
-        return encdec.init_params(cfg, gen, device=dev)
+        return encdec.init_params(cfg, gen, device=dev, dtype=dtype, layout=layout)
 
     def prefill_fn(params, batch, cache_len=None):
         return encdec.prefill(params, as_tensor(batch["tokens"]), as_tensor(batch["frames"]), cfg,
-                              cache_len=cache_len)
+                              cache_len=cache_len, layout=layout)
 
     def decode_fn(params, caches, token, pos):
-        return encdec.decode_step(params, caches, as_tensor(token), as_tensor(pos), cfg)
+        return encdec.decode_step(params, caches, as_tensor(token), as_tensor(pos), cfg,
+                                  layout=layout)
 
     def init_cache(batch, cache_len):
-        return encdec.init_cache(cfg, batch, cache_len, device=dev)
+        return encdec.init_cache(cfg, batch, cache_len, device=dev, layout=layout)
 
     def forward_fn(params, tokens, frames):
-        logits = encdec.forward_train(params, as_tensor(tokens), as_tensor(frames), cfg)
+        logits = encdec.forward_train(params, as_tensor(tokens), as_tensor(frames), cfg,
+                                      layout=layout)
         return logits, torch.zeros((), dtype=torch.float32, device=dev)
 
     def loss_fn(params, batch):
         return encdec.loss_fn(params, {"tokens": as_tensor(batch["tokens"]),
-                                       "frames": as_tensor(batch["frames"])}, cfg)
+                                       "frames": as_tensor(batch["frames"])}, cfg, layout=layout)
 
     def init_train(seed: int) -> encdec.EncoderDecoder:
-        gen = torch.Generator(device=dev).manual_seed(int(seed))
-        return transformer.trainable_params(
-            encdec.init_params(cfg, gen, device=dev, dtype=torch.float32))
+        return transformer.trainable_params(init(seed, torch.float32))
 
-    return ModelBundle(cfg=cfg, device=dev, init=init, prefill=prefill_fn, decode_step=decode_fn,
+    return ModelBundle(cfg=cfg, device=dev, init=lambda seed: init(seed),
+                       prefill=prefill_fn, decode_step=decode_fn,
                        init_cache=init_cache, forward_train=forward_fn, loss=loss_fn,
-                       init_train=init_train, parallel=parallel)
+                       init_train=init_train, parallel=parallel, layout=layout)

@@ -401,25 +401,51 @@ def ring_prefill_cache(k: torch.Tensor, v: torch.Tensor, seq_len: int, window: i
 
 
 def cross_attention(p: Attention, x: torch.Tensor, cfg: ArchConfig, enc_k: torch.Tensor,
-                    enc_v: torch.Tensor) -> torch.Tensor:
+                    enc_v: torch.Tensor, lay: layers.Layout = layers.SINGLE,
+                    kv_heads: Optional[tuple] = None) -> torch.Tensor:
     """Cross-attention (whisper's decoder) of x (B, S, d) over the encoder's
-    precomputed k/v (B, KV, T_enc, hd): no rope, no mask, the grouped masked
-    einsum in f32 as the reference computes it (never its Pallas kernel)."""
+    precomputed k/v (B, KV', T_enc, hd) of kv heads ``kv_heads = (c0, c1)``
+    (default all): no rope, no mask, the grouped masked einsum in f32 as
+    the reference computes it (never its Pallas kernel).  Over a mesh
+    ``wq`` is column- and ``wo`` row-parallel, a rank on its own heads, as
+    in :func:`attention`."""
+    r0, r1, _ = lay.rows(p.wo)
+    partial = (r0, r1) != (0, cfg.num_heads * cfg.head_dim_)
+    x = lay.tp_input(x, False, partial)
     b, s, _ = x.shape
-    hd, kv, g = cfg.head_dim_, cfg.num_kv_heads, cfg.q_per_kv
+    hd, g = cfg.head_dim_, cfg.q_per_kv
     dtype = x.dtype
-    q = (x @ p.wq.to(dtype)).reshape(b, s, kv, g, hd).permute(0, 2, 3, 1, 4)
-    out = _masked_attention(q, enc_k, enc_v, causal=False, window=None, q_offset=0)
-    return _merge_heads(out) @ p.wo.to(dtype)
+    h0, h1 = _compute_heads(lay, p, cfg)
+    kv0, kv1, qg = _kv_of(h0, h1, g)
+    c0 = kv_heads[0] if kv_heads is not None else 0
+    (q,) = layers.take_cols(lay, [(x @ lay.w(p.wq).to(dtype), lay.cols(p.wq),
+                                   (h0 * hd, h1 * hd))])
+    q = q.reshape(b, s, kv1 - kv0, qg, hd).permute(0, 2, 3, 1, 4)
+    out = _masked_attention(q, enc_k[:, kv0 - c0:kv1 - c0], enc_v[:, kv0 - c0:kv1 - c0],
+                            causal=False, window=None, q_offset=0)
+    (merged,) = layers.take_cols(lay, [(_merge_heads(out), (h0 * hd, h1 * hd, cfg.num_heads * hd),
+                                        (r0, r1))])
+    return layers.reduce_rows(lay, merged @ lay.w(p.wo).to(dtype), partial, False)
 
 
-def encoder_kv(p: Attention, enc_out: torch.Tensor, cfg: ArchConfig):
-    """Cross-attention k/v (B, KV, T, hd) of the encoder's output (B, T, d)."""
+def encoder_kv(p: Attention, enc_out: torch.Tensor, cfg: ArchConfig,
+               lay: layers.Layout = layers.SINGLE, heads: Optional[tuple] = None):
+    """Cross-attention k/v (B, KV', T, hd) of the encoder's output (B, T, d),
+    for kv heads ``heads = (c0, c1)`` (default all); over a mesh from the
+    rank's column blocks of ``wk`` / ``wv``, gathered over tp where they do
+    not hold those heads."""
     b, t, _ = enc_out.shape
-    hd, kv = cfg.head_dim_, cfg.num_kv_heads
+    hd = cfg.head_dim_
+    c0, c1 = heads if heads is not None else (0, cfg.num_kv_heads)
+    partial = lay.rows(p.wo)[:2] != (0, cfg.num_heads * hd)
+    enc_out = lay.tp_input(enc_out, False, partial)
     dtype = enc_out.dtype
-    k = (enc_out @ p.wk.to(dtype)).reshape(b, t, kv, hd).permute(0, 2, 1, 3)
-    v = (enc_out @ p.wv.to(dtype)).reshape(b, t, kv, hd).permute(0, 2, 1, 3)
+    k, v = layers.take_cols(lay, [
+        (enc_out @ lay.w(p.wk).to(dtype), lay.cols(p.wk), (c0 * hd, c1 * hd)),
+        (enc_out @ lay.w(p.wv).to(dtype), lay.cols(p.wv), (c0 * hd, c1 * hd)),
+    ])
+    k = k.reshape(b, t, c1 - c0, hd).permute(0, 2, 1, 3)
+    v = v.reshape(b, t, c1 - c0, hd).permute(0, 2, 1, 3)
     return k, v
 
 

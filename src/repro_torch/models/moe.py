@@ -31,8 +31,12 @@ Deliberate differences:
   the dense path's routing counts are summed over dp, the EP path's local
   auxes are averaged over the ep ranks in rank order, so the MoE itself
   issues no collective but its two exchange rounds.
-* EP runs forward only (prefill, decode, a loss): training through the
-  exchange needs an all-to-all with a backward, a later slice.
+* EP trains: the exchange's rounds carry the gradients of the rows they
+  move (``exchange.exchange_many``), so a backward pass adds two rounds a
+  MoE layer (and remat's recomputation two more).  A rank's owned experts
+  get their whole gradient from the rows it received, with no reduction;
+  the aux's mean over the ep ranks passes each rank's share of the
+  gradient (1 / D) to its own aux.
 """
 from __future__ import annotations
 
@@ -50,7 +54,6 @@ LABEL = "moe"
 # ``record_function`` ranges of a profile: the router and top-k, the
 # experts' grouped products (their sort by expert included).
 ROUTE_RANGE, EXPERTS_RANGE = "moe.route", "moe.experts"
-EP_TRAINING_SLICE = "the expert-parallel training slice (an all-to-all with a backward)"
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
@@ -125,6 +128,9 @@ def grouped_ffn(x: torch.Tensor, eids: torch.Tensor, stacks, experts: dict) -> t
                               device=x.device).reshape(-1)
         edges = torch.searchsorted(sorted_ids, bounds).tolist()
         out = torch.zeros_like(x)
+        if x.requires_grad:  # + 0: x reaches the output even where no row is this call's,
+            out = out + x[:0].sum()  # so the exchange's backward runs on every rank
+
         for i, e in enumerate(owned):
             lo, hi = edges[2 * i], edges[2 * i + 1]
             if hi == lo:
@@ -220,9 +226,6 @@ def _ep(router, stacks, xs: torch.Tensor, cfg: ArchConfig, group):
     local shard: ``(out (local, t, d), aux (local,) f32, num_dropped (local,))``.
     ``stacks`` hold every expert (E along dim 0) or the shard's own, in the
     order of ``owned_experts``."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (xs, router) + tuple(stacks)):
-        raise NotImplementedError(f"training through expert parallelism belongs to "
-                                  f"{EP_TRAINING_SLICE}")
     local, t, d = xs.shape
     e, k, dvs = cfg.num_experts, cfg.experts_per_token, group.size
     shards = [group.rank + i for i in range(local)]
@@ -313,9 +316,14 @@ class AuxParts:
             drops = torch.stack(self.ep_dropped, dim=1).to(torch.int64)  # (local, L_ep)
             parts, per = self.ep_aux, drops
             if lay.dp.size > 1:  # one all-gather: every rank's aux and drops
-                got = lay.dp.all_gather_bytes([drops.contiguous(), self.ep_aux.contiguous()])
+                got = lay.dp.all_gather_bytes([drops.contiguous(),
+                                               self.ep_aux.detach().contiguous()])
                 per, parts = torch.cat(got[0]), torch.cat(got[1])
-            total = total + parts.sum() / parts.shape[0]
+            mean = parts.sum() / parts.shape[0]
+            if lay.dp.size > 1 and self.ep_aux.requires_grad:
+                # + 0 in value: the rank's own aux carries its 1 / D of the gradient
+                mean = mean + (self.ep_aux - self.ep_aux.detach()).sum() / parts.shape[0]
+            total = total + mean
             dropped = per.sum(dim=0)
         return total, dropped
 

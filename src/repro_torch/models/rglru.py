@@ -136,39 +136,62 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> torch.Ten
 
 
 def rglru_block(p: RGLRU, x: torch.Tensor, cfg: ArchConfig,
-                state: Optional[RGLRUState] = None, *, return_state: bool = False):
+                state: Optional[RGLRUState] = None, *, return_state: bool = False,
+                lay: layers.Layout = layers.SINGLE, sp: bool = False):
     """Griffin recurrent residual block: x (B, S, d) → (out, new state or
-    None).  ``state`` carries h and the conv tail of earlier tokens."""
-    bsz, s, _ = x.shape
+    None).  ``state`` carries h and the conv tail of earlier tokens.
+
+    Over a mesh (``lay``) the block follows the reference's rules:
+    ``w_gate`` / ``w_rec`` / ``w_a`` / ``w_x`` column-parallel and ``w_out``
+    row-parallel over tp, so a rank holds a block of ``rnn_width``.  It
+    takes that block of the vectors every rank holds whole (``conv_w``,
+    ``conv_b``, ``lambda``, ``b_a``, ``b_x``), gathers ``uf`` over tp (in
+    f32) for the gates' products, whose contraction runs over the whole
+    width, and scans its own block over the whole sequence (never split by
+    sequence); ``w_out``'s partial sums are summed over tp (reduce-scattered
+    along the sequence under ``sp``, whose input is gathered first).  The
+    state (``h``, ``conv``) is the rank's width block, as
+    ``sharding.cache_leaf_spec`` splits it."""
+    bsz = x.shape[0]
     dtype = x.dtype
-    xin = layers.rmsnorm(x, p.norm)
-    gate = F.gelu(xin @ p.w_gate.to(dtype), approximate="tanh")
-    u = xin @ p.w_rec.to(dtype)
+    c0, c1, n = lay.cols(p.w_rec)
+    partial = (c0, c1) != (0, n)
+    xin = lay.tp_input(layers.rmsnorm(x, lay.tp_shared(p.norm, sp)), sp, partial)
+    s = xin.shape[1]
+
+    def mine(v):  # the rank's width block of a vector every rank holds whole
+        return lay.tp_shared(v, partial)[..., c0:c1]
+
+    gate = F.gelu(xin @ lay.w(p.w_gate).to(dtype), approximate="tanh")
+    u = xin @ lay.w(p.w_rec).to(dtype)
     prev = state.conv if state is not None else None
-    u, conv_tail = causal_depthwise_conv(u, p.conv_w, p.conv_b, prev)
+    u, conv_tail = causal_depthwise_conv(u, mine(p.conv_w), mine(p.conv_b), prev)
 
     uf = u.float()
-    r = torch.sigmoid(uf @ p.w_a.float() + p.b_a)
-    i = torch.sigmoid(uf @ p.w_x.float() + p.b_x)
-    lam = getattr(p, "lambda")
+    (whole,) = layers.take_cols(lay, [(uf, (c0, c1, n), (0, n))])
+    r = torch.sigmoid(whole @ lay.w(p.w_a).float() + mine(p.b_a))
+    i = torch.sigmoid(whole @ lay.w(p.w_x).float() + mine(p.b_x))
+    lam = mine(getattr(p, "lambda"))
     softplus = torch.logaddexp(lam, torch.zeros_like(lam))  # jax.nn.softplus
     a = torch.exp(-_C * softplus * r)
     bterm = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * uf)
-    h0 = state.h if state is not None else torch.zeros((bsz, cfg.rnn_width),
-                                                       dtype=torch.float32, device=x.device)
+    h0 = state.h if state is not None else torch.zeros((bsz, c1 - c0), dtype=torch.float32,
+                                                       device=x.device)
     with torch.profiler.record_function(SCAN_RANGE):
         if s == 1:  # decode: one step, no scan
             h = (a[:, 0] * h0 + bterm[:, 0])[:, None, :]
         else:
             h = linear_scan(a, bterm, h0)
-    out = x + (h.to(dtype) * gate) @ p.w_out.to(dtype)
+    out = (h.to(dtype) * gate) @ lay.w(p.w_out).to(dtype)
+    out = x + layers.reduce_rows(lay, out, partial, sp)
     new_state = RGLRUState(h=h[:, -1], conv=conv_tail) if return_state else None
     return out, new_state
 
 
-def rglru_decode_step(p: RGLRU, x: torch.Tensor, cfg: ArchConfig, state: RGLRUState):
+def rglru_decode_step(p: RGLRU, x: torch.Tensor, cfg: ArchConfig, state: RGLRUState,
+                      lay: layers.Layout = layers.SINGLE):
     """One token (x (B, 1, d)) from ``state``: (out, new state)."""
-    return rglru_block(p, x, cfg, state, return_state=True)
+    return rglru_block(p, x, cfg, state, return_state=True, lay=lay)
 
 
 def rglru_state_shapes(cfg: ArchConfig, batch: int) -> RGLRUState:

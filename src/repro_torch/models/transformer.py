@@ -35,8 +35,8 @@ when ``d_ff > 0``.  A VLM's precomputed patch embeddings (``prefix_emb``,
 the reference's stub frontend) go before the tokens in ``forward_train``
 and ``prefill``; the positions cover them, and ``forward_train`` drops them
 before the head.  Encoder-decoder models are ``models/encdec.py``'s.  Over a
-mesh, stacks with ``rglru`` blocks raise ``NotImplementedError`` naming
-their slice (:data:`MESH_SLICE`).  Parameters are made with
+mesh an ``rglru`` block follows the layout (``rglru.rglru_block``): its
+recurrence runs on the rank's width block.  Parameters are made with
 ``requires_grad=False`` in the compute type (the serving copy);
 :func:`trainable_params` turns f32 masters into a trainer's parameters.
 """
@@ -54,8 +54,6 @@ from repro_torch.models import attention as attn
 from repro_torch.models import layers, moe, rglru, ssm
 
 ATTN_TYPES = ("attn", "swa", "local")
-# The slice of the port that runs Griffin and encoder-decoder models over a mesh.
-MESH_SLICE = "the slice that runs these models over a mesh"
 
 
 def check_supported(cfg: ArchConfig) -> None:
@@ -72,14 +70,6 @@ def check_supported(cfg: ArchConfig) -> None:
         raise ValueError(f"{cfg.name}: frontend {cfg.frontend!r} belongs to an encoder-decoder")
     if cfg.d_ff <= 0 and any(bt in ATTN_TYPES for bt in cfg.block_pattern):
         raise NotImplementedError("attn blocks without an MLP are not ported yet")
-
-
-def check_mesh(cfg: ArchConfig, sharded: bool) -> None:
-    """Raise ``NotImplementedError`` for a Griffin (``rglru``) or
-    encoder-decoder model over a mesh of more than one rank (``sharded``):
-    :data:`MESH_SLICE`."""
-    if sharded and ("rglru" in cfg.block_pattern or cfg.is_encoder_decoder):
-        raise NotImplementedError(f"{cfg.name} over a mesh belongs to {MESH_SLICE}")
 
 
 def block_window(cfg: ArchConfig, bt: str) -> Optional[int]:
@@ -229,17 +219,20 @@ def trainable_params(model: Transformer) -> Transformer:
     return model
 
 
-def compute_copy(params: Transformer) -> Transformer:
+def compute_copy(params: nn.Module, cast: bool = True) -> nn.Module:
     """The reference's compute copy of f32 masters on a mesh (its train
     step's ``_compute_copy``, made once a step): a module over the same
     blocks whose f32 matrices (``ndim >= 2``) are cast to bf16, so that the
     FSDP gathers and the gradient reductions move bf16; the norm vectors are
-    the masters' tensors.  Every parameter is a new leaf requiring a
+    the masters' tensors.  ``cast=False`` keeps every leaf f32 (the
+    reference makes no compute copy for an MoE stack, whose experts'
+    gradients it reduces in f32).  Every parameter is a new leaf requiring a
     gradient, of which the step takes the gradients."""
-    model = Transformer(params.cfg, dtype=torch.bfloat16, device="meta")
+    model = type(params)(params.cfg, dtype=torch.bfloat16 if cast else torch.float32,
+                         device="meta")
     for name, p in params.named_parameters():
         t = p.detach()
-        if t.dtype == torch.float32 and t.ndim >= 2:
+        if cast and t.dtype == torch.float32 and t.ndim >= 2:
             t = t.to(torch.bfloat16)
         owner, _, leaf = name.rpartition(".")
         setattr(model.get_submodule(owner), leaf, nn.Parameter(t, requires_grad=True))
@@ -341,7 +334,6 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int, *, device,
     leading ``num_periods`` axis (``init_block_cache``); over a sharded
     ``layout`` the rank's blocks, as :class:`Caches`."""
     check_supported(cfg)
-    check_mesh(cfg, layout is not None and layout.sharded)
     if layout is None or not layout.sharded:
         return {
             f"b{j}": init_block_cache(cfg, bt, batch, cache_len, device)
@@ -400,7 +392,7 @@ def _mix_train(bt: str, p, x, positions, cfg: ArchConfig, lay: layers.Layout = l
     if bt == "slstm":
         return ssm.slstm_block(p.mixer, x, cfg, lay=lay)[0]
     if bt == "rglru":
-        return rglru.rglru_block(p.mixer, x, cfg)[0]
+        return rglru.rglru_block(p.mixer, x, cfg, lay=lay, sp=sp)[0]
     xin = layers.rmsnorm(x, lay.tp_shared(p.norm1, sp))
     out, _ = attn.attention(p.attn, xin, cfg, positions, causal=True,
                             window=block_window(cfg, bt), lay=lay, sp=sp)
@@ -424,7 +416,7 @@ def apply_block_prefill(bt: str, p, x, positions, cfg: ArchConfig, cache_len: in
     if bt == "slstm":
         return ssm.slstm_block(p.mixer, x, cfg, return_state=True, lay=lay)
     if bt == "rglru":
-        x, state = rglru.rglru_block(p.mixer, x, cfg, return_state=True)
+        x, state = rglru.rglru_block(p.mixer, x, cfg, return_state=True, lay=lay, sp=sp)
         return (_apply_mlp(p, x, cfg, lay, sp, ctx) if hasattr(p, "mlp") else x), state
     w = block_window(cfg, bt)
     xin = layers.rmsnorm(x, p.norm1)
@@ -445,7 +437,7 @@ def apply_block_decode(bt: str, p, x, cache, pos, cfg: ArchConfig,
     cache's f32)."""
     if bt in layers.RECURRENT_TYPES:
         if bt == "rglru":
-            x, new = rglru.rglru_decode_step(p.mixer, x, cfg, cache)
+            x, new = rglru.rglru_decode_step(p.mixer, x, cfg, cache, lay)
         else:
             step = ssm.mlstm_decode_step if bt == "mlstm" else ssm.slstm_decode_step
             x, new = step(p.mixer, x, cfg, cache, lay)
@@ -559,7 +551,6 @@ def forward_train(params: Transformer, tokens: torch.Tensor, cfg: ArchConfig,
     backward pass, kernels included."""
     check_supported(cfg)
     lay = _layout(params, layout)
-    check_mesh(cfg, lay.sharded)
     p_len = _prefix_len(prefix_emb)
     batch_sharded, sp = lay.act(cfg, (tokens.shape[0], p_len + tokens.shape[1] - 1))
     ctx = moe.Context(batch_sharded, moe.AuxParts(cfg.num_experts))
@@ -591,7 +582,6 @@ def loss_fn(params: Transformer, batch: dict, cfg: ArchConfig,
     check_supported(cfg)
     tokens, prefix = batch["tokens"], batch.get("patch_emb")
     lay = _layout(params, layout)
-    check_mesh(cfg, lay.sharded)
     p_len = _prefix_len(prefix)
     batch_sharded, sp = lay.act(cfg, (tokens.shape[0], p_len + tokens.shape[1] - 1))
     if lay.dp.size > 1 and not batch_sharded:
@@ -628,7 +618,6 @@ def prefill(params: Transformer, tokens: torch.Tensor, cfg: ArchConfig,
     where ``layout.act`` says."""
     check_supported(cfg)
     lay = _layout(params, layout)
-    check_mesh(cfg, lay.sharded)
     b_full, s = tokens.shape[0], _prefix_len(prefix_emb) + tokens.shape[1]
     batch_sharded, sp = lay.act(cfg, (b_full, s))
     tokens = lay.batch_rows(tokens, batch_sharded)
@@ -672,7 +661,6 @@ def decode_step(params: Transformer, caches: dict, token: torch.Tensor, pos: tor
     whole on every rank."""
     check_supported(cfg)
     lay = _layout(params, layout)
-    check_mesh(cfg, lay.sharded)
     specs = getattr(caches, "specs", None)
     if lay.sharded and specs is None:
         raise ValueError("a sharded decode step takes the rank's Caches (init_cache or prefill)")
@@ -693,7 +681,6 @@ def decode_step(params: Transformer, caches: dict, token: torch.Tensor, pos: tor
     return logits, caches
 
 
-@torch.no_grad()
 def loss_ep_stacked(params: Transformer, tokens: torch.Tensor, cfg: ArchConfig,
                     shards: int, aux_coef: float = 0.01) -> dict:
     """The stacked twin of :func:`loss_fn` under expert parallelism over
@@ -702,7 +689,11 @@ def loss_ep_stacked(params: Transformer, tokens: torch.Tensor, cfg: ArchConfig,
     block but the MoE on them alone, as its rank would, and the MoE layers
     exchange over ``StackedGroup(shards)``.  Returns per shard the row CE
     (``ce_rows``), its loss (``ce_rows + aux_coef · moe_aux``), and the aux
-    and drops of the group, as each rank's :func:`loss_fn` gives them."""
+    and drops of the group, as each rank's :func:`loss_fn` gives them, and
+    the group's ``loss`` and ``ce`` (the rows' CE summed over the shards over
+    their number).  Differentiable where the parameters require gradients
+    (the exchange's transposes carry them): the stacked EP train step's
+    loss (``train.step.make_ep_stacked_train_step``)."""
     from repro_torch.core import exchange
 
     check_supported(cfg)
@@ -727,5 +718,6 @@ def loss_ep_stacked(params: Transformer, tokens: torch.Tensor, cfg: ArchConfig,
     aux = aux / cfg.num_layers
     ce_rows = torch.stack([layers.softmax_cross_entropy_logits(_head(params, x, cfg), r[:, 1:])
                            for x, r in zip(xs, rows)])
+    ce = ce_rows.sum() / shards
     return {"ce_rows": ce_rows, "loss_rows": ce_rows + aux_coef * aux, "moe_aux": aux,
-            "moe_dropped": dropped}
+            "moe_dropped": dropped, "ce": ce, "loss": ce + aux_coef * aux}

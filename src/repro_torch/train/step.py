@@ -28,7 +28,8 @@ rank takes the same global batch, and
   ``make_train_state`` builds them);
 * once a step the f32 matrices are cast to a bf16 compute copy
   (``transformer.compute_copy``, the reference's ``_compute_copy``): the
-  FSDP gathers and the gradient reductions move bf16;
+  FSDP gathers and the gradient reductions move bf16 (an MoE stack keeps
+  its f32 masters, as the reference's step does);
 * microbatch j is rows [j b/k, (j+1) b/k) of the global batch, of which
   each rank takes its dp block (the reference's ``_split_microbatches``);
 * each microbatch's gradients come back reduced over dp into the rank's
@@ -41,15 +42,29 @@ rank takes the same global batch, and
 
 A mesh of one rank runs the one-card step.
 
+Under expert parallelism (``moe_impl="ep"``) a rank's expert stacks are
+the experts it owns (``sharding.Owners``): their gradients come whole from
+the rows the rank received through the exchange, so they take no
+reduction over dp; where more ranks than experts repeat each expert, the
+repeats' gradients are summed over them.  :func:`make_ep_stacked_train_step`
+is the step's stacked twin on one device, every shard's rows on the card
+and the MoE's exchange over ``StackedGroup`` (the ranks' oracle).
+
+The batch is ``{"tokens": (B, S+1)}`` with, for an encoder-decoder, its
+stub ``"frames"`` (B, T, d): every entry is cut into the same microbatch
+rows.
+
 Metrics are f32 scalar tensors on the card, the same on every rank:
-``loss``, ``ce``, ``moe_aux``, ``grad_norm``, ``lr`` and ``tokens``.  The
+``loss``, ``ce``, ``moe_aux``, ``grad_norm``, ``lr`` and ``tokens``, and
+for an MoE stack on the compute copy's step ``moe_dropped`` (the (token,
+expert) rows the EP layers dropped, summed over the step).  The
 optimizer's part runs inside the profiler range ``OPTIMIZER_RANGE``.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import torch
 
@@ -122,11 +137,20 @@ def make_train_state(bundle, tcfg: TrainStepConfig, seed: int) -> tuple[Any, dic
     return params, opt_state
 
 
-def _microbatches(tokens: torch.Tensor, k: int) -> list:
-    b = tokens.shape[0]
+def _microbatches(batch: dict, k: int) -> list:
+    """``batch``'s entries cut into ``k`` equal parts of rows, as dicts."""
+    b = batch["tokens"].shape[0]
     if b % k:
         raise ValueError(f"batch {b} not divisible by microbatches {k}")
-    return list(tokens.reshape(k, b // k, *tokens.shape[1:]))
+    parts = {n: t.reshape(k, b // k, *t.shape[1:]) for n, t in batch.items()}
+    return [{n: t[j] for n, t in parts.items()} for j in range(k)]
+
+
+def _on_device(batch: dict, device) -> dict:
+    """The step's inputs on ``device``: the tokens and, where given, an
+    encoder-decoder's frames."""
+    return {n: torch.as_tensor(batch[n], device=device)
+            for n in ("tokens", "frames") if batch.get(n) is not None}
 
 
 def _tokens_metric(tokens: torch.Tensor) -> torch.Tensor:
@@ -141,13 +165,14 @@ def make_train_step(bundle, tcfg: TrainStepConfig) -> Callable[[Any, dict, dict]
     k = parallel.microbatches if parallel is not None else 1
     compress = parallel is not None and parallel.grad_compression
 
-    def value_and_grad(params, names, leaves, tokens):
-        loss, metrics = bundle.loss(params, {"tokens": tokens})
+    def value_and_grad(params, names, leaves, inputs):
+        loss, metrics = bundle.loss(params, inputs)
         grads = torch.autograd.grad(loss, leaves)
         return {m: metrics[m].detach().float() for m in METRICS}, dict(zip(names, grads))
 
     def train_step(params, opt_state, batch):
-        tokens = torch.as_tensor(batch["tokens"], device=bundle.device)
+        inputs = _on_device(batch, bundle.device)
+        tokens = inputs["tokens"]
         named = {n: p for n, p in params.named_parameters() if p.requires_grad}
         names, leaves = list(named), list(named.values())
         if k > 1:
@@ -155,7 +180,7 @@ def make_train_step(bundle, tcfg: TrainStepConfig) -> Callable[[Any, dict, dict]
                      for n, p in named.items()}
             metrics = {m: torch.zeros((), dtype=torch.float32, device=tokens.device)
                        for m in METRICS}
-            for mb in _microbatches(tokens, k):
+            for mb in _microbatches(inputs, k):
                 mb_metrics, mb_grads = value_and_grad(params, names, leaves, mb)
                 for n, g in mb_grads.items():
                     grads[n].add_(g.float() / k)
@@ -163,7 +188,7 @@ def make_train_step(bundle, tcfg: TrainStepConfig) -> Callable[[Any, dict, dict]
                 for m in METRICS:
                     metrics[m] = metrics[m] + mb_metrics[m] / k
         else:
-            metrics, grads = value_and_grad(params, names, leaves, tokens)
+            metrics, grads = value_and_grad(params, names, leaves, inputs)
             grads = {n: g.float() for n, g in grads.items()}
         with torch.profiler.record_function(OPTIMIZER_RANGE):
             if compress:
@@ -182,63 +207,109 @@ def make_train_step(bundle, tcfg: TrainStepConfig) -> Callable[[Any, dict, dict]
     return train_step
 
 
+def _dp_entry(lay, spec) -> Optional[object]:
+    """The entry of ``spec`` on the dp axes: their tuple, an
+    ``sharding.Owners`` over them, or None (whole over dp)."""
+    from repro_torch.distributed import sharding
+
+    dp = tuple(lay.parallel.dp_axes)
+    for e in spec:
+        if isinstance(e, sharding.Owners):
+            return e
+        if e is not None and tuple((e,) if isinstance(e, str) else e) == dp:
+            return e
+    return None
+
+
 def reduce_whole_over_dp(lay, grads: dict) -> dict:
     """All-reduce over dp the gradients of the leaves whole over dp (each dp
     rank's holds its rows' part), one call a dtype; the dp-sharded leaves'
-    come back reduced from the FSDP gather's backward."""
+    come back reduced from the FSDP gather's backward.  A rank's owned
+    experts (``sharding.Owners``) hold their whole gradient; where the dp
+    ranks outnumber the experts, each expert's repeats sum theirs (one more
+    all-reduce a dtype)."""
+    from repro_torch.distributed import sharding
+
     if lay.dp.size == 1:
         return grads
-    dp = tuple(lay.parallel.dp_axes)
-    whole = [n for n in grads if all(e is None or tuple((e,) if isinstance(e, str) else e) != dp
-                                     for e in lay.specs[n])]
+    entries = {n: _dp_entry(lay, lay.specs[n]) for n in grads}
+    whole = [n for n in grads if entries[n] is None]
+    out = _all_reduce_packed(lay.dp, grads, whole)
+    repeated = [n for n in grads if isinstance(entries[n], sharding.Owners)
+                and lay.dp.size > entries[n].experts]
+    if repeated:  # rank r holds expert r % E: scatter into E slots, sum, take its own
+        placed = {}
+        for n in repeated:
+            e = entries[n].experts
+            slots = torch.zeros((e,) + tuple(grads[n].shape[1:]), dtype=grads[n].dtype,
+                                device=grads[n].device)
+            slots[lay.dp.index % e] = grads[n][0]
+            placed[n] = slots
+        summed = _all_reduce_packed(lay.dp, placed, repeated)
+        for n in repeated:
+            out[n] = summed[n][lay.dp.index % entries[n].experts][None]
+    return out
+
+
+def _all_reduce_packed(axis, grads: dict, names) -> dict:
+    """``grads`` with the leaves ``names`` all-reduced over ``axis``, packed
+    into one call a dtype."""
     by_dtype: dict = {}
-    for n in whole:
+    for n in names:
         by_dtype.setdefault(grads[n].dtype, []).append(n)
     out = dict(grads)
-    for names in by_dtype.values():
-        summed = lay.dp.all_reduce(torch.cat([grads[n].reshape(-1) for n in names]))
+    for group in by_dtype.values():
+        summed = axis.all_reduce(torch.cat([grads[n].reshape(-1) for n in group]))
         at = 0
-        for n in names:
+        for n in group:
             size = grads[n].numel()
             out[n] = summed[at:at + size].reshape(grads[n].shape)
             at += size
     return out
 
 
-def _make_mesh_step(bundle, tcfg: TrainStepConfig):
-    from repro_torch.distributed import collectives, sharding
+def _copy_step(bundle, tcfg: TrainStepConfig, k: int, loss_of, reduce, counted, axis,
+               compress: bool):
+    """A step on the bf16 compute copy of the f32 masters (``_make_mesh_step``
+    and its stacked EP twin): ``loss_of(copy, microbatch)`` gives ``(loss,
+    metrics)``, ``reduce(grads)`` the gradients' reductions, ``counted`` and
+    ``axis`` the clip's block counting."""
     from repro_torch.models import transformer
 
-    cfg, lay, parallel = bundle.cfg, bundle.layout, bundle.parallel
-    k = parallel.microbatches
-    compress = parallel.grad_compression
-    group = collectives.world()
-    counted = {n: sharding.counts_block(spec, parallel.mesh, lay.coord)
-               for n, spec in lay.specs.items()}
-
     def train_step(params, opt_state, batch):
-        tokens = torch.as_tensor(batch["tokens"], device=bundle.device)
+        inputs = _on_device(batch, bundle.device)
+        tokens = inputs["tokens"]
         named = dict(params.named_parameters())
-        copy = transformer.compute_copy(params)
+        copy = transformer.compute_copy(params, cast=not bundle.cfg.is_moe)
         leaves = dict(copy.named_parameters())
         names = list(leaves)
-        grads = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                 for n, p in named.items()}
+        grads = {}  # f32 sums of the microbatches' gradients over k (one microbatch: its own)
         metrics = {m: torch.zeros((), dtype=torch.float32, device=tokens.device) for m in METRICS}
-        for mb in _microbatches(tokens, k):
-            loss, mb_metrics = transformer.loss_fn(copy, {"tokens": mb}, cfg, layout=lay,
-                                                   remat=parallel.remat)
-            mb_grads = dict(zip(names, torch.autograd.grad(loss, [leaves[n] for n in names])))
-            for n, g in reduce_whole_over_dp(lay, mb_grads).items():
+        for mb in _microbatches(inputs, k):
+            loss, mb_metrics = loss_of(copy, mb)
+            # An expert that got no rows this microbatch has no gradient: zero.
+            got = torch.autograd.grad(loss, [leaves[n] for n in names], allow_unused=True)
+            mb_grads = {n: torch.zeros_like(leaves[n]) if g is None else g
+                        for n, g in zip(names, got)}
+            for n, g in reduce(mb_grads).items():
+                if k == 1:
+                    grads[n] = g.float()
+                    continue
+                if n not in grads:
+                    grads[n] = torch.zeros(named[n].shape, dtype=torch.float32,
+                                           device=named[n].device)
                 grads[n].add_(g.float() / k)
-            del mb_grads, loss
+            del mb_grads, loss, got
             for m in METRICS:
                 metrics[m] = metrics[m] + mb_metrics[m].detach().float() / k
+            if "moe_dropped" in mb_metrics:  # rows the EP layers dropped, summed
+                dropped = mb_metrics["moe_dropped"].detach().sum().float()
+                metrics["moe_dropped"] = metrics.get("moe_dropped", 0) + dropped
         del copy, leaves
         with torch.profiler.record_function(OPTIMIZER_RANGE):
             if compress:
-                grads, new_err = error_feedback_compress(grads, opt_state["ef_error"], axis=group)
-            grads, gnorm = clip_by_global_norm(grads, tcfg.clip_norm, counted=counted, axis=group)
+                grads, new_err = error_feedback_compress(grads, opt_state["ef_error"], axis=axis)
+            grads, gnorm = clip_by_global_norm(grads, tcfg.clip_norm, counted=counted, axis=axis)
             lr = tcfg.lr_at(opt_state["step"] + 1)
             _, new_opt = adamw_update(named, grads,
                                       {kk: opt_state[kk] for kk in ("step", "m", "v")}, lr,
@@ -250,3 +321,36 @@ def _make_mesh_step(bundle, tcfg: TrainStepConfig):
         return params, new_opt, metrics
 
     return train_step
+
+
+def _make_mesh_step(bundle, tcfg: TrainStepConfig):
+    from repro_torch.distributed import collectives, sharding
+
+    lay, parallel = bundle.layout, bundle.parallel
+    counted = {n: sharding.counts_block(spec, parallel.mesh, lay.coord)
+               for n, spec in lay.specs.items()}
+    return _copy_step(bundle, tcfg, parallel.microbatches, bundle.loss,
+                      lambda grads: reduce_whole_over_dp(lay, grads), counted,
+                      collectives.world(), parallel.grad_compression)
+
+
+def make_ep_stacked_train_step(bundle, tcfg: TrainStepConfig, shards: int,
+                               aux_coef: float = 0.01):
+    """The stacked twin of the EP train step over ``shards`` dp ranks
+    (``moe_impl="ep"`` on a ``(shards, 1)`` mesh), on one device with an
+    unsharded ``bundle``: the same compute copy (f32 for an MoE stack), each microbatch's rows
+    split over the shards, every block but the MoE run on each shard's rows
+    alone and the MoE exchanged over ``StackedGroup(shards)``
+    (``transformer.loss_ep_stacked``); its gradients are the whole model's,
+    so nothing is reduced.  The ranks' oracle: a rank's owned experts get
+    the gradients this step gives them, bit for bit."""
+    from repro_torch.models import transformer
+
+    cfg = bundle.cfg
+    k = bundle.parallel.microbatches if bundle.parallel is not None else 1
+
+    def loss_of(copy, mb):
+        m = transformer.loss_ep_stacked(copy, mb["tokens"], cfg, shards, aux_coef)
+        return m["loss"], m
+
+    return _copy_step(bundle, tcfg, k, loss_of, lambda grads: grads, None, None, False)

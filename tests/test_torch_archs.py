@@ -1,7 +1,8 @@
 """The last archs of the registry against the JAX package: pixtral-12b's
 patch prefix (the stub frontend's embeddings before the tokens), the dense
 qwen3-14b and llama3-405b, ``all_configs``, every new arch's full-width
-parameter count and the bundle's input specs; and the guards over a mesh.
+parameter count and the bundle's input specs; and Griffin's and whisper's
+specs over a mesh against the reference's.
 
 Weights are drawn once by the JAX package at each smoke config and carried
 across with ``repro_torch.models.convert``; patch embeddings and token ids
@@ -179,10 +180,44 @@ def test_dense_smoke_forward_and_serving_match_reference(arch):
 
 @pytest.mark.parametrize("arch", ["recurrentgemma_9b", "whisper_base"])
 def test_griffin_and_encdec_over_a_mesh_raise_naming_their_slice(arch):
-    cfg = get_smoke_config(arch)
+    """Griffin and the encoder-decoder now run over a mesh (the guard that
+    raised here, naming a later slice, is gone; the ranks' runs are
+    ``tests/test_torch_archs_procs.py``'s): on each mesh every leaf of the
+    port's module takes the reference's spec without its stacked layer
+    dim, and building over a mesh the process group does not span is
+    refused for the group's size alone."""
+    from jax.sharding import AbstractMesh as JAbstractMesh
+    from jax.sharding import PartitionSpec as P
+
+    from repro.distributed import sharding as jshd
+    from repro.distributed.parallel import ParallelConfig as JParallel
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models.api import model_class
+
+    cfg, jcfg = get_smoke_config(arch), jax_smoke_config(arch)
+    model = model_class(cfg)(cfg, dtype=torch.float32, device="meta")
+    shapes = jax_build_model(jcfg, single_device_parallel()).param_shapes()
+    groups = convert.stacked_groups(cfg)
     for shape in ((2, 2), (1, 4), (2, 1)):
-        par = ParallelConfig(mesh=AbstractMesh(shape, ("data", "model")))
-        with pytest.raises(NotImplementedError, match="over a mesh"):
+        names = ("data", "model")
+        par = ParallelConfig(mesh=AbstractMesh(shape, names))
+        jspecs = jshd.param_pspecs(shapes, JParallel(mesh=JAbstractMesh(shape, names)))
+        flat, _ = jax.tree_util.tree_flatten_with_path(
+            jspecs, is_leaf=lambda x: isinstance(x, P))
+        ref = {".".join(str(e.key) for e in path): tuple(spec) for path, spec in flat}
+        got = shd.param_pspecs(model, par)
+        for name in got:
+            group, _, rest = name.partition(".")
+            if group in groups:
+                want = ref[f"{group}.{rest.partition('.')[2]}"]
+                assert want[0] is None
+                want = want[1:]
+            else:
+                want = ref[name]
+            norm = tuple(e[0] if isinstance(e, tuple) and len(e) == 1 else e
+                         for e in got[name])
+            assert norm == want, (shape, name)
+        with pytest.raises(ValueError, match="over a group of 1 rank"):
             build_model(cfg, par, device="cpu")
     one = ParallelConfig(mesh=AbstractMesh((1, 1), ("data", "model")))
     build_model(cfg, one, device="cpu")  # one rank: the unsharded model

@@ -1787,3 +1787,65 @@ def test_ring_decode_across_the_window_edge_on_card(card):
         torch.testing.assert_close(got.cpu(), want, atol=2e-4, rtol=2e-4)
         assert torch.equal(gc_["b0"].kpos.cpu(), wc["b0"].kpos)
     assert int(wc["b0"].kpos.min()) == 39 - 31
+
+
+def test_exchange_backward_over_one_nccl_rank_equals_the_stacked_group(card, tmp_path):
+    """The exchange's ``autograd.Function`` over one NCCL rank: ``moe_ep`` of
+    mixtral smoke's layer (f32 on the card) and its gradients w.r.t. the
+    rows and the experts equal autograd through ``StackedGroup(1)`` bit for
+    bit (an all-to-all of one rank is the identity either way), plain and
+    under ``torch.utils.checkpoint``; four rounds, six with the
+    recomputation."""
+    import torch.distributed as dist
+    from torch.utils.checkpoint import checkpoint
+
+    from repro_torch.launch import mesh
+    from repro_torch.models import moe, transformer
+
+    cfg = dataclasses.replace(get_smoke_config("mixtral_8x22b"), dtype="float32")
+    m = transformer.init_params(cfg, torch.Generator(device=card).manual_seed(2),
+                                device=card).layers[0].b0.mlp.moe
+    gen = torch.Generator(device=card).manual_seed(9)
+    x = torch.randn((1, 16, cfg.d_model), generator=gen, device=card)
+    up = torch.randn((1, 16, cfg.d_model), generator=gen, device=card)
+    leaves = [m.w_gate, m.w_up, m.w_down]
+
+    def grads(group, checkpointed):
+        xs = x.clone().requires_grad_(True)
+        for t in leaves:
+            t.requires_grad_(True)
+        fn = lambda t: moe.moe_ep(m, t, cfg, group)[0]  # noqa: E731
+        exchange.CALLS.clear()  # every thread's: the backward runs on autograd's
+        out = checkpoint(fn, xs, use_reentrant=False) if checkpointed else fn(xs)
+        got = torch.autograd.grad((out * up).sum(), [xs] + leaves)
+        for t in leaves:
+            t.requires_grad_(False)
+        return [out.detach()] + list(got), dict(exchange.CALLS)
+
+    group = mesh.init_shard_group("nccl", "file://" + str(tmp_path / "store"), timeout_s=120,
+                                  rank=0, world_size=1, device=torch.device("cuda", 0))
+    try:
+        for checkpointed in (False, True):
+            got, rounds = grads(group, checkpointed)
+            want, _ = grads(exchange.StackedGroup(1), checkpointed)
+            for a, b in zip(got, want):
+                assert torch.equal(a, b)
+            assert rounds == {moe.LABEL: 6 if checkpointed else 4}
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_kernel_at_a_griffin_rank_of_tp4(card, dtype):
+    """Kernel 6 at recurrentgemma-9b's shape on a rank of tp 4: its 4 q heads
+    over the one kv head, hd 256, window 2,048, prompts beyond the window."""
+    gen = torch.Generator(device=card).manual_seed(256)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    for s in (2049, 3000):
+        q = torch.randn((4, s, 256), generator=gen, device=card).to(dtype)
+        k, v = (torch.randn((1, s, 256), generator=gen, device=card).to(dtype) for _ in range(2))
+        args = dict(causal=True, window=2048, q_heads_per_kv=4)
+        got = flash.flash_attention_fhsd(q, k, v, **args)
+        want = flash.flash_attention_plain(q, k, v, **args)
+        diff = (got.float() - want.float()).abs()
+        assert bool((diff <= tol * (1 + want.float().abs())).all()), (s, float(diff.max()))

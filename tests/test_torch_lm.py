@@ -294,10 +294,13 @@ def test_other_archs_and_block_types_raise_not_implemented():
     build_model(dataclasses.replace(base, num_experts=4, experts_per_token=2),
                 parallel=ParallelConfig(mesh=None, moe_impl="ep"), device="cpu")
     mesh = ParallelConfig(mesh=AbstractMesh((2, 2), ("data", "model")))
+    one = ParallelConfig(mesh=AbstractMesh((1, 1), ("data", "model")))
     for cfg in (dataclasses.replace(base, block_pattern=("rglru",), rnn_width=64),
                 get_smoke_config("recurrentgemma_9b"), get_smoke_config("whisper_base")):
-        with pytest.raises(NotImplementedError, match="over a mesh"):
+        # Over a mesh these build now: only a mesh the group does not span refuses.
+        with pytest.raises(ValueError, match="over a group of 1 rank"):
             build_model(cfg, mesh, device="cpu")
+        assert build_model(cfg, one, device="cpu").layout.sharded is False
     with pytest.raises(ValueError, match="attention_impl"):
         build_model(dataclasses.replace(base, attention_impl="xla"), device="cpu")
     with pytest.raises(ValueError, match="unknown block type"):

@@ -381,7 +381,10 @@ def test_mesh_that_does_not_fit_the_group_raises():
 def test_moe_ep_raises_naming_the_moe_slice():
     """EP builds now (one device: dense), its experts are dealt by owner
     over the ep ranks, ep axes other than dp are refused, and training
-    through the exchange raises naming its later slice."""
+    through the exchange runs (the raise that named its later slice is
+    gone): where nothing drops, the gradient of ``moe_ep`` over
+    ``StackedGroup(2)`` w.r.t. its rows and the experts equals the dense
+    MoE's (1e-5: the same f32 products summed in another order)."""
     from repro_torch.core import exchange
     from repro_torch.models import moe as moe_mod
 
@@ -404,10 +407,29 @@ def test_moe_ep_raises_naming_the_moe_slice():
     with pytest.raises(ValueError, match="dp axes"):
         shd.param_pspecs(meta, dataclasses.replace(par, ep_axes=("model",),
                                                    mesh=AbstractMesh((1, 4), ("data", "model"))))
-    m = params.layers[0].b0.mlp.moe
-    x = torch.randn(2, 8, 128, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="expert-parallel training slice"):
-        moe_mod.moe_ep(m, x, cfg, exchange.StackedGroup(2))
+    roomy = dataclasses.replace(cfg, dtype="float32", moe_capacity_factor=4.0)
+    m = transformer.init_params(roomy, torch.Generator().manual_seed(0),
+                                device="cpu").layers[0].b0.mlp.moe
+    x = torch.randn(2, 8, 128, generator=torch.Generator().manual_seed(1))
+    up = torch.randn(2, 8, 128, generator=torch.Generator().manual_seed(2))
+    leaves = [m.w_gate, m.w_up, m.w_down]
+
+    def grads(fn):
+        xs = x.clone().requires_grad_(True)
+        for t in leaves:
+            t.requires_grad_(True)
+        out = fn(xs)
+        got = torch.autograd.grad((out * up).sum(), [xs] + leaves)
+        for t in leaves:
+            t.requires_grad_(False)
+        return out.detach(), got
+
+    out, ep = grads(lambda t: moe_mod.moe_ep(m, t, roomy, exchange.StackedGroup(2))[0])
+    dense_out, dense = grads(lambda t: moe_mod.moe_dense(m, t.reshape(1, 16, 128),
+                                                         roomy)[0].reshape(2, 8, 128))
+    torch.testing.assert_close(out, dense_out, rtol=1e-5, atol=1e-5)
+    for a, b in zip(ep, dense):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
 
 
 def test_entry_points_take_the_card_unless_asked(monkeypatch):
