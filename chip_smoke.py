@@ -416,6 +416,26 @@ Run from the root of a checkout: it builds the port's CUDA kernels from
    6 against its twin on its own 48 q heads over 8 kv heads at the window
    of 4,096, timed beside SDPA.
 
+12. runs the tooling last (the ``tooling`` phase): the autotuner
+   (``repro_torch.kernels.autotune``) sweeps every candidate ``block_rows``
+   of kernels 1-5 at 2^20 and 2^24 (the gathers at 1, 2 and 4 value
+   columns), each timed with CUDA events (median of 5 after a warm-up) and
+   logged beside the card's name and power limit; the cache is saved to its
+   version-1 file and loaded back.  Kernels 1-4 are then relaunched on the
+   read D = 1 run's own inputs and kernel 5 (both entries) on the update
+   D = 1 run's base layer (host copies kept since those runs): each entry
+   once through the resolver with the winners loaded (the counts set to 0
+   just before; each > 0 after), every candidate's output equal to the
+   default geometry's bit for bit, and ``check_kernels``' rows with path
+   ``autotune`` (the tuned launch against its twin, timed, beside the bound
+   as the earlier rows reckon it, with the default launch's ms and both
+   tiles).  Meanwhile two CPU processes run ``repro_torch.launch.dryrun``
+   for qwen3-4b and mixtral-8x22b at ``train_4k`` (one microbatch) and
+   ``decode_32k`` on the single-pod mesh over a fake group of 256 ranks
+   (torch's ``fake`` backend on this machine's torch); each cell must come
+   back ``ok`` with finite positive terms, and their roofline rows (the
+   H100's constants) are printed.
+
 It prints the seconds each run took, the card's name and power limit, a
 ``{"kernels": [...]}`` line (one row per kernel and run, ``path`` and
 ``shards`` naming the run) and, last,
@@ -7139,6 +7159,282 @@ def run_moe_train(seed: int, device, log, profile: bool = False) -> dict:
     return {"result": result, "rows": rows}
 
 
+# ---------------------------------------------------------------------------
+# The tooling: the launch resolver's autotuner on the card and the dry run
+# ---------------------------------------------------------------------------
+
+TOOLING_SIZES = (1 << 20, 1 << 24)
+TOOLING_WIDTHS = (1, 2, 4)
+TOOLING_REPEATS = 5
+# The dry run's cells; one microbatch a train step keeps the trace inside
+# the phase (the CLI's default is the reference's 8).
+TOOLING_DRYRUN = {"archs": ("qwen3_4b", "mixtral_8x22b"), "cells": ("train_4k", "decode_32k"),
+                  "microbatches": 1}
+TOOLING_DRYRUN_TIMEOUT_S = 300.0
+# The entries of kernels 1-5 the phase relaunches, by the resolver's key.
+TOOLING_KERNELS = {"murmur_bucket": "murmur", "bin_histogram": "bin_histogram",
+                   "csr_gather_owners": "csr_gather_batched",
+                   "csr_gather_queriers": "csr_gather_batched",
+                   "csr_gather": "csr_gather", "csr_gather_batched": "csr_gather_batched",
+                   "bucket_probe_layer": "bucket_probe", "bucket_probe": "bucket_probe"}
+
+
+def sweep_work(kernel: str, n: int, width: int) -> tuple[int, int]:
+    """``(bytes, int32 ops)`` of one launch of the autotuner's driver for
+    ``kernel`` at size ``n`` and ``width`` (``kernels/autotune.py``'s
+    shapes), counted as the phases' rows count them: murmur reads the keys
+    and writes each output once (the 2-lane entry both outputs); the
+    histogram reads the ids and writes 256 counters; the probe's windows
+    of 8 keys (``probe_work``: starts, ends, q and a count a slot, the
+    window's words); the gathers' runs of 8 rows, every slot valid
+    (``gather_work``: offsets, the starts, the picked C words, C values
+    and a row id a slot)."""
+    if kernel == "murmur":
+        return ((4 * width + 8) * n, (2 * (9 * width + 11) + 1) * n) if width > 1 else \
+            (8 * n, 22 * n)
+    if kernel == "bin_histogram":
+        return 4 * n + 4 * 256, 3 * n
+    if kernel == "bucket_probe":
+        words = 8 * n
+        return (12 + 4 * width) * n + 4 * width * words, 3 * words + 6 * n
+    sources = 1 if kernel == "csr_gather" else 4
+    rows = max(1, n // (8 * sources))
+    slots = rows * 8 * sources
+    nbytes = 4 * (sources * (rows + 1) + width * slots) + 4 * sources * rows + \
+        4 * (1 + width) * slots
+    return nbytes, 12 * slots + (1 + width) * slots
+
+
+def moved(inputs, device):
+    """``inputs`` (kernel -> argument dict, tensors in lists too) with every
+    tensor on ``device``."""
+    import torch
+
+    def move(v):
+        if isinstance(v, torch.Tensor):
+            return v.to(device)
+        if isinstance(v, (list, tuple)):
+            return type(v)(move(x) for x in v)
+        return v
+
+    return {k: {n: move(v) for n, v in a.items()} for k, a in inputs.items()}
+
+
+def tooling_launches(inputs: dict) -> dict:
+    """Name -> a function of ``block_rows`` that launches that entry of
+    kernels 1-5 once on its captured inputs."""
+    from repro_torch.kernels import bucket_probe, csr_gather, histogram, murmur
+
+    fns = {}
+    if "murmur_bucket" in inputs:
+        a = inputs["murmur_bucket"]
+        fns["murmur_bucket"] = lambda br, a=a: murmur.murmur_bucket(
+            a["keys"], a["table_size"], a["seed"], block_rows=br)
+    if "bin_histogram" in inputs:
+        a = inputs["bin_histogram"]
+        fns["bin_histogram"] = lambda br, a=a: histogram.bin_histogram(
+            a["bins"], a["num_bins"], block_rows=br)
+    if "csr_gather_owners" in inputs:
+        o, q = inputs["csr_gather_owners"], inputs["csr_gather_queriers"]
+        fns["csr_gather_owners"] = lambda br: csr_gather.csr_gather_owners(
+            o["starts"], o["counts"], o["tables"], o["capacity"], block_rows=br)
+        fns["csr_gather_queriers"] = lambda br: csr_gather.csr_gather_queriers(
+            q["starts"], q["counts"], q["table"], q["capacity"], block_rows=br)
+    for name, fn in (("csr_gather", csr_gather.csr_gather_2d),
+                     ("csr_gather_batched", csr_gather.csr_gather_batched_2d)):
+        if name in inputs:
+            a = inputs[name]
+            fns[name] = lambda br, fn=fn, a=a: fn(a["offsets"], a["starts"], a["table"],
+                                                  a["capacity"], block_rows=br)
+    if "bucket_probe_layer" in inputs:
+        p = inputs["bucket_probe_layer"]
+        args = tuple(p[k] for k in ("rq", "rh", "lo", "match_e", "offsets", "keys"))
+        kw = {k: p[k] for k in ("table_size", "stride", "epoch", "max_probe", "accumulate")}
+
+        def layer(br):
+            import torch
+
+            total = torch.empty(p["rq"].shape[:2], dtype=torch.int32, device=p["rq"].device)
+            return bucket_probe.bucket_probe_layer(*args, total=total, block_rows=br, **kw)
+        fns["bucket_probe_layer"] = layer
+    if "bucket_probe" in inputs:
+        a = inputs["bucket_probe"]
+        fns["bucket_probe"] = lambda br, a=a: bucket_probe.bucket_probe(
+            a["starts"], a["ends"], a["q"], a["table"], a["max_probe"], block_rows=br)
+    return fns
+
+
+def start_dryrun(out_dir: str, log) -> list:
+    """One ``repro_torch.launch.dryrun`` process an arch of
+    ``TOOLING_DRYRUN`` (the single-pod mesh, on the CPU: it sees no card),
+    started together; returns ``(arch, Popen, log path)``."""
+    env = dict(os.environ, PYTHONPATH=SRC, CUDA_VISIBLE_DEVICES="")
+    procs = []
+    for arch in TOOLING_DRYRUN["archs"]:
+        path = os.path.join(out_dir, f"{arch}.log")
+        with open(path, "w") as out:
+            procs.append((arch, subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                 "--cell", ",".join(TOOLING_DRYRUN["cells"]), "--mesh", "single",
+                 "--microbatches", str(TOOLING_DRYRUN["microbatches"]), "--out", out_dir],
+                cwd=REPO, env=env, stdout=out, stderr=subprocess.STDOUT), path))
+    log(f"tooling: dry run of {TOOLING_DRYRUN['archs']} x {TOOLING_DRYRUN['cells']} on the "
+        f"(16, 16) mesh started ({len(procs)} processes, fake group of 256)")
+    return procs
+
+
+def finish_dryrun(procs: list, out_dir: str, log) -> list:
+    """Wait for the dry-run processes (stopping them at the time limit), gate
+    each cell ``ok`` with finite positive terms, and print their roofline
+    rows (H100 constants)."""
+    from repro_torch.analysis import roofline
+
+    t0 = time.perf_counter()
+    for arch, proc, path in procs:
+        try:
+            left = TOOLING_DRYRUN_TIMEOUT_S - (time.perf_counter() - t0)
+            code = proc.wait(timeout=max(1.0, left))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            code = "timeout"
+        with open(path) as f:
+            tail = f.read()[-2000:]
+        check(code == 0, f"tooling: the dry run of {arch} exited {code}:\n{tail}")
+    records = []
+    for arch in TOOLING_DRYRUN["archs"]:
+        for cell in TOOLING_DRYRUN["cells"]:
+            with open(os.path.join(out_dir, f"{arch}.{cell}.single.json")) as f:
+                rec = json.load(f)
+            check(rec["status"] == "ok", f"tooling: dry run {arch} {cell}: {rec.get('error')}")
+            terms = rec["terms_s"]
+            check(all(math.isfinite(v) and v > 0 for v in terms.values()),
+                  f"tooling: dry run {arch} {cell} terms {terms}")
+            check(rec["memory_analysis"]["temp_size_in_bytes"] > 0,
+                  f"tooling: dry run {arch} {cell} tracked no temporary bytes")
+            records.append(rec)
+            log(f"tooling: dry run {arch} {cell}: trace {rec['trace_s']} s, "
+                f"flops/rank {rec['flops_per_rank']:.4e}, bytes/rank {rec['bytes_per_rank']:.4e}, "
+                f"wire/rank {rec['wire_bytes_per_rank']:.4e}, collectives "
+                f"{json.dumps(rec['collective_op_counts'])}, microbatches {rec['microbatches']}, "
+                f"memory {json.dumps(rec['memory_analysis'])}")
+    rows = [roofline.derive(r) for r in records]
+    log("tooling: roofline (H100 SXM5: 989e12 FLOP/s bf16, 3.35e12 B/s, 50e9 B/s a link; "
+        "seconds a step a rank):\n" + roofline.markdown_table(rows))
+    return records
+
+
+def run_tooling(seed: int, device, log, captured: dict) -> dict:
+    """The ``tooling`` phase: the autotuner's sweep on the card at
+    ``TOOLING_SIZES`` x ``TOOLING_WIDTHS`` (each candidate's ms logged), its
+    cache saved and loaded back, then kernels 1-5 relaunched on ``captured``
+    (host copies of the read D = 1 run's inputs of kernels 1-4 and the
+    update D = 1 run's of kernel 5) through the resolver: each entry once
+    with the counts set to 0 just before (the phase's main path), every
+    candidate's output equal to the default geometry's bit for bit, and
+    ``check_kernels``' rows (path ``"autotune"``: the tuned launch against
+    its twin, timed, beside the bound) with the default launch's ms; the
+    dry run meanwhile in two CPU processes (``start_dryrun``)."""
+    import shutil
+
+    import torch
+
+    from repro_torch.kernels import autotune, build, common
+
+    t0 = time.perf_counter()
+    smi = card_line() if device.type == "cuda" else "cpu"
+    out_dir = os.path.join(REPO, "build", f"tooling_{os.getpid()}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    procs = start_dryrun(out_dir, log)
+    try:
+        autotune.clear_cache()
+        t_sweep = time.perf_counter()
+        records = autotune.autotune(sizes=TOOLING_SIZES, widths=TOOLING_WIDTHS,
+                                    repeats=TOOLING_REPEATS, device=device)
+        sweep_s = time.perf_counter() - t_sweep
+        for rec in records:
+            kernel = rec["key"].split("|")[0]
+            check(rec["block_rows"] in common.CANDIDATES[kernel]
+                  and set(rec["timings_ms"]) == {str(c) for c in common.CANDIDATES[kernel]},
+                  f"tooling: sweep record {rec}")
+            bounds = int_bounds(sweep_work(kernel, rec["n"], rec["width"]))
+            rec["bound_ms"], rec["bound_by"] = max(bounds.values()), max(bounds, key=bounds.get)
+            log(f"tooling: autotune {rec['key']} n={rec['n']} width={rec['width']}: winner "
+                f"block_rows={rec['block_rows']} (default {common.DEFAULT_BLOCK_ROWS[kernel]}) "
+                f"ms by candidate {json.dumps(rec['timings_ms'])}, bound {rec['bound_ms']} ms "
+                f"({rec['bound_by']}) ({smi})")
+        path = autotune.save_cache(os.path.join(out_dir, "autotune_cache.json"))
+        before = dict(autotune._cache)
+        autotune.clear_cache()
+        check(autotune.load_cache(path) == len(before) and autotune._cache == before,
+              "tooling: the autotune cache did not round-trip through its file")
+        inputs = moved(captured, device)
+        fns = tooling_launches(inputs)
+        check(set(fns) == set(TOOLING_KERNELS), f"tooling: captured {sorted(fns)}")
+        resolved = {name: {"default": common.DEFAULT_BLOCK_ROWS[TOOLING_KERNELS[name]]}
+                    for name in fns}
+        build.LAUNCHES.clear()
+        for fn in fns.values():  # the phase's main path: each entry once, tuned
+            fn(None)
+        sync(device)
+        launches = dict(build.LAUNCHES)
+        for name in fns:  # (the CPU's twins launch nothing)
+            check(device.type != "cuda" or launches.get(name, 0) > 0,
+                  f"tooling: {name} launched no time: {launches}")
+        for name, fn in fns.items():
+            key = TOOLING_KERNELS[name]
+            want = fn(common.DEFAULT_BLOCK_ROWS[key])
+            want = tuple(t for t in (want if isinstance(want, tuple) else (want,)) if t is not None)
+            for br in common.CANDIDATES[key]:
+                got = fn(br)
+                got = tuple(t for t in (got if isinstance(got, tuple) else (got,)) if t is not None)
+                check(len(got) == len(want) and all(torch.equal(a, b) for a, b in zip(got, want)),
+                      f"tooling: {name} at block_rows={br} differs from the default launch")
+            resolved[name]["default_ms"] = mean_ms(
+                lambda fn=fn, br=common.DEFAULT_BLOCK_ROWS[key]: fn(br), 10, device)
+        from repro_torch.kernels import csr_gather as kgather
+
+        # the resolver's (n, width) of each entry, as its wrapper asks
+        sizes = {"murmur_bucket": lambda a: (a["keys"].numel(), 1),
+                 "bin_histogram": lambda a: (a["bins"].numel(), 1),
+                 "csr_gather_owners": lambda a: (a["capacity"], kgather._cols(a["tables"][0], 1)),
+                 "csr_gather_queriers": lambda a: (a["capacity"], kgather._cols(a["table"], 1)),
+                 "csr_gather": lambda a: (a["capacity"], kgather._cols(a["table"], 0)),
+                 "csr_gather_batched": lambda a: (a["capacity"], kgather._cols(a["table"], 0)),
+                 "bucket_probe_layer": lambda a: (a["rq"].shape[0] * a["rq"].shape[1], 1),
+                 "bucket_probe": lambda a: (a["q"].numel(), 1)}
+        for name in fns:
+            n, width = sizes[name](inputs[name])
+            resolved[name]["tuned"] = common.resolve_block_rows(TOOLING_KERNELS[name], n=n,
+                                                                width=width)
+        rows = check_kernels({"inputs": lambda: inputs, "result": {
+            "path": "autotune", "shards": 1, "launches": launches}}, device, log)
+        for row in rows:
+            r = resolved[row["name"]]
+            row.update(block_rows=r["tuned"], default_block_rows=r["default"],
+                       default_ms=r["default_ms"])
+            log(f"tooling: {row['name']} tuned block_rows={r['tuned']} {row['ms']} ms, default "
+                f"block_rows={r['default']} {r['default_ms']} ms, bound {row['bound_ms']} ms "
+                f"({row['bound_by']}), launches {row['launches']} ({smi})")
+        del inputs, fns
+        gc.collect()
+        torch.cuda.empty_cache()
+        dry = finish_dryrun(procs, out_dir, log)
+    finally:
+        autotune.clear_cache()
+        for _, proc, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(out_dir, ignore_errors=True)
+    result = {"path": "tooling", "sweep_s": sweep_s, "sweep": records, "resolved": resolved,
+              "dryrun": dry, "run_s": time.perf_counter() - t0}
+    log(f"run tooling: {result['run_s']:.1f} s (the sweep {sweep_s:.1f} s, the relaunches and "
+        f"their checks, the dry run; {smi})")
+    return {"rows": rows, "result": result}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--keys", type=int, default=1 << 27,
@@ -7184,15 +7480,16 @@ def main(argv=None) -> int:
     build.library()
     log(f"kernels built from {build.CSRC} in {time.perf_counter() - t0:.1f} s")
     log("kernel bucket_probe build: " + json.dumps(ptxas_report(
-        "bucket_probe.cu", r"\d(probe_(?:layer|windows)_kernel)I(?:Lb(\d)E)?([ix])E")))
+        "bucket_probe.cu", r"\d(probe_(?:layer|windows)_kernel)ILi(\d+)E(?:Lb(\d)E)?([ix])E")))
     log("kernel csr_gather build: " + json.dumps(
-        ptxas_report("csr_gather.cu", r"\d(gather_tiles)ILi(\d)E")))
+        ptxas_report("csr_gather.cu", r"\d(gather_tiles)ILi(\d+)ELi(\d)E")))
     log("kernel murmur_hash build: " + json.dumps(
         ptxas_report("murmur.cu", r"\d(murmur_hash_kernel)ILi(\d)ELb(\d)ELb(\d)E")))
     run_path(1, 1 << 14, args.seed, device, lambda m: None)  # warm-up at a small size
     run_update_path(8, 1 << 17, args.seed, device, lambda m: None, skew=False)
 
     rows, paths, profiled = [], [], {}
+    tooling_inputs = {}  # host copies of the D = 1 runs' inputs of kernels 1-5 (the tooling phase)
     wide_read = functools.partial(run_path, wide=True)
     wide_update = functools.partial(run_update_path, wide=True)
     for runner, shards, n_keys, phases in (
@@ -7211,6 +7508,11 @@ def main(argv=None) -> int:
         run["result"]["run_s"] = time.perf_counter() - t_run
         log(f"run {run['result']['path']} D={shards}: {run['result']['run_s']:.1f} s "
             "(the run, its oracles and its kernel checks)")
+        if shards == 1 and runner in (run_path, run_update_path):
+            wanted = READ_PATH_KERNELS + PALLAS_GATHERS if runner is run_path else \
+                ("bucket_probe_layer", "bucket_probe")
+            tooling_inputs.update(moved({k: v for k, v in run["inputs"]().items()
+                                         if k in wanted}, torch.device("cpu")))
         if args.profile and phases is not None:
             key = f"{run['result']['path']} D={shards}"
             profiled[key] = profile_phases(phases(run), device)
@@ -7378,6 +7680,11 @@ def main(argv=None) -> int:
         del out
         gc.collect()
         torch.cuda.empty_cache()
+    # The tooling: the autotuner on the card, the tuned relaunches, the dry run.
+    tooling = run_tooling(args.seed, device, log, tooling_inputs)
+    del tooling_inputs
+    rows += tooling["rows"]
+    paths.append(tooling["result"])
     kernels = {"kernels": [{k: row[k] for k in (
         "name", "path", "shards", "route", "source", "replaces", "launches", "max_abs_err", "ms",
         "plain_ms", "bound_ms", "bound_by", "library_ms")} for row in rows]}

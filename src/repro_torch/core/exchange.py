@@ -118,10 +118,10 @@ def _count_as(label: str, buffers) -> None:
     counting.record_round(label, nbytes)
 
 
-def _count_reduction(kind: str) -> None:
+def _count_reduction(kind: str, x: Optional[torch.Tensor] = None, group: int = 0) -> None:
     with _calls_lock:
         REDUCTIONS[kind] += 1
-    counting.record_collective(kind)
+    counting.record_collective(kind, 0 if x is None else x.numel() * x.element_size(), group)
 
 
 # ---------------------------------------------------------------------------
@@ -296,15 +296,15 @@ class ProcessGroup:
         return wire.to(t.device) if self._staged(t) else wire
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
-        _count_reduction("psum")
+        _count_reduction("psum", x, self.size)
         return self._all_reduce(x, "sum")
 
     def pmax(self, x: torch.Tensor) -> torch.Tensor:
-        _count_reduction("pmax")
+        _count_reduction("pmax", x, self.size)
         return self._all_reduce(x, "max")
 
     def agree(self, values: Sequence[int]) -> tuple:
-        _count_reduction("agree")
+        _count_reduction("agree", None, self.size)
         t = torch.tensor([int(v) for v in values], dtype=torch.int64, device=self.host_device)
         return tuple(int(v) for v in self._all_reduce(t, "max").tolist())
 
@@ -318,7 +318,7 @@ class ProcessGroup:
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """This rank's ``(1, ...)`` rows → every rank's, ``(size, ...)`` in
         rank order (one ``all_gather``, counted as ``"all_gather"``)."""
-        _count_reduction("all_gather")
+        _count_reduction("all_gather", x, self.size)
         if x.shape[0] != 1:
             raise ValueError(f"all_gather takes (1, ...) rows, got {tuple(x.shape)}")
         wire = self._to_wire(x.contiguous())

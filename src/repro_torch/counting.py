@@ -23,6 +23,12 @@ A backward pass on the card runs on autograd's own thread, which no scope
 of the caller sees: :data:`PROCESS` counts every thread's collectives
 (under a lock), as ``kernels.build.LAUNCHES`` counts every launch; a train
 step reads it (``launch/train_run.py``).
+
+Each collective also adds its wire bytes (``collective_wire``) by the
+reference dry run's model for a group of ``group`` ranks
+(:func:`wire_bytes`), and a kernel traced on the meta device (the dry run,
+``launch/dryrun.py``) records the work its launch would do
+(:func:`record_kernel`: ``kernel_flops``, ``kernel_bytes``).
 """
 from __future__ import annotations
 
@@ -44,6 +50,9 @@ class Scope:
     launches: collections.Counter = dataclasses.field(default_factory=collections.Counter)
     collectives: collections.Counter = dataclasses.field(default_factory=collections.Counter)
     collective_bytes: collections.Counter = dataclasses.field(default_factory=collections.Counter)
+    collective_wire: collections.Counter = dataclasses.field(default_factory=collections.Counter)
+    kernel_flops: collections.Counter = dataclasses.field(default_factory=collections.Counter)
+    kernel_bytes: collections.Counter = dataclasses.field(default_factory=collections.Counter)
 
     @property
     def exchange_rounds(self) -> int:
@@ -86,15 +95,51 @@ def record_round(label: str, nbytes: int) -> None:
         scope.round_bytes[label] += int(nbytes)
 
 
-def record_collective(kind: str, nbytes: int = 0) -> None:
+def wire_bytes(kind: str, nbytes: int, group: int) -> float:
+    """Bytes one rank puts on the wire for a collective whose input on the
+    rank is ``nbytes`` long, over ``group`` ranks: the reference dry run's
+    model (``repro/launch/dryrun.py``, ``parse_collectives``) in terms of
+    its output ``out`` -- all-gather ``out (g-1)/g`` (``out = g nbytes``),
+    reduce-scatter ``out (g-1)`` (``out = nbytes / g``), all-reduce
+    ``out 2(g-1)/g``, all-to-all ``out (g-1)/g``, a permute ``out``.  A
+    broadcast, absent from the reference's list, is charged ``out``, as a
+    permute (every rank but the root receives it once); the table's
+    reductions (``"psum"``, ``"pmax"``, ``"agree"``) are all-reduces."""
+    g = int(group)
+    if g <= 1:
+        return 0.0
+    n = float(nbytes)
+    if kind == "all_gather":
+        return n * (g - 1)
+    if kind in ("reduce_scatter", "all_to_all"):
+        return n * (g - 1) / g
+    if kind in ("all_reduce", "psum", "pmax", "agree"):
+        return n * 2 * (g - 1) / g
+    return n  # ppermute, broadcast
+
+
+def record_collective(kind: str, nbytes: int = 0, group: int = 0) -> None:
     """One collective of a process group (``"psum"``, ``"pmax"``, ``"agree"``,
-    ...) whose input on this rank is ``nbytes`` long."""
+    ...) whose input on this rank is ``nbytes`` long, over ``group`` ranks
+    (0: not known; no wire bytes)."""
+    wire = wire_bytes(kind, nbytes, group)
     with _lock:
         PROCESS.collectives[kind] += 1
         PROCESS.collective_bytes[kind] += int(nbytes)
+        PROCESS.collective_wire[kind] += wire
     for scope in _scopes():
         scope.collectives[kind] += 1
         scope.collective_bytes[kind] += int(nbytes)
+        scope.collective_wire[kind] += wire
+
+
+def record_kernel(name: str, flops: float, nbytes: float) -> None:
+    """The work one launch of kernel ``name`` does (its FLOPs and the bytes it
+    reads and writes), where the launch is traced and not run (the meta
+    device)."""
+    for scope in _scopes():
+        scope.kernel_flops[name] += flops
+        scope.kernel_bytes[name] += nbytes
 
 
 def record_launch(name: str) -> None:

@@ -79,7 +79,9 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+// A CTA's threads are a template parameter (128 or 256, for
+// __launch_bounds__), so its tile of slots, kThreads * kSlots, is
+// block_rows = kThreads / 32 rows of 128 slots (4 or 8; 8 by default).
 constexpr int kSlots = 4;       // routed slots a thread takes: one int4 of each slot array
 constexpr int kFirstWords = 6;  // window words of every slot in flight before a compare
 
@@ -194,7 +196,7 @@ __device__ __forceinline__ void count_windows(const W* table, long long len,
 }
 
 // The Pallas interface: windows given as starts and ends.
-template <typename W>
+template <int kThreads, typename W>
 __global__ void __launch_bounds__(kThreads)
     probe_windows_kernel(const int32_t* __restrict__ starts, const int32_t* __restrict__ ends,
                          const W* __restrict__ q, const W* __restrict__ table,
@@ -222,7 +224,7 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // The table's path: one layer of the stack, windows found here.
-template <bool kMatch, typename W>
+template <int kThreads, bool kMatch, typename W>
 __global__ void __launch_bounds__(kThreads)
     probe_layer_kernel(const W* __restrict__ rq, const int32_t* __restrict__ rh,
                        const int32_t* __restrict__ lo, const int32_t* __restrict__ match_e,
@@ -267,28 +269,28 @@ __global__ void __launch_bounds__(kThreads)
   store_slots(total + at, valid, count);
 }
 
-dim3 slot_grid(long long n, int num_shards) {
+dim3 slot_grid(long long n, int num_shards, int block) {
   const long long threads = (n + kSlots - 1) / kSlots;
-  return dim3(static_cast<unsigned>((threads + kThreads - 1) / kThreads),
+  return dim3(static_cast<unsigned>((threads + block - 1) / block),
               static_cast<unsigned>(num_shards));
 }
 
-template <typename W>
+template <int kThreads, typename W>
 void launch_windows(const void* starts, const void* ends, const void* q, const void* table,
                     long long n, long long table_len, int num_shards, int max_probe, void* out,
                     cudaStream_t st) {
-  probe_windows_kernel<W><<<slot_grid(n, num_shards), kThreads, 0, st>>>(
+  probe_windows_kernel<kThreads, W><<<slot_grid(n, num_shards, kThreads), kThreads, 0, st>>>(
       static_cast<const int32_t*>(starts), static_cast<const int32_t*>(ends),
       static_cast<const W*>(q), static_cast<const W*>(table), n, table_len, max_probe,
       static_cast<int32_t*>(out));
 }
 
-template <typename W>
+template <int kThreads, typename W>
 void launch_layer(const void* rq, const void* rh, const void* lo, const void* match_e,
                   const void* offsets, const void* keys, long long n, long long keys_len,
                   int num_shards, int table_size, int stride, int epoch, int max_probe,
                   int accumulate, void* total, cudaStream_t st) {
-  const dim3 grid = slot_grid(n, num_shards);
+  const dim3 grid = slot_grid(n, num_shards, kThreads);
   const auto* rq_p = static_cast<const W*>(rq);
   const auto* rh_p = static_cast<const int32_t*>(rh);
   const auto* lo_p = static_cast<const int32_t*>(lo);
@@ -297,33 +299,65 @@ void launch_layer(const void* rq, const void* rh, const void* lo, const void* ma
   const auto* keys_p = static_cast<const W*>(keys);
   auto* out = static_cast<int32_t*>(total);
   if (match_e != nullptr) {
-    probe_layer_kernel<true, W><<<grid, kThreads, 0, st>>>(rq_p, rh_p, lo_p, e_p, off_p, keys_p,
-                                                           n, keys_len, table_size, stride,
-                                                           epoch, max_probe, accumulate, out);
+    probe_layer_kernel<kThreads, true, W><<<grid, kThreads, 0, st>>>(
+        rq_p, rh_p, lo_p, e_p, off_p, keys_p, n, keys_len, table_size, stride, epoch,
+        max_probe, accumulate, out);
   } else {
-    probe_layer_kernel<false, W><<<grid, kThreads, 0, st>>>(rq_p, rh_p, lo_p, e_p, off_p,
-                                                            keys_p, n, keys_len, table_size,
-                                                            stride, epoch, max_probe,
-                                                            accumulate, out);
+    probe_layer_kernel<kThreads, false, W><<<grid, kThreads, 0, st>>>(
+        rq_p, rh_p, lo_p, e_p, off_p, keys_p, n, keys_len, table_size, stride, epoch,
+        max_probe, accumulate, out);
+  }
+}
+
+template <int kThreads>
+void windows_lanes(const void* starts, const void* ends, const void* q, const void* table,
+                   long long n, long long table_len, int num_shards, int max_probe, int lanes,
+                   void* out, cudaStream_t st) {
+  if (lanes == 1) {
+    launch_windows<kThreads, int32_t>(starts, ends, q, table, n, table_len, num_shards,
+                                      max_probe, out, st);
+  } else {
+    launch_windows<kThreads, long long>(starts, ends, q, table, n, table_len, num_shards,
+                                        max_probe, out, st);
+  }
+}
+
+template <int kThreads>
+void layer_lanes(const void* rq, const void* rh, const void* lo, const void* match_e,
+                 const void* offsets, const void* keys, long long n, long long keys_len,
+                 int num_shards, int table_size, int stride, int epoch, int max_probe,
+                 int accumulate, int lanes, void* total, cudaStream_t st) {
+  if (lanes == 1) {
+    launch_layer<kThreads, int32_t>(rq, rh, lo, match_e, offsets, keys, n, keys_len,
+                                    num_shards, table_size, stride, epoch, max_probe,
+                                    accumulate, total, st);
+  } else {
+    launch_layer<kThreads, long long>(rq, rh, lo, match_e, offsets, keys, n, keys_len,
+                                      num_shards, table_size, stride, epoch, max_probe,
+                                      accumulate, total, st);
   }
 }
 
 }  // namespace
 
+// Both entries take `threads`, a CTA's threads: 128 or 256 (the default).
 // lanes: 1 (4-byte keys) or 2 (8-byte keys: two int32 lanes, 8-byte aligned);
 // q and table hold words of that size, table_len counts words.
 extern "C" int bucket_probe(const void* starts, const void* ends, const void* q,
                             const void* table, long long n, long long table_len,
-                            int num_shards, int max_probe, int lanes, void* out, void* stream) {
-  if (lanes != 1 && lanes != 2) return static_cast<int>(cudaErrorInvalidValue);
+                            int num_shards, int max_probe, int lanes, int threads, void* out,
+                            void* stream) {
+  if ((lanes != 1 && lanes != 2) || (threads != 128 && threads != 256)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (n > 0 && num_shards > 0) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (lanes == 1) {
-      launch_windows<int32_t>(starts, ends, q, table, n, table_len, num_shards, max_probe, out,
-                              st);
+    if (threads == 128) {
+      windows_lanes<128>(starts, ends, q, table, n, table_len, num_shards, max_probe, lanes,
+                         out, st);
     } else {
-      launch_windows<long long>(starts, ends, q, table, n, table_len, num_shards, max_probe,
-                                out, st);
+      windows_lanes<256>(starts, ends, q, table, n, table_len, num_shards, max_probe, lanes,
+                         out, st);
     }
   }
   return static_cast<int>(cudaGetLastError());
@@ -334,16 +368,19 @@ extern "C" int bucket_probe_layer(const void* rq, const void* rh, const void* lo
                                   const void* match_e, const void* offsets, const void* keys,
                                   long long n, long long keys_len, int num_shards,
                                   int table_size, int stride, int epoch, int max_probe,
-                                  int accumulate, int lanes, void* total, void* stream) {
-  if (lanes != 1 && lanes != 2) return static_cast<int>(cudaErrorInvalidValue);
+                                  int accumulate, int lanes, int threads, void* total,
+                                  void* stream) {
+  if ((lanes != 1 && lanes != 2) || (threads != 128 && threads != 256)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (n > 0 && num_shards > 0) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (lanes == 1) {
-      launch_layer<int32_t>(rq, rh, lo, match_e, offsets, keys, n, keys_len, num_shards,
-                            table_size, stride, epoch, max_probe, accumulate, total, st);
+    if (threads == 128) {
+      layer_lanes<128>(rq, rh, lo, match_e, offsets, keys, n, keys_len, num_shards, table_size,
+                       stride, epoch, max_probe, accumulate, lanes, total, st);
     } else {
-      launch_layer<long long>(rq, rh, lo, match_e, offsets, keys, n, keys_len, num_shards,
-                              table_size, stride, epoch, max_probe, accumulate, total, st);
+      layer_lanes<256>(rq, rh, lo, match_e, offsets, keys, n, keys_len, num_shards, table_size,
+                       stride, epoch, max_probe, accumulate, lanes, total, st);
     }
   }
   return static_cast<int>(cudaGetLastError());

@@ -34,7 +34,7 @@
 // and source word are resolved once; then its C words move together: one
 // 16-byte load and store for C = 4 (the wrapper keeps table bases 16-byte
 // aligned), a loop over the columns for other C.  C = 1 is the
-// instantiation the 1-column table has always run (`gather_tiles<1>`).  The
+// instantiation the 1-column table has always run (`gather_tiles<kThreads, 1>`).  The
 // reference gathers its columns through the same row ids after the kernel
 // (src/repro/kernels/ops.py:176-212).
 //
@@ -80,11 +80,13 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+// A CTA's threads are a template parameter (kThreads: 128, 256 or 512; the
+// register arrays and __launch_bounds__ need it at compile time), so its
+// tile of output slots, kThreads * kSlots, is block_rows = kThreads / 16
+// rows of 128 slots (8, 16 or 32; 16 by default).
 constexpr int kVec = 4;                            // consecutive slots: one 16-byte store
 constexpr int kGroups = 2;                         // groups of kVec slots a thread
 constexpr int kSlots = kVec * kGroups;
-constexpr int kTile = kThreads * kSlots;           // output slots a CTA
 constexpr int kStage = 4096;                       // staged offsets (16 KB)
 
 struct Args {
@@ -233,7 +235,7 @@ __device__ __forceinline__ void store_rows(const Args& g, const RowOffsets<kStag
 
 // Resolve and store this thread's kSlots slots of the tile.  kCols: the
 // table's columns (0: g.cols, any number, in a loop).
-template <bool kStaged, int kCols>
+template <int kThreads, bool kStaged, int kCols>
 __device__ __forceinline__ void gather_slots(const Args& g, int b,
                                              const RowOffsets<kStaged>& s, int ns,
                                              int p0, int p_end, int valid_end) {
@@ -354,9 +356,10 @@ __device__ __forceinline__ void gather_slots(const Args& g, int b,
   }
 }
 
-template <int kCols>
+template <int kThreads, int kCols>
 __global__ void __launch_bounds__(kThreads)
 gather_tiles(const Args g) {
+  constexpr int kTile = kThreads * kSlots;  // output slots a CTA
   __shared__ int stage[kStage];
   __shared__ int tile_rows[2];
   const int b = blockIdx.x / g.tiles;
@@ -388,7 +391,7 @@ gather_tiles(const Args g) {
   const int valid_end = static_cast<int>(total < p_end ? total : p_end);
   if (valid_end <= p0) {  // past the total: fill only
     RowOffsets<true> none{stage, sums, 0};
-    gather_slots<true, kCols>(g, b, none, 0, p0, p_end, p0);
+    gather_slots<kThreads, true, kCols>(g, b, none, 0, p0, p_end, p0);
     return;
   }
   const int warp = threadIdx.x >> 5;
@@ -402,8 +405,8 @@ gather_tiles(const Args g) {
   const int r0 = tile_rows[0];
   const int ns = tile_rows[1] - r0 + 1;  // rows r0 .. r1; s(ns) is row r1's end
   if (ns + 1 > kStage) {
-    gather_slots<false, kCols>(g, b, RowOffsets<false>{stage, sums, r0}, ns, p0, p_end,
-                               valid_end);
+    gather_slots<kThreads, false, kCols>(g, b, RowOffsets<false>{stage, sums, r0}, ns, p0,
+                                         p_end, valid_end);
     return;
   }
   constexpr int kUnroll = 4;
@@ -421,30 +424,47 @@ gather_tiles(const Args g) {
     }
   }
   __syncthreads();
-  gather_slots<true, kCols>(g, b, RowOffsets<true>{stage, sums, r0}, ns, p0, p_end, valid_end);
+  gather_slots<kThreads, true, kCols>(g, b, RowOffsets<true>{stage, sums, r0}, ns, p0, p_end,
+                                      valid_end);
 }
 
-int launch(const Args& a, void* stream) {
+template <int kThreads>
+void launch_cols(const Args& a, dim3 blocks, cudaStream_t st) {
+  if (a.cols == 1) {
+    gather_tiles<kThreads, 1><<<blocks, kThreads, 0, st>>>(a);
+  } else if (a.cols == 4) {
+    gather_tiles<kThreads, 4><<<blocks, kThreads, 0, st>>>(a);
+  } else {
+    gather_tiles<kThreads, 0><<<blocks, kThreads, 0, st>>>(a);
+  }
+}
+
+bool valid_threads(int threads) { return threads == 128 || threads == 256 || threads == 512; }
+
+int tiles_for(long long capacity, int threads) {
+  const long long tile = static_cast<long long>(threads) * kSlots;
+  const long long tiles = (capacity + tile - 1) / tile;
+  return static_cast<int>(tiles < 1 ? 1 : (tiles > INT_MAX ? INT_MAX : tiles));
+}
+
+// a.tiles is set here from the capacity and the CTA's threads.
+int launch(Args a, int threads, void* stream) {
+  if (!valid_threads(threads) || a.cols < 1) return static_cast<int>(cudaErrorInvalidValue);
+  a.tiles = tiles_for(a.cap, threads);
   if (a.num_blocks > 0) {
     const long long grid = static_cast<long long>(a.tiles) * a.num_blocks;
     if (grid > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
-    if (a.cols < 1) return static_cast<int>(cudaErrorInvalidValue);
     const dim3 blocks(static_cast<unsigned>(grid));
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (a.cols == 1) {
-      gather_tiles<1><<<blocks, kThreads, 0, st>>>(a);
-    } else if (a.cols == 4) {
-      gather_tiles<4><<<blocks, kThreads, 0, st>>>(a);
+    if (threads == 128) {
+      launch_cols<128>(a, blocks, st);
+    } else if (threads == 256) {
+      launch_cols<256>(a, blocks, st);
     } else {
-      gather_tiles<0><<<blocks, kThreads, 0, st>>>(a);
+      launch_cols<512>(a, blocks, st);
     }
   }
   return static_cast<int>(cudaGetLastError());
-}
-
-int tiles_for(long long capacity) {
-  const long long tiles = (capacity + kTile - 1) / kTile;
-  return static_cast<int>(tiles < 1 ? 1 : (tiles > INT_MAX ? INT_MAX : tiles));
 }
 
 // The Pallas functions' interface: exclusive offsets (S, num_rows + 1); a
@@ -452,7 +472,7 @@ int tiles_for(long long capacity) {
 int pallas_interface(const void* offsets, const void* starts, const void* table,
                      long long table_len, int cols, void* vals, void* rows,
                      long long capacity, int num_rows, int num_sources, int fill,
-                     void* stream) {
+                     int threads, void* stream) {
   Args a{};
   a.incl = static_cast<const int32_t*>(offsets) + 1;
   a.incl_stride = static_cast<long long>(num_rows) + 1;
@@ -467,27 +487,28 @@ int pallas_interface(const void* offsets, const void* starts, const void* table,
   a.num_blocks = capacity > 0 ? num_sources : 0;
   a.owners_div = 1;
   a.num_layers = 1;
-  a.tiles = tiles_for(capacity);
   a.fill = fill;
-  return launch(a, stream);
+  return launch(a, threads, stream);
 }
 
 }  // namespace
 
+// Every entry takes `threads`, a CTA's threads: 128, 256 (the default) or 512.
 // table (table_len, cols) int32; vals (capacity, cols); rows (capacity,).
 extern "C" int csr_gather(const void* offsets, const void* starts, const void* table,
                           long long table_len, int cols, void* vals, void* rows,
-                          long long capacity, int num_rows, int fill, void* stream) {
+                          long long capacity, int num_rows, int fill, int threads,
+                          void* stream) {
   return pallas_interface(offsets, starts, table, table_len, cols, vals, rows, capacity,
-                          num_rows, 1, fill, stream);
+                          num_rows, 1, fill, threads, stream);
 }
 
 extern "C" int csr_gather_batched(const void* offsets, const void* starts,
                                   const void* table, long long table_len, int cols,
                                   void* vals, void* rows, long long capacity, int num_rows,
-                                  int num_sources, int fill, void* stream) {
+                                  int num_sources, int fill, int threads, void* stream) {
   return pallas_interface(offsets, starts, table, table_len, cols, vals, rows, capacity,
-                          num_rows, num_sources, fill, stream);
+                          num_rows, num_sources, fill, threads, stream);
 }
 
 // Owner side: slot_incl (D_o, D_s, R) flat inclusive sums of the slots'
@@ -498,7 +519,7 @@ extern "C" int csr_gather_batched(const void* offsets, const void* starts,
 extern "C" int csr_gather_owners(const void* slot_incl, const void* starts, const void* counts,
                                  const void* layer_tables, int num_layers, int num_owners,
                                  int num_sources, int num_rows, int cols, void* seg,
-                                 void* dropped, long long seg_capacity, int fill,
+                                 void* dropped, long long seg_capacity, int fill, int threads,
                                  void* stream) {
   if (num_layers < 1) return static_cast<int>(cudaErrorInvalidValue);
   Args a{};
@@ -515,9 +536,8 @@ extern "C" int csr_gather_owners(const void* slot_incl, const void* starts, cons
   a.num_blocks = num_owners * num_sources;
   a.owners_div = num_sources;
   a.num_layers = num_layers;
-  a.tiles = tiles_for(seg_capacity);
   a.fill = fill;
-  return launch(a, stream);
+  return launch(a, threads, stream);
 }
 
 // Querier side: incl (D, N) flat inclusive sums of the returned counts; starts
@@ -527,7 +547,8 @@ extern "C" int csr_gather_owners(const void* slot_incl, const void* starts, cons
 extern "C" int csr_gather_queriers(const void* incl, const void* starts, const void* table,
                                    long long table_rows, int cols, void* vals, void* rows,
                                    void* offsets_out, void* dropped, long long capacity,
-                                   int num_rows, int num_queriers, int fill, void* stream) {
+                                   int num_rows, int num_queriers, int fill, int threads,
+                                   void* stream) {
   Args a{};
   a.incl = static_cast<const int32_t*>(incl);
   a.incl_stride = num_rows;
@@ -545,7 +566,6 @@ extern "C" int csr_gather_queriers(const void* incl, const void* starts, const v
   a.num_blocks = num_queriers;
   a.owners_div = 1;
   a.num_layers = 1;
-  a.tiles = tiles_for(capacity);
   a.fill = fill;
-  return launch(a, stream);
+  return launch(a, threads, stream);
 }

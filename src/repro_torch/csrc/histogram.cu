@@ -54,11 +54,15 @@ __global__ void bin_histogram_kernel(const int32_t* __restrict__ bins, long long
 }  // namespace
 
 // bins must be 16-byte aligned; hist is zeroed here before the launch.
+// threads: a block's threads, a multiple of 32 up to 1024 (512 by default:
+// the resolver's block_rows x 32, a CTA's vector loads covering block_rows
+// rows of 128 ids).
 extern "C" int bin_histogram(const void* bins, long long n, void* hist, int num_bins,
-                             void* stream) {
+                             int threads, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t smem = static_cast<size_t>(num_bins) * sizeof(int32_t);
-  if (num_bins <= 0 || smem > static_cast<size_t>(kMaxSharedBytes)) {
+  if (num_bins <= 0 || smem > static_cast<size_t>(kMaxSharedBytes) || threads < 32 ||
+      threads > 1024 || threads % 32) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaMemsetAsync(hist, 0, smem, s);
@@ -70,7 +74,6 @@ extern "C" int bin_histogram(const void* bins, long long n, void* hist, int num_
                                static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const int threads = 512;
   int device = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&device);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);

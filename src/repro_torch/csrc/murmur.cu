@@ -21,7 +21,10 @@
 // written once (4 bytes); the ~20 integer operations per key are far below the
 // card's integer rate.  Design: an elementwise grid-stride loop, 16-byte
 // (uint4 / int4) loads and stores on the aligned body so each thread moves four
-// keys per memory instruction, a scalar loop for the tail.  The intermediate
+// keys per memory instruction, a scalar loop for the tail.  A block's threads
+// are a launch argument (the resolver's block_rows x 32: a CTA's tile is
+// block_rows rows of 128 words, as a Pallas grid step's was); the default is
+// 256.  The intermediate
 // 32-bit hash never leaves registers (the fusion the TPU kernel makes in VMEM).
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -133,13 +136,26 @@ __global__ void murmur_hash_kernel(const uint32_t* __restrict__ keys,
   }
 }
 
+// Blocks of `threads` threads (a CTA's tile: `threads` 16-byte vectors, i.e.
+// block_rows = threads / 32 rows of 128 words), enough for one vector a
+// thread, the grid capped at 132 x 16 blocks of 256 threads' worth of
+// threads (the grid-stride loop takes the rest).
+long long grid_for(long long vectors, int threads) {
+  constexpr long long kMaxThreads = 132LL * 16 * 256;
+  long long blocks = (vectors + threads - 1) / threads;
+  if (blocks < 1) blocks = 1;
+  if (blocks > kMaxThreads / threads) blocks = kMaxThreads / threads;
+  return blocks;
+}
+
+bool valid_threads(int threads) {
+  return threads >= 32 && threads <= 1024 && threads % 32 == 0;
+}
+
 template <int L, bool kBucket, bool kFp>
 void launch_hash(const void* keys, void* bucket, void* fp, long long n, unsigned seed,
-                 unsigned fp_seed, unsigned table_size, cudaStream_t stream) {
-  const int threads = 256;
-  long long blocks = (n / (4 / L) + threads - 1) / threads;
-  if (blocks < 1) blocks = 1;
-  if (blocks > 132 * 16) blocks = 132 * 16;
+                 unsigned fp_seed, unsigned table_size, int threads, cudaStream_t stream) {
+  const long long blocks = grid_for(n / (4 / L), threads);
   murmur_hash_kernel<L, kBucket, kFp><<<static_cast<unsigned>(blocks), threads, 0, stream>>>(
       static_cast<const uint32_t*>(keys), static_cast<int32_t*>(bucket),
       static_cast<int32_t*>(fp), n, seed, fp_seed, table_size);
@@ -147,26 +163,25 @@ void launch_hash(const void* keys, void* bucket, void* fp, long long n, unsigned
 
 template <int L>
 void launch_lanes(const void* keys, void* bucket, void* fp, long long n, unsigned seed,
-                  unsigned fp_seed, unsigned table_size, cudaStream_t stream) {
+                  unsigned fp_seed, unsigned table_size, int threads, cudaStream_t stream) {
   if (bucket != nullptr && fp != nullptr) {
-    launch_hash<L, true, true>(keys, bucket, fp, n, seed, fp_seed, table_size, stream);
+    launch_hash<L, true, true>(keys, bucket, fp, n, seed, fp_seed, table_size, threads, stream);
   } else if (bucket != nullptr) {
-    launch_hash<L, true, false>(keys, bucket, fp, n, seed, fp_seed, table_size, stream);
+    launch_hash<L, true, false>(keys, bucket, fp, n, seed, fp_seed, table_size, threads, stream);
   } else {
-    launch_hash<L, false, true>(keys, bucket, fp, n, seed, fp_seed, table_size, stream);
+    launch_hash<L, false, true>(keys, bucket, fp, n, seed, fp_seed, table_size, threads, stream);
   }
 }
 
 }  // namespace
 
-// keys and out must be 16-byte aligned (fresh PyTorch allocations are).
+// keys and out must be 16-byte aligned (fresh PyTorch allocations are);
+// threads: a block's threads, a multiple of 32 up to 1024 (256 by default).
 extern "C" int murmur_bucket(const void* keys, void* out, long long n,
-                             unsigned seed, unsigned table_size, void* stream) {
+                             unsigned seed, unsigned table_size, int threads, void* stream) {
+  if (!valid_threads(threads)) return static_cast<int>(cudaErrorInvalidValue);
   if (n > 0) {
-    const int threads = 256;
-    long long blocks = (n / 4 + threads - 1) / threads;
-    if (blocks < 1) blocks = 1;
-    if (blocks > 132 * 16) blocks = 132 * 16;
+    const long long blocks = grid_for(n / 4, threads);
     murmur_bucket_kernel<<<static_cast<unsigned>(blocks), threads, 0,
                            static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint32_t*>(keys), static_cast<int32_t*>(out), n, seed,
@@ -178,16 +193,18 @@ extern "C" int murmur_bucket(const void* keys, void* out, long long n,
 // keys (n, lanes) uint32 words, 16-byte aligned; bucket and fp (n,) int32,
 // either null (not written), 16-byte aligned.  lanes is 1 or 2.
 extern "C" int murmur_hash(const void* keys, void* bucket, void* fp, long long n, int lanes,
-                           unsigned seed, unsigned fp_seed, unsigned table_size, void* stream) {
-  if ((lanes != 1 && lanes != 2) || (bucket == nullptr && fp == nullptr)) {
+                           unsigned seed, unsigned fp_seed, unsigned table_size, int threads,
+                           void* stream) {
+  if ((lanes != 1 && lanes != 2) || (bucket == nullptr && fp == nullptr) ||
+      !valid_threads(threads)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n > 0) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (lanes == 1) {
-      launch_lanes<1>(keys, bucket, fp, n, seed, fp_seed, table_size, st);
+      launch_lanes<1>(keys, bucket, fp, n, seed, fp_seed, table_size, threads, st);
     } else {
-      launch_lanes<2>(keys, bucket, fp, n, seed, fp_seed, table_size, st);
+      launch_lanes<2>(keys, bucket, fp, n, seed, fp_seed, table_size, threads, st);
     }
   }
   return static_cast<int>(cudaGetLastError());

@@ -12,7 +12,7 @@ Every call over an axis of size 1 is the identity and issues nothing
 (a ``ppermute`` gives zeros).  Every other call is counted with
 :func:`repro_torch.counting.record_collective` (``"all_reduce"``,
 ``"all_gather"``, ``"reduce_scatter"``, ``"broadcast"``, ``"all_to_all"``,
-``"ppermute"``) with the bytes of this rank's input.  Over gloo a CUDA
+``"ppermute"``) with the bytes of this rank's input and the axis's size.  Over gloo a CUDA
 buffer is staged through pinned host memory (several ranks may share one
 card), and a reduce-scatter is an all-reduce and a slice: gloo's own
 reduce-scatter took 1.6x its all-reduce on 4 CPU processes.  Sums run in the input's type, as
@@ -103,7 +103,7 @@ class Axis:
             return x
         import torch.distributed as dist
 
-        counting.record_collective("all_reduce", x.numel() * x.element_size())
+        counting.record_collective("all_reduce", x.numel() * x.element_size(), self.size)
         wire = self._wire(x)
         dist.all_reduce(wire, op=dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM,
                         group=self.pg)
@@ -113,7 +113,7 @@ class Axis:
         """Every rank's ``x`` concatenated along ``dim`` in index order."""
         if self.size == 1:
             return x
-        counting.record_collective("all_gather", x.numel() * x.element_size())
+        counting.record_collective("all_gather", x.numel() * x.element_size(), self.size)
         return torch.cat(self._gather_parts(x), dim=dim)
 
     def all_gather_cols(self, xs: Sequence[torch.Tensor]) -> list:
@@ -124,7 +124,7 @@ class Axis:
             return list(xs)
         widths = [x.shape[-1] for x in xs]
         packed = torch.cat(list(xs), dim=-1)
-        counting.record_collective("all_gather", packed.numel() * packed.element_size())
+        counting.record_collective("all_gather", packed.numel() * packed.element_size(), self.size)
         parts = self._gather_parts(packed)
         out, at = [], 0
         for w in widths:
@@ -139,7 +139,7 @@ class Axis:
             return [[x] for x in xs]
         flat = [x.reshape(-1).view(torch.uint8) for x in xs]
         packed = torch.cat(flat)
-        counting.record_collective("all_gather", packed.numel())
+        counting.record_collective("all_gather", packed.numel(), self.size)
         parts = self._gather_parts(packed)
         out, at = [], 0
         for x, f in zip(xs, flat):
@@ -158,7 +158,7 @@ class Axis:
         if n % self.size:
             raise ValueError(f"reduce_scatter: dim {dim} of {tuple(x.shape)} does not divide "
                              f"over {self.size} ranks")
-        counting.record_collective("reduce_scatter", x.numel() * x.element_size())
+        counting.record_collective("reduce_scatter", x.numel() * x.element_size(), self.size)
         block = n // self.size
         if self.backend == "gloo":
             wire = self._wire(x)
@@ -176,7 +176,7 @@ class Axis:
             return x
         import torch.distributed as dist
 
-        counting.record_collective("broadcast", x.numel() * x.element_size())
+        counting.record_collective("broadcast", x.numel() * x.element_size(), self.size)
         wire = self._wire(x)
         dist.broadcast(wire, src=self._global(src), group=self.pg)
         return self._home(wire, x)
@@ -192,7 +192,7 @@ class Axis:
         if x.shape[0] != self.size:
             raise ValueError(f"all_to_all: {tuple(x.shape)} has no row for each of "
                              f"{self.size} ranks")
-        counting.record_collective("all_to_all", x.numel() * x.element_size())
+        counting.record_collective("all_to_all", x.numel() * x.element_size(), self.size)
         wire = self._wire(x.contiguous())
         out = self._buffer(x)
         dist.all_to_all_single(out, wire, group=self.pg)
@@ -206,7 +206,7 @@ class Axis:
             return torch.zeros_like(x)
         import torch.distributed as dist
 
-        counting.record_collective("ppermute", x.numel() * x.element_size())
+        counting.record_collective("ppermute", x.numel() * x.element_size(), self.size)
         dst, src = self.index + shift, self.index - shift
         wire = self._wire(x.contiguous())
         out = self._buffer(x).zero_()

@@ -15,7 +15,9 @@ the same device routine:
 Keys have 1 lane (int32 bits) or 2 (``(..., 2)`` int32 lanes of a uint64
 key, compared as one 8-byte word); ``max_probe`` counts rows either way.
 
-On CUDA tensors each wrapper launches its kernel or raises; on CPU tensors
+Both take ``block_rows`` (None: ``common.resolve_block_rows("bucket_probe",
+...)``, ``n`` the slots, ``width`` the lanes): a CTA's tile, 4 or 8 rows of
+128 slots.  On CUDA tensors each wrapper launches its kernel or raises; on CPU tensors
 it runs its plain twin (:func:`bucket_probe_plain`,
 :func:`bucket_probe_layer_plain`).
 """
@@ -27,7 +29,7 @@ import torch
 
 from repro_torch.core import hashgraph
 from repro_torch.core.hashgraph import key_words
-from repro_torch.kernels import build
+from repro_torch.kernels import build, common
 
 NAME = "bucket_probe"
 LAYER_NAME = "bucket_probe_layer"
@@ -97,6 +99,8 @@ def bucket_probe(
     q: torch.Tensor,
     table: torch.Tensor,
     max_probe: int = 64,
+    *,
+    block_rows: Optional[int] = None,
 ) -> torch.Tensor:
     """int32 match counts of ``q`` in its window ``table[starts:ends]``,
     capped at ``max_probe`` rows; ``(S, N)`` slots take a ``(S, M)`` table
@@ -117,9 +121,11 @@ def bucket_probe(
     if table_len == 0:  # no window can hold a word
         return out.zero_()
     build.require_cuda(NAME, starts, ends, q, table, out)
+    threads = common.launch_threads(NAME, block_rows, n=out.numel(), width=lanes)
     build.launch(
         NAME, starts.data_ptr(), ends.data_ptr(), q.data_ptr(), table.data_ptr(),
-        n, table_len, num_shards, int(max_probe), lanes, out.data_ptr(), build.stream_of(q),
+        n, table_len, num_shards, int(max_probe), lanes, threads, out.data_ptr(),
+        build.stream_of(q),
     )
     return out
 
@@ -200,6 +206,7 @@ def bucket_probe_layer(
     max_probe: int,
     total: torch.Tensor,
     accumulate: bool,
+    block_rows: Optional[int] = None,
 ) -> torch.Tensor:
     """One layer's masked probe counts of a routed batch, into ``total``.
 
@@ -230,10 +237,12 @@ def bucket_probe_layer(
     if n == 0:
         return total
     rq, rh, lo, offsets, keys = operands[:5]
+    threads = common.launch_threads(NAME, block_rows, n=d * n, width=lanes)
     build.launch(
         LAYER_NAME, rq.data_ptr(), rh.data_ptr(), lo.data_ptr(),
         None if match_e is None else operands[5].data_ptr(), offsets.data_ptr(),
         keys.data_ptr(), n, keys.shape[1], d, int(table_size), int(stride), int(epoch),
-        int(max_probe), int(bool(accumulate)), lanes, total.data_ptr(), build.stream_of(rq),
+        int(max_probe), int(bool(accumulate)), lanes, threads, total.data_ptr(),
+        build.stream_of(rq),
     )
     return total

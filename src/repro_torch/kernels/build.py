@@ -44,42 +44,44 @@ _launches_lock = threading.Lock()
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _SIGNATURES = {
-    # keys, out, n, seed, table_size, stream
-    "murmur_bucket": (_P, _P, _I64, ctypes.c_uint, ctypes.c_uint, _P),
+    # keys, out, n, seed, table_size, threads, stream
+    "murmur_bucket": (_P, _P, _I64, ctypes.c_uint, ctypes.c_uint, ctypes.c_int, _P),
     # keys, bucket (null: none), fp (null: none), n, lanes, seed, fp_seed,
-    # table_size, stream
+    # table_size, threads, stream
     "murmur_hash": (
-        _P, _P, _P, _I64, ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_uint, _P,
+        _P, _P, _P, _I64, ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_uint,
+        ctypes.c_int, _P,
     ),
-    # bins, n, hist, num_bins, stream
-    "bin_histogram": (_P, _I64, _P, ctypes.c_int, _P),
+    # bins, n, hist, num_bins, threads, stream
+    "bin_histogram": (_P, _I64, _P, ctypes.c_int, ctypes.c_int, _P),
     # offsets, starts, table, table_len (rows), cols, vals, rows, capacity,
-    # num_rows, fill, stream
+    # num_rows, fill, threads, stream
     "csr_gather": (
-        _P, _P, _P, _I64, ctypes.c_int, _P, _P, _I64, ctypes.c_int, ctypes.c_int, _P,
+        _P, _P, _P, _I64, ctypes.c_int, _P, _P, _I64, *(ctypes.c_int,) * 3, _P,
     ),
     # ... as csr_gather, with num_sources before fill
     "csr_gather_batched": (
-        _P, _P, _P, _I64, ctypes.c_int, _P, _P, _I64, *(ctypes.c_int,) * 3, _P,
+        _P, _P, _P, _I64, ctypes.c_int, _P, _P, _I64, *(ctypes.c_int,) * 4, _P,
     ),
     # slot_incl, starts, counts, layer_tables (L x 3 int64 on the card),
     # num_layers, num_owners, num_sources, num_rows, cols, seg, dropped,
-    # seg_capacity, fill, stream
+    # seg_capacity, fill, threads, stream
     "csr_gather_owners": (
-        _P, _P, _P, _P, *(ctypes.c_int,) * 5, _P, _P, _I64, ctypes.c_int, _P,
+        _P, _P, _P, _P, *(ctypes.c_int,) * 5, _P, _P, _I64, ctypes.c_int, ctypes.c_int, _P,
     ),
     # incl, starts, table, table_rows, cols, vals, rows, offsets_out, dropped,
-    # capacity, num_rows, num_queriers, fill, stream
+    # capacity, num_rows, num_queriers, fill, threads, stream
     "csr_gather_queriers": (
-        _P, _P, _P, _I64, ctypes.c_int, _P, _P, _P, _P, _I64, *(ctypes.c_int,) * 3, _P,
+        _P, _P, _P, _I64, ctypes.c_int, _P, _P, _P, _P, _I64, *(ctypes.c_int,) * 4, _P,
     ),
-    # starts, ends, q, table, n, table_len, num_shards, max_probe, lanes, out,
-    # stream
-    "bucket_probe": (_P, _P, _P, _P, _I64, _I64, *(ctypes.c_int,) * 3, _P, _P),
+    # starts, ends, q, table, n, table_len, num_shards, max_probe, lanes,
+    # threads, out, stream
+    "bucket_probe": (_P, _P, _P, _P, _I64, _I64, *(ctypes.c_int,) * 4, _P, _P),
     # rq, rh, lo, match_e (null: none), offsets, keys, n, keys_len, num_shards,
-    # table_size, stride, epoch, max_probe, accumulate, lanes, total, stream
+    # table_size, stride, epoch, max_probe, accumulate, lanes, threads, total,
+    # stream
     "bucket_probe_layer": (
-        _P, _P, _P, _P, _P, _P, _I64, _I64, *(ctypes.c_int,) * 7, _P, _P,
+        _P, _P, _P, _P, _P, _P, _I64, _I64, *(ctypes.c_int,) * 8, _P, _P,
     ),
     # q, k, v, o, the (batch, head, row) strides of each, nb, hq, sq, skv, d,
     # group, causal, window, scale, is_bf16, stream

@@ -18,18 +18,22 @@ Every table may carry C value columns, ``(..., M, C)`` int32 row-major
 (``(..., M)`` is one column): each output slot then holds its row's C words,
 ``(..., capacity, C)``, found with one row search.
 
-On CUDA tensors the wrappers launch the kernel or raise; on CPU tensors
-they run the plain twins (:func:`gather_plain`,
+Every wrapper takes ``block_rows`` (None: ``common.resolve_block_rows``;
+the Pallas-interface entries under their own names, the owner and querier
+entries under ``csr_gather_batched``, with ``n`` the capacity and
+``width`` the columns): a CTA's tile of output slots, 8, 16 or 32 rows of
+128.  On CUDA tensors the wrappers launch the kernel or raise; on CPU
+tensors they run the plain twins (:func:`gather_plain`,
 :func:`csr_gather_owners_plain`, :func:`csr_gather_queriers_plain`).
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
 from repro_torch.core import hashgraph
-from repro_torch.kernels import build
+from repro_torch.kernels import build, common
 
 SINGLE = "csr_gather"
 BATCHED = "csr_gather_batched"
@@ -162,7 +166,7 @@ def _owner_table(t: torch.Tensor, cols: int) -> torch.Tensor:
     return t if ok else _aligned(t, cols)
 
 
-def _launch(name, offsets, starts, table, capacity, fill, num_sources):
+def _launch(name, offsets, starts, table, capacity, fill, num_sources, block_rows):
     num_rows = starts.shape[-1]
     dev = offsets.device
     cols = _cols(table, 0)
@@ -179,7 +183,8 @@ def _launch(name, offsets, starts, table, capacity, fill, num_sources):
     ]
     if name == BATCHED:
         args.append(num_sources)
-    build.launch(name, *args, int(fill), build.stream_of(offsets))
+    threads = common.launch_threads(name, block_rows, n=capacity, width=cols)
+    build.launch(name, *args, int(fill), threads, build.stream_of(offsets))
     return vals, rows
 
 
@@ -189,6 +194,8 @@ def csr_gather_2d(
     table: torch.Tensor,
     capacity: int,
     fill: int = -1,
+    *,
+    block_rows: Optional[int] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Kernel 3: one CSR.  ``offsets`` ``(N+1,)``, ``starts`` ``(N,)``, a
     ``(M[, C])`` table → values ``(capacity[, C])`` and row ids ``(capacity,)``."""
@@ -197,7 +204,7 @@ def csr_gather_2d(
         return gather_plain(offsets, starts, table, capacity, fill)
     vals, rows = _launch(
         SINGLE, offsets.contiguous(), starts.contiguous(), _aligned(table, _cols(table, 0)),
-        capacity, fill, 1,
+        capacity, fill, 1, block_rows,
     )
     return vals[0], rows[0]
 
@@ -208,6 +215,8 @@ def csr_gather_batched_2d(
     table: torch.Tensor,
     capacity: int,
     fill: int = -1,
+    *,
+    block_rows: Optional[int] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Kernel 4: one CSR per source over a shared ``(M[, C])`` table.
     ``offsets`` ``(S, N+1)``, ``starts`` ``(S, N)`` → values ``(S,
@@ -217,7 +226,7 @@ def csr_gather_batched_2d(
         return gather_plain(offsets, starts, table, capacity, fill)
     return _launch(
         BATCHED, offsets.contiguous(), starts.contiguous(), _aligned(table, _cols(table, 0)),
-        capacity, fill, offsets.shape[0],
+        capacity, fill, offsets.shape[0], block_rows,
     )
 
 
@@ -227,6 +236,8 @@ def csr_gather_owners(
     tables: Sequence[torch.Tensor],
     seg_capacity: int,
     fill: int = -1,
+    *,
+    block_rows: Optional[int] = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Owner-side gather of a retrieve, every owner and layer in one launch.
 
@@ -281,10 +292,11 @@ def csr_gather_owners(
     layer_tables = torch.tensor(
         [[t.data_ptr(), t.stride(0), t.shape[1]] for t in tables], dtype=torch.int64
     ).to(dev, non_blocking=True)
+    threads = common.launch_threads(BATCHED, block_rows, n=seg_capacity, width=cols)
     build.launch(
         OWNERS, slot_incl.data_ptr(), starts.data_ptr(), counts.data_ptr(),
         layer_tables.data_ptr(), nl, d_o, d_s, r, cols, seg.data_ptr(), dropped.data_ptr(),
-        seg_capacity, int(fill), build.stream_of(counts),
+        seg_capacity, int(fill), threads, build.stream_of(counts),
     )
     return seg, dropped, slot_counts
 
@@ -295,6 +307,8 @@ def csr_gather_queriers(
     table: torch.Tensor,
     capacity: int,
     fill: int = -1,
+    *,
+    block_rows: Optional[int] = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Querier-side gather of a retrieve, every querier in one launch.
 
@@ -328,9 +342,11 @@ def csr_gather_queriers(
     vals = torch.empty((d, capacity) + tuple(table.shape[2:]), dtype=torch.int32, device=dev)
     dropped = torch.empty((d,), dtype=torch.int32, device=dev)
     build.require_cuda(QUERIERS, incl, starts, table, offsets, rows, vals, dropped)
+    cols = _cols(table, 1)
+    threads = common.launch_threads(BATCHED, block_rows, n=capacity, width=cols)
     build.launch(
         QUERIERS, incl.data_ptr(), starts.data_ptr(), table.data_ptr(), table.shape[1],
-        _cols(table, 1), vals.data_ptr(), rows.data_ptr(), offsets.data_ptr(),
-        dropped.data_ptr(), capacity, n, d, int(fill), build.stream_of(counts),
+        cols, vals.data_ptr(), rows.data_ptr(), offsets.data_ptr(),
+        dropped.data_ptr(), capacity, n, d, int(fill), threads, build.stream_of(counts),
     )
     return offsets, rows, vals, dropped

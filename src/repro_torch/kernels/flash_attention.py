@@ -22,14 +22,23 @@ forward is the kernel (the twin on the CPU); its backward recomputes
 :func:`flash_attention_plain` from the saved q, k, v under autograd and
 returns that function's vector-Jacobian product.  The reference has no
 backward kernel either: it trains through the einsum attention.
+
+On meta tensors (the dry run, ``launch/dryrun.py``) nothing runs: the
+wrapper records the work one launch does (:func:`kernel_work`: the live
+(query, key) pairs of the causal or windowed mask, not the twin's whole
+score matrix; q, k and v read once, o written once) with
+``counting.record_kernel`` and returns an empty result; the backward
+records a fused backward's work (:func:`backward_work`), not the twin's.
 """
 from __future__ import annotations
 
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
+from repro_torch import counting
 from repro_torch.kernels import build
 
 NAME = "flash_attention"
@@ -53,6 +62,44 @@ def live_mask(sq: int, skv: int, *, causal: bool, window: Optional[int], device)
     elif window is not None:
         mask &= (k_pos - q_pos).abs() < window
     return mask
+
+
+def live_pairs(sq: int, skv: int, *, causal: bool, window: Optional[int]) -> int:
+    """The (query, key) pairs of :func:`live_mask` that hold, counted in
+    closed form per query row (no ``(Sq, Skv)`` mask is made)."""
+    i = np.arange(sq, dtype=np.int64)
+    if causal:
+        hi = np.minimum(i + (skv - sq), skv - 1)
+        lo = np.zeros_like(i) if window is None else np.maximum(i + (skv - sq) - window + 1, 0)
+    elif window is not None:
+        hi = np.minimum(i + window - 1, skv - 1)
+        lo = np.maximum(i - window + 1, 0)
+    else:
+        return sq * skv
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def kernel_work(q_shape, k_shape, elem: int, *, causal: bool, window: Optional[int]) -> tuple:
+    """``(flops, bytes)`` of one launch on q ``(B, Hq, Sq, D)`` over k/v
+    ``(B, Hkv, Skv, D)``: two products of ``D`` a live pair (q·k and p·v,
+    2 FLOPs a multiply-add) for every query head; q, k, v read once and o
+    written once, ``elem`` bytes an element."""
+    b, hq, sq, d = q_shape
+    hkv, skv = k_shape[1], k_shape[2]
+    pairs = live_pairs(sq, skv, causal=causal, window=window)
+    flops = 4.0 * b * hq * pairs * d
+    nbytes = float(elem) * (2 * b * hq * sq * d + 2 * b * hkv * skv * d)
+    return flops, nbytes
+
+
+def backward_work(q_shape, k_shape, elem: int, *, causal: bool, window: Optional[int]) -> tuple:
+    """``(flops, bytes)`` of a fused flash backward: five products a live pair
+    (the scores again, dV, dP, dQ, dK); q, k, v, o and dO read, dQ, dK, dV
+    written."""
+    flops, _ = kernel_work(q_shape, k_shape, elem, causal=causal, window=window)
+    b, hq, sq, d = q_shape
+    hkv, skv = k_shape[1], k_shape[2]
+    return 2.5 * flops, float(elem) * (4 * b * hq * sq * d + 4 * b * hkv * skv * d)
 
 
 def flash_attention_plain(
@@ -151,6 +198,10 @@ def flash_attention_bhsd(
     if out is not None and (out.shape != q.shape or out.dtype != q.dtype or out.device != q.device):
         raise ValueError(f"{NAME}: out must be {tuple(q.shape)} {q.dtype} on {q.device}, got "
                          f"{tuple(out.shape)} {out.dtype} on {out.device}")
+    if q.is_meta:  # traced, not run: the launch's work and an empty result
+        counting.record_kernel(NAME, *kernel_work(q.shape, k.shape, q.element_size(),
+                                                  causal=causal, window=window))
+        return torch.empty_like(q) if out is None else out
     if not build.on_card(NAME, q):
         got = flash_attention_plain(
             q, k, v, causal=causal, window=window, scale=scale, q_heads_per_kv=q_heads_per_kv
@@ -228,6 +279,13 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad_out):
         q, k, v = ctx.saved_tensors
+        if q.is_meta:  # traced: a fused backward's work, empty gradients
+            counting.record_kernel(BACKWARD_RANGE, *backward_work(
+                q.shape, k.shape, q.element_size(), causal=ctx.opts["causal"],
+                window=ctx.opts["window"]))
+            return (*(torch.empty_like(t) if need else None
+                      for t, need in zip((q, k, v), ctx.needs_input_grad[:3])),
+                    None, None, None, None)
         with torch.enable_grad(), torch.profiler.record_function(BACKWARD_RANGE):
             inputs = [t.detach().requires_grad_(need)
                       for t, need in zip((q, k, v), ctx.needs_input_grad[:3])]

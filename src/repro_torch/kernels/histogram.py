@@ -6,9 +6,11 @@ launches the kernel or raises; on a CPU tensor it runs :func:`bin_histogram_plai
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, common
 
 NAME = "bin_histogram"
 # Shared memory one block may opt into on Hopper (227 KB).
@@ -24,8 +26,10 @@ def bin_histogram_plain(bins: torch.Tensor, num_bins: int) -> torch.Tensor:
     return hist[:num_bins].to(torch.int32)
 
 
-def bin_histogram(bins: torch.Tensor, num_bins: int) -> torch.Tensor:
-    """``(num_bins,)`` int32 histogram of the int32 bin ids in ``bins``."""
+def bin_histogram(bins: torch.Tensor, num_bins: int, *,
+                  block_rows: Optional[int] = None) -> torch.Tensor:
+    """``(num_bins,)`` int32 histogram of the int32 bin ids in ``bins``.
+    ``block_rows`` (None: resolved) sets the CTA's tile on the card."""
     if bins.dtype != torch.int32:
         raise TypeError(f"{NAME}: bins must be int32, got {bins.dtype}")
     if num_bins <= 0:
@@ -44,8 +48,9 @@ def bin_histogram(bins: torch.Tensor, num_bins: int) -> torch.Tensor:
         bins = bins.clone()  # the kernel's vector loads need 16-byte alignment
     hist = torch.empty(num_bins, dtype=torch.int32, device=bins.device)
     build.require_cuda(NAME, bins, hist)
+    threads = common.launch_threads("bin_histogram", block_rows, n=bins.numel())
     build.launch(
-        NAME, bins.data_ptr(), bins.numel(), hist.data_ptr(), num_bins,
+        NAME, bins.data_ptr(), bins.numel(), hist.data_ptr(), num_bins, threads,
         build.stream_of(bins),
     )
     return hist

@@ -14,10 +14,12 @@ tensor it runs its plain twin (:func:`murmur_bucket_plain`,
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.core import hashing
-from repro_torch.kernels import build
+from repro_torch.kernels import build, common
 
 NAME = "murmur_bucket"
 HASH_NAME = "murmur_hash"
@@ -31,11 +33,14 @@ def murmur_bucket_plain(
 
 
 def murmur_bucket(
-    keys: torch.Tensor, table_size: int, seed: int = hashing.DEFAULT_SEED
+    keys: torch.Tensor, table_size: int, seed: int = hashing.DEFAULT_SEED, *,
+    block_rows: Optional[int] = None,
 ) -> torch.Tensor:
     """int32 bucket ids ``murmur3(keys, seed) % table_size``, same shape as ``keys``.
 
-    ``keys`` is an int32 tensor holding uint32 bit patterns.
+    ``keys`` is an int32 tensor holding uint32 bit patterns.  ``block_rows``
+    (None: ``common.resolve_block_rows("murmur", ...)``) sets the CTA's tile
+    on the card; the plain twin ignores it.
     """
     hashing.check_table_size(table_size)
     if keys.dtype != torch.int32:
@@ -49,6 +54,7 @@ def murmur_bucket(
     if keys.numel() == 0:
         return out
     build.require_cuda(NAME, keys, out)
+    threads = common.launch_threads("murmur", block_rows, n=keys.numel())
     build.launch(
         NAME,
         keys.data_ptr(),
@@ -56,6 +62,7 @@ def murmur_bucket(
         keys.numel(),
         seed & 0xFFFFFFFF,
         table_size,
+        threads,
         build.stream_of(keys),
     )
     return out
@@ -85,6 +92,7 @@ def murmur_hash(
     lanes: int = 1,
     fingerprint: bool = False,
     buckets: bool = True,
+    block_rows: Optional[int] = None,
 ) -> tuple:
     """``(buckets, fingerprints)`` of ``lanes``-word keys, each int32 of the
     key shape (``keys.shape[:-1]`` for 2 lanes) or None where not asked.
@@ -92,6 +100,8 @@ def murmur_hash(
     ``buckets`` are ``murmur3(keys, seed) % table_size``; ``fingerprints``
     the raw hash under ``FINGERPRINT_SEED`` as int32 bits.  ``keys`` is an
     int32 tensor of uint32 lane bits, ``(...)`` or ``(..., 2)``.
+    ``block_rows`` as :func:`murmur_bucket`'s (resolved with ``width`` the
+    lanes).
     """
     hashing.check_table_size(table_size)
     if keys.dtype != torch.int32:
@@ -105,7 +115,7 @@ def murmur_hash(
         return murmur_hash_plain(keys, table_size, seed, lanes=lanes,
                                  fingerprint=fingerprint, buckets=buckets)
     if lanes == 1 and not fingerprint:
-        return murmur_bucket(keys, table_size, seed), None
+        return murmur_bucket(keys, table_size, seed, block_rows=block_rows), None
     if lanes not in (1, 2):
         raise ValueError(f"{HASH_NAME}: the kernel takes 1 or 2 lanes, got {lanes}")
     keys = keys.contiguous()
@@ -118,9 +128,11 @@ def murmur_hash(
     if keys.numel() == 0:
         return b, f
     build.require_cuda(HASH_NAME, keys, *outs)
+    n = keys.numel() // lanes
+    threads = common.launch_threads("murmur", block_rows, n=n, width=lanes)
     build.launch(
         HASH_NAME, keys.data_ptr(), None if b is None else b.data_ptr(),
-        None if f is None else f.data_ptr(), keys.numel() // lanes, lanes,
-        seed & 0xFFFFFFFF, hashing.FINGERPRINT_SEED, table_size, build.stream_of(keys),
+        None if f is None else f.data_ptr(), n, lanes, seed & 0xFFFFFFFF,
+        hashing.FINGERPRINT_SEED, table_size, threads, build.stream_of(keys),
     )
     return b, f

@@ -15,7 +15,17 @@ table's query path calls kernel 5's layer entry,
 takes ``(B, H, S, D)`` views and runs kernel 6 on them through their
 strides (the reference flattens batch into heads).  ``slstm_recurrence``
 runs kernel 7 on f32 inputs of any length (the reference's ``t_block``
-padding has no counterpart).
+padding has no counterpart).  ``hash_to_buckets`` and ``bin_histogram`` run
+kernels 1 and 2 on flat arrays (the reference's lane padding has no
+counterpart).
+
+Every wrapper of kernels 1-5 takes ``block_rows=None`` where the
+reference's does: left None it resolves through
+:func:`repro_torch.kernels.common.resolve_block_rows` (the autotuned winner
+of :mod:`repro_torch.kernels.autotune` for the call's kernel, width and size
+bucket, else ``common.DEFAULT_BLOCK_ROWS``) at each launch, so a cache
+loaded later takes effect on the next call; on the CPU the plain twins
+ignore it.
 """
 from __future__ import annotations
 
@@ -23,10 +33,37 @@ from typing import Optional, Sequence
 
 import torch
 
+from repro_torch.core import hashing
 from repro_torch.kernels import bucket_probe as _probe
 from repro_torch.kernels import csr_gather as _gather
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import histogram as _hist
+from repro_torch.kernels import murmur as _murmur
 from repro_torch.kernels import slstm as _slstm
+
+
+def hash_to_buckets(
+    keys: torch.Tensor,
+    table_size: int,
+    seed: int = hashing.DEFAULT_SEED,
+    *,
+    block_rows: Optional[int] = None,
+) -> torch.Tensor:
+    """Fused murmur3 + mod of a flat ``(N,)`` key array (int32 bits or
+    ``torch.uint32``) → ``(N,)`` int32: kernel 1."""
+    if keys.dtype == torch.uint32:
+        keys = keys.view(torch.int32)
+    return _murmur.murmur_bucket(keys, table_size, seed, block_rows=block_rows)
+
+
+def bin_histogram(
+    bins: torch.Tensor,
+    num_bins: int,
+    *,
+    block_rows: Optional[int] = None,
+) -> torch.Tensor:
+    """Histogram of ``(N,)`` int32 bin ids → ``(num_bins,)`` int32: kernel 2."""
+    return _hist.bin_histogram(bins.to(torch.int32), num_bins, block_rows=block_rows)
 
 
 def _as_int32_table(table: torch.Tensor) -> tuple[torch.Tensor, bool]:
@@ -51,6 +88,7 @@ def csr_gather(
     *,
     capacity: int,
     fill: int = -1,
+    block_rows: Optional[int] = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """CSR match-run compaction of ``(N,)`` runs into ``capacity`` slots.
 
@@ -61,7 +99,7 @@ def csr_gather(
     table, unsigned = _as_int32_table(table)
     offsets = run_offsets(counts)
     vals, rows = _gather.csr_gather_2d(
-        offsets, starts.to(torch.int32), table, capacity, fill
+        offsets, starts.to(torch.int32), table, capacity, fill, block_rows=block_rows
     )
     if unsigned:
         vals = vals.view(torch.uint32)
@@ -76,6 +114,7 @@ def csr_gather_batched(
     *,
     capacity: int,
     fill: int = -1,
+    block_rows: Optional[int] = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """S CSR gathers over one shared table in one launch.
 
@@ -86,7 +125,7 @@ def csr_gather_batched(
     table, unsigned = _as_int32_table(table)
     offsets = run_offsets(counts)
     vals, rows = _gather.csr_gather_batched_2d(
-        offsets, starts.to(torch.int32), table, capacity, fill
+        offsets, starts.to(torch.int32), table, capacity, fill, block_rows=block_rows
     )
     if unsigned:
         vals = vals.view(torch.uint32)
@@ -104,6 +143,7 @@ def csr_gather_layers(
     *,
     capacity: int,
     fill: int = -1,
+    block_rows: Optional[int] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Owner-side gather across a layer stack: one batched launch for L·S CSRs.
 
@@ -112,7 +152,7 @@ def csr_gather_layers(
     """
     starts_i, counts_i, table_cat = interleave_layer_runs(starts, counts, tables)
     _, _, gathered, num_dropped = csr_gather_batched(
-        starts_i, counts_i, table_cat, capacity=capacity, fill=fill
+        starts_i, counts_i, table_cat, capacity=capacity, fill=fill, block_rows=block_rows
     )
     return gathered, num_dropped
 
@@ -124,6 +164,7 @@ def csr_gather_owners(
     *,
     capacity: int,
     fill: int = -1,
+    block_rows: Optional[int] = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Owner side of a retrieve: every owner, source and layer in one launch.
 
@@ -136,6 +177,7 @@ def csr_gather_owners(
     conv = [_as_int32_table(t) for t in tables]
     seg, dropped, slot_counts = _gather.csr_gather_owners(
         starts.to(torch.int32), counts.to(torch.int32), [t for t, _ in conv], capacity, fill,
+        block_rows=block_rows,
     )
     if conv and conv[0][1]:
         seg = seg.view(torch.uint32)
@@ -149,6 +191,7 @@ def csr_gather_queriers(
     *,
     capacity: int,
     fill: int = -1,
+    block_rows: Optional[int] = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Querier side of a retrieve: ``D`` CSR gathers, each over its own row
     of ``table`` ``(D, W)``, in one launch.  Returns ``(offsets, row_idx,
@@ -156,7 +199,8 @@ def csr_gather_queriers(
     total overflow."""
     table, unsigned = _as_int32_table(table)
     offsets, rows, vals, dropped = _gather.csr_gather_queriers(
-        starts.to(torch.int32), counts.to(torch.int32), table, capacity, fill
+        starts.to(torch.int32), counts.to(torch.int32), table, capacity, fill,
+        block_rows=block_rows,
     )
     if unsigned:
         vals = vals.view(torch.uint32)
@@ -170,6 +214,7 @@ def bucket_probe(
     queries: torch.Tensor,
     *,
     max_probe: int = 64,
+    block_rows: Optional[int] = None,
 ) -> torch.Tensor:
     """Per-query match count by linear bucket scan (the paper's query loop).
 
@@ -181,7 +226,8 @@ def bucket_probe(
     if queries.dtype == torch.uint32:
         queries = queries.view(torch.int32)
     return _probe.bucket_probe(
-        starts.to(torch.int32), ends.to(torch.int32), queries, table_keys, max_probe
+        starts.to(torch.int32), ends.to(torch.int32), queries, table_keys, max_probe,
+        block_rows=block_rows,
     )
 
 

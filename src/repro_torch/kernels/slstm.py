@@ -39,6 +39,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import counting
 from repro_torch.kernels import build
 
 NAME = "slstm_sequence"
@@ -174,14 +175,41 @@ def _check(pre, r, states) -> None:
                         f"{pre.dtype}, {r.dtype}")
 
 
+def kernel_work(pre_shape, r_elem: int) -> tuple:
+    """``(flops, bytes)`` of one launch on pre ``(B, H, S, 4, hd)``: the
+    recurrent product ``h r`` of every step (2 FLOPs a multiply-add); pre
+    read once, r (``r_elem`` bytes an element) and the four states read
+    once, hs and the four finals written once."""
+    b, h, s, _, hd = pre_shape
+    flops = 2.0 * b * h * s * 4 * hd * hd
+    nbytes = 4.0 * (b * h * s * 4 * hd + b * h * s * hd + 8 * b * h * hd) + r_elem * 4 * h * hd * hd
+    return flops, nbytes
+
+
+def backward_work(pre_shape, r_elem: int) -> tuple:
+    """``(flops, bytes)`` of the recurrence's backward as one fused pass:
+    two products a step (the gradient through ``h r`` and into ``r``); pre,
+    hs and dhs read, dpre written, r read and dr written."""
+    b, h, s, _, hd = pre_shape
+    flops = 4.0 * b * h * s * 4 * hd * hd
+    nbytes = 4.0 * (2 * b * h * s * 4 * hd + 2 * b * h * s * hd) + 2 * r_elem * 4 * h * hd * hd
+    return flops, nbytes
+
+
 def slstm_sequence(pre, r, c0, n0, h0, m0):
     """Run the sLSTM recurrence.  Returns ``(hs (B, H, S, hd), (c, n, h, m))``.
 
     One launch on the card (hd a multiple of 4, at most 512 for bf16 r;
     ``pre``'s last axis and ``r`` and the states contiguous).  Where the
-    card cannot place the plan's cluster, it raises with the plan."""
+    card cannot place the plan's cluster, it raises with the plan.  On meta
+    tensors (the dry run) it records the launch's work
+    (:func:`kernel_work`) and returns empty results."""
     states = (c0, n0, h0, m0)
     _check(pre, r, states)
+    if pre.is_meta:
+        counting.record_kernel(NAME, *kernel_work(pre.shape, r.element_size()))
+        b, hh, s, _, hd = pre.shape
+        return pre.new_empty((b, hh, s, hd)), tuple(t.new_empty(t.shape) for t in states)
     if not build.on_card(NAME, pre):
         return slstm_sequence_plain(pre, r, c0, n0, h0, m0)
     b, hh, s, _, hd = pre.shape
@@ -240,6 +268,11 @@ class SlstmSequence(torch.autograd.Function):
     @staticmethod
     def backward(ctx, *grads):
         saved = ctx.saved_tensors
+        if saved[0].is_meta:  # traced: the fused backward's work, empty gradients
+            counting.record_kernel(BACKWARD_RANGE,
+                                   *backward_work(saved[0].shape, saved[1].element_size()))
+            return tuple(torch.empty_like(t) if need else None
+                         for t, need in zip(saved, ctx.needs_input_grad))
         with torch.enable_grad(), torch.profiler.record_function(BACKWARD_RANGE):
             inputs = [t.detach().requires_grad_(need)
                       for t, need in zip(saved, ctx.needs_input_grad)]

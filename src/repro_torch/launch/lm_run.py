@@ -58,6 +58,7 @@ class LMRunConfig:
     smoke: bool = False
     dtype: Optional[str] = None  # None: the config's
     num_layers: Optional[int] = None  # None: the config's (a cut of depth)
+    num_kv_heads: Optional[int] = None  # None: the config's (a smoke config's kv heads)
     block_pattern: Optional[tuple] = None  # None: the config's (a shorter period, with a cut)
     mesh: tuple = (1, 1)  # (data, model)
     moe_impl: str = "ep"  # an MoE stack's dispatch over the mesh ("dense" | "ep")
@@ -81,6 +82,8 @@ def model_config(cfg: LMRunConfig):
         changes["dtype"] = cfg.dtype
     if cfg.num_layers is not None:
         changes["num_layers"] = cfg.num_layers
+    if cfg.num_kv_heads is not None:
+        changes["num_kv_heads"] = cfg.num_kv_heads
     if cfg.block_pattern is not None:
         changes["block_pattern"] = tuple(cfg.block_pattern)
     return dataclasses.replace(mcfg, **changes) if changes else mcfg
@@ -147,7 +150,7 @@ def design_collectives(mcfg, mesh: Sequence[int], kind: str, seq_len: int, batch
     An encoder-decoder (:func:`_design_encdec`) has no sequence parallelism.
     Every call over an axis of one rank is absent."""
     if mcfg.is_encoder_decoder:
-        return _design_encdec(mcfg, mesh, kind, batch)
+        return _design_encdec(mcfg, mesh, kind, batch, cache_len)
     d, t = mesh
     out: dict = {}
 
@@ -172,9 +175,10 @@ def design_collectives(mcfg, mesh: Sequence[int], kind: str, seq_len: int, batch
             if t == 1:
                 continue
             if bt in attn_types:
-                add(tp_sum, 2)
+                sublayers = 1 + int(mcfg.d_ff > 0)  # attention, and the MLP where there is one
+                add(tp_sum, sublayers)
                 if sp:
-                    add("all_gather", 2)
+                    add("all_gather", sublayers)
                 window = {"swa": mcfg.sliding_window, "local": mcfg.local_window}.get(bt)
                 add("all_gather", _attn_gathers(mcfg, t, kind, cache_len, window))
             elif bt == "rglru":
@@ -217,14 +221,17 @@ def _attn_gathers(mcfg, t: int, kind: str, cache_len: int, window: Optional[int]
     return int(q_split or kv_split) + 1  # every q head over the rank's positions, the combine
 
 
-def _design_encdec(mcfg, mesh: Sequence[int], kind: str, batch: int) -> dict:
+def _design_encdec(mcfg, mesh: Sequence[int], kind: str, batch: int, cache_len: int) -> dict:
     """``design_collectives`` of an encoder-decoder (``models.encdec``): the
     embedding's sum over tp where the vocab splits; per encoder layer (a
     prefill's) and decoder layer the FSDP all-gather over dp; over tp an
     encoder layer's two row-parallel sums (attention, MLP) and a decoder
     layer's three (self-attention, cross-attention, MLP), with the q/k/v
-    blocks' all-gathers where the heads do not line up; the head's vocab
-    all-gather and over dp the rows' all-gather or broadcast."""
+    blocks' all-gathers where the heads do not line up (a decode step's
+    self-attention as :func:`_attn_gathers` counts it, and over a cross
+    cache split by frames the gather of every q head and the combine of the
+    partial softmaxes); the head's vocab all-gather and over dp the rows'
+    all-gather or broadcast."""
     d, t = mesh
     out: dict = {}
 
@@ -242,8 +249,16 @@ def _design_encdec(mcfg, mesh: Sequence[int], kind: str, batch: int) -> dict:
         add("all_reduce", 2 * mcfg.encoder_layers if kind == "prefill" else 0)
         add("all_reduce", 3 * mcfg.num_layers)
         gathers = _attn_gathers(mcfg, t, "prefill", 1, None)
-        add("all_gather", gathers * layers)
-        add("all_gather", gathers * mcfg.num_layers * int(kind == "prefill"))  # encoder k/v
+        if kind == "prefill":
+            add("all_gather", gathers * layers)
+            add("all_gather", gathers * mcfg.num_layers)  # encoder k/v
+        else:
+            h, kv, hd, frames = (mcfg.num_heads, mcfg.num_kv_heads, mcfg.head_dim_,
+                                 mcfg.frontend_len)
+            self_gathers = _attn_gathers(mcfg, t, "decode", cache_len, None)
+            split = kv % t != 0 and frames % t == 0 and frames >= t
+            cross_gathers = int((h * hd) % t == 0) + 1 if split else 0
+            add("all_gather", (self_gathers + cross_gathers) * mcfg.num_layers)
     if vocab_split:
         add("all_gather")
     if d > 1:

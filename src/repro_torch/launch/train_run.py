@@ -269,10 +269,11 @@ def design_collectives(mcfg, mesh: Sequence[int], kind: str, seq: int, batch: in
 def _attn_block(add, mcfg, t: int, sp: bool, passes: int, last: int) -> None:
     """An attention block's collectives over tp (``design_collectives``)."""
     h, kv, hd = mcfg.num_heads, mcfg.num_kv_heads, mcfg.head_dim_
-    for sublayer in ("attn", "mlp"):
+    sublayers = ("attn", "mlp") if mcfg.d_ff > 0 else ("attn",)  # d_ff 0: attention alone
+    for sublayer in sublayers:
         rows = h * hd if sublayer == "attn" else mcfg.d_ff
         partial = rows % t == 0
-        sums = passes if sublayer == "attn" else last
+        sums = last if sublayer == sublayers[-1] else passes
         if sp:
             add("all_gather", passes)  # the input's sequence blocks
             add("all_reduce")  # the norm's gradient

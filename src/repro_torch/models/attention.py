@@ -260,7 +260,11 @@ def attention(
         if seq_cache:
             offset = lay.tp.index * span
             local = at - offset
-            mine = (local >= 0) & (local < span)
+            if k_all.is_meta:  # traced (the dry run): every row's write, an upper bound
+                mine = slice(None)
+                local = local.clamp(0, span - 1)
+            else:
+                mine = (local >= 0) & (local < span)
             k_all[rows[mine], :, local[mine]] = k_put[mine]
             v_all[rows[mine], :, local[mine]] = v_put[mine]
             if kpos is not None:
@@ -400,29 +404,51 @@ def ring_prefill_cache(k: torch.Tensor, v: torch.Tensor, seq_len: int, window: i
     return RingKVCache(rk, rv, kpos)
 
 
+def _partial_softmax(q, k, v):
+    """One rank's unmasked part of attention over its block of keys: q
+    (B,KV,G,S,hd) against k/v (B,KV,T',hd).  Returns f32 (m, l, o) as
+    :func:`_partial_attention_decode` does, for :func:`_combine_partials`."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.einsum("bkgsd,bktd->bkgst", q.float() * scale, k.float())
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    return m, p.sum(dim=-1, keepdim=True), torch.einsum("bkgst,bktd->bkgsd", p, v.float())
+
+
 def cross_attention(p: Attention, x: torch.Tensor, cfg: ArchConfig, enc_k: torch.Tensor,
                     enc_v: torch.Tensor, lay: layers.Layout = layers.SINGLE,
-                    kv_heads: Optional[tuple] = None) -> torch.Tensor:
+                    kv_heads: Optional[tuple] = None, frames_split: bool = False) -> torch.Tensor:
     """Cross-attention (whisper's decoder) of x (B, S, d) over the encoder's
     precomputed k/v (B, KV', T_enc, hd) of kv heads ``kv_heads = (c0, c1)``
     (default all): no rope, no mask, the grouped masked einsum in f32 as
     the reference computes it (never its Pallas kernel).  Over a mesh
     ``wq`` is column- and ``wo`` row-parallel, a rank on its own heads, as
-    in :func:`attention`."""
+    in :func:`attention`.
+
+    ``frames_split``: ``enc_k``/``enc_v`` hold every kv head but only the
+    rank's tp block of the frames (a cross cache split by frames, where the
+    kv heads do not divide over tp): every rank takes every query head (its
+    column block of ``wq`` gathered over tp), attends over its frames, and
+    the partial softmaxes are combined over tp by log-sum-exp in rank order
+    (:func:`_combine_partials`, as a decode step over a sequence-split self
+    cache), the same bits on every rank."""
     r0, r1, _ = lay.rows(p.wo)
     partial = (r0, r1) != (0, cfg.num_heads * cfg.head_dim_)
     x = lay.tp_input(x, False, partial)
     b, s, _ = x.shape
     hd, g = cfg.head_dim_, cfg.q_per_kv
     dtype = x.dtype
-    h0, h1 = _compute_heads(lay, p, cfg)
+    h0, h1 = (0, cfg.num_heads) if frames_split else _compute_heads(lay, p, cfg)
     kv0, kv1, qg = _kv_of(h0, h1, g)
     c0 = kv_heads[0] if kv_heads is not None else 0
     (q,) = layers.take_cols(lay, [(x @ lay.w(p.wq).to(dtype), lay.cols(p.wq),
                                    (h0 * hd, h1 * hd))])
     q = q.reshape(b, s, kv1 - kv0, qg, hd).permute(0, 2, 3, 1, 4)
-    out = _masked_attention(q, enc_k[:, kv0 - c0:kv1 - c0], enc_v[:, kv0 - c0:kv1 - c0],
-                            causal=False, window=None, q_offset=0)
+    ek, ev = enc_k[:, kv0 - c0:kv1 - c0], enc_v[:, kv0 - c0:kv1 - c0]
+    if frames_split:
+        out = _combine_partials(lay, *_partial_softmax(q, ek, ev)).to(dtype)
+    else:
+        out = _masked_attention(q, ek, ev, causal=False, window=None, q_offset=0)
     (merged,) = layers.take_cols(lay, [(_merge_heads(out), (h0 * hd, h1 * hd, cfg.num_heads * hd),
                                         (r0, r1))])
     return layers.reduce_rows(lay, merged @ lay.w(p.wo).to(dtype), partial, False)

@@ -209,11 +209,13 @@ def encode(params: EncoderDecoder, frames: torch.Tensor, cfg: ArchConfig,
 # ---------------------------------------------------------------------------
 def _dec_rest(p: DecLayer, x: torch.Tensor, cfg: ArchConfig, ek: torch.Tensor,
               ev: torch.Tensor, lay: layers.Layout = layers.SINGLE,
-              kv_heads: Optional[tuple] = None) -> torch.Tensor:
+              kv_heads: Optional[tuple] = None, frames_split: bool = False) -> torch.Tensor:
     """A decoder layer after its self-attention: cross-attention (over the
-    kv heads ``kv_heads`` that ``ek``/``ev`` hold), then the MLP."""
+    kv heads ``kv_heads`` that ``ek``/``ev`` hold; under ``frames_split``
+    over the rank's block of the frames, ``attn.cross_attention``), then the
+    MLP."""
     x = x + attn.cross_attention(p.cross_attn, layers.rmsnorm(x, p.norm_x), cfg, ek, ev, lay,
-                                 kv_heads)
+                                 kv_heads, frames_split)
     return x + _mlp(p.mlp, layers.rmsnorm(x, p.norm2), lay)
 
 
@@ -224,6 +226,16 @@ def cross_heads(cfg: ArchConfig, lay: layers.Layout) -> tuple:
     if lay.tp.size == 1 or kv % lay.tp.size:
         return 0, kv
     n = kv // lay.tp.size
+    return lay.tp.index * n, (lay.tp.index + 1) * n
+
+
+def cross_frames(cfg: ArchConfig, lay: layers.Layout, specs) -> Optional[tuple]:
+    """The frames ``[t0, t1)`` of a rank's cross cache where ``specs`` split
+    it by frames over tp (the kv heads do not divide over tp, the frames
+    do: ``sharding.cache_leaf_spec``), else None (it holds every frame)."""
+    if specs is None or lay.tp.size == 1 or specs["cross_k"][3] != lay.parallel.tp_axis:
+        return None
+    n = cfg.frontend_len // lay.tp.size
     return lay.tp.index * n, (lay.tp.index + 1) * n
 
 
@@ -288,16 +300,12 @@ def cache_shapes(cfg: ArchConfig, batch: int, cache_len: int) -> dict:
 def cache_specs(cfg: ArchConfig, batch: int, cache_len: int, lay: layers.Layout):
     """``(specs, slots)`` of a rank's caches over ``lay``'s mesh
     (``sharding.cache_leaf_spec``: batch over dp, heads over tp, else the
-    self cache's positions; the cross caches take heads or nothing)."""
+    self cache's positions and the cross caches' frames, else whole)."""
     from repro_torch.distributed import sharding
 
     shapes = cache_shapes(cfg, batch, cache_len)
     one = sharding.cache_leaf_spec(shapes["self"].k, lay.parallel)
     cross = sharding.cache_leaf_spec(shapes["cross_k"], lay.parallel)
-    tp = lay.parallel.tp_axis
-    if tp is not None and cross[3] == tp:
-        raise ValueError(f"{cfg.name}: {cfg.num_kv_heads} kv heads do not divide over {tp}: "
-                         "cross-attention over an encoder cache split by frames is not ported")
     specs = {"self": attn.KVCache(one, one), "cross_k": cross, "cross_v": cross}
     slots = (0, batch)
     if one[1] is not None:
@@ -322,6 +330,7 @@ def prefill(params: EncoderDecoder, tokens: torch.Tensor, frames: torch.Tensor, 
     specs, slots = cache_specs(cfg, b_full, cache_len, lay) if lay.sharded else (None, None)
     kv = transformer.kv_layout(lay, specs["self"].k) if specs else None
     heads = cross_heads(cfg, lay)
+    frames = cross_frames(cfg, lay, specs)
     x = _embed(params, tokens, cfg, lay=lay)
     selfs, cks, cvs = [], [], []
     for p in params.dec_layers:
@@ -331,6 +340,8 @@ def prefill(params: EncoderDecoder, tokens: torch.Tensor, frames: torch.Tensor, 
                                         lay=lay, kv_layout=kv)
             ek, ev = attn.encoder_kv(p.cross_attn, enc_out, cfg, lay, heads)
             x = _dec_rest(p, x + out, cfg, ek, ev, lay, heads)
+        if frames is not None:  # the rank keeps its block of the frames
+            ek, ev = (t[:, :, frames[0]:frames[1]].contiguous() for t in (ek, ev))
         selfs.append(cache)
         cks.append(ek)
         cvs.append(ev)
@@ -358,6 +369,7 @@ def decode_step(params: EncoderDecoder, caches: dict, token: torch.Tensor, pos: 
     token, pos = lay.batch_rows(token, split), lay.batch_rows(pos, split)
     kv = transformer.kv_layout(lay, specs["self"].k) if specs else None
     heads = cross_heads(cfg, lay)
+    split_frames = cross_frames(cfg, lay, specs) is not None
     x = _embed(params, token, cfg, pos, lay)
     self_c = caches["self"]
     for i, p in enumerate(params.dec_layers):
@@ -366,7 +378,7 @@ def decode_step(params: EncoderDecoder, caches: dict, token: torch.Tensor, pos: 
                                     causal=True, cache=attn.KVCache(self_c.k[i], self_c.v[i]),
                                     cache_pos=pos, lay=lay, kv_layout=kv)
             x = _dec_rest(p, x + out, cfg, caches["cross_k"][i], caches["cross_v"][i], lay,
-                          heads)
+                          heads, split_frames)
     return lay.gather_batch(_logits(params, x, lay)[:, 0], split), caches
 
 

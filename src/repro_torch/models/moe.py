@@ -92,7 +92,9 @@ def route(router: torch.Tensor, x2d: torch.Tensor, cfg: ArchConfig) -> Routing:
 def route_stats(r: Routing, num_experts: int) -> torch.Tensor:
     """``(2, E)`` f32: each expert's count of primary assignments and its
     summed probability over the routed tokens (sums, so ranks add them)."""
-    counts = torch.bincount(r.ids[:, 0], minlength=num_experts).float()
+    primary = r.ids[:, 0].long()  # an integer scatter-add: exact, and traceable on meta
+    counts = torch.zeros(num_experts, dtype=torch.int64, device=primary.device).scatter_add_(
+        0, primary, torch.ones_like(primary)).float()
     return torch.stack([counts, r.probs.sum(dim=0)])
 
 
@@ -113,20 +115,36 @@ def _expert_ffn(x, wg, wu, wd):
     return layers.swiglu(x, wg, wu, wd)
 
 
-def grouped_ffn(x: torch.Tensor, eids: torch.Tensor, stacks, experts: dict) -> torch.Tensor:
+def balanced_edges(rows: int, experts: int) -> list:
+    """``[lo_0, hi_0, lo_1, hi_1, ...]``: ``rows`` rows split as evenly as
+    they go over ``experts`` experts, in order (balanced routing)."""
+    cuts = [rows * i // experts for i in range(experts + 1)]
+    return [c for i in range(experts) for c in (cuts[i], cuts[i + 1])]
+
+
+def grouped_ffn(x: torch.Tensor, eids: torch.Tensor, stacks, experts: dict,
+                real_rows: Optional[int] = None) -> torch.Tensor:
     """Each row of ``x`` (N, d) through expert ``eids[n]``, zero where this
     call holds no such expert (``eids`` -1 marks padding).  ``stacks`` are
     ``(w_gate, w_up, w_down)`` and ``experts`` maps an expert id to its
     index in them.  Rows are sorted by expert once; each expert runs one
-    SwiGLU chain on its rows (one host read of the boundaries)."""
+    SwiGLU chain on its rows (one host read of the boundaries).
+
+    On the meta device (the dry run) there are no ids to read: the held
+    experts take ``real_rows`` rows (default N), split evenly
+    (:func:`balanced_edges`): the balanced routing the capacity design
+    assumes."""
     wg, wu, wd = stacks
     with torch.profiler.record_function(EXPERTS_RANGE):
         order = torch.argsort(eids, stable=True)
         sorted_ids = eids[order]
         owned = sorted(experts)
-        bounds = torch.tensor([[e, e + 1] for e in owned], dtype=sorted_ids.dtype,
-                              device=x.device).reshape(-1)
-        edges = torch.searchsorted(sorted_ids, bounds).tolist()
+        if x.is_meta:
+            edges = balanced_edges(x.shape[0] if real_rows is None else real_rows, len(owned))
+        else:
+            bounds = torch.tensor([[e, e + 1] for e in owned], dtype=sorted_ids.dtype,
+                                  device=x.device).reshape(-1)
+            edges = torch.searchsorted(sorted_ids, bounds).tolist()
         out = torch.zeros_like(x)
         if x.requires_grad:  # + 0: x reaches the output even where no row is this call's,
             out = out + x[:0].sum()  # so the exchange's backward runs on every rank
@@ -154,7 +172,9 @@ def _dense(router, stacks, x: torch.Tensor, cfg: ArchConfig, experts: dict):
     x2 = x.reshape(b * s, d)
     r = route(router, x2, cfg)
     k = cfg.experts_per_token
-    rows = grouped_ffn(x2.repeat_interleave(k, dim=0), r.ids.reshape(-1), stacks, experts)
+    held = b * s * k * len(experts) // cfg.num_experts  # the held experts' rows, balanced
+    rows = grouped_ffn(x2.repeat_interleave(k, dim=0), r.ids.reshape(-1), stacks, experts,
+                       real_rows=held)
     out = _weighted_sum(rows.reshape(b * s, k, d), r.w)
     return out.reshape(b, s, d), route_stats(r, cfg.num_experts)
 
@@ -247,7 +267,8 @@ def _ep(router, stacks, xs: torch.Tensor, cfg: ArchConfig, group):
             if not whole and stacks[0].shape[0] != len(mine):
                 raise ValueError(f"shard {shard} holds {stacks[0].shape[0]} experts, owns "
                                  f"{len(mine)}")
-            outs.append(grouped_ffn(rx[i], rids[i], stacks, experts))
+            # a shard receives t k rows with a value under balanced routing
+            outs.append(grouped_ffn(rx[i], rids[i], stacks, experts, real_rows=t * k))
         back = exchange.combine(torch.stack(outs), rt, fill=0)
     out = torch.stack([_weighted_sum(back[i].reshape(t, k, d), routes[i].w)
                        for i in range(local)])

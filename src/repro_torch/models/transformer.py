@@ -29,7 +29,8 @@ on every rank; the caches are a rank's blocks, as :class:`Caches`.
 
 Attention blocks carry the SwiGLU MLP or the MoE (``models/moe.py``; its
 load-balance aux is ``forward_train``'s second output and ``loss_fn``'s
-``moe_aux``); the xLSTM blocks are self-contained (no MLP, as in the
+``moe_aux``) when ``d_ff > 0``, and are attention alone (no ``norm2``, no
+``mlp``) when ``d_ff == 0``, as the reference builds them; the xLSTM blocks are self-contained (no MLP, as in the
 reference); an ``rglru`` block (``models/rglru.py``) is followed by the MLP
 when ``d_ff > 0``.  A VLM's precomputed patch embeddings (``prefix_emb``,
 the reference's stub frontend) go before the tokens in ``forward_train``
@@ -58,8 +59,7 @@ ATTN_TYPES = ("attn", "swa", "local")
 
 def check_supported(cfg: ArchConfig) -> None:
     """Raise for a config this module does not build: an unknown block
-    type or frontend, an encoder-decoder (``models.encdec``'s), attention
-    blocks without an MLP (``NotImplementedError``)."""
+    type or frontend, an encoder-decoder (``models.encdec``'s)."""
     cfg.validate()
     for bt in cfg.block_pattern:
         if bt not in ATTN_TYPES + layers.RECURRENT_TYPES:
@@ -68,8 +68,6 @@ def check_supported(cfg: ArchConfig) -> None:
         raise ValueError(f"{cfg.name}: encoder-decoder models are built by models.encdec")
     if cfg.frontend not in (None, "patch_stub"):
         raise ValueError(f"{cfg.name}: frontend {cfg.frontend!r} belongs to an encoder-decoder")
-    if cfg.d_ff <= 0 and any(bt in ATTN_TYPES for bt in cfg.block_pattern):
-        raise NotImplementedError("attn blocks without an MLP are not ported yet")
 
 
 def block_window(cfg: ArchConfig, bt: str) -> Optional[int]:
@@ -106,15 +104,17 @@ class MoEMLP(nn.Module):
 
 
 class Block(nn.Module):
-    """Pre-norm attention block with the SwiGLU MLP or the MoE (norms in f32)."""
+    """Pre-norm attention block with the SwiGLU MLP or the MoE (norms in f32);
+    attention alone where ``d_ff == 0``."""
 
     def __init__(self, cfg: ArchConfig, *, dtype, device):
         super().__init__()
         self.norm1 = _param((cfg.d_model,), torch.float32, device)
         self.attn = attn.Attention(cfg, dtype=dtype, device=device)
-        self.norm2 = _param((cfg.d_model,), torch.float32, device)
-        mlp = MoEMLP if cfg.is_moe else MLP
-        self.mlp = mlp(cfg, dtype=dtype, device=device)
+        if cfg.d_ff > 0:
+            self.norm2 = _param((cfg.d_model,), torch.float32, device)
+            mlp = MoEMLP if cfg.is_moe else MLP
+            self.mlp = mlp(cfg, dtype=dtype, device=device)
 
 
 class MixerBlock(nn.Module):
@@ -399,11 +399,17 @@ def _mix_train(bt: str, p, x, positions, cfg: ArchConfig, lay: layers.Layout = l
     return x + out
 
 
+def _mlp_after(p, x, cfg: ArchConfig, lay: layers.Layout = layers.SINGLE, sp: bool = False,
+               ctx: Optional[moe.Context] = None) -> torch.Tensor:
+    """The block's MLP residual where it has one (``d_ff > 0``), else ``x``."""
+    return _apply_mlp(p, x, cfg, lay, sp, ctx) if hasattr(p, "mlp") else x
+
+
 def apply_block_train(bt: str, p, x, positions, cfg: ArchConfig,
                       lay: layers.Layout = layers.SINGLE, sp: bool = False,
                       ctx: Optional[moe.Context] = None):
     x = _mix_train(bt, p, x, positions, cfg, lay, sp)
-    return _apply_mlp(p, x, cfg, lay, sp, ctx) if hasattr(p, "mlp") else x
+    return _mlp_after(p, x, cfg, lay, sp, ctx)
 
 
 def apply_block_prefill(bt: str, p, x, positions, cfg: ArchConfig, cache_len: int,
@@ -417,7 +423,7 @@ def apply_block_prefill(bt: str, p, x, positions, cfg: ArchConfig, cache_len: in
         return ssm.slstm_block(p.mixer, x, cfg, return_state=True, lay=lay)
     if bt == "rglru":
         x, state = rglru.rglru_block(p.mixer, x, cfg, return_state=True, lay=lay, sp=sp)
-        return (_apply_mlp(p, x, cfg, lay, sp, ctx) if hasattr(p, "mlp") else x), state
+        return _mlp_after(p, x, cfg, lay, sp, ctx), state
     w = block_window(cfg, bt)
     xin = layers.rmsnorm(x, p.norm1)
     out, cache = attn.attention(
@@ -425,7 +431,7 @@ def apply_block_prefill(bt: str, p, x, positions, cfg: ArchConfig, cache_len: in
         return_cache=True, cache_len=cache_len, lay=lay, sp=sp, kv_layout=kv,
         ring=None if w is None else min(w, cache_len),
     )
-    return _apply_mlp(p, x + out, cfg, lay, sp, ctx), cache
+    return _mlp_after(p, x + out, cfg, lay, sp, ctx), cache
 
 
 def apply_block_decode(bt: str, p, x, cache, pos, cfg: ArchConfig,
@@ -443,13 +449,13 @@ def apply_block_decode(bt: str, p, x, cache, pos, cfg: ArchConfig,
             x, new = step(p.mixer, x, cfg, cache, lay)
         for dst, src in zip(cache, new):
             dst.copy_(src)
-        return (_apply_mlp(p, x, cfg, lay, ctx=ctx) if hasattr(p, "mlp") else x), cache
+        return _mlp_after(p, x, cfg, lay, ctx=ctx), cache
     xin = layers.rmsnorm(x, p.norm1)
     out, cache = attn.attention(
         p.attn, xin, cfg, pos.reshape(-1, 1), causal=True, window=block_window(cfg, bt),
         cache=cache, cache_pos=pos, lay=lay, kv_layout=kv,
     )
-    return _apply_mlp(p, x + out, cfg, lay, ctx=ctx), cache
+    return _mlp_after(p, x + out, cfg, lay, ctx=ctx), cache
 
 
 # ---------------------------------------------------------------------------

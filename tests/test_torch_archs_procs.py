@@ -8,7 +8,11 @@ the JAX package's sharded runs and the port's unsharded run.
   layers, 4 heads, 64 stub frames; 2 clips with 12-token prompts in one
   batched prefill, then 3 decode steps), over a world of 4 on
   ``(data, model) = (1, 4)`` and ``(2, 2)`` and over a world of 2 on
-  ``(1, 2)``:
+  ``(1, 2)``; and of whisper-base smoke with one kv head on ``(1, 4)`` and
+  ``(1, 2)``, whose kv heads do not divide over tp while its 64 frames do:
+  its cross caches split by frames (each rank attends over its block and
+  the partial softmaxes combine by log-sum-exp over tp), its self caches by
+  positions:
   - every rank's logits at every generated position within rtol/atol 1e-4
     of the reference's sharded run on an Auto-axis mesh of the same shape
     (the same weights carried over as numpy, the unsharded run's tokens
@@ -61,16 +65,19 @@ SERVE = {
     GRIFFIN: dict(requests=3, slots=2, cache_len=48, prompt_lens=(36, 40), max_new=(3, 5)),
     WHISPER: dict(requests=2, slots=2, cache_len=24, prompt_lens=(12, 12), max_new=(4,)),
 }
-WORLD4 = ((GRIFFIN, (1, 4)), (WHISPER, (1, 4)), (GRIFFIN, (2, 2)), (WHISPER, (2, 2)))
-WORLD2 = ((GRIFFIN, (1, 2)), (WHISPER, (1, 2)))
+KV1 = {"num_kv_heads": 1}  # whisper smoke with one kv head: its cross caches split by frames
+WORLD4 = ((GRIFFIN, (1, 4), {}), (WHISPER, (1, 4), {}), (GRIFFIN, (2, 2), {}),
+          (WHISPER, (2, 2), {}), (WHISPER, (1, 4), KV1))
+WORLD2 = ((GRIFFIN, (1, 2), {}), (WHISPER, (1, 2), {}), (WHISPER, (1, 2), KV1))
 TRAIN_ARCHS = (GRIFFIN, WHISPER)
 TRAIN = dict(smoke=True, dtype="float32", kind="gspmd", mesh=(2, 2), seq=16, batch=4, lr=LR,
              warmup_steps=1, total_steps=10, steps=1)
 LOSS = (4, 16)  # the forward loss's global batch and sequence
 
 
-def _cfg(arch, mesh) -> lm_run.LMRunConfig:
-    return lm_run.LMRunConfig(arch=arch, mesh=mesh, smoke=True, dtype="float32", **SERVE[arch])
+def _cfg(arch, mesh, extra=None) -> lm_run.LMRunConfig:
+    return lm_run.LMRunConfig(arch=arch, mesh=mesh, smoke=True, dtype="float32", **SERVE[arch],
+                              **(extra or {}))
 
 
 def _train_cfg(arch) -> train_run.TrainRunConfig:
@@ -116,10 +123,11 @@ def _jax_mesh(shape, names):
                          devices=jax.devices()[:n])
 
 
-def _jax_cfg(arch):
+def _jax_cfg(arch, kv_heads=None):
     from repro.configs.base import get_smoke_config
 
-    return dataclasses.replace(get_smoke_config(arch), dtype="float32", attention_impl="xla")
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32", attention_impl="xla")
+    return cfg if kv_heads is None else dataclasses.replace(cfg, num_kv_heads=kv_heads)
 
 
 def _whole_tree(cfg) -> dict:
@@ -166,7 +174,7 @@ def _reference_sharded(cfg, tokens) -> dict:
 
     mesh = _jax_mesh(cfg.mesh, lm_run.AXES)
     par = production_parallel(mesh, moe_impl="dense")
-    jcfg = _jax_cfg(cfg.arch)
+    jcfg = _jax_cfg(cfg.arch, cfg.num_kv_heads)
     bundle = build_model(jcfg, par)
     params = jax.device_put(_whole_tree(cfg), jshd.to_named(
         mesh, jshd.param_pspecs(bundle.param_shapes(), par)))
@@ -298,7 +306,7 @@ def refs(weights):
         return _reference_sharded(cfg, whole["tokens"]), whole
 
     pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
-    futures = {_cfg(a, m): pool.submit(both, _cfg(a, m)) for a, m in WORLD4 + WORLD2}
+    futures = {_cfg(*w): pool.submit(both, _cfg(*w)) for w in WORLD4 + WORLD2}
     futures["train"] = pool.submit(lambda: {a: reference_train(a, weights[a], _train_tokens())
                                             for a in TRAIN_ARCHS})
     futures["loss"] = pool.submit(lambda: {
@@ -309,7 +317,7 @@ def refs(weights):
 
 @pytest.fixture(scope="module")
 def world4(refs, weights, tmp_path_factory):
-    cfgs = [_cfg(a, m) for a, m in WORLD4]
+    cfgs = [_cfg(*w) for w in WORLD4]
     ranks = lmesh.spawn(world4_job, 4, "gloo", "cpu",
                         args=(cfgs, weights, _train_tokens()), timeout_s=TIMEOUT_S,
                         store_dir=str(tmp_path_factory.mktemp("archs4")))
@@ -318,7 +326,7 @@ def world4(refs, weights, tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def world2(refs, tmp_path_factory):
-    cfgs = [_cfg(a, m) for a, m in WORLD2]
+    cfgs = [_cfg(*w) for w in WORLD2]
     ranks = lmesh.spawn(world2_job, 2, "gloo", "cpu", args=(cfgs,), timeout_s=TIMEOUT_S,
                         store_dir=str(tmp_path_factory.mktemp("archs2")))
     return {"ranks": ranks, "cfgs": cfgs}
@@ -368,8 +376,11 @@ def _check_design(world, i):
             assert call["collectives"] == want, (rank["rank"], call)
 
 
-W4 = [f"{a}-{m[0]}x{m[1]}" for a, m in WORLD4]
-W2 = [f"{a}-{m[0]}x{m[1]}" for a, m in WORLD2]
+def _ids(world) -> list:
+    return [f"{a}-{m[0]}x{m[1]}" + ("-kv1" if x else "") for a, m, x in world]
+
+
+W4, W2 = _ids(WORLD4), _ids(WORLD2)
 
 
 @pytest.mark.parametrize("i", range(len(WORLD4)), ids=W4)
@@ -424,6 +435,11 @@ def test_griffin_state_and_ring_blocks_over_tp():
     shapes = encdec.cache_shapes(whisper, 2, 24)
     for shape in (shapes["self"].k, shapes["cross_k"]):
         assert shd.cache_leaf_spec(shape, par)[2] == "model"
+    # one kv head: the self cache splits by positions, the cross caches by frames
+    shapes = encdec.cache_shapes(lm_run.model_config(_cfg(WHISPER, (1, 4), KV1)), 2, 24)
+    for shape in (shapes["self"].k, shapes["cross_k"]):
+        spec = shd.cache_leaf_spec(shape, par)
+        assert spec[2] is None and spec[3] == "model"
 
 
 @pytest.mark.parametrize("arch", TRAIN_ARCHS)

@@ -1849,3 +1849,141 @@ def test_flash_kernel_at_a_griffin_rank_of_tp4(card, dtype):
         want = flash.flash_attention_plain(q, k, v, **args)
         diff = (got.float() - want.float()).abs()
         assert bool((diff <= tol * (1 + want.float().abs())).all()), (s, float(diff.max()))
+
+
+# ---------------------------------------------------------------------------
+# the launch geometry: the resolver's tiles and the autotuner on the card
+# ---------------------------------------------------------------------------
+def _tile_cases(card, width: int):
+    """(resolver key, launch of block_rows) for every entry of kernels 1-5 at
+    ``width`` value columns (the gathers) or lanes (murmur's two-output
+    entry and the probe at 2): small shapes with ragged tails, empty runs
+    and padding."""
+    from repro_torch.kernels import common  # noqa: F401  (the resolver the wrappers call)
+
+    gen = torch.Generator(device=card).manual_seed(width)
+
+    def words(*shape):
+        return torch.randint(-2**31, 2**31, shape, dtype=torch.int32, generator=gen, device=card)
+
+    n = 100_003
+    cases = []
+    keys = words(n) if width != 2 else words(n, 2)
+    if width == 1:
+        cases.append(("murmur", lambda br: murmur.murmur_bucket(keys, 1 << 27, block_rows=br)))
+        bins = torch.randint(-2, 3000, (n,), dtype=torch.int32, generator=gen, device=card)
+        cases.append(("bin_histogram", lambda br: histogram.bin_histogram(bins, 2999,
+                                                                          block_rows=br)))
+    if width == 2:
+        cases.append(("murmur", lambda br: murmur.murmur_hash(keys, 1 << 27, lanes=2,
+                                                              fingerprint=True, block_rows=br)))
+    rows, table_len, cap = 30_001, 90_000, 70_000
+    shape = (table_len,) if width == 1 else (table_len, width)
+    table = words(*shape)
+    counts = torch.randint(0, 5, (2, rows), dtype=torch.int32, generator=gen, device=card)
+    counts[:, ::3] = 0
+    starts = torch.randint(0, table_len - 5, (2, rows), dtype=torch.int32, generator=gen,
+                           device=card)
+    offs = ops.run_offsets(counts)
+    cases.append(("csr_gather", lambda br: csr_gather.csr_gather_2d(
+        offs[0], starts[0], table, cap, block_rows=br)))
+    cases.append(("csr_gather_batched", lambda br: csr_gather.csr_gather_batched_2d(
+        offs, starts, table, cap, block_rows=br)))
+    d, layers, r = 2, 3, 5000
+    own_counts = torch.randint(0, 4, (layers, d, d, r), dtype=torch.int32, generator=gen,
+                               device=card)
+    tables = [words(d, 4000 + 1000 * l, *(() if width == 1 else (width,))) for l in range(layers)]
+    own_starts = torch.stack([torch.randint(0, t.shape[1] - 4, (d, d, r), dtype=torch.int32,
+                                            generator=gen, device=card) for t in tables])
+    cases.append(("csr_gather_batched", lambda br: csr_gather.csr_gather_owners(
+        own_starts, own_counts, tables, 40_000, block_rows=br)))
+    q_table = words(d, 60_000, *(() if width == 1 else (width,)))
+    q_counts = torch.randint(0, 5, (d, 20_000), dtype=torch.int32, generator=gen, device=card)
+    q_starts = torch.randint(0, 60_000 - 5, (d, 20_000), dtype=torch.int32, generator=gen,
+                             device=card)
+    cases.append(("csr_gather_batched", lambda br: csr_gather.csr_gather_queriers(
+        q_starts, q_counts, q_table, 50_000, block_rows=br)))
+    if width in (1, 2):
+        lanes = () if width == 1 else (2,)
+        pt = words(2, 50_000, *lanes)
+        ps = torch.randint(0, 49_990, (2, 40_001), dtype=torch.int32, generator=gen, device=card)
+        pe = ps + torch.randint(0, 9, ps.shape, dtype=torch.int32, generator=gen, device=card)
+        pq = torch.where(torch.rand(ps.shape + lanes, generator=gen, device=card) < 0.5,
+                         pt.gather(1, ps.long()[..., None].expand(-1, -1, *lanes)
+                                   if lanes else ps.long()),
+                         words(*ps.shape, *lanes))
+        cases.append(("bucket_probe", lambda br: bucket_probe.bucket_probe(
+            ps, pe, pq, pt, 6, block_rows=br)))
+        size = 1 << 12
+        offsets = torch.sort(torch.randint(0, 50_000, (2, size + 2), dtype=torch.int32,
+                                           generator=gen, device=card), dim=1).values
+        offsets[:, 0] = 0
+        rq = torch.where(torch.rand(ps.shape + lanes, generator=gen, device=card) < 0.1,
+                         torch.full_like(pq, -1), pq)
+        rh = torch.randint(0, size * 3, ps.shape, dtype=torch.int32, generator=gen, device=card)
+        lo = torch.tensor([0, size], dtype=torch.int32, device=card)
+        me = torch.randint(-1, 3, ps.shape, dtype=torch.int32, generator=gen, device=card)
+
+        def layer(br):
+            total = torch.ones(ps.shape, dtype=torch.int32, device=card)
+            return bucket_probe.bucket_probe_layer(
+                rq, rh, lo, me, offsets, pt, table_size=size, stride=2, epoch=2, max_probe=8,
+                total=total, accumulate=True, block_rows=br)
+        cases.append(("bucket_probe", layer))
+    return cases
+
+
+def _outputs(got) -> tuple:
+    return tuple(t for t in (got if isinstance(got, tuple) else (got,)) if t is not None)
+
+
+@pytest.mark.parametrize("width", [1, 2, 4])
+def test_every_tile_gives_the_default_launch_bit_for_bit(card, width):
+    """Every candidate ``block_rows`` of every entry of kernels 1-5 gives the
+    default launch's outputs bit for bit (widths 1, 2 and 4: value columns
+    of the gathers; the 2-lane murmur and probe at width 2); an untuned
+    launch takes the default; a tile the kernel was not built for is
+    refused before it launches."""
+    from repro_torch.kernels import autotune, common
+
+    autotune.clear_cache()
+    for kernel, launch in _tile_cases(card, width):
+        want = _outputs(launch(None))
+        assert all(torch.equal(a, b)
+                   for a, b in zip(want, _outputs(launch(common.DEFAULT_BLOCK_ROWS[kernel]))))
+        for br in common.CANDIDATES[kernel]:
+            got = _outputs(launch(br))
+            assert all(torch.equal(a, b) for a, b in zip(got, want)), (kernel, width, br)
+        with pytest.raises(ValueError, match="block_rows"):
+            launch(64)
+
+
+def test_autotune_sweep_fills_the_cache_and_round_trips(card, tmp_path, monkeypatch):
+    """A sweep at a small size gives each kernel a winner among its
+    candidates, timed for each; the resolver then takes it; save, clear and
+    load bring the same cache back, and a tuned launch gives the default's
+    bits."""
+    from repro_torch.kernels import autotune, common
+
+    monkeypatch.setenv("REPRO_AUTOTUNE_CACHE", str(tmp_path / "autotune_cache.json"))
+    autotune.clear_cache()
+    try:
+        recs = autotune.autotune(sizes=(1 << 14,), widths=(1, 4), repeats=2, device=card)
+        assert len(recs) == 3 + 2 * 2
+        for rec in recs:
+            kernel = rec["key"].split("|")[0]
+            assert rec["key"].split("|")[1] == "cuda"
+            assert rec["block_rows"] in common.CANDIDATES[kernel]
+            assert set(rec["timings_ms"]) == {str(c) for c in common.CANDIDATES[kernel]}
+            assert all(ms > 0 for ms in rec["timings_ms"].values())
+            assert common.resolve_block_rows(kernel, n=rec["n"], width=rec["width"]) == \
+                rec["block_rows"]
+        before = dict(autotune._cache)
+        assert autotune.save_cache() == str(tmp_path / "autotune_cache.json")
+        autotune.clear_cache()
+        assert autotune.load_cache() == len(before) and autotune._cache == before
+        keys = torch.randint(-2**31, 2**31, (1 << 14,), dtype=torch.int32, device=card)
+        assert torch.equal(murmur.murmur_bucket(keys, 1 << 20),
+                           murmur.murmur_bucket(keys, 1 << 20, block_rows=8))
+    finally:
+        autotune.clear_cache()

@@ -201,6 +201,34 @@ def test_forward_train_logits_match_reference(jax_params, impl, dtype):
     _close(tl, jl, TOL[dtype], f"forward logits ({impl})")
 
 
+def test_attention_only_blocks_match_reference():
+    """``d_ff == 0`` attention blocks (no ``norm2``, no ``mlp``, as the
+    reference builds them): prefill and decode logits and the teacher-forced
+    logits against the reference's, f32, at its tolerances."""
+    jcfg = dataclasses.replace(jax_smoke_config("qwen3_4b"), dtype="float32", d_ff=0,
+                               attention_impl="xla")
+    cfg = dataclasses.replace(get_smoke_config("qwen3_4b"), dtype="float32", d_ff=0)
+    jp = jax_build_model(jcfg, single_device_parallel()).init(jax.random.key(4))
+    assert "mlp" not in jp["layers"]["b0"] and "norm2" not in jp["layers"]["b0"]
+    params = convert.params_from_numpy(jax.tree.map(np.asarray, jp), cfg, device="cpu")
+    assert not hasattr(params.layers[0].b0, "mlp") and not hasattr(params.layers[0].b0, "norm2")
+    rng = np.random.default_rng(6)
+    toks = rng.integers(1, cfg.vocab_size, (2, 16), np.int32)
+    plen, cache_len = 10, 20
+    jl, jc = jtfm.prefill(jp, jnp.asarray(toks[:, :plen]), jcfg, None, cache_len)
+    tl, tc = tfm.prefill(params, torch.from_numpy(toks[:, :plen]), cfg, cache_len=cache_len)
+    _close(tl, jl, TOL["float32"], "prefill logits")
+    jdecode = jax.jit(jtfm.decode_step, static_argnums=(4, 5))
+    for t in range(plen, plen + 4):
+        tok, pos = toks[:, t:t + 1], np.full((2,), t, np.int32)
+        jl, jc = jdecode(jp, jc, jnp.asarray(tok), jnp.asarray(pos), jcfg, None)
+        tl, tc = tfm.decode_step(params, tc, torch.from_numpy(tok), torch.from_numpy(pos), cfg)
+        _close(tl, jl, DECODE_TOL["float32"], f"decode logits at {t}")
+    jf, _ = jtfm.forward_train(jp, jnp.asarray(toks), jcfg, None)
+    tf, _ = tfm.forward_train(params, torch.from_numpy(toks), cfg)
+    _close(tf, jf, TOL["float32"], "forward logits")
+
+
 def test_prefill_then_decode_matches_forward_train(jax_params):
     """The port's own consistency check, as the reference's serving test:
     prefill + step-by-step decode == the teacher-forced pass (f32)."""

@@ -297,6 +297,35 @@ def test_train_step_matches_reference(k, reference):
         assert float(err.max()) <= 2 * lr, n
 
 
+def test_attention_only_stack_train_step_matches_reference():
+    """One train step of a ``d_ff == 0`` attention stack (no MLP) against the
+    reference's, at :func:`test_train_step_matches_reference`'s tolerances."""
+    jcfg = dataclasses.replace(jax_smoke_config("qwen3_4b"), dtype="float32", d_ff=0)
+    jbundle = jax_build_model(jcfg, jax_single())
+    params = jbundle.init(jax.random.key(2))
+    toks = _tokens(jcfg.vocab_size, seed=3)
+    jt = JaxTrainStepConfig(peak_lr=1e-3, warmup_steps=2, total_steps=10)
+    jp, js, jm = jax.jit(jax_make_train_step(jbundle, jt))(
+        params, joptim.adamw_init(params, jt.adamw), {"tokens": jnp.asarray(toks)})
+    ref = jax.tree.map(np.asarray, params)
+    cfg, model = _port("qwen3_4b", ref, d_ff=0)
+    assert not any(".mlp." in n or n.endswith("norm2") for n, _ in model.named_parameters())
+    bundle = build_model(cfg, single_device_parallel(), device="cpu")
+    tcfg = TrainStepConfig(peak_lr=1e-3, warmup_steps=2, total_steps=10)
+    opt = optim.adamw_init(model, tcfg.adamw)
+    model, opt, metrics = make_train_step(bundle, tcfg)(model, opt,
+                                                        {"tokens": torch.from_numpy(toks)})
+    for name in ("loss", "ce", "grad_norm"):
+        assert float(metrics[name]) == pytest.approx(float(jm[name]), rel=LOSS_RTOL), name
+    for n, t in opt["m"].items():
+        _close_leaf(t.numpy(), _flat(js["m"], cfg.num_periods)[n], f"m.{n}")
+    want_p, before = _flat(jp, cfg.num_periods), _flat(ref, cfg.num_periods)
+    lr, wd = float(jm["lr"]), tcfg.adamw.weight_decay
+    for n, p in model.named_parameters():
+        want = want_p[n] + (lr * wd * before[n] if p.ndim == 1 and n.startswith("layers.") else 0)
+        assert float(np.abs(p.detach().numpy() - want).max()) <= 2 * lr, n
+
+
 # ---------------------------------------------------------------------------
 # the reference's optimizer, checkpoint and trainer cases, for the port
 # ---------------------------------------------------------------------------
